@@ -1,0 +1,81 @@
+"""Carry a trained booster across packages as plain numpy arrays.
+
+The JAX package's ``Booster`` and this package's hold the same fields, so a
+forest trained by one can be scored and saved by the other. The exchange
+format is a flat ``{name: np.ndarray}`` dict plus a ``BoosterConfig`` dict:
+
+* the ``BinMapper`` fields ``boundaries``, ``num_bins``, ``is_categorical``,
+  ``max_bin``, ``has_nan``, ``cat_counts``;
+* every ``TreeArrays`` field, stacked over trees on a leading axis
+  (``split_feature`` is ``(T, L-1)``, ``leaf_value`` is ``(T, L)``, ...);
+* ``tree_weights`` ``(T,)`` and ``init_score`` (the booster's base score);
+* optionally ``thresholds`` and ``missing_types`` ``(T, L-1)``, which a
+  booster loaded from a model string carries in place of a bin mapper.
+
+``booster_arrays`` reads that format off either package's ``Booster`` (it
+only reads attributes, so it needs neither package's framework), and
+``booster_from_reference`` builds this package's ``Booster`` from it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .core.device import DEFAULT_DEVICE
+from .gbdt.boosting import Booster, BoosterConfig
+from .gbdt.grower import TreeArrays
+from .ops.quantize import BinMapper
+
+_MAPPER_FIELDS = ("boundaries", "num_bins", "is_categorical", "max_bin",
+                  "has_nan", "cat_counts")
+
+
+def booster_arrays(booster) -> Tuple[Dict[str, np.ndarray], dict]:
+    """(arrays, config dict) of a trained ``Booster`` of either package."""
+    arrays = {f: np.asarray(getattr(booster.mapper, f))
+              for f in _MAPPER_FIELDS if getattr(booster.mapper, f) is not None}
+    for f in TreeArrays._fields:
+        arrays[f] = np.stack([np.asarray(getattr(t, f)) for t in booster.trees])
+    arrays["tree_weights"] = np.asarray(booster.tree_weights, np.float64)
+    arrays["init_score"] = np.asarray(booster.base_score, np.float64)
+    for f in ("thresholds", "missing_types"):
+        if getattr(booster, f) is not None:
+            arrays[f] = np.stack([np.asarray(a) for a in getattr(booster, f)])
+    names = {f.name for f in dataclasses.fields(BoosterConfig)}
+    config = {k: v for k, v in vars(booster.config).items() if k in names}
+    return arrays, config
+
+
+def booster_from_reference(arrays: Dict[str, np.ndarray], config: dict,
+                           feature_names: Optional[List[str]] = None,
+                           device=DEFAULT_DEVICE) -> Booster:
+    """This package's ``Booster`` (scoring on ``device``) from the arrays
+    and ``BoosterConfig`` fields of a booster trained elsewhere."""
+    mapper = BinMapper(
+        boundaries=np.asarray(arrays["boundaries"], np.float32),
+        num_bins=np.asarray(arrays["num_bins"], np.int32),
+        is_categorical=np.asarray(arrays["is_categorical"], bool),
+        max_bin=int(arrays["max_bin"]),
+        has_nan=(np.asarray(arrays["has_nan"], bool)
+                 if "has_nan" in arrays else None),
+        cat_counts=(np.asarray(arrays["cat_counts"], np.int32)
+                    if "cat_counts" in arrays else None))
+    names = {f.name for f in dataclasses.fields(BoosterConfig)}
+    unknown = sorted(set(config) - names)
+    if unknown:
+        raise ValueError(f"config has fields BoosterConfig lacks: {unknown}")
+    cfg = BoosterConfig(**config)
+    num_trees = len(arrays["split_feature"])
+    trees = [TreeArrays(**{f: np.asarray(arrays[f][i])
+                           for f in TreeArrays._fields})
+             for i in range(num_trees)]
+    per_tree = {f: (list(np.asarray(arrays[f])) if f in arrays else None)
+                for f in ("thresholds", "missing_types")}
+    return Booster(mapper, cfg, trees,
+                   [float(w) for w in np.asarray(arrays["tree_weights"])],
+                   np.asarray(arrays["init_score"], np.float64),
+                   feature_names, thresholds=per_tree["thresholds"],
+                   missing_types=per_tree["missing_types"], device=device)

@@ -1,0 +1,33 @@
+from .device import resolve_device  # noqa: F401
+from .params import (  # noqa: F401
+    Param,
+    Params,
+    HasFeaturesCol,
+    HasLabelCol,
+    HasInputCol,
+    HasInputCols,
+    HasOutputCol,
+    HasOutputCols,
+    HasPredictionCol,
+    HasProbabilityCol,
+    HasRawPredictionCol,
+    HasWeightCol,
+    HasValidationIndicatorCol,
+    HasInitScoreCol,
+    HasGroupCol,
+    HasSeed,
+)
+from .table import Table, assemble_features, feature_matrix  # noqa: F401
+from .pipeline import (  # noqa: F401
+    Estimator,
+    Model,
+    Pipeline,
+    PipelineModel,
+    PipelineStage,
+    Transformer,
+)
+from .logging import (  # noqa: F401
+    InstrumentationMeasures,
+    StopWatch,
+    SynapseMLLogging,
+)

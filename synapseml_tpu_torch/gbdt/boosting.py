@@ -1,0 +1,474 @@
+"""Boosting driver: the training-iteration loop and the Booster model.
+
+Counterpart of the JAX package's ``gbdt/boosting.py`` for the slice that is
+ported: plain gradient boosting (``boosting_type="gbdt"``) with the binary
+objective on dense numeric data, leaf-wise growth, the partition row layout.
+``train_booster`` is a plain Python loop over iterations (gradients →
+``grow_tree`` → score update), the host-loop semantics of the JAX package;
+its fused ``lax.scan`` runner has no counterpart, since PyTorch runs eagerly.
+
+``BoosterConfig`` keeps every field name and default of the JAX config, so a
+config carries across unchanged. ``train_booster`` rejects every setting and
+argument the slice does not port with ``NotImplementedError`` naming it:
+sampling (bagging, GOSS, DART, RF, feature fractions), categorical features,
+monotone constraints, validation sets and early stopping, warm starts, custom
+objectives, meshes, checkpoints, sparse input and objectives other than
+``binary``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time as _time
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..ops.quantize import (BinMapper, apply_bins, bin_threshold_to_value,
+                            compute_bin_mapper)
+from .dataset import Dataset, _is_sparse
+from .grower import (Forest, GrowerConfig, TreeArrays, forest_max_depth,
+                     forest_predict, grow_tree, stack_trees, transpose_bins,
+                     trees_to_host)
+from .objectives import Objective, get_objective
+
+
+@dataclasses.dataclass
+class BoosterConfig:
+    """Training configuration — field names and defaults of the JAX package's
+    ``BoosterConfig`` (LightGBM's canonical param names). Fields of features
+    the slice does not port are kept so configs carry across; ``train_booster``
+    rejects any of them set away from the ported behaviour."""
+
+    objective: str = "regression"
+    boosting_type: str = "gbdt"          # gbdt | rf | dart | goss
+    num_iterations: int = 100
+    learning_rate: float = 0.1
+    num_leaves: int = 31
+    max_bin: int = 255
+    max_depth: int = -1
+    lambda_l1: float = 0.0
+    lambda_l2: float = 0.0
+    min_data_in_leaf: int = 20
+    min_sum_hessian_in_leaf: float = 1e-3
+    min_gain_to_split: float = 0.0
+    bagging_fraction: float = 1.0
+    bagging_freq: int = 0
+    pos_bagging_fraction: float = 1.0
+    neg_bagging_fraction: float = 1.0
+    feature_fraction: float = 1.0
+    feature_fraction_bynode: float = 1.0
+    top_rate: float = 0.2                # goss
+    other_rate: float = 0.1              # goss
+    drop_rate: float = 0.1               # dart
+    max_drop: int = 50
+    skip_drop: float = 0.5
+    uniform_drop: bool = False
+    num_class: int = 1
+    sigmoid: float = 1.0
+    alpha: float = 0.9                   # huber / quantile
+    fair_c: float = 1.0
+    poisson_max_delta_step: float = 0.7
+    tweedie_variance_power: float = 1.5
+    max_delta_step: float = 0.0
+    cat_smooth: float = 10.0
+    max_cat_threshold: int = 32
+    max_cat_to_onehot: int = 4
+    min_data_per_group: int = 100
+    xgboost_dart_mode: bool = False
+    monotone_constraints: Optional[Sequence[int]] = None
+    early_stopping_round: int = 0
+    metric: Optional[str] = None
+    seed: int = 0
+    boost_from_average: bool = True
+    bin_sample_count: int = 200_000
+    min_data_in_bin: int = 3              # merge under-filled bins (minDataPerBin)
+    max_bin_by_feature: Optional[Sequence[int]] = None
+    cat_l2: float = 10.0                  # categorical split L2 (catl2)
+    drop_seed: int = 0
+    feature_fraction_seed: int = 0
+    extra_seed: int = 0
+    start_iteration: int = 0              # prediction start (predict window)
+    # distributed tree learner; without a mesh every value but voting /
+    # feature is the single-device learner
+    tree_learner: str = "auto"
+    top_k: int = 20
+    # engine knobs of the JAX grower; the port has one implementation of
+    # each (a stable argsort partition of the leaf's exact range)
+    partition_impl: str = "sort"
+    row_layout: str = "partition"
+    use_segmented: Optional[bool] = None
+    growth_policy: str = "leafwise"
+    hist_allreduce_dtype: str = "f32"
+    lambdarank_truncation_level: int = 30
+    max_position: int = 30
+    label_gain: tuple = ()
+    bagging_seed: int = 3
+    improvement_tolerance: float = 0.0
+    data_random_seed: object = None
+    # features' missing code becomes zero (zeroAsMissing): the estimator
+    # layer maps 0 -> NaN before binning and traversal routes |x|<=1e-35
+    # (and coerced NaN) to the default side
+    zero_as_missing: bool = False
+    eval_at: tuple = ()
+
+    def __post_init__(self):
+        for field, allowed in (
+                ("partition_impl", ("sort", "sort32", "scan", "scatter")),
+                ("row_layout", ("partition", "masked", "gather")),
+                ("growth_policy", ("leafwise", "depthwise")),
+                ("hist_allreduce_dtype", ("auto", "f32", "bf16", "int8")),
+                ("tree_learner", ("auto", "serial", "data", "voting",
+                                  "feature"))):
+            v = getattr(self, field)
+            if v not in allowed:
+                raise ValueError(
+                    f"BoosterConfig.{field}={v!r} is not one of {allowed}")
+
+    def unported(self) -> List[str]:
+        """``name=value`` of every setting the port does not implement."""
+        out = []
+
+        def check(name, ok):
+            if not ok:
+                out.append(f"{name}={getattr(self, name)!r}")
+
+        check("objective", self.objective == "binary")
+        check("boosting_type", self.boosting_type == "gbdt")
+        check("num_class", self.num_class == 1)
+        check("bagging_fraction", self.bagging_fraction == 1.0)
+        check("bagging_freq", self.bagging_freq == 0)
+        check("pos_bagging_fraction", self.pos_bagging_fraction == 1.0)
+        check("neg_bagging_fraction", self.neg_bagging_fraction == 1.0)
+        check("feature_fraction", self.feature_fraction == 1.0)
+        check("feature_fraction_bynode", self.feature_fraction_bynode == 1.0)
+        check("monotone_constraints",
+              not any(self.monotone_constraints or ()))
+        check("early_stopping_round", self.early_stopping_round == 0)
+        check("start_iteration", self.start_iteration == 0)
+        check("tree_learner", self.tree_learner not in ("voting", "feature"))
+        check("partition_impl", self.partition_impl == "sort")
+        check("row_layout", self.row_layout == "partition")
+        check("use_segmented", self.use_segmented in (None, True))
+        check("growth_policy", self.growth_policy == "leafwise")
+        return out
+
+    def grower(self) -> GrowerConfig:
+        return GrowerConfig(
+            num_leaves=self.num_leaves,
+            num_bins=self.max_bin,
+            max_depth=self.max_depth,
+            lambda_l1=self.lambda_l1,
+            lambda_l2=self.lambda_l2,
+            min_data_in_leaf=self.min_data_in_leaf,
+            min_sum_hessian_in_leaf=self.min_sum_hessian_in_leaf,
+            min_gain_to_split=self.min_gain_to_split,
+            learning_rate=self.learning_rate,
+            max_delta_step=self.max_delta_step,
+        )
+
+
+class Booster:
+    """A trained forest + binning metadata (the LightGBMBooster analog):
+    scoring, model-string save/load, feature importances. Scoring runs on
+    ``device``."""
+
+    def __init__(self, mapper: BinMapper, config: BoosterConfig,
+                 trees: List[TreeArrays], tree_weights: List[float],
+                 base_score: np.ndarray, feature_names: Optional[List[str]] = None,
+                 best_iteration: int = -1,
+                 thresholds: Optional[List[np.ndarray]] = None,
+                 missing_types: Optional[List[np.ndarray]] = None,
+                 best_score: Optional[float] = None,
+                 metadata: Optional[dict] = None,
+                 device=DEFAULT_DEVICE):
+        self.mapper = mapper
+        self.metadata: dict = dict(metadata) if metadata else {}
+        self.config = config
+        self.trees = trees
+        self.tree_weights = list(tree_weights)
+        self.base_score = np.atleast_1d(np.asarray(base_score, np.float64))
+        self.feature_names = feature_names or [f"Column_{i}" for i in range(mapper.num_features)]
+        self.best_iteration = best_iteration
+        self.best_score = best_score
+        # real-valued thresholds per tree; None → resolve from the bin mapper.
+        # Loaded native models carry raw thresholds directly (no mapper).
+        self.thresholds = thresholds
+        # per-split LightGBM missing-type codes (0 none / 1 zero / 2 nan)
+        self.missing_types = missing_types
+        self.device = resolve_device(device)
+        self._forest_cache: Optional[Forest] = None
+        self._depth_cache: Optional[int] = None
+
+    # --- structure ------------------------------------------------------
+    @property
+    def num_class(self) -> int:
+        return max(self.config.num_class, 1)
+
+    @property
+    def models_per_iter(self) -> int:
+        return self.num_class if self.config.objective in ("multiclass", "softmax", "multiclassova") else 1
+
+    @property
+    def num_trees(self) -> int:
+        return len(self.trees)
+
+    @property
+    def average_output(self) -> bool:
+        return self.config.boosting_type == "rf"
+
+    @property
+    def trees_per_class(self) -> int:
+        return max(len(self.trees) // self.models_per_iter, 1)
+
+    def _thresholds(self, index: int) -> np.ndarray:
+        if self.thresholds is not None:
+            t = (self.thresholds[index]
+                 if index < len(self.thresholds) else None)
+            if t is not None:
+                return np.asarray(t, np.float32)
+        tree = self.trees[index]
+        sf = np.asarray(tree.split_feature)
+        sb = np.asarray(tree.split_bin)
+        vals = np.array([bin_threshold_to_value(self.mapper, int(f), int(b))
+                         for f, b in zip(sf, sb)], np.float64)
+        # top-bin sentinel is 1e308 (finite in f64 model strings); map it to an
+        # INTENTIONAL f32 inf so +inf feature values still go left
+        f32max = np.float64(np.finfo(np.float32).max)
+        return np.where(vals >= f32max, np.inf,
+                        np.clip(vals, -f32max, f32max)).astype(np.float32)
+
+    def _missing_types(self, index: int) -> np.ndarray:
+        """(L-1,) missing-type codes for one tree: parsed values for loaded
+        models, else nan (2) for features with a NaN bin AND for categorical
+        splits / 0 otherwise — the codes the model-string writer emits."""
+        if self.missing_types is not None:
+            m = (self.missing_types[index]
+                 if index < len(self.missing_types) else None)
+            if m is not None:
+                return np.asarray(m, np.int32)
+        tree = self.trees[index]
+        sf = np.asarray(tree.split_feature).astype(np.int64)
+        stype = np.asarray(tree.split_type)
+        has_nan = np.asarray(self.mapper.nan_mask)
+        sf_safe = np.clip(sf, 0, len(has_nan) - 1)
+        nan_code = 1 if getattr(self.config, "zero_as_missing", False) else 2
+        return np.where(stype[: len(sf)] == 1, 2,
+                        np.where(has_nan[sf_safe], nan_code,
+                                 0)).astype(np.int32)
+
+    def forest(self) -> Forest:
+        if self._forest_cache is None or self._forest_cache.num_trees != len(self.trees):
+            weights = np.asarray(self.tree_weights, np.float32)
+            if self.average_output:
+                weights = weights / self.trees_per_class
+            weighted = [t._replace(leaf_value=np.asarray(t.leaf_value, np.float32) * w)
+                        for t, w in zip(self.trees, weights)]
+            self._forest_cache = stack_trees(
+                weighted, [self._thresholds(i) for i in range(len(self.trees))],
+                [self._missing_types(i) for i in range(len(self.trees))],
+                self.device)
+            self._depth_cache = forest_max_depth(self.trees)
+        return self._forest_cache
+
+    # --- inference ------------------------------------------------------
+    def _raw_score_tensor(self, X) -> torch.Tensor:
+        if self.models_per_iter != 1:
+            raise NotImplementedError(
+                "multiclass models are not ported to the PyTorch package yet")
+        X = torch.as_tensor(np.asarray(X, np.float32)).to(self.device)
+        if X.dim() != 2:
+            raise ValueError(f"X must be (N, F), got shape {tuple(X.shape)}")
+        if not self.trees:
+            return torch.full((X.shape[0],), float(np.float32(self.base_score[0])),
+                              dtype=torch.float32, device=self.device)
+        out = forest_predict(self.forest(), X, self._depth_cache)
+        return out + float(np.float32(self.base_score[0]))
+
+    def raw_score(self, X) -> np.ndarray:
+        """(N,) raw margin of the whole forest."""
+        return self._raw_score_tensor(X).cpu().numpy()
+
+    def predict(self, X) -> np.ndarray:
+        """Probability / response-space prediction."""
+        obj = self._objective_for_transform()
+        return obj.transform(self._raw_score_tensor(X)).cpu().numpy()
+
+    def feature_importances(self, importance_type: str = "split") -> np.ndarray:
+        """split count or total gain per feature."""
+        imp = np.zeros(self.mapper.num_features)
+        for t in self.trees:
+            ns = int(t.num_splits)
+            sf = np.asarray(t.split_feature)[:ns]
+            if importance_type == "gain":
+                np.add.at(imp, sf, np.asarray(t.split_gain)[:ns])
+            else:
+                np.add.at(imp, sf, 1.0)
+        return imp
+
+    def _objective_for_transform(self) -> Objective:
+        return get_objective(self.config.objective, sigmoid=self.config.sigmoid)
+
+    # --- persistence ----------------------------------------------------
+    def model_string(self) -> str:
+        from .model_io import booster_to_string
+        return booster_to_string(self)
+
+    @staticmethod
+    def from_model_string(s: str, device=DEFAULT_DEVICE) -> "Booster":
+        from .model_io import booster_from_string
+        return booster_from_string(s, device=device)
+
+    def save_native(self, path: str) -> None:
+        """saveNativeModel parity."""
+        with open(path, "w") as f:
+            f.write(self.model_string())
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def _reject_unported(config: BoosterConfig, **args) -> None:
+    """Raise naming every argument set away from its default and every
+    config setting the port does not implement."""
+    bad = [k for k, v in args.items()
+           if v is not None and v is not False
+           and not (isinstance(v, (list, tuple)) and not v)]
+    bad += config.unported()
+    if bad:
+        raise NotImplementedError(
+            "not ported to the PyTorch package yet: " + ", ".join(bad)
+            + " (the port trains gbdt boosting with the binary objective on "
+            "dense numeric data, without sampling, validation or warm start)")
+
+
+def train_booster(
+    X,
+    y: Optional[np.ndarray],
+    config: BoosterConfig,
+    sample_weight: Optional[np.ndarray] = None,
+    init_score: Optional[np.ndarray] = None,
+    categorical_features: Optional[Sequence[int]] = None,
+    group_sizes: Optional[np.ndarray] = None,
+    valid: Optional[tuple] = None,
+    fobj: Optional[Callable] = None,
+    feature_names: Optional[List[str]] = None,
+    init_model: Optional[Booster] = None,
+    callbacks: Optional[List[Callable]] = None,
+    mapper: Optional[BinMapper] = None,
+    mesh=None,
+    measures=None,
+    checkpoint_store=None,
+    checkpoint_every: int = 0,
+    resume: bool = True,
+    device=DEFAULT_DEVICE,
+) -> Booster:
+    """Fit a forest on ``X`` (dense (N, F) floats or a :class:`Dataset`) and
+    labels ``y`` on ``device``. Arguments of the JAX signature that the port
+    does not implement must stay at their defaults (``NotImplementedError``
+    otherwise). ``Booster.metadata["host_syncs"]`` counts device→host reads
+    of the growth loop."""
+    from ..core.logging import InstrumentationMeasures
+
+    cfg = config
+    _reject_unported(cfg, categorical_features=categorical_features,
+                     group_sizes=group_sizes, valid=valid, fobj=fobj,
+                     init_model=init_model, mesh=mesh,
+                     checkpoint_store=checkpoint_store,
+                     checkpoint_every=checkpoint_every or None,
+                     sparse_input=_is_sparse(X) or None)
+    if measures is None:
+        measures = InstrumentationMeasures()
+    dev = resolve_device(device)
+    fit_t0 = _time.perf_counter()
+
+    binned = None
+    if isinstance(X, Dataset):
+        if y is None:
+            y = X.label
+        if sample_weight is None:
+            sample_weight = X.weight
+        if mapper is None or mapper is X.mapper:
+            mapper = X.mapper
+            binned = X.binned.to(dev)
+        else:
+            X = X.X
+            if X is None:
+                raise ValueError("Dataset was built with keep_raw=False; "
+                                 "binning under another mapper needs raw rows")
+        n_orig, nfeat = (X.shape if binned is None else binned.shape)
+    else:
+        X = np.asarray(X, np.float32)
+        if X.ndim != 2 or X.shape[0] == 0:
+            raise ValueError(f"training data must be a non-empty 2-D matrix, got shape {X.shape}")
+        n_orig, nfeat = X.shape
+    if y is None:
+        raise ValueError("no label: pass y explicitly or build the Dataset "
+                         "with label=...")
+    y = np.asarray(y, np.float32)
+    if len(y) != n_orig:
+        raise ValueError(f"label length {len(y)} != row count {n_orig}")
+    w = (np.ones(n_orig, np.float32) if sample_weight is None
+         else np.asarray(sample_weight, np.float32))
+
+    if mapper is None:
+        with measures.span("referenceDataset"):
+            mapper = compute_bin_mapper(
+                X, cfg.max_bin, cfg.bin_sample_count,
+                (cfg.seed if cfg.data_random_seed is None
+                 else int(cfg.data_random_seed)),
+                min_data_in_bin=cfg.min_data_in_bin,
+                max_bin_by_feature=cfg.max_bin_by_feature)
+    if mapper.max_bin != cfg.max_bin:
+        raise ValueError(
+            f"bin mapper has max_bin={mapper.max_bin} but config.max_bin="
+            f"{cfg.max_bin}; rebuild the Dataset/mapper with the matching "
+            "max_bin")
+    if mapper.is_categorical.any():
+        raise NotImplementedError(
+            "categorical features are not ported to the PyTorch package yet")
+    with measures.span("dataPreparation"):
+        if binned is None:
+            binned = apply_bins(mapper, X, dev)
+        bT = transpose_bins(binned)
+
+    obj = get_objective(cfg.objective, sigmoid=cfg.sigmoid)
+    yj = torch.as_tensor(y).to(dev)
+    wj = torch.as_tensor(w).to(dev)
+    base = (np.atleast_1d(np.asarray(obj.init_score(yj, wj).cpu(), np.float64))
+            if cfg.boost_from_average else np.zeros(1))
+    score = torch.full((n_orig,), float(np.float32(base[0])),
+                       dtype=torch.float32, device=dev)
+    if init_score is not None:
+        score = score + torch.as_tensor(
+            np.asarray(init_score, np.float32).reshape(n_orig)).to(dev)
+
+    grower_cfg = cfg.grower()
+    nan_bins = np.asarray(mapper.nan_bins, np.int32)
+    feature_active = torch.ones(nfeat, dtype=torch.bool, device=dev)
+    in_bag = torch.ones(n_orig, dtype=torch.float32, device=dev)
+    stats = {"host_syncs": 0}
+    trees: List[TreeArrays] = []
+    with measures.span("trainingIterations"):
+        for it in range(cfg.num_iterations):
+            g, h = obj.grad_hess(score, yj, wj)
+            tree, node = grow_tree(binned, g, h, in_bag, feature_active,
+                                   grower_cfg, nan_bins=nan_bins, bT0=bT,
+                                   stats=stats)
+            score = score + tree.leaf_value[node]
+            trees.append(tree)
+            if callbacks:
+                for cb in callbacks:
+                    cb(it, trees)
+        # one batched device→host transfer of every tree's leaf fields; it
+        # waits for the device, so the span ends with the work done
+        trees = trees_to_host(trees)
+    measures.count("iterations", cfg.num_iterations)
+    metadata = {"host_syncs": stats["host_syncs"], "device": str(dev),
+                "observed_fit_s": round(_time.perf_counter() - fit_t0, 6),
+                "measures": measures.report()}
+    return Booster(mapper, cfg, trees, [1.0] * len(trees), base,
+                   feature_names, metadata=metadata, device=dev)

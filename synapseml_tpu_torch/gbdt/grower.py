@@ -1,0 +1,510 @@
+"""Leaf-wise histogram tree grower — partitioned rows + CUDA histogram kernels.
+
+Counterpart of the JAX package's ``gbdt/grower.py`` for its default path:
+leaf-wise growth, the "partition" row layout, numeric features with a learned
+NaN direction. The JAX grower is one ``lax.fori_loop`` over static shapes with
+``lax.switch`` size buckets; eager PyTorch has dynamic shapes, so here the
+loop is plain Python and every slice has its exact size.
+
+  * **Row partitioning** (LightGBM's DataPartition): rows live in a position
+    array kept sorted by leaf, each leaf owning a contiguous range. A split
+    stably partitions only its leaf's range (``torch.argsort(stable=True)``
+    of the go-right key), moving grad/hess/mask and the ``(FP, n)`` bins with
+    it.
+  * **Histogram subtraction**: per split only the SMALLER child's histogram
+    is built (``range_histogram`` over the child's row range of the full
+    arrays); the sibling is parent − child from the per-leaf cache.
+  * Leaf numbering matches LightGBM's Tree::Split: splitting leaf ``l`` at
+    step ``i`` creates internal node ``i``; the left child keeps leaf id
+    ``l``, the right child becomes leaf ``i + 1``; child pointers use
+    ``~leaf_index``.
+  * **Learned missing direction**: every candidate threshold is scored with
+    the NaN bin's totals routed left AND right; the winner is the split's
+    ``default_left``.
+
+Where the state lives: histograms, the row partition and split scoring stay
+on the device. The split bookkeeping (leaf ranges, the tree arrays) sits on
+the host: each split's decision is read back in ONE transfer of 17 numbers,
+so a tree costs ``1 + num_splits`` host syncs (counted in ``stats``). The
+range kernel itself takes the child's start/length as a device tensor, so
+the syncs can later go without touching the kernel.
+
+Not ported yet: categorical splits, monotone constraints, per-node feature
+sampling, the "masked"/"gather" layouts, the depthwise policy and the
+distributed (sharded) reductions.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..ops.hist_kernel import (child_histogram, features_padded, pad_bins,
+                               range_histogram)
+
+BITS = 32  # bitset word width for categorical splits (loaded models only)
+NO_NAN_BIN = 0x7FFF
+
+
+class GrowerConfig(NamedTuple):
+    """Grower configuration (the ported subset of the JAX GrowerConfig)."""
+
+    num_leaves: int = 31
+    num_bins: int = 255
+    max_depth: int = -1          # <=0: unlimited (bounded by num_leaves anyway)
+    lambda_l1: float = 0.0
+    lambda_l2: float = 0.0
+    min_data_in_leaf: int = 20
+    min_sum_hessian_in_leaf: float = 1e-3
+    min_gain_to_split: float = 0.0
+    learning_rate: float = 0.1
+    max_delta_step: float = 0.0
+
+
+class TreeArrays(NamedTuple):
+    """One grown tree in structure-of-arrays form (serializes to the LightGBM
+    model-string fields of the same names — gbdt/model_io.py). Host numpy
+    arrays, except that ``grow_tree`` returns the three leaf fields as
+    device tensors (``tree_to_host`` brings them over)."""
+
+    split_feature: np.ndarray    # (L-1,) i32
+    split_bin: np.ndarray        # (L-1,) i32 — bin-space threshold (left if bin <= t)
+    split_gain: np.ndarray       # (L-1,) f32
+    split_type: np.ndarray       # (L-1,) i32 — 0 numeric, 1 categorical
+    default_left: np.ndarray     # (L-1,) bool — learned NaN direction
+    cat_bitset: np.ndarray       # (L-1, ceil(B/32)) u32 — membership → left
+    left_child: np.ndarray       # (L-1,) i32 — >=0 internal node, ~leaf otherwise
+    right_child: np.ndarray      # (L-1,) i32
+    internal_value: np.ndarray   # (L-1,) f32 (shrunk output the node would emit)
+    internal_count: np.ndarray   # (L-1,) i32
+    leaf_value: np.ndarray       # (L,) f32 (shrinkage applied, LightGBM-style)
+    leaf_weight: np.ndarray      # (L,) f32 (sum of hessians)
+    leaf_count: np.ndarray       # (L,) i32
+    num_splits: np.ndarray       # () i32
+
+
+def tree_to_host(tree: TreeArrays) -> TreeArrays:
+    return trees_to_host([tree])[0]
+
+
+def trees_to_host(trees: List[TreeArrays]) -> List[TreeArrays]:
+    """Bring the device-side leaf fields of many trees over in one transfer."""
+    dev = [t for t in trees if isinstance(t.leaf_value, torch.Tensor)]
+    if not dev:
+        return list(trees)
+    packed = torch.stack([torch.stack([t.leaf_value, t.leaf_weight,
+                                       t.leaf_count.to(torch.float32)])
+                          for t in dev]).cpu().numpy()
+    out, j = [], 0
+    for t in trees:
+        if isinstance(t.leaf_value, torch.Tensor):
+            p = packed[j]
+            j += 1
+            t = t._replace(leaf_value=p[0].copy(), leaf_weight=p[1].copy(),
+                           leaf_count=p[2].astype(np.int32))
+        out.append(t)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Leaf arithmetic (float32 throughout, as in the JAX grower)
+# ---------------------------------------------------------------------------
+
+def _threshold_l1(g, l1):
+    return torch.sign(g) * torch.clamp_min(torch.abs(g) - l1, 0.0)
+
+
+def _leaf_objective(g, h, l1, l2):
+    """LightGBM GetLeafSplitGain: ThresholdL1(G)^2 / (H + l2)."""
+    gt = _threshold_l1(g, l1)
+    return gt * gt / (h + l2)
+
+
+def _leaf_output(g, h, cfg: GrowerConfig):
+    out = -_threshold_l1(g, cfg.lambda_l1) / (h + cfg.lambda_l2)
+    if cfg.max_delta_step > 0:
+        out = torch.clamp(out, -cfg.max_delta_step, cfg.max_delta_step)
+    return out
+
+
+def _leaf_output_host(g, h, cfg: GrowerConfig) -> np.float32:
+    """``_leaf_output(g, h) * learning_rate`` for one leaf on the host, with
+    the same float32 operations."""
+    f32 = np.float32
+    g, h = f32(g), f32(h)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        gt = np.sign(g) * np.maximum(np.abs(g) - f32(cfg.lambda_l1), f32(0.0))
+        out = -gt / (h + f32(cfg.lambda_l2))
+    if cfg.max_delta_step > 0:
+        out = np.clip(out, -f32(cfg.max_delta_step), f32(cfg.max_delta_step))
+    return f32(out) * f32(cfg.learning_rate)
+
+
+# ---------------------------------------------------------------------------
+# Split finding over leaf histograms
+# ---------------------------------------------------------------------------
+
+def _best_for_leaf(hist, feature_active, nan_bins, cfg: GrowerConfig):
+    """hist (K, FP, B, 3) → (K, 8) float64 rows of
+    [gain, feature, bin, default_left, count_left, G, H, C] — each leaf's
+    best numeric split (learned NaN direction) and its totals."""
+    K, FP, B, _ = hist.shape
+    l1, l2 = cfg.lambda_l1, cfg.lambda_l2
+    totals = hist[:, 0].sum(dim=1)                     # (K, 3) — feature 0 spans the leaf
+    G = totals[:, 0, None, None]
+    H = totals[:, 1, None, None]
+    C = totals[:, 2, None, None]
+    parent = _leaf_objective(G, H, l1, l2)
+
+    def scan_gains(cum, extra=None):
+        GL, HL, CL = cum[..., 0], cum[..., 1], cum[..., 2]
+        if extra is not None:
+            GL, HL, CL = GL + extra[..., 0], HL + extra[..., 1], CL + extra[..., 2]
+        GR, HR, CR = G - GL, H - HL, C - CL
+        gain = (_leaf_objective(GL, HL, l1, l2)
+                + _leaf_objective(GR, HR, l1, l2) - parent)
+        valid = ((CL >= cfg.min_data_in_leaf) & (CR >= cfg.min_data_in_leaf)
+                 & (HL >= cfg.min_sum_hessian_in_leaf)
+                 & (HR >= cfg.min_sum_hessian_in_leaf))
+        return torch.where(valid, gain, -torch.inf), CL
+
+    cum = torch.cumsum(hist, dim=2)                    # (K, FP, B, 3)
+    # NaN-bin totals per feature (zero when the feature has no NaN bin)
+    nb = torch.clamp(nan_bins, 0, B - 1)
+    fidx = torch.arange(FP, device=hist.device)
+    nan_tot = hist[:, fidx, nb, :]                     # (K, FP, 3)
+    has_nan = (nan_bins < B)[None, :, None]
+    nan_tot = torch.where(has_nan, nan_tot, 0.0)
+
+    # default-right: the NaN bin sits at num_bins-1, so cum[t] for t below it
+    # excludes it; default-left adds the NaN totals to the left side
+    gain_r, CL_r = scan_gains(cum)
+    gain_l, CL_l = scan_gains(cum, nan_tot[:, :, None, :])
+    use_left = has_nan & (gain_l > gain_r)
+    gain = torch.where(use_left, gain_l, gain_r)
+    CLsel = torch.where(use_left, CL_l, CL_r)
+    gain = torch.where(feature_active[None, :, None], gain, -torch.inf)
+
+    flat = gain.reshape(K, FP * B)
+    best = torch.argmax(flat, dim=1, keepdim=True)     # first max, as jnp.argmax
+    pick = lambda a: torch.gather(a.reshape(K, FP * B), 1, best)[:, 0]
+    return torch.stack([
+        pick(gain).double(), (best[:, 0] // B).double(),
+        (best[:, 0] % B).double(), pick(use_left.expand(K, FP, B)).double(),
+        pick(CLsel).double(), totals[:, 0].double(), totals[:, 1].double(),
+        totals[:, 2].double()], dim=1)
+
+
+def _to_host(t: torch.Tensor, stats: Optional[dict]) -> np.ndarray:
+    if stats is not None:
+        stats["host_syncs"] = stats.get("host_syncs", 0) + 1
+    return t.cpu().numpy()
+
+
+def transpose_bins(binned: torch.Tensor) -> torch.Tensor:
+    """(n, F) bins → (FP, n) int32, zero rows for the padded features."""
+    n, f = binned.shape
+    bT = torch.zeros((features_padded(f), n), dtype=torch.int32,
+                     device=binned.device)
+    bT[:f] = binned.T.to(torch.int32)
+    return bT
+
+
+# ---------------------------------------------------------------------------
+# Tree growth
+# ---------------------------------------------------------------------------
+
+def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
+              nan_bins=None, bT0=None, stats: Optional[dict] = None):
+    """Grow one tree; returns (TreeArrays, node_of_row) where node_of_row is
+    each row's final leaf index (used for the O(1) training-score update).
+
+    ``binned`` (N, F) bin ids, ``grad``/``hess``/``in_bag`` (N,) float32 and
+    ``feature_active`` (F,) bool are tensors on one device; ``nan_bins`` (F,)
+    holds each feature's NaN bin (0x7FFF: none). ``bT0`` is the
+    ``transpose_bins(binned)`` matrix when the caller keeps one across trees
+    (it is copied, not modified). ``stats["host_syncs"]`` counts host reads.
+    """
+    n, f = binned.shape
+    dev = binned.device
+    L = cfg.num_leaves
+    B = pad_bins(cfg.num_bins)
+    FP = features_padded(f)
+    S = max(L - 1, 1)
+    bw = (B + BITS - 1) // BITS
+
+    bT = (transpose_bins(binned) if bT0 is None else bT0.clone())
+    in_bag = in_bag.to(torch.float32)
+    gs = grad.to(torch.float32) * in_bag
+    hs = hess.to(torch.float32) * in_bag
+    ms = in_bag.clone()
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    featp = torch.zeros(FP, dtype=torch.bool, device=dev)
+    featp[:f] = feature_active
+    nanp_host = np.full(FP, NO_NAN_BIN, np.int64)
+    if nan_bins is not None:
+        nanp_host[:f] = np.asarray(nan_bins)
+    nanp = torch.as_tensor(nanp_host, device=dev)
+
+    hist = torch.zeros((L, FP, B, 3), dtype=torch.float32, device=dev)
+    hist[0] = child_histogram(bT, gs, hs, ms, B)
+    root = _to_host(_best_for_leaf(hist[:1], featp, nanp, cfg), stats)[0]
+
+    # per-leaf split state (host)
+    bgain = np.full(L, -np.inf, np.float32)
+    bfeat = np.zeros(L, np.int64)
+    bbin = np.zeros(L, np.int64)
+    bdl = np.zeros(L, bool)
+    bcl = np.zeros(L, np.float32)
+    tot = np.zeros((L, 3), np.float32)                 # leaf [G, H, C]
+    bgain[0], bfeat[0], bbin[0], bdl[0], bcl[0] = root[:5]
+    tot[0] = root[5:]
+    depth = np.zeros(L, np.int64)
+    leaf_parent = np.full(L, -1, np.int64)
+    leaf_is_right = np.zeros(L, bool)
+    leaf_start = np.zeros(L, np.int64)
+    leaf_len = np.zeros(L, np.int64)
+    leaf_len[0] = n
+    # tree arrays
+    split_feature = np.zeros(S, np.int32)
+    split_bin = np.full(S, B - 1, np.int32)
+    split_gain = np.zeros(S, np.float32)
+    default_left = np.zeros(S, bool)
+    left_child = np.full(S, ~0, np.int32)
+    right_child = np.full(S, ~0, np.int32)
+    internal_value = np.zeros(S, np.float32)
+    internal_count = np.zeros(S, np.int32)
+    num_splits = 0
+    min_gain = np.float32(cfg.min_gain_to_split)
+
+    for _ in range(L - 1):
+        active = np.arange(L) <= num_splits
+        if cfg.max_depth > 0:
+            active &= depth < cfg.max_depth
+        masked = np.where(active, bgain, np.float32(-np.inf))
+        l = int(np.argmax(masked))
+        if not masked[l] > min_gain:
+            break
+        fsel, bsel, dl = int(bfeat[l]), int(bbin[l]), bool(bdl[l])
+        start, length = int(leaf_start[l]), int(leaf_len[l])
+        end = start + length
+
+        # stable partition of the leaf's range: left-going rows first
+        binrow = bT[fsel, start:end]
+        gr = binrow > bsel
+        if nanp_host[fsel] < B:
+            is_nan = binrow == int(nanp_host[fsel])
+            gr = (gr & ~is_nan) if dl else (gr | is_nan)
+        src = torch.argsort(gr.to(torch.uint8), stable=True)
+        nl_loc = length - gr.sum()
+        pos[start:end] = pos[start:end][src]
+        gs[start:end] = gs[start:end][src]
+        hs[start:end] = hs[start:end][src]
+        ms[start:end] = ms[start:end][src]
+        bT[:, start:end] = bT[:, start:end][:, src]
+
+        # build the smaller child (decided from the best split's global
+        # count-left), the sibling is parent - child
+        left_small = bcl[l] * np.float32(2.0) <= tot[l, 2]
+        a = 0 if left_small else 1
+        child_start = nl_loc * a + start
+        child_len = nl_loc * (1 - 2 * a) + length * a
+        hist_small = range_histogram(bT, gs, hs, ms, child_start, child_len, B)
+        hist_parent = hist[l]
+        hist_left = hist_small if left_small else hist_parent - hist_small
+        hist_right = hist_parent - hist_left
+        children = torch.stack([hist_left, hist_right])
+        best2 = _best_for_leaf(children, featp, nanp, cfg)
+        rec = _to_host(torch.cat([nl_loc.reshape(1).double(),
+                                  best2.reshape(-1)]), stats)
+        new_right = num_splits + 1
+        hist[l] = children[0]
+        hist[new_right] = children[1]
+
+        nl = int(rec[0])
+        b2 = rec[1:].reshape(2, 8)
+        i_node = num_splits
+        p = leaf_parent[l]
+        if p >= 0:
+            if leaf_is_right[l]:
+                right_child[p] = i_node
+            else:
+                left_child[p] = i_node
+        left_child[i_node] = ~l
+        right_child[i_node] = ~new_right
+        split_feature[i_node] = fsel
+        split_bin[i_node] = bsel
+        split_gain[i_node] = bgain[l]
+        default_left[i_node] = dl
+        internal_value[i_node] = _leaf_output_host(tot[l, 0], tot[l, 1], cfg)
+        internal_count[i_node] = np.int32(tot[l, 2])
+        for leaf, row in ((l, b2[0]), (new_right, b2[1])):
+            bgain[leaf], bfeat[leaf], bbin[leaf], bdl[leaf], bcl[leaf] = row[:5]
+            tot[leaf] = row[5:]
+        depth[new_right] = depth[l] + 1
+        depth[l] += 1
+        leaf_parent[l] = leaf_parent[new_right] = i_node
+        leaf_is_right[l], leaf_is_right[new_right] = False, True
+        leaf_start[new_right] = start + nl
+        leaf_len[l], leaf_len[new_right] = nl, length - nl
+        num_splits += 1
+
+    # leaf stats from the per-leaf histogram cache (per-leaf f32 sums)
+    leaf_tot = hist[:, 0].sum(dim=1)                   # (L, 3)
+    exists = torch.arange(L, device=dev) <= num_splits
+    leaf_value = torch.where(
+        exists, _leaf_output(leaf_tot[:, 0], leaf_tot[:, 1], cfg)
+        * cfg.learning_rate, 0.0)
+    tree = TreeArrays(
+        split_feature=split_feature, split_bin=split_bin,
+        split_gain=split_gain, split_type=np.zeros(S, np.int32),
+        default_left=default_left, cat_bitset=np.zeros((S, bw), np.uint32),
+        left_child=left_child, right_child=right_child,
+        internal_value=internal_value, internal_count=internal_count,
+        leaf_value=leaf_value, leaf_weight=leaf_tot[:, 1],
+        leaf_count=leaf_tot[:, 2].to(torch.int32),
+        num_splits=np.int32(num_splits))
+
+    # each row's leaf, in original row order, from the leaf ranges
+    node_sorted = torch.empty(n, dtype=torch.int64, device=dev)
+    for leaf in range(num_splits + 1):
+        s0, ln = int(leaf_start[leaf]), int(leaf_len[leaf])
+        if ln > 0:
+            node_sorted[s0:s0 + ln] = leaf
+    node_of_row = torch.empty_like(node_sorted)
+    node_of_row[pos] = node_sorted
+    return tree, node_of_row
+
+
+# ---------------------------------------------------------------------------
+# Stacked-forest prediction
+# ---------------------------------------------------------------------------
+
+class Forest(NamedTuple):
+    """All trees stacked on a leading tree axis, as device tensors;
+    ``threshold`` is in raw feature space."""
+
+    split_feature: torch.Tensor  # (T, L-1) i64
+    threshold: torch.Tensor      # (T, L-1) f32
+    split_type: torch.Tensor     # (T, L-1) i64
+    default_left: torch.Tensor   # (T, L-1) bool
+    cat_bitset: torch.Tensor     # (T, L-1, BW) i64 (uint32 words)
+    left_child: torch.Tensor     # (T, L-1) i64
+    right_child: torch.Tensor    # (T, L-1) i64
+    leaf_value: torch.Tensor     # (T, L) f32
+    missing_type: torch.Tensor   # (T, L-1) i64: 0 none, 1 zero, 2 nan
+
+    @property
+    def num_trees(self) -> int:
+        return self.split_feature.shape[0]
+
+
+def stack_trees(trees: list, thresholds: list, missing_types: list,
+                device) -> Forest:
+    """Host-side: stack per-tree TreeArrays (+ real-valued thresholds and
+    LightGBM missing-type codes per split) into a device Forest."""
+    def cat(field, dtype):
+        return torch.as_tensor(np.stack(
+            [np.asarray(getattr(t, field)).astype(dtype) for t in trees]),
+            device=device)
+
+    return Forest(
+        split_feature=cat("split_feature", np.int64),
+        threshold=torch.as_tensor(np.stack(
+            [np.asarray(t, np.float32) for t in thresholds]), device=device),
+        split_type=cat("split_type", np.int64),
+        default_left=cat("default_left", bool),
+        cat_bitset=cat("cat_bitset", np.int64),
+        left_child=cat("left_child", np.int64),
+        right_child=cat("right_child", np.int64),
+        leaf_value=cat("leaf_value", np.float32),
+        missing_type=torch.as_tensor(np.stack(
+            [np.asarray(m, np.int64) for m in missing_types]), device=device),
+    )
+
+
+def _descend(forest: Forest, X: torch.Tensor, depth: int) -> torch.Tensor:
+    """Vectorized pointer-chase of every tree at once: (N, F) → (N, T) leaf
+    indices (LightGBM Tree::NumericalDecision / CategoricalDecision)."""
+    T, S = forest.split_feature.shape
+    BW = forest.cat_bitset.shape[2]
+    dev = X.device
+    base = (torch.arange(T, device=dev) * S)[None, :]
+    sf = forest.split_feature.reshape(-1)
+    thr = forest.threshold.reshape(-1)
+    stype = forest.split_type.reshape(-1)
+    dleft = forest.default_left.reshape(-1)
+    bits = forest.cat_bitset.reshape(-1)
+    lc = forest.left_child.reshape(-1)
+    rc = forest.right_child.reshape(-1)
+    mts = forest.missing_type.reshape(-1)
+    node = torch.zeros((X.shape[0], T), dtype=torch.int64, device=dev)
+    for _ in range(depth):
+        nd = torch.clamp_min(node, 0) + base
+        x = torch.gather(X, 1, sf[nd])
+        dl = dleft[nd]
+        mt = mts[nd]
+        # NaN coerces to 0.0 unless missing_type is nan; zero missing routes
+        # |x| <= 1e-35 to the default side (kZeroThreshold)
+        isnan_x = torch.isnan(x)
+        x0 = torch.where(isnan_x & (mt != 2), 0.0, x)
+        is_missing = torch.where(mt == 1, torch.abs(x0) <= 1e-35,
+                                 (mt == 2) & isnan_x)
+        num_right = torch.where(is_missing, ~dl, ~(x0 <= thr[nd]))
+        # categorical NaN: member test on category 0 unless missing_type is
+        # nan, where NaN is never a member
+        cat_nan = torch.where(mt == 2, -1.0, 0.0)
+        c = torch.clamp(torch.where(isnan_x, cat_nan, x), -1,
+                        BW * BITS - 1).to(torch.int64)
+        cw = torch.clamp_min(c, 0)
+        word = bits[nd * BW + (cw >> 5)]
+        member = (((word >> (cw & 31)) & 1) == 1) & (c >= 0)
+        go_right = torch.where(stype[nd] == 1, ~member, num_right)
+        nxt = torch.where(go_right, rc[nd], lc[nd])
+        node = torch.where(node < 0, node, nxt)
+    return ~node
+
+
+def forest_predict(forest: Forest, X: torch.Tensor, depth: int,
+                   rows_per_chunk: Optional[int] = None) -> torch.Tensor:
+    """(N,) float32 sum of tree outputs per row, summed in tree order (as
+    the JAX scan does). Rows go in chunks so the (rows, T) temporaries stay
+    near 16M elements."""
+    T = forest.num_trees
+    L = forest.leaf_value.shape[1]
+    depth = max(int(depth), 1)
+    step = rows_per_chunk or max(1, (1 << 24) // max(T, 1))
+    lv = forest.leaf_value.reshape(-1)
+    tbase = (torch.arange(T, device=X.device) * L)[None, :]
+    out = torch.empty(X.shape[0], dtype=torch.float32, device=X.device)
+    for s in range(0, X.shape[0], step):
+        vals = lv[_descend(forest, X[s:s + step], depth) + tbase]   # (r, T)
+        total = torch.zeros(vals.shape[0], dtype=torch.float32, device=X.device)
+        for t in range(T):
+            total = total + vals[:, t]
+        out[s:s + step] = total
+    return out
+
+
+def forest_max_depth(trees: list) -> int:
+    """Max internal-node depth across trees (host-side): the exact number of
+    pointer-chase steps any row needs."""
+    maxd = 1
+    for t in trees:
+        ns = int(t.num_splits)
+        if ns <= 0:
+            continue
+        lc = np.asarray(t.left_child)[:ns]
+        rc = np.asarray(t.right_child)[:ns]
+        depth = np.ones(ns, np.int64)
+        stack = [0]
+        while stack:
+            i = stack.pop()
+            for c in (lc[i], rc[i]):
+                if 0 <= c < ns:
+                    depth[c] = depth[i] + 1
+                    stack.append(int(c))
+        maxd = max(maxd, int(depth.max()))
+    return maxd

@@ -1,0 +1,379 @@
+"""LightGBM-capability estimator: ``LightGBMClassifier`` on the port's engine.
+
+Counterpart of the JAX package's ``models/gbdt.py`` for the ported slice:
+binary classification with plain gradient boosting on dense numeric data.
+camelCase param names match the reference so code ports 1:1. A param of the
+JAX estimator that the slice does not implement (sampling, DART, GOSS,
+categorical and monotone features, validation and early stopping, warm
+starts, custom objectives, leaf and SHAP outputs, the distributed learners)
+is not declared here; passing one raises ``NotImplementedError`` naming it,
+and so do ``numBatches > 1``, a ``boostingType`` other than ``gbdt`` and more
+than two label classes. The Spark/JNI plumbing params stay accepted as no-ops,
+as in the JAX package.
+
+``device`` (default ``"cuda"``) is where the booster trains and scores; a
+missing card raises rather than falling back to the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+
+from ..core import (Estimator, HasFeaturesCol, HasInitScoreCol, HasLabelCol,
+                    HasPredictionCol, HasProbabilityCol, HasRawPredictionCol,
+                    HasWeightCol, Model, Param, Table, feature_matrix)
+from ..core.device import DEFAULT_DEVICE
+from ..gbdt.boosting import Booster, BoosterConfig, train_booster
+
+# params of the JAX estimator that the port does not implement yet
+UNPORTED_PARAMS = frozenset({
+    "baggingFraction", "baggingFreq", "baggingSeed", "posBaggingFraction",
+    "negBaggingFraction", "featureFraction", "featureFractionByNode",
+    "featureFractionSeed", "dropRate", "maxDrop", "skipDrop", "uniformDrop",
+    "dropSeed", "xGBoostDartMode", "topRate", "otherRate", "extraSeed",
+    "monotoneConstraints", "monotoneConstraintsMethod", "monotonePenalty",
+    "categoricalSlotIndexes", "categoricalSlotNames", "catSmooth",
+    "maxCatThreshold", "catl2", "maxCatToOnehot", "minDataPerGroup",
+    "earlyStoppingRound", "improvementTolerance", "metric",
+    "validationIndicatorCol", "modelString", "fobj", "startIteration",
+    "leafPredictionCol", "featuresShapCol", "topK", "parallelism",
+})
+
+
+def _reject_unported(names) -> None:
+    bad = sorted(set(names) & UNPORTED_PARAMS)
+    if bad:
+        raise NotImplementedError(
+            f"params not ported to the PyTorch package yet: {bad}")
+
+
+class _DeviceParam:
+    device = Param("device", "Device that trains and scores the booster: "
+                   "'cuda' (default) or 'cpu'", str, DEFAULT_DEVICE)
+
+
+class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
+                      HasInitScoreCol, HasPredictionCol, _DeviceParam):
+    # core boosting params (defaults = LightGBM defaults, as in the reference)
+    numIterations = Param("numIterations", "Number of boosting iterations", int, 100)
+    learningRate = Param("learningRate", "Shrinkage rate", float, 0.1)
+    numLeaves = Param("numLeaves", "Max leaves per tree", int, 31)
+    maxBin = Param("maxBin", "Max number of feature bins", int, 255)
+    maxDepth = Param("maxDepth", "Max tree depth (-1 = unlimited)", int, -1)
+    boostingType = Param("boostingType", "gbdt (rf, dart and goss are not "
+                         "ported)", str, "gbdt")
+    lambdaL1 = Param("lambdaL1", "L1 regularization", float, 0.0)
+    lambdaL2 = Param("lambdaL2", "L2 regularization", float, 0.0)
+    minDataInLeaf = Param("minDataInLeaf", "Min rows per leaf", int, 20)
+    minSumHessianInLeaf = Param("minSumHessianInLeaf", "Min hessian sum per leaf", float, 1e-3)
+    minGainToSplit = Param("minGainToSplit", "Min gain to perform a split", float, 0.0)
+    maxDeltaStep = Param("maxDeltaStep", "Max absolute leaf output", float, 0.0)
+    slotNames = Param("slotNames", "Feature names", list)
+    seed = Param("seed", "Main random seed", int, 0)
+    objectiveSeed = Param("objectiveSeed", "Objective seed", int, 5)
+    dataRandomSeed = Param("dataRandomSeed", "Data random seed", int, 1)
+    boostFromAverage = Param("boostFromAverage", "Initialize score to label average", bool, True)
+    numBatches = Param("numBatches", "Sequential warm-started batches "
+                       "(values above 1 are not ported)", int, 0)
+    binSampleCount = Param("binSampleCount", "Rows sampled for bin boundaries", int, 200000)
+    verbosity = Param("verbosity", "Verbosity", int, -1)
+    predictDisableShapeCheck = Param("predictDisableShapeCheck", "Disable shape check at predict", bool, False)
+    passThroughArgs = Param("passThroughArgs", "Raw LightGBM-style 'key=value' args overriding params", str)
+    # Spark/JNI-plumbing compat no-ops (as in the JAX package)
+    useBarrierExecutionMode = Param("useBarrierExecutionMode", "no-op", bool, False)
+    useSingleDatasetMode = Param("useSingleDatasetMode", "no-op", bool, True)
+    executionMode = Param("executionMode", "no-op", str, "streaming")
+    dataTransferMode = Param("dataTransferMode", "no-op", str, "streaming")
+    numTasks = Param("numTasks", "no-op", int, 0)
+    numThreads = Param("numThreads", "no-op", int, 0)
+    chunkSize = Param("chunkSize", "no-op", int, 10000)
+    matrixType = Param("matrixType", "no-op (auto)", str, "auto")
+    defaultListenPort = Param("defaultListenPort", "no-op", int, 12400)
+    driverListenPort = Param("driverListenPort", "no-op", int, 0)
+    timeout = Param("timeout", "no-op", float, 1200.0)
+    maxStreamingOMPThreads = Param("maxStreamingOMPThreads", "no-op", int, 16)
+    microBatchSize = Param("microBatchSize", "no-op", int, 100)
+    isProvideTrainingMetric = Param("isProvideTrainingMetric", "Log training metrics", bool, False)
+    deterministic = Param("deterministic", "Deterministic training", bool, False)
+    isEnableSparse = Param("isEnableSparse", "Enable sparse optimization", bool, True)
+    minDataPerBin = Param("minDataPerBin", "Minimum sample rows per bin "
+                          "(under-filled bins merge)", int, 3)
+    maxBinByFeature = Param("maxBinByFeature", "Per-feature max bin counts",
+                            list, None)
+    samplingSubsetSize = Param("samplingSubsetSize", "Boundary-sample size "
+                               "when subset sampling; 0 defers to "
+                               "binSampleCount", int, 0)
+    repartitionByGroupingColumn = Param("repartitionByGroupingColumn",
+                                        "Kept for API parity", bool, True)
+    referenceDataset = Param("referenceDataset", "Precomputed BinMapper (or "
+                             "gbdt.Dataset) reused for binning",
+                             is_complex=True)
+    useMissing = Param("useMissing", "Handle missing values specially", bool, True)
+    zeroAsMissing = Param("zeroAsMissing", "Treat zero as missing", bool, False)
+
+    def set(self, name: str, value) -> "_LightGBMParams":
+        _reject_unported([name])
+        return super().set(name, value)
+
+    def _reference_mapper(self, X=None):
+        """referenceDataset param → BinMapper (accepts a Dataset too); with
+        ``X``, every feature carrying NaN must have a missing bin."""
+        ref = self.get("referenceDataset")
+        if ref is None:
+            return None
+        mapper = getattr(ref, "mapper", ref)
+        if X is not None:
+            need = np.isnan(np.asarray(X)).any(axis=0)
+            have = np.asarray(mapper.nan_mask)
+            bad = np.flatnonzero(need[: len(have)] & ~have)
+            if bad.size:
+                raise ValueError(
+                    "referenceDataset's bin mapper has no missing bin for "
+                    f"feature(s) {bad.tolist()} that contain missing values "
+                    "after useMissing/zeroAsMissing preprocessing; build the "
+                    "reference dataset from identically-preprocessed data")
+        return mapper
+
+    def _base_config(self, **overrides) -> BoosterConfig:
+        cfg = BoosterConfig(
+            num_iterations=self.getNumIterations(),
+            learning_rate=self.getLearningRate(),
+            num_leaves=self.getNumLeaves(),
+            max_bin=self.getMaxBin(),
+            max_depth=self.getMaxDepth(),
+            boosting_type=self.getBoostingType(),
+            lambda_l1=self.getLambdaL1(),
+            lambda_l2=self.getLambdaL2(),
+            min_data_in_leaf=self.getMinDataInLeaf(),
+            min_sum_hessian_in_leaf=self.getMinSumHessianInLeaf(),
+            min_gain_to_split=self.getMinGainToSplit(),
+            max_delta_step=self.getMaxDeltaStep(),
+            seed=self.getSeed(),
+            boost_from_average=self.getBoostFromAverage(),
+            bin_sample_count=(self.getSamplingSubsetSize()
+                              or self.getBinSampleCount()),
+            min_data_in_bin=self.getMinDataPerBin(),
+            max_bin_by_feature=self.get("maxBinByFeature"),
+            data_random_seed=(self.get("dataRandomSeed")
+                              if self.isSet("dataRandomSeed") else None),
+            zero_as_missing=(bool(self.get("zeroAsMissing"))
+                             and bool(self.get("useMissing"))),
+        )
+        for k, v in overrides.items():
+            setattr(cfg, k, v)
+        self._apply_pass_through(cfg)
+        return cfg
+
+    def _apply_pass_through(self, cfg: BoosterConfig) -> None:
+        """passThroughArgs: 'k1=v1 k2=v2' raw overrides (LightGBMParams.scala);
+        ``train_booster`` rejects any that select an unported feature."""
+        raw = self.get("passThroughArgs")
+        if not raw:
+            return
+        for tok in raw.split():
+            if "=" not in tok:
+                continue
+            key, _, val = tok.partition("=")
+            if hasattr(cfg, key):
+                cur = getattr(cfg, key)
+                typ = type(cur) if cur is not None else str
+                if typ is bool:
+                    setattr(cfg, key, val.lower() in ("1", "true", "yes"))
+                elif typ in (int, float):
+                    setattr(cfg, key, typ(float(val)))
+                else:
+                    setattr(cfg, key, val)
+
+    def _apply_missing_params(self, X: np.ndarray) -> np.ndarray:
+        """useMissing=False coerces NaN to 0; zeroAsMissing=True maps
+        |x| <= 1e-35 to NaN so those rows land in the missing bin."""
+        if not self.get("useMissing"):
+            return np.nan_to_num(X, nan=0.0)
+        if self.get("zeroAsMissing"):
+            X = np.asarray(X, np.float32).copy()
+            X[np.abs(X) <= 1e-35] = np.nan
+        return X
+
+    def _extract_training_arrays(self, df: Table):
+        X = self._apply_missing_params(
+            feature_matrix(df, self.getFeaturesCol()))
+        y = np.asarray(df[self.getLabelCol()], np.float32)
+        w = (np.asarray(df[self.get("weightCol")], np.float32)
+             if self.get("weightCol") and self.get("weightCol") in df else None)
+        init = (np.asarray(df[self.get("initScoreCol")], np.float32)
+                if self.get("initScoreCol") and self.get("initScoreCol") in df else None)
+        return X, y, w, init
+
+
+class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol, _DeviceParam):
+    predictDisableShapeCheck = Param(
+        "predictDisableShapeCheck",
+        "Truncate/pad prediction features to the trained width instead of "
+        "raising on mismatch", bool, False)
+
+    def __init__(self, booster: Optional[Booster] = None, **kwargs):
+        super().__init__(**kwargs)
+        self.booster = booster
+
+    # --- persistence of the native model string --------------------------
+    def _save_extra(self, path: str) -> None:
+        if self.booster is not None:
+            self.booster.save_native(os.path.join(path, "model.txt"))
+
+    def _load_extra(self, path: str) -> None:
+        p = os.path.join(path, "model.txt")
+        if os.path.exists(p):
+            with open(p) as fh:
+                self.booster = Booster.from_model_string(
+                    fh.read(), device=self.getDevice())
+
+    def saveNativeModel(self, path: str, overwrite: bool = True) -> None:
+        """LightGBMModelMethods.saveNativeModel parity."""
+        if os.path.exists(path) and not overwrite:
+            raise FileExistsError(path)
+        self.booster.save_native(path)
+
+    def getBoosterBestIteration(self) -> int:
+        return int(self.booster.best_iteration)
+
+    def getBoosterNumTotalIterations(self) -> int:
+        return self.booster.num_trees // self.booster.models_per_iter
+
+    def getBoosterNumTotalModel(self) -> int:
+        return self.booster.num_trees
+
+    def getBoosterNumFeatures(self) -> int:
+        return self.booster.mapper.num_features
+
+    def getBoosterNumClasses(self) -> int:
+        return self.booster.num_class
+
+    def getNativeModel(self) -> str:
+        return self.booster.model_string()
+
+    def getFeatureImportances(self, importance_type: str = "split"):
+        return list(self.booster.feature_importances(importance_type))
+
+    def _predict_matrix(self, df: Table) -> np.ndarray:
+        """Feature matrix for prediction, validated against the trained
+        width; predictDisableShapeCheck=True truncates / zero-pads instead."""
+        X = feature_matrix(df, self.getFeaturesCol())
+        nf = self.booster.mapper.num_features
+        if X.shape[1] != nf:
+            if not self.get("predictDisableShapeCheck"):
+                raise ValueError(
+                    f"prediction data has {X.shape[1]} features but the "
+                    f"model was trained with {nf}; set "
+                    "predictDisableShapeCheck=True to truncate/pad")
+            if X.shape[1] > nf:
+                X = X[:, :nf]
+            else:
+                X = np.concatenate(
+                    [X, np.zeros((X.shape[0], nf - X.shape[1]),
+                                 X.dtype)], axis=1)
+        return X
+
+
+# ---------------------------------------------------------------------------
+# Classifier
+# ---------------------------------------------------------------------------
+
+class LightGBMClassifier(Estimator, _LightGBMParams, HasProbabilityCol, HasRawPredictionCol):
+    """Binary GBDT classifier (reference: LightGBMClassifier.scala)."""
+
+    objective = Param("objective", "binary (multiclass is not ported)", str, "binary")
+    isUnbalance = Param("isUnbalance", "Adjust for unbalanced binary labels", bool, False)
+    maxNumClasses = Param("maxNumClasses", "Upper bound on auto-detected "
+                          "label classes (guards runaway continuous labels)",
+                          int, 100)
+    scalePosWeight = Param("scalePosWeight", "Positive-class weight multiplier", float, 1.0)
+    thresholds = Param("thresholds", "Per-class prediction thresholds", list)
+
+    def __init__(self, **kwargs):
+        _reject_unported(kwargs)
+        super().__init__(**kwargs)
+
+    def _fit(self, df: Table) -> "LightGBMClassificationModel":
+        X, y, w, init = self._extract_training_arrays(df)
+        # map arbitrary label values to 0..K-1; the model maps predictions
+        # back through classes_
+        classes, y_idx = np.unique(y, return_inverse=True)
+        num_class = len(classes)
+        if num_class < 2:
+            raise ValueError(f"need at least 2 label classes, got {classes}")
+        if num_class > self.getMaxNumClasses():
+            raise ValueError(
+                f"detected {num_class} label classes, above maxNumClasses="
+                f"{self.getMaxNumClasses()} — a continuous label column was "
+                "likely passed to the classifier (raise maxNumClasses if "
+                "this cardinality is intended)")
+        if num_class > 2 or self.getObjective() != "binary":
+            raise NotImplementedError(
+                f"objective={self.getObjective()!r} with {num_class} label "
+                "classes is not ported to the PyTorch package yet (binary "
+                "only)")
+        if self.getNumBatches() > 1:
+            raise NotImplementedError(
+                f"numBatches={self.getNumBatches()} is not ported to the "
+                "PyTorch package yet (warm-started batches)")
+        y = y_idx.astype(np.float32)
+        cfg = self._base_config(objective="binary", num_class=1)
+        if self.getIsUnbalance():
+            npos = max(float((y > 0).sum()), 1.0)
+            nneg = max(float((y <= 0).sum()), 1.0)
+            w = (w if w is not None else np.ones_like(y)) * np.where(y > 0, nneg / npos, 1.0)
+        elif self.getScalePosWeight() != 1.0:
+            w = (w if w is not None else np.ones_like(y)) * np.where(
+                y > 0, self.getScalePosWeight(), 1.0)
+
+        from ..core.logging import InstrumentationMeasures
+
+        measures = InstrumentationMeasures()
+        booster = train_booster(X, y, cfg, sample_weight=w, init_score=init,
+                                feature_names=self.get("slotNames"),
+                                mapper=self._reference_mapper(X),
+                                measures=measures, device=self.getDevice())
+        self._log_base("trainingMeasures", measures.report())
+        model = LightGBMClassificationModel(booster)
+        model.classes_ = classes.astype(np.float64)
+        for p in ("featuresCol", "predictionCol", "probabilityCol",
+                  "rawPredictionCol", "thresholds", "predictDisableShapeCheck",
+                  "device"):
+            if self.isSet(p):
+                model.set(p, self.get(p))
+        return model
+
+
+class LightGBMClassificationModel(_LightGBMModelBase, HasProbabilityCol, HasRawPredictionCol):
+    thresholds = Param("thresholds", "Per-class prediction thresholds", list)
+
+    classes_: Optional[np.ndarray] = None   # original label values, index = class id
+
+    def _transform(self, df: Table) -> Table:
+        X = self._predict_matrix(df)
+        raw = self.booster.raw_score(X)
+        prob = self.booster.predict(X)
+        raw2 = np.stack([-raw, raw], axis=1)
+        prob2 = np.stack([1 - prob, prob], axis=1)
+        out = df.with_column(self.getRawPredictionCol(), raw2)
+        out = out.with_column(self.getProbabilityCol(), prob2)
+        th = self.get("thresholds")
+        scaled = prob2 / np.asarray(th)[None, :] if th else prob2
+        pred = np.argmax(scaled, 1)
+        if self.classes_ is not None:
+            pred = np.asarray(self.classes_)[pred]
+        return out.with_column(self.getPredictionCol(), pred.astype(np.float64))
+
+    def _save_extra(self, path: str) -> None:
+        super()._save_extra(path)
+        if self.classes_ is not None:
+            np.save(os.path.join(path, "classes.npy"), np.asarray(self.classes_))
+
+    def _load_extra(self, path: str) -> None:
+        super()._load_extra(path)
+        p = os.path.join(path, "classes.npy")
+        if os.path.exists(p):
+            self.classes_ = np.load(p)
