@@ -10,26 +10,33 @@ Phases, each of which fails the run if it fails:
 
 1. the card's name and power limit; build every CUDA kernel from
    ``synapseml_tpu_torch/csrc`` (one ``nvcc`` per source, all at once);
-2. kernels: ``child_histogram`` and ``range_histogram`` against their plain
-   PyTorch versions on the card at the main path's shapes (FP = 32 padded
-   features, B = 256 bins, ``--rows`` rows), rtol 1e-5 / atol 1e-3 on the
-   gradient and hessian sums (atomics add in an order that changes from run
-   to run) and exact counts; each timed with CUDA events beside its plain
-   version, one ``index_put_(accumulate=True)`` call (a yardstick the port
-   never calls) and its bound on the H100 (bytes over 3.35 TB/s, float32
-   adds over 67 TFLOP/s, the larger);
+2. kernels: ``child_histogram``, ``range_histogram`` and
+   ``level_histograms`` against their plain PyTorch versions on the card at
+   the main paths' shapes (FP = 32 padded features, B = 256 bins,
+   ``--rows`` rows; the level kernel over those rows laid out in 31
+   chunk-aligned slots of uneven size, as the depthwise grower lays them
+   out), rtol 1e-5 / atol 1e-3 on the gradient and hessian sums (atomics
+   add in an order that changes from run to run) and exact counts; each
+   timed with CUDA events beside its plain version, one
+   ``index_put_(accumulate=True)`` call (a yardstick the port never calls)
+   and its bound on the H100 (bytes over 3.35 TB/s, float32 adds over
+   67 TFLOP/s, the larger);
 3. main path: ``LightGBMClassifier(numIterations=10, numLeaves=31,
    maxBin=255).fit`` on a HIGGS-shaped ``Table`` (28 dense float32
    features, ``--rows`` rows), then ``.transform`` and ``saveNativeModel``;
    the kernels' launch counts are zeroed just before and read just after,
-   and both must be above 0;
-4. cross-check: the same estimator on 100,000 rows for 3 iterations on the
-   card and on the CPU (plain versions); AUCs within 1e-3 and mean absolute
+   and ``child_histogram`` and ``range_histogram`` must be above 0;
+4. depthwise path: ``train_booster`` with ``growth_policy="depthwise"``
+   (10 iterations, 31 leaves, max_bin 255) on the same table, then
+   ``predict`` and a model-string reload; counts zeroed just before and
+   read just after, ``level_histograms`` must be above 0;
+5. cross-check: both paths on 100,000 rows for 3 iterations on the card and
+   on the CPU (plain versions); AUCs within 1e-3 and mean absolute
    probability difference at most 1e-3 (atomics can flip near-tie splits);
-5. one torch.profiler pass over the boosting loop: device time by kernel.
+6. one torch.profiler pass over each boosting loop: device time by kernel.
 
-The last lines are the card line, ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``.
+The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
+launches counted on its own path) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -96,11 +103,11 @@ def time_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound_ms(FP: int, rows: int, B: int) -> tuple:
-    """(least milliseconds on an H100, what bounds it) for one histogram of
-    ``rows`` rows: read bT (int32) and g/h/m once, write (FP, B, 3) float32
-    once; 3 float32 adds per (feature, row)."""
-    bytes_ = FP * rows * 4 + 12 * rows + FP * B * 3 * 4
+def bound_ms(FP: int, rows: int, B: int, slots: int = 1) -> tuple:
+    """(least milliseconds on an H100, what bounds it) for the histograms of
+    ``rows`` rows: read bT (int32) and g/h/m once, write ``slots`` (FP, B, 3)
+    float32 histograms once; 3 float32 adds per (feature, row)."""
+    bytes_ = FP * rows * 4 + 12 * rows + slots * FP * B * 3 * 4
     ops = 3 * FP * rows
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -125,7 +132,7 @@ def kernel_phase(rows: int, dev: str) -> dict:
 
     def compare(label, got, want):
         torch.cuda.synchronize()
-        err = (got - want).abs().amax(dim=(0, 1)).tolist()
+        err = (got - want).abs().reshape(-1, 3).amax(dim=0).tolist()
         ok = (torch.allclose(got[..., :2], want[..., :2], rtol=KERNEL_RTOL,
                              atol=KERNEL_ATOL)
               and torch.equal(got[..., 2], want[..., 2]))
@@ -156,11 +163,9 @@ def kernel_phase(rows: int, dev: str) -> dict:
         outside the timed call."""
         b = bT[:, start:start + length].to(torch.int64)
         flat = (b + torch.arange(FP, device=dev)[:, None] * B).reshape(-1)
-        vals = torch.stack([g, h, m], -1)[start:start + length]
-        vals = vals.to(torch.bfloat16).float().expand(FP, length, 3)
-        vals = vals.reshape(-1, 3)
-        out = torch.zeros((FP * B, 3), device=dev)
-        return lambda: out.index_put_((flat,), vals, accumulate=True)
+        return _index_put(flat, g[start:start + length],
+                          h[start:start + length], m[start:start + length],
+                          FP, FP * B)
 
     iters = 20
     t_child = time_ms(lambda: hk.child_histogram(bT, g, h, m, B), iters)
@@ -185,31 +190,115 @@ def kernel_phase(rows: int, dev: str) -> dict:
         replaces="synapseml_tpu/ops/hist_kernel.py:219", max_abs_err=rerr,
         ms=t_range, plain_ms=t_range_plain, bound_ms=bnd, bound_by=by,
         library_ms=t_range_lib, shape=f"FP={FP} n={rows} B={B} length={ln}")
+    del bT, g, h, m
+    torch.cuda.empty_cache()
+    results["level_histograms"] = level_kernel_phase(rows, dev, compare)
     for name, r in results.items():
         log(f"  {name} [{r['shape']}]: kernel_ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"-> {r['bound_ms'] / r['ms']:.1%} of bound")
-    del bT, g, h, m
-    torch.cuda.empty_cache()
     return results
+
+
+def _index_put(flat, g, h, m, FP: int, size: int):
+    """The yardstick call: one index_put_(accumulate=True) of the
+    bf16-rounded [g, h, m] of each (feature, row) at ``flat``, into a
+    (size, 3) zeroed output; inputs prepared outside the timed call."""
+    vals = torch.stack([g, h, m], -1).to(torch.bfloat16).float()
+    vals = vals.expand(FP, g.shape[0], 3).reshape(-1, 3)
+    out = torch.zeros((size, 3), device=g.device)
+    return lambda: out.index_put_((flat,), vals, accumulate=True)
+
+
+def level_inputs(rows: int, dev: str, L: int = 31):
+    """Inputs of ``level_histograms`` at the depthwise path's shapes:
+    ``rows`` rows in L chunk-aligned slots of uneven size (three of them own
+    one empty chunk), padded to CAP = ceil(rows / CHUNK) * CHUNK + L * CHUNK
+    rows. Padding rows sit in bin 0 with g = h = m = 0, as the grower leaves
+    them; real rows have random bins in all FP = 32 features, as phase 2's
+    other inputs (a padded feature puts a whole slot in one float32 sum,
+    whose summation-order error alone reaches rtol 1e-5). Returns
+    (bT, g, h, m, start_chunks, slot_of_row)."""
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    FP, B, C = hk.features_padded(FEATURES), hk.pad_bins(255), hk.CHUNK
+    CAP = -(-rows // C) * C + L * C
+    rng = np.random.default_rng(0)
+    w = rng.gamma(0.7, size=L)
+    w[[3, 11, 29]] = 0.0                          # slots with one empty chunk
+    counts = np.floor(w / w.sum() * rows).astype(np.int64)
+    counts[0] += rows - counts.sum()
+    cap = np.maximum(-(-counts // C), 1)
+    base = np.cumsum(cap) - cap
+    slot_of_chunk = np.repeat(np.arange(L), cap)
+    slot_of_chunk = np.concatenate(
+        [slot_of_chunk, np.full(CAP // C - len(slot_of_chunk), L - 1)])
+    slot = torch.as_tensor(np.repeat(slot_of_chunk, C), device=dev)
+    q = torch.arange(CAP, device=dev)
+    base_d = torch.as_tensor(base, device=dev)
+    valid = (q - base_d[slot] * C) < torch.as_tensor(counts, device=dev)[slot]
+    starts = torch.as_tensor(base, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    bT = torch.randint(0, B, (FP, CAP), generator=gen, device=dev,
+                       dtype=torch.int32) * valid
+    m = (torch.rand(CAP, generator=gen, device=dev) > 0.2).float() * valid
+    g = torch.randn(CAP, generator=gen, device=dev) * m
+    h = torch.rand(CAP, generator=gen, device=dev) * m
+    return bT, g, h, m, starts, slot
+
+
+def level_kernel_phase(rows: int, dev: str, compare) -> dict:
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    FP, B, L = hk.features_padded(FEATURES), hk.pad_bins(255), 31
+    bT, g, h, m, starts, slot = level_inputs(rows, dev, L)
+    CAP = bT.shape[1]
+
+    err = compare(f"level_histograms CAP={CAP} slots={L}",
+                  hk.level_histograms(bT, g, h, m, starts, slot, B, L),
+                  hk._level_hist_plain(bT, g, h, m, slot, B, L))
+    t_kernel = time_ms(
+        lambda: hk.level_histograms(bT, g, h, m, starts, slot, B, L), 20)
+    t_plain = time_ms(lambda: hk._level_hist_plain(bT, g, h, m, slot, B, L),
+                      5)
+    flat = ((slot.to(torch.int64)[None, :] * FP
+             + torch.arange(FP, device=dev)[:, None]) * B + bT).reshape(-1)
+    t_lib = time_ms(_index_put(flat, g, h, m, FP, L * FP * B), 5)
+    bnd, by = bound_ms(FP, CAP, B, L)
+    del bT, g, h, m, flat
+    torch.cuda.empty_cache()
+    return dict(replaces="synapseml_tpu/ops/hist_kernel.py:294",
+                max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
+                bound_ms=bnd, bound_by=by, library_ms=t_lib,
+                shape=f"FP={FP} CAP={CAP} B={B} slots={L}")
 
 
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def main_path(rows: int, dev: str) -> dict:
+MAIN_KERNELS = ("child_histogram", "range_histogram")
+DEPTHWISE_KERNELS = ("level_histograms",)
+
+
+def _check_launches(launches: dict, kernels) -> None:
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the path never launched {missing}")
+
+
+def main_path(X, y, dev: str) -> dict:
     from synapseml_tpu_torch.gbdt.boosting import Booster
     from synapseml_tpu_torch.gbdt.objectives import auc
     from synapseml_tpu_torch.models import LightGBMClassifier
     from synapseml_tpu_torch.ops import hist_kernel as hk
 
+    rows = X.shape[0]
     t0 = time.perf_counter()
-    X, y = higgs_like(rows)
     t = table_of(X, y)
-    log(f"  table: {rows} rows x {FEATURES} features, made in "
-        f"{time.perf_counter() - t0:.3f}s")
+    log(f"  Table assembled in {time.perf_counter() - t0:.3f}s")
     est = LightGBMClassifier(numIterations=10, numLeaves=31, maxBin=255,
                              device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -256,9 +345,67 @@ def main_path(rows: int, dev: str) -> dict:
         raise AssertionError("fitted model or its native string is wrong")
     if a < 0.75:
         raise AssertionError(f"train AUC {a} is too low for this table")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
+    _check_launches(launches, MAIN_KERNELS)
+    return dict(launches=launches, fit_s=fit_s, auc=a)
+
+
+def depthwise_path(X, y, dev: str) -> dict:
+    """``train_booster`` with the depthwise growth policy, ``predict`` and a
+    model-string reload, on the main path's table."""
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+    from synapseml_tpu_torch.gbdt.boosting import Booster
+    from synapseml_tpu_torch.gbdt.grower import forest_max_depth
+    from synapseml_tpu_torch.gbdt.objectives import auc
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    rows = X.shape[0]
+    cfg = BoosterConfig(objective="binary", growth_policy="depthwise",
+                        num_iterations=10, num_leaves=31, max_bin=255)
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    booster = train_booster(X, y, cfg, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prob = booster.predict(X)
+    predict_s = time.perf_counter() - t0
+    text = booster.model_string()
+    launches = dict(hk.LAUNCHES)
+
+    if prob.shape != (rows,) or not np.isfinite(prob).all():
+        raise AssertionError(f"predictions bad: shape {prob.shape}, finite "
+                             f"{np.isfinite(prob).all()}")
+    a = float(auc(torch.as_tensor(y, device=dev),
+                  torch.as_tensor(prob, device=dev)))
+    reloaded = Booster.from_model_string(text, device=dev)
+    reload_diff = float(np.abs(reloaded.predict(X[:10_000])
+                               - prob[:10_000]).max())
+    ntrees = booster.num_trees
+    syncs = booster.metadata["host_syncs"]
+    passes = sum(1 + forest_max_depth([t]) for t in booster.trees)
+    spans = {k: round(v, 4) for k, v in booster.metadata["measures"].items()}
+    log(f"  fit_s={fit_s:.3f} rows/s={rows / fit_s:.0f} "
+        f"row_iterations/s={rows * ntrees / fit_s:.0f} "
+        f"predict_s={predict_s:.3f}")
+    log(f"  fit spans: {json.dumps(spans)}")
+    log(f"  train AUC={a:.6f} trees={ntrees} splits/tree="
+        f"{np.mean([int(tr.num_splits) for tr in booster.trees]):.1f} "
+        f"level passes/tree={passes / ntrees:.1f} host_syncs={syncs} "
+        f"host_syncs/tree={syncs / ntrees:.1f}")
+    log(f"  peak device memory={torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB; model string {len(text)} bytes, reload max |diff|="
+        f"{reload_diff:.3g}")
+    log(f"  launches on the depthwise path: {json.dumps(launches)}")
+    if ntrees != 10 or not text.startswith("tree") or reload_diff > 1e-5:
+        raise AssertionError("fitted model or its native string is wrong")
+    if a < 0.75:
+        raise AssertionError(f"train AUC {a} is too low for this table")
+    if launches["level_histograms"] != passes:
+        raise AssertionError(f"{launches['level_histograms']} level "
+                             f"launches for {passes} level passes")
+    _check_launches(launches, DEPTHWISE_KERNELS)
     return dict(launches=launches, fit_s=fit_s, auc=a)
 
 
@@ -266,7 +413,10 @@ def main_path(rows: int, dev: str) -> dict:
 # phase 4: card against CPU; phase 5: where the time goes
 # ---------------------------------------------------------------------------
 
-def cross_check(dev: str) -> None:
+def cross_check(dev: str, policy: str) -> None:
+    """``policy`` "leafwise" runs the estimator (the main path), "depthwise"
+    ``train_booster`` with that growth policy."""
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
     from synapseml_tpu_torch.gbdt.objectives import auc
     from synapseml_tpu_torch.models import LightGBMClassifier
 
@@ -275,36 +425,43 @@ def cross_check(dev: str) -> None:
     probs, aucs, trees = {}, {}, {}
     for d in (dev, "cpu"):
         t0 = time.perf_counter()
-        model = LightGBMClassifier(numIterations=3, numLeaves=31, maxBin=255,
-                                   device=d).fit(t)
-        probs[d] = model.transform(t)["probability"][:, 1]
+        if policy == "leafwise":
+            model = LightGBMClassifier(numIterations=3, numLeaves=31,
+                                       maxBin=255, device=d).fit(t)
+            probs[d] = model.transform(t)["probability"][:, 1]
+            booster = model.booster
+        else:
+            booster = train_booster(X, y, BoosterConfig(
+                objective="binary", growth_policy=policy, num_iterations=3,
+                num_leaves=31, max_bin=255), device=d)
+            probs[d] = booster.predict(X)
         aucs[d] = float(auc(torch.as_tensor(y), torch.as_tensor(probs[d])))
         trees[d] = [(tr.split_feature.tolist(), tr.split_bin.tolist())
-                    for tr in model.booster.trees]
-        log(f"  {d}: AUC={aucs[d]:.6f} fit+transform "
+                    for tr in booster.trees]
+        log(f"  {policy} {d}: AUC={aucs[d]:.6f} fit+predict "
             f"{time.perf_counter() - t0:.3f}s")
     dauc = abs(aucs[dev] - aucs["cpu"])
     dprob = float(np.abs(probs[dev] - probs["cpu"]).mean())
     same = sum(a == b for a, b in zip(trees[dev], trees["cpu"]))
-    log(f"  |AUC diff|={dauc:.3g} mean |prob diff|={dprob:.3g} "
+    log(f"  {policy}: |AUC diff|={dauc:.3g} mean |prob diff|={dprob:.3g} "
         f"identical trees {same}/{len(trees['cpu'])}")
     if dauc > CROSS_TOL or dprob > CROSS_TOL:
-        raise AssertionError("card and CPU fits disagree")
+        raise AssertionError(f"{policy}: card and CPU fits disagree")
 
 
-def profile_phase(rows: int, dev: str) -> None:
-    """Device time by kernel over the boosting loop alone (2 iterations on
-    a pre-binned ``Dataset`` of the main path's table), from torch.profiler
-    (CUPTI). Busy time sums device-side events (kernels and copies); it
-    overstates busy time only where two of them overlap."""
+def profile_phase(ds, dev: str, policy: str) -> None:
+    """Device time by kernel over the boosting loop alone (2 iterations of
+    the growth ``policy`` on ``ds``, a pre-binned ``Dataset`` of the main
+    path's table), from torch.profiler (CUPTI). Busy time sums device-side
+    events (kernels and copies); it overstates busy time only where two of
+    them overlap."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from synapseml_tpu_torch.gbdt import BoosterConfig, Dataset, train_booster
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
 
-    X, y = higgs_like(rows)
-    ds = Dataset(X, y, device=dev)
-    cfg = BoosterConfig(objective="binary", num_iterations=2)
+    cfg = BoosterConfig(objective="binary", num_iterations=2,
+                        growth_policy=policy)
     train_booster(ds, None, cfg, device=dev)     # warm caches and allocator
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -321,7 +478,8 @@ def profile_phase(rows: int, dev: str) -> None:
     if not busy:
         log("  profiler recorded no device time: not measured")
         return
-    log(f"  2-iteration training loop: wall {wall_ms:.1f} ms, device busy "
+    log(f"  {policy} 2-iteration training loop: wall {wall_ms:.1f} ms, "
+        f"device busy "
         f"{busy:.1f} ms, idle {1 - busy / wall_ms:.1%} of wall")
     for ms, count, key in sorted(events, reverse=True)[:10]:
         log(f"    {ms:9.3f} ms {ms / busy:6.1%} {count:6d}x  {key[:80]}")
@@ -358,18 +516,33 @@ def main() -> int:
 
     log(f"[2] kernels against their plain versions, n={args.rows}")
     kernels = kernel_phase(args.rows, dev)
+    t0 = time.perf_counter()
+    X, y = higgs_like(args.rows)
+    log(f"  table: {args.rows} rows x {FEATURES} features, made in "
+        f"{time.perf_counter() - t0:.3f}s")
     log(f"[3] main path: LightGBMClassifier fit/transform/save, "
         f"{args.rows} rows")
-    main = main_path(args.rows, dev)
-    log("[4] cross-check: card against CPU, 100000 rows, 3 iterations")
-    cross_check(dev)
-    log("[5] profile: 2-iteration training loop")
-    profile_phase(args.rows, dev)
+    main = main_path(X, y, dev)
+    log(f"[4] depthwise path: train_booster(growth_policy='depthwise'), "
+        f"{args.rows} rows")
+    depthwise = depthwise_path(X, y, dev)
+    log("[5] cross-check: card against CPU, 100000 rows, 3 iterations")
+    for policy in ("leafwise", "depthwise"):
+        cross_check(dev, policy)
+    log("[6] profile: 2-iteration training loops")
+    from synapseml_tpu_torch.gbdt import Dataset
 
+    ds = Dataset(X, y, device=dev)
+    del X, y
+    for policy in ("leafwise", "depthwise"):
+        profile_phase(ds, dev, policy)
+
+    launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
+                **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS}}
     source = "synapseml_tpu_torch/csrc/hist_kernel.cu"
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": source,
-         "replaces": r["replaces"], "launches": main["launches"][name],
+         "replaces": r["replaces"], "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``gbdt/boosting.py`` for the slice that is
 ported: plain gradient boosting (``boosting_type="gbdt"``) with the binary
-objective on dense numeric data, leaf-wise growth, the partition row layout.
-``train_booster`` is a plain Python loop over iterations (gradients →
+objective on dense numeric data, grown leaf-wise (the partition row layout)
+or depthwise (``growth_policy="depthwise"``, one ``level_histograms`` pass per
+level). ``train_booster`` is a plain Python loop over iterations (gradients →
 ``grow_tree`` → score update), the host-loop semantics of the JAX package;
 its fused ``lax.scan`` runner has no counterpart, since PyTorch runs eagerly.
 
@@ -96,7 +97,8 @@ class BoosterConfig:
     tree_learner: str = "auto"
     top_k: int = 20
     # engine knobs of the JAX grower; the port has one implementation of
-    # each (a stable argsort partition of the leaf's exact range)
+    # each (a stable argsort partition of the leaf's exact range) and both
+    # growth policies
     partition_impl: str = "sort"
     row_layout: str = "partition"
     use_segmented: Optional[bool] = None
@@ -152,7 +154,6 @@ class BoosterConfig:
         check("partition_impl", self.partition_impl == "sort")
         check("row_layout", self.row_layout == "partition")
         check("use_segmented", self.use_segmented in (None, True))
-        check("growth_policy", self.growth_policy == "leafwise")
         return out
 
     def grower(self) -> GrowerConfig:
@@ -167,6 +168,7 @@ class BoosterConfig:
             min_gain_to_split=self.min_gain_to_split,
             learning_rate=self.learning_rate,
             max_delta_step=self.max_delta_step,
+            growth_policy=self.growth_policy,
         )
 
 
@@ -370,7 +372,7 @@ def train_booster(
     labels ``y`` on ``device``. Arguments of the JAX signature that the port
     does not implement must stay at their defaults (``NotImplementedError``
     otherwise). ``Booster.metadata["host_syncs"]`` counts device→host reads
-    of the growth loop."""
+    of the growth loop (the grower modules state how many a tree costs)."""
     from ..core.logging import InstrumentationMeasures
 
     cfg = config
@@ -433,7 +435,7 @@ def train_booster(
     with measures.span("dataPreparation"):
         if binned is None:
             binned = apply_bins(mapper, X, dev)
-        bT = transpose_bins(binned)
+        bT = transpose_bins(binned)          # one per fit, read by every tree
 
     obj = get_objective(cfg.objective, sigmoid=cfg.sigmoid)
     yj = torch.as_tensor(y).to(dev)

@@ -24,14 +24,18 @@ loop is plain Python and every slice has its exact size.
 
 Where the state lives: histograms, the row partition and split scoring stay
 on the device. The split bookkeeping (leaf ranges, the tree arrays) sits on
-the host: each split's decision is read back in ONE transfer of 17 numbers,
-so a tree costs ``1 + num_splits`` host syncs (counted in ``stats``). The
-range kernel itself takes the child's start/length as a device tensor, so
-the syncs can later go without touching the kernel.
+the host (``_TreeBook``, shared with the depthwise grower): each split's
+decision is read back in ONE transfer of 17 numbers, so a tree costs
+``1 + num_splits`` host syncs (counted in ``stats``). The range kernel itself
+takes the child's start/length as a device tensor, so the syncs can later go
+without touching the kernel.
+
+``GrowerConfig(growth_policy="depthwise")`` sends ``grow_tree`` to the
+level-batched grower of ``grower_depthwise.py`` instead.
 
 Not ported yet: categorical splits, monotone constraints, per-node feature
-sampling, the "masked"/"gather" layouts, the depthwise policy and the
-distributed (sharded) reductions.
+sampling, the "masked"/"gather" layouts and the distributed (sharded)
+reductions.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ class GrowerConfig(NamedTuple):
     min_gain_to_split: float = 0.0
     learning_rate: float = 0.1
     max_delta_step: float = 0.0
+    growth_policy: str = "leafwise"  # or "depthwise" (grower_depthwise.py)
 
 
 class TreeArrays(NamedTuple):
@@ -216,6 +221,107 @@ def transpose_bins(binned: torch.Tensor) -> torch.Tensor:
 # Tree growth
 # ---------------------------------------------------------------------------
 
+def _padded_features(feature_active, nan_bins, FP: int, dev):
+    """(featp (FP,) bool, nanp (FP,) i64 on ``dev``, nanp as numpy): the
+    active mask and each feature's NaN bin (``NO_NAN_BIN``: none), padded
+    to FP features that are inactive and have no NaN bin."""
+    f = feature_active.shape[0]
+    featp = torch.zeros(FP, dtype=torch.bool, device=dev)
+    featp[:f] = feature_active
+    nanp_host = np.full(FP, NO_NAN_BIN, np.int64)
+    if nan_bins is not None:
+        nanp_host[:f] = np.asarray(nan_bins)
+    return featp, torch.as_tensor(nanp_host, device=dev), nanp_host
+
+
+class _TreeBook:
+    """Host bookkeeping of one growing tree, for both growth policies: each
+    leaf's best split and [G, H, C] totals (rows of ``_best_for_leaf``), its
+    depth and parent, and the tree arrays. Leaf numbering follows LightGBM's
+    Tree::Split (see ``split``)."""
+
+    def __init__(self, L: int, B: int):
+        S = max(L - 1, 1)
+        self.L, self.B = L, B
+        self.bgain = np.full(L, -np.inf, np.float32)
+        self.bfeat = np.zeros(L, np.int64)
+        self.bbin = np.zeros(L, np.int64)
+        self.bdl = np.zeros(L, bool)
+        self.bcl = np.zeros(L, np.float32)
+        self.tot = np.zeros((L, 3), np.float32)       # leaf [G, H, C]
+        self.depth = np.zeros(L, np.int64)
+        self.leaf_parent = np.full(L, -1, np.int64)
+        self.leaf_is_right = np.zeros(L, bool)
+        self.split_feature = np.zeros(S, np.int32)
+        self.split_bin = np.full(S, B - 1, np.int32)
+        self.split_gain = np.zeros(S, np.float32)
+        self.default_left = np.zeros(S, bool)
+        self.left_child = np.full(S, ~0, np.int32)
+        self.right_child = np.full(S, ~0, np.int32)
+        self.internal_value = np.zeros(S, np.float32)
+        self.internal_count = np.zeros(S, np.int32)
+        self.num_splits = 0
+
+    def set_best(self, leaves, rows: np.ndarray) -> None:
+        """Store (K, 8) ``_best_for_leaf`` rows for ``leaves``."""
+        self.bgain[leaves] = rows[:, 0]
+        self.bfeat[leaves] = rows[:, 1]
+        self.bbin[leaves] = rows[:, 2]
+        self.bdl[leaves] = rows[:, 3] != 0
+        self.bcl[leaves] = rows[:, 4]
+        self.tot[leaves] = rows[:, 5:8]
+
+    def split(self, l: int, cfg: GrowerConfig) -> int:
+        """Apply leaf ``l``'s best split as internal node ``num_splits``:
+        the left child keeps leaf id ``l``, the right child becomes leaf
+        ``num_splits + 1`` (returned); child pointers use ``~leaf``."""
+        i_node = self.num_splits
+        new_right = i_node + 1
+        p = self.leaf_parent[l]
+        if p >= 0:
+            if self.leaf_is_right[l]:
+                self.right_child[p] = i_node
+            else:
+                self.left_child[p] = i_node
+        self.left_child[i_node] = ~l
+        self.right_child[i_node] = ~new_right
+        self.split_feature[i_node] = self.bfeat[l]
+        self.split_bin[i_node] = self.bbin[l]
+        self.split_gain[i_node] = self.bgain[l]
+        self.default_left[i_node] = self.bdl[l]
+        self.internal_value[i_node] = _leaf_output_host(
+            self.tot[l, 0], self.tot[l, 1], cfg)
+        self.internal_count[i_node] = np.int32(self.tot[l, 2])
+        self.depth[new_right] = self.depth[l] + 1
+        self.depth[l] += 1
+        self.leaf_parent[l] = self.leaf_parent[new_right] = i_node
+        self.leaf_is_right[l], self.leaf_is_right[new_right] = False, True
+        self.num_splits += 1
+        return new_right
+
+    def tree(self, hist: torch.Tensor, cfg: GrowerConfig) -> TreeArrays:
+        """The grown tree; leaf stats come from the per-leaf histograms
+        ``hist`` (L, FP, B, 3) (per-leaf float32 sums) and stay on the
+        device."""
+        L, S = self.L, max(self.L - 1, 1)
+        leaf_tot = hist[:, 0].sum(dim=1)               # (L, 3)
+        exists = torch.arange(L, device=hist.device) <= self.num_splits
+        leaf_value = torch.where(
+            exists, _leaf_output(leaf_tot[:, 0], leaf_tot[:, 1], cfg)
+            * cfg.learning_rate, 0.0)
+        return TreeArrays(
+            split_feature=self.split_feature, split_bin=self.split_bin,
+            split_gain=self.split_gain, split_type=np.zeros(S, np.int32),
+            default_left=self.default_left,
+            cat_bitset=np.zeros((S, (self.B + BITS - 1) // BITS), np.uint32),
+            left_child=self.left_child, right_child=self.right_child,
+            internal_value=self.internal_value,
+            internal_count=self.internal_count,
+            leaf_value=leaf_value, leaf_weight=leaf_tot[:, 1],
+            leaf_count=leaf_tot[:, 2].to(torch.int32),
+            num_splits=np.int32(self.num_splits))
+
+
 def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
               nan_bins=None, bT0=None, stats: Optional[dict] = None):
     """Grow one tree; returns (TreeArrays, node_of_row) where node_of_row is
@@ -225,15 +331,22 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
     ``feature_active`` (F,) bool are tensors on one device; ``nan_bins`` (F,)
     holds each feature's NaN bin (0x7FFF: none). ``bT0`` is the
     ``transpose_bins(binned)`` matrix when the caller keeps one across trees
-    (it is copied, not modified). ``stats["host_syncs"]`` counts host reads.
+    (it is not modified). ``stats["host_syncs"]`` counts host reads.
     """
+    if cfg.growth_policy == "depthwise":
+        from .grower_depthwise import grow_tree_depthwise
+
+        return grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
+                                   cfg, nan_bins=nan_bins, bT0=bT0,
+                                   stats=stats)
+    if cfg.growth_policy != "leafwise":
+        raise ValueError("growth_policy must be 'leafwise' or 'depthwise', "
+                         f"got {cfg.growth_policy!r}")
     n, f = binned.shape
     dev = binned.device
     L = cfg.num_leaves
     B = pad_bins(cfg.num_bins)
     FP = features_padded(f)
-    S = max(L - 1, 1)
-    bw = (B + BITS - 1) // BITS
 
     bT = (transpose_bins(binned) if bT0 is None else bT0.clone())
     in_bag = in_bag.to(torch.float32)
@@ -241,53 +354,28 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
     hs = hess.to(torch.float32) * in_bag
     ms = in_bag.clone()
     pos = torch.arange(n, dtype=torch.int64, device=dev)
-    featp = torch.zeros(FP, dtype=torch.bool, device=dev)
-    featp[:f] = feature_active
-    nanp_host = np.full(FP, NO_NAN_BIN, np.int64)
-    if nan_bins is not None:
-        nanp_host[:f] = np.asarray(nan_bins)
-    nanp = torch.as_tensor(nanp_host, device=dev)
+    featp, nanp, nanp_host = _padded_features(feature_active, nan_bins, FP,
+                                              dev)
 
     hist = torch.zeros((L, FP, B, 3), dtype=torch.float32, device=dev)
     hist[0] = child_histogram(bT, gs, hs, ms, B)
-    root = _to_host(_best_for_leaf(hist[:1], featp, nanp, cfg), stats)[0]
-
-    # per-leaf split state (host)
-    bgain = np.full(L, -np.inf, np.float32)
-    bfeat = np.zeros(L, np.int64)
-    bbin = np.zeros(L, np.int64)
-    bdl = np.zeros(L, bool)
-    bcl = np.zeros(L, np.float32)
-    tot = np.zeros((L, 3), np.float32)                 # leaf [G, H, C]
-    bgain[0], bfeat[0], bbin[0], bdl[0], bcl[0] = root[:5]
-    tot[0] = root[5:]
-    depth = np.zeros(L, np.int64)
-    leaf_parent = np.full(L, -1, np.int64)
-    leaf_is_right = np.zeros(L, bool)
+    book = _TreeBook(L, B)
+    book.set_best([0], _to_host(_best_for_leaf(hist[:1], featp, nanp, cfg),
+                                stats))
     leaf_start = np.zeros(L, np.int64)
     leaf_len = np.zeros(L, np.int64)
     leaf_len[0] = n
-    # tree arrays
-    split_feature = np.zeros(S, np.int32)
-    split_bin = np.full(S, B - 1, np.int32)
-    split_gain = np.zeros(S, np.float32)
-    default_left = np.zeros(S, bool)
-    left_child = np.full(S, ~0, np.int32)
-    right_child = np.full(S, ~0, np.int32)
-    internal_value = np.zeros(S, np.float32)
-    internal_count = np.zeros(S, np.int32)
-    num_splits = 0
     min_gain = np.float32(cfg.min_gain_to_split)
 
     for _ in range(L - 1):
-        active = np.arange(L) <= num_splits
+        active = np.arange(L) <= book.num_splits
         if cfg.max_depth > 0:
-            active &= depth < cfg.max_depth
-        masked = np.where(active, bgain, np.float32(-np.inf))
+            active &= book.depth < cfg.max_depth
+        masked = np.where(active, book.bgain, np.float32(-np.inf))
         l = int(np.argmax(masked))
         if not masked[l] > min_gain:
             break
-        fsel, bsel, dl = int(bfeat[l]), int(bbin[l]), bool(bdl[l])
+        fsel, bsel, dl = int(book.bfeat[l]), int(book.bbin[l]), bool(book.bdl[l])
         start, length = int(leaf_start[l]), int(leaf_len[l])
         end = start + length
 
@@ -307,7 +395,7 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
 
         # build the smaller child (decided from the best split's global
         # count-left), the sibling is parent - child
-        left_small = bcl[l] * np.float32(2.0) <= tot[l, 2]
+        left_small = book.bcl[l] * np.float32(2.0) <= book.tot[l, 2]
         a = 0 if left_small else 1
         child_start = nl_loc * a + start
         child_len = nl_loc * (1 - 2 * a) + length * a
@@ -319,57 +407,19 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
         best2 = _best_for_leaf(children, featp, nanp, cfg)
         rec = _to_host(torch.cat([nl_loc.reshape(1).double(),
                                   best2.reshape(-1)]), stats)
-        new_right = num_splits + 1
+        new_right = book.split(l, cfg)
         hist[l] = children[0]
         hist[new_right] = children[1]
-
+        book.set_best([l, new_right], rec[1:].reshape(2, 8))
         nl = int(rec[0])
-        b2 = rec[1:].reshape(2, 8)
-        i_node = num_splits
-        p = leaf_parent[l]
-        if p >= 0:
-            if leaf_is_right[l]:
-                right_child[p] = i_node
-            else:
-                left_child[p] = i_node
-        left_child[i_node] = ~l
-        right_child[i_node] = ~new_right
-        split_feature[i_node] = fsel
-        split_bin[i_node] = bsel
-        split_gain[i_node] = bgain[l]
-        default_left[i_node] = dl
-        internal_value[i_node] = _leaf_output_host(tot[l, 0], tot[l, 1], cfg)
-        internal_count[i_node] = np.int32(tot[l, 2])
-        for leaf, row in ((l, b2[0]), (new_right, b2[1])):
-            bgain[leaf], bfeat[leaf], bbin[leaf], bdl[leaf], bcl[leaf] = row[:5]
-            tot[leaf] = row[5:]
-        depth[new_right] = depth[l] + 1
-        depth[l] += 1
-        leaf_parent[l] = leaf_parent[new_right] = i_node
-        leaf_is_right[l], leaf_is_right[new_right] = False, True
         leaf_start[new_right] = start + nl
         leaf_len[l], leaf_len[new_right] = nl, length - nl
-        num_splits += 1
 
-    # leaf stats from the per-leaf histogram cache (per-leaf f32 sums)
-    leaf_tot = hist[:, 0].sum(dim=1)                   # (L, 3)
-    exists = torch.arange(L, device=dev) <= num_splits
-    leaf_value = torch.where(
-        exists, _leaf_output(leaf_tot[:, 0], leaf_tot[:, 1], cfg)
-        * cfg.learning_rate, 0.0)
-    tree = TreeArrays(
-        split_feature=split_feature, split_bin=split_bin,
-        split_gain=split_gain, split_type=np.zeros(S, np.int32),
-        default_left=default_left, cat_bitset=np.zeros((S, bw), np.uint32),
-        left_child=left_child, right_child=right_child,
-        internal_value=internal_value, internal_count=internal_count,
-        leaf_value=leaf_value, leaf_weight=leaf_tot[:, 1],
-        leaf_count=leaf_tot[:, 2].to(torch.int32),
-        num_splits=np.int32(num_splits))
+    tree = book.tree(hist, cfg)
 
     # each row's leaf, in original row order, from the leaf ranges
     node_sorted = torch.empty(n, dtype=torch.int64, device=dev)
-    for leaf in range(num_splits + 1):
+    for leaf in range(book.num_splits + 1):
         s0, ln = int(leaf_start[leaf]), int(leaf_len[leaf])
         if ln > 0:
             node_sorted[s0:s0 + ln] = leaf

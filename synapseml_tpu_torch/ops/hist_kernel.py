@@ -9,11 +9,13 @@ sum and bins outside ``[0, B)`` are dropped — the reference's contract.
 
 * ``child_histogram`` ← ``_kernel``/``_packed_accumulate`` via ``_hist_pallas``
 * ``range_histogram`` ← ``_range_kernel`` via ``_hist_pallas_range``
+* ``level_histograms`` ← ``_level_kernel`` via ``_hist_pallas_level``
 
-Both run ``csrc/hist_kernel.cu`` for CUDA tensors (one launch each, counted
-in ``LAUNCHES``) and the plain versions ``_hist_plain`` /
-``_range_hist_plain`` for CPU tensors. A CUDA tensor never falls back to
-the plain version: the kernel launches or the call raises.
+All three run ``csrc/hist_kernel.cu`` for CUDA tensors (one launch each,
+counted in ``LAUNCHES``) and the plain versions ``_hist_plain`` /
+``_range_hist_plain`` / ``_level_hist_plain`` for CPU tensors. A CUDA tensor
+never falls back to the plain version: the kernel launches or the call
+raises.
 """
 
 from __future__ import annotations
@@ -23,9 +25,12 @@ import ctypes
 import torch
 
 FEATURE_BLOCK = 8
+# rows per chunk of the level kernel's slot-partitioned layout (the depthwise
+# grower aligns every leaf's rows to it)
+CHUNK = 2048
 
 # launches of each hand-written kernel (incremented only where it launches)
-LAUNCHES = {"child_histogram": 0, "range_histogram": 0}
+LAUNCHES = {"child_histogram": 0, "range_histogram": 0, "level_histograms": 0}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -33,6 +38,9 @@ _SIGNATURES = {
                          ctypes.c_int, _P], ctypes.c_int),
     "range_histogram": ([_P, _P, _P, _P, _P, _P, ctypes.c_int64,
                          ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+    "level_histogram": ([_P, _P, _P, _P, _P, _P, ctypes.c_int64,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, _P], ctypes.c_int),
 }
 
 
@@ -89,6 +97,26 @@ def _range_hist_plain(bT, g, h, m, start, length,
     s = min(max(int(start), 0), n)
     e = min(s + max(int(length), 0), n)
     return _hist_plain(bT[:, s:e], g[s:e], h[s:e], m[s:e], num_bins_padded)
+
+
+def _level_hist_plain(bT, g, h, m, slot_of_row, num_bins_padded: int,
+                      slots: int) -> torch.Tensor:
+    """(slots, FP, B, 3) histograms of every slot: one bf16-rounded
+    ``index_add_`` keyed by (slot of the row, feature, bin); out-of-range
+    bins and slots go to a spare row that is cut off."""
+    FP, n = bT.shape
+    B = num_bins_padded
+    vals = _rounded_values(g, h, m)
+    b = bT.to(torch.int64)
+    s = slot_of_row.to(torch.int64)[None, :]
+    f = torch.arange(FP, device=bT.device, dtype=torch.int64)[:, None]
+    flat = (s * FP + f) * B + b
+    ok = (b >= 0) & (b < B) & (s >= 0) & (s < slots)
+    flat = torch.where(ok, flat, slots * FP * B)
+    out = torch.zeros((slots * FP * B + 1, 3), dtype=torch.float32,
+                      device=bT.device)
+    out.index_add_(0, flat.reshape(-1), vals.expand(FP, n, 3).reshape(-1, 3))
+    return out[:-1].reshape(slots, FP, B, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -179,4 +207,45 @@ def range_histogram(bT, g, h, m, start, length,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "range_histogram")
     LAUNCHES["range_histogram"] += 1
+    return out
+
+
+def level_histograms(bT, g, h, m, start_chunks, slot_of_row,
+                     num_bins_padded: int, slots: int) -> torch.Tensor:
+    """(slots, FP, B, 3) histograms of slot-partitioned rows in one pass.
+
+    Rows are grouped by slot in chunks of ``CHUNK`` rows: slot ``s`` owns the
+    chunks from ``start_chunks[s]`` up to the next slot's start (the slot of
+    chunk ``c`` is the count of ``start_chunks[1:] <= c``; the table is
+    non-decreasing, and a slot whose start is the total chunk count owns
+    none). Padding rows must carry g = h = m = 0. The kernel reads the slot
+    table on the device; the plain version (CPU tensors) takes each row's
+    slot from ``slot_of_row`` (n,) instead, which the caller keeps
+    consistent with the table. Every slot of the result is defined: a slot
+    that owns no row is zero."""
+    _check(bT, g, h, m, num_bins_padded)
+    FP, n = bT.shape
+    if tuple(slot_of_row.shape) != (n,) or slot_of_row.device != bT.device:
+        raise ValueError(f"slot_of_row must be ({n},) on {bT.device}, got "
+                         f"{tuple(slot_of_row.shape)} on {slot_of_row.device}")
+    if bT.device.type == "cpu":
+        return _level_hist_plain(bT, g, h, m, slot_of_row, num_bins_padded,
+                                 slots)
+    if (tuple(start_chunks.shape) != (slots,)
+            or start_chunks.device != bT.device):
+        raise ValueError(f"start_chunks must be ({slots},) on {bT.device}, "
+                         f"got {tuple(start_chunks.shape)} on "
+                         f"{start_chunks.device}")
+    starts = start_chunks.to(torch.int32).contiguous()
+    out = torch.zeros((slots, FP, num_bins_padded, 3), dtype=torch.float32,
+                      device=bT.device)
+    if bT.numel() == 0:
+        return out
+    with torch.cuda.device(bT.device):
+        rc = _lib().level_histogram(
+            bT.data_ptr(), g.data_ptr(), h.data_ptr(), m.data_ptr(),
+            starts.data_ptr(), out.data_ptr(), n, FP, num_bins_padded, slots,
+            CHUNK, torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "level_histograms")
+    LAUNCHES["level_histograms"] += 1
     return out

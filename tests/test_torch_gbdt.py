@@ -255,7 +255,8 @@ def test_cuda_fit_matches_reference(data, tables, cuda):
     model = LightGBMClassifier(numIterations=5, device=cuda).fit(tt)
     launched = {k: thk.LAUNCHES[k] - before[k] for k in before}
     splits = sum(int(t.num_splits) for t in model.booster.trees)
-    assert launched == {"child_histogram": 5, "range_histogram": splits}
+    assert launched == {"child_histogram": 5, "range_histogram": splits,
+                        "level_histograms": 0}
     tout = model.transform(tt)
     p, q = tout["probability"][:, 1], jout["probability"][:, 1]
     assert np.abs(p - q).mean() <= 1e-3
@@ -274,7 +275,7 @@ def test_cuda_fit_matches_reference(data, tables, cuda):
     ("bagging_fraction", 0.5), ("bagging_freq", 1),
     ("feature_fraction", 0.8), ("monotone_constraints", [1] + [0] * 27),
     ("early_stopping_round", 5), ("row_layout", "masked"),
-    ("growth_policy", "depthwise"),
+    ("feature_fraction_bynode", 0.5),
 ])
 def test_train_booster_rejects_unported_config(data, field, value):
     X, y = data
