@@ -33,16 +33,46 @@ Phases, each of which fails the run if it fails:
 5. cross-check: both paths on 100,000 rows for 3 iterations on the card and
    on the CPU (plain versions); AUCs within 1e-3 and mean absolute
    probability difference at most 1e-3 (atomics can flip near-tie splits);
-6. one torch.profiler pass over each boosting loop: device time by kernel.
+6. one torch.profiler pass over each boosting loop: device time by kernel;
+7. flash kernels: ``flash_attention`` and ``flash_attention_block`` against
+   their plain PyTorch versions on the card (causal and not, S_q != S_k,
+   non-divisible lengths, strided inputs, bf16, offsets with a block wholly
+   in the causal future, ``m = -inf`` rows), rtol 2e-4 / atol 2e-5 in
+   float32 and 8e-3 / 1e-3 in bf16 (both sides round p to bf16); then at the seq path's shapes (Ulysses:
+   (4, 8192, 4, 32) per rank; ring step: (4, 4096, 8, 32) against 4096 keys)
+   each timed beside its plain version, its bound (float32 flops over
+   67 TFLOP/s or bytes over 3.35 TB/s, the larger) and, for
+   ``flash_attention``, one ``scaled_dot_product_attention`` call (a
+   yardstick the port never calls; no single PyTorch call computes the
+   ring's carried-state step);
+8. seq path: ``TransformerEncoder(mask_free=True)`` at
+   ``DeepTextClassifier``'s widths (vocab 32768, 4 layers, 8 heads, hidden
+   256, MLP 1024; float32, random weights from a seed in the JAX package's
+   flax layout, carried by ``convert.text_encoder_from_reference``) on
+   batch 4 x 8192 ``hash_tokenize`` ids: two ranks of ``torch.distributed``
+   (gloo, CUDA tensors staged through pinned host memory) share the card on
+   the mesh ``{"seq": 2}`` and run the forward inside
+   ``seq_attention_scope`` with ring, then Ulysses attention; launch counts
+   zeroed just before each forward and read just after (per rank: 8
+   ``flash_attention_block`` for the ring, 4 ``flash_attention`` for
+   Ulysses); logits within rtol 2e-4 / atol 2e-5 of the same encoder out of
+   scope on the card (plain attention), ring and Ulysses within 1e-5 of
+   each other. Then ``sharded_self_attention`` of a (2, 4095, 8, 32)
+   sequence (padded to the shard grid) with each variant: within rtol 2e-4
+   / atol 2e-5 of ``attention_reference`` on the card, through the kernels
+   (2 ring-step launches, 1 Ulysses launch per rank). A failed rank fails
+   the run.
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
-launches counted on its own path) and ``{"ok": true, "device": {...}}``.
+launches counted on its own path; the flash kernels' summed over both
+ranks of one forward) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -58,6 +88,21 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-3
 CROSS_TOL = 1e-3
+FLASH_RTOL, FLASH_ATOL = 2e-4, 2e-5      # float32: FMA order differs
+# bf16 inputs: both sides round p to bf16 before the PV product, but against
+# running maxima that differ between the kernel's key tiles and the plain
+# blocks; flash_attention's output is bf16 (one ulp is up to 2^-7 of it)
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 8e-3, 1e-3
+SEQ_RTOL, SEQ_ATOL = 2e-4, 2e-5          # seq path logits vs out of scope
+VARIANT_TOL = 1e-5                       # ring vs Ulysses logits
+# the seq path's model: DeepTextClassifier's default widths, maxTokenLen 8192
+ENCODER = dict(vocab_size=32768, num_layers=4, num_heads=8, hidden=256,
+               mlp_ratio=4, max_len=8192, num_classes=2, dropout=0.0,
+               mask_free=True)
+SEQ_BATCH, SEQ_RANKS = 4, 2
+# a sequence that does not divide the seq axis: padded, its padded keys
+# dropped before the kernels (B, S, H, D)
+PADDED_SHAPE = (2, 4095, 8, 32)
 
 
 def log(msg: str) -> None:
@@ -485,6 +530,418 @@ def profile_phase(ds, dev: str, policy: str) -> None:
         log(f"    {ms:9.3f} ms {ms / busy:6.1%} {count:6d}x  {key[:80]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the flash kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def attention_bound_ms(B, H, Sq, Sk, D, elem_bytes, causal=False,
+                       state=False) -> tuple:
+    """(least milliseconds on an H100, what bounds it) for attention of
+    (B, Sq, H, D) queries over Sk keys: 4*D float32 flops per live
+    (query, key) pair (QK^T and PV, an FMA being two), the live pairs
+    counted under a causal mask; q/k/v read once and the output written
+    once (a carried state read and written once more)."""
+    if causal:
+        rows = np.arange(Sq, dtype=np.int64)
+        pairs = int(np.clip(rows + 1, 0, Sk).sum())
+    else:
+        pairs = Sq * Sk
+    ops = 4 * B * H * pairs * D
+    bytes_ = elem_bytes * B * H * D * (Sq + 2 * Sk) + 4 * B * Sq * H * D
+    if state:
+        bytes_ += 4 * (2 * B * H * Sq + B * Sq * H * D)
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _flash_compare(label, got, want, bf16=False) -> float:
+    """Max |kernel - plain| over the finite entries of ``want``; raises
+    when the two disagree beyond the stated tolerance. Where the plain
+    version's running max is -inf (no key reached the row) the kernel must
+    hold its finite sentinel -1e30 (or -inf)."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    rtol, atol = ((FLASH_BF16_RTOL, FLASH_BF16_ATOL) if bf16
+                  else (FLASH_RTOL, FLASH_ATOL))
+    ok = torch.allclose(got[fin], want[fin], rtol=rtol, atol=atol) \
+        and bool((got[~fin] <= -1e30).all())
+    log(f"  {label}: max |kernel - plain| {err:.3g} -> "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             "version")
+    return err
+
+
+def _block_compare(label, got, want, bf16=False) -> float:
+    """``_flash_compare`` of a carried state (m, l, o). o is compared after
+    dividing both sides by the plain version's l (1 where l = 0): the
+    unnormalised sum over Sk keys carries float32 rounding in proportion to
+    l, not to o, whose entries can sit near zero. The raw o gap is logged
+    beside it, unchecked."""
+    (mk, lk, ok), (mp, lp, op) = got, want
+    denom = torch.where(lp > 0, lp, 1.0).transpose(1, 2)[..., None]
+    log(f"  {label}: raw o max |kernel - plain| "
+        f"{float((ok - op).abs().max()):.3g} (unchecked), max |o / l| "
+        f"{float((op / denom).abs().max()):.3g}")
+    return max(_flash_compare(f"{label}: m", mk, mp, bf16),
+               _flash_compare(f"{label}: l", lk, lp, bf16),
+               _flash_compare(f"{label}: o / l", ok / denom, op / denom,
+                              bf16))
+
+
+def _randn(gen, shape, dev, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def flash_kernel_phase(dev: str) -> dict:
+    from synapseml_tpu_torch.ops import attention_kernel as ak
+    from synapseml_tpu_torch.parallel.ring_attention import _block_attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    fa_err = fb_err = 0.0
+    # flash_attention: (B, Sq, Sk, H, D, causal, dtype, strided q)
+    for B, Sq, Sk, H, D, causal, dtype, strided in [
+            (2, 300, 300, 2, 64, False, torch.float32, False),
+            (2, 300, 300, 2, 64, True, torch.float32, True),
+            (1, 37, 53, 3, 8, True, torch.float32, False),
+            (1, 53, 37, 3, 8, True, torch.float32, False),
+            (2, 129, 257, 4, 32, False, torch.bfloat16, True),
+            (1, 100, 100, 1, 64, True, torch.float32, False)]:
+        q = _randn(gen, (B, Sq, 2 * H if strided else H, D), dev, dtype)
+        q = q[:, :, ::2] if strided else q
+        k, v = (_randn(gen, (B, Sk, H, D), dev, dtype) for _ in range(2))
+        bf16 = dtype == torch.bfloat16
+        fa_err = max(fa_err, _flash_compare(
+            f"flash_attention B={B} Sq={Sq} Sk={Sk} H={H} D={D} "
+            f"causal={causal} {'bf16' if bf16 else 'f32'}"
+            f"{' strided q' if strided else ''}",
+            ak.flash_attention(q, k, v, causal=causal),
+            ak._xla_fallback(q, k, v, causal, D ** -0.5, 128), bf16))
+    # flash_attention_block: empty state (m = -inf rows) and a carried one
+    B, Sq, Sk, H, D = 2, 140, 128, 2, 64
+    for q_off, k_off, causal, dtype in [
+            (64, 0, False, torch.float32), (64, 0, True, torch.float32),
+            (0, 140, True, torch.float32),    # wholly in the causal future
+            (200, 100, True, torch.float32), (150, 100, True,
+                                              torch.bfloat16)]:
+        q, k, v = (_randn(gen, (B, n, H, D), dev, dtype)
+                   for n in (Sq, Sk, Sk))
+        bf16 = dtype == torch.bfloat16
+        for carried in (False, True):
+            if carried:
+                # rows no key has reached yet (m = -inf) hold l = 0, o = 0
+                m = _randn(gen, (B, H, Sq), dev)
+                l = torch.rand((B, H, Sq), generator=gen, device=dev) + 0.5
+                o = _randn(gen, (B, Sq, H, D), dev)
+                m[:, :, ::7], l[:, :, ::7], o[:, ::7] = -float("inf"), 0, 0
+            else:
+                m = torch.full((B, H, Sq), -float("inf"), device=dev)
+                l = torch.zeros((B, H, Sq), device=dev)
+                o = torch.zeros((B, Sq, H, D), device=dev)
+            got = ak.flash_attention_block(q, k, v, m, l, o, q_off, k_off,
+                                           causal=causal, scale=0.125)
+            want = _block_attention(q, k, v, m, l, o, q_off, k_off, causal,
+                                    0.125)
+            label = (f"flash_attention_block q_off={q_off} k_off={k_off} "
+                     f"causal={causal} {'bf16' if bf16 else 'f32'} "
+                     f"{'carried' if carried else 'empty'} state")
+            fb_err = max(fb_err, _block_compare(label, got, want, bf16))
+            if k_off > q_off + Sq - 1:
+                if not (torch.equal(got[1], l) and torch.equal(got[2], o)):
+                    raise AssertionError("a step wholly in the causal future "
+                                         "changed the state")
+    return path_shape_phase(dev, gen, fa_err, fb_err)
+
+
+def path_shape_phase(dev: str, gen, fa_err: float, fb_err: float) -> dict:
+    """Both kernels at the seq path's shapes: checked, then timed beside
+    their plain versions, bounds and (flash_attention) SDPA."""
+    import torch.nn.functional as F
+
+    from synapseml_tpu_torch.ops import attention_kernel as ak
+    from synapseml_tpu_torch.parallel.ring_attention import _block_attention
+
+    B, S, H, D = SEQ_BATCH, ENCODER["max_len"], ENCODER["num_heads"], \
+        ENCODER["hidden"] // ENCODER["num_heads"]
+    hu, s_local = H // SEQ_RANKS, S // SEQ_RANKS
+    scale = D ** -0.5
+    results = {}
+    # Ulysses: each rank attends over the whole sequence for H / p heads
+    q, k, v = (_randn(gen, (B, S, hu, D), dev) for _ in range(3))
+    fa_err = max(fa_err, _flash_compare(
+        f"flash_attention at the Ulysses shape ({B}, {S}, {hu}, {D})",
+        ak.flash_attention(q, k, v), ak._xla_fallback(q, k, v, False, scale,
+                                                      128)))
+    t_kernel = time_ms(lambda: ak.flash_attention(q, k, v), 10)
+    t_plain = time_ms(lambda: ak._xla_fallback(q, k, v, False, scale, 128),
+                      3)
+    qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(qT, kT, vT,
+                                                           scale=scale), 5)
+    t_causal = time_ms(lambda: ak.flash_attention(q, k, v, causal=True), 10)
+    bnd, by = attention_bound_ms(B, hu, S, S, D, 4)
+    bnd_c, _ = attention_bound_ms(B, hu, S, S, D, 4, causal=True)
+    log(f"  flash_attention causal at the same shape: kernel_ms="
+        f"{t_causal:.4f} bound_ms={bnd_c:.4f}")
+    results["flash_attention"] = dict(
+        replaces="synapseml_tpu/ops/attention_kernel.py:37",
+        max_abs_err=fa_err, ms=t_kernel, plain_ms=t_plain, bound_ms=bnd,
+        bound_by=by, library_ms=t_lib,
+        shape=f"q/k/v ({B}, {S}, {hu}, {D}) f32")
+    del q, k, v, qT, kT, vT
+    # ring step: this rank's queries against one rank's keys, carried state
+    q, k, v = (_randn(gen, (B, s_local, H, D), dev) for _ in range(3))
+    m = _randn(gen, (B, H, s_local), dev)
+    l = torch.rand((B, H, s_local), generator=gen, device=dev) + 0.5
+    o = _randn(gen, (B, s_local, H, D), dev)
+    got = ak.flash_attention_block(q, k, v, m, l, o, s_local, 0)
+    want = _block_attention(q, k, v, m, l, o, s_local, 0, False, scale)
+    fb_err = max(fb_err, _block_compare(
+        f"flash_attention_block at the ring shape ({B}, {s_local}, {H}, {D})",
+        got, want))
+    del got, want
+    t_kernel = time_ms(
+        lambda: ak.flash_attention_block(q, k, v, m, l, o, s_local, 0), 10)
+    t_plain = time_ms(
+        lambda: _block_attention(q, k, v, m, l, o, s_local, 0, False, scale),
+        3)
+    bnd, by = attention_bound_ms(B, H, s_local, s_local, D, 4, state=True)
+    results["flash_attention_block"] = dict(
+        replaces="synapseml_tpu/ops/attention_kernel.py:253",
+        max_abs_err=fb_err, ms=t_kernel, plain_ms=t_plain, bound_ms=bnd,
+        bound_by=by, library_ms=None,
+        shape=f"q/k/v ({B}, {s_local}, {H}, {D}) f32, carried state")
+    del q, k, v, m, l, o
+    torch.cuda.empty_cache()
+    for name, r in results.items():
+        lib = ("none (no single PyTorch call computes the carried-state "
+               "update)" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
+        log(f"  {name} [{r['shape']}]: kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"-> {r['bound_ms'] / r['ms']:.1%} of bound")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the sequence-parallel encoder on two ranks
+# ---------------------------------------------------------------------------
+
+def reference_params(cfg: dict, seed: int = 0) -> dict:
+    """Random weights for the encoder ``cfg`` in the JAX package's flax
+    layout (nested dict of numpy arrays, flax's names), at the scales of
+    flax's initialisers; LayerNorm and bias terms perturbed so each one
+    matters."""
+    rng = np.random.default_rng(seed)
+    h, mlp, L = cfg["hidden"], cfg["hidden"] * cfg["mlp_ratio"], \
+        cfg["num_layers"]
+    nh = cfg["num_heads"]
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape, dtype=np.float32) * std)
+
+    def dense(shape_in, shape_out):
+        fan_in = int(np.prod(shape_in))
+        return {"kernel": normal(shape_in + shape_out, fan_in ** -0.5),
+                "bias": normal(shape_out, 0.02)}
+
+    def norm():
+        return {"scale": 1 + normal((h,), 0.1), "bias": normal((h,), 0.1)}
+
+    p = {"tok_embed": {"embedding": normal((cfg["vocab_size"], h),
+                                           h ** -0.5)},
+         "pos_embed": normal((cfg["max_len"], h), 0.02),
+         "head": dense((h,), (cfg["num_classes"],))}
+    for i in range(L):
+        p[f"attn_{i}"] = {n: dense((h,), (nh, h // nh))
+                          for n in ("query", "key", "value")}
+        p[f"attn_{i}"]["out"] = dense((nh, h // nh), (h,))
+        p[f"Dense_{2 * i}"] = dense((h,), (mlp,))
+        p[f"Dense_{2 * i + 1}"] = dense((mlp,), (h,))
+    for i in range(2 * L + 1):
+        p[f"LayerNorm_{i}"] = norm()
+    return {"params": p}
+
+
+def seq_inputs(cfg: dict, seed: int = 0) -> np.ndarray:
+    """(SEQ_BATCH, max_len) ids from ``hash_tokenize``: texts of random
+    words, long enough to fill the window but one row half of it (PAD
+    tokens, learned in a mask-free encoder)."""
+    from synapseml_tpu_torch.dl import hash_tokenize
+
+    rng = np.random.default_rng(seed)
+    n = cfg["max_len"]
+    lengths = [n + 100, n + 100, n // 2, n + 100]
+    texts = [" ".join(f"w{w}" for w in rng.integers(0, 50_000, size=ln))
+             for ln in lengths]
+    return hash_tokenize(texts, cfg["vocab_size"], n)
+
+
+def build_encoder(cfg: dict, dev):
+    from synapseml_tpu_torch.convert import text_encoder_from_reference
+    from synapseml_tpu_torch.dl import TransformerEncoder
+
+    model = TransformerEncoder(**cfg)
+    model.load_state_dict(text_encoder_from_reference(reference_params(cfg)))
+    return model.to(dev).eval()
+
+
+def _seq_rank(rank: int, workdir: str, dev: str, cfg: dict) -> None:
+    """One rank of the seq path (spawned): the encoder ``cfg`` forward in
+    scope, ring then Ulysses, on ``dev`` (the card, shared with the other
+    rank)."""
+    sys.path.insert(0, str(REPO))
+    from synapseml_tpu_torch.dl import (seq_attention_scope,
+                                        sharded_self_attention)
+    from synapseml_tpu_torch.ops import attention_kernel as ak
+    from synapseml_tpu_torch.parallel import (attention_reference,
+                                              collectives, init_distributed,
+                                              make_mesh)
+
+    init_distributed("gloo", os.path.join(workdir, "store"), rank, SEQ_RANKS,
+                     timeout_s=300)
+    mesh = make_mesh({"seq": SEQ_RANKS}, device=dev)
+    model = build_encoder(cfg, mesh.device)
+    ids = torch.as_tensor(seq_inputs(cfg), device=mesh.device)
+    report = {}
+    with torch.no_grad():
+        for variant in ("ring", "ulysses"):
+            with seq_attention_scope(mesh, variant):
+                model(ids)                           # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ak.reset_launch_counts()
+                collectives.reset_staging_counts()
+                t0 = time.perf_counter()
+                logits = model(ids)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(ak.LAUNCHES)
+            np.save(os.path.join(workdir, f"{variant}_{rank}.npy"),
+                    logits.cpu().numpy())
+            report[variant] = dict(
+                forward_s=wall, launches=launches,
+                staged_bytes=collectives.STAGING["bytes"],
+                staging_s=collectives.STAGING["seconds"],
+                comm_s=dict(collectives.COMM_SECONDS),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del logits
+        torch.cuda.empty_cache()
+        # the same inputs on every rank: a generator on the card, one seed
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(5)
+        q, k, v = (torch.randn(PADDED_SHAPE, generator=gen,
+                               device=mesh.device) for _ in range(3))
+        want = attention_reference(q, k, v)
+        for variant in ("ring", "ulysses"):
+            ak.reset_launch_counts()
+            got = sharded_self_attention(q, k, v, mesh, variant=variant)
+            torch.cuda.synchronize()
+            report[f"padded_{variant}"] = dict(
+                launches=dict(ak.LAUNCHES),
+                max_abs_err=float((got - want).abs().max()),
+                ok=bool(torch.allclose(got, want, rtol=FLASH_RTOL,
+                                       atol=FLASH_ATOL)))
+    with open(os.path.join(workdir, f"report_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def seq_path(dev: str, cfg: dict = ENCODER) -> dict:
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ids = seq_inputs(cfg)
+    model = build_encoder(cfg, dev)
+    log(f"  encoder built from flax-layout weights via the converter in "
+        f"{time.perf_counter() - t0:.2f}s; ids {ids.shape}, "
+        f"{int((ids != 0).sum())} non-PAD tokens")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ids_d = torch.as_tensor(ids, device=dev)
+        ref = model(ids_d)                          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = model(ids_d).cpu().numpy()
+        ref_s = time.perf_counter() - t0
+    log(f"  out of scope (plain attention, one process): forward "
+        f"{ref_s:.3f}s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, logits "
+        f"{ref.ravel().round(6).tolist()}")
+    if ref.shape != (SEQ_BATCH, cfg["num_classes"]) \
+            or not np.isfinite(ref).all():
+        raise AssertionError(f"reference logits bad: {ref}")
+    del model, ids_d
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        mp.spawn(_seq_rank, args=(workdir, f"{dev}:0", cfg),
+                 nprocs=SEQ_RANKS, join=True)
+        log(f"  {SEQ_RANKS} ranks spawned, ran and joined in "
+            f"{time.perf_counter() - t0:.1f}s")
+        reports = []
+        logits = {}
+        for r in range(SEQ_RANKS):
+            with open(os.path.join(workdir, f"report_{r}.json")) as f:
+                reports.append(json.load(f))
+            for variant in ("ring", "ulysses"):
+                logits[variant, r] = np.load(
+                    os.path.join(workdir, f"{variant}_{r}.npy"))
+    want = {"ring": {"flash_attention_block": 2 * cfg["num_layers"],
+                     "flash_attention": 0},
+            "ulysses": {"flash_attention": cfg["num_layers"],
+                        "flash_attention_block": 0}}
+    for variant in ("ring", "ulysses"):
+        for r, rep in enumerate(reports):
+            x = rep[variant]
+            got = logits[variant, r]
+            err = float(np.abs(got - ref).max())
+            log(f"  {variant} rank {r}: forward {x['forward_s']:.3f}s, "
+                f"staging {x['staging_s']:.3f}s for "
+                f"{x['staged_bytes'] / 2**20:.1f} MiB, collectives "
+                f"{json.dumps({k: round(v, 4) for k, v in x['comm_s'].items()})}"
+                f", peak device memory {x['peak_gib']:.3f} GiB, launches "
+                f"{json.dumps(x['launches'])}, max |logits - out of scope| "
+                f"{err:.3g}")
+            if not np.allclose(got, ref, rtol=SEQ_RTOL, atol=SEQ_ATOL):
+                raise AssertionError(f"{variant} rank {r}: logits disagree "
+                                     "with the encoder out of scope")
+            if x["launches"] != want[variant]:
+                raise AssertionError(f"{variant} rank {r}: launches "
+                                     f"{x['launches']}, expected "
+                                     f"{want[variant]}")
+    padded_want = {"ring": {"flash_attention_block": 2, "flash_attention": 0},
+                   "ulysses": {"flash_attention": 1,
+                               "flash_attention_block": 0}}
+    for variant in ("ring", "ulysses"):
+        for r, rep in enumerate(reports):
+            x = rep[f"padded_{variant}"]
+            log(f"  padded {PADDED_SHAPE} {variant} rank {r}: launches "
+                f"{json.dumps(x['launches'])}, max |sharded - reference| "
+                f"{x['max_abs_err']:.3g}")
+            if not x["ok"] or x["launches"] != padded_want[variant]:
+                raise AssertionError(f"padded {variant} rank {r}: expected "
+                                     f"{padded_want[variant]} launches "
+                                     "and agreement with the reference")
+    diff = max(float(np.abs(logits["ring", r] - logits["ulysses", r]).max())
+               for r in range(SEQ_RANKS))
+    log(f"  ring vs Ulysses: max |logits diff| {diff:.3g}")
+    if not all(np.allclose(logits["ring", r], logits["ulysses", r],
+                           rtol=VARIANT_TOL, atol=VARIANT_TOL)
+               for r in range(SEQ_RANKS)):
+        raise AssertionError("ring and Ulysses logits disagree")
+    return {name: sum(rep[v]["launches"][name] for rep in reports)
+            for v, name in (("ring", "flash_attention_block"),
+                            ("ulysses", "flash_attention"))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -537,16 +994,28 @@ def main() -> int:
     for policy in ("leafwise", "depthwise"):
         profile_phase(ds, dev, policy)
 
+    log("[7] flash kernels against their plain versions")
+    del ds
+    torch.cuda.empty_cache()
+    flash = flash_kernel_phase(dev)
+    log(f"[8] seq path: TransformerEncoder(mask_free=True) on {SEQ_RANKS} "
+        f"ranks sharing the card, batch {SEQ_BATCH} x {ENCODER['max_len']}")
+    seq_launches = seq_path(dev)
+
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
-                **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS}}
-    source = "synapseml_tpu_torch/csrc/hist_kernel.cu"
+                **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},
+                **seq_launches}
+    sources = {**{k: "synapseml_tpu_torch/csrc/hist_kernel.cu"
+                  for k in kernels},
+               **{k: "synapseml_tpu_torch/csrc/attention_kernel.cu"
+                  for k in flash}}
     line = {"kernels": [
-        {"name": name, "route": "cuda", "source": source,
+        {"name": name, "route": "cuda", "source": sources[name],
          "replaces": r["replaces"], "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        for name, r in kernels.items()]}
+        for name, r in {**kernels, **flash}.items()]}
     log(f"    total {time.perf_counter() - t_start:.1f}s")
     log(card)
     log(json.dumps(line))

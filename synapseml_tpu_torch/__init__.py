@@ -7,18 +7,27 @@ module's counterpart sits at the same relative path.
 Ported so far: the LightGBM classifier path, end to end —
 ``Table`` → ``assemble_features`` → ``LightGBMClassifier.fit`` →
 ``train_booster`` → leaf-wise ``grow_tree`` → ``transform`` /
-``saveNativeModel``. Its two histogram kernels are hand-written CUDA C++ for
-``sm_90a`` (``csrc/hist_kernel.cu``), built with ``nvcc`` at first use.
+``saveNativeModel``, and depthwise growth. Its histogram kernels are
+hand-written CUDA C++ for ``sm_90a`` (``csrc/hist_kernel.cu``), built with
+``nvcc`` at first use. And the sequence-parallel text encoder forward:
+``TransformerEncoder(mask_free=True)`` inside ``seq_attention_scope`` on a
+``torch.distributed`` mesh, with ring and Ulysses attention through the
+hand-written flash kernels of ``csrc/attention_kernel.cu``.
 
 Every public entry point takes ``device`` (default ``"cuda"``). A CUDA
 tensor goes through the hand-written kernel or the call raises; the plain
 PyTorch version of a kernel runs only for tensors on the CPU.
 
-  core/    — Params, Table, Estimator/Model, device resolution, logging
-  ops/     — quantile binning, histogram kernels and their CUDA build
-  gbdt/    — objectives, leaf-wise grower, boosting loop, model strings
-  models/  — LightGBMClassifier / LightGBMClassificationModel
-  convert  — carry a JAX-trained booster across as numpy arrays
+  core/     — Params, Table, Estimator/Model, device resolution, logging
+  ops/      — quantile binning, histogram and flash-attention kernels and
+              their CUDA build
+  gbdt/     — objectives, leaf-wise and depthwise growers, boosting loop,
+              model strings
+  models/   — LightGBMClassifier / LightGBMClassificationModel
+  parallel/ — meshes over torch.distributed, seq-axis collectives, ring and
+              Ulysses attention
+  dl/       — flax's layers, transformer units and the text encoder
+  convert   — carry a JAX-trained booster or flax parameters across
 """
 
 __version__ = "0.1.0"

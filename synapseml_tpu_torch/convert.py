@@ -15,14 +15,21 @@ format is a flat ``{name: np.ndarray}`` dict plus a ``BoosterConfig`` dict:
 ``booster_arrays`` reads that format off either package's ``Booster`` (it
 only reads attributes, so it needs neither package's framework), and
 ``booster_from_reference`` builds this package's ``Booster`` from it.
+
+The text modules (``dl.text.TransformerEncoder`` and the units of
+``dl.backbones``) keep flax's parameter names and layouts, so
+``text_encoder_from_reference`` turns a flax parameter tree of the JAX
+package's modules into this package's ``state_dict`` by flattening it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .core.device import DEFAULT_DEVICE
 from .gbdt.boosting import Booster, BoosterConfig
@@ -79,3 +86,27 @@ def booster_from_reference(arrays: Dict[str, np.ndarray], config: dict,
                    np.asarray(arrays["init_score"], np.float64),
                    feature_names, thresholds=per_tree["thresholds"],
                    missing_types=per_tree["missing_types"], device=device)
+
+
+def text_encoder_from_reference(params) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of this package's ``TransformerEncoder`` from the
+    JAX package's flax parameters of the same configuration: the nested
+    dict of arrays that ``model.init`` returns (with or without its
+    ``"params"`` level), path components joined with ``"."``. The same
+    serves ``TransformerLayerUnit``, ``TextEmbedUnit`` and ``TextClsHead``.
+    Load it with ``module.load_state_dict(sd)``, which checks every name
+    and shape."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{name}.")
+            else:
+                out[prefix + name] = torch.from_numpy(
+                    np.array(value, dtype=np.float32))
+
+    walk(params, "")
+    return out

@@ -1,0 +1,221 @@
+"""Transformer units and sequence-parallel attention routing.
+
+Counterpart of the text part of the JAX package's ``dl/backbones.py``
+(``TextEmbedUnit``, ``TransformerLayerUnit``, ``TextClsHead`` and the
+``seq`` routing). Inside ``seq_attention_scope(mesh, variant)`` the
+attention of ``TransformerLayerUnit`` and of a mask-free
+``dl.text.TransformerEncoder`` runs sharded over the mesh's ``seq`` axis
+(ring or Ulysses) instead of the default attention, with the same
+parameters; outside a scope, or on a mesh whose ``seq`` axis has fewer than
+2 ranks, the default attention applies.
+
+Every rank of the mesh runs the model on the same global inputs and gets
+the same global outputs, as under the JAX package's ``shard_map``. In
+between, a rank holds only its shard of the activations: the module cuts
+this rank's (batch, sequence) shard once (``SeqShard.take``), runs its
+layers on it (everything but attention is per token; the attention function
+``seq_attention_fn`` gives works on shards) and gathers once at its end
+(``SeqShard.gather``, or ``SeqShard.first_token`` before the encoder's
+[CLS] head).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import DATA_AXIS, SEQ_AXIS
+from .layers import (Dense, Embed, LayerNorm, MultiHeadDotProductAttention,
+                     gelu)
+
+_SEQ_SCOPE: list = []
+
+
+class TextEmbedUnit(nn.Module):
+    """Token + learned positional embedding (first stage of the staged text
+    encoder)."""
+
+    def __init__(self, vocab_size: int, hidden: int, max_len: int):
+        super().__init__()
+        self.Embed_0 = Embed(vocab_size, hidden)
+        self.pos_embed = nn.Parameter(torch.randn(max_len, hidden) * 0.02)
+
+    def forward(self, ids: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.Embed_0(ids)
+        return x + self.pos_embed[None, : x.shape[1]].to(x.dtype)
+
+
+@contextlib.contextmanager
+def seq_attention_scope(mesh, variant: str = "ring"):
+    """Route the attention of ``TransformerLayerUnit`` and of a mask-free
+    ``TransformerEncoder`` over ``mesh``'s ``seq`` axis for every forward
+    run inside the scope. ``variant`` is "ring" (K/V rotation) or "ulysses"
+    (all-to-all head scatter)."""
+    _SEQ_SCOPE.append((mesh, variant))
+    try:
+        yield
+    finally:
+        _SEQ_SCOPE.pop()
+
+
+def active_seq_mesh():
+    """The (mesh, variant) of the innermost active scope whose mesh carries
+    a ``seq`` axis of size > 1, else None."""
+    if not _SEQ_SCOPE:
+        return None
+    mesh, variant = _SEQ_SCOPE[-1]
+    if mesh is None or SEQ_AXIS not in mesh.shape or mesh.shape[SEQ_AXIS] < 2:
+        return None
+    return mesh, variant
+
+
+class SeqShard:
+    """This rank's (batch, sequence) shard of global ``[B, S, ...]``
+    activations on ``mesh``: a sequence that does not divide the ``seq``
+    axis is zero-padded up to the shard grid, and ``kv_len`` (None when
+    nothing was padded) tells the attention to drop the padded keys; the
+    batch rides the ``data`` axis when there is one and it divides B."""
+
+    def __init__(self, mesh, batch: int, seq_len: int):
+        self.mesh, self.seq_len = mesh, seq_len
+        sp = mesh.shape[SEQ_AXIS]
+        self.pad = (-seq_len) % sp
+        self.kv_len = seq_len if self.pad else None
+        shard = (seq_len + self.pad) // sp
+        i = mesh.axis_index(SEQ_AXIS)
+        self.seq = slice(i * shard, (i + 1) * shard)
+        dp = mesh.shape.get(DATA_AXIS, 1)
+        self.by_data = dp > 1 and batch % dp == 0
+        self.rows = slice(None)
+        if self.by_data:
+            b = batch // dp
+            j = mesh.axis_index(DATA_AXIS)
+            self.rows = slice(j * b, (j + 1) * b)
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the global ``x``."""
+        if self.pad:
+            x = F.pad(x, (0, 0) * (x.dim() - 2) + (0, self.pad))
+        return x[self.rows, self.seq]
+
+    def _gather_rows(self, y: torch.Tensor) -> torch.Tensor:
+        return (all_gather(y, self.mesh.group(DATA_AXIS), axis=0)
+                if self.by_data else y)
+
+    def gather(self, y: torch.Tensor) -> torch.Tensor:
+        """The global tensor of every rank's shard ``y``, padding removed."""
+        y = all_gather(y, self.mesh.group(SEQ_AXIS), axis=1)
+        return self._gather_rows(y[:, :self.seq_len])
+
+    def first_token(self, y: torch.Tensor) -> torch.Tensor:
+        """Global position 0 of every row, ``[B, 1, ...]`` (the first
+        ``seq`` rank holds it)."""
+        y = all_gather(y[:, :1], self.mesh.group(SEQ_AXIS), axis=1)
+        return self._gather_rows(y[:, :1])
+
+
+def active_seq_shard(x: torch.Tensor) -> Optional[SeqShard]:
+    """The ``SeqShard`` of the global activations ``x`` on the active
+    scope's mesh, or None when no scope is active."""
+    active = active_seq_mesh()
+    return None if active is None else SeqShard(active[0], *x.shape[:2])
+
+
+def _variant_fn(variant: str):
+    from ..parallel.ring_attention import ring_self_attention
+    from ..parallel.ulysses import ulysses_self_attention
+
+    if variant not in ("ring", "ulysses"):
+        raise ValueError(f"unknown seq attention variant {variant!r}; "
+                         "expected 'ring' or 'ulysses'")
+    return ring_self_attention if variant == "ring" else \
+        ulysses_self_attention
+
+
+def sharded_self_attention(q, k, v, mesh, variant: str = "ring",
+                           causal: bool = False, scale=None) -> torch.Tensor:
+    """Seq-sharded self-attention of the global ``[B, S, H, D]`` q/k/v (the
+    same on every rank of ``mesh``); returns the global output on every
+    rank: this rank's shard is cut, run through the variant and gathered
+    back (see ``SeqShard`` for padding and the batch)."""
+    fn = _variant_fn(variant)
+    shard = SeqShard(mesh, *q.shape[:2])
+    out = fn(shard.take(q), shard.take(k), shard.take(v), mesh,
+             causal=causal, scale=scale, kv_len=shard.kv_len)
+    return shard.gather(out)
+
+
+def seq_attention_fn(kv_len: Optional[int] = None) -> Optional[Any]:
+    """An ``attention_fn`` for ``MultiHeadDotProductAttention`` that runs
+    the scoped seq-sharded variant on THIS rank's shard of q/k/v (cut by a
+    ``SeqShard``, whose ``kv_len`` it takes), or None when no scope is
+    active (the default attention applies)."""
+    active = active_seq_mesh()
+    if active is None:
+        return None
+    mesh, variant = active
+    fn = _variant_fn(variant)
+
+    def _attn(query, key, value, mask=None, dropout_rate: float = 0.0,
+              deterministic: bool = True, **_kw):
+        if mask is not None:
+            raise ValueError("sequence-parallel attention is mask-free "
+                             "(TransformerLayerUnit's contract); got a mask")
+        if dropout_rate and not deterministic:
+            raise ValueError("attention-weight dropout is unsupported under "
+                             "sequence parallelism; set dropout=0.0")
+        return fn(query, key, value, mesh, kv_len=kv_len)
+
+    return _attn
+
+
+class TransformerLayerUnit(nn.Module):
+    """One pre-LN transformer encoder layer as a pipeline unit, attending
+    over the full window without a padding mask. Inside a
+    ``seq_attention_scope`` the attention runs seq-sharded (ring or
+    Ulysses) with the same parameters."""
+
+    def __init__(self, hidden: int, heads: int, mlp_dim: int,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.dropout = dropout
+        self.LayerNorm_0 = LayerNorm(hidden)
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
+            hidden, heads, dropout_rate=dropout)
+        self.LayerNorm_1 = LayerNorm(hidden)
+        self.Dense_0 = Dense(hidden, mlp_dim)
+        self.Dense_1 = Dense(mlp_dim, hidden)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.dropout and train:
+            raise NotImplementedError("dropout in training is not ported "
+                                      "yet; run with train=False")
+        shard = active_seq_shard(x)
+        if shard is not None:
+            x = shard.take(x)
+        h = self.LayerNorm_0(x)
+        h = self.MultiHeadDotProductAttention_0(
+            h, h, deterministic=not train,
+            attention_fn=seq_attention_fn(None if shard is None
+                                          else shard.kv_len))
+        x = x + h
+        h = self.LayerNorm_1(x)
+        x = x + self.Dense_1(gelu(self.Dense_0(h)))
+        return x if shard is None else shard.gather(x)
+
+
+class TextClsHead(nn.Module):
+    """LayerNorm + first-token (CLS) classifier head unit."""
+
+    def __init__(self, hidden: int, num_classes: int):
+        super().__init__()
+        self.LayerNorm_0 = LayerNorm(hidden)
+        self.head = Dense(hidden, num_classes)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.head(self.LayerNorm_0(x)[:, 0])
