@@ -20,7 +20,10 @@ Phases, each of which fails the run if it fails:
    timed with CUDA events beside its plain version, one
    ``index_put_(accumulate=True)`` call (a yardstick the port never calls)
    and its bound on the H100 (bytes over 3.35 TB/s, float32 adds over
-   67 TFLOP/s, the larger);
+   67 TFLOP/s, the larger); ``child_histogram`` and ``range_histogram``
+   again on fit-shaped bins (the padded features all in bin 0, held to the
+   float64 sum within ``PAD_SUM_ULPS`` units of roundoff of the sum of
+   magnitudes);
 3. main path: ``LightGBMClassifier(numIterations=10, numLeaves=31,
    maxBin=255).fit`` on a HIGGS-shaped ``Table`` (28 dense float32
    features, ``--rows`` rows), then ``.transform`` and ``saveNativeModel``;
@@ -40,11 +43,12 @@ Phases, each of which fails the run if it fails:
    in the causal future, ``m = -inf`` rows), rtol 2e-4 / atol 2e-5 in
    float32 and 8e-3 / 1e-3 in bf16 (both sides round p to bf16); then at the seq path's shapes (Ulysses:
    (4, 8192, 4, 32) per rank; ring step: (4, 4096, 8, 32) against 4096 keys)
-   each timed beside its plain version, its bound (float32 flops over
-   67 TFLOP/s or bytes over 3.35 TB/s, the larger) and, for
+   each timed beside its plain version, its bound on the tensor cores
+   (float32 as three TF32 products per product over 495 TFLOP/s, bf16
+   over 989 TFLOP/s, or bytes over 3.35 TB/s, the larger) and, for
    ``flash_attention``, one ``scaled_dot_product_attention`` call (a
    yardstick the port never calls; no single PyTorch call computes the
-   ring's carried-state step);
+   ring's carried-state step); causal and bf16 cases timed as well;
 8. seq path: ``TransformerEncoder(mask_free=True)`` at
    ``DeepTextClassifier``'s widths (vocab 32768, 4 layers, 8 heads, hidden
    256, MLP 1024; float32, random weights from a seed in the JAX package's
@@ -86,7 +90,20 @@ REPO = Path(__file__).resolve().parent
 FEATURES = 28
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM tensor cores, TF32, dense
+BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, bf16, dense
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-3
+# fit-shaped histograms: a padded feature's one bin sums every row of the
+# range in float32, held to the float64 sum within
+# PAD_SUM_ULPS * 2^-24 * sum |x|. A summation tree of depth d is within
+# d * 2^-24 * sum |x| in any order (Higham, Accuracy and Stability, eq.
+# 4.4); the kernels' trees are about 500 adds deep at 2M rows (a warp's 5
+# shuffles, a block's warp sums, one add per block), but their errors mostly
+# cancel: the largest gaps read on an H100 80GB HBM3 at 700 W were 11 units
+# for h (terms of one sign) and 0.03 for g (either sign; PERF.md §6).
+# 100 leaves 9x room above h's reading and is a fifth of the worst case of a
+# tree that deep, so g lost for one lane of every warp is far outside it.
+PAD_SUM_ULPS = 100
 CROSS_TOL = 1e-3
 FLASH_RTOL, FLASH_ATOL = 2e-4, 2e-5      # float32: FMA order differs
 # bf16 inputs: both sides round p to bf16 before the PV product, but against
@@ -235,6 +252,7 @@ def kernel_phase(rows: int, dev: str) -> dict:
         replaces="synapseml_tpu/ops/hist_kernel.py:219", max_abs_err=rerr,
         ms=t_range, plain_ms=t_range_plain, bound_ms=bnd, bound_by=by,
         library_ms=t_range_lib, shape=f"FP={FP} n={rows} B={B} length={ln}")
+    fit_shaped_phase(bT, g, h, m, B, compare, results, iters)
     del bT, g, h, m
     torch.cuda.empty_cache()
     results["level_histograms"] = level_kernel_phase(rows, dev, compare)
@@ -244,6 +262,70 @@ def kernel_phase(rows: int, dev: str) -> dict:
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"-> {r['bound_ms'] / r['ms']:.1%} of bound")
     return results
+
+
+def fit_shaped_phase(bT, g, h, m, B: int, compare, results: dict,
+                     iters: int) -> None:
+    """``child_histogram`` and ``range_histogram`` (length n/2) checked and
+    timed on the bins as the fit has them: ``transpose_bins`` leaves the
+    padded features FEATURES..FP-1 with every row in bin 0 (``bT`` is
+    overwritten in place). The real features are held to the plain version
+    at the phase's tolerance. A padded feature puts every row of the range
+    into one float32 sum, whose summation order alone exceeds rtol 1e-5;
+    it is held to the float64 sum of the same bf16-rounded values within
+    ``PAD_SUM_ULPS * 2^-24 * sum |x|`` (see there), with exact counts
+    (integers below 2^24 add exactly) and every other bin exactly 0. Adds
+    ``fit_ms``/``fit_err`` to the two kernels' ``results``."""
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    FP, rows = bT.shape
+    bT[FEATURES:] = 0
+    vals = hk._rounded_values(g, h, m).double()
+
+    def check(label, got, want, s, ln):
+        err = compare(f"{label} real features", got[:FEATURES],
+                      want[:FEATURES])
+        v = vals[s:s + ln]
+        unit = 2.0 ** -24 * v.abs().sum(0)  # one roundoff of sum |x|
+        exact, bound = v.sum(0), PAD_SUM_ULPS * unit
+        pad = got[FEATURES:].double()
+        gap = (pad[:, 0] - exact).abs().amax(0)
+        ok = (bool((gap[:2] <= bound[:2]).all())
+              and bool((pad[:, 0, 2] == exact[2]).all())
+              and not pad[:, 1:].any())
+        log(f"  {label} padded features (one bin, {ln} rows): |kernel - "
+            f"float64| g={gap[0]:.3g} ({gap[0] / unit[0]:.3g} units) "
+            f"h={gap[1]:.3g} ({gap[1] / unit[1]:.3g} units) "
+            f"count={gap[2]:.3g}, limit g={bound[0]:.3g} h={bound[1]:.3g} "
+            f"({PAD_SUM_ULPS} units) -> "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{label}: padded features outside "
+                                 "PAD_SUM_ULPS of the float64 sum")
+        return err
+
+    fit_err = {"child_histogram": check(
+        f"child_histogram fit-shaped n={rows}",
+        hk.child_histogram(bT, g, h, m, B), hk._hist_plain(bT, g, h, m, B),
+        0, rows)}
+    s, ln = rows // 4, rows // 2
+    st = torch.tensor(s, dtype=torch.int32, device=bT.device)
+    le = torch.tensor(ln, dtype=torch.int32, device=bT.device)
+    fit_err["range_histogram"] = check(
+        f"range_histogram fit-shaped [{s}, {s + ln})",
+        hk.range_histogram(bT, g, h, m, st, le, B),
+        hk._range_hist_plain(bT, g, h, m, s, ln, B), s, ln)
+    fit_ms = {
+        "child_histogram": time_ms(
+            lambda: hk.child_histogram(bT, g, h, m, B), iters),
+        "range_histogram": time_ms(
+            lambda: hk.range_histogram(bT, g, h, m, st, le, B), iters)}
+    for name in fit_ms:
+        r = results[name]
+        r["fit_ms"], r["fit_err"] = fit_ms[name], fit_err[name]
+        log(f"  {name} fit-shaped (features {FEATURES}-{FP - 1} in bin 0) "
+            f"[{r['shape']}]: kernel_ms={fit_ms[name]:.4f} (random bins "
+            f"{r['ms']:.4f}) bound_ms={r['bound_ms']:.4f}")
 
 
 def _index_put(flat, g, h, m, FP: int, size: int):
@@ -535,22 +617,26 @@ def profile_phase(ds, dev: str, policy: str) -> None:
 # ---------------------------------------------------------------------------
 
 def attention_bound_ms(B, H, Sq, Sk, D, elem_bytes, causal=False,
-                       state=False) -> tuple:
+                       state=False, q_offset=0, k_offset=0) -> tuple:
     """(least milliseconds on an H100, what bounds it) for attention of
-    (B, Sq, H, D) queries over Sk keys: 4*D float32 flops per live
-    (query, key) pair (QK^T and PV, an FMA being two), the live pairs
-    counted under a causal mask; q/k/v read once and the output written
-    once (a carried state read and written once more)."""
+    (B, Sq, H, D) queries over Sk keys on the route the card offers, the
+    tensor cores: 2*D products per live (query, key) pair (QK^T and PV),
+    two flops each, the live pairs counted under a causal mask at the given
+    offsets. float32 inputs take three TF32 products per float32 product
+    (3xTF32, the float32-accurate route) over 495 TFLOP/s, bf16 inputs one
+    over 989 TFLOP/s. Bytes: q/k/v read once and the output written once
+    (a carried state read and written once more) over 3.35 TB/s."""
     if causal:
-        rows = np.arange(Sq, dtype=np.int64)
+        rows = np.arange(Sq, dtype=np.int64) + q_offset - k_offset
         pairs = int(np.clip(rows + 1, 0, Sk).sum())
     else:
         pairs = Sq * Sk
-    ops = 4 * B * H * pairs * D
+    flops = 4 * B * H * pairs * D
+    t_ops = (3 * flops / TF32_OPS_PER_S if elem_bytes == 4
+             else flops / BF16_OPS_PER_S) * 1e3
     bytes_ = elem_bytes * B * H * D * (Sq + 2 * Sk) + 4 * B * Sq * H * D
     if state:
         bytes_ += 4 * (2 * B * H * Sq + B * Sq * H * D)
-    t_ops = ops / F32_OPS_PER_S * 1e3
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -683,11 +769,21 @@ def path_shape_phase(dev: str, gen, fa_err: float, fb_err: float) -> dict:
     qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     t_lib = time_ms(lambda: F.scaled_dot_product_attention(qT, kT, vT,
                                                            scale=scale), 5)
-    t_causal = time_ms(lambda: ak.flash_attention(q, k, v, causal=True), 10)
     bnd, by = attention_bound_ms(B, hu, S, S, D, 4)
-    bnd_c, _ = attention_bound_ms(B, hu, S, S, D, 4, causal=True)
-    log(f"  flash_attention causal at the same shape: kernel_ms="
-        f"{t_causal:.4f} bound_ms={bnd_c:.4f}")
+    for causal, dtype in ((True, torch.float32), (False, torch.bfloat16),
+                          (True, torch.bfloat16)):
+        qc, kc, vc = (x.to(dtype) for x in (q, k, v))
+        t_c = time_ms(lambda: ak.flash_attention(qc, kc, vc, causal=causal),
+                      10)
+        qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (qc, kc, vc))
+        t_l = time_ms(lambda: F.scaled_dot_product_attention(
+            qT, kT, vT, is_causal=causal, scale=scale), 5)
+        b_c, by_c = attention_bound_ms(B, hu, S, S, D, qc.element_size(),
+                                       causal=causal)
+        log(f"  flash_attention causal={causal} {str(dtype)[6:]} at the "
+            f"same shape: kernel_ms={t_c:.4f} library_ms={t_l:.4f} "
+            f"bound_ms={b_c:.4f} ({by_c}) -> {b_c / t_c:.1%} of bound")
+    del qc, kc, vc
     results["flash_attention"] = dict(
         replaces="synapseml_tpu/ops/attention_kernel.py:37",
         max_abs_err=fa_err, ms=t_kernel, plain_ms=t_plain, bound_ms=bnd,
@@ -711,6 +807,19 @@ def path_shape_phase(dev: str, gen, fa_err: float, fb_err: float) -> dict:
         lambda: _block_attention(q, k, v, m, l, o, s_local, 0, False, scale),
         3)
     bnd, by = attention_bound_ms(B, H, s_local, s_local, D, 4, state=True)
+    # the ring's diagonal step (causal, equal offsets) and bf16 inputs
+    for causal, dtype in ((True, torch.float32), (False, torch.bfloat16)):
+        qc, kc, vc = (x.to(dtype) for x in (q, k, v))
+        t_c = time_ms(lambda: ak.flash_attention_block(
+            qc, kc, vc, m, l, o, s_local, s_local, causal=causal), 10)
+        b_c, by_c = attention_bound_ms(B, H, s_local, s_local, D,
+                                       qc.element_size(), causal=causal,
+                                       state=True)
+        log(f"  flash_attention_block causal={causal} {str(dtype)[6:]} "
+            f"(offsets {s_local}, {s_local}) at the same shape: kernel_ms="
+            f"{t_c:.4f} bound_ms={b_c:.4f} ({by_c}) -> {b_c / t_c:.1%} of "
+            "bound")
+    del qc, kc, vc
     results["flash_attention_block"] = dict(
         replaces="synapseml_tpu/ops/attention_kernel.py:253",
         max_abs_err=fb_err, ms=t_kernel, plain_ms=t_plain, bound_ms=bnd,

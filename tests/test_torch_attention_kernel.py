@@ -322,6 +322,60 @@ def test_cuda_flash_block_matches_plain(cuda, q_off, k_off, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,s_k,d,q_off,k_off,causal", [
+    (15, 63, 8, 0, 0, True), (16, 64, 32, 0, 0, False),
+    (17, 65, 32, 37, 5, True), (127, 129, 64, 0, 0, True),
+    (129, 31, 64, 70, 3, True), (128, 200, 32, 300, 101, True),
+    (300, 100, 32, 0, 0, True), (257, 33, 32, 10, 3, True),
+])
+def test_cuda_tile_edges_match_plain(cuda, s, s_k, d, q_off, k_off, causal):
+    """Query rows around the warp (16 or 32 rows) and block (128 or 256
+    rows) edges, keys around the 32-key tiles, head dims 8, 32 and 64, and
+    offsets that divide neither, for both kernels in float32 (the block
+    kernel from an empty and a carried state)."""
+    q, k, v = (x.to(cuda) for x in _t(*_qkv(seed=s + d, b=1, s=s, s_k=s_k,
+                                             h=3, d=d)))
+    if q_off == 0 and k_off == 0:
+        got = tak.flash_attention(q, k, v, causal=causal)
+        want = tak._xla_fallback(q, k, v, causal, d ** -0.5, 128)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+    for state in (_empty_state(1, s, 3, d), _state(1, s, 3, d, 2)):
+        m, l, o = (x.to(cuda) for x in _t(*state))
+        mk, lk, ok = tak.flash_attention_block(q, k, v, m, l, o, q_off,
+                                               k_off, causal=causal)
+        mp, lp, op = tra._block_attention(q, k, v, m, l, o, q_off, k_off,
+                                          causal, d ** -0.5)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(mp)
+        np.testing.assert_allclose(mk[fin].cpu().numpy(),
+                                   mp[fin].cpu().numpy(), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+        denom = torch.where(lp > 0, lp, 1.0).transpose(1, 2)[..., None]
+        np.testing.assert_allclose((ok / denom).cpu().numpy(),
+                                   (op / denom).cpu().numpy(), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_block_future_step_is_bit_identical(cuda):
+    """A step wholly in the causal future leaves l and o bit-identical,
+    also where only some warps of a block see no key."""
+    q, k, v = (x.to(cuda) for x in _t(*_qkv(seed=9, b=1, s=140, s_k=64,
+                                             h=2, d=32)))
+    m, l, o = (x.to(cuda) for x in _t(*_state(1, 140, 2, 32, 3)))
+    _, l2, o2 = tak.flash_attention_block(q, k, v, m, l, o, 0, 40,
+                                          causal=True)
+    torch.cuda.synchronize()
+    # rows 0..39 see no key: their l and o must not move at all
+    assert torch.equal(l2[:, :, :40], l[:, :, :40])
+    assert torch.equal(o2[:, :40], o[:, :40])
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     q, k, v = (x.to(cuda) for x in _t(*_qkv(s=16, d=8)))
     m, l, o = _t(*_empty_state(2, 16, 2, 8))

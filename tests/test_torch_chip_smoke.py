@@ -1,0 +1,169 @@
+"""The host-side arithmetic of ``chip_smoke.py``'s kernel checks.
+
+The card runs the checks; what they compute from shapes alone (the bounds
+written beside each kernel's time) and the fit-shaped histogram check's
+limit on the padded features' float32 sums are held here, on the CPU, where
+the histogram wrappers take their plain versions.
+"""
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke as cs  # noqa: E402
+from synapseml_tpu_torch.ops import hist_kernel as hk  # noqa: E402
+
+
+def test_attention_bound_float32_is_3xtf32_on_the_tensor_cores():
+    # Ulysses shape: 4*B*H*S*S*D flops, three TF32 products each
+    ms, by = cs.attention_bound_ms(4, 4, 8192, 8192, 32, 4)
+    flops = 4 * 4 * 4 * 8192 * 8192 * 32
+    assert by == "operations"
+    assert ms == pytest.approx(3 * flops / 495e12 * 1e3)
+    assert ms == pytest.approx(0.833, abs=5e-4)
+    # the ring step with a carried state
+    ms, by = cs.attention_bound_ms(4, 8, 4096, 4096, 32, 4, state=True)
+    assert (round(ms, 3), by) == (0.416, "operations")
+
+
+def test_attention_bound_bf16_and_causal():
+    full, _ = cs.attention_bound_ms(4, 4, 8192, 8192, 32, 2)
+    assert full == pytest.approx(4 * 4 * 4 * 8192 * 8192 * 32 / 989e12 * 1e3)
+    causal, _ = cs.attention_bound_ms(4, 4, 8192, 8192, 32, 2, causal=True)
+    assert causal == pytest.approx(full * (8192 + 1) / (2 * 8192))
+    # the causal pairs follow the offsets: a step wholly in the future has
+    # none, the diagonal step half
+    none, by = cs.attention_bound_ms(1, 1, 64, 64, 32, 4, causal=True,
+                                     q_offset=0, k_offset=64)
+    assert by == "bytes" and none > 0
+    ring = (4, 8, 4096, 4096, 32, 4)
+    diag, _ = cs.attention_bound_ms(*ring, causal=True, q_offset=4096,
+                                    k_offset=4096)
+    past, _ = cs.attention_bound_ms(*ring, causal=True, q_offset=8192,
+                                    k_offset=0)
+    assert past == cs.attention_bound_ms(*ring)[0]
+    assert diag == pytest.approx(past * (4096 + 1) / (2 * 4096))
+
+
+def test_attention_bound_tiny_shapes_are_bound_by_bytes():
+    ms, by = cs.attention_bound_ms(1, 1, 4, 4, 8, 4)
+    assert by == "bytes"
+    assert ms == pytest.approx((4 * 8 * (4 + 8) + 4 * 4 * 8) / 3.35e12 * 1e3)
+
+
+def _fit_inputs(rows=6000, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    FP, B = hk.features_padded(cs.FEATURES), hk.pad_bins(255)
+    bT = torch.randint(0, B, (FP, rows), generator=gen, dtype=torch.int32)
+    m = (torch.rand(rows, generator=gen) > 0.2).float()
+    g = torch.randn(rows, generator=gen) * m
+    h = torch.rand(rows, generator=gen) * m
+    return bT, g, h, m, B
+
+
+def _compare(label, got, want):
+    assert torch.allclose(got[..., :2], want[..., :2], rtol=cs.KERNEL_RTOL,
+                          atol=cs.KERNEL_ATOL), label
+    assert torch.equal(got[..., 2], want[..., 2]), label
+    return float((got - want).abs().max())
+
+
+@pytest.fixture
+def no_timing(monkeypatch):
+    monkeypatch.setattr(cs, "time_ms", lambda fn, iters: (fn(), 0.0)[1])
+
+
+def test_fit_shaped_phase_holds_padded_features_to_float64(no_timing):
+    bT, g, h, m, B = _fit_inputs()
+    results = {"child_histogram": {"ms": 1.0, "bound_ms": 0.1, "shape": ""},
+               "range_histogram": {"ms": 1.0, "bound_ms": 0.1, "shape": ""}}
+    cs.fit_shaped_phase(bT, g, h, m, B, _compare, results, 1)
+    assert not bT[cs.FEATURES:].any()        # the padded features in bin 0
+    for r in results.values():
+        assert r["fit_ms"] == 0.0 and r["fit_err"] == 0.0
+
+
+def test_fit_shaped_phase_rejects_a_padded_sum_off_its_bound(no_timing,
+                                                             monkeypatch):
+    bT, g, h, m, B = _fit_inputs()
+    plain = hk._hist_plain
+
+    bound = cs.PAD_SUM_ULPS * 2.0 ** -24 * float(
+        hk._rounded_values(g, h, m)[:, 0].double().abs().sum())
+    for where, by in (((0, 0), 2 * bound),   # g off by twice its bound
+                      ((0, 2), 1.0),         # one count more: not exact
+                      ((3, 1), 1e-3)):       # a padded feature off bin 0
+        def off(*args, where=where, by=by):
+            out = plain(*args).clone()
+            out[cs.FEATURES, where[0], where[1]] += by
+            return out
+
+        monkeypatch.setattr(hk, "child_histogram", off)
+        results = {name: {"ms": 1.0, "bound_ms": 0.1, "shape": ""}
+                   for name in ("child_histogram", "range_histogram")}
+        with pytest.raises(AssertionError, match="PAD_SUM_ULPS"):
+            cs.fit_shaped_phase(bT.clone(), g, h, m, B, _compare, results, 1)
+
+
+def test_fit_shaped_phase_rejects_one_lane_of_g_lost(no_timing, monkeypatch):
+    # a kernel that drops one row's g from a padded feature's bin 0 (one
+    # lane of one warp-uniform add), counts and h intact: a shift of about 1
+    bT, g, h, m, B = _fit_inputs()
+    vals = hk._rounded_values(g, h, m)
+    row = int((vals[:, 0].abs() - 1.0).abs().argmin())
+    assert abs(float(vals[row, 0])) > 0.9
+    plain = hk._hist_plain
+
+    def lost(*args):
+        out = plain(*args).clone()
+        out[cs.FEATURES + 1, 0, 0] -= vals[row, 0]
+        return out
+
+    monkeypatch.setattr(hk, "child_histogram", lost)
+    results = {name: {"ms": 1.0, "bound_ms": 0.1, "shape": ""}
+               for name in ("child_histogram", "range_histogram")}
+    with pytest.raises(AssertionError, match="PAD_SUM_ULPS"):
+        cs.fit_shaped_phase(bT, g, h, m, B, _compare, results, 1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_fit_shaped_check_rejects_a_lane_lost_at_full_size(
+        cuda, tmp_path, monkeypatch, no_timing):
+    # a planted fault at chip_smoke's 2M rows: hist_kernel.cu with lane 31's
+    # g left out of every warp-uniform add (h and counts intact), built from
+    # a copy and put in place of the port's library
+    from synapseml_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "hist_kernel.cu").read_text()
+    old = "const float sg = warp_sum(ok ? gv : 0.f);"
+    assert src.count(old) == 1
+    cu = tmp_path / "hist_kernel.cu"
+    cu.write_text(src.replace(
+        old, "const float sg = warp_sum(ok && lane != 31 ? gv : 0.f);"))
+    so = tmp_path / "libhist_kernel_fault.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(cu)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    for fn, (argtypes, restype) in hk._SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    monkeypatch.setitem(_build._LIBS, "hist_kernel", lib)
+    bT, g, h, m, B = _fit_inputs(rows=2_000_000)
+    bT, g, h, m = (t.to(cuda) for t in (bT, g, h, m))
+    results = {name: {"ms": 1.0, "bound_ms": 0.1, "shape": ""}
+               for name in ("child_histogram", "range_histogram")}
+    with pytest.raises(AssertionError, match="PAD_SUM_ULPS"):
+        cs.fit_shaped_phase(bT, g, h, m, B, _compare, results, 1)

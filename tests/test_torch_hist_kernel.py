@@ -196,3 +196,45 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         thk.range_histogram(bT, g, h, m, torch.tensor(0), torch.tensor(5), 256)
     assert thk.LAUNCHES == before
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,fp,max_bin", [
+    (8192, 32, 255),        # four feature blocks, whole 32-row groups
+    (8195, 32, 255),        # a last 32-row group of 3 rows
+    (40_000, 40, 255),      # five feature blocks, several range blocks
+    (20_000, 8, 511),       # one feature block, B = 512
+])
+def test_cuda_contention_cases_match_plain(cuda, n, fp, max_bin):
+    """What the kernel's accumulate routine special-cases: a feature whose
+    rows all sit in one bin (a padded feature, a constant column), runs of
+    one bin, all-zero rows (skipped) in whole 32-row groups and scattered,
+    and ranges whose ends do not divide the 32-row groups or the blocks."""
+    B = thk.pad_bins(max_bin)
+    rng = np.random.default_rng(n + fp)
+    bT = rng.integers(0, max_bin, size=(fp, n)).astype(np.int32)
+    bT[fp - 4:] = 0                                 # warp-uniform bin
+    bT[1] = 7                                       # constant column
+    bT[2] = np.repeat(rng.integers(0, max_bin, size=-(-n // 50)), 50)[:n]
+    g = rng.normal(size=n).astype(np.float32)
+    h = rng.random(size=n).astype(np.float32)
+    m = np.ones(n, np.float32)
+    zero = rng.random(n) < 0.3
+    zero[64:160] = True                             # whole 32-row groups
+    g[zero], h[zero], m[zero] = 0.0, 0.0, 0.0
+    bT, g, h, m = [t.to(cuda) for t in _torch(bT, g, h, m)]
+    _assert_hist_close(thk.child_histogram(bT, g, h, m, B),
+                       thk._hist_plain(bT, g, h, m, B))
+    for s, ln in [(0, n), (1, n - 1), (33, 31), (100, 5000), (n - 37, 37),
+                  (3, 2048 * 3 + 5)]:
+        got = thk.range_histogram(bT, g, h, m, torch.tensor(s, device=cuda),
+                                  torch.tensor(ln, device=cuda), B)
+        _assert_hist_close(got, thk._range_hist_plain(bT, g, h, m, s, ln, B))
+
+
+@pytest.mark.cuda
+def test_cuda_all_zero_rows_give_an_empty_histogram(cuda):
+    n = 10_000
+    bT = torch.randint(0, 256, (16, n), dtype=torch.int32, device=cuda)
+    z = torch.zeros(n, device=cuda)
+    assert not thk.child_histogram(bT, z, z, z, 256).any()
+    assert not thk.range_histogram(bT, z, z, z, 5, n - 10, 256).any()
