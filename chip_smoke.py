@@ -20,10 +20,11 @@ Phases, each of which fails the run if it fails:
    timed with CUDA events beside its plain version, one
    ``index_put_(accumulate=True)`` call (a yardstick the port never calls)
    and its bound on the H100 (bytes over 3.35 TB/s, float32 adds over
-   67 TFLOP/s, the larger); ``child_histogram`` and ``range_histogram``
-   again on fit-shaped bins (the padded features all in bin 0, held to the
-   float64 sum within ``PAD_SUM_ULPS`` units of roundoff of the sum of
-   magnitudes);
+   67 TFLOP/s, the larger); all three again on fit-shaped bins (the padded
+   features all in bin 0, held to the float64 sum within ``PAD_SUM_ULPS``
+   units of roundoff of the sum of magnitudes; per slot for the level
+   kernel), the level kernel also at B = 512 and logged beside the tensor
+   floor of its one-hot design;
 3. main path: ``LightGBMClassifier(numIterations=10, numLeaves=31,
    maxBin=255).fit`` on a HIGGS-shaped ``Table`` (28 dense float32
    features, ``--rows`` rows), then ``.transform`` and ``saveNativeModel``;
@@ -285,14 +286,8 @@ def fit_shaped_phase(bT, g, h, m, B: int, compare, results: dict,
     def check(label, got, want, s, ln):
         err = compare(f"{label} real features", got[:FEATURES],
                       want[:FEATURES])
-        v = vals[s:s + ln]
-        unit = 2.0 ** -24 * v.abs().sum(0)  # one roundoff of sum |x|
-        exact, bound = v.sum(0), PAD_SUM_ULPS * unit
-        pad = got[FEATURES:].double()
-        gap = (pad[:, 0] - exact).abs().amax(0)
-        ok = (bool((gap[:2] <= bound[:2]).all())
-              and bool((pad[:, 0, 2] == exact[2]).all())
-              and not pad[:, 1:].any())
+        ok, gap, unit, bound = padded_check(got[FEATURES:].double(),
+                                            vals[s:s + ln])
         log(f"  {label} padded features (one bin, {ln} rows): |kernel - "
             f"float64| g={gap[0]:.3g} ({gap[0] / unit[0]:.3g} units) "
             f"h={gap[1]:.3g} ({gap[1] / unit[1]:.3g} units) "
@@ -328,6 +323,20 @@ def fit_shaped_phase(bT, g, h, m, B: int, compare, results: dict,
             f"{r['ms']:.4f}) bound_ms={r['bound_ms']:.4f}")
 
 
+def padded_check(pad, v) -> tuple:
+    """(ok, gap, unit, bound) of the padded features' histograms ``pad``
+    (P, B, 3) float64 over rows whose bf16-rounded values are ``v`` (rows, 3)
+    float64: bin 0 within ``PAD_SUM_ULPS`` units (one unit = 2^-24 * sum |x|)
+    of the float64 sum, exact counts, every other bin exactly 0."""
+    unit = 2.0 ** -24 * v.abs().sum(0)  # one roundoff of sum |x|
+    exact, bound = v.sum(0), PAD_SUM_ULPS * unit
+    gap = (pad[:, 0] - exact).abs().amax(0)
+    ok = (bool((gap[:2] <= bound[:2]).all())
+          and bool((pad[:, 0, 2] == exact[2]).all())
+          and not pad[:, 1:].any())
+    return ok, gap, unit, bound
+
+
 def _index_put(flat, g, h, m, FP: int, size: int):
     """The yardstick call: one index_put_(accumulate=True) of the
     bf16-rounded [g, h, m] of each (feature, row) at ``flat``, into a
@@ -338,7 +347,7 @@ def _index_put(flat, g, h, m, FP: int, size: int):
     return lambda: out.index_put_((flat,), vals, accumulate=True)
 
 
-def level_inputs(rows: int, dev: str, L: int = 31):
+def level_inputs(rows: int, dev: str, L: int = 31, B: int = 256):
     """Inputs of ``level_histograms`` at the depthwise path's shapes:
     ``rows`` rows in L chunk-aligned slots of uneven size (three of them own
     one empty chunk), padded to CAP = ceil(rows / CHUNK) * CHUNK + L * CHUNK
@@ -349,11 +358,11 @@ def level_inputs(rows: int, dev: str, L: int = 31):
     (bT, g, h, m, start_chunks, slot_of_row)."""
     from synapseml_tpu_torch.ops import hist_kernel as hk
 
-    FP, B, C = hk.features_padded(FEATURES), hk.pad_bins(255), hk.CHUNK
+    FP, C = hk.features_padded(FEATURES), hk.CHUNK
     CAP = -(-rows // C) * C + L * C
     rng = np.random.default_rng(0)
     w = rng.gamma(0.7, size=L)
-    w[[3, 11, 29]] = 0.0                          # slots with one empty chunk
+    w[[i for i in (3, 11, 29) if i < L]] = 0.0    # slots with one empty chunk
     counts = np.floor(w / w.sum() * rows).astype(np.int64)
     counts[0] += rows - counts.sum()
     cap = np.maximum(-(-counts // C), 1)
@@ -376,29 +385,84 @@ def level_inputs(rows: int, dev: str, L: int = 31):
     return bT, g, h, m, starts, slot
 
 
+def level_fit_shaped_check(label, got, want, vals, slot, L: int,
+                           compare) -> float:
+    """The level histograms of fit-shaped bins (features FEATURES..FP-1 with
+    every row in bin 0): the real features held to the plain version at the
+    phase's tolerance, each slot's padded features to the float64 sum of its
+    rows within ``PAD_SUM_ULPS`` (``padded_check``). Returns the real
+    features' max error."""
+    err = compare(f"{label} real features", got[:, :FEATURES],
+                  want[:, :FEATURES])
+    ok, worst = True, [0.0, 0.0]
+    for s in range(L):
+        ok_s, gap, unit, _ = padded_check(got[s, FEATURES:].double(),
+                                          vals[slot == s])
+        ok &= ok_s
+        for q in range(2):
+            if unit[q] > 0:
+                worst[q] = max(worst[q], float(gap[q] / unit[q]))
+    log(f"  {label} padded features (one bin per slot): largest |kernel - "
+        f"float64| g={worst[0]:.3g} h={worst[1]:.3g} units of 2^-24 sum|x|, "
+        f"limit {PAD_SUM_ULPS} -> {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{label}: padded features outside "
+                             "PAD_SUM_ULPS of the float64 sum")
+    return err
+
+
 def level_kernel_phase(rows: int, dev: str, compare) -> dict:
+    """``level_histograms`` at the depthwise path's shapes: random bins
+    (rtol/atol and exact counts), the same rows fit-shaped
+    (``level_fit_shaped_check``) and a small B = 512 case; timed beside its
+    plain version, one ``index_put_`` call, its bytes bound and the tensor
+    floor of its design (one-hot products, CAP * FP * B * 6 flops of
+    bf16)."""
     from synapseml_tpu_torch.ops import hist_kernel as hk
 
     FP, B, L = hk.features_padded(FEATURES), hk.pad_bins(255), 31
     bT, g, h, m, starts, slot = level_inputs(rows, dev, L)
     CAP = bT.shape[1]
 
-    err = compare(f"level_histograms CAP={CAP} slots={L}",
-                  hk.level_histograms(bT, g, h, m, starts, slot, B, L),
+    def call():
+        return hk.level_histograms(bT, g, h, m, starts, slot, B, L)
+
+    err = compare(f"level_histograms CAP={CAP} slots={L}", call(),
                   hk._level_hist_plain(bT, g, h, m, slot, B, L))
-    t_kernel = time_ms(
-        lambda: hk.level_histograms(bT, g, h, m, starts, slot, B, L), 20)
+    t_kernel = time_ms(call, 20)
     t_plain = time_ms(lambda: hk._level_hist_plain(bT, g, h, m, slot, B, L),
                       5)
     flat = ((slot.to(torch.int64)[None, :] * FP
              + torch.arange(FP, device=dev)[:, None]) * B + bT).reshape(-1)
     t_lib = time_ms(_index_put(flat, g, h, m, FP, L * FP * B), 5)
+    del flat
     bnd, by = bound_ms(FP, CAP, B, L)
-    del bT, g, h, m, flat
+    tensor_ms = CAP * FP * B * 6 / BF16_OPS_PER_S * 1e3
+
+    bT[FEATURES:] = 0                      # fit-shaped: padded features
+    vals = hk._rounded_values(g, h, m).double()
+    fit_err = level_fit_shaped_check(
+        f"level_histograms fit-shaped CAP={CAP}", call(),
+        hk._level_hist_plain(bT, g, h, m, slot, B, L), vals, slot, L, compare)
+    t_fit = time_ms(call, 20)
+    del bT, g, h, m, vals
     torch.cuda.empty_cache()
+
+    b512 = level_inputs(rows // 10, dev, 7, B=512)
+    compare(f"level_histograms B=512 CAP={b512[0].shape[1]} slots=7",
+            hk.level_histograms(*b512, 512, 7),
+            hk._level_hist_plain(*b512[:4], b512[5], 512, 7))
+    del b512
+    torch.cuda.empty_cache()
+
+    log(f"  level_histograms fit-shaped kernel_ms={t_fit:.4f}; floors: bytes "
+        f"{bnd:.4f} ms, tensor work {tensor_ms:.4f} ms "
+        f"({CAP * FP * B * 6:.3g} bf16 flops at "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s)")
     return dict(replaces="synapseml_tpu/ops/hist_kernel.py:294",
-                max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
-                bound_ms=bnd, bound_by=by, library_ms=t_lib,
+                max_abs_err=max(err, fit_err), ms=t_kernel, plain_ms=t_plain,
+                bound_ms=bnd, bound_by=by, library_ms=t_lib, fit_ms=t_fit,
+                tensor_ms=tensor_ms,
                 shape=f"FP={FP} CAP={CAP} B={B} slots={L}")
 
 

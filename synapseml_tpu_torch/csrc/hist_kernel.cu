@@ -1,14 +1,13 @@
 // GBDT histogram kernels for Hopper (sm_90a), bound to PyTorch with ctypes.
 //
-// Three entry points, one translation unit, two kernels sharing one
-// accumulate routine (`warp_accumulate`):
+// Three entry points, one translation unit:
 //
 //   child_histogram  replaces synapseml_tpu/ops/hist_kernel.py `_kernel` +
 //                    `_packed_accumulate` (pl.pallas_call in `_hist_pallas`).
 //   range_histogram  replaces synapseml_tpu/ops/hist_kernel.py `_range_kernel`
 //                    (pl.pallas_call in `_hist_pallas_range`).
-//   level_histogram  replaces synapseml_tpu/ops/hist_kernel.py `_level_kernel`
-//                    (pl.pallas_call in `_hist_pallas_level`).
+//   level_histogram  replaces synapseml_tpu/ops/hist_kernel.py:294
+//                    `_level_kernel` (pl.pallas_call in `_hist_pallas_level`).
 //
 // What they compute (the same function as the TPU kernels, not their design):
 //   out[f, b, :] = sum over rows r with bT[f, r] == b of
@@ -36,19 +35,19 @@
 // once. At FP = 32, n = 2,000,000 that is 280 MB, 0.084 ms; a range of
 // n/2 rows, 0.042 ms.
 //
-// Design: the shared-memory privatised histogram of arXiv:1706.08359. Each
-// block owns FB = 8 features and keeps an (FB, B, 3) f32 histogram in
-// shared memory (24 KB at B = 256, about eight blocks per SM); a warp takes
-// 32 rows (one per lane) at a time, rounds their g/h/m once for its FB
-// features, and adds each feature's bins with shared atomicAdd; the block
-// then adds its non-zero slots into `out` with global atomicAdd (native
-// float reductions in L2). Both kernels share the accumulate routine
-// `warp_accumulate`. On this card a shared float atomicAdd compiles to a
-// compare-and-swap loop (ATOMS.CAST.SPIN in the SASS), so lanes of a warp
-// that add to one address retry one after another; in a fit,
-// `transpose_bins` leaves the padded features with every row in bin 0, and
-// the first version of the leaf-wise kernels serialised 32 adds there. The
-// routine:
+// child_histogram and range_histogram: the shared-memory privatised
+// histogram of arXiv:1706.08359. Each block owns FB = 8 features and keeps
+// an (FB, B, 3) f32 histogram in shared memory (24 KB at B = 256, about
+// eight blocks per SM); a warp takes 32 rows (one per lane) at a time,
+// rounds their g/h/m once for its FB features, and adds each feature's bins
+// with shared atomicAdd; the block then adds its non-zero slots into `out`
+// with global atomicAdd (native float reductions in L2). Both share the
+// accumulate routine `warp_accumulate`. On this card a shared float
+// atomicAdd compiles to a compare-and-swap loop (ATOMS.CAST.SPIN in the
+// SASS), so lanes of a warp that add to one address retry one after
+// another; in a fit, `transpose_bins` leaves the padded features with every
+// row in bin 0, and the first version of these kernels serialised 32 adds
+// there. The routine:
 // * skips rows whose three rounded values are all zero (out of bag,
 //   padding): they add nothing to a sum that starts at +0;
 // * where every adding lane of the warp falls in one bin (a padded feature,
@@ -59,14 +58,57 @@
 // `info` and takes a contiguous span of max(length / blocks, 2048) rows, so
 // a block whose span is empty returns before it zeroes or flushes anything,
 // and a small child costs a few blocks, not the whole grid.
-// level_histogram: each block owns a fixed run of chunks, keeps the slot
-// table in shared memory, and flushes its histogram to out[slot] whenever
-// the owning slot changes and at its end; the TPU kernel walks chunks in
-// order and zero-initialises a slot's block on its first chunk, which
-// blocks that run in any order cannot do. Its bound is one full
-// histogram's plus the (slots, FP, B, 3) output written once.
+//
+// level_histogram: one-hot products on the tensor cores, no shared-memory
+// float atomics. Every chunk belongs to one slot, so a warp sums a whole run
+// of rows in registers and writes once per slot change; the TPU kernel does
+// the same sum on its MXU as a one-hot matrix product. Per feature and 16
+// rows (the K of one mma.sync.m16n8k16, bf16 in, float32 out):
+//   C[hi, (q, lo)] += A[hi, k] * Bop[k, (q, lo)],   hi = b >> 3, lo = b & 7,
+//   A = one-hot(hi) (exactly 0 or 1),  Bop[k, (q, lo)] = v_q(k) [lo(k) == lo]
+// with v_q the row's bf16 g, h or m: every product is exact, only the sums
+// round. M = B / 8 (two m16 tiles per 256 bins) and N = 24 (one n8 tile per
+// quantity): 6 mma per 16 rows per 256 bins. Its floors at FP = 32,
+// CAP = 2,064,384 rows, B = 256, 31 slots: 0.087 ms of bytes (int32 bins and
+// g/h/m read once, the output written once) and 0.103 ms of tensor work
+// (CAP * FP * B * 6 flops at 989 TFLOP/s of bf16), which mma.sync, the
+// pre-Hopper instruction, does not reach (PERF.md §6).
+// * K order: within 16 rows the order of the k slots does not change a sum,
+//   so lane t = lane & 3's slots {2t, 2t+1, 2t+8, 2t+9} are rows 4t .. 4t+3:
+//   one 16-byte shared load gives a lane the codes of its four rows, one more
+//   its g and h pairs, one 8-byte load its m pair, and no shuffle is needed.
+//   A and the column masks are compares (set.eq.bf16x2) of the codes against
+//   the lane's row and column; Bop is the value pairs times the 0/1 mask
+//   (exact for finite values).
+// * Non-finite values: 0 * NaN and 0 * Inf are NaN, so in the products a
+//   non-finite g, h or m (or one that overflows bf16) would reach every bin
+//   of its feature and slot. The staging pass flags such a stage, and the
+//   block adds that stage's rows into their own bins with global atomics,
+//   which keeps the plain version's function.
+// * Staging: a block owns a run of 256-row stages and 16 features (8 warps,
+//   each two units of (feature, 256 bins)); each stage's bins and g/h/m come
+//   in by cp.async, kStages deep, and the block turns them once into codes
+//   (a bin clamped to B, then lo and hi under the bf16 exponent bit 0x4000:
+//   finite values, equal exactly where the bits are; B's hi matches no row
+//   of A, so a bin outside [0, B) adds nothing) and bf16 pairs. A stage
+//   whose values are all zero (padding) is skipped.
+// * Precision, the T reset: the tensor core aligns the addends of a sum to
+//   the largest and truncates, so a long sum kept in its accumulator drifts
+//   toward zero (PERF.md §6, flash). Each run of at most kLevelT = 128
+//   k-groups (one 2048-row chunk) starts from a zeroed accumulator and is
+//   then added into float32 sums in shared memory, rounding to nearest.
+//   With T = 128 chip_smoke.py's fit-shaped level check reads about 5 units
+//   of 2^-24 sum |x| on an H100 (it allows 100); shorter runs read no
+//   closer on the card and fold more often. Counts stay exact (integers
+//   below 2^24 add exactly).
+// * Output: on a change of slot, and at its end, a warp adds its sums into
+//   out[slot] with global float atomics (float2 where two are adjacent).
+// * One wave: about two resident blocks per SM, each a run of stages; a
+//   block's first stage and its flushes are not hidden, so more and shorter
+//   blocks measured slower.
 // Bins stay int32 (shared with the grower); uint8 bins would cut the bytes
-// read by 4x and are a later step.
+// read by 4x and are a later step, and wgmma (the masked values staged in
+// shared memory) the step toward the full tensor rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -183,62 +225,12 @@ hist_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
   flush_shared(sh, out + (int64_t)f0 * B * 3, size);
 }
 
-__global__ void __launch_bounds__(kThreads)
-level_hist_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
-                  const float* __restrict__ h, const float* __restrict__ m,
-                  const int32_t* __restrict__ starts, float* __restrict__ out,
-                  int64_t n, int FP, int B, int FB, int slots, int chunk,
-                  int64_t chunks_per_block) {
-  extern __shared__ __align__(16) float sh[];
-  const int size = FB * B * 3;
-  int* st = reinterpret_cast<int*>(sh + size);
-  const int64_t total = (n + chunk - 1) / chunk;
-  const int64_t c0 = (int64_t)blockIdx.x * chunks_per_block;
-  int64_t c1 = c0 + chunks_per_block;
-  if (c1 > total) c1 = total;
-  if (c0 >= c1) return;  // the same for every thread of the block
-  for (int i = threadIdx.x; i < size; i += blockDim.x) sh[i] = 0.f;
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) st[i] = starts[i];
-  __syncthreads();
-
-  const int f0 = blockIdx.y * FB;
-  const int32_t* col = bT + (int64_t)f0 * n;
-  const int64_t slot_stride = (int64_t)FP * B * 3;
-  float* dst = out + (int64_t)f0 * B * 3;
-  const int warp = threadIdx.x >> 5;
-  int slot = 0;
-  while (slot + 1 < slots && st[slot + 1] <= c0) ++slot;
-  for (int64_t c = c0; c < c1; ++c) {
-    int s = slot;  // every thread computes the same s from shared memory
-    while (s + 1 < slots && st[s + 1] <= c) ++s;
-    if (s != slot) {
-      flush_shared(sh, dst + slot * slot_stride, size);
-      slot = s;
-    }
-    int64_t r1 = (c + 1) * chunk;
-    if (r1 > n) r1 = n;
-    for (int64_t base = c * chunk + 32 * warp; base < r1; base += kThreads) {
-      const int64_t row = base + (threadIdx.x & 31);
-      const bool in = row < r1;
-      float gv = 0.f, hv = 0.f, mv = 0.f;
-      if (in) {
-        gv = bf16_round(g[row]);
-        hv = bf16_round(h[row]);
-        mv = bf16_round(m[row]);
-      }
-      warp_accumulate(sh, col, n, row, in, gv, hv, mv, FB, B);
-    }
-  }
-  flush_shared(sh, dst + slot * slot_stride, size);
-}
-
 // Features per block: the largest of kFeatureBlock, ..., 2, 1 that divides
-// FP and keeps the shared histogram (plus `extra` bytes) within the 48 KB a
-// block gets without opting in.
-int feature_block(int FP, int B, int64_t extra) {
+// FP and keeps the shared histogram within the 48 KB a block gets without
+// opting in.
+int feature_block(int FP, int B) {
   for (int fb = kFeatureBlock; fb > 1; fb /= 2) {
-    if (FP % fb == 0 && (int64_t)fb * B * 12 + extra <= 48 * 1024)
-      return fb;
+    if (FP % fb == 0 && (int64_t)fb * B * 12 <= 48 * 1024) return fb;
   }
   return 1;
 }
@@ -254,7 +246,7 @@ int launch(const int32_t* bT, const float* g, const float* h, const float* m,
            const int32_t* info, float* out, int64_t n, int FP, int B,
            cudaStream_t stream) {
   if (n <= 0 || FP <= 0) return 0;
-  const int FB = feature_block(FP, B, 0);
+  const int FB = feature_block(FP, B);
   const size_t smem = (size_t)FB * B * 3 * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   int sms = 0;
@@ -273,29 +265,398 @@ int launch(const int32_t* bT, const float* g, const float* h, const float* m,
   return (int)cudaGetLastError();
 }
 
-int launch_level(const int32_t* bT, const float* g, const float* h,
-                 const float* m, const int32_t* starts, float* out, int64_t n,
-                 int FP, int B, int slots, int chunk, cudaStream_t stream) {
-  if (n <= 0 || FP <= 0) return 0;
-  if (slots <= 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t table = (int64_t)slots * sizeof(int32_t);
-  const int FB = feature_block(FP, B, table);
-  const size_t smem = (size_t)FB * B * 3 * sizeof(float) + table;
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
+// ---------------------------------------------------------------------------
+// level_histogram: one-hot products on the tensor cores (see the note above)
+// ---------------------------------------------------------------------------
+
+constexpr int kLevelT = 128;                  // k-groups per accumulator run
+constexpr int kStageGroups = 16;              // k-groups of one staged tile
+constexpr int kStageRows = 16 * kStageGroups;
+constexpr int kStages = 3;                    // tiles in flight per block
+constexpr int kUnits = 2;                     // (feature, 256 bins) per warp
+constexpr int kBlockUnits = kWarps * kUnits;  // per block
+constexpr int kMaxLevelBins = 2048;           // hi = b >> 3 below 512
+constexpr int kLevelBlocksPerSM = 2;          // resident, by registers
+constexpr uint32_t kTwo = 0x40004000u;        // bf16x2 (2, 2)
+constexpr uint32_t kPair = 0x00010001u;       // one in each 16-bit half
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copies `Bytes` (16 or 4) from src to shared dst, or zero-fills dst when
+// `in` is false (src is then not read).
+template <int Bytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool in) {
+  if constexpr (Bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 ::"r"(smem_addr(dst)), "l"(src), "r"(in ? 4 : 0));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// true where a half of w is a bf16 infinity or NaN
+__device__ __forceinline__ bool non_finite(uint32_t w) {
+  constexpr uint32_t e = 0x7f807f80u;  // exponent bits of each half
+  return __vcmpeq2(w & e, e) != 0u;
+}
+
+// the float value of the bf16 in bits [sh, sh + 16) of w
+__device__ __forceinline__ float bf16_at(uint32_t w, int sh) {
+  return __uint_as_float(((w >> sh) & 0xffffu) << 16);
+}
+
+// bf16 1.0 in each half of a that equals the same half of b, else 0
+__device__ __forceinline__ uint32_t eq_one(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("set.eq.bf16x2.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// v * one, half by half (one is bf16 1.0 or 0): exact, on the FMA pipe, which
+// the loop's integer work leaves idle
+__device__ __forceinline__ uint32_t bmul(uint32_t v, uint32_t one) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(d)
+      : "r"(v), "r"(one), "r"(0x80008000u));
+  return d;
+}
+
+// (bf16(x), bf16(y)) rounded to nearest even, x in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a (16 x 16, bf16) * [b0; b1] (16 x 8, bf16), float32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Grid (runs of stages, unit blocks). A unit is (feature, 256-bin block);
+// block y owns units [kBlockUnits * y, kBlockUnits * (y + 1)), that is
+// FBf = kBlockUnits / MT features; warp w owns units kUnits * w + u.
+// kVec is 4 where bT's rows and g/h/m allow 16-byte copies, else 1.
+template <int kVec>
+__global__ void __launch_bounds__(kThreads, kLevelBlocksPerSM)
+level_mma_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
+                 const float* __restrict__ h, const float* __restrict__ m,
+                 const int32_t* __restrict__ starts, float* __restrict__ out,
+                 int64_t n, int FP, int B, int slots, int chunk,
+                 int64_t stages_per_block) {
+  extern __shared__ __align__(16) int32_t lsh[];
+  const int MT = B >> 8;
+  const int FBf = kBlockUnits / MT;
+  const int lines = FBf + 3;  // FBf bin rows, then g, h, m
+  // then each warp's float32 sums, kUnits * 6 float4 per lane, the slots
+  // and a flag per parity of stage: the stage holds a non-finite value
+  float4* sums = reinterpret_cast<float4*>(lsh + kStages * lines * kStageRows);
+  int32_t* st = reinterpret_cast<int32_t*>(sums + kBlockUnits * 6 * 32);
+  int32_t* bad = st + slots;
+
+  const int64_t total = (n + kStageRows - 1) / kStageRows;
+  const int64_t s0 = (int64_t)blockIdx.x * stages_per_block;
+  const int64_t s1 = s0 + stages_per_block < total ? s0 + stages_per_block
+                                                   : total;
+  if (s0 >= s1) return;  // the same for every thread of the block
+  const int64_t r0 = s0 * kStageRows;
+  const int nstages = (int)(s1 - s0);
+  const int f_base = blockIdx.y * FBf;
+  for (int i = threadIdx.x; i < slots; i += kThreads) st[i] = starts[i];
+  if (threadIdx.x < 2) bad[threadIdx.x] = 0;
+
+  // stage s holds rows r0 + s * kStageRows ...; it never crosses a chunk
+  // (chunk % kStageRows == 0), and rows at or past n are zero-filled
+  auto load_stage = [&](int s) {
+    int32_t* buf = lsh + (s % kStages) * lines * kStageRows;
+    const int64_t row0 = r0 + (int64_t)s * kStageRows;
+    constexpr int pieces = kStageRows / kVec;
+    for (int p = threadIdx.x; p < lines * pieces; p += kThreads) {
+      const int line = p / pieces, r = (p % pieces) * kVec;
+      const int64_t row = row0 + r;
+      bool in = row < n;
+      const void* src;
+      if (line < FBf) {
+        const int f = f_base + line;
+        in = in && f < FP;
+        src = bT + (in ? (int64_t)f * n + row : 0);
+      } else {
+        const float* v = line == FBf ? g : line == FBf + 1 ? h : m;
+        src = v + (in ? row : 0);
+      }
+      cp_async<4 * kVec>(buf + line * kStageRows + r, src, in);
+    }
+  };
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nstages) load_stage(s);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  int fl[kUnits], blk[kUnits];
+  bool live[kUnits];
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) {
+    const int unit = warp * kUnits + u;
+    fl[u] = unit / MT;
+    blk[u] = unit % MT;
+    live[u] = f_base + fl[u] < FP;
+  }
+  const uint32_t lo0 = (0x4000u | gq) * kPair;  // B column gq is lo = gq
+  // this lane's sums of unit u, n-tile j: tot[(u * 6 + j) * 32]
+  float4* tot = sums + warp * kUnits * 6 * 32 + lane;
+#pragma unroll
+  for (int i = 0; i < kUnits * 6; ++i) tot[i * 32] = make_float4(0, 0, 0, 0);
+
+  // adds the warp's sums into out[slot] (global float atomics: reductions
+  // in L2) and zeroes them
+  auto flush = [&](int slot) {
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+      float* dst = out + ((int64_t)slot * FP + f_base + fl[u]) * B * 3;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float v[3][4];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float4 t = tot[(u * 6 + 3 * i + c) * 32];
+          tot[(u * 6 + 3 * i + c) * 32] = make_float4(0, 0, 0, 0);
+          v[c][0] = t.x;
+          v[c][1] = t.y;
+          v[c][2] = t.z;
+          v[c][3] = t.w;
+        }
+        if (!live[u]) continue;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int hi = 32 * blk[u] + 16 * i + gq + ((k & 2) ? 8 : 0);
+          float* p = dst + (hi * 8 + 2 * tq + (k & 1)) * 3;
+          if (k & 1) {
+            if (v[0][k] != 0.f) atomicAdd(p, v[0][k]);
+            if (v[1][k] != 0.f || v[2][k] != 0.f)
+              atomicAdd(reinterpret_cast<float2*>(p + 1),
+                        make_float2(v[1][k], v[2][k]));
+          } else {
+            if (v[0][k] != 0.f || v[1][k] != 0.f)
+              atomicAdd(reinterpret_cast<float2*>(p),
+                        make_float2(v[0][k], v[1][k]));
+            if (v[2][k] != 0.f) atomicAdd(p + 2, v[2][k]);
+          }
+        }
+      }
+    }
+  };
+
+  // the tensor core's sums of the current run of at most kLevelT k-groups
+  float acc[kUnits][6][4];
+  int run = 0;
+  // adds them into tot, rounding to nearest, and zeroes them
+  auto fold = [&]() {
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u)
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        float4 t = tot[(u * 6 + j) * 32];
+        t.x += acc[u][j][0];
+        t.y += acc[u][j][1];
+        t.z += acc[u][j][2];
+        t.w += acc[u][j][3];
+        tot[(u * 6 + j) * 32] = t;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[u][j][k] = 0.f;
+      }
+    run = 0;
+  };
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[u][j][k] = 0.f;
+
+  int slot = -1;
+  for (int s = 0; s < nstages; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s is in; every warp is done with stage s - 1
+    if (s + kStages - 1 < nstages) load_stage(s + kStages - 1);
+    cp_async_commit();
+    // clear stage s + 1's flag: stage s - 1, which shared it, read it before
+    // this barrier, and stage s + 1 sets it after the next one
+    if (threadIdx.x == 0) bad[(s + 1) & 1] = 0;
+
+    // Stage s in place, once for the block: each 16 bytes of bins
+    // (rows r .. r+3) become the codes (lo01, hi01, lo23, hi23): the bins
+    // clamped to B, lo = bits 0-2 and hi = bits 3-11 under the exponent bit
+    // 0x4000, as bf16 pairs. g, h and m become bf16 pairs (g01, g23, h01,
+    // h23) in g's line and (m01, m23) in h's.
+    uint32_t* buf =
+        reinterpret_cast<uint32_t*>(lsh + (s % kStages) * lines * kStageRows);
+    uint32_t* vals = buf + FBf * kStageRows;
+    bool nz = false;
+    for (int p = threadIdx.x; p < (FBf + 1) * kStageRows / 4; p += kThreads) {
+      const int line = p / (kStageRows / 4), r = p % (kStageRows / 4) * 4;
+      if (line < FBf) {
+        uint4* q = reinterpret_cast<uint4*>(buf + line * kStageRows + r);
+        const uint4 b = *q;
+        const uint32_t x01 =
+            __byte_perm(min(b.x, (uint32_t)B), min(b.y, (uint32_t)B), 0x5410);
+        const uint32_t x23 =
+            __byte_perm(min(b.z, (uint32_t)B), min(b.w, (uint32_t)B), 0x5410);
+        *q = make_uint4((x01 & 0x00070007u) | kTwo, (x01 & 0x0ff80ff8u) | kTwo,
+                        (x23 & 0x00070007u) | kTwo, (x23 & 0x0ff80ff8u) | kTwo);
+      } else {
+        const float* v = reinterpret_cast<const float*>(vals) + r;
+        const float4 G = *reinterpret_cast<const float4*>(v);
+        const float4 H = *reinterpret_cast<const float4*>(v + kStageRows);
+        const float4 M = *reinterpret_cast<const float4*>(v + 2 * kStageRows);
+        const uint4 gh = make_uint4(pack_bf16(G.x, G.y), pack_bf16(G.z, G.w),
+                                    pack_bf16(H.x, H.y), pack_bf16(H.z, H.w));
+        const uint2 mm = make_uint2(pack_bf16(M.x, M.y), pack_bf16(M.z, M.w));
+        nz |= (gh.x | gh.y | gh.z | gh.w | mm.x | mm.y) != 0u;
+        if (non_finite(gh.x) || non_finite(gh.y) || non_finite(gh.z) ||
+            non_finite(gh.w) || non_finite(mm.x) || non_finite(mm.y))
+          bad[s & 1] = 1;
+        *reinterpret_cast<uint4*>(vals + r) = gh;
+        *reinterpret_cast<uint2*>(vals + kStageRows + r) = mm;
+      }
+    }
+    // a stage of zeros (padding, out of bag) adds nothing
+    if (!__syncthreads_or(nz)) continue;  // the same for every thread
+
+    // the slot of this stage's chunk (every thread finds the same one)
+    const int64_t ci = (r0 + (int64_t)s * kStageRows) / chunk;
+    int sl = slot < 0 ? 0 : slot;
+    while (sl + 1 < slots && st[sl + 1] <= ci) ++sl;
+    if (sl != slot) {
+      if (slot >= 0) {
+        if (run) fold();
+        flush(slot);
+      }
+      slot = sl;
+    }
+
+    // A non-finite value times the zeros of A would reach every bin of its
+    // feature, slot and quantity: such a stage (rare) adds each row into its
+    // own bin with global atomics instead, as the plain version does.
+    if (bad[s & 1]) {  // the same for every thread
+      for (int p = threadIdx.x; p < FBf * kStageRows; p += kThreads) {
+        const int fi = p / kStageRows, r = p % kStageRows, sh = (r & 1) * 16;
+        if (f_base + fi >= FP) continue;
+        const uint32_t* c = buf + fi * kStageRows + (r & ~1);  // lo, hi
+        const uint32_t b = ((c[0] >> sh) & 7u) | ((c[1] >> sh) & 0x0ff8u);
+        if (b >= (uint32_t)B) continue;  // clamped: outside [0, B)
+        const uint32_t* v = vals + (r & ~3) + ((r >> 1) & 1);  // g; h, m
+        float* dst = out + (((int64_t)slot * FP + f_base + fi) * B + b) * 3;
+        atomicAdd(dst, bf16_at(v[0], sh));
+        atomicAdd(dst + 1, bf16_at(v[2], sh));
+        atomicAdd(dst + 2, bf16_at(v[kStageRows], sh));
+      }
+      continue;
+    }
+
+    // units of features >= FP read zero-filled bins and are never flushed
+#pragma unroll
+    for (int grp = 0; grp < kStageGroups; ++grp) {
+      // this lane's k slots 2tq, 2tq+1, 2tq+8, 2tq+9 are rows 4tq .. 4tq+3
+      const int r = 16 * grp + 4 * tq;
+      const uint4 gh = *reinterpret_cast<const uint4*>(vals + r);
+      const uint2 mm = *reinterpret_cast<const uint2*>(vals + kStageRows + r);
+      const uint32_t P[3][2] = {{gh.x, gh.y}, {gh.z, gh.w}, {mm.x, mm.y}};
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+        const uint4 x =
+            *reinterpret_cast<const uint4*>(buf + fl[u] * kStageRows + r);
+        const uint32_t lo01 = x.x, hi01 = x.y, lo23 = x.z, hi23 = x.w;
+        const uint32_t m01 = eq_one(lo01, lo0), m23 = eq_one(lo23, lo0);
+        const uint32_t b[3][2] = {{bmul(P[0][0], m01), bmul(P[0][1], m23)},
+                                  {bmul(P[1][0], m01), bmul(P[1][1], m23)},
+                                  {bmul(P[2][0], m01), bmul(P[2][1], m23)}};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // hi 32 * blk + 16 * i + (0 .. 15)
+          const uint32_t h0 =
+              (0x4000u | (32 * blk[u] + 16 * i + gq) << 3) * kPair;
+          const uint32_t h8 = h0 + (8 << 3) * kPair;
+          const uint32_t a[4] = {eq_one(hi01, h0), eq_one(hi01, h8),
+                                 eq_one(hi23, h0), eq_one(hi23, h8)};
+#pragma unroll
+          for (int c = 0; c < 3; ++c)  // quantity c
+            mma_bf16(acc[u][3 * i + c], a, b[c][0], b[c][1]);
+        }
+      }
+    }
+    run += kStageGroups;
+    if (run == kLevelT) fold();
+  }
+  cp_async_wait<0>();
+  if (slot >= 0) {
+    if (run) fold();
+    flush(slot);
+  }
+}
+
+template <int kVec>
+int launch_level_mma(const int32_t* bT, const float* g, const float* h,
+                     const float* m, const int32_t* starts, float* out,
+                     int64_t n, int FP, int B, int slots, int chunk,
+                     cudaStream_t stream) {
+  const int FBf = kBlockUnits / (B >> 8);
+  const size_t smem =
+      ((size_t)kStages * (FBf + 3) * kStageRows + slots + 2) *
+          sizeof(int32_t) +
+      (size_t)kBlockUnits * 6 * 32 * sizeof(float4);
+  auto kernel = level_mma_kernel<kVec>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int fblocks = FP / FB;
-  // as launch(): about eight resident blocks per SM, each a run of chunks
-  const int64_t total = (n + chunk - 1) / chunk;
-  int64_t want = ((int64_t)sms * 8 + fblocks - 1) / fblocks;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const int fblocks = (FP + FBf - 1) / FBf;
+  // one wave of resident blocks, each a run of stages (a block's first
+  // stage and its flushes are not hidden: fewer, longer blocks win)
+  const int64_t total = (n + kStageRows - 1) / kStageRows;
+  int64_t want = ((int64_t)sms * kLevelBlocksPerSM + fblocks - 1) / fblocks;
   if (want > total) want = total;
   const int64_t per_block = (total + want - 1) / want;
   const int gx = (int)((total + per_block - 1) / per_block);
   dim3 grid(gx, fblocks);
-  level_hist_kernel<<<grid, kThreads, smem, stream>>>(
-      bT, g, h, m, starts, out, n, FP, B, FB, slots, chunk, per_block);
+  kernel<<<grid, kThreads, smem, stream>>>(bT, g, h, m, starts, out, n, FP, B,
+                                           slots, chunk, per_block);
   return (int)cudaGetLastError();
+}
+
+int launch_level(const int32_t* bT, const float* g, const float* h,
+                 const float* m, const int32_t* starts, float* out, int64_t n,
+                 int FP, int B, int slots, int chunk, cudaStream_t stream) {
+  if (n <= 0 || FP <= 0) return 0;
+  if (slots <= 0 || chunk <= 0 || chunk % kStageRows != 0 || B < 256 ||
+      B > kMaxLevelBins || (B & (B - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t addr =
+      (uintptr_t)bT | (uintptr_t)g | (uintptr_t)h | (uintptr_t)m;
+  if (n % 4 == 0 && addr % 16 == 0)
+    return launch_level_mma<4>(bT, g, h, m, starts, out, n, FP, B, slots,
+                               chunk, stream);
+  return launch_level_mma<1>(bT, g, h, m, starts, out, n, FP, B, slots, chunk,
+                             stream);
 }
 
 }  // namespace

@@ -222,7 +222,8 @@ def level_histograms(bT, g, h, m, start_chunks, slot_of_row,
     table on the device; the plain version (CPU tensors) takes each row's
     slot from ``slot_of_row`` (n,) instead, which the caller keeps
     consistent with the table. Every slot of the result is defined: a slot
-    that owns no row is zero."""
+    that owns no row is zero. The kernel takes B up to 2048 (its bin codes)
+    and ``CHUNK`` a multiple of its 256-row stages."""
     _check(bT, g, h, m, num_bins_padded)
     FP, n = bT.shape
     if tuple(slot_of_row.shape) != (n,) or slot_of_row.device != bT.device:

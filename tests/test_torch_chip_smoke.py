@@ -167,3 +167,54 @@ def test_cuda_fit_shaped_check_rejects_a_lane_lost_at_full_size(
                for name in ("child_histogram", "range_histogram")}
     with pytest.raises(AssertionError, match="PAD_SUM_ULPS"):
         cs.fit_shaped_phase(bT, g, h, m, B, _compare, results, 1)
+
+
+def _level_fit_inputs(rows=12_000, L=5):
+    """chip_smoke's level inputs at a CPU size, fit-shaped: the padded
+    features FEATURES..FP-1 with every row in bin 0."""
+    bT, g, h, m, starts, slot = cs.level_inputs(rows, "cpu", L)
+    bT[cs.FEATURES:] = 0
+    return bT, g, h, m, starts, slot, hk.pad_bins(255), L
+
+
+def test_level_kernel_phase_runs_on_the_plain_versions(no_timing,
+                                                       monkeypatch):
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    r = cs.level_kernel_phase(20_000, "cpu", _compare)
+    assert r["max_abs_err"] == 0.0
+    assert r["bound_by"] == "bytes"
+    CAP = -(-20_000 // hk.CHUNK) * hk.CHUNK + 31 * hk.CHUNK
+    assert r["tensor_ms"] == pytest.approx(CAP * 32 * 256 * 6 / 989e12 * 1e3)
+
+
+def test_level_fit_shaped_check_rejects_one_row_of_g_lost():
+    # a level kernel that drops one row's g from a padded feature's bin 0 in
+    # one slot, counts and h intact: a shift of about 1 against a limit of
+    # PAD_SUM_ULPS roundoffs of that slot's sum of |g|
+    bT, g, h, m, starts, slot, B, L = _level_fit_inputs()
+    vals = hk._rounded_values(g, h, m).double()
+    want = hk._level_hist_plain(bT, g, h, m, slot, B, L)
+    cs.level_fit_shaped_check("plain", want.clone(), want, vals, slot, L,
+                              _compare)
+    s = int(slot[int(vals[:, 0].abs().argmax())])
+    rows = (slot == s).nonzero().flatten()
+    row = int(rows[(vals[rows, 0].abs() - 1.0).abs().argmin()])
+    bound = cs.PAD_SUM_ULPS * 2.0 ** -24 * float(vals[rows, 0].abs().sum())
+    assert abs(float(vals[row, 0])) > 10 * bound
+    lost = want.clone()
+    lost[s, cs.FEATURES + 1, 0, 0] -= vals[row, 0].float()
+    with pytest.raises(AssertionError, match="PAD_SUM_ULPS"):
+        cs.level_fit_shaped_check("lost", lost, want, vals, slot, L,
+                                  _compare)
+
+
+def test_level_fit_shaped_check_rejects_a_count_or_a_stray_bin():
+    bT, g, h, m, starts, slot, B, L = _level_fit_inputs()
+    vals = hk._rounded_values(g, h, m).double()
+    want = hk._level_hist_plain(bT, g, h, m, slot, B, L)
+    for where in ((0, 2), (5, 1)):          # one count more; off bin 0
+        off = want.clone()
+        off[1, cs.FEATURES, where[0], where[1]] += 1.0
+        with pytest.raises(AssertionError, match="PAD_SUM_ULPS"):
+            cs.level_fit_shaped_check("off", off, want, vals, slot, L,
+                                      _compare)

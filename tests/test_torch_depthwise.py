@@ -40,11 +40,11 @@ N, F = 4096, 28
 B = 256
 
 
-def _level_case(caps, f=5, chunk=256, seed=0, tail=37):
+def _level_case(caps, f=5, chunk=256, seed=0, tail=37, nb=B):
     """Slot-partitioned rows: slot i owns ``caps[i]`` chunks of ``chunk``
     rows (0: none, its start is the next slot's), the last ``tail`` rows of
-    each slot are padding with g = h = m = 0. Returns numpy (bT, g, h, m,
-    start_chunks, slot_of_row)."""
+    each slot are padding with g = h = m = 0; bins are drawn from [0, nb).
+    Returns numpy (bT, g, h, m, start_chunks, slot_of_row)."""
     rng = np.random.default_rng(seed)
     FP = thk.features_padded(f)
     n = sum(caps) * chunk
@@ -57,7 +57,7 @@ def _level_case(caps, f=5, chunk=256, seed=0, tail=37):
     for i, cap in enumerate(caps):
         starts.append(off // chunk)
         ln = max(cap * chunk - tail, 0)
-        bT[:f, off:off + ln] = rng.integers(0, B, size=(f, ln))
+        bT[:f, off:off + ln] = rng.integers(0, nb, size=(f, ln))
         g[off:off + ln] = rng.normal(size=ln)
         h[off:off + ln] = rng.uniform(0.5, 2.0, size=ln)
         m[off:off + ln] = (rng.random(ln) > 0.2)
@@ -78,24 +78,51 @@ def _jax(*arrays):
 # level_histograms
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("caps,f", [
-    ([4], 3), ([2, 1, 3, 1], 11), ([1, 0, 2, 0, 3, 1, 0], 28),
-])
-def test_level_plain_matches_xla_on_every_slot(caps, f):
-    bT, g, h, m, starts, slot = _level_case(caps, f)
-    bT[0, ::7] = B + bT[0, ::7]                   # above B: dropped by both
+@pytest.mark.parametrize("caps,f,nb", [
+    ([4], 3, 256), ([2, 1, 3, 1], 11, 256), ([1, 0, 2, 0, 3, 1, 0], 28, 256),
+    ([4], 3, 512), ([1, 0, 2, 0, 3, 1, 0], 28, 512),
+], ids=["caps0-3", "caps1-11", "caps2-28", "caps0-3-512", "caps2-28-512"])
+def test_level_plain_matches_xla_on_every_slot(caps, f, nb):
+    bT, g, h, m, starts, slot = _level_case(caps, f, nb=nb)
+    bT[0, ::7] = nb + bT[0, ::7]                  # above B: dropped by both
     slot[5::97] = len(caps) + 2                   # no such slot: dropped
-    got = thk._level_hist_plain(*_torch(bT, g, h, m, slot), B, len(caps))
-    want = np.asarray(jhk._hist_level_xla(*_jax(bT, g, h, m, slot), B,
+    got = thk._level_hist_plain(*_torch(bT, g, h, m, slot), nb, len(caps))
+    want = np.asarray(jhk._hist_level_xla(*_jax(bT, g, h, m, slot), nb,
                                           len(caps)))
     got = got.numpy()
-    assert got.shape == (len(caps), thk.features_padded(f), B, 3)
+    assert got.shape == (len(caps), thk.features_padded(f), nb, 3)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(got[..., 2], want[..., 2])
     # and through the wrapper, on CPU tensors
-    via = thk.level_histograms(*_torch(bT, g, h, m, starts, slot), B,
+    via = thk.level_histograms(*_torch(bT, g, h, m, starts, slot), nb,
                                len(caps))
     np.testing.assert_array_equal(via.numpy(), got)
+
+
+def _non_finite_case(chunk=256, nb=B):
+    """``_level_case`` with a NaN, two infinities and a g that rounds to
+    bf16 infinity; also the (slot, feature, bin, quantity) entries that
+    those rows reach, the only ones that may be non-finite."""
+    bT, g, h, m, starts, slot = _level_case([2, 1, 3], 5, chunk=chunk,
+                                            seed=4, nb=nb)
+    r = [3, chunk + 44, 2 * chunk + 100, 3 * chunk + 101]  # slots 0, 0, 1, 2
+    bad = dict(zip(r, [0, 0, 1, 0]))              # row: quantity
+    g[r[0]], g[r[1]], h[r[2]], g[r[3]] = np.nan, np.inf, -np.inf, 3.4e38
+    mask = np.zeros((3, bT.shape[0], nb, 3), bool)
+    for r, q in bad.items():
+        for f in range(bT.shape[0]):
+            if 0 <= bT[f, r] < nb:
+                mask[slot[r], f, bT[f, r], q] = True
+    return (bT, g, h, m, starts, slot), mask
+
+
+@pytest.mark.parametrize("nb", [256, 512])
+def test_level_plain_keeps_a_non_finite_value_in_its_bin(nb):
+    (bT, g, h, m, starts, slot), mask = _non_finite_case(nb=nb)
+    got = thk._level_hist_plain(*_torch(bT, g, h, m, slot), nb, 3).numpy()
+    want = np.asarray(jhk._hist_level_xla(*_jax(bT, g, h, m, slot), nb, 3))
+    np.testing.assert_array_equal(~np.isfinite(got), mask)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
 def test_level_plain_matches_pallas_interpret_on_live_slots():
@@ -276,19 +303,31 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("caps,f", [
-    ([2, 1, 3, 1], 11), ([1, 0, 2, 0, 3, 1, 0], 28),
-    ([40, 0, 1, 0, 25] + [1] * 26, 28), ([1], 1),
+@pytest.mark.parametrize("nb", [256, 512])
+@pytest.mark.parametrize("caps,f,cut,zero", [
+    ([2, 1, 3, 1], 11, 0, ()), ([1, 0, 2, 0, 3, 1, 0], 28, 0, ()),
+    ([40, 0, 1, 0, 25] + [1] * 26, 28, 0, ()), ([1], 1, 0, ()),
+    ([2, 1, 3], 11, 37, ()),              # the last chunk ragged: n odd
+    ([2, 1], 5, 0, ((32, 48),)),          # one 16-row group all zero
+    # whole chunks of zeros: the first of the input, all of slot 1 and the
+    # first of slot 2 (the kernel skips them without reading their slot)
+    ([2, 1, 3, 2], 11, 0, ((0, thk.CHUNK), (2 * thk.CHUNK, 4 * thk.CHUNK))),
 ])
-def test_cuda_level_kernel_matches_plain(cuda, caps, f):
-    bT, g, h, m, starts, slot = _level_case(caps, f, chunk=thk.CHUNK, seed=3)
+def test_cuda_level_kernel_matches_plain(cuda, caps, f, cut, zero, nb):
+    bT, g, h, m, starts, slot = _level_case(caps, f, chunk=thk.CHUNK, seed=3,
+                                            nb=nb)
     bT[0, ::7] = -1                                # dropped by both
-    bT[f - 1, ::5] = B + 3
+    bT[f - 1, ::5] = nb + 3
+    for lo, hi in zero:                            # rows [lo, hi)
+        g[lo:hi] = h[lo:hi] = m[lo:hi] = 0
+    if cut:
+        bT, g, h, m, slot = (bT[:, :-cut], g[:-cut], h[:-cut], m[:-cut],
+                             slot[:-cut])
     bT, g, h, m, starts, slot = [t.to(cuda) for t in _torch(
         bT, g, h, m, starts, slot)]
     before = thk.LAUNCHES["level_histograms"]
-    got = thk.level_histograms(bT, g, h, m, starts, slot, B, len(caps))
-    want = thk._level_hist_plain(bT, g, h, m, slot, B, len(caps))
+    got = thk.level_histograms(bT, g, h, m, starts, slot, nb, len(caps))
+    want = thk._level_hist_plain(bT, g, h, m, slot, nb, len(caps))
     torch.cuda.synchronize()
     assert thk.LAUNCHES["level_histograms"] == before + 1
     got, want = got.cpu().numpy(), want.cpu().numpy()
@@ -297,6 +336,19 @@ def test_cuda_level_kernel_matches_plain(cuda, caps, f):
     for i, cap in enumerate(caps):
         if cap == 0:
             assert not got[i].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [256, 512])
+def test_cuda_level_kernel_keeps_a_non_finite_value_in_its_bin(cuda, nb):
+    arrays, mask = _non_finite_case(chunk=thk.CHUNK, nb=nb)
+    bT, g, h, m, starts, slot = [t.to(cuda) for t in _torch(*arrays)]
+    got = thk.level_histograms(bT, g, h, m, starts, slot, nb, 3)
+    want = thk._level_hist_plain(bT, g, h, m, slot, nb, 3)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(~np.isfinite(got), mask)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+    np.testing.assert_array_equal(got[..., 2], want[..., 2])
 
 
 @pytest.mark.cuda
