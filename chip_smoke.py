@@ -24,7 +24,8 @@ Phases, each of which fails the run if it fails:
    features all in bin 0, held to the float64 sum within ``PAD_SUM_ULPS``
    units of roundoff of the sum of magnitudes; per slot for the level
    kernel), the level kernel also at B = 512 and logged beside the tensor
-   floor of its one-hot design;
+   floor of its one-hot design; then all three at B = 4096 and 8192
+   (``LARGE_BINS``, 500k rows, some bins outside [0, B)), each timed;
 3. main path: ``LightGBMClassifier(numIterations=10, numLeaves=31,
    maxBin=255).fit`` on a HIGGS-shaped ``Table`` (28 dense float32
    features, ``--rows`` rows), then ``.transform`` and ``saveNativeModel``;
@@ -49,7 +50,10 @@ Phases, each of which fails the run if it fails:
    over 989 TFLOP/s, or bytes over 3.35 TB/s, the larger) and, for
    ``flash_attention``, one ``scaled_dot_product_attention`` call (a
    yardstick the port never calls; no single PyTorch call computes the
-   ring's carried-state step); causal and bf16 cases timed as well;
+   ring's carried-state step); causal and bf16 cases timed as well; both
+   kernels also at head dims 96 and 128 (the DP = 128 instantiation)
+   against their plain versions, and timed with D = 128 at the path's
+   lengths ((4, 8192, 4, 128) beside SDPA; (4, 4096, 8, 128));
 8. seq path: ``TransformerEncoder(mask_free=True)`` at
    ``DeepTextClassifier``'s widths (vocab 32768, 4 layers, 8 heads, hidden
    256, MLP 1024; float32, random weights from a seed in the JAX package's
@@ -66,11 +70,30 @@ Phases, each of which fails the run if it fails:
    sequence (padded to the shard grid) with each variant: within rtol 2e-4
    / atol 2e-5 of ``attention_reference`` on the card, through the kernels
    (2 ring-step launches, 1 Ulysses launch per rank). A failed rank fails
-   the run.
+   the run;
+9. training: ``DeepTextClassifier(seqParallel=True, seqAxisSize=2)`` at
+   its default widths (vocab 32768, 4 layers, 8 heads, hidden 256, MLP
+   1024, adamw), ``maxTokenLen`` 8192, batch 4, on 8 synthetic texts from
+   a seed: two gloo ranks sharing the card each call ``fit`` (mesh
+   ``{"data": 1, "seq": 2}``) for 2 steps with ring attention, then 2 with
+   Ulysses (each model then ``transform``s the table), then 1 step with
+   ``precision="bfloat16"`` ("auto", which resolves to ring). Launch counts
+   zeroed just before each fit and transform and read just after; every
+   training forward must launch 8 ``flash_attention_block`` (ring) or 4
+   ``flash_attention`` (Ulysses) per rank (forward hooks read the counts
+   around it). Losses finite, parameters bitwise equal across the ranks
+   (sha256), the ring's first-step loss within rtol 2e-4 of the same step
+   out of scope on the card (plain attention, one process) and within 1e-5
+   of Ulysses'; per step forward, backward, gradient all-reduce and update
+   seconds, staged bytes and peak memory logged per rank, each flash
+   kernel's recompute backward timed alone at the path's shape, and one
+   more ring step in the warmed ranks profiled on rank 0 (device busy time
+   by kernel).
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
-launches counted on its own path; the flash kernels' summed over both
-ranks of one forward) and ``{"ok": true, "device": {...}}``.
+launches counted on its own path; the flash kernels' in phase 9's ring and
+Ulysses fits, summed over both ranks) and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -118,6 +141,30 @@ ENCODER = dict(vocab_size=32768, num_layers=4, num_heads=8, hidden=256,
                mlp_ratio=4, max_len=8192, num_classes=2, dropout=0.0,
                mask_free=True)
 SEQ_BATCH, SEQ_RANKS = 4, 2
+# phase 9: DeepTextClassifier at its default widths on the seq path's
+# window and batch; TRAIN_ROWS rows = 2 steps of SEQ_BATCH per epoch
+TRAIN_ROWS = 8
+TRAIN_EST = dict(vocabSize=32768, numLayers=4, numHeads=8, hiddenSize=256,
+                 maxTokenLen=8192, batchSize=SEQ_BATCH, maxEpochs=1,
+                 learningRate=1e-4, optimizer="adamw", seed=0,
+                 seqParallel=True, seqAxisSize=SEQ_RANKS)
+# (run, estimator params): 2 steps each with ring and Ulysses (then
+# transform), one bf16 step with the variant "auto" resolves to (ring)
+TRAIN_RUNS = [("ring", dict(seqAttention="ring")),
+              ("ulysses", dict(seqAttention="ulysses")),
+              ("bf16", dict(seqAttention="auto", precision="bfloat16",
+                            stepsPerEpoch=1))]
+# flash launches per rank in one training forward
+FORWARD_LAUNCHES = {"ring": {"flash_attention_block": 4 * 2,
+                             "flash_attention": 0},
+                    "ulysses": {"flash_attention": 4,
+                                "flash_attention_block": 0}}
+# head dims above 64 (the DP = 128 instantiation) at the seq path's
+# lengths: (B, S, H, D) of one Ulysses rank and of one ring step
+WIDE_HEAD_DIMS = (96, 128)
+# bin spaces above the B = 256 of the main path, all three kernels
+LARGE_BINS = (4096, 8192)
+LARGE_BIN_ROWS = 500_000
 # a sequence that does not divide the seq axis: padded, its padded keys
 # dropped before the kernels (B, S, H, D)
 PADDED_SHAPE = (2, 4095, 8, 32)
@@ -257,6 +304,7 @@ def kernel_phase(rows: int, dev: str) -> dict:
     del bT, g, h, m
     torch.cuda.empty_cache()
     results["level_histograms"] = level_kernel_phase(rows, dev, compare)
+    large_bins_phase(dev, compare)
     for name, r in results.items():
         log(f"  {name} [{r['shape']}]: kernel_ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
@@ -464,6 +512,72 @@ def level_kernel_phase(rows: int, dev: str, compare) -> dict:
                 bound_ms=bnd, bound_by=by, library_ms=t_lib, fit_ms=t_fit,
                 tensor_ms=tensor_ms,
                 shape=f"FP={FP} CAP={CAP} B={B} slots={L}")
+
+
+def large_bins_phase(dev: str, compare) -> None:
+    """All three histogram kernels at each of ``LARGE_BINS`` against their
+    plain versions (phase 2's tolerance, exact counts), ``LARGE_BIN_ROWS``
+    rows of FP = 32 random bins (some outside [0, B)), the level kernel over
+    3 slots of whole chunks; each kernel timed once per B beside its plain
+    version, one ``index_put_`` call (out-of-range bins sent to a spare row)
+    and its bytes bound."""
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    FP, n = hk.features_padded(FEATURES), LARGE_BIN_ROWS
+    C = hk.CHUNK
+    n = -(-n // C) * C
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    starts = torch.tensor([0, n // C // 3, 2 * (n // C) // 3],
+                          dtype=torch.int32, device=dev)
+    slot = torch.bucketize(torch.arange(n, device=dev) // C,
+                           starts[1:].long(), right=True)
+    st = torch.tensor(n // 5, dtype=torch.int32, device=dev)
+    le = torch.tensor(n // 2, dtype=torch.int32, device=dev)
+    rows = slice(n // 5, n // 5 + n // 2)
+    f = torch.arange(FP, device=dev)[:, None]
+    for B in LARGE_BINS:
+        bT = torch.randint(-2, B + 2, (FP, n), generator=gen, device=dev,
+                           dtype=torch.int32)
+        m = (torch.rand(n, generator=gen, device=dev) > 0.2).float()
+        g = torch.randn(n, generator=gen, device=dev) * m
+        h = torch.rand(n, generator=gen, device=dev) * m
+        b = bT.to(torch.int64)
+        ok = (b >= 0) & (b < B)
+        flat = torch.where(ok, f * B + b, FP * B)
+        level_flat = torch.where(ok, (slot[None, :] * FP + f) * B + b,
+                                 3 * FP * B)
+        calls = {
+            "child_histogram": (
+                lambda: hk.child_histogram(bT, g, h, m, B),
+                lambda: hk._hist_plain(bT, g, h, m, B),
+                _index_put(flat.reshape(-1), g, h, m, FP, FP * B + 1),
+                bound_ms(FP, n, B)),
+            "range_histogram": (
+                lambda: hk.range_histogram(bT, g, h, m, st, le, B),
+                lambda: hk._range_hist_plain(bT, g, h, m, n // 5, n // 2,
+                                             B),
+                _index_put(flat[:, rows].reshape(-1), g[rows], h[rows],
+                           m[rows], FP, FP * B + 1),
+                bound_ms(FP, n // 2, B)),
+            "level_histograms": (
+                lambda: hk.level_histograms(bT, g, h, m, starts, slot, B, 3),
+                lambda: hk._level_hist_plain(bT, g, h, m, slot, B, 3),
+                _index_put(level_flat.reshape(-1), g, h, m, FP,
+                           3 * FP * B + 1),
+                bound_ms(FP, n, B, 3))}
+        del b, ok
+        for name, (kernel, plain, library, (bnd, by)) in calls.items():
+            compare(f"{name} B={B} n={n}", kernel(), plain())
+            t = time_ms(kernel, 5)
+            t_plain = time_ms(plain, 3)
+            t_lib = time_ms(library, 3)
+            log(f"  {name} B={B}: kernel_ms={t:.4f} plain_ms={t_plain:.4f} "
+                f"library_ms={t_lib:.4f} bound_ms={bnd:.4f} ({by}) -> "
+                f"{bnd / t:.1%} of bound, {t_plain / t:.2f}x faster than "
+                f"plain, {t_lib / t:.2f}x than the library call")
+        del bT, g, h, m, flat, level_flat, calls
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -726,21 +840,42 @@ def _flash_compare(label, got, want, bf16=False) -> float:
     return err
 
 
-def _block_compare(label, got, want, bf16=False) -> float:
+def _block_compare(label, got, want, bf16=False, o_bound=None) -> float:
     """``_flash_compare`` of a carried state (m, l, o). o is compared after
     dividing both sides by the plain version's l (1 where l = 0): the
     unnormalised sum over Sk keys carries float32 rounding in proportion to
     l, not to o, whose entries can sit near zero. The raw o gap is logged
-    beside it, unchecked."""
+    beside it, unchecked. ``o_bound``, where given, replaces the tolerance
+    of o / l by that absolute bound (``bf16_o_bound``)."""
     (mk, lk, ok), (mp, lp, op) = got, want
     denom = torch.where(lp > 0, lp, 1.0).transpose(1, 2)[..., None]
     log(f"  {label}: raw o max |kernel - plain| "
         f"{float((ok - op).abs().max()):.3g} (unchecked), max |o / l| "
         f"{float((op / denom).abs().max()):.3g}")
+    if o_bound is not None:
+        err = float((ok / denom - op / denom).abs().max())
+        log(f"  {label}: o / l: max |kernel - plain| {err:.3g}, bound "
+            f"{o_bound:.3g} -> {'ok' if err <= o_bound else 'MISMATCH'}")
+        if not err <= o_bound:
+            raise AssertionError(f"{label}: kernel disagrees with its plain "
+                                 "version")
     return max(_flash_compare(f"{label}: m", mk, mp, bf16),
                _flash_compare(f"{label}: l", lk, lp, bf16),
-               _flash_compare(f"{label}: o / l", ok / denom, op / denom,
-                              bf16))
+               err if o_bound is not None else _flash_compare(
+                   f"{label}: o / l", ok / denom, op / denom, bf16))
+
+
+def bf16_o_bound(v) -> float:
+    """The bound on |kernel - plain| of a bf16 carried state's o / l: each
+    side rounds every p to bf16 (relative error at most 2^-9) against its
+    own running maximum, so the two roundings of one p differ by at most
+    2^-8 of it; o / l sums p · v over l >= sum p, so the gap is at most
+    2^-8 · max |v| (plus float32 rounding, far below). The phase's
+    elementwise bf16 tolerance, 8e-3 |x| + 1e-3, assumes o / l of order 1:
+    gaps of 1.1e-3 to 1.3e-3 were read at D = 64, 96 and 128 on an H100
+    80GB HBM3 at 700 W, so it fails wherever such a gap falls on an entry
+    below about 0.04 in size, at any head dim."""
+    return 2.0 ** -8 * float(v.float().abs().max())
 
 
 def _randn(gen, shape, dev, dtype=torch.float32):
@@ -805,7 +940,77 @@ def flash_kernel_phase(dev: str) -> dict:
                 if not (torch.equal(got[1], l) and torch.equal(got[2], o)):
                     raise AssertionError("a step wholly in the causal future "
                                          "changed the state")
+    fa_err, fb_err = wide_heads_phase(dev, gen, fa_err, fb_err)
     return path_shape_phase(dev, gen, fa_err, fb_err)
+
+
+def wide_heads_phase(dev: str, gen, fa_err: float, fb_err: float) -> tuple:
+    """Both kernels at each of ``WIDE_HEAD_DIMS`` against their plain
+    versions (float32; bf16 without a causal mask for ``flash_attention``,
+    as phase 7's other bf16 case), then timed at the seq path's lengths with
+    D = 128 beside their plain versions, their bounds and, for
+    ``flash_attention``, SDPA."""
+    import torch.nn.functional as F
+
+    from synapseml_tpu_torch.ops import attention_kernel as ak
+    from synapseml_tpu_torch.parallel.ring_attention import _block_attention
+
+    for D in WIDE_HEAD_DIMS:
+        for causal, dtype in ((False, torch.float32), (True, torch.float32),
+                              (False, torch.bfloat16)):
+            bf16 = dtype == torch.bfloat16
+            q, k, v = (_randn(gen, (2, n, 3, D), dev, dtype)
+                       for n in (145, 130, 130))
+            fa_err = max(fa_err, _flash_compare(
+                f"flash_attention D={D} Sq=145 Sk=130 causal={causal} "
+                f"{'bf16' if bf16 else 'f32'}",
+                ak.flash_attention(q, k, v, causal=causal),
+                ak._xla_fallback(q, k, v, causal, D ** -0.5, 128), bf16))
+            m = _randn(gen, (2, 3, 145), dev)
+            l = torch.rand((2, 3, 145), generator=gen, device=dev) + 0.5
+            o = _randn(gen, (2, 145, 3, D), dev)
+            m[:, :, ::7], l[:, :, ::7], o[:, ::7] = -float("inf"), 0, 0
+            fb_err = max(fb_err, _block_compare(
+                f"flash_attention_block D={D} q_off=40 k_off=17 "
+                f"causal={causal} {'bf16' if bf16 else 'f32'} carried state",
+                ak.flash_attention_block(q, k, v, m, l, o, 40, 17,
+                                         causal=causal),
+                _block_attention(q, k, v, m, l, o, 40, 17, causal,
+                                 D ** -0.5), bf16,
+                bf16_o_bound(v) if bf16 else None))
+    D = max(WIDE_HEAD_DIMS)
+    B, S, H = SEQ_BATCH, ENCODER["max_len"], ENCODER["num_heads"]
+    hu, s_local, scale = H // SEQ_RANKS, S // SEQ_RANKS, D ** -0.5
+    q, k, v = (_randn(gen, (B, S, hu, D), dev) for _ in range(3))
+    fa_err = max(fa_err, _flash_compare(
+        f"flash_attention at ({B}, {S}, {hu}, {D})",
+        ak.flash_attention(q, k, v), ak._xla_fallback(q, k, v, False, scale,
+                                                      128)))
+    t_k = time_ms(lambda: ak.flash_attention(q, k, v), 5)
+    t_p = time_ms(lambda: ak._xla_fallback(q, k, v, False, scale, 128), 2)
+    qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t_l = time_ms(lambda: F.scaled_dot_product_attention(qT, kT, vT,
+                                                         scale=scale), 5)
+    bnd, by = attention_bound_ms(B, hu, S, S, D, 4)
+    log(f"  flash_attention D={D} [q/k/v ({B}, {S}, {hu}, {D}) f32]: "
+        f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+        f"bound_ms={bnd:.4f} ({by}) -> {bnd / t_k:.1%} of bound")
+    del q, k, v, qT, kT, vT
+    q, k, v = (_randn(gen, (B, s_local, H, D), dev) for _ in range(3))
+    m = _randn(gen, (B, H, s_local), dev)
+    l = torch.rand((B, H, s_local), generator=gen, device=dev) + 0.5
+    o = _randn(gen, (B, s_local, H, D), dev)
+    t_k = time_ms(lambda: ak.flash_attention_block(q, k, v, m, l, o,
+                                                   s_local, 0), 5)
+    t_p = time_ms(lambda: _block_attention(q, k, v, m, l, o, s_local, 0,
+                                           False, scale), 2)
+    bnd, by = attention_bound_ms(B, H, s_local, s_local, D, 4, state=True)
+    log(f"  flash_attention_block D={D} [q/k/v ({B}, {s_local}, {H}, {D}) "
+        f"f32, carried state]: kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
+        f"bound_ms={bnd:.4f} ({by}) -> {bnd / t_k:.1%} of bound")
+    del q, k, v, m, l, o
+    torch.cuda.empty_cache()
+    return fa_err, fb_err
 
 
 def path_shape_phase(dev: str, gen, fa_err: float, fb_err: float) -> dict:
@@ -871,9 +1076,19 @@ def path_shape_phase(dev: str, gen, fa_err: float, fb_err: float) -> dict:
         lambda: _block_attention(q, k, v, m, l, o, s_local, 0, False, scale),
         3)
     bnd, by = attention_bound_ms(B, H, s_local, s_local, D, 4, state=True)
-    # the ring's diagonal step (causal, equal offsets) and bf16 inputs
+    # the ring's diagonal step (causal, equal offsets) and bf16 inputs (the
+    # bf16 training step's instantiation): checked, then timed
     for causal, dtype in ((True, torch.float32), (False, torch.bfloat16)):
         qc, kc, vc = (x.to(dtype) for x in (q, k, v))
+        bf16 = dtype == torch.bfloat16
+        fb_err = max(fb_err, _block_compare(
+            f"flash_attention_block causal={causal} {str(dtype)[6:]} "
+            f"(offsets {s_local}, {s_local}) at the ring shape",
+            ak.flash_attention_block(qc, kc, vc, m, l, o, s_local, s_local,
+                                     causal=causal),
+            _block_attention(qc, kc, vc, m, l, o, s_local, s_local, causal,
+                             scale),
+            bf16=bf16, o_bound=bf16_o_bound(vc) if bf16 else None))
         t_c = time_ms(lambda: ak.flash_attention_block(
             qc, kc, vc, m, l, o, s_local, s_local, causal=causal), 10)
         b_c, by_c = attention_bound_ms(B, H, s_local, s_local, D,
@@ -1026,7 +1241,7 @@ def _seq_rank(rank: int, workdir: str, dev: str, cfg: dict) -> None:
     torch.distributed.destroy_process_group()
 
 
-def seq_path(dev: str, cfg: dict = ENCODER) -> dict:
+def seq_path(dev: str, cfg: dict = ENCODER) -> None:
     import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
@@ -1110,9 +1325,395 @@ def seq_path(dev: str, cfg: dict = ENCODER) -> dict:
                            rtol=VARIANT_TOL, atol=VARIANT_TOL)
                for r in range(SEQ_RANKS)):
         raise AssertionError("ring and Ulysses logits disagree")
-    return {name: sum(rep[v]["launches"][name] for rep in reports)
-            for v, name in (("ring", "flash_attention_block"),
-                            ("ulysses", "flash_attention"))}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: DeepTextClassifier trains on two ranks
+# ---------------------------------------------------------------------------
+
+def _on_card(dev: str) -> bool:
+    return dev.startswith("cuda")
+
+
+def _sync(dev: str) -> None:
+    if _on_card(dev):
+        torch.cuda.synchronize()
+
+
+def _peak_gib(dev: str, reset: bool = False) -> float:
+    """Peak device memory since the last reset (0 on the CPU)."""
+    if not _on_card(dev):
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def train_table(est: dict, seed: int = 0):
+    """``TRAIN_ROWS`` texts long enough to fill the window, balanced labels
+    (alternating), each text's words drawn at random with its label's
+    sentiment words sprinkled in."""
+    from synapseml_tpu_torch.core import Table
+
+    rng = np.random.default_rng(seed)
+    n = est["maxTokenLen"] + 100
+    labels = np.arange(TRAIN_ROWS) % 2
+    texts = []
+    for y in labels:
+        words = np.array([f"w{w}" for w in rng.integers(0, 50_000, size=n)])
+        words[rng.random(n) < 0.05] = ("good", "bad")[y]
+        texts.append(" ".join(words))
+    return Table({"text": texts, "label": labels})
+
+
+def _digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in sorted(model.state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _train_rank(rank: int, workdir: str, dev: str, est_params: dict) -> None:
+    """One rank of phase 9 (spawned): every ``TRAIN_RUNS`` fit through
+    ``DeepTextClassifier`` on ``dev`` (the card, shared with the other
+    rank), the ring and Ulysses models' ``transform``; the launch counts
+    are zeroed just before each fit and each transform and read just after,
+    and each training forward's launches are read around it (forward
+    hooks)."""
+    sys.path.insert(0, str(REPO))
+    from torch.nn.modules import module as nn_module
+
+    from synapseml_tpu_torch.dl.text import (DeepTextClassifier,
+                                             TransformerEncoder)
+    from synapseml_tpu_torch.ops import attention_kernel as ak
+    from synapseml_tpu_torch.parallel import collectives, init_distributed
+
+    init_distributed("gloo", os.path.join(workdir, "store"), rank, SEQ_RANKS,
+                     timeout_s=600)
+    table = train_table(est_params)
+    forwards = []
+
+    def pre(mod, args):
+        if isinstance(mod, TransformerEncoder) and mod.training:
+            forwards.append(dict(ak.LAUNCHES))
+
+    def post(mod, args, out):
+        if isinstance(mod, TransformerEncoder) and mod.training:
+            forwards[-1] = {k: ak.LAUNCHES[k] - forwards[-1][k]
+                            for k in ak.LAUNCHES}
+
+    hooks = [nn_module.register_module_forward_pre_hook(pre),
+             nn_module.register_module_forward_hook(post)]
+    report = {}
+    for run, kw in TRAIN_RUNS:
+        est = DeepTextClassifier(**est_params, **kw, device=dev)
+        forwards.clear()
+        _sync(dev)
+        _peak_gib(dev, reset=True)
+        collectives.reset_staging_counts()
+        ak.reset_launch_counts()
+        t0 = time.perf_counter()
+        model = est.fit(table)
+        _sync(dev)
+        fit_s = time.perf_counter() - t0
+        x = dict(fit_s=fit_s, launches=dict(ak.LAUNCHES),
+                 forwards=list(forwards), steps=model.trainer.step_stats,
+                 variant=model.trainer.stats.get("seq_attention"),
+                 staged_bytes=collectives.STAGING["bytes"],
+                 staging_s=collectives.STAGING["seconds"],
+                 comm_s=dict(collectives.COMM_SECONDS),
+                 peak_gib=_peak_gib(dev),
+                 digest=_digest(model.trainer.model))
+        if run in ("ring", "ulysses"):
+            ak.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = model.transform(table)
+            x["transform_s"] = time.perf_counter() - t0
+            x["transform_launches"] = dict(ak.LAUNCHES)
+            np.save(os.path.join(workdir, f"prob_{run}_{rank}.npy"),
+                    np.asarray(out["probability"]))
+        report[run] = x
+        del model
+        if _on_card(dev):
+            torch.cuda.empty_cache()
+    for h in hooks:
+        h.remove()
+    if _on_card(dev):
+        report["profile"] = _profiled_step(rank, table, dev, est_params)
+    with open(os.path.join(workdir, f"train_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def _profiled_step(rank: int, table, dev: str, est_params: dict) -> dict:
+    """One more ring step in the warmed process (a 1-step fit), rank 0
+    under torch.profiler (CUPTI), rank 1 alongside it: the step's wall,
+    device busy time and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from synapseml_tpu_torch.dl.text import DeepTextClassifier
+
+    est = DeepTextClassifier(**est_params, seqAttention="ring",
+                             stepsPerEpoch=1, device=dev)
+    if rank != 0:
+        est.fit(table)
+        return {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model = est.fit(table)
+        _sync(dev)
+    avg = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avg
+               if e.device_type == DeviceType.CUDA) / 1e3
+    # device time by the PyTorch op that launched it (a kernel of the port
+    # is launched by no op and shows under its own name)
+    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                  for e in avg if e.self_device_time_total > 0
+                  and (e.device_type == DeviceType.CPU
+                       or "flash" in e.key)), reverse=True)
+    st = model.trainer.step_stats[0]
+    return dict(wall_ms=1e3 * sum(st[k] for k in ("forward_s", "backward_s",
+                                                  "allreduce_s",
+                                                  "update_s")),
+                busy_ms=busy,
+                top=[(ms, n, key[:70]) for ms, n, key in ops[:14]])
+
+
+def reference_fit(dev: str, est_params: dict, **kw) -> list:
+    """The ``step_stats`` of the same fit out of scope: the estimator's
+    initial encoder (the same seed), its ``TrainConfig`` and batches
+    (``default_rng([seed, 0])``), plain attention, one process (no mesh).
+    Each batch runs as ``batchSize`` microbatches of one row
+    (``accum_steps``): the same mean loss and summed gradient, without the
+    plain attention's (B, H, S, S) scores of the whole batch held for the
+    backward."""
+    from synapseml_tpu_torch.dl.text import DeepTextClassifier, hash_tokenize
+    from synapseml_tpu_torch.dl.trainer import TrainConfig, Trainer
+
+    est = DeepTextClassifier(**{**est_params, **kw}, device=dev)
+    table = train_table(est_params)
+    ids = hash_tokenize(list(table["text"]), est.getVocabSize(),
+                        est.getMaxTokenLen())
+    cfg = TrainConfig(batch_size=est.getBatchSize(),
+                      max_epochs=est.getMaxEpochs(),
+                      learning_rate=est.getLearningRate(),
+                      optimizer=est.getOptimizer(),
+                      compute_dtype=est.getPrecision(), seed=est.getSeed(),
+                      steps_per_epoch=est.getStepsPerEpoch() or None,
+                      accum_steps=est.getBatchSize())
+    tr = Trainer(est._encoder(2), cfg, device=dev)
+    tr.fit(ids, np.asarray(table["label"]))
+    steps = tr.step_stats
+    del tr
+    if _on_card(dev):
+        torch.cuda.empty_cache()
+    return steps
+
+
+def grad_norm_gap(got: dict, want: dict) -> tuple:
+    """(largest |got - want| over the parameters' gradient norms, the whole
+    gradient's norm in ``want``): the per-parameter norms of one step
+    against the reference's. Holding the gap to ``SEQ_RTOL`` of the whole
+    norm holds no more than the whole gradient to ``SEQ_RTOL``, since
+    | |a| - |b| | <= |a - b| leaf by leaf."""
+    if set(got) != set(want):
+        raise AssertionError("gradient norms of different parameters")
+    total = float(np.sqrt(sum(v * v for v in want.values())))
+    return max(abs(got[k] - want[k]) for k in want), total
+
+
+def recompute_backward_ms(dev: str, est: dict) -> dict:
+    """Device milliseconds of each flash kernel's recompute backward (the
+    plain version's autograd, what a training step runs for every launch)
+    at the path's shapes, float32, and its peak memory."""
+    from synapseml_tpu_torch.ops import attention_kernel as ak
+    from synapseml_tpu_torch.parallel.ring_attention import _block_attention
+
+    B, S, H = est["batchSize"], est["maxTokenLen"], est["numHeads"]
+    D = est["hiddenSize"] // H
+    hu, s_local, scale = H // SEQ_RANKS, S // SEQ_RANKS, D ** -0.5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    out = {}
+    q, k, v, g = (_randn(gen, (B, S, hu, D), dev) for _ in range(4))
+    _peak_gib(dev, reset=True)
+    out["flash_attention"] = (time_ms(lambda: ak._recompute_grads(
+        lambda a, b, c: ak._xla_fallback(a, b, c, False, scale, 128),
+        (q, k, v), (g,)), 2), _peak_gib(dev))
+    del q, k, v, g
+    q, k, v, o = (_randn(gen, (B, s_local, H, D), dev) for _ in range(4))
+    m = _randn(gen, (B, H, s_local), dev)
+    l = torch.rand((B, H, s_local), generator=gen, device=dev) + 0.5
+    grads = (torch.randn_like(m), torch.randn_like(l), torch.randn_like(o))
+    if _on_card(dev):
+        torch.cuda.empty_cache()
+    _peak_gib(dev, reset=True)
+    out["flash_attention_block"] = (time_ms(lambda: ak._recompute_grads(
+        lambda *a: _block_attention(*a, s_local, 0, False, scale),
+        (q, k, v, m, l, o), grads), 2), _peak_gib(dev))
+    del q, k, v, m, l, o, grads
+    if _on_card(dev):
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_against_reference(report: dict, ref: list, ref16: list) -> None:
+    """One rank's fits against the same fits out of scope
+    (``reference_fit``; the ranks are bitwise equal, so one is enough).
+
+    float32, ring and Ulysses: every step's loss within ``SEQ_RTOL`` of the
+    reference's, and the first step's gradient (after the all-reduce) within
+    ``SEQ_RTOL`` of the whole reference gradient's norm, parameter by
+    parameter (``grad_norm_gap``). The first step is the forward; the
+    second holds the backward, the all-reduce and the update too (adamw:
+    ``lr · sign(g)`` at the first update, and a sign that flips in float32
+    noise belongs to an entry near 0, which moves the loss by about
+    ``lr · |g|``); the gradient norms hold its scale, which adamw's update
+    does not see (a missing 1/world, a head summed without it, shards
+    left unsummed).
+
+    bf16: the step's loss within twice the reference's own distance from
+    the float32 loss (at least 2^-8 of that loss). Both sides cast every
+    layer to bf16 alike and differ inside the attention only, where the
+    plain side rounds scores and weights to bf16 as flax does and the
+    kernel keeps them float32: one rounding among the several of each layer
+    that make up the reference's distance from float32."""
+    for run in ("ring", "ulysses"):
+        steps = report[run]["steps"]
+        for st, want in zip(steps, ref):
+            if not np.isclose(st["loss"], want["loss"], rtol=SEQ_RTOL,
+                              atol=0):
+                raise AssertionError(
+                    f"{run} step {st['step']}: loss {st['loss']} against "
+                    f"{want['loss']} out of scope")
+        gap, total = grad_norm_gap(steps[0]["grad_norms"],
+                                   ref[0]["grad_norms"])
+        log(f"  {run}: step losses {[round(x['loss'], 7) for x in steps]}; "
+            f"first-step gradient norms: largest gap {gap:.3g} against the "
+            f"whole norm {total:.6g} ({gap / total:.2e}; limit {SEQ_RTOL})")
+        if not gap <= SEQ_RTOL * total:
+            raise AssertionError(f"{run}: the first step's gradient "
+                                 "disagrees with the same step out of scope")
+    got, want = report["bf16"]["steps"][0]["loss"], ref16[0]["loss"]
+    tol = max(2 * abs(want - ref[0]["loss"]), 2.0 ** -8 * ref[0]["loss"])
+    log(f"  bf16: first loss {got:.7f} against {want:.7f} out of scope: gap "
+        f"{abs(got - want):.3g}, limit {tol:.3g}")
+    if not abs(got - want) <= tol:
+        raise AssertionError("the bf16 step disagrees with the same step out "
+                             "of scope")
+
+
+def train_path(dev: str, est: dict = TRAIN_EST) -> dict:
+    """Phase 9's checks over both ranks' reports; returns the flash launches
+    of the ring fit (``flash_attention_block``) and of the Ulysses fit
+    (``flash_attention``), summed over the ranks."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    _peak_gib(dev, reset=True)
+    ref = reference_fit(dev, est)
+    ref16 = reference_fit(dev, est, precision="bfloat16", stepsPerEpoch=1)
+    log(f"  the same fits out of scope (plain attention, one process, "
+        f"microbatches of one row): float32 losses "
+        f"{[round(st['loss'], 7) for st in ref]}, bf16 first loss "
+        f"{ref16[0]['loss']:.7f} ({time.perf_counter() - t0:.1f}s, peak "
+        f"{_peak_gib(dev):.2f} GiB)")
+    for name, (ms, gib) in recompute_backward_ms(dev, est).items():
+        log(f"  {name} recompute backward at the path's shape: {ms:.2f} ms, "
+            f"peak {gib:.2f} GiB")
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        mp.spawn(_train_rank, args=(workdir, dev, est), nprocs=SEQ_RANKS,
+                 join=True)
+        log(f"  {SEQ_RANKS} ranks spawned, trained and joined in "
+            f"{time.perf_counter() - t0:.1f}s")
+        reports = []
+        for r in range(SEQ_RANKS):
+            with open(os.path.join(workdir, f"train_{r}.json")) as f:
+                reports.append(json.load(f))
+        probs = {(run, r): np.load(os.path.join(workdir,
+                                                f"prob_{run}_{r}.npy"))
+                 for run in ("ring", "ulysses") for r in range(SEQ_RANKS)}
+    first = {}
+    batches = -(-TRAIN_ROWS // est["batchSize"])
+    for run, kw in TRAIN_RUNS:
+        steps = 1 if kw.get("stepsPerEpoch") else TRAIN_ROWS // est[
+            "batchSize"]
+        per_forward = FORWARD_LAUNCHES["ulysses" if run == "ulysses"
+                                       else "ring"]
+        for r, rep in enumerate(reports):
+            x = rep[run]
+            losses = [st["loss"] for st in x["steps"]]
+            for st in x["steps"]:
+                log(f"  {run} rank {r} step {st['step']}: loss "
+                    f"{st['loss']:.7f} forward {st['forward_s']:.3f}s "
+                    f"backward {st['backward_s']:.3f}s all-reduce "
+                    f"{st['allreduce_s']:.3f}s update {st['update_s']:.4f}s")
+            comm = {k: round(v, 3) for k, v in x["comm_s"].items()}
+            log(f"  {run} rank {r}: variant {x['variant']}, fit "
+                f"{x['fit_s']:.2f}s, staged "
+                f"{x['staged_bytes'] / 2**20:.1f} MiB in "
+                f"{x['staging_s']:.3f}s, collectives {json.dumps(comm)}"
+                f", peak device memory {x['peak_gib']:.2f} GiB, launches "
+                f"{json.dumps(x['launches'])}, per forward "
+                f"{json.dumps(x['forwards'])}")
+            if "transform_s" in x:
+                log(f"  {run} rank {r}: transform {x['transform_s']:.2f}s, "
+                    f"launches {json.dumps(x['transform_launches'])}")
+            if len(losses) != steps or not np.isfinite(losses).all():
+                raise AssertionError(f"{run} rank {r}: losses {losses}")
+            if x["variant"] != ("ulysses" if run == "ulysses" else "ring"):
+                raise AssertionError(f"{run}: ran {x['variant']}")
+            if x["forwards"] != [per_forward] * steps:
+                raise AssertionError(f"{run} rank {r}: forward launches "
+                                     f"{x['forwards']}, expected "
+                                     f"{per_forward} in each of {steps}")
+            if x["launches"] != {k: v * steps
+                                 for k, v in per_forward.items()}:
+                raise AssertionError(f"{run} rank {r}: launches in the fit "
+                                     f"{x['launches']}")
+            if "transform_s" in x:
+                if x["transform_launches"] != {
+                        k: v * batches for k, v in per_forward.items()}:
+                    raise AssertionError(f"{run} rank {r}: transform "
+                                         "launches, expected "
+                                         f"{per_forward} per batch")
+                p = probs[run, r]
+                if p.shape != (TRAIN_ROWS, 2) or not np.isfinite(p).all() \
+                        or not np.allclose(p.sum(-1), 1.0, atol=1e-5):
+                    raise AssertionError(f"{run} rank {r}: probabilities "
+                                         f"{p}")
+        if len({rep[run]["digest"] for rep in reports}) != 1:
+            raise AssertionError(f"{run}: parameters differ across ranks")
+        if not all(np.array_equal(probs[run, r], probs[run, 0])
+                   for r in range(SEQ_RANKS) if (run, r) in probs):
+            raise AssertionError(f"{run}: probabilities differ across ranks")
+        first[run] = reports[0][run]["steps"][0]["loss"]
+        log(f"  {run}: parameters bitwise equal on {SEQ_RANKS} ranks "
+            f"(sha256 {reports[0][run]['digest'][:16]})")
+    prof = reports[0].get("profile")
+    if prof and prof["busy_ms"]:
+        log(f"  profiled ring step (rank 0, warm): wall {prof['wall_ms']:.1f} "
+            f"ms (under the profiler), device busy {prof['busy_ms']:.1f} ms, "
+            f"idle {1 - prof['busy_ms'] / prof['wall_ms']:.1%}")
+        for ms, n, key in prof["top"]:
+            log(f"    {ms:9.3f} ms {ms / prof['busy_ms']:6.1%} {n:6d}x  {key}")
+    elif prof is not None:
+        log("  profiler recorded no device time: not measured")
+    log(f"  first-step losses: ring {first['ring']:.7f} ulysses "
+        f"{first['ulysses']:.7f} bf16 {first['bf16']:.7f}; out of scope "
+        f"float32 {ref[0]['loss']:.7f} bf16 {ref16[0]['loss']:.7f}")
+    check_against_reference(reports[0], ref, ref16)
+    if not np.isclose(first["ring"], first["ulysses"], rtol=VARIANT_TOL,
+                      atol=VARIANT_TOL):
+        raise AssertionError("ring and Ulysses first-step losses disagree")
+    return {name: sum(rep[run]["launches"][name] for rep in reports)
+            for run, name in (("ring", "flash_attention_block"),
+                              ("ulysses", "flash_attention"))}
 
 
 def main() -> int:
@@ -1173,11 +1774,15 @@ def main() -> int:
     flash = flash_kernel_phase(dev)
     log(f"[8] seq path: TransformerEncoder(mask_free=True) on {SEQ_RANKS} "
         f"ranks sharing the card, batch {SEQ_BATCH} x {ENCODER['max_len']}")
-    seq_launches = seq_path(dev)
+    seq_path(dev)
+    log(f"[9] training: DeepTextClassifier(seqParallel=True) on {SEQ_RANKS} "
+        f"ranks sharing the card, batch {SEQ_BATCH} x "
+        f"{TRAIN_EST['maxTokenLen']}")
+    train_launches = train_path(dev)
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},
-                **seq_launches}
+                **train_launches}
     sources = {**{k: "synapseml_tpu_torch/csrc/hist_kernel.cu"
                   for k in kernels},
                **{k: "synapseml_tpu_torch/csrc/attention_kernel.cu"

@@ -19,7 +19,10 @@ only reads attributes, so it needs neither package's framework), and
 The text modules (``dl.text.TransformerEncoder`` and the units of
 ``dl.backbones``) keep flax's parameter names and layouts, so
 ``text_encoder_from_reference`` turns a flax parameter tree of the JAX
-package's modules into this package's ``state_dict`` by flattening it.
+package's modules into this package's ``state_dict`` by flattening it, and
+``text_encoder_to_reference`` turns a ``state_dict`` back into the flax
+tree (nested dicts of numpy arrays), or into one flat dict keyed by the
+'/'-joined flax paths (the text model's saved format).
 """
 
 from __future__ import annotations
@@ -92,10 +95,11 @@ def text_encoder_from_reference(params) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of this package's ``TransformerEncoder`` from the
     JAX package's flax parameters of the same configuration: the nested
     dict of arrays that ``model.init`` returns (with or without its
-    ``"params"`` level), path components joined with ``"."``. The same
-    serves ``TransformerLayerUnit``, ``TextEmbedUnit`` and ``TextClsHead``.
-    Load it with ``module.load_state_dict(sd)``, which checks every name
-    and shape."""
+    ``"params"`` level), path components joined with ``"."``; a flat dict
+    keyed by '/'-joined paths is taken too. The same serves
+    ``TransformerLayerUnit``, ``TextEmbedUnit`` and ``TextClsHead``. Load it
+    with ``module.load_state_dict(sd)``, which checks every name and
+    shape."""
     if set(params) == {"params"}:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
@@ -105,8 +109,27 @@ def text_encoder_from_reference(params) -> Dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 walk(value, f"{prefix}{name}.")
             else:
-                out[prefix + name] = torch.from_numpy(
+                out[(prefix + name).replace("/", ".")] = torch.from_numpy(
                     np.array(value, dtype=np.float32))
 
     walk(params, "")
     return out
+
+
+def text_encoder_to_reference(state_dict, nested: bool = True) -> dict:
+    """The reverse of ``text_encoder_from_reference``: a ``state_dict`` (or
+    ``named_parameters``) of the text modules as the flax parameter tree,
+    nested dicts of float32 numpy arrays without the ``"params"`` level;
+    with ``nested=False`` one flat dict keyed by '/'-joined flax paths."""
+    flat = {name.replace(".", "/"): t.detach().float().cpu().numpy()
+            for name, t in dict(state_dict).items()}
+    if not nested:
+        return flat
+    tree: dict = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree

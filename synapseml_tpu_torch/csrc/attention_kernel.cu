@@ -43,10 +43,10 @@
 //
 // Design. One block of 8 warps per (b*h, tile of query rows); each warp
 // owns 32 rows at D <= 32 (two 16-row tiles, so every K/V fragment read
-// from shared memory feeds two products) and 16 at D <= 64 (where two
-// tiles spill registers), as in FlashAttention-2. Products run on the
-// tensor cores as `mma.sync.m16n8k8` TF32, chosen over `wgmma`: at D = 32
-// the tensor work is a small part of a tile next to the softmax, and
+// from shared memory feeds two products) and 16 at D <= 64 and D <= 128
+// (where two tiles spill registers), as in FlashAttention-2. Products run
+// on the tensor cores as `mma.sync.m16n8k8` TF32, chosen over `wgmma`: at
+// D = 32 the tensor work is a small part of a tile next to the softmax, and
 // `mma.sync` takes its operands from registers in any layout, where TF32
 // `wgmma` needs K-major shared-memory operands (V transposed) and its
 // descriptors; `wgmma` is a follow-up (ROADMAP Queue 2).
@@ -72,8 +72,9 @@
 //   where D is contiguous: any layout takes the same path, no copy), split
 //   to hi/lo once per tile on arrival by the whole block, and stored into
 //   one of two shared-memory buffers (40 KB at D = 32, 76 KB at D = 64,
-//   dynamic, opted in above 48 KB), so one barrier per tile suffices and
-//   the next tile's loads are in flight during this one's products.
+//   82 KB at D = 128, dynamic, opted in above 48 KB), so one barrier per
+//   tile suffices and the next tile's loads are in flight during this
+//   one's products.
 //   (`cp.async` would land the raw tile in shared memory and still need a
 //   register round trip for the split.)
 // * Shared layouts are the fragments': K as [key][d] with each (d, d+4)
@@ -94,9 +95,17 @@
 //   only on tiles that straddle the diagonal or the key edge. A skipped or
 //   fully masked update leaves l and o bit-identical. Rows >= Sq are not
 //   written.
+// * D = 128 (DP = 128, any D in 65..128 padded with zeros): the register
+//   budget, not the arithmetic, sets the design. Q's hi/lo fragments alone
+//   would take 128 words per lane next to 64 of output, so Q stays unsplit
+//   in registers (64 words) and each (row tile, 8-wide d slice) is split
+//   when its products use it; the K tile shrinks to 16 keys (fewer load,
+//   score and P registers); and the P V loop runs d slice by d slice, so one
+//   slice's tile sum (4 words) is live at a time instead of all 64. Each
+//   element's sums keep their order, so the result is the same function.
 // Variants measured slower on the H100 and not kept: PERF.md §6.
 //
-// Head dims up to 64 (padded with zeros to DP = 32 or 64), as before.
+// Head dims up to 128 (padded with zeros to DP = 32, 64 or 128).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,10 +133,12 @@ constexpr int kGeomLen = 7 + 4 * 4 + 2 * 3;
 // each 16 mod 32 words, and one buffer's floats.
 template <int DP>
 struct Tile {
-  static constexpr int kMT = DP == 64 ? 1 : 2;
+  static constexpr int kMT = DP >= 64 ? 1 : 2;
   static constexpr int kWarpRows = 16 * kMT;
   static constexpr int kRows = kWarpRows * kWarps;  // query rows per block
-  static constexpr int kKeys = 32;
+  static constexpr int kKeys = DP > 64 ? 16 : 32;
+  // D = 128: Q kept unsplit and P V summed d slice by d slice (see above)
+  static constexpr bool kNarrow = DP > 64;
   static constexpr int kKStride = 2 * DP + 16;
   static constexpr int kVStride = 2 * kKeys + 16;
   static constexpr int kVOffset = kKeys * kKStride;  // V^T after K
@@ -203,6 +214,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using Tl = Tile<DP>;
   constexpr int kKeys = Tl::kKeys, NT = kKeys / 8, KD = DP / 8;
   constexpr int MT = Tl::kMT, kWarpRows = Tl::kWarpRows, kRows = Tl::kRows;
+  constexpr bool kNarrow = Tl::kNarrow;
   extern __shared__ __align__(16) float smem[];
 
   const int64_t n_qt = (g.Sq + kRows - 1) / kRows;
@@ -219,8 +231,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int D = (int)g.D;
 
   // Q as split A fragments: (row gq, d 8kk+tq), (gq+8, ..), (gq, ..+4),
-  // (gq+8, ..+4)
-  uint32_t qh[MT][KD][4], ql[MT][KD][4];
+  // (gq+8, ..+4); unsplit in qx when kNarrow
+  constexpr int KS = kNarrow ? 1 : KD, KX = kNarrow ? KD : 1;
+  uint32_t qh[MT][KS][4], ql[MT][KS][4];
+  float qx[MT][KX][4];
   {
     const T* qb = q + b * g.q[0] + h * g.q[2];
 #pragma unroll
@@ -233,10 +247,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int d = 8 * kk + tq + 4 * (i >> 1);
           const float x = (r < g.Sq && d < D)
                               ? to_f32(qb[r * g.q[1] + d * g.q[3]]) : 0.f;
-          float hi, lo;
-          split<kSplit>(x, hi, lo);
-          qh[mt][kk][i] = __float_as_uint(hi);
-          ql[mt][kk][i] = __float_as_uint(lo);
+          if constexpr (kNarrow) {
+            qx[mt][kk][i] = x;
+          } else {
+            float hi, lo;
+            split<kSplit>(x, hi, lo);
+            qh[mt][kk][i] = __float_as_uint(hi);
+            ql[mt][kk][i] = __float_as_uint(lo);
+          }
         }
   }
 
@@ -341,19 +359,50 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // S = Q K^T for the warp's rows x kKeys keys; each K fragment feeds
       // every row tile
       float s[MT][NT][4];
+      if constexpr (kNarrow) {
+        // d slice outer: one slice of Q is split at a time
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) s[mt][nt][i] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KD; ++kk) {
-          const float4 w = *reinterpret_cast<const float4*>(
-              buf + (8 * nt + gq) * Tl::kKStride + 16 * kk + 4 * tq);
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
-            mma3<kSplit>(s[mt][nt], qh[mt][kk], ql[mt][kk], w);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[mt][nt][i] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              float hi, lo;
+              split<kSplit>(qx[mt][kk][i], hi, lo);
+              ah[mt][i] = __float_as_uint(hi);
+              al[mt][i] = __float_as_uint(lo);
+            }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float4 w = *reinterpret_cast<const float4*>(
+                buf + (8 * nt + gq) * Tl::kKStride + 16 * kk + 4 * tq);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma3<kSplit>(s[mt][nt], ah[mt], al[mt], w);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[mt][nt][i] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < KD; ++kk) {
+            const float4 w = *reinterpret_cast<const float4*>(
+                buf + (8 * nt + gq) * Tl::kKStride + 16 * kk + 4 * tq);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma3<kSplit>(s[mt][nt], qh[mt][kk], ql[mt][kk], w);
+          }
         }
       }
       // scale and mask: s[mt][nt][i] is (row_of(mt, i >> 1),
@@ -418,46 +467,85 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // after it: the tensor core aligns and truncates its addends to the
       // largest, so accumulating every tile into the running acc would lose
       // the small products' low bits, and always toward zero.
-      float pv[MT][KD][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nd = 0; nd < KD; ++nd)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) pv[mt][nd][i] = 0.f;
       // keys in the permuted order k = tq <-> key 2tq, k = tq + 4 <->
       // key 2tq + 1: the A fragment of P is the score registers
       // {s0, s2, s1, s3}
       const float* vs = buf + Tl::kVOffset;
+      if constexpr (kNarrow) {
+        // d slice outer: one slice's tile sum is live at a time; each
+        // element still sums its keys in the same order
+        uint32_t ph[NT][MT][4], pl[NT][MT][4];
 #pragma unroll
-      for (int kt = 0; kt < NT; ++kt) {
-        uint32_t ph[MT][4], pl[MT][4];
+        for (int kt = 0; kt < NT; ++kt)
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int perm[4] = {0, 2, 1, 3};
+          for (int mt = 0; mt < MT; ++mt) {
+            const int perm[4] = {0, 2, 1, 3};
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float hi, lo;
-            split<kSplit>(s[mt][kt][perm[i]], hi, lo);
-            ph[mt][i] = __float_as_uint(hi);
-            pl[mt][i] = __float_as_uint(lo);
+            for (int i = 0; i < 4; ++i) {
+              float hi, lo;
+              split<kSplit>(s[mt][kt][perm[i]], hi, lo);
+              ph[kt][mt][i] = __float_as_uint(hi);
+              pl[kt][mt][i] = __float_as_uint(lo);
+            }
+          }
+#pragma unroll
+        for (int nd = 0; nd < KD; ++nd) {
+          float pv[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pv[mt][i] = 0.f;
+#pragma unroll
+          for (int kt = 0; kt < NT; ++kt) {
+            const float4 w = *reinterpret_cast<const float4*>(
+                vs + (8 * nd + gq) * Tl::kVStride + 16 * kt + 4 * tq);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma3<kSplit>(pv[mt], ph[kt][mt], pl[kt][mt], w);
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][nd][i] += pv[mt][i];
+        }
+      } else {
+        float pv[MT][KD][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nd = 0; nd < KD; ++nd)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pv[mt][nd][i] = 0.f;
+#pragma unroll
+        for (int kt = 0; kt < NT; ++kt) {
+          uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const int perm[4] = {0, 2, 1, 3};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              float hi, lo;
+              split<kSplit>(s[mt][kt][perm[i]], hi, lo);
+              ph[mt][i] = __float_as_uint(hi);
+              pl[mt][i] = __float_as_uint(lo);
+            }
+          }
+#pragma unroll
+          for (int nd = 0; nd < KD; ++nd) {
+            const float4 w = *reinterpret_cast<const float4*>(
+                vs + (8 * nd + gq) * Tl::kVStride + 16 * kt + 4 * tq);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma3<kSplit>(pv[mt][nd], ph[mt], pl[mt], w);
           }
         }
 #pragma unroll
-        for (int nd = 0; nd < KD; ++nd) {
-          const float4 w = *reinterpret_cast<const float4*>(
-              vs + (8 * nd + gq) * Tl::kVStride + 16 * kt + 4 * tq);
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            mma3<kSplit>(pv[mt][nd], ph[mt], pl[mt], w);
-        }
+          for (int nd = 0; nd < KD; ++nd)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][nd][i] += pv[mt][nd][i];
       }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nd = 0; nd < KD; ++nd)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nd][i] += pv[mt][nd][i];
     }
     if (more) store(smem + ((t + 1) & 1) * Tl::kBuf);
     __syncthreads();
@@ -521,8 +609,8 @@ int launch(const void* q, const void* k, const void* v, const void* m_in,
   const int64_t blocks = g.B * g.H * ((g.Sq + kRows - 1) / kRows);
   if (blocks <= 0) return 0;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // above 48 KB (D = 64: 76 KB) dynamic shared memory needs the opt-in, set
-  // for the current device
+  // above 48 KB (D = 64: 76 KB, D = 128: 82 KB) dynamic shared memory
+  // needs the opt-in, set for the current device
   constexpr size_t smem = Tile<DP>::kSmem;
   const cudaError_t opt_in = cudaFuncSetAttribute(
       flash_kernel<T, DP, kState>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -546,7 +634,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* m_in,
                                o_out, g, scale, causal, stream)
 #define FLASH_BY_DIM(T)                  \
   if (g.D <= 32) FLASH_LAUNCH(T, 32);    \
-  if (g.D <= 64) FLASH_LAUNCH(T, 64);
+  if (g.D <= 64) FLASH_LAUNCH(T, 64);    \
+  if (g.D <= 128) FLASH_LAUNCH(T, 128);
   if (bf16) {
     FLASH_BY_DIM(__nv_bfloat16)
   } else {
@@ -554,7 +643,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* m_in,
   }
 #undef FLASH_BY_DIM
 #undef FLASH_LAUNCH
-  return (int)cudaErrorInvalidValue;  // head dim above 64
+  return (int)cudaErrorInvalidValue;  // head dim above 128
 }
 
 }  // namespace

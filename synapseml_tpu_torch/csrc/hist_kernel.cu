@@ -54,6 +54,10 @@
 //   a constant column), sums the warp's values with shuffles and lets one
 //   lane add them.
 // Variants measured slower on the H100 and not kept: PERF.md §6.
+// Large bin spaces: a block keeps fewer features when FB * B * 12 bytes would
+// pass the 48 KB a block gets without opting in, down to one feature, whose
+// (B, 3) histogram takes the opt-in above 48 KB: 192 KB at B = 16384, the
+// largest B taken (kMaxBins; the H100 gives a block up to 227 KB).
 // range_histogram: the grid depends on the card and n only; each block reads
 // `info` and takes a contiguous span of max(length / blocks, 2048) rows, so
 // a block whose span is empty returns before it zeroes or flushes anything,
@@ -106,6 +110,13 @@
 // * One wave: about two resident blocks per SM, each a run of stages; a
 //   block's first stage and its flushes are not hidden, so more and shorter
 //   blocks measured slower.
+// * Bin windows: the codes hold hi below 512, so one pass takes up to
+//   kMaxLevelBins = 2048 bins. A larger B (up to kMaxBins) runs as B / 2048
+//   windows on the grid's z axis, one launch: window w stages bin - 2048 w,
+//   which the clamp sends to "outside" unless it falls in [0, 2048), and
+//   writes its bins at offset 2048 w of out's (B, 3) rows. Every bin is
+//   counted in exactly one window, with the same sums as one pass; each
+//   window reads the rows again (B / 2048 times the bytes).
 // Bins stay int32 (shared with the grower); uint8 bins would cut the bytes
 // read by 4x and are a later step, and wgmma (the masked values staged in
 // shared memory) the step toward the full tensor rate.
@@ -120,6 +131,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMinRows = 2048;  // least rows per block of a range
 constexpr int kFeatureBlock = 8;  // features per block
+constexpr int kMaxBins = 16384;   // the largest bin space the kernels take
+constexpr int kSmemDefault = 48 * 1024;  // shared bytes without the opt-in
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -227,10 +240,10 @@ hist_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
 
 // Features per block: the largest of kFeatureBlock, ..., 2, 1 that divides
 // FP and keeps the shared histogram within the 48 KB a block gets without
-// opting in.
+// opting in; 1 (opted in above 48 KB) where none does.
 int feature_block(int FP, int B) {
   for (int fb = kFeatureBlock; fb > 1; fb /= 2) {
-    if (FP % fb == 0 && (int64_t)fb * B * 12 <= 48 * 1024) return fb;
+    if (FP % fb == 0 && (int64_t)fb * B * 12 <= kSmemDefault) return fb;
   }
   return 1;
 }
@@ -246,11 +259,17 @@ int launch(const int32_t* bT, const float* g, const float* h, const float* m,
            const int32_t* info, float* out, int64_t n, int FP, int B,
            cudaStream_t stream) {
   if (n <= 0 || FP <= 0) return 0;
+  if (B < 1 || B > kMaxBins) return (int)cudaErrorInvalidValue;
   const int FB = feature_block(FP, B);
   const size_t smem = (size_t)FB * B * 3 * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (smem > (size_t)kSmemDefault) {
+    err = cudaFuncSetAttribute(
+        hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   int sms = 0;
-  cudaError_t err = sm_count(&sms);
+  err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   const int fblocks = FP / FB;
   // about eight resident blocks per SM in all, shared among feature
@@ -275,7 +294,7 @@ constexpr int kStageRows = 16 * kStageGroups;
 constexpr int kStages = 3;                    // tiles in flight per block
 constexpr int kUnits = 2;                     // (feature, 256 bins) per warp
 constexpr int kBlockUnits = kWarps * kUnits;  // per block
-constexpr int kMaxLevelBins = 2048;           // hi = b >> 3 below 512
+constexpr int kMaxLevelBins = 2048;           // per window: hi below 512
 constexpr int kLevelBlocksPerSM = 2;          // resident, by registers
 constexpr uint32_t kTwo = 0x40004000u;        // bf16x2 (2, 2)
 constexpr uint32_t kPair = 0x00010001u;       // one in each 16-bit half
@@ -350,19 +369,22 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Grid (runs of stages, unit blocks). A unit is (feature, 256-bin block);
-// block y owns units [kBlockUnits * y, kBlockUnits * (y + 1)), that is
-// FBf = kBlockUnits / MT features; warp w owns units kUnits * w + u.
-// kVec is 4 where bT's rows and g/h/m allow 16-byte copies, else 1.
+// Grid (runs of stages, unit blocks, bin windows). A unit is (feature,
+// 256-bin block of the window); block y owns units [kBlockUnits * y,
+// kBlockUnits * (y + 1)), that is FBf = kBlockUnits / MT features; warp w
+// owns units kUnits * w + u. B is the window's bins, OB out's (B * windows);
+// window z takes bins [z * B, (z + 1) * B). kVec is 4 where bT's rows and
+// g/h/m allow 16-byte copies, else 1.
 template <int kVec>
 __global__ void __launch_bounds__(kThreads, kLevelBlocksPerSM)
 level_mma_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
                  const float* __restrict__ h, const float* __restrict__ m,
                  const int32_t* __restrict__ starts, float* __restrict__ out,
-                 int64_t n, int FP, int B, int slots, int chunk,
+                 int64_t n, int FP, int B, int OB, int slots, int chunk,
                  int64_t stages_per_block) {
   extern __shared__ __align__(16) int32_t lsh[];
   const int MT = B >> 8;
+  const uint32_t off = (uint32_t)blockIdx.z * (uint32_t)B;  // window's bin 0
   const int FBf = kBlockUnits / MT;
   const int lines = FBf + 3;  // FBf bin rows, then g, h, m
   // then each warp's float32 sums, kUnits * 6 float4 per lane, the slots
@@ -431,7 +453,8 @@ level_mma_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
   auto flush = [&](int slot) {
 #pragma unroll
     for (int u = 0; u < kUnits; ++u) {
-      float* dst = out + ((int64_t)slot * FP + f_base + fl[u]) * B * 3;
+      float* dst =
+          out + (((int64_t)slot * FP + f_base + fl[u]) * OB + off) * 3;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         float v[3][4];
@@ -504,9 +527,10 @@ level_mma_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
 
     // Stage s in place, once for the block: each 16 bytes of bins
     // (rows r .. r+3) become the codes (lo01, hi01, lo23, hi23): the bins
-    // clamped to B, lo = bits 0-2 and hi = bits 3-11 under the exponent bit
-    // 0x4000, as bf16 pairs. g, h and m become bf16 pairs (g01, g23, h01,
-    // h23) in g's line and (m01, m23) in h's.
+    // less the window's first (wrapping below it) clamped to B, lo = bits
+    // 0-2 and hi = bits 3-11 under the exponent bit 0x4000, as bf16 pairs.
+    // g, h and m become bf16 pairs (g01, g23, h01, h23) in g's line and
+    // (m01, m23) in h's.
     uint32_t* buf =
         reinterpret_cast<uint32_t*>(lsh + (s % kStages) * lines * kStageRows);
     uint32_t* vals = buf + FBf * kStageRows;
@@ -516,10 +540,11 @@ level_mma_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
       if (line < FBf) {
         uint4* q = reinterpret_cast<uint4*>(buf + line * kStageRows + r);
         const uint4 b = *q;
+        const uint32_t ub = (uint32_t)B;
         const uint32_t x01 =
-            __byte_perm(min(b.x, (uint32_t)B), min(b.y, (uint32_t)B), 0x5410);
+            __byte_perm(min(b.x - off, ub), min(b.y - off, ub), 0x5410);
         const uint32_t x23 =
-            __byte_perm(min(b.z, (uint32_t)B), min(b.w, (uint32_t)B), 0x5410);
+            __byte_perm(min(b.z - off, ub), min(b.w - off, ub), 0x5410);
         *q = make_uint4((x01 & 0x00070007u) | kTwo, (x01 & 0x0ff80ff8u) | kTwo,
                         (x23 & 0x00070007u) | kTwo, (x23 & 0x0ff80ff8u) | kTwo);
       } else {
@@ -564,7 +589,8 @@ level_mma_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
         const uint32_t b = ((c[0] >> sh) & 7u) | ((c[1] >> sh) & 0x0ff8u);
         if (b >= (uint32_t)B) continue;  // clamped: outside [0, B)
         const uint32_t* v = vals + (r & ~3) + ((r >> 1) & 1);  // g; h, m
-        float* dst = out + (((int64_t)slot * FP + f_base + fi) * B + b) * 3;
+        float* dst =
+            out + (((int64_t)slot * FP + f_base + fi) * OB + off + b) * 3;
         atomicAdd(dst, bf16_at(v[0], sh));
         atomicAdd(dst + 1, bf16_at(v[2], sh));
         atomicAdd(dst + 2, bf16_at(v[kStageRows], sh));
@@ -615,8 +641,8 @@ level_mma_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
 template <int kVec>
 int launch_level_mma(const int32_t* bT, const float* g, const float* h,
                      const float* m, const int32_t* starts, float* out,
-                     int64_t n, int FP, int B, int slots, int chunk,
-                     cudaStream_t stream) {
+                     int64_t n, int FP, int B, int windows, int slots,
+                     int chunk, cudaStream_t stream) {
   const int FBf = kBlockUnits / (B >> 8);
   const size_t smem =
       ((size_t)kStages * (FBf + 3) * kStageRows + slots + 2) *
@@ -633,13 +659,15 @@ int launch_level_mma(const int32_t* bT, const float* g, const float* h,
   // one wave of resident blocks, each a run of stages (a block's first
   // stage and its flushes are not hidden: fewer, longer blocks win)
   const int64_t total = (n + kStageRows - 1) / kStageRows;
-  int64_t want = ((int64_t)sms * kLevelBlocksPerSM + fblocks - 1) / fblocks;
+  const int64_t yz = (int64_t)fblocks * windows;
+  int64_t want = ((int64_t)sms * kLevelBlocksPerSM + yz - 1) / yz;
   if (want > total) want = total;
   const int64_t per_block = (total + want - 1) / want;
   const int gx = (int)((total + per_block - 1) / per_block);
-  dim3 grid(gx, fblocks);
+  dim3 grid(gx, fblocks, windows);
   kernel<<<grid, kThreads, smem, stream>>>(bT, g, h, m, starts, out, n, FP, B,
-                                           slots, chunk, per_block);
+                                           B * windows, slots, chunk,
+                                           per_block);
   return (int)cudaGetLastError();
 }
 
@@ -648,15 +676,18 @@ int launch_level(const int32_t* bT, const float* g, const float* h,
                  int FP, int B, int slots, int chunk, cudaStream_t stream) {
   if (n <= 0 || FP <= 0) return 0;
   if (slots <= 0 || chunk <= 0 || chunk % kStageRows != 0 || B < 256 ||
-      B > kMaxLevelBins || (B & (B - 1)) != 0)
+      B > kMaxBins || (B & (B - 1)) != 0)
     return (int)cudaErrorInvalidValue;
+  // bin windows of at most kMaxLevelBins (B is a power of two)
+  const int wb = B < kMaxLevelBins ? B : kMaxLevelBins;
+  const int windows = B / wb;
   const uintptr_t addr =
       (uintptr_t)bT | (uintptr_t)g | (uintptr_t)h | (uintptr_t)m;
   if (n % 4 == 0 && addr % 16 == 0)
-    return launch_level_mma<4>(bT, g, h, m, starts, out, n, FP, B, slots,
-                               chunk, stream);
-  return launch_level_mma<1>(bT, g, h, m, starts, out, n, FP, B, slots, chunk,
-                             stream);
+    return launch_level_mma<4>(bT, g, h, m, starts, out, n, FP, wb, windows,
+                               slots, chunk, stream);
+  return launch_level_mma<1>(bT, g, h, m, starts, out, n, FP, wb, windows,
+                             slots, chunk, stream);
 }
 
 }  // namespace

@@ -1,4 +1,6 @@
 from .backbones import (TextClsHead, TextEmbedUnit, TransformerLayerUnit,  # noqa: F401
                         active_seq_mesh, seq_attention_fn, seq_attention_scope,
                         sharded_self_attention)
-from .text import TransformerEncoder, hash_tokenize  # noqa: F401
+from .trainer import TrainConfig, Trainer, freeze_mask  # noqa: F401
+from .text import (DeepTextClassifier, DeepTextModel,  # noqa: F401
+                   TransformerEncoder, hash_tokenize)

@@ -31,7 +31,7 @@ from torch import nn
 from ..parallel.collectives import all_gather
 from ..parallel.mesh import DATA_AXIS, SEQ_AXIS
 from .layers import (Dense, Embed, LayerNorm, MultiHeadDotProductAttention,
-                     gelu)
+                     dropout_mask, gelu)
 
 _SEQ_SCOPE: list = []
 
@@ -44,6 +44,12 @@ class TextEmbedUnit(nn.Module):
         super().__init__()
         self.Embed_0 = Embed(vocab_size, hidden)
         self.pos_embed = nn.Parameter(torch.randn(max_len, hidden) * 0.02)
+
+    def reset_parameters(self) -> None:
+        """``pos_embed`` from flax's ``normal(0.02)`` (the layers reset
+        their own)."""
+        with torch.no_grad():
+            self.pos_embed.normal_(0.0, 0.02)
 
     def forward(self, ids: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = self.Embed_0(ids)
@@ -178,7 +184,10 @@ class TransformerLayerUnit(nn.Module):
     """One pre-LN transformer encoder layer as a pipeline unit, attending
     over the full window without a padding mask. Inside a
     ``seq_attention_scope`` the attention runs seq-sharded (ring or
-    Ulysses) with the same parameters."""
+    Ulysses) with the same parameters. In training, ``dropout`` drops
+    attention weights and the MLP's output (flax ``nn.Dropout``, an
+    elementwise mask) with masks from ``generator``; under sequence
+    parallelism dropout is refused."""
 
     def __init__(self, hidden: int, heads: int, mlp_dim: int,
                  dropout: float = 0.0):
@@ -191,10 +200,8 @@ class TransformerLayerUnit(nn.Module):
         self.Dense_0 = Dense(hidden, mlp_dim)
         self.Dense_1 = Dense(mlp_dim, hidden)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if self.dropout and train:
-            raise NotImplementedError("dropout in training is not ported "
-                                      "yet; run with train=False")
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         shard = active_seq_shard(x)
         if shard is not None:
             x = shard.take(x)
@@ -202,10 +209,15 @@ class TransformerLayerUnit(nn.Module):
         h = self.MultiHeadDotProductAttention_0(
             h, h, deterministic=not train,
             attention_fn=seq_attention_fn(None if shard is None
-                                          else shard.kv_len))
+                                          else shard.kv_len),
+            generator=generator)
         x = x + h
         h = self.LayerNorm_1(x)
-        x = x + self.Dense_1(gelu(self.Dense_0(h)))
+        h = self.Dense_1(gelu(self.Dense_0(h)))
+        if self.dropout and train:
+            h = h * dropout_mask(h.shape, self.dropout, generator, h.device,
+                                 h.dtype)
+        x = x + h
         return x if shard is None else shard.gather(x)
 
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..ops.hist_kernel import MAX_CUDA_BINS, pad_bins
 from ..ops.quantize import (BinMapper, apply_bins, bin_threshold_to_value,
                             compute_bin_mapper)
 from .dataset import Dataset, _is_sparse
@@ -347,6 +348,19 @@ def _reject_unported(config: BoosterConfig, **args) -> None:
             "dense numeric data, without sampling, validation or warm start)")
 
 
+def _reject_bin_space(config: BoosterConfig, dev: torch.device) -> None:
+    """Refuse, before any binning, a fit on the card whose histogram bin
+    space ``pad_bins(max_bin)`` is larger than the CUDA kernels take
+    (``ops.hist_kernel.MAX_CUDA_BINS``). The CPU's plain versions take any."""
+    B = pad_bins(config.max_bin)
+    if dev.type == "cuda" and B > MAX_CUDA_BINS:
+        raise NotImplementedError(
+            f"max_bin={config.max_bin} pads to {B} histogram bins; the CUDA "
+            f"histogram kernels of growth_policy={config.growth_policy!r} "
+            f"take up to {MAX_CUDA_BINS} (max_bin <= {MAX_CUDA_BINS}), or "
+            "train with device='cpu'")
+
+
 def train_booster(
     X,
     y: Optional[np.ndarray],
@@ -385,6 +399,7 @@ def train_booster(
     if measures is None:
         measures = InstrumentationMeasures()
     dev = resolve_device(device)
+    _reject_bin_space(cfg, dev)
     fit_t0 = _time.perf_counter()
 
     binned = None

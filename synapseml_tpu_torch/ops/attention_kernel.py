@@ -33,7 +33,7 @@ from ..parallel.ring_attention import (_block_attention, attention_reference,
                                        blockwise_attention)
 
 _NEG_INF = -1e30          # finite -inf stand-in: keeps exp() NaN-free
-MAX_HEAD_DIM = 64         # the kernel's widest head (D padded to 32 or 64)
+MAX_HEAD_DIM = 128        # the kernel's widest head (D padded to 32/64/128)
 
 # launches of each hand-written kernel (incremented only where it launches)
 LAUNCHES = {"flash_attention": 0, "flash_attention_block": 0}

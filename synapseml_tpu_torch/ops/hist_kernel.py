@@ -15,7 +15,8 @@ All three run ``csrc/hist_kernel.cu`` for CUDA tensors (one launch each,
 counted in ``LAUNCHES``) and the plain versions ``_hist_plain`` /
 ``_range_hist_plain`` / ``_level_hist_plain`` for CPU tensors. A CUDA tensor
 never falls back to the plain version: the kernel launches or the call
-raises.
+raises. The kernels take bin spaces up to ``MAX_CUDA_BINS``; the plain
+versions take any.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ import ctypes
 import torch
 
 FEATURE_BLOCK = 8
+# the largest bin space (pad_bins(max_bin)) the CUDA kernels take:
+# csrc/hist_kernel.cu kMaxBins
+MAX_CUDA_BINS = 16384
 # rows per chunk of the level kernel's slot-partitioned layout (the depthwise
 # grower aligns every leaf's rows to it)
 CHUNK = 2048
@@ -142,6 +146,9 @@ def _check(bT, g, h, m, num_bins_padded: int):
         raise ValueError(f"FP={FP} must be a multiple of {FEATURE_BLOCK} and "
                          f"B={num_bins_padded} a pad_bins() size")
     if dev.type == "cuda":
+        if num_bins_padded > MAX_CUDA_BINS:
+            raise ValueError(f"the CUDA kernels take B up to {MAX_CUDA_BINS}, "
+                             f"got {num_bins_padded}")
         for name, t in (("bT", bT), ("g", g), ("h", h), ("m", m)):
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
@@ -222,8 +229,9 @@ def level_histograms(bT, g, h, m, start_chunks, slot_of_row,
     table on the device; the plain version (CPU tensors) takes each row's
     slot from ``slot_of_row`` (n,) instead, which the caller keeps
     consistent with the table. Every slot of the result is defined: a slot
-    that owns no row is zero. The kernel takes B up to 2048 (its bin codes)
-    and ``CHUNK`` a multiple of its 256-row stages."""
+    that owns no row is zero. The kernel sums up to 2048 bins in one pass
+    (its bin codes) and a larger B in 2048-bin windows, and takes ``CHUNK``
+    a multiple of its 256-row stages."""
     _check(bT, g, h, m, num_bins_padded)
     FP, n = bT.shape
     if tuple(slot_of_row.shape) != (n,) or slot_of_row.device != bT.device:

@@ -1,5 +1,7 @@
-from .mesh import DATA_AXIS, SEQ_AXIS, Mesh, init_distributed, make_mesh  # noqa: F401
-from .collectives import all_gather, all_to_all, ppermute_next  # noqa: F401
+from .mesh import (DATA_AXIS, SEQ_AXIS, Mesh, data_seq_mesh,  # noqa: F401
+                   init_distributed, make_mesh)
+from .collectives import (all_gather, all_reduce_sum, all_to_all,  # noqa: F401
+                          ppermute_next)
 from .ring_attention import (  # noqa: F401
     attention_reference,
     blockwise_attention,

@@ -93,3 +93,21 @@ def make_mesh(shape: Optional[dict] = None,
                 groups[name] = g
     return Mesh(dict(zip(names, sizes)), rank, coords, groups,
                 resolve_device(device))
+
+
+def data_seq_mesh(seq_size: int = 0, device=DEFAULT_DEVICE) -> Mesh:
+    """The mesh ``{"data": world // sp, "seq": sp}`` over the initialised
+    world, ``sp = seq_size`` or, for 0, the whole world: the JAX package's
+    ``DeepTextClassifier`` mesh (its ``seqAxisSize``). The world size must
+    divide by ``sp``: every rank of a ``torch.distributed`` world takes part
+    in its collectives, where the JAX package may leave devices out."""
+    if not dist.is_initialized():
+        raise RuntimeError("data_seq_mesh needs an initialised "
+                           "torch.distributed world: call init_distributed "
+                           "first")
+    world = dist.get_world_size()
+    sp = int(seq_size) or world
+    if sp < 1 or world % sp:
+        raise ValueError(f"seq axis of {sp} ranks does not divide the world "
+                         f"of {world}")
+    return make_mesh({DATA_AXIS: world // sp, SEQ_AXIS: sp}, device)

@@ -94,8 +94,11 @@ def ring_self_attention(q, k, v, mesh, causal: bool = False,
     tensors. ``kv_len`` drops keys at global positions >= kv_len (the
     padded tail of a non-divisible sequence): each step takes only the
     valid prefix of the block it holds, and skips a block with none. The
-    accumulators stay float32 whatever q's type; the output comes back in
-    q's type.
+    accumulators stay float32 whatever q's type; q, k and v enter the kernel
+    in their own type (bfloat16 takes its bfloat16 instantiation; the JAX
+    package casts them to float32 first) and the output comes back in q's
+    type. Differentiable: the collectives and the kernel's recompute
+    backward carry the gradient.
     """
     from ..ops.attention_kernel import flash_attention_block
 
@@ -105,7 +108,6 @@ def ring_self_attention(q, k, v, mesh, causal: bool = False,
     group = mesh.group(axis)
     s_local = q.shape[1]
     q_offset = rank * s_local
-    qf = q.float()
     m, l, o = _empty_state(q)
     k_cur, v_cur = k, v
     for t in range(ring):
@@ -114,8 +116,8 @@ def ring_self_attention(q, k, v, mesh, causal: bool = False,
         n = s_local if kv_len is None else min(s_local, kv_len - k_offset)
         if n > 0:
             m, l, o = flash_attention_block(
-                qf, k_cur[:, :n].float(), v_cur[:, :n].float(), m, l, o,
-                q_offset, k_offset, causal=causal, scale=scale)
+                q, k_cur[:, :n], v_cur[:, :n], m, l, o, q_offset, k_offset,
+                causal=causal, scale=scale)
         if t + 1 < ring:            # the last block needs no further turn
             k_cur = ppermute_next(k_cur, group)
             v_cur = ppermute_next(v_cur, group)

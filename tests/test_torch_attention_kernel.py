@@ -69,6 +69,26 @@ def test_flash_attention_plain_matches_pallas(s, s_k, causal, scale):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_heads_plain_match_pallas(d, causal):
+    """Head dims above 64 (the kernel pads 65..128 to 128): the plain
+    versions against the Pallas interpreter, both functions."""
+    q, k, v = _qkv(seed=d, s=40, s_k=56, d=d)
+    want = np.asarray(jak.flash_attention(q, k, v, causal=causal, block_q=8,
+                                          block_k=8, interpret=True))
+    got = tak.flash_attention(*_t(q, k, v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    state = _state(2, 40, 2, d, d + 1)
+    want = jak.flash_attention_block(q, k, v, *state, 30, 10, causal=causal,
+                                     block_q=8, block_k=8, interpret=True)
+    got = tak.flash_attention_block(*_t(q, k, v, *state), 30, 10,
+                                    causal=causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+
+
 def test_flash_attention_bf16_inputs():
     q, k, v = _qkv()
     want = np.asarray(jak.flash_attention(
@@ -384,7 +404,52 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         tak.flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError):
         tak.flash_attention_block(q, k, v, m, l.to(cuda), o.to(cuda), 0, 0)
-    wide = torch.zeros((1, 8, 1, 96), device=cuda)
+    wide = torch.zeros((1, 8, 1, 160), device=cuda)     # above 128
     with pytest.raises(ValueError, match="head dims"):
         tak.flash_attention(wide, wide, wide)
     assert tak.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_wide_heads_match_plain(cuda, d, dtype, causal):
+    """D = 96 and 128 (the DP = 128 instantiation: Q unsplit, 16-key tiles)
+    for both kernels, rows and keys around the 16-row warps, 128-row blocks
+    and 16-key tiles. bf16 ``flash_attention`` is compared without a causal
+    mask: rows that see a handful of keys keep the bf16 rounding of p
+    undiluted, beyond the bf16 tolerance, in any D; the bf16 carried
+    state's o / l is held to its rounding bound."""
+    q, k, v = (x.to(cuda, dtype) for x in _t(*_qkv(seed=d, b=2, s=145,
+                                                       s_k=130, h=3, d=d)))
+    tol = (RTOL, ATOL) if dtype == torch.float32 else (8e-3, 1e-3)
+    if dtype == torch.float32 or not causal:
+        got = tak.flash_attention(q, k, v, causal=causal)
+        want = tak._xla_fallback(q, k, v, causal, d ** -0.5, 128)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=tol[0],
+                                   atol=tol[1])
+    m, l, o = (x.to(cuda) for x in _t(*_state(2, 145, 3, d, 4)))
+    mk, lk, ok = tak.flash_attention_block(q, k, v, m, l, o, 40, 17,
+                                           causal=causal)
+    mp, lp, op = tra._block_attention(q, k, v, m, l, o, 40, 17, causal,
+                                      d ** -0.5)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(mk.cpu().numpy(), mp.cpu().numpy(),
+                               rtol=tol[0], atol=tol[1])
+    np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(),
+                               rtol=tol[0], atol=tol[1])
+    denom = torch.where(lp > 0, lp, 1.0).transpose(1, 2)[..., None]
+    if dtype == torch.float32:
+        np.testing.assert_allclose((ok / denom).cpu().numpy(),
+                                   (op / denom).cpu().numpy(), rtol=tol[0],
+                                   atol=tol[1])
+    else:
+        # bf16: each side rounds every p to bf16 against its own running
+        # maximum, so o / l differ by at most 2^-8 max |v| (chip_smoke.py
+        # bf16_o_bound); the elementwise bf16 tolerance fails on entries
+        # near zero at any head dim
+        gap = float((ok / denom - op / denom).abs().max())
+        assert gap <= 2.0 ** -8 * float(v.float().abs().max())

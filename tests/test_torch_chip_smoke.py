@@ -218,3 +218,83 @@ def test_level_fit_shaped_check_rejects_a_count_or_a_stray_bin():
         with pytest.raises(AssertionError, match="PAD_SUM_ULPS"):
             cs.level_fit_shaped_check("off", off, want, vals, slot, L,
                                       _compare)
+
+
+def test_train_path_trains_both_ranks_and_checks_launches(no_timing):
+    """Phase 9 on the CPU at a small width: both ranks train every run
+    through ``DeepTextClassifier`` on the plain versions, which launch no
+    kernel, so the launch check refuses the run (the card's run must show
+    the flash kernels in every training forward)."""
+    est = dict(cs.TRAIN_EST, vocabSize=64, numLayers=2, numHeads=4,
+               hiddenSize=32, maxTokenLen=64)
+    with pytest.raises(AssertionError, match="forward launches"):
+        cs.train_path("cpu", est)
+
+
+SMALL_TRAIN = dict(cs.TRAIN_EST, vocabSize=64, numLayers=2, numHeads=4,
+                   hiddenSize=32, maxTokenLen=64)
+
+
+def test_first_step_reference_is_the_trainers_first_step():
+    """The out-of-scope fit phase 9 holds the ranks' steps to
+    (``reference_fit``: one process, microbatches of one row) reports the
+    losses and gradient norms of ``Trainer`` on one process with whole
+    batches (no ``torch.distributed`` world: the mask-free encoder,
+    attention unsharded)."""
+    from synapseml_tpu_torch.dl.text import DeepTextClassifier
+
+    est = SMALL_TRAIN
+    model = DeepTextClassifier(**est, device="cpu").fit(cs.train_table(est))
+    want = model.trainer.step_stats
+    got = cs.reference_fit("cpu", est)
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-6)
+        gap, total = cs.grad_norm_gap(a["grad_norms"], b["grad_norms"])
+        assert gap <= 1e-5 * total
+
+
+def _reports(ref, ref16):
+    return {"ring": {"steps": ref}, "ulysses": {"steps": ref},
+            "bf16": {"steps": ref16}}
+
+
+def test_reference_check_rejects_a_wrong_gradient_scale_or_loss():
+    """Phase 9's hold on the ranks' steps: the reference passes against
+    itself; a gradient scaled by 2 (a missing 1/world), one parameter's
+    gradient off, a second-step loss off by 1e-3 and a bf16 loss off by
+    0.1 are each refused."""
+    import copy
+
+    ref = cs.reference_fit("cpu", SMALL_TRAIN)
+    ref16 = cs.reference_fit("cpu", SMALL_TRAIN, precision="bfloat16",
+                             stepsPerEpoch=1)
+    assert ref16[0]["loss"] != ref[0]["loss"]
+    cs.check_against_reference(_reports(ref, ref16), ref, ref16)
+    for break_it in (
+            lambda r: r[0]["grad_norms"].update(
+                {k: 2 * v for k, v in r[0]["grad_norms"].items()}),
+            lambda r: r[0]["grad_norms"].update(
+                {"head.kernel": 1.5 * r[0]["grad_norms"]["head.kernel"]}),
+            lambda r: r[1].update(loss=r[1]["loss"] * (1 + 1e-3))):
+        bad = copy.deepcopy(ref)
+        break_it(bad)
+        with pytest.raises(AssertionError):
+            cs.check_against_reference(_reports(bad, ref16), ref, ref16)
+    bad16 = copy.deepcopy(ref16)
+    bad16[0]["loss"] += 0.1
+    with pytest.raises(AssertionError, match="bf16"):
+        cs.check_against_reference(_reports(ref, bad16), ref, ref16)
+
+
+def test_large_bins_phase_runs_on_the_plain_versions(monkeypatch):
+    """Phase 2's large bin spaces on the CPU, where every wrapper takes its
+    plain version: each kernel's call, its plain version and the
+    ``index_put_`` yardstick (out-of-range bins to a spare row) run."""
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(cs, "LARGE_BIN_ROWS", 3 * hk.CHUNK)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, iters: (fn(), 1.0)[1])
+    seen = []
+    cs.large_bins_phase("cpu", lambda label, got, want: seen.append(
+        _compare(label, got, want)))
+    assert len(seen) == 3 * len(cs.LARGE_BINS) and max(seen) == 0.0

@@ -238,3 +238,111 @@ def test_cuda_all_zero_rows_give_an_empty_histogram(cuda):
     z = torch.zeros(n, device=cuda)
     assert not thk.child_histogram(bT, z, z, z, 256).any()
     assert not thk.range_histogram(bT, z, z, z, 5, n - 10, 256).any()
+
+
+# ---------------------------------------------------------------------------
+# Large bin spaces: the kernels take B up to MAX_CUDA_BINS (16384); a fit on
+# the card with a larger one is refused before binning
+# ---------------------------------------------------------------------------
+
+def _level_inputs(n_chunks, f, nb, seed):
+    """Rows in 3 slots of whole CHUNKs (slot 1 owns none), random bins in
+    [0, nb) with some outside it; numpy (bT, g, h, m, starts, slot)."""
+    n = n_chunks * thk.CHUNK
+    bT, g, h, m = _case(n, f, b=nb, seed=seed)
+    bT[0, ::11] = nb + 5                            # dropped by both
+    starts = np.asarray([0, n_chunks // 3, n_chunks // 3], np.int32)
+    slot = np.minimum(np.arange(n) // thk.CHUNK >= n_chunks // 3, 1) * 2
+    return bT, g, h, m, starts, slot.astype(np.int32)
+
+
+@pytest.mark.parametrize("nb", [4096, 8192, 32768])
+def test_large_bin_spaces_plain_match_xla(nb):
+    bT, g, h, m = _case(6000, 5, b=nb, seed=nb)
+    got = thk._hist_plain(*_torch(bT, g, h, m), nb).numpy()
+    want = np.asarray(jhk._hist_xla(*_jax(bT, g, h, m), nb))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got[..., 2], want[..., 2])
+    bT, g, h, m, _, slot = _level_inputs(3, 5, nb, nb + 1)
+    got = thk._level_hist_plain(*_torch(bT, g, h, m, slot), nb, 3).numpy()
+    want = np.asarray(jhk._hist_level_xla(*_jax(bT, g, h, m, slot), nb, 3))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got[..., 2], want[..., 2])
+    assert not got[1].any()                         # the slot without rows
+
+
+@pytest.mark.parametrize("policy", ["leafwise", "depthwise"])
+def test_bin_space_above_the_kernels_cap_is_refused_before_binning(
+        monkeypatch, policy):
+    """On a CUDA device, ``pad_bins(max_bin) > 16384`` raises
+    ``NotImplementedError`` naming max_bin and the growth policy, before
+    any binning (the card is only named: no card is needed); the CPU takes
+    any bin space."""
+    from synapseml_tpu_torch.gbdt import boosting
+
+    cuda_dev = torch.device("cuda")
+    for max_bin in (16385, 20000):
+        cfg = boosting.BoosterConfig(max_bin=max_bin, growth_policy=policy)
+        with pytest.raises(NotImplementedError,
+                           match=f"max_bin={max_bin}.*{policy}"):
+            boosting._reject_bin_space(cfg, cuda_dev)
+        boosting._reject_bin_space(cfg, torch.device("cpu"))
+    boosting._reject_bin_space(
+        boosting.BoosterConfig(max_bin=16384, growth_policy=policy),
+        cuda_dev)
+
+    def no_binning(*a, **k):
+        raise AssertionError("binned before the refusal")
+
+    monkeypatch.setattr(boosting, "resolve_device", lambda d: cuda_dev)
+    monkeypatch.setattr(boosting, "compute_bin_mapper", no_binning)
+    monkeypatch.setattr(boosting, "apply_bins", no_binning)
+    X = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="max_bin=20000"):
+        boosting.train_booster(X, (X[:, 0] > 0).astype(np.float32),
+                               boosting.BoosterConfig(
+                                   objective="binary", max_bin=20000,
+                                   growth_policy=policy, num_iterations=1),
+                               device="cuda")
+
+
+def test_cpu_fit_takes_a_bin_space_above_the_kernels_cap():
+    from synapseml_tpu_torch.gbdt import boosting
+
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(400, 3)).astype(np.float32)
+    y = (X[:, 0] + 0.3 * rng.normal(size=400) > 0).astype(np.float32)
+    b = boosting.train_booster(X, y, boosting.BoosterConfig(
+        objective="binary", max_bin=20000, num_iterations=2, num_leaves=4,
+        min_data_in_leaf=5), device="cpu")
+    assert b.num_trees == 2
+    assert np.all(np.isfinite(b.predict(X)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [4096, 8192, 16384])
+def test_cuda_large_bin_spaces_match_plain(cuda, nb):
+    """All three kernels at B = 4096 (the leaf-wise kernels' last size in
+    48 KB), 8192 and 16384 (one feature per block, opted in above 48 KB;
+    the level kernel in 2, 4 and 8 windows of 2048 bins)."""
+    bT, g, h, m = [t.to(cuda) for t in _torch(*_case(60_000, 11, b=nb,
+                                                     seed=nb))]
+    _assert_hist_close(thk.child_histogram(bT, g, h, m, nb),
+                       thk._hist_plain(bT, g, h, m, nb))
+    got = thk.range_histogram(bT, g, h, m, torch.tensor(777, device=cuda),
+                              torch.tensor(40_000, device=cuda), nb)
+    _assert_hist_close(got, thk._range_hist_plain(bT, g, h, m, 777, 40_000,
+                                                  nb))
+    bT, g, h, m, starts, slot = [t.to(cuda) for t in _torch(
+        *_level_inputs(30, 11, nb, nb + 1))]
+    _assert_hist_close(thk.level_histograms(bT, g, h, m, starts, slot, nb, 3),
+                       thk._level_hist_plain(bT, g, h, m, slot, nb, 3))
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_bin_spaces_above_their_cap(cuda):
+    bT, g, h, m = [t.to(cuda) for t in _torch(*_case(512, 3))]
+    before = dict(thk.LAUNCHES)
+    with pytest.raises(ValueError, match="16384"):
+        thk.child_histogram(bT, g, h, m, 32768)
+    assert thk.LAUNCHES == before

@@ -12,6 +12,17 @@ tests compare. Tolerance rtol 2e-4 / atol 2e-5 (the JAX suite's own for the
 sharded attention): both sides sum in float32 in different orders, and
 flax's default attention scales the query before the product where the
 sharded path scales the scores after it.
+
+Gradients: each collective's gradient on its rank's block against
+``jax.grad`` through the same ``lax`` collective in ``shard_map`` on the
+same mesh (to 1e-6: the backward only moves and sums two float32 values),
+and the ring and Ulysses self-attention gradients of q, k and v against
+``jax.grad`` of the JAX package's ``sharded_self_attention`` (the
+tolerance above). The ranks differentiate as the trainer does: each
+scales its (global) loss by 1/world, and the gradients are summed over the
+world. bfloat16 inputs: both variants against the JAX package's on the
+same bf16 q/k/v, within a bound derived from the roundings each side makes
+(``test_bf16_sharded_attention_matches_jax``).
 """
 
 import os
@@ -51,6 +62,17 @@ ATTN_CASES = [
 ]
 PADDED_CASES = [(variant, causal) for variant in ("ring", "ulysses")
                 for causal in (False, True)]
+COLL_TOL = 1e-6
+# (name, local output shape): each collective on a (1, 1, 4, 6) block
+COLL_CASES = [("all_to_all", (1, 1, 2, 12)), ("ppermute", (1, 1, 4, 6)),
+              ("all_gather_seq", (1, 1, 8, 6)),
+              ("all_gather_data", (1, 1, 4, 12))]
+# (variant, causal, sequence): 15 does not divide the seq axis (padded)
+GRAD_CASES = [("ring", False, 16), ("ring", True, 15),
+              ("ulysses", True, 16), ("ulysses", False, 15)]
+# bfloat16 q/k/v (variant, causal, sequence): the port's kernels take them
+# in bf16; see test_bf16_sharded_attention_matches_jax for the tolerance
+BF16_CASES = GRAD_CASES
 
 
 def _qkv(seed, h, s, b=4, d=8):
@@ -59,9 +81,61 @@ def _qkv(seed, h, s, b=4, d=8):
             for _ in range(3)]
 
 
+def _jax_collective(name, x):
+    """The JAX side of a ``COLL_CASES`` collective on one block."""
+    from jax import lax
+
+    if name == "all_to_all":
+        return lax.all_to_all(x, "seq", split_axis=2, concat_axis=3,
+                              tiled=True)
+    if name == "ppermute":
+        return lax.ppermute(x, "seq", perm=[(0, 1), (1, 0)])
+    if name == "all_gather_seq":
+        return lax.all_gather(x, "seq", axis=2, tiled=True)
+    return lax.all_gather(x, "data", axis=3, tiled=True)
+
+
+def _jax_gradients(mesh, data):
+    """``jax.grad`` of the collectives and of the sharded attention."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from synapseml_tpu.core.compat import shard_map
+    from synapseml_tpu.dl import backbones as jbb
+
+    rng = np.random.default_rng(30)
+    spec = P("data", "seq")
+    for name, shape in COLL_CASES:
+        x = rng.normal(size=(2, 2, 4, 6)).astype(np.float32)
+        w = rng.normal(size=(2, 2) + shape[2:]).astype(np.float32)
+
+        def local(xb, wb, name=name):
+            return jnp.sum(_jax_collective(name, xb) * wb)[None, None]
+
+        f = shard_map(local, mesh=mesh, in_specs=(spec, spec),
+                      out_specs=spec, check_vma=False)
+        data.update({f"coll_{name}/x": x, f"coll_{name}/w": w})
+        data[f"coll_{name}/grad"] = np.asarray(jax.jit(jax.grad(
+            lambda x, w: jnp.sum(f(x, w))))(x, w))
+    for i, (variant, causal, n) in enumerate(GRAD_CASES):
+        q, k, v = _qkv(40 + i, 4, n)
+        w = rng.normal(size=q.shape).astype(np.float32)
+        key = f"grad_{variant}_{n}"
+        data.update({f"{key}/q": q, f"{key}/k": k, f"{key}/v": v,
+                     f"{key}/w": w})
+        grads = jax.jit(jax.grad(
+            lambda q, k, v: jnp.sum(w * jbb.sharded_self_attention(
+                q, k, v, mesh, variant=variant, causal=causal)),
+            argnums=(0, 1, 2)))(q, k, v)
+        for t, g in zip("qkv", grads):
+            data[f"{key}/d{t}"] = np.asarray(g)
+
+
 def _jax_reference(path):
     """Inputs, flax parameters and the JAX package's outputs, in one npz."""
     import jax
+    import jax.numpy as jnp
 
     from synapseml_tpu.dl import backbones as jbb
     from synapseml_tpu.dl import text as jtext
@@ -114,12 +188,50 @@ def _jax_reference(path):
     # against the JAX encoder out of scope (one compile fewer)
     data["enc31_ring/want"] = data["enc31_ulysses/want"] = np.asarray(
         jax.jit(lambda p, i: enc.apply(p, i, train=False))(enc_params, ids31))
+    for i, (variant, causal, n) in enumerate(BF16_CASES):
+        key = f"bf16_{variant}_{n}"
+        qkv = [jnp.asarray(x, jnp.bfloat16) for x in _qkv(60 + i, 4, n)]
+        data.update({f"{key}/{t}": np.asarray(x.astype(jnp.float32))
+                     for t, x in zip("qkv", qkv)})
+        data[f"{key}/want"] = np.asarray(jax.jit(
+            lambda q, k, v: jbb.sharded_self_attention(
+                q, k, v, mesh, variant=variant, causal=causal))(
+                    *qkv).astype(jnp.float32))
+    _jax_gradients(mesh, data)
     np.savez(path, **data)
 
 
 def _state_dict(data, prefix):
     return {k[len(prefix):]: torch.from_numpy(data[k]) for k in data.files
             if k.startswith(prefix)}
+
+
+def _rank_gradients(mesh, data, out):
+    """This rank's side of ``_jax_gradients``."""
+    from synapseml_tpu_torch.parallel import (all_gather, all_reduce_sum,
+                                              all_to_all, ppermute_next)
+
+    d, s = mesh.axis_index("data"), mesh.axis_index("seq")
+    seq, dat = mesh.group("seq"), mesh.group("data")
+    fns = {"all_to_all": lambda x: all_to_all(x, seq, 2, 3),
+           "ppermute": lambda x: ppermute_next(x, seq),
+           "all_gather_seq": lambda x: all_gather(x, seq, axis=2),
+           "all_gather_data": lambda x: all_gather(x, dat, axis=3)}
+    for name, _ in COLL_CASES:
+        blk = (slice(d, d + 1), slice(s, s + 1))
+        x = torch.from_numpy(data[f"coll_{name}/x"][blk]).requires_grad_()
+        w = torch.from_numpy(data[f"coll_{name}/w"][blk])
+        (fns[name](x) * w).sum().backward()
+        out[f"coll_{name}"] = x.grad.numpy()
+    for variant, causal, n in GRAD_CASES:
+        key = f"grad_{variant}_{n}"
+        q, k, v = (torch.from_numpy(data[f"{key}/{t}"]).requires_grad_()
+                   for t in "qkv")
+        o = sharded_self_attention(q, k, v, mesh, variant=variant,
+                                   causal=causal)
+        ((torch.from_numpy(data[f"{key}/w"]) * o).sum() / WORLD).backward()
+        for t, x in zip("qkv", (q, k, v)):
+            out[f"{key}/d{t}"] = all_reduce_sum(x.grad).numpy()
 
 
 def _rank_main(rank, workdir):
@@ -143,6 +255,12 @@ def _rank_main(rank, workdir):
         q, k, v = (torch.from_numpy(data[f"{key}/{t}"]) for t in "qkv")
         out[key] = sharded_self_attention(q, k, v, mesh, variant=variant,
                                           causal=causal).numpy()
+    for variant, causal, n in BF16_CASES:
+        key = f"bf16_{variant}_{n}"
+        q, k, v = (torch.from_numpy(data[f"{key}/{t}"]).bfloat16()
+                   for t in "qkv")
+        out[key] = sharded_self_attention(q, k, v, mesh, variant=variant,
+                                          causal=causal).float().numpy()
     three = torch.zeros((2, 8, 3, 4))
     try:
         ulysses_self_attention(three, three, three, mesh)
@@ -166,6 +284,7 @@ def _rank_main(rank, workdir):
                 out[f"enc_{variant}"] = enc(ids).numpy()
                 out[f"enc31_{variant}"] = enc(ids31).numpy()
                 out[f"unit_{variant}"] = unit(x).numpy()
+    _rank_gradients(mesh, data, out)
     flat = make_mesh({"data": 4, "seq": 1}, device="cpu")
     with seq_attention_scope(flat, "ring"):
         out["seq1_inactive"] = np.asarray(active_seq_mesh() is None)
@@ -213,6 +332,35 @@ def test_non_divisible_sharded_attention_matches_jax(spawned, variant,
                                    atol=ATOL)
 
 
+@pytest.mark.parametrize("variant,causal,n", BF16_CASES)
+def test_bf16_sharded_attention_matches_jax(spawned, variant, causal, n):
+    """bfloat16 q/k/v through the port's sharded attention (each kernel's
+    plain version: scores in float32, every p rounded to bf16 before the
+    PV product, the output in bf16) against the JAX package's
+    ``sharded_self_attention`` on the same bf16 inputs. Derived bound on
+    |got - want| before the outputs' bf16 rounding: the JAX ring casts to
+    float32 first, so only the port's p rounding (2^-9 of each p) differs,
+    at most 2^-9 · max |v| as o sums p · v over sum p; the JAX Ulysses
+    attends in bf16 throughout, rounding each score (2^-9 · |s|, which
+    moves a softmax weight by at most 2 · 2^-9 · max |s| of itself) and
+    each p as well, so 2^-8 · max |v| · (max |s| + 1) covers both sides.
+    The outputs' own bf16 rounding adds half an ulp each, within 2^-7 of
+    |want|."""
+    want, ranks = spawned
+    key = f"bf16_{variant}_{n}"
+    q, k, v = (want[f"{key}/{t}"] for t in "qkv")
+    vmax = float(np.abs(v).max())
+    if variant == "ring":
+        atol = 2.0 ** -9 * vmax
+    else:
+        smax = float(np.abs(np.einsum("bqhd,bkhd->bhqk", q, k)).max()
+                     * q.shape[-1] ** -0.5)
+        atol = 2.0 ** -8 * vmax * (smax + 1.0)
+    for got in ranks:
+        np.testing.assert_allclose(got[key], want[f"{key}/want"],
+                                   rtol=2.0 ** -7, atol=atol)
+
+
 def test_ulysses_refuses_heads_that_do_not_divide(spawned):
     _, ranks = spawned
     for got in ranks:
@@ -231,6 +379,28 @@ def test_in_scope_modules_match_jax_and_out_of_scope(spawned, module,
         np.testing.assert_allclose(got[f"{module}_{variant}"],
                                    got[f"{module}_plain"], rtol=RTOL,
                                    atol=ATOL)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in COLL_CASES])
+def test_collective_gradients_match_jax(spawned, name):
+    want, ranks = spawned
+    for r, got in enumerate(ranks):
+        d, s = _coords(r)
+        np.testing.assert_allclose(
+            got[f"coll_{name}"],
+            want[f"coll_{name}/grad"][d:d + 1, s:s + 1], rtol=COLL_TOL,
+            atol=COLL_TOL)
+
+
+@pytest.mark.parametrize("variant,causal,n", GRAD_CASES)
+def test_sharded_attention_gradients_match_jax(spawned, variant, causal, n):
+    want, ranks = spawned
+    key = f"grad_{variant}_{n}"
+    for got in ranks:
+        for t in "qkv":
+            np.testing.assert_allclose(got[f"{key}/d{t}"],
+                                       want[f"{key}/d{t}"], rtol=RTOL,
+                                       atol=ATOL)
 
 
 def test_scope_is_inactive_on_a_seq_axis_of_one(spawned):
