@@ -24,8 +24,10 @@ Phases, each of which fails the run if it fails:
    features all in bin 0, held to the float64 sum within ``PAD_SUM_ULPS``
    units of roundoff of the sum of magnitudes; per slot for the level
    kernel), the level kernel also at B = 512 and logged beside the tensor
-   floor of its one-hot design; then all three at B = 4096 and 8192
-   (``LARGE_BINS``, 500k rows, some bins outside [0, B)), each timed;
+   floor of its one-hot design; then all three at B = 4096, 8192 and 32768
+   (``LARGE_BINS``, 500k rows, some bins outside [0, B); at 32768 the
+   leaf-wise kernels run two 16384-bin windows, the level kernel sixteen
+   of 2048), each timed;
 3. main path: ``LightGBMClassifier(numIterations=10, numLeaves=31,
    maxBin=255).fit`` on a HIGGS-shaped ``Table`` (28 dense float32
    features, ``--rows`` rows), then ``.transform`` and ``saveNativeModel``;
@@ -51,9 +53,10 @@ Phases, each of which fails the run if it fails:
    ``flash_attention``, one ``scaled_dot_product_attention`` call (a
    yardstick the port never calls; no single PyTorch call computes the
    ring's carried-state step); causal and bf16 cases timed as well; both
-   kernels also at head dims 96 and 128 (the DP = 128 instantiation)
-   against their plain versions, and timed with D = 128 at the path's
-   lengths ((4, 8192, 4, 128) beside SDPA; (4, 4096, 8, 128));
+   kernels also at head dims 96 and 128 (the DP = 128 instantiation) and
+   192 and 256 (the wide kernel) against their plain versions, and timed
+   with D = 128 and D = 256 at the path's lengths ((4, 8192, 4, D) beside
+   SDPA; (4, 4096, 8, D));
 8. seq path: ``TransformerEncoder(mask_free=True)`` at
    ``DeepTextClassifier``'s widths (vocab 32768, 4 layers, 8 heads, hidden
    256, MLP 1024; float32, random weights from a seed in the JAX package's
@@ -88,7 +91,26 @@ Phases, each of which fails the run if it fails:
    seconds, staged bytes and peak memory logged per rank, each flash
    kernel's recompute backward timed alone at the path's shape, and one
    more ring step in the warmed ranks profiled on rank 0 (device busy time
-   by kernel).
+   by kernel);
+10. the objective family on synthetic tables made from a seed:
+   ``LightGBMRegressor(objective="regression")`` (10 iterations, 31 leaves,
+   max_bin 255) on the HIGGS-shaped ``--rows`` table with its continuous
+   margin as the label, then ``transform``, ``saveNativeModel`` and a
+   reload; ``LightGBMClassifier`` with 7 classes on a Covertype-shaped
+   table (581,012 rows, 10 numeric and 44 one-hot columns; 70 trees), and
+   the same fit depthwise through ``train_booster``; ``LightGBMRanker(
+   maxPosition=20)`` on an MSLR-WEB10K-shaped table (10,000 queries, about
+   1.2M rows, 136 features, labels 0-4, groups of mean about 120 and at
+   most 908). Counts zeroed just before each fit and read just after
+   (``child_histogram`` and ``range_histogram``, or ``level_histograms``
+   depthwise, above 0); fit seconds, rows x iterations per second and peak
+   memory logged, and for the ranker one iteration's lambdarank gradients
+   timed alone with their peak memory. Then every objective (regression,
+   l1, huber, fair, poisson, quantile, mape, gamma, tweedie and
+   cross_entropy regressors, multiclass and multiclassova classifiers, the
+   ranker) at 100,000 rows for 3 iterations on the card and on the CPU:
+   mean absolute prediction gap at most 1e-3 of the CPU's mean absolute
+   prediction, class predictions equal on 99.9% of rows.
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 9's ring and
@@ -159,15 +181,34 @@ FORWARD_LAUNCHES = {"ring": {"flash_attention_block": 4 * 2,
                              "flash_attention": 0},
                     "ulysses": {"flash_attention": 4,
                                 "flash_attention_block": 0}}
-# head dims above 64 (the DP = 128 instantiation) at the seq path's
-# lengths: (B, S, H, D) of one Ulysses rank and of one ring step
-WIDE_HEAD_DIMS = (96, 128)
-# bin spaces above the B = 256 of the main path, all three kernels
-LARGE_BINS = (4096, 8192)
+# head dims above 64: the DP = 128 instantiation (96, 128) and the wide
+# kernel (192, 256); timed at the seq path's lengths ((B, S, H, D) of one
+# Ulysses rank and of one ring step) with TIMED_HEAD_DIMS
+WIDE_HEAD_DIMS = (96, 128, 192, 256)
+TIMED_HEAD_DIMS = (128, 256)
+# bin spaces above the B = 256 of the main path, all three kernels; 32768
+# runs the leaf-wise kernels in two 16384-bin windows
+LARGE_BINS = (4096, 8192, 32768)
 LARGE_BIN_ROWS = 500_000
 # a sequence that does not divide the seq axis: padded, its padded keys
 # dropped before the kernels (B, S, H, D)
 PADDED_SHAPE = (2, 4095, 8, 32)
+# phase 10, the objective family. Shapes of public tables (no data is read):
+# UCI Covertype (581,012 rows; 10 numeric, 4 wilderness and 40 soil one-hot
+# columns; 7 cover types) and MSLR-WEB10K (10,000 queries, 136 features,
+# relevance 0-4, about 120 documents per query, at most 908)
+COVTYPE_ROWS, COVTYPE_NUMERIC, COVTYPE_CLASSES = 581_012, 10, 7
+COVTYPE_WILD, COVTYPE_SOIL = 4, 40
+MSLR_QUERIES, MSLR_FEATURES, MSLR_MAX_GROUP = 10_000, 136, 908
+FAMILY_ITERS = 10
+FAMILY_CROSS_ROWS, FAMILY_CROSS_ITERS = 100_000, 3
+# card against CPU: atomics can flip near-tie splits, so the mean absolute
+# prediction gap is held to 1e-3 of the CPU's mean absolute prediction, and
+# class predictions to 99.9% agreement
+FAMILY_REL_TOL, CLASS_AGREEMENT = 1e-3, 0.999
+REGRESSION_OBJECTIVES = ("regression", "regression_l1", "huber", "fair",
+                         "poisson", "quantile", "mape", "gamma", "tweedie",
+                         "cross_entropy")
 
 
 def log(msg: str) -> None:
@@ -182,12 +223,19 @@ def card_line() -> str:
         f"nvidia-smi failed: {r.stderr.strip()}"
 
 
-def higgs_like(rows: int, seed: int = 0):
-    """HIGGS-shaped synthetic table: 28 standard-normal float32 features and
-    the label of margin X0*X1 + 0.5*X2 + 0.2*noise > 0."""
+def higgs_margin(rows: int, seed: int = 0):
+    """HIGGS-shaped synthetic features (28 standard-normal float32 columns)
+    and the continuous margin X0*X1 + 0.5*X2 + 0.2*noise (float32)."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(rows, FEATURES)).astype(np.float32)
     margin = X[:, 0] * X[:, 1] + 0.5 * X[:, 2] + 0.2 * rng.normal(size=rows)
+    return X, margin.astype(np.float32)
+
+
+def higgs_like(rows: int, seed: int = 0):
+    """HIGGS-shaped synthetic table: ``higgs_margin``'s features and the
+    label margin > 0."""
+    X, margin = higgs_margin(rows, seed)
     return X, (margin > 0).astype(np.float32)
 
 
@@ -947,11 +995,8 @@ def flash_kernel_phase(dev: str) -> dict:
 def wide_heads_phase(dev: str, gen, fa_err: float, fb_err: float) -> tuple:
     """Both kernels at each of ``WIDE_HEAD_DIMS`` against their plain
     versions (float32; bf16 without a causal mask for ``flash_attention``,
-    as phase 7's other bf16 case), then timed at the seq path's lengths with
-    D = 128 beside their plain versions, their bounds and, for
-    ``flash_attention``, SDPA."""
-    import torch.nn.functional as F
-
+    as phase 7's other bf16 case), then at each of ``TIMED_HEAD_DIMS`` at
+    the seq path's lengths (``_time_wide_head``)."""
     from synapseml_tpu_torch.ops import attention_kernel as ak
     from synapseml_tpu_torch.parallel.ring_attention import _block_attention
 
@@ -978,7 +1023,21 @@ def wide_heads_phase(dev: str, gen, fa_err: float, fb_err: float) -> tuple:
                 _block_attention(q, k, v, m, l, o, 40, 17, causal,
                                  D ** -0.5), bf16,
                 bf16_o_bound(v) if bf16 else None))
-    D = max(WIDE_HEAD_DIMS)
+    for D in TIMED_HEAD_DIMS:
+        fa_err, fb_err = _time_wide_head(dev, gen, D, fa_err, fb_err)
+    return fa_err, fb_err
+
+
+def _time_wide_head(dev: str, gen, D: int, fa_err: float,
+                    fb_err: float) -> tuple:
+    """Both kernels at head dim ``D`` at the seq path's lengths: checked,
+    then timed beside their plain versions, bounds and (flash_attention)
+    SDPA."""
+    import torch.nn.functional as F
+
+    from synapseml_tpu_torch.ops import attention_kernel as ak
+    from synapseml_tpu_torch.parallel.ring_attention import _block_attention
+
     B, S, H = SEQ_BATCH, ENCODER["max_len"], ENCODER["num_heads"]
     hu, s_local, scale = H // SEQ_RANKS, S // SEQ_RANKS, D ** -0.5
     q, k, v = (_randn(gen, (B, S, hu, D), dev) for _ in range(3))
@@ -1000,6 +1059,10 @@ def wide_heads_phase(dev: str, gen, fa_err: float, fb_err: float) -> tuple:
     m = _randn(gen, (B, H, s_local), dev)
     l = torch.rand((B, H, s_local), generator=gen, device=dev) + 0.5
     o = _randn(gen, (B, s_local, H, D), dev)
+    fb_err = max(fb_err, _block_compare(
+        f"flash_attention_block at ({B}, {s_local}, {H}, {D})",
+        ak.flash_attention_block(q, k, v, m, l, o, s_local, 0),
+        _block_attention(q, k, v, m, l, o, s_local, 0, False, scale)))
     t_k = time_ms(lambda: ak.flash_attention_block(q, k, v, m, l, o,
                                                    s_local, 0), 5)
     t_p = time_ms(lambda: _block_attention(q, k, v, m, l, o, s_local, 0,
@@ -1716,6 +1779,263 @@ def train_path(dev: str, est: dict = TRAIN_EST) -> dict:
                               ("ulysses", "flash_attention"))}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the objective family (regression, multiclass, lambdarank)
+# ---------------------------------------------------------------------------
+
+def covertype_like(rows: int, seed: int = 0):
+    """Covertype-shaped synthetic table: ``COVTYPE_NUMERIC`` standard-normal
+    float32 columns, then one-hot wilderness (4) and soil (40) columns, and
+    one of ``COVTYPE_CLASSES`` classes: the argmax of a random linear score
+    of all 54 columns plus noise."""
+    rng = np.random.default_rng(seed)
+    width = COVTYPE_NUMERIC + COVTYPE_WILD + COVTYPE_SOIL
+    X = np.zeros((rows, width), np.float32)
+    X[:, :COVTYPE_NUMERIC] = rng.standard_normal(
+        (rows, COVTYPE_NUMERIC), dtype=np.float32)
+    at = np.arange(rows)
+    X[at, COVTYPE_NUMERIC + rng.integers(0, COVTYPE_WILD, rows)] = 1.0
+    X[at, COVTYPE_NUMERIC + COVTYPE_WILD
+      + rng.integers(0, COVTYPE_SOIL, rows)] = 1.0
+    W = rng.standard_normal((width, COVTYPE_CLASSES), dtype=np.float32)
+    score = X @ W + 0.5 * rng.standard_normal((rows, COVTYPE_CLASSES),
+                                              dtype=np.float32)
+    return X, np.argmax(score, axis=1).astype(np.float32)
+
+
+def mslr_group_sizes(queries: int, seed: int = 0) -> np.ndarray:
+    """MSLR-WEB10K-shaped documents per query: lognormal with a mean of
+    about 120, the tail clipped at ``MSLR_MAX_GROUP``."""
+    rng = np.random.default_rng(seed)
+    sizes = np.rint(rng.lognormal(np.log(90.0), 0.75, queries))
+    return np.clip(sizes, 1, MSLR_MAX_GROUP).astype(np.int64)
+
+
+def mslr_like(queries: int, seed: int = 0):
+    """MSLR-WEB10K-shaped synthetic table, group-contiguous: (X (n, 136)
+    float32, relevance labels 0-4, mostly 0, the query id of each row, the
+    group sizes)."""
+    sizes = mslr_group_sizes(queries, seed)
+    n = int(sizes.sum())
+    rng = np.random.default_rng(seed + 1)
+    X = rng.standard_normal((n, MSLR_FEATURES), dtype=np.float32)
+    rel = X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.5 * rng.standard_normal(
+        n, dtype=np.float32)
+    y = np.digitize(rel, [0.3, 1.3, 2.2, 2.8]).astype(np.float32)
+    return X, y, np.repeat(np.arange(queries), sizes), sizes
+
+
+def regression_label(objective: str, margin: np.ndarray) -> np.ndarray:
+    """A label in ``objective``'s own domain from a HIGGS margin: positive
+    for gamma (in (0.22, 4.5)), non-negative counts with about half zeros
+    for poisson and tweedie (0-4), in [0, 1] for cross_entropy, the margin
+    itself otherwise. The exp-family labels go through tanh: the margin's
+    product term has tails past +-10, and exp of those makes labels whose
+    first leaves overflow the log link."""
+    u = np.tanh(margin / 2.0)
+    if objective in ("poisson", "tweedie"):
+        return np.floor(np.exp(1.5 * u)).astype(np.float32)
+    if objective == "gamma":
+        return np.exp(1.5 * u).astype(np.float32)
+    if objective == "cross_entropy":
+        return (1.0 / (1.0 + np.exp(-2.0 * margin))).astype(np.float32)
+    return margin.astype(np.float32)
+
+
+def family_fit(label: str, est, table, rows: int, kernels, dev: str):
+    """``est.fit(table)`` with the launch counts zeroed just before and read
+    just after (every kernel of ``kernels`` must have launched); logs fit
+    seconds, rows x iterations per second, the fit's spans and peak device
+    memory."""
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    _peak_gib(dev, reset=True)
+    hk.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    model = est.fit(table)
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    iters = model.getBoosterNumTotalIterations()
+    log(f"  {label}: fit_s={fit_s:.3f} row_iterations/s="
+        f"{rows * iters / fit_s:.0f} trees={model.getBoosterNumTotalModel()}"
+        f" peak device memory={_peak_gib(dev):.3f} GiB launches "
+        f"{json.dumps(launches)}")
+    spans = {k: round(v, 4)
+             for k, v in model.booster.metadata["measures"].items()}
+    log(f"  {label}: fit spans {json.dumps(spans)}")
+    _check_launches(launches, kernels)
+    return model
+
+
+def _save_reload_gap(model, X, want, dev: str) -> float:
+    """Max |reloaded - fitted| prediction over the first 10,000 rows after
+    ``saveNativeModel`` and a reload of the model string."""
+    from synapseml_tpu_torch.gbdt.boosting import Booster
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "model.txt"
+        model.saveNativeModel(str(path))
+        reloaded = Booster.from_model_string(path.read_text(), device=dev)
+    return float(np.abs(reloaded.predict(X[:10_000]) - want[:10_000]).max())
+
+
+def family_full_width(rows: int, dev: str) -> None:
+    """The regressor on the HIGGS-shaped table, the 7-class classifier on
+    the Covertype-shaped one (then once more depthwise through
+    ``train_booster``) and the ranker on the MSLR-shaped one."""
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+    from synapseml_tpu_torch.gbdt.objectives import (lambdarank_objective,
+                                                     make_grouped, ndcg_at_k)
+    from synapseml_tpu_torch.models import (LightGBMClassifier,
+                                            LightGBMRanker, LightGBMRegressor)
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    common = dict(numIterations=FAMILY_ITERS, numLeaves=31, maxBin=255,
+                  device=dev)
+    X, margin = higgs_margin(rows, seed=2)
+    table = table_of(X, margin)
+    model = family_fit(
+        f"LightGBMRegressor(objective='regression') {rows} x {FEATURES}",
+        LightGBMRegressor(objective="regression", **common), table, rows,
+        MAIN_KERNELS, dev)
+    pred = model.transform(table)["prediction"]
+    gap = _save_reload_gap(model, X, pred, dev)
+    rmse = float(np.sqrt(np.mean((pred - margin) ** 2)))
+    log(f"  regression: rmse={rmse:.5f} (label std {margin.std():.5f}), "
+        f"reload max |diff|={gap:.3g}")
+    if pred.shape != (rows,) or not np.isfinite(pred).all() \
+            or gap > 1e-5 or not rmse < 0.95 * margin.std():
+        raise AssertionError("the regressor's fit, transform or reload is "
+                             "wrong")
+    del X, margin, table, model, pred
+
+    X, y = covertype_like(COVTYPE_ROWS)
+    table = table_of(X, y)
+    model = family_fit(
+        f"LightGBMClassifier {COVTYPE_CLASSES} classes {COVTYPE_ROWS} x "
+        f"{X.shape[1]}", LightGBMClassifier(**common), table, COVTYPE_ROWS,
+        MAIN_KERNELS, dev)
+    out = model.transform(table)
+    prob = out["probability"]
+    acc = float((out["prediction"] == y).mean())
+    gap = _save_reload_gap(model, X, prob, dev)
+    base = float(np.bincount(y.astype(np.int64)).max() / len(y))
+    log(f"  multiclass: train accuracy={acc:.4f} (largest class "
+        f"{base:.4f}), reload max |diff|={gap:.3g}")
+    if prob.shape != (COVTYPE_ROWS, COVTYPE_CLASSES) \
+            or model.getBoosterNumTotalModel() != FAMILY_ITERS \
+            * COVTYPE_CLASSES or not np.allclose(prob.sum(1), 1.0, atol=1e-5) \
+            or gap > 1e-5 or not acc > base + 0.1:
+        raise AssertionError("the multiclass classifier's fit, transform or "
+                             "reload is wrong")
+    del model, out, prob, table
+    cfg = BoosterConfig(objective="multiclass", num_class=COVTYPE_CLASSES,
+                        growth_policy="depthwise",
+                        num_iterations=FAMILY_ITERS, num_leaves=31,
+                        max_bin=255)
+    _peak_gib(dev, reset=True)
+    hk.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    booster = train_booster(X, y, cfg, device=dev)
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    acc_d = float((np.argmax(booster.predict(X), 1) == y).mean())
+    spans = {k: round(v, 4) for k, v in booster.metadata["measures"].items()}
+    log(f"  multiclass depthwise train_booster: fit_s={fit_s:.3f} "
+        f"row_iterations/s={COVTYPE_ROWS * FAMILY_ITERS / fit_s:.0f} "
+        f"trees={booster.num_trees} peak device memory={_peak_gib(dev):.3f}"
+        f" GiB train accuracy={acc_d:.4f} launches {json.dumps(launches)}"
+        f" fit spans {json.dumps(spans)}")
+    _check_launches(launches, DEPTHWISE_KERNELS)
+    if booster.num_trees != FAMILY_ITERS * COVTYPE_CLASSES \
+            or not acc_d > base + 0.1:
+        raise AssertionError("the depthwise multiclass fit is wrong")
+    del X, y, booster
+
+    t0 = time.perf_counter()
+    X, y, query, sizes = mslr_like(MSLR_QUERIES)
+    n = len(y)
+    table = table_of(X, y).with_column("query", query)
+    log(f"  MSLR-shaped table: {MSLR_QUERIES} queries, {n} rows x "
+        f"{MSLR_FEATURES}, groups mean {sizes.mean():.1f} max {sizes.max()}"
+        f", made in {time.perf_counter() - t0:.1f}s")
+    model = family_fit(
+        f"LightGBMRanker(maxPosition=20) {n} x {MSLR_FEATURES}",
+        LightGBMRanker(maxPosition=20, groupCol="query", **common), table,
+        n, MAIN_KERNELS, dev)
+    pred = model.transform(table)["prediction"]
+    gi = make_grouped(y, sizes)
+    yt = torch.as_tensor(y, device=dev)
+    ndcg = float(ndcg_at_k(yt, torch.as_tensor(pred, device=dev), gi, 10))
+    rnd = np.random.default_rng(5).standard_normal(n, dtype=np.float32)
+    ndcg0 = float(ndcg_at_k(yt, torch.as_tensor(rnd, device=dev), gi, 10))
+    gap = _save_reload_gap(model, X, pred, dev)
+    log(f"  ranker: train NDCG@10={ndcg:.4f} (random scores {ndcg0:.4f}), "
+        f"reload max |diff|={gap:.3g}")
+    if not np.isfinite(pred).all() or gap > 1e-5 or not ndcg > ndcg0 + 0.1:
+        raise AssertionError("the ranker's fit, transform or reload is "
+                             "wrong")
+    # one iteration's lambdarank gradients at this shape, alone
+    cfg = model.booster.config
+    obj = lambdarank_objective(gi, cfg.sigmoid,
+                               cfg.lambdarank_truncation_level,
+                               cfg.label_gain)
+    w = torch.ones(n, device=dev)
+    for what, score in (("equal scores (iteration 0)",
+                         torch.zeros(n, device=dev)),
+                        ("the fit's scores", torch.as_tensor(pred,
+                                                             device=dev))):
+        _peak_gib(dev, reset=True)
+        ms = time_ms(lambda: obj.grad_hess(score, yt, w), 3)
+        log(f"  lambdarank gradients, {what}: {ms:.3f} ms per iteration, "
+            f"peak device memory {_peak_gib(dev):.3f} GiB")
+
+
+def family_cross_check(dev: str) -> None:
+    """Every objective at ``FAMILY_CROSS_ROWS`` rows for
+    ``FAMILY_CROSS_ITERS`` iterations on the card and on the CPU."""
+    from synapseml_tpu_torch.models import (LightGBMClassifier,
+                                            LightGBMRanker, LightGBMRegressor)
+
+    rows, it = FAMILY_CROSS_ROWS, FAMILY_CROSS_ITERS
+    X, margin = higgs_margin(rows, seed=3)
+    cases = [(f"regressor {o}", LightGBMRegressor, dict(objective=o),
+              table_of(X, regression_label(o, margin)))
+             for o in REGRESSION_OBJECTIVES]
+    Xc, yc = covertype_like(rows, seed=3)
+    cases += [(f"classifier {o}", LightGBMClassifier, dict(objective=o),
+               table_of(Xc, yc)) for o in ("multiclass", "multiclassova")]
+    Xr, yr, query, _ = mslr_like(rows // 120, seed=3)
+    cases.append(("ranker lambdarank", LightGBMRanker,
+                  dict(maxPosition=20, groupCol="query"),
+                  table_of(Xr, yr).with_column("query", query)))
+    for label, cls, params, table in cases:
+        preds, classes = {}, {}
+        for d in (dev, "cpu"):
+            t0 = time.perf_counter()
+            out = cls(numIterations=it, numLeaves=31, maxBin=255, device=d,
+                      **params).fit(table).transform(table)
+            key = "probability" if "probability" in out else "prediction"
+            preds[d] = np.asarray(out[key], np.float64)
+            classes[d] = np.asarray(out["prediction"])
+            log(f"  {label} {d}: fit+transform "
+                f"{time.perf_counter() - t0:.2f}s")
+        gap = float(np.abs(preds[dev] - preds["cpu"]).mean())
+        scale = float(np.abs(preds["cpu"]).mean())
+        agree = (float((classes[dev] == classes["cpu"]).mean())
+                 if cls is LightGBMClassifier else 1.0)
+        ok = gap <= FAMILY_REL_TOL * scale and agree >= CLASS_AGREEMENT
+        log(f"  {label}: mean |pred diff|={gap:.3g} (bound "
+            f"{FAMILY_REL_TOL * scale:.3g}), classes agree {agree:.4%} -> "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{label}: card and CPU fits disagree")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -1779,6 +2099,12 @@ def main() -> int:
         f"ranks sharing the card, batch {SEQ_BATCH} x "
         f"{TRAIN_EST['maxTokenLen']}")
     train_launches = train_path(dev)
+    log("[10] objective family: regressor, 7-class classifier and ranker at "
+        "full width")
+    family_full_width(args.rows, dev)
+    log(f"    cross-check: card against CPU, {FAMILY_CROSS_ROWS} rows, "
+        f"{FAMILY_CROSS_ITERS} iterations, every objective")
+    family_cross_check(dev)
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},

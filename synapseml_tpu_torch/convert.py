@@ -8,10 +8,16 @@ format is a flat ``{name: np.ndarray}`` dict plus a ``BoosterConfig`` dict:
   ``max_bin``, ``has_nan``, ``cat_counts``;
 * every ``TreeArrays`` field, stacked over trees on a leading axis
   (``split_feature`` is ``(T, L-1)``, ``leaf_value`` is ``(T, L)``, ...);
-* ``tree_weights`` ``(T,)`` and ``init_score`` (the booster's base score);
+* ``tree_weights`` ``(T,)`` and ``init_score`` (the booster's base score,
+  one per class: a K-class booster holds K trees per iteration in
+  iteration-major order, tree ``it * K + c`` of class ``c``);
 * optionally ``thresholds`` and ``missing_types`` ``(T, L-1)``, which a
   booster loaded from a model string carries in place of a bin mapper.
 
+The config carries the objective and its parameters (``num_class``,
+``sigmoid``, ``alpha``, ``fair_c``, ``poisson_max_delta_step``,
+``tweedie_variance_power``, lambdarank's ``label_gain`` and truncation), so
+a multiclass, regression or ranking booster scores and saves the same.
 ``booster_arrays`` reads that format off either package's ``Booster`` (it
 only reads attributes, so it needs neither package's framework), and
 ``booster_from_reference`` builds this package's ``Booster`` from it.

@@ -105,7 +105,14 @@
 //   element's sums keep their order, so the result is the same function.
 // Variants measured slower on the H100 and not kept: PERF.md §6.
 //
-// Head dims up to 128 (padded with zeros to DP = 32, 64 or 128).
+// Head dims up to 128 are padded with zeros to DP = 32, 64 or 128 and take
+// the design above. Any wider head takes `flash_wide_kernel`, a plain design
+// of the same function on the CUDA cores in float32: one block per 16 query
+// rows, scores summed over d in chunks of 128, the online softmax in
+// registers, and O rescaled and accumulated in shared memory (in a float32
+// scratch buffer in device memory beyond kWideAccMaxD). It is bound by its
+// shared-memory reads, well below the card's float32 rate; the tensor-core
+// (wgmma) design of wide heads is a later step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -588,6 +595,212 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// ---------------------------------------------------------------------------
+// Head dims above 128: a plain design on the CUDA cores (see the note above)
+// ---------------------------------------------------------------------------
+
+constexpr int kWideRows = 16;                // query rows per block
+constexpr int kWideKeys = 64;                // keys per tile
+constexpr int kWideChunk = 128;              // d per staged chunk
+constexpr int kWideStride = kWideChunk + 1;  // shared row stride (floats)
+constexpr int kWideAccMaxD = 2048;           // O in shared memory up to here
+// shared floats besides O: the Q chunk, the K (or V) chunk, P, a row scalar
+constexpr int kWideFixed = kWideRows * kWideStride + kWideKeys * kWideStride +
+                           kWideRows * kWideKeys + kWideRows;
+
+// One block of 256 threads per (b*h, 16 query rows), any D. Scores: thread
+// t holds row t / 16 and keys t % 16 + 16 j (j < 4), summed over d in
+// chunks of 128 staged in shared memory (float32 FMAs); the row's max and
+// sum take four shuffles within its half warp. P (rounded to v's type) and
+// each row's rescale factor go to shared memory; then, V chunk by V chunk,
+// thread t owns d = t % 128 of rows 8 (t / 128) .. + 7 of O:
+// O = O * alpha + P V. O lives in shared memory (16 D floats) while D <=
+// kWideAccMaxD, else in the caller's float32 scratch `acc_g`, one 16 x D
+// slab per block; either way each element has one owner, so no atomics.
+template <typename T, bool kState>
+__global__ void __launch_bounds__(kThreads)
+flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ m_in,
+                  const float* __restrict__ l_in,
+                  const float* __restrict__ o_in, T* __restrict__ out,
+                  float* __restrict__ m_out, float* __restrict__ l_out,
+                  float* __restrict__ o_out, float* __restrict__ acc_g, Geom g,
+                  float scale, int causal) {
+  extern __shared__ __align__(16) float wsm[];
+  float* sQ = wsm;
+  float* sK = sQ + kWideRows * kWideStride;  // K chunk, then V chunk
+  float* sP = sK + kWideKeys * kWideStride;
+  float* sRow = sP + kWideRows * kWideKeys;  // alpha per row, at the end l
+  const int D = (int)g.D;
+  const int64_t n_qt = (g.Sq + kWideRows - 1) / kWideRows;
+  const int64_t bh = blockIdx.x / n_qt;
+  const int64_t b = bh / g.H, h = bh % g.H;
+  const int64_t row0 = (blockIdx.x % n_qt) * kWideRows;
+  float* acc = acc_g != nullptr
+                   ? acc_g + (int64_t)blockIdx.x * kWideRows * D
+                   : sRow + kWideRows;
+  const int tid = threadIdx.x;
+  const int r = tid >> 4, kk = tid & 15;  // score layout
+  const int64_t row = row0 + r;
+  const bool row_in = row < g.Sq;
+
+  float m = kNegInf, l = 0.f;
+  if (kState && row_in) {
+    m = fmaxf(m_in[b * g.m[0] + h * g.m[1] + row * g.m[2]], kNegInf);
+    l = l_in[b * g.l[0] + h * g.l[1] + row * g.l[2]];
+  }
+  for (int i = tid; i < kWideRows * D; i += kThreads) {
+    const int64_t rw = row0 + i / D;
+    const int d = i % D;
+    acc[i] = kState && rw < g.Sq
+                 ? o_in[b * g.o[0] + rw * g.o[1] + h * g.o[2] + d * g.o[3]]
+                 : 0.f;
+  }
+
+  // keys this block needs: a causal mask ends them after its last row
+  const int64_t row_end = row0 + kWideRows < g.Sq ? row0 + kWideRows : g.Sq;
+  int64_t kend = g.Sk;
+  if (causal) {
+    const int64_t lim = g.q_offset + row_end - g.k_offset;
+    kend = lim < 0 ? 0 : (lim < kend ? lim : kend);
+  }
+  const T* qb = q + b * g.q[0] + h * g.q[2];
+  const T* kb = k + b * g.k[0] + h * g.k[2];
+  const T* vb = v + b * g.v[0] + h * g.v[2];
+  const int dl = tid & (kWideChunk - 1), pr0 = (tid >> 7) * 8;  // PV layout
+
+  for (int64_t t0 = 0; t0 < kend; t0 += kWideKeys) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int d0 = 0; d0 < D; d0 += kWideChunk) {
+      __syncthreads();  // every thread is done with the last chunk
+      for (int i = tid; i < kWideRows * kWideChunk; i += kThreads) {
+        const int rr = i / kWideChunk, d = d0 + i % kWideChunk;
+        const int64_t rw = row0 + rr;
+        sQ[rr * kWideStride + i % kWideChunk] =
+            rw < g.Sq && d < D ? to_f32(qb[rw * g.q[1] + d * g.q[3]]) : 0.f;
+      }
+      for (int i = tid; i < kWideKeys * kWideChunk; i += kThreads) {
+        const int c = i / kWideChunk, d = d0 + i % kWideChunk;
+        const int64_t key = t0 + c;
+        sK[c * kWideStride + i % kWideChunk] =
+            key < g.Sk && d < D ? to_f32(kb[key * g.k[1] + d * g.k[3]]) : 0.f;
+      }
+      __syncthreads();
+      const float* qr = sQ + r * kWideStride;
+      const float* kr = sK + kk * kWideStride;
+#pragma unroll 8
+      for (int d = 0; d < kWideChunk; ++d) {
+        const float x = qr[d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[j] = fmaf(x, kr[16 * j * kWideStride + d], s[j]);
+      }
+    }
+
+    // mask, online softmax; the 16 lanes of a row are one half warp
+    bool valid[4];
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t c = t0 + kk + 16 * j;
+      valid[j] = c < g.Sk && (!causal || g.q_offset + row >= g.k_offset + c);
+      s[j] = valid[j] ? s[j] * scale : kNegInf;
+      mx = fmaxf(mx, s[j]);
+    }
+    for (int o = 8; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = exp2f((m - m_new) * kLog2e);
+    float ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = valid[j] ? exp2f((s[j] - m_new) * kLog2e) : 0.f;
+      ps += p;
+      sP[r * kWideKeys + kk + 16 * j] = round_like<T>(p);
+    }
+    for (int o = 8; o > 0; o >>= 1) ps += __shfl_xor_sync(kFull, ps, o);
+    l = l * alpha + ps;
+    m = m_new;
+    if (kk == 0) sRow[r] = alpha;
+
+    for (int d0 = 0; d0 < D; d0 += kWideChunk) {
+      __syncthreads();  // P and alpha are in; the last chunk is read
+      for (int i = tid; i < kWideKeys * kWideChunk; i += kThreads) {
+        const int c = i / kWideChunk, d = d0 + i % kWideChunk;
+        const int64_t key = t0 + c;
+        sK[c * kWideStride + i % kWideChunk] =
+            key < g.Sk && d < D ? to_f32(vb[key * g.v[1] + d * g.v[3]]) : 0.f;
+      }
+      __syncthreads();
+      const int d = d0 + dl;
+      if (d < D) {
+        float pv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) pv[i] = 0.f;
+#pragma unroll 4
+        for (int c = 0; c < kWideKeys; ++c) {
+          const float x = sK[c * kWideStride + dl];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            pv[i] = fmaf(sP[(pr0 + i) * kWideKeys + c], x, pv[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float* a = acc + (pr0 + i) * D + d;
+          *a = *a * sRow[pr0 + i] + pv[i];
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // O is complete; sRow is free
+  if (kk == 0) sRow[r] = l;
+  if (kState && kk == 0 && row_in) {
+    const int64_t ms = (b * g.H + h) * g.Sq + row;
+    m_out[ms] = m;
+    l_out[ms] = l;
+  }
+  __syncthreads();
+  for (int i = tid; i < kWideRows * D; i += kThreads) {
+    const int rr = i / D, d = i % D;
+    const int64_t rw = row0 + rr;
+    if (rw >= g.Sq) continue;
+    const int64_t o = ((b * g.Sq + rw) * g.H + h) * D + d;
+    if (kState) {
+      o_out[o] = acc[i];
+    } else {
+      const float lr = sRow[rr];
+      from_f32(acc[i] / (lr > 0.f ? lr : 1.f), out + o);
+    }
+  }
+}
+
+template <typename T, bool kState>
+int launch_wide(const void* q, const void* k, const void* v,
+                const void* m_in, const void* l_in, const void* o_in,
+                void* out, void* m_out, void* l_out, void* o_out,
+                void* scratch, const Geom& g, float scale, int causal,
+                cudaStream_t stream) {
+  const int64_t blocks = g.B * g.H * ((g.Sq + kWideRows - 1) / kWideRows);
+  if (blocks <= 0) return 0;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool in_smem = g.D <= kWideAccMaxD;
+  if (!in_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      ((size_t)kWideFixed + (in_smem ? (size_t)kWideRows * g.D : 0)) *
+      sizeof(float);
+  auto kernel = flash_wide_kernel<T, kState>;
+  const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)m_in,
+      (const float*)l_in, (const float*)o_in, (T*)out, (float*)m_out,
+      (float*)l_out, (float*)o_out, in_smem ? nullptr : (float*)scratch, g,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
 Geom read_geom(const int64_t* a) {
   Geom g;
   g.B = a[0]; g.H = a[1]; g.Sq = a[2]; g.Sk = a[3]; g.D = a[4];
@@ -626,16 +839,19 @@ int launch(const void* q, const void* k, const void* v, const void* m_in,
 template <bool kState>
 int dispatch(const void* q, const void* k, const void* v, const void* m_in,
              const void* l_in, const void* o_in, void* out, void* m_out,
-             void* l_out, void* o_out, const int64_t* geom, float scale,
-             int causal, int bf16, cudaStream_t stream) {
+             void* l_out, void* o_out, void* scratch, const int64_t* geom,
+             float scale, int causal, int bf16, cudaStream_t stream) {
   const Geom g = read_geom(geom);
 #define FLASH_LAUNCH(T, DP)                                                 \
   return launch<T, DP, kState>(q, k, v, m_in, l_in, o_in, out, m_out, l_out, \
                                o_out, g, scale, causal, stream)
-#define FLASH_BY_DIM(T)                  \
-  if (g.D <= 32) FLASH_LAUNCH(T, 32);    \
-  if (g.D <= 64) FLASH_LAUNCH(T, 64);    \
-  if (g.D <= 128) FLASH_LAUNCH(T, 128);
+#define FLASH_BY_DIM(T)                                                     \
+  if (g.D <= 32) FLASH_LAUNCH(T, 32);                                       \
+  if (g.D <= 64) FLASH_LAUNCH(T, 64);                                       \
+  if (g.D <= 128) FLASH_LAUNCH(T, 128);                                     \
+  return launch_wide<T, kState>(q, k, v, m_in, l_in, o_in, out, m_out,      \
+                                l_out, o_out, scratch, g, scale, causal,    \
+                                stream);
   if (bf16) {
     FLASH_BY_DIM(__nv_bfloat16)
   } else {
@@ -643,7 +859,6 @@ int dispatch(const void* q, const void* k, const void* v, const void* m_in,
   }
 #undef FLASH_BY_DIM
 #undef FLASH_LAUNCH
-  return (int)cudaErrorInvalidValue;  // head dim above 128
 }
 
 }  // namespace
@@ -653,13 +868,17 @@ extern "C" {
 // Number of int64 entries `geom` must hold.
 int flash_geom_len() { return kGeomLen; }
 
+// The widest head whose wide-kernel output stays in shared memory; above it
+// `scratch` must hold B * H * ceil(Sq / 16) * 16 * D floats.
+int flash_wide_acc_max_d() { return kWideAccMaxD; }
+
 // Attention of q over k/v into `out` ((B, Sq, H, D) contiguous, q's type).
 // Returns a cudaError_t as int (0 = launched).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* out, const int64_t* geom, float scale,
-                        int causal, int bf16, void* stream) {
+                        void* out, void* scratch, const int64_t* geom,
+                        float scale, int causal, int bf16, void* stream) {
   return dispatch<false>(q, k, v, nullptr, nullptr, nullptr, out, nullptr,
-                         nullptr, nullptr, geom, scale, causal, bf16,
+                         nullptr, nullptr, scratch, geom, scale, causal, bf16,
                          (cudaStream_t)stream);
 }
 
@@ -667,11 +886,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
 // float32, outputs contiguous. Returns a cudaError_t as int.
 int flash_block_fwd(const void* q, const void* k, const void* v,
                     const void* m_in, const void* l_in, const void* o_in,
-                    void* m_out, void* l_out, void* o_out,
+                    void* m_out, void* l_out, void* o_out, void* scratch,
                     const int64_t* geom, float scale, int causal, int bf16,
                     void* stream) {
   return dispatch<true>(q, k, v, m_in, l_in, o_in, nullptr, m_out, l_out,
-                        o_out, geom, scale, causal, bf16,
+                        o_out, scratch, geom, scale, causal, bf16,
                         (cudaStream_t)stream);
 }
 

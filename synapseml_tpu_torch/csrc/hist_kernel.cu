@@ -56,8 +56,14 @@
 // Variants measured slower on the H100 and not kept: PERF.md §6.
 // Large bin spaces: a block keeps fewer features when FB * B * 12 bytes would
 // pass the 48 KB a block gets without opting in, down to one feature, whose
-// (B, 3) histogram takes the opt-in above 48 KB: 192 KB at B = 16384, the
-// largest B taken (kMaxBins; the H100 gives a block up to 227 KB).
+// (B, 3) histogram takes the opt-in above 48 KB: 192 KB at B = 16384
+// (kWindowBins; the H100 gives a block up to 227 KB). A larger B runs as
+// B / 16384 bin windows on the grid's z axis, one launch: window w keeps its
+// own (16384, 3) shared histogram of bins [16384 w, 16384 (w + 1)), skips
+// the rows whose bin falls outside it, and adds its sums at offset 16384 w
+// of out's (B, 3) rows. Every bin is counted in exactly one window, with
+// the same sums as one pass; each window reads the rows again (B / 16384
+// times the bytes).
 // range_histogram: the grid depends on the card and n only; each block reads
 // `info` and takes a contiguous span of max(length / blocks, 2048) rows, so
 // a block whose span is empty returns before it zeroes or flushes anything,
@@ -111,8 +117,9 @@
 //   block's first stage and its flushes are not hidden, so more and shorter
 //   blocks measured slower.
 // * Bin windows: the codes hold hi below 512, so one pass takes up to
-//   kMaxLevelBins = 2048 bins. A larger B (up to kMaxBins) runs as B / 2048
-//   windows on the grid's z axis, one launch: window w stages bin - 2048 w,
+//   kMaxLevelBins = 2048 bins. A larger B (any power of two whose B / 2048
+//   windows fit the grid's z limit) runs as B / 2048 windows on the grid's
+//   z axis, one launch: window w stages bin - 2048 w,
 //   which the clamp sends to "outside" unless it falls in [0, 2048), and
 //   writes its bins at offset 2048 w of out's (B, 3) rows. Every bin is
 //   counted in exactly one window, with the same sums as one pass; each
@@ -131,7 +138,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMinRows = 2048;  // least rows per block of a range
 constexpr int kFeatureBlock = 8;  // features per block
-constexpr int kMaxBins = 16384;   // the largest bin space the kernels take
+constexpr int kWindowBins = 16384;  // bins per window of hist_kernel
+constexpr int kMaxGridZ = 65535;    // the card's limit on gridDim.z
 constexpr int kSmemDefault = 48 * 1024;  // shared bytes without the opt-in
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -152,18 +160,19 @@ __device__ __forceinline__ void add3(float* p, float g, float h, float m) {
 
 // The accumulate routine of both kernels. One warp adds its 32 rows (one
 // per lane; `in` false for a lane without a row) of features f0 .. f0+FB-1
-// into the shared (FB, B, 3) histogram `hist`; `col` is bT's row of
-// feature f0. Every lane of the warp must call it.
+// into the shared (FB, B, 3) histogram `hist` of bins [off, off + B); `col`
+// is bT's row of feature f0. Every lane of the warp must call it.
 __device__ __forceinline__ void warp_accumulate(
     float* hist, const int32_t* __restrict__ col, int64_t n, int64_t row,
-    bool in, float gv, float hv, float mv, int FB, int B) {
+    bool in, float gv, float hv, float mv, int FB, int B, int off) {
   // a row of zeros (out of bag, padding) adds nothing to a sum that starts
   // at +0
   const bool live = in && (gv != 0.f || hv != 0.f || mv != 0.f);
   if (!__any_sync(kFull, live)) return;
   const int lane = threadIdx.x & 31;
   for (int j = 0; j < FB; ++j) {
-    const int b = live ? col[(int64_t)j * n + row] : -1;
+    // a bin outside the window wraps to a large unsigned value
+    const int b = live ? col[(int64_t)j * n + row] - off : -1;
     const bool ok = live && (unsigned)b < (unsigned)B;
     const unsigned adds = __ballot_sync(kFull, ok);
     if (adds == 0) continue;  // the same for every lane
@@ -183,14 +192,17 @@ __device__ __forceinline__ void warp_accumulate(
   }
 }
 
-// Adds the block's shared histogram of `size` floats into dst and zeroes
-// it. Every thread of the block must call it (it synchronises).
-__device__ void flush_shared(float* sh, float* dst, int size) {
+// Adds the block's shared (FB, B, 3) histogram into dst, whose features are
+// OB * 3 floats apart, and zeroes it. Every thread of the block must call it
+// (it synchronises).
+__device__ void flush_shared(float* sh, float* dst, int FB, int B, int OB) {
   __syncthreads();
+  const int size = FB * B * 3;
   for (int i = threadIdx.x; i < size; i += blockDim.x) {
     const float v = sh[i];
     sh[i] = 0.f;
-    if (v != 0.f) atomicAdd(dst + i, v);
+    const int j = i / (B * 3);
+    if (v != 0.f) atomicAdd(dst + (int64_t)j * OB * 3 + (i - j * B * 3), v);
   }
   __syncthreads();
 }
@@ -199,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
 hist_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
             const float* __restrict__ h, const float* __restrict__ m,
             const int32_t* __restrict__ info, float* __restrict__ out,
-            int64_t n, int B, int FB) {
+            int64_t n, int B, int OB, int FB) {
   extern __shared__ __align__(16) float sh[];
   int64_t start = 0, length = n;
   if (info != nullptr) {
@@ -222,6 +234,7 @@ hist_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
   __syncthreads();
   const int warp = threadIdx.x >> 5;
   const int f0 = blockIdx.y * FB;
+  const int off = blockIdx.z * B;  // the window's first bin
   const int32_t* col = bT + (int64_t)f0 * n;
   // warps walk whole 32-row groups, so every lane reaches the warp votes
   for (int64_t base = start + s0 + 32 * warp; base < s1; base += kThreads) {
@@ -233,9 +246,9 @@ hist_kernel(const int32_t* __restrict__ bT, const float* __restrict__ g,
       hv = bf16_round(h[row]);
       mv = bf16_round(m[row]);
     }
-    warp_accumulate(sh, col, n, row, in, gv, hv, mv, FB, B);
+    warp_accumulate(sh, col, n, row, in, gv, hv, mv, FB, B, off);
   }
-  flush_shared(sh, out + (int64_t)f0 * B * 3, size);
+  flush_shared(sh, out + ((int64_t)f0 * OB + off) * 3, FB, B, OB);
 }
 
 // Features per block: the largest of kFeatureBlock, ..., 2, 1 that divides
@@ -259,9 +272,13 @@ int launch(const int32_t* bT, const float* g, const float* h, const float* m,
            const int32_t* info, float* out, int64_t n, int FP, int B,
            cudaStream_t stream) {
   if (n <= 0 || FP <= 0) return 0;
-  if (B < 1 || B > kMaxBins) return (int)cudaErrorInvalidValue;
-  const int FB = feature_block(FP, B);
-  const size_t smem = (size_t)FB * B * 3 * sizeof(float);
+  // bin windows of at most kWindowBins (a larger B is a multiple of it)
+  const int wb = B < kWindowBins ? B : kWindowBins;
+  const int windows = B / wb;
+  if (B < 1 || windows * wb != B || windows > kMaxGridZ)
+    return (int)cudaErrorInvalidValue;
+  const int FB = feature_block(FP, wb);
+  const size_t smem = (size_t)FB * wb * 3 * sizeof(float);
   cudaError_t err = cudaSuccess;
   if (smem > (size_t)kSmemDefault) {
     err = cudaFuncSetAttribute(
@@ -273,14 +290,15 @@ int launch(const int32_t* bT, const float* g, const float* h, const float* m,
   if (err != cudaSuccess) return (int)err;
   const int fblocks = FP / FB;
   // about eight resident blocks per SM in all, shared among feature
-  // blocks, and no more than n rows need
-  int64_t want = ((int64_t)sms * 8 + fblocks - 1) / fblocks;
+  // blocks and windows, and no more than n rows need
+  const int64_t yz = (int64_t)fblocks * windows;
+  int64_t want = ((int64_t)sms * 8 + yz - 1) / yz;
   int64_t need = (n + kMinRows - 1) / kMinRows;
   int gx = (int)(need < want ? need : want);
   if (gx < 1) gx = 1;
-  dim3 grid(gx, fblocks);
-  hist_kernel<<<grid, kThreads, smem, stream>>>(bT, g, h, m, info, out, n, B,
-                                                FB);
+  dim3 grid(gx, fblocks, windows);
+  hist_kernel<<<grid, kThreads, smem, stream>>>(bT, g, h, m, info, out, n, wb,
+                                                B, FB);
   return (int)cudaGetLastError();
 }
 
@@ -676,11 +694,12 @@ int launch_level(const int32_t* bT, const float* g, const float* h,
                  int FP, int B, int slots, int chunk, cudaStream_t stream) {
   if (n <= 0 || FP <= 0) return 0;
   if (slots <= 0 || chunk <= 0 || chunk % kStageRows != 0 || B < 256 ||
-      B > kMaxBins || (B & (B - 1)) != 0)
+      (B & (B - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   // bin windows of at most kMaxLevelBins (B is a power of two)
   const int wb = B < kMaxLevelBins ? B : kMaxLevelBins;
   const int windows = B / wb;
+  if (windows > kMaxGridZ) return (int)cudaErrorInvalidValue;
   const uintptr_t addr =
       (uintptr_t)bT | (uintptr_t)g | (uintptr_t)h | (uintptr_t)m;
   if (n % 4 == 0 && addr % 16 == 0)

@@ -1,20 +1,24 @@
 """Boosting driver: the training-iteration loop and the Booster model.
 
 Counterpart of the JAX package's ``gbdt/boosting.py`` for the slice that is
-ported: plain gradient boosting (``boosting_type="gbdt"``) with the binary
-objective on dense numeric data, grown leaf-wise (the partition row layout)
-or depthwise (``growth_policy="depthwise"``, one ``level_histograms`` pass per
-level). ``train_booster`` is a plain Python loop over iterations (gradients →
-``grow_tree`` → score update), the host-loop semantics of the JAX package;
-its fused ``lax.scan`` runner has no counterpart, since PyTorch runs eagerly.
+ported: plain gradient boosting (``boosting_type="gbdt"``) with every
+objective of ``objectives.py`` (binary, multiclass and multiclassova, the
+regression family, lambdarank over ``group_sizes``) on dense numeric data,
+grown leaf-wise (the partition row layout) or depthwise
+(``growth_policy="depthwise"``, one ``level_histograms`` pass per level).
+``train_booster`` is a plain Python loop over iterations: the gradients of
+all K classes once, then K trees in class order, each from its class's
+gradient row and each adding its leaves to its class's score column before
+the next; trees are stored iteration-major (``it * K + c``). These are the
+semantics of the JAX package's fused body; its ``lax.scan`` runner has no
+counterpart, since PyTorch runs eagerly.
 
 ``BoosterConfig`` keeps every field name and default of the JAX config, so a
 config carries across unchanged. ``train_booster`` rejects every setting and
 argument the slice does not port with ``NotImplementedError`` naming it:
 sampling (bagging, GOSS, DART, RF, feature fractions), categorical features,
 monotone constraints, validation sets and early stopping, warm starts, custom
-objectives, meshes, checkpoints, sparse input and objectives other than
-``binary``.
+objectives, meshes, checkpoints and sparse input.
 """
 
 from __future__ import annotations
@@ -27,14 +31,16 @@ import numpy as np
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
-from ..ops.hist_kernel import MAX_CUDA_BINS, pad_bins
 from ..ops.quantize import (BinMapper, apply_bins, bin_threshold_to_value,
                             compute_bin_mapper)
 from .dataset import Dataset, _is_sparse
 from .grower import (Forest, GrowerConfig, TreeArrays, forest_max_depth,
                      forest_predict, grow_tree, stack_trees, transpose_bins,
                      trees_to_host)
-from .objectives import Objective, get_objective
+from .objectives import (Objective, get_objective, lambdarank_objective,
+                         make_grouped, regression_objective)
+
+MULTICLASS = ("multiclass", "softmax", "multiclassova")
 
 
 @dataclasses.dataclass
@@ -138,9 +144,7 @@ class BoosterConfig:
             if not ok:
                 out.append(f"{name}={getattr(self, name)!r}")
 
-        check("objective", self.objective == "binary")
         check("boosting_type", self.boosting_type == "gbdt")
-        check("num_class", self.num_class == 1)
         check("bagging_fraction", self.bagging_fraction == 1.0)
         check("bagging_freq", self.bagging_freq == 0)
         check("pos_bagging_fraction", self.pos_bagging_fraction == 1.0)
@@ -212,7 +216,7 @@ class Booster:
 
     @property
     def models_per_iter(self) -> int:
-        return self.num_class if self.config.objective in ("multiclass", "softmax", "multiclassova") else 1
+        return self.num_class if self.config.objective in MULTICLASS else 1
 
     @property
     def num_trees(self) -> int:
@@ -278,20 +282,24 @@ class Booster:
 
     # --- inference ------------------------------------------------------
     def _raw_score_tensor(self, X) -> torch.Tensor:
-        if self.models_per_iter != 1:
-            raise NotImplementedError(
-                "multiclass models are not ported to the PyTorch package yet")
+        k = self.models_per_iter
         X = torch.as_tensor(np.asarray(X, np.float32)).to(self.device)
         if X.dim() != 2:
             raise ValueError(f"X must be (N, F), got shape {tuple(X.shape)}")
+        base = torch.as_tensor(self.base_score[:k].astype(np.float32),
+                               device=self.device)
         if not self.trees:
-            return torch.full((X.shape[0],), float(np.float32(self.base_score[0])),
-                              dtype=torch.float32, device=self.device)
-        out = forest_predict(self.forest(), X, self._depth_cache)
-        return out + float(np.float32(self.base_score[0]))
+            out = torch.zeros((X.shape[0], k), dtype=torch.float32,
+                              device=self.device)
+        else:
+            # (N, K): each class's trees summed in iteration order
+            out = forest_predict(self.forest(), X, self._depth_cache,
+                                 num_class=k)
+        out = out + base
+        return out[:, 0] if k == 1 else out
 
     def raw_score(self, X) -> np.ndarray:
-        """(N,) raw margin of the whole forest."""
+        """(N,) raw margin of the whole forest, (N, K) for K classes."""
         return self._raw_score_tensor(X).cpu().numpy()
 
     def predict(self, X) -> np.ndarray:
@@ -312,7 +320,10 @@ class Booster:
         return imp
 
     def _objective_for_transform(self) -> Objective:
-        return get_objective(self.config.objective, sigmoid=self.config.sigmoid)
+        cfg = self.config
+        if cfg.objective == "lambdarank":
+            return regression_objective()
+        return _objective(cfg, self.num_class)
 
     # --- persistence ----------------------------------------------------
     def model_string(self) -> str:
@@ -334,6 +345,33 @@ class Booster:
 # Training
 # ---------------------------------------------------------------------------
 
+def _objective(cfg: BoosterConfig, num_class: int) -> Objective:
+    """The config's (non-ranking) objective with its parameters."""
+    return get_objective(cfg.objective, num_class=num_class,
+                         sigmoid=cfg.sigmoid, alpha=cfg.alpha,
+                         fair_c=cfg.fair_c,
+                         poisson_max_delta_step=cfg.poisson_max_delta_step,
+                         tweedie_variance_power=cfg.tweedie_variance_power)
+
+
+def _ranking_objective(cfg: BoosterConfig, y: np.ndarray,
+                       group_sizes) -> Objective:
+    """lambdarank over the group-contiguous rows of ``group_sizes``; a label
+    beyond the ``label_gain`` table is refused, as LightGBM does."""
+    if group_sizes is None:
+        raise ValueError("lambdarank requires group_sizes")
+    if cfg.label_gain:
+        max_label = int(np.max(y)) if len(y) else 0
+        if max_label >= len(cfg.label_gain):
+            raise ValueError(
+                f"label {max_label} needs a label_gain table of at "
+                f"least {max_label + 1} entries, got "
+                f"{len(cfg.label_gain)}")
+    return lambdarank_objective(make_grouped(y, group_sizes), cfg.sigmoid,
+                                cfg.lambdarank_truncation_level,
+                                cfg.label_gain)
+
+
 def _reject_unported(config: BoosterConfig, **args) -> None:
     """Raise naming every argument set away from its default and every
     config setting the port does not implement."""
@@ -344,21 +382,8 @@ def _reject_unported(config: BoosterConfig, **args) -> None:
     if bad:
         raise NotImplementedError(
             "not ported to the PyTorch package yet: " + ", ".join(bad)
-            + " (the port trains gbdt boosting with the binary objective on "
-            "dense numeric data, without sampling, validation or warm start)")
-
-
-def _reject_bin_space(config: BoosterConfig, dev: torch.device) -> None:
-    """Refuse, before any binning, a fit on the card whose histogram bin
-    space ``pad_bins(max_bin)`` is larger than the CUDA kernels take
-    (``ops.hist_kernel.MAX_CUDA_BINS``). The CPU's plain versions take any."""
-    B = pad_bins(config.max_bin)
-    if dev.type == "cuda" and B > MAX_CUDA_BINS:
-        raise NotImplementedError(
-            f"max_bin={config.max_bin} pads to {B} histogram bins; the CUDA "
-            f"histogram kernels of growth_policy={config.growth_policy!r} "
-            f"take up to {MAX_CUDA_BINS} (max_bin <= {MAX_CUDA_BINS}), or "
-            "train with device='cpu'")
+            + " (the port trains gbdt boosting on dense numeric data, "
+            "without sampling, validation or warm start)")
 
 
 def train_booster(
@@ -391,7 +416,7 @@ def train_booster(
 
     cfg = config
     _reject_unported(cfg, categorical_features=categorical_features,
-                     group_sizes=group_sizes, valid=valid, fobj=fobj,
+                     valid=valid, fobj=fobj,
                      init_model=init_model, mesh=mesh,
                      checkpoint_store=checkpoint_store,
                      checkpoint_every=checkpoint_every or None,
@@ -399,7 +424,6 @@ def train_booster(
     if measures is None:
         measures = InstrumentationMeasures()
     dev = resolve_device(device)
-    _reject_bin_space(cfg, dev)
     fit_t0 = _time.perf_counter()
 
     binned = None
@@ -452,16 +476,19 @@ def train_booster(
             binned = apply_bins(mapper, X, dev)
         bT = transpose_bins(binned)          # one per fit, read by every tree
 
-    obj = get_objective(cfg.objective, sigmoid=cfg.sigmoid)
+    k = cfg.num_class if cfg.objective in MULTICLASS else 1
+    obj = (_ranking_objective(cfg, y, group_sizes)
+           if cfg.objective == "lambdarank" else _objective(cfg, k))
     yj = torch.as_tensor(y).to(dev)
     wj = torch.as_tensor(w).to(dev)
     base = (np.atleast_1d(np.asarray(obj.init_score(yj, wj).cpu(), np.float64))
-            if cfg.boost_from_average else np.zeros(1))
-    score = torch.full((n_orig,), float(np.float32(base[0])),
-                       dtype=torch.float32, device=dev)
+            if cfg.boost_from_average else np.zeros(max(k, 1)))
+    # (n, K): the base score of each class, plus init_score
+    score = torch.as_tensor(base[:k].astype(np.float32)).to(dev).repeat(
+        n_orig, 1)
     if init_score is not None:
         score = score + torch.as_tensor(
-            np.asarray(init_score, np.float32).reshape(n_orig)).to(dev)
+            np.asarray(init_score, np.float32).reshape(n_orig, -1)).to(dev)
 
     grower_cfg = cfg.grower()
     nan_bins = np.asarray(mapper.nan_bins, np.int32)
@@ -471,12 +498,17 @@ def train_booster(
     trees: List[TreeArrays] = []
     with measures.span("trainingIterations"):
         for it in range(cfg.num_iterations):
-            g, h = obj.grad_hess(score, yj, wj)
-            tree, node = grow_tree(binned, g, h, in_bag, feature_active,
-                                   grower_cfg, nan_bins=nan_bins, bT0=bT,
-                                   stats=stats)
-            score = score + tree.leaf_value[node]
-            trees.append(tree)
+            # every class's gradients once per iteration, as (K, n) rows so
+            # that each tree reads a contiguous one
+            g, h = obj.grad_hess(score[:, 0] if k == 1 else score, yj, wj)
+            g = g.reshape(n_orig, k).t().contiguous()
+            h = h.reshape(n_orig, k).t().contiguous()
+            for c in range(k):
+                tree, node = grow_tree(binned, g[c], h[c], in_bag,
+                                       feature_active, grower_cfg,
+                                       nan_bins=nan_bins, bT0=bT, stats=stats)
+                score[:, c] += tree.leaf_value[node]
+                trees.append(tree)
             if callbacks:
                 for cb in callbacks:
                     cb(it, trees)

@@ -518,22 +518,26 @@ def _descend(forest: Forest, X: torch.Tensor, depth: int) -> torch.Tensor:
 
 
 def forest_predict(forest: Forest, X: torch.Tensor, depth: int,
-                   rows_per_chunk: Optional[int] = None) -> torch.Tensor:
-    """(N,) float32 sum of tree outputs per row, summed in tree order (as
-    the JAX scan does). Rows go in chunks so the (rows, T) temporaries stay
-    near 16M elements."""
+                   rows_per_chunk: Optional[int] = None,
+                   num_class: int = 1) -> torch.Tensor:
+    """(N, num_class) float32 sum of tree outputs per row: tree ``t``
+    belongs to class ``t % num_class`` (iteration-major order), and each
+    class sums its trees in iteration order (as the JAX scan does). Rows go
+    in chunks so the (rows, T) temporaries stay near 16M elements."""
     T = forest.num_trees
     L = forest.leaf_value.shape[1]
+    k = num_class
     depth = max(int(depth), 1)
     step = rows_per_chunk or max(1, (1 << 24) // max(T, 1))
     lv = forest.leaf_value.reshape(-1)
     tbase = (torch.arange(T, device=X.device) * L)[None, :]
-    out = torch.empty(X.shape[0], dtype=torch.float32, device=X.device)
+    out = torch.empty((X.shape[0], k), dtype=torch.float32, device=X.device)
     for s in range(0, X.shape[0], step):
         vals = lv[_descend(forest, X[s:s + step], depth) + tbase]   # (r, T)
-        total = torch.zeros(vals.shape[0], dtype=torch.float32, device=X.device)
-        for t in range(T):
-            total = total + vals[:, t]
+        total = torch.zeros((vals.shape[0], k), dtype=torch.float32,
+                            device=X.device)
+        for t in range(0, T, k):
+            total = total + vals[:, t:t + k]
         out[s:s + step] = total
     return out
 

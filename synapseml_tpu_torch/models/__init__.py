@@ -1,1 +1,8 @@
-from .gbdt import LightGBMClassificationModel, LightGBMClassifier  # noqa: F401
+from .gbdt import (  # noqa: F401
+    LightGBMClassificationModel,
+    LightGBMClassifier,
+    LightGBMRanker,
+    LightGBMRankerModel,
+    LightGBMRegressionModel,
+    LightGBMRegressor,
+)

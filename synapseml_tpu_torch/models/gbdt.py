@@ -1,15 +1,17 @@
-"""LightGBM-capability estimator: ``LightGBMClassifier`` on the port's engine.
+"""LightGBM-capability estimators: Classifier / Regressor / Ranker on the
+port's engine.
 
 Counterpart of the JAX package's ``models/gbdt.py`` for the ported slice:
-binary classification with plain gradient boosting on dense numeric data.
-camelCase param names match the reference so code ports 1:1. A param of the
-JAX estimator that the slice does not implement (sampling, DART, GOSS,
-categorical and monotone features, validation and early stopping, warm
-starts, custom objectives, leaf and SHAP outputs, the distributed learners)
-is not declared here; passing one raises ``NotImplementedError`` naming it,
-and so do ``numBatches > 1``, a ``boostingType`` other than ``gbdt`` and more
-than two label classes. The Spark/JNI plumbing params stay accepted as no-ops,
-as in the JAX package.
+binary and multiclass classification, regression with every LightGBM
+regression objective, and LambdaRank ranking, with plain gradient boosting
+on dense numeric data. camelCase param names match the reference so code
+ports 1:1. A param of the JAX estimators that the slice does not implement
+(sampling, DART, GOSS, categorical and monotone features, validation, the
+metric and early stopping, warm starts, custom objectives, leaf and SHAP
+outputs, the distributed learners) is not declared here; passing one raises
+``NotImplementedError`` naming it, and so do ``numBatches > 1`` and a
+``boostingType`` other than ``gbdt``. The Spark/JNI plumbing params stay
+accepted as no-ops, as in the JAX package.
 
 ``device`` (default ``"cuda"``) is where the booster trains and scores; a
 missing card raises rather than falling back to the CPU.
@@ -22,9 +24,10 @@ from typing import Optional
 
 import numpy as np
 
-from ..core import (Estimator, HasFeaturesCol, HasInitScoreCol, HasLabelCol,
-                    HasPredictionCol, HasProbabilityCol, HasRawPredictionCol,
-                    HasWeightCol, Model, Param, Table, feature_matrix)
+from ..core import (Estimator, HasFeaturesCol, HasGroupCol, HasInitScoreCol,
+                    HasLabelCol, HasPredictionCol, HasProbabilityCol,
+                    HasRawPredictionCol, HasWeightCol, Model, Param, Table,
+                    feature_matrix)
 from ..core.device import DEFAULT_DEVICE
 from ..gbdt.boosting import Booster, BoosterConfig, train_booster
 
@@ -207,6 +210,31 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                 if self.get("initScoreCol") and self.get("initScoreCol") in df else None)
         return X, y, w, init
 
+    def _train(self, X, y, w, init, cfg, **kw) -> Booster:
+        """One ``train_booster`` fit on the estimator's device, its phase
+        spans logged as ``trainingMeasures``."""
+        from ..core.logging import InstrumentationMeasures
+
+        if self.getNumBatches() > 1:
+            raise NotImplementedError(
+                f"numBatches={self.getNumBatches()} is not ported to the "
+                "PyTorch package yet (warm-started batches)")
+        measures = InstrumentationMeasures()
+        booster = train_booster(X, y, cfg, sample_weight=w, init_score=init,
+                                feature_names=self.get("slotNames"),
+                                mapper=self._reference_mapper(X),
+                                measures=measures, device=self.getDevice(),
+                                **kw)
+        self._log_base("trainingMeasures", measures.report())
+        return booster
+
+    def _copy_model_params(self, model) -> None:
+        for p in ("featuresCol", "predictionCol", "probabilityCol",
+                  "rawPredictionCol", "thresholds", "predictDisableShapeCheck",
+                  "device"):
+            if self.hasParam(p) and model.hasParam(p) and self.isSet(p):
+                model.set(p, self.get(p))
+
 
 class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol, _DeviceParam):
     predictDisableShapeCheck = Param(
@@ -282,9 +310,11 @@ class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol, _DeviceParam):
 # ---------------------------------------------------------------------------
 
 class LightGBMClassifier(Estimator, _LightGBMParams, HasProbabilityCol, HasRawPredictionCol):
-    """Binary GBDT classifier (reference: LightGBMClassifier.scala)."""
+    """Binary / multiclass GBDT classifier (reference:
+    LightGBMClassifier.scala)."""
 
-    objective = Param("objective", "binary (multiclass is not ported)", str, "binary")
+    objective = Param("objective", "binary, multiclass or multiclassova", str,
+                      "binary")
     isUnbalance = Param("isUnbalance", "Adjust for unbalanced binary labels", bool, False)
     maxNumClasses = Param("maxNumClasses", "Upper bound on auto-detected "
                           "label classes (guards runaway continuous labels)",
@@ -310,40 +340,24 @@ class LightGBMClassifier(Estimator, _LightGBMParams, HasProbabilityCol, HasRawPr
                 f"{self.getMaxNumClasses()} — a continuous label column was "
                 "likely passed to the classifier (raise maxNumClasses if "
                 "this cardinality is intended)")
-        if num_class > 2 or self.getObjective() != "binary":
-            raise NotImplementedError(
-                f"objective={self.getObjective()!r} with {num_class} label "
-                "classes is not ported to the PyTorch package yet (binary "
-                "only)")
-        if self.getNumBatches() > 1:
-            raise NotImplementedError(
-                f"numBatches={self.getNumBatches()} is not ported to the "
-                "PyTorch package yet (warm-started batches)")
         y = y_idx.astype(np.float32)
-        cfg = self._base_config(objective="binary", num_class=1)
-        if self.getIsUnbalance():
+        objective = self.getObjective()
+        if objective == "binary" and num_class > 2:
+            objective = "multiclass"
+        cfg = self._base_config(
+            objective=objective,
+            num_class=(num_class if objective != "binary" else 1))
+        if self.getIsUnbalance() and objective == "binary":
             npos = max(float((y > 0).sum()), 1.0)
             nneg = max(float((y <= 0).sum()), 1.0)
             w = (w if w is not None else np.ones_like(y)) * np.where(y > 0, nneg / npos, 1.0)
-        elif self.getScalePosWeight() != 1.0:
+        elif self.getScalePosWeight() != 1.0 and objective == "binary":
             w = (w if w is not None else np.ones_like(y)) * np.where(
                 y > 0, self.getScalePosWeight(), 1.0)
 
-        from ..core.logging import InstrumentationMeasures
-
-        measures = InstrumentationMeasures()
-        booster = train_booster(X, y, cfg, sample_weight=w, init_score=init,
-                                feature_names=self.get("slotNames"),
-                                mapper=self._reference_mapper(X),
-                                measures=measures, device=self.getDevice())
-        self._log_base("trainingMeasures", measures.report())
-        model = LightGBMClassificationModel(booster)
+        model = LightGBMClassificationModel(self._train(X, y, w, init, cfg))
         model.classes_ = classes.astype(np.float64)
-        for p in ("featuresCol", "predictionCol", "probabilityCol",
-                  "rawPredictionCol", "thresholds", "predictDisableShapeCheck",
-                  "device"):
-            if self.isSet(p):
-                model.set(p, self.get(p))
+        self._copy_model_params(model)
         return model
 
 
@@ -356,8 +370,11 @@ class LightGBMClassificationModel(_LightGBMModelBase, HasProbabilityCol, HasRawP
         X = self._predict_matrix(df)
         raw = self.booster.raw_score(X)
         prob = self.booster.predict(X)
-        raw2 = np.stack([-raw, raw], axis=1)
-        prob2 = np.stack([1 - prob, prob], axis=1)
+        if raw.ndim == 1:
+            raw2 = np.stack([-raw, raw], axis=1)
+            prob2 = np.stack([1 - prob, prob], axis=1)
+        else:
+            raw2, prob2 = raw, prob
         out = df.with_column(self.getRawPredictionCol(), raw2)
         out = out.with_column(self.getProbabilityCol(), prob2)
         th = self.get("thresholds")
@@ -377,3 +394,77 @@ class LightGBMClassificationModel(_LightGBMModelBase, HasProbabilityCol, HasRawP
         p = os.path.join(path, "classes.npy")
         if os.path.exists(p):
             self.classes_ = np.load(p)
+
+
+# ---------------------------------------------------------------------------
+# Regressor
+# ---------------------------------------------------------------------------
+
+class LightGBMRegressor(Estimator, _LightGBMParams):
+    """GBDT regressor (reference: LightGBMRegressor.scala). Objectives:
+    regression, regression_l1, huber, fair, poisson, quantile, mape, gamma,
+    tweedie, cross_entropy (and their aliases)."""
+
+    objective = Param("objective", "Regression objective", str, "regression")
+    alpha = Param("alpha", "Huber/quantile alpha", float, 0.9)
+    tweedieVariancePower = Param("tweedieVariancePower", "Tweedie variance power", float, 1.5)
+
+    def __init__(self, **kwargs):
+        _reject_unported(kwargs)
+        super().__init__(**kwargs)
+
+    def _fit(self, df: Table) -> "LightGBMRegressionModel":
+        X, y, w, init = self._extract_training_arrays(df)
+        cfg = self._base_config(objective=self.getObjective(),
+                                alpha=self.getAlpha(),
+                                tweedie_variance_power=self.getTweedieVariancePower())
+        model = LightGBMRegressionModel(self._train(X, y, w, init, cfg))
+        self._copy_model_params(model)
+        return model
+
+
+class LightGBMRegressionModel(_LightGBMModelBase):
+    def _transform(self, df: Table) -> Table:
+        X = self._predict_matrix(df)
+        return df.with_column(self.getPredictionCol(),
+                              self.booster.predict(X).astype(np.float64))
+
+
+# ---------------------------------------------------------------------------
+# Ranker
+# ---------------------------------------------------------------------------
+
+class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
+    """LambdaRank GBDT (reference: LightGBMRanker.scala). Rows are re-sorted
+    group-contiguously before training, the analog of the reference's
+    repartitionForGroupColumn; the objective is always lambdarank."""
+
+    objective = Param("objective", "Ranking objective", str, "lambdarank")
+    maxPosition = Param("maxPosition", "NDCG truncation for optimization", int, 20)
+    labelGain = Param("labelGain", "Relevance gains per label value", list)
+    evalAt = Param("evalAt", "NDCG@k eval positions", list, [1, 2, 3, 4, 5])
+
+    def __init__(self, **kwargs):
+        _reject_unported(kwargs)
+        super().__init__(**kwargs)
+
+    def _fit(self, df: Table) -> "LightGBMRankerModel":
+        gcol = self.getGroupCol()
+        df = df.sort_by(gcol)                  # group-contiguous layout
+        X, y, w, init = self._extract_training_arrays(df)
+        _, sizes = np.unique(np.asarray(df[gcol]), return_counts=True)
+        cfg = self._base_config(objective="lambdarank",
+                                lambdarank_truncation_level=self.getMaxPosition(),
+                                eval_at=tuple(self.getEvalAt()),
+                                label_gain=tuple(self.get("labelGain") or ()))
+        model = LightGBMRankerModel(self._train(X, y, w, init, cfg,
+                                                group_sizes=sizes))
+        self._copy_model_params(model)
+        return model
+
+
+class LightGBMRankerModel(_LightGBMModelBase):
+    def _transform(self, df: Table) -> Table:
+        X = self._predict_matrix(df)
+        return df.with_column(self.getPredictionCol(),
+                              self.booster.predict(X).astype(np.float64))

@@ -14,8 +14,9 @@ bfloat16; the softmax state is float32.
 Both run ``csrc/attention_kernel.cu`` for CUDA tensors (one launch each,
 counted in ``LAUNCHES``) and their plain versions for CPU tensors:
 ``_xla_fallback`` (the blockwise path at the largest block that divides Sk,
-or the reference einsum) and the ring's ``_block_attention``. A CUDA tensor
-never falls back to the plain version: the kernel launches or the call
+or the reference einsum) and the ring's ``_block_attention``. The kernels
+take any head dim: up to 128 on the tensor cores, wider heads through a
+plain CUDA-core kernel of the same function. A CUDA tensor never falls back to the plain version: the kernel launches or the call
 raises. Both are ``torch.autograd.Function``s whose backward recomputes
 through the plain version with autograd, as the JAX package's custom VJP of
 ``flash_attention`` does; ``flash_attention_block`` gets the same recompute
@@ -33,7 +34,9 @@ from ..parallel.ring_attention import (_block_attention, attention_reference,
                                        blockwise_attention)
 
 _NEG_INF = -1e30          # finite -inf stand-in: keeps exp() NaN-free
-MAX_HEAD_DIM = 128        # the kernel's widest head (D padded to 32/64/128)
+# the wide kernel (head dims above 128) keeps its output rows in shared
+# memory up to this D and in a float32 scratch buffer beyond it
+WIDE_ACC_MAX_D = 2048     # csrc/attention_kernel.cu kWideAccMaxD
 
 # launches of each hand-written kernel (incremented only where it launches)
 LAUNCHES = {"flash_attention": 0, "flash_attention_block": 0}
@@ -42,9 +45,10 @@ _P = ctypes.c_void_p
 _GEOM_LEN = 29            # csrc/attention_kernel.cu kGeomLen
 _SIGNATURES = {
     "flash_geom_len": ([], ctypes.c_int),
-    "flash_attention_fwd": ([_P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int,
-                             ctypes.c_int, _P], ctypes.c_int),
-    "flash_block_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "flash_wide_acc_max_d": ([], ctypes.c_int),
+    "flash_attention_fwd": ([_P, _P, _P, _P, _P, _P, ctypes.c_float,
+                             ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+    "flash_block_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
                         ctypes.c_int),
 }
@@ -59,9 +63,11 @@ def _lib():
     from . import _build
 
     lib = _build.load("attention_kernel", _SIGNATURES)
-    if lib.flash_geom_len() != _GEOM_LEN:
+    if (lib.flash_geom_len() != _GEOM_LEN
+            or lib.flash_wide_acc_max_d() != WIDE_ACC_MAX_D):
         raise RuntimeError("csrc/attention_kernel.cu and ops/attention_kernel"
-                           ".py disagree on the geometry array's length")
+                           ".py disagree on the geometry array's length or "
+                           "the wide kernel's shared-memory head dim")
     return lib
 
 
@@ -111,11 +117,7 @@ def _check_qkv(q, k, v) -> None:
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k, v are on {q.device}, {k.device}, "
                          f"{v.device}")
-    if q.device.type == "cuda":
-        if D > MAX_HEAD_DIM:
-            raise ValueError(f"the CUDA kernel takes head dims up to "
-                             f"{MAX_HEAD_DIM}, got {D}")
-    elif q.device.type != "cpu":
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {q.device}")
 
 
@@ -146,6 +148,16 @@ def _geom(q, k, v, q_offset: int = 0, k_offset: int = 0, m=None, l=None,
     return (ctypes.c_int64 * _GEOM_LEN)(*vals)
 
 
+def _wide_scratch(q):
+    """The wide kernel's float32 output slabs (16 query rows x D per
+    block) where D is above ``WIDE_ACC_MAX_D``; else None (no buffer)."""
+    B, Sq, H, D = q.shape
+    if D <= WIDE_ACC_MAX_D:
+        return None
+    return torch.empty(B * H * -(-Sq // 16) * 16 * D, dtype=torch.float32,
+                       device=q.device)
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
@@ -158,10 +170,11 @@ def _flash_forward(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     if out.numel() == 0:                    # nothing to launch
         return out
     geom = _geom(q, k, v)
+    scratch = _wide_scratch(q)
     with torch.cuda.device(q.device):       # the kernel runs on the current device
         rc = _lib().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geom,
-            scale, int(causal), int(q.dtype == torch.bfloat16),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), geom, scale, int(causal), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
@@ -177,11 +190,13 @@ def _flash_block_forward(q, k, v, m, l, o, q_offset: int, k_offset: int,
     if o2.numel() == 0:
         return m2, l2, o2
     geom = _geom(q, k, v, q_offset, k_offset, m, l, o)
+    scratch = _wide_scratch(q)
     with torch.cuda.device(q.device):
         rc = _lib().flash_block_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
             l.data_ptr(), o.data_ptr(), m2.data_ptr(), l2.data_ptr(),
-            o2.data_ptr(), geom, scale, int(causal),
+            o2.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            geom, scale, int(causal),
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "flash_attention_block")

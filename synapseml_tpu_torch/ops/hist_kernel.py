@@ -15,8 +15,9 @@ All three run ``csrc/hist_kernel.cu`` for CUDA tensors (one launch each,
 counted in ``LAUNCHES``) and the plain versions ``_hist_plain`` /
 ``_range_hist_plain`` / ``_level_hist_plain`` for CPU tensors. A CUDA tensor
 never falls back to the plain version: the kernel launches or the call
-raises. The kernels take bin spaces up to ``MAX_CUDA_BINS``; the plain
-versions take any.
+raises. Kernels and plain versions take every bin space ``pad_bins`` makes:
+the kernels sum a large one in bin windows (16384 bins for the leaf-wise
+kernels, 2048 for the level kernel) on a grid axis of one launch.
 """
 
 from __future__ import annotations
@@ -26,9 +27,6 @@ import ctypes
 import torch
 
 FEATURE_BLOCK = 8
-# the largest bin space (pad_bins(max_bin)) the CUDA kernels take:
-# csrc/hist_kernel.cu kMaxBins
-MAX_CUDA_BINS = 16384
 # rows per chunk of the level kernel's slot-partitioned layout (the depthwise
 # grower aligns every leaf's rows to it)
 CHUNK = 2048
@@ -146,9 +144,6 @@ def _check(bT, g, h, m, num_bins_padded: int):
         raise ValueError(f"FP={FP} must be a multiple of {FEATURE_BLOCK} and "
                          f"B={num_bins_padded} a pad_bins() size")
     if dev.type == "cuda":
-        if num_bins_padded > MAX_CUDA_BINS:
-            raise ValueError(f"the CUDA kernels take B up to {MAX_CUDA_BINS}, "
-                             f"got {num_bins_padded}")
         for name, t in (("bT", bT), ("g", g), ("h", h), ("m", m)):
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")

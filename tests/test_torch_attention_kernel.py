@@ -404,20 +404,28 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         tak.flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError):
         tak.flash_attention_block(q, k, v, m, l.to(cuda), o.to(cuda), 0, 0)
-    wide = torch.zeros((1, 8, 1, 160), device=cuda)     # above 128
-    with pytest.raises(ValueError, match="head dims"):
-        tak.flash_attention(wide, wide, wide)
     assert tak.LAUNCHES == before
+    # a head above 128 launches the wide kernel and matches the plain version
+    wq, wk, wv = (x.to(cuda) for x in _t(*_qkv(seed=5, b=1, s=24, h=1,
+                                               d=256)))
+    got = tak.flash_attention(wq, wk, wv)
+    want = tak._xla_fallback(wq, wk, wv, False, 256 ** -0.5, 128)
+    torch.cuda.synchronize()
+    assert tak.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("d", [96, 128, 192, 256, 2304])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 def test_cuda_wide_heads_match_plain(cuda, d, dtype, causal):
     """D = 96 and 128 (the DP = 128 instantiation: Q unsplit, 16-key tiles)
-    for both kernels, rows and keys around the 16-row warps, 128-row blocks
-    and 16-key tiles. bf16 ``flash_attention`` is compared without a causal
+    and the wide kernel at D = 192 and 256 (output rows in shared memory)
+    and 2304 (in the float32 scratch buffer) for both kernels, rows and keys
+    around the 16-row warps and blocks, 128-row blocks and 16- and 64-key
+    tiles. bf16 ``flash_attention`` is compared without a causal
     mask: rows that see a handful of keys keep the bf16 rounding of p
     undiluted, beyond the bf16 tolerance, in any D; the bf16 carried
     state's o / l is held to its rounding bound."""

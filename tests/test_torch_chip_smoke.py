@@ -298,3 +298,97 @@ def test_large_bins_phase_runs_on_the_plain_versions(monkeypatch):
     cs.large_bins_phase("cpu", lambda label, got, want: seen.append(
         _compare(label, got, want)))
     assert len(seen) == 3 * len(cs.LARGE_BINS) and max(seen) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# phase 10's tables
+# ---------------------------------------------------------------------------
+
+def test_mslr_table_is_group_contiguous_and_bounded():
+    """MSLR-WEB10K's shape: the group sizes sum to the row count, stay
+    within 908 with a mean near 120 and a tail near the cap, and each
+    query's rows are contiguous; labels 0-4, 136 features."""
+    import numpy as np
+
+    sizes = cs.mslr_group_sizes(cs.MSLR_QUERIES)
+    assert len(sizes) == cs.MSLR_QUERIES
+    assert sizes.min() >= 1 and sizes.max() <= cs.MSLR_MAX_GROUP == 908
+    assert 110 <= sizes.mean() <= 130 and sizes.max() >= 800
+    assert 1_100_000 <= sizes.sum() <= 1_300_000
+    X, y, query, sz = cs.mslr_like(200, seed=1)
+    assert X.shape == (int(sz.sum()), cs.MSLR_FEATURES) == (len(y), 136)
+    assert set(np.unique(y)) <= {0.0, 1.0, 2.0, 3.0, 4.0}
+    assert (y == 0).mean() > 0.4 and (y == 4).any()
+    starts = np.concatenate([[0], np.cumsum(sz)[:-1]])
+    assert np.array_equal(query[starts], np.arange(200))
+    assert np.all(np.diff(query) >= 0)               # group-contiguous
+    _, counts = np.unique(query, return_counts=True)
+    assert np.array_equal(counts, sz)
+
+
+def test_covertype_table_takes_all_seven_classes():
+    import numpy as np
+
+    X, y = cs.covertype_like(20_000)
+    assert X.shape == (20_000, 54) and X.dtype == np.float32
+    assert set(np.unique(y)) == set(range(cs.COVTYPE_CLASSES))
+    onehot = X[:, cs.COVTYPE_NUMERIC:]
+    assert np.all(onehot[:, :4].sum(1) == 1)         # one wilderness area
+    assert np.all(onehot[:, 4:].sum(1) == 1)         # one soil type
+
+
+def test_lambdarank_pair_budget_bounds_every_chunk_at_mslr_shape():
+    """At MSLR-WEB10K's group sizes the pair matrices of all queries at
+    once would take (Q, 908, 908) floats; each chunk of the port's layout
+    stays within the pair budget, and every document is in one chunk."""
+    import numpy as np
+
+    from synapseml_tpu_torch.gbdt import objectives as tobj
+
+    sizes = cs.mslr_group_sizes(cs.MSLR_QUERIES)
+    gi = tobj.make_grouped(np.zeros(int(sizes.sum()), np.float32), sizes)
+    assert gi.size * gi.shape[1] * 4 > 30e9          # the one-shot layout
+    chunks = tobj.query_chunks(gi, tobj.PAIR_BUDGET)
+    assert all(c.size * c.shape[1] <= tobj.PAIR_BUDGET for c in chunks)
+    assert sum(int((c >= 0).sum()) for c in chunks) == int(sizes.sum())
+    assert sum(len(c) for c in chunks) == cs.MSLR_QUERIES
+
+
+def test_regression_labels_stay_in_each_objectives_domain():
+    import numpy as np
+
+    _, margin = cs.higgs_margin(5000)
+    for objective in cs.REGRESSION_OBJECTIVES:
+        y = cs.regression_label(objective, margin)
+        assert y.dtype == np.float32 and np.isfinite(y).all()
+        if objective == "gamma":
+            assert (y > 0).all()
+        elif objective in ("poisson", "tweedie"):
+            assert (y >= 0).all() and (y == np.floor(y)).all()
+        elif objective == "cross_entropy":
+            assert ((y >= 0) & (y <= 1)).all()
+
+
+def test_family_phases_run_on_the_plain_versions(no_timing, monkeypatch):
+    """Phase 10 on the CPU at small sizes. The plain versions launch no
+    kernel, so the full-width fits' launch check refuses the run; with the
+    grower's kernel names wrapped by counting stand-ins every fit, check
+    and cross-check (CPU against CPU) passes."""
+    from synapseml_tpu_torch.gbdt import grower, grower_depthwise
+
+    monkeypatch.setattr(cs, "COVTYPE_ROWS", 3000)
+    monkeypatch.setattr(cs, "MSLR_QUERIES", 25)
+    monkeypatch.setattr(cs, "FAMILY_ITERS", 3)
+    monkeypatch.setattr(cs, "FAMILY_CROSS_ROWS", 1200)
+    monkeypatch.setattr(cs, "FAMILY_CROSS_ITERS", 1)
+    with pytest.raises(AssertionError, match="never launched"):
+        cs.family_full_width(3000, "cpu")
+    for mod, names in ((grower, ("child_histogram", "range_histogram")),
+                       (grower_depthwise, ("level_histograms",))):
+        for name in names:
+            def counted(*a, _f=getattr(mod, name), _n=name, **k):
+                hk.LAUNCHES[_n] += 1
+                return _f(*a, **k)
+            monkeypatch.setattr(mod, name, counted)
+    cs.family_full_width(3000, "cpu")
+    cs.family_cross_check("cpu")

@@ -270,7 +270,7 @@ def test_cuda_fit_matches_reference(data, tables, cuda):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value", [
-    ("objective", "regression"), ("boosting_type", "dart"),
+    ("tree_learner", "voting"), ("boosting_type", "dart"),
     ("boosting_type", "goss"), ("boosting_type", "rf"),
     ("bagging_fraction", 0.5), ("bagging_freq", 1),
     ("feature_fraction", 0.8), ("monotone_constraints", [1] + [0] * 27),
@@ -322,13 +322,9 @@ def test_classifier_rejects_unported_params(data):
             LightGBMClassifier(device=CPU).set(name, value)
     t = assemble_features(Table({"a": X[:256, 0], "b": X[:256, 1],
                                  "label": y[:256]}), ["a", "b"])
-    for params in ({"numBatches": 2}, {"boostingType": "dart"},
-                   {"objective": "multiclass"}):
+    for params in ({"numBatches": 2}, {"boostingType": "dart"}):
         with pytest.raises(NotImplementedError):
             LightGBMClassifier(device=CPU, numIterations=1, **params).fit(t)
-    multi = t.with_column("label", np.arange(256) % 3)
-    with pytest.raises(NotImplementedError, match="binary"):
-        LightGBMClassifier(device=CPU, numIterations=1).fit(multi)
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

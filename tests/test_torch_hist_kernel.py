@@ -241,8 +241,8 @@ def test_cuda_all_zero_rows_give_an_empty_histogram(cuda):
 
 
 # ---------------------------------------------------------------------------
-# Large bin spaces: the kernels take B up to MAX_CUDA_BINS (16384); a fit on
-# the card with a larger one is refused before binning
+# Large bin spaces: above 16384 bins the leaf-wise kernels run bin windows of
+# 16384 (the level kernel windows of 2048) on a grid axis
 # ---------------------------------------------------------------------------
 
 def _level_inputs(n_chunks, f, nb, seed):
@@ -272,38 +272,33 @@ def test_large_bin_spaces_plain_match_xla(nb):
 
 
 @pytest.mark.parametrize("policy", ["leafwise", "depthwise"])
-def test_bin_space_above_the_kernels_cap_is_refused_before_binning(
-        monkeypatch, policy):
-    """On a CUDA device, ``pad_bins(max_bin) > 16384`` raises
-    ``NotImplementedError`` naming max_bin and the growth policy, before
-    any binning (the card is only named: no card is needed); the CPU takes
-    any bin space."""
+def test_bin_space_above_16384_gives_the_reference_trees(policy):
+    """``max_bin=20000`` pads to B = 32768, two windows of the leaf-wise
+    kernels and sixteen of the level kernel on the card; the fit takes it
+    under both growth policies and grows the JAX package's trees."""
+    from synapseml_tpu.gbdt import boosting as jboost
     from synapseml_tpu_torch.gbdt import boosting
 
-    cuda_dev = torch.device("cuda")
-    for max_bin in (16385, 20000):
-        cfg = boosting.BoosterConfig(max_bin=max_bin, growth_policy=policy)
-        with pytest.raises(NotImplementedError,
-                           match=f"max_bin={max_bin}.*{policy}"):
-            boosting._reject_bin_space(cfg, cuda_dev)
-        boosting._reject_bin_space(cfg, torch.device("cpu"))
-    boosting._reject_bin_space(
-        boosting.BoosterConfig(max_bin=16384, growth_policy=policy),
-        cuda_dev)
-
-    def no_binning(*a, **k):
-        raise AssertionError("binned before the refusal")
-
-    monkeypatch.setattr(boosting, "resolve_device", lambda d: cuda_dev)
-    monkeypatch.setattr(boosting, "compute_bin_mapper", no_binning)
-    monkeypatch.setattr(boosting, "apply_bins", no_binning)
-    X = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="max_bin=20000"):
-        boosting.train_booster(X, (X[:, 0] > 0).astype(np.float32),
-                               boosting.BoosterConfig(
-                                   objective="binary", max_bin=20000,
-                                   growth_policy=policy, num_iterations=1),
-                               device="cuda")
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(600, 3)).astype(np.float32)
+    y = (X[:, 0] + 0.3 * rng.normal(size=600) > 0).astype(np.float32)
+    kw = dict(objective="binary", max_bin=20000, num_iterations=2,
+              num_leaves=6, min_data_in_leaf=5, growth_policy=policy)
+    tb = boosting.train_booster(X, y, boosting.BoosterConfig(**kw),
+                                device="cpu")
+    jb = jboost.train_booster(X, y, jboost.BoosterConfig(**kw))
+    assert tb.num_trees == jb.num_trees == 2
+    for tt, jt in zip(tb.trees, jb.trees):
+        ns = int(tt.num_splits)
+        assert ns == int(jt.num_splits) > 0
+        for f in ("split_feature", "split_bin", "left_child", "right_child"):
+            np.testing.assert_array_equal(np.asarray(getattr(tt, f))[:ns],
+                                          np.asarray(getattr(jt, f))[:ns])
+        np.testing.assert_allclose(tt.leaf_value[:ns + 1],
+                                   np.asarray(jt.leaf_value)[:ns + 1],
+                                   rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(tb.predict(X), jb.predict(X), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_cpu_fit_takes_a_bin_space_above_the_kernels_cap():
@@ -320,11 +315,12 @@ def test_cpu_fit_takes_a_bin_space_above_the_kernels_cap():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [4096, 8192, 16384])
+@pytest.mark.parametrize("nb", [4096, 8192, 16384, 32768])
 def test_cuda_large_bin_spaces_match_plain(cuda, nb):
     """All three kernels at B = 4096 (the leaf-wise kernels' last size in
-    48 KB), 8192 and 16384 (one feature per block, opted in above 48 KB;
-    the level kernel in 2, 4 and 8 windows of 2048 bins)."""
+    48 KB), 8192, 16384 (one feature per block, opted in above 48 KB) and
+    32768 (two windows of 16384 bins); the level kernel in 2, 4, 8 and 16
+    windows of 2048 bins. Some bins fall outside [0, B)."""
     bT, g, h, m = [t.to(cuda) for t in _torch(*_case(60_000, 11, b=nb,
                                                      seed=nb))]
     _assert_hist_close(thk.child_histogram(bT, g, h, m, nb),
@@ -340,9 +336,24 @@ def test_cuda_large_bin_spaces_match_plain(cuda, nb):
 
 
 @pytest.mark.cuda
-def test_cuda_kernels_refuse_bin_spaces_above_their_cap(cuda):
-    bT, g, h, m = [t.to(cuda) for t in _torch(*_case(512, 3))]
-    before = dict(thk.LAUNCHES)
-    with pytest.raises(ValueError, match="16384"):
-        thk.child_histogram(bT, g, h, m, 32768)
-    assert thk.LAUNCHES == before
+@pytest.mark.parametrize("policy", ["leafwise", "depthwise"])
+def test_cuda_fit_at_bin_space_32768_matches_cpu(cuda, policy):
+    """``max_bin=32767`` (B = 32768) on the card, through the windowed
+    kernels, against the same fit on the CPU: atomics can flip a near-tie
+    split, so predictions are held to the cross-check tolerance of
+    chip_smoke.py (mean absolute difference within 1e-3)."""
+    from synapseml_tpu_torch.gbdt import boosting
+
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(50_000, 6)).astype(np.float32)
+    y = (X[:, 0] * X[:, 1] + X[:, 2] > 0).astype(np.float32)
+    cfg = dict(objective="binary", max_bin=32767, num_iterations=3,
+               growth_policy=policy)
+    kernel = "child_histogram" if policy == "leafwise" else "level_histograms"
+    before = thk.LAUNCHES[kernel]
+    pc = boosting.train_booster(X, y, boosting.BoosterConfig(**cfg),
+                                device=cuda).predict(X)
+    assert thk.LAUNCHES[kernel] > before
+    pp = boosting.train_booster(X, y, boosting.BoosterConfig(**cfg),
+                                device="cpu").predict(X)
+    assert np.abs(pc - pp).mean() <= 1e-3
