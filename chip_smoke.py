@@ -111,6 +111,27 @@ Phases, each of which fails the run if it fails:
    ranker) at 100,000 rows for 3 iterations on the card and on the CPU:
    mean absolute prediction gap at most 1e-3 of the CPU's mean absolute
    prediction, class predictions equal on 99.9% of rows.
+11. vision: ``DeepVisionClassifier(backbone="resnet50")`` at 224x224
+   (ImageNet stem) on CIFAR-10-shaped synthetic images from a seed (uint8
+   32x32x3, 10 classes, each a class colour plus noise) resized on the
+   host: fit A with the estimator's defaults (batch 16, the last two
+   blocks and the head trained, adam 1e-3, float32) on 512 images, then
+   ``transform``, ``save``, ``load`` and ``transform`` again (within
+   1e-6); fit B in bf16, batch 64, everything trained, on 1024 images.
+   Per fit: host preprocessing seconds, steady images/s over steps 2..n
+   with forward, backward and update seconds, peak memory, transform
+   images/s, the step's FLOPs counted from the convolution and dense
+   shapes beside their bound (float32 over 67 TFLOP/s, TF32 being off;
+   bf16 over 989), and a profile of three more steps (device busy share,
+   device time by op). Checks: finite losses; after fit A the stem and
+   blocks 0-13 bitwise unchanged, blocks 14-15 and the head changed, the
+   frozen blocks' BatchNorm statistics moved; after fit B every parameter
+   changed; 5 steps on one batch lower its loss; card against CPU from
+   the same ``state_dict`` (ResNet-50 ``smallImages=True`` at 32x32,
+   batch 8: eval logits, two momentum steps' losses, running statistics
+   and eval logits after them; the ImageNet stem at 224, batch 2, fit A's
+   weights: eval logits), each within 1e-4 (``VISION_*_TOL``). No kernel
+   of the port lies on this path (cuDNN and cuBLAS).
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 9's ring and
@@ -209,6 +230,31 @@ FAMILY_REL_TOL, CLASS_AGREEMENT = 1e-3, 0.999
 REGRESSION_OBJECTIVES = ("regression", "regression_l1", "huber", "fair",
                          "poisson", "quantile", "mape", "gamma", "tweedie",
                          "cross_entropy")
+# phase 11: DeepVisionClassifier's default backbone at ImageNet width on
+# CIFAR-10-shaped synthetic images (32x32x3 uint8, 10 classes) resized on
+# the host to 224x224. Fit A: the estimator's defaults (batch 16, two
+# trailing blocks and the head trained, adam 1e-3, float32); fit B: bf16,
+# batch 64, everything trained. (label, estimator params, images)
+VISION_BACKBONE, VISION_CLASSES, VISION_SIDE, VISION_SIZE = \
+    "resnet50", 10, 32, 224
+VISION_FITS = [("fit A", dict(batchSize=16, additionalLayersToTrain=2,
+                              precision="float32"), 512),
+               ("fit B", dict(batchSize=64, additionalLayersToTrain=-1,
+                              precision="bfloat16"), 1024)]
+VISION_OVERFIT_STEPS = 5
+VISION_RELOAD_TOL = 1e-6     # the same weights through the same kernels
+# card against CPU, float32 on both (TF32 off), from the estimator's
+# initial state (each block's last BatchNorm scale 0): cuDNN's and
+# oneDNN's sums run in other orders through 53 BatchNorms, each of which
+# divides by its channel's spread; on the CPU this check's float32 run is
+# within 3e-7 of float64 (losses equal, statistics 2.6e-7 of their
+# largest magnitude). Logits within 1e-4 of max |logit|; two momentum
+# steps' losses within 1e-4 relative (the second sees weights that differ
+# by lr times the gradients' roundoff); every running statistic within
+# 1e-4 of its tensor's largest magnitude. (BatchNorm scales drawn around
+# 1 make the same steps chaotic: the float32 run's second loss is 8.5e-4
+# from float64 at lr 1e-3, so no bound could tell the card from the CPU.)
+VISION_LOGIT_TOL, VISION_LOSS_RTOL, VISION_STAT_TOL = 1e-4, 1e-4, 1e-4
 
 
 def log(msg: str) -> None:
@@ -2036,6 +2082,342 @@ def family_cross_check(dev: str) -> None:
             raise AssertionError(f"{label}: card and CPU fits disagree")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: DeepVisionClassifier fine-tunes ResNet-50
+# ---------------------------------------------------------------------------
+
+def cifar_like(n: int, seed: int = 0):
+    """CIFAR-10-shaped synthetic images (no data is read): ``n`` uint8
+    32x32x3 images of ``VISION_CLASSES`` balanced classes in random order,
+    each its class's mean colour plus Gaussian noise (std 40), and the
+    int64 labels."""
+    rng = np.random.default_rng(seed)
+    y = rng.permutation(np.arange(n) % VISION_CLASSES)
+    colours = rng.uniform(48, 208, size=(VISION_CLASSES, 3))
+    side = VISION_SIDE
+    imgs = colours[y][:, None, None, :] + rng.normal(
+        0, 40, size=(n, side, side, 3))
+    return np.clip(np.rint(imgs), 0, 255).astype(np.uint8), y
+
+
+def vision_layer_flops(model, image_shape, dev: str) -> list:
+    """``[(module name, FLOPs)]`` of one image's forward through each
+    convolution and dense layer, in call order: 2 x multiply-adds from the
+    shapes each layer sees in one batch-1 forward under hooks (kernel
+    ``(kh, kw, in, out)`` over ``Ho x Wo`` outputs; dense ``in x out``).
+    BatchNorm, relu, pooling and the residual adds are not counted."""
+    from synapseml_tpu_torch.dl.layers import Conv, DenseGeneral
+
+    out, hooks = [], []
+    for name, mod in model.named_modules():
+        if isinstance(mod, Conv):
+            hooks.append(mod.register_forward_hook(
+                lambda m, i, y, name=name: out.append(
+                    (name, 2 * y.shape[1] * y.shape[2] * m.kernel.numel()))))
+        elif isinstance(mod, DenseGeneral):
+            hooks.append(mod.register_forward_hook(
+                lambda m, i, y, name=name: out.append(
+                    (name, 2 * m.kernel.numel()))))
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1,) + tuple(image_shape), device=dev),
+                  train=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out
+
+
+def vision_step_flops(layer_flops: list, batch: int) -> int:
+    """FLOPs of one training step on ``batch`` images: every layer's
+    forward, its weight gradient (frozen leaves' too: the optimizer masks
+    them after the backward, as the JAX package's does) and its input
+    gradient, but for the first layer, whose input needs none."""
+    total = sum(f for _, f in layer_flops)
+    return batch * (3 * total - layer_flops[0][1])
+
+
+def vision_bound_ms(flops: float, precision: str) -> float:
+    """Least milliseconds on an H100 for ``flops``: float32 over 67 TFLOP/s
+    (``core/device.py`` turns TF32 off, so the tensor cores take no float32
+    work), bf16 over 989 TFLOP/s."""
+    rate = BF16_OPS_PER_S if precision == "bfloat16" else F32_OPS_PER_S
+    return flops / rate * 1e3
+
+
+def vision_init_state(small_images: bool = False) -> dict:
+    """The parameters and statistics ``DeepVisionClassifier`` starts from
+    (``Trainer.init`` draws them on the CPU from seed 0)."""
+    from synapseml_tpu_torch.dl import make_backbone
+    from synapseml_tpu_torch.dl.trainer import TrainConfig, Trainer
+
+    model = make_backbone(VISION_BACKBONE, VISION_CLASSES,
+                          small_images=small_images)
+    Trainer(model, TrainConfig(seed=0), device="cpu").init()
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def check_frozen(label: str, net, init: dict, k: int) -> None:
+    """After a fit with ``additionalLayersToTrain=k``: the stem and every
+    block but the last ``k`` (none with k = -1) bitwise unchanged, every
+    other parameter tensor changed; the frozen blocks' BatchNorm statistics
+    moved all the same."""
+    blocks = net.blocks
+    frozen = set() if k < 0 else {"stem_conv", "stem_bn",
+                                  *blocks[:len(blocks) - k]}
+    bad = []
+    for name, p in net.named_parameters():
+        same = torch.equal(p.detach().cpu(), init[name])
+        if same != (name.split(".")[0] in frozen):
+            bad.append(name)
+    moved = [name for name, b in net.named_buffers()
+             if name.split(".")[0] in frozen
+             and not torch.equal(b.detach().cpu(), init[name])]
+    n_stats = sum(1 for name, _ in net.named_buffers()
+                  if name.split(".")[0] in frozen)
+    log(f"  {label}: {len(frozen)} frozen top-level modules "
+        f"{sorted(frozen, key=lambda t: (len(t), t))[:3]}... bitwise "
+        f"unchanged, every other parameter tensor changed: "
+        f"{'ok' if not bad else 'WRONG ' + str(bad[:5])}; frozen "
+        f"statistics moved {len(moved)}/{n_stats}")
+    if bad or len(moved) != n_stats:
+        raise AssertionError(f"{label}: frozen/trainable parameters wrong")
+
+
+def vision_fit(label: str, params: dict, n: int, dev: str,
+               layer_flops: list, seed: int):
+    """One ``DeepVisionClassifier`` fit at ``VISION_SIZE`` (host resize of
+    ``cifar_like`` images) and its ``transform``; logs host preprocessing
+    seconds, steady images/s over steps 2..n with the step's forward,
+    backward, all-reduce and update seconds, peak memory, transform
+    images/s, and the step's FLOPs beside their bound. Returns the model,
+    its images and its probabilities."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.dl import vision as tv
+
+    imgs, y = cifar_like(n, seed)
+    t0 = time.perf_counter()
+    tv._normalize(tv._resolve_images(imgs, VISION_SIZE))
+    prep_s = time.perf_counter() - t0
+    est = tv.DeepVisionClassifier(backbone=VISION_BACKBONE,
+                                  imageSize=VISION_SIZE, maxEpochs=1,
+                                  learningRate=1e-3, optimizer="adam",
+                                  seed=0, device=dev, **params)
+    _peak_gib(dev, reset=True)
+    _sync(dev)
+    t0 = time.perf_counter()
+    model = est.fit(Table({"image": imgs, "label": y}))
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    peak = _peak_gib(dev)
+    steps = model.trainer.step_stats
+    losses = [st["loss"] for st in steps]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite losses {losses}")
+    bs, precision = est.getBatchSize(), est.getPrecision()
+    split = {k: float(np.mean([st[k] for st in steps[1:]]))
+             for k in ("forward_s", "backward_s", "allreduce_s",
+                       "update_s")}
+    step_s = sum(split.values())
+    flops = vision_step_flops(layer_flops, bs)
+    bound = vision_bound_ms(flops, precision)
+    log(f"  {label}: {n} images, batch {bs}, {len(steps)} steps, "
+        f"{precision}: host preprocessing {prep_s:.3f}s (resize "
+        f"{VISION_SIDE}->{VISION_SIZE} + normalise, timed alone), fit "
+        f"{fit_s:.3f}s, losses first {losses[0]:.4f} last {losses[-1]:.4f}")
+    log(f"  {label}: steady step (steps 2..{len(steps)}) {step_s * 1e3:.2f} "
+        f"ms = {json.dumps({k: round(v * 1e3, 3) for k, v in split.items()})}"
+        f" ms -> {bs / step_s:.1f} images/s; peak device memory "
+        f"{peak:.3f} GiB")
+    log(f"  {label}: step FLOPs {flops:.4e} (convolutions and dense layers, "
+        f"forward + both gradients) -> bound {bound:.3f} ms at "
+        f"{'989' if precision == 'bfloat16' else '67'} TFLOP/s, "
+        f"{bound / (step_s * 1e3):.1%} of it reached")
+    table = Table({"image": imgs})
+    _sync(dev)
+    t0 = time.perf_counter()
+    prob = np.asarray(model.transform(table)["probability"])
+    _sync(dev)
+    tr_s = time.perf_counter() - t0
+    acc = float((prob.argmax(-1) == y).mean())
+    log(f"  {label}: transform {tr_s:.3f}s -> {n / tr_s:.1f} images/s "
+        f"(host resize included), train-set accuracy {acc:.3f}")
+    return model, table, prob
+
+
+def vision_reload(model, table, prob, dev: str) -> None:
+    """``save``, ``load`` and ``transform`` again: within 1e-6 of the first
+    transform (the same weights through the same kernels)."""
+    from synapseml_tpu_torch.core import PipelineStage
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "vision_model")
+        model.save(path)
+        loaded = PipelineStage.load(path)
+        again = np.asarray(loaded.transform(table)["probability"])
+    gap = float(np.abs(again - prob).max())
+    log(f"  reload: max |probability gap| {gap:.3g} (bound "
+        f"{VISION_RELOAD_TOL}, device {loaded.getDevice()}) -> "
+        f"{'ok' if gap <= VISION_RELOAD_TOL else 'MISMATCH'}")
+    if gap > VISION_RELOAD_TOL or loaded.getDevice() != dev:
+        raise AssertionError("vision model reload changed its output")
+
+
+def vision_profile(model, dev: str) -> None:
+    """Three more steps of a fitted model's configuration in the warmed
+    process under torch.profiler (CUPTI): wall, device busy share and the
+    device time by the PyTorch op that launched it. On the card only."""
+    if not _on_card(dev):
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from synapseml_tpu_torch.dl import vision as tv
+
+    tr = model.trainer
+    imgs, y = cifar_like(3 * tr.cfg.batch_size, seed=7)
+    X = tv._normalize(tv._resolve_images(imgs, VISION_SIZE))
+    tr.step_stats = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.fit(X, y)
+        _sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avg
+               if e.device_type == DeviceType.CUDA) / 1e3
+    if not busy:
+        log("  profiler recorded no device time: not measured")
+        return
+    steps_ms = 1e3 * sum(st[k] for st in tr.step_stats
+                         for k in ("forward_s", "backward_s", "allreduce_s",
+                                   "update_s"))
+    log(f"  profiled fit of 3 steps: wall {wall_ms:.1f} ms (steps "
+        f"{steps_ms:.1f} ms), device busy {busy:.1f} ms, idle "
+        f"{1 - busy / wall_ms:.1%} of wall; device time by op:")
+    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                  for e in avg if e.self_device_time_total > 0
+                  and e.device_type == DeviceType.CPU), reverse=True)
+    for ms, count, key in ops[:12]:
+        log(f"    {ms:9.3f} ms {ms / busy:6.1%} {count:6d}x  {key[:70]}")
+
+
+def vision_fixed_batch(dev: str) -> None:
+    """``VISION_OVERFIT_STEPS`` adam steps on one batch of 16 images at
+    ``VISION_SIZE``: the last step's loss must fall below the first's (a
+    broken backward leaves it where it is)."""
+    from synapseml_tpu_torch.dl import make_backbone
+    from synapseml_tpu_torch.dl import vision as tv
+    from synapseml_tpu_torch.dl.trainer import TrainConfig, Trainer
+
+    imgs, y = cifar_like(16, seed=4)
+    X = tv._normalize(tv._resolve_images(imgs, VISION_SIZE))
+    cfg = TrainConfig(batch_size=16, max_epochs=VISION_OVERFIT_STEPS,
+                      learning_rate=1e-3, optimizer="adam", seed=0)
+    tr = Trainer(make_backbone(VISION_BACKBONE, VISION_CLASSES), cfg,
+                 device=dev).init()
+    tr.fit(X, y)
+    losses = [round(st["loss"], 5) for st in tr.step_stats]
+    ok = losses[-1] < losses[0]
+    log(f"  one fixed batch, {VISION_OVERFIT_STEPS} steps: losses {losses}"
+        f" -> {'ok' if ok else 'NOT LOWER'}")
+    if not ok:
+        raise AssertionError("training steps did not lower a fixed batch's "
+                             "loss")
+
+
+def _gap(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def vision_cross_check(dev: str, trained: dict) -> None:
+    """Card against CPU on the same ``state_dict``: ResNet-50 with
+    ``smallImages=True`` at 32x32, batch 8, from the estimator's initial
+    state: eval logits, two momentum steps' losses, every BatchNorm's
+    running statistics and the eval logits after the steps; the ImageNet
+    stem at ``VISION_SIZE``, batch 2, eval logits of ``trained`` (fit A's
+    parameters and statistics)."""
+    from synapseml_tpu_torch.dl import make_backbone
+    from synapseml_tpu_torch.dl import vision as tv
+    from synapseml_tpu_torch.dl.trainer import TrainConfig, Trainer
+
+    imgs, y = cifar_like(16, seed=5)
+    X = tv._normalize(tv._resolve_images(imgs, None))
+    state = vision_init_state(small_images=True)
+    res = {}
+    for d in (dev, "cpu"):
+        cfg = TrainConfig(batch_size=8, max_epochs=1, learning_rate=0.01,
+                          optimizer="momentum", seed=0)
+        tr = Trainer(make_backbone(VISION_BACKBONE, VISION_CLASSES,
+                                   small_images=True), cfg, device=d)
+        tr.load_params(state)
+        t0 = time.perf_counter()
+        before = tr.predict_logits(X[:8])
+        tr.fit(X, y)
+        res[d] = (before, [st["loss"] for st in tr.step_stats],
+                  {n: b.detach().cpu().numpy()
+                   for n, b in tr.model.named_buffers()},
+                  tr.predict_logits(X[8:]))
+        log(f"  smallImages 32x32 {d}: eval + 2 steps + eval "
+            f"{time.perf_counter() - t0:.2f}s, losses {res[d][1]}")
+    (lg, ls, st, ag), (lw, lsw, stw, aw) = res[dev], res["cpu"]
+    loss_gap = float(np.max(np.abs(np.subtract(ls, lsw)) / np.abs(lsw)))
+    big = make_backbone(VISION_BACKBONE, VISION_CLASSES)
+    big.load_state_dict(trained)
+    imgs2, _ = cifar_like(2, seed=6)
+    X2 = torch.from_numpy(tv._normalize(tv._resolve_images(imgs2,
+                                                           VISION_SIZE)))
+    with torch.no_grad():
+        want = big.eval()(X2, train=False).numpy()
+        got = big.to(dev)(X2.to(dev), train=False).cpu().numpy()
+    checks = [("small-stem eval logits", _gap(lg, lw), VISION_LOGIT_TOL),
+              ("small-stem step losses (relative)", loss_gap,
+               VISION_LOSS_RTOL),
+              ("small-stem running statistics",
+               max(_gap(st[n], stw[n]) for n in stw), VISION_STAT_TOL),
+              ("small-stem eval logits after the steps", _gap(ag, aw),
+               VISION_LOGIT_TOL),
+              (f"ImageNet stem {VISION_SIZE}x{VISION_SIZE} eval logits "
+               "(fit A's weights)", _gap(got, want), VISION_LOGIT_TOL)]
+    for name, gap, tol in checks:
+        log(f"  card vs CPU, {name}: {gap:.3g} (bound {tol}) -> "
+            f"{'ok' if gap <= tol else 'MISMATCH'}")
+    if any(gap > tol for _, gap, tol in checks):
+        raise AssertionError("vision path: card and CPU disagree")
+
+
+def vision_path(dev: str) -> None:
+    """Phase 11: fits A (float32, two trailing blocks trained) and B (bf16,
+    everything trained) with their checks, the fixed-batch check and the
+    card-vs-CPU check."""
+    from synapseml_tpu_torch.dl import make_backbone
+
+    init = vision_init_state()
+    flops = vision_layer_flops(
+        make_backbone(VISION_BACKBONE, VISION_CLASSES).to(dev),
+        (VISION_SIZE, VISION_SIZE, 3), dev)
+    log(f"  {VISION_BACKBONE} at {VISION_SIZE}x{VISION_SIZE}: "
+        f"{len(flops)} convolution/dense layers, forward "
+        f"{sum(f for _, f in flops):.4e} FLOPs per image")
+    trained = None
+    for i, (label, params, n) in enumerate(VISION_FITS):
+        model, table, prob = vision_fit(label, params, n, dev, flops, i)
+        net = model.trainer.model
+        check_frozen(label, net, init, params["additionalLayersToTrain"])
+        if trained is None:
+            trained = {k: v.detach().cpu().clone()
+                       for k, v in net.state_dict().items()}
+            vision_reload(model, table, prob, dev)
+        vision_profile(model, dev)
+        del model, net
+        if _on_card(dev):
+            torch.cuda.empty_cache()
+    vision_fixed_batch(dev)
+    vision_cross_check(dev, trained)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -2105,6 +2487,9 @@ def main() -> int:
     log(f"    cross-check: card against CPU, {FAMILY_CROSS_ROWS} rows, "
         f"{FAMILY_CROSS_ITERS} iterations, every objective")
     family_cross_check(dev)
+    log(f"[11] vision: DeepVisionClassifier({VISION_BACKBONE}) fine-tunes at "
+        f"{VISION_SIZE}x{VISION_SIZE} on CIFAR-10-shaped images")
+    vision_path(dev)
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},

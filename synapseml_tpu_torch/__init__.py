@@ -12,7 +12,10 @@ hand-written CUDA C++ for ``sm_90a`` (``csrc/hist_kernel.cu``), built with
 ``nvcc`` at first use. And the sequence-parallel text encoder forward:
 ``TransformerEncoder(mask_free=True)`` inside ``seq_attention_scope`` on a
 ``torch.distributed`` mesh, with ring and Ulysses attention through the
-hand-written flash kernels of ``csrc/attention_kernel.cu``.
+hand-written flash kernels of ``csrc/attention_kernel.cu``. And the text
+and vision estimators: ``DeepTextClassifier`` through those kernels,
+``DeepVisionClassifier`` on flax-exact ResNets (convolutions and BatchNorm
+on cuDNN, outside any TPU kernel in the JAX package too).
 
 Every public entry point takes ``device`` (default ``"cuda"``). A CUDA
 tensor goes through the hand-written kernel or the call raises; the plain
@@ -20,14 +23,15 @@ PyTorch version of a kernel runs only for tensors on the CPU.
 
   core/     — Params, Table, Estimator/Model, device resolution, logging
   ops/      — quantile binning, histogram and flash-attention kernels and
-              their CUDA build
+              their CUDA build, host image decode and resize
   gbdt/     — objectives, leaf-wise and depthwise growers, boosting loop,
               model strings
   models/   — LightGBMClassifier / LightGBMClassificationModel
   parallel/ — meshes over torch.distributed, seq-axis collectives, ring and
               Ulysses attention
-  dl/       — flax's layers, transformer units and the text encoder
-  convert   — carry a JAX-trained booster or flax parameters across
+  dl/       — flax's layers, ResNets, transformer units, the text encoder,
+              the trainer and the text and vision estimators
+  convert   — carry a JAX-trained booster or flax variables across
 """
 
 __version__ = "0.1.0"

@@ -29,6 +29,14 @@ package's modules into this package's ``state_dict`` by flattening it, and
 ``text_encoder_to_reference`` turns a ``state_dict`` back into the flax
 tree (nested dicts of numpy arrays), or into one flat dict keyed by the
 '/'-joined flax paths (the text model's saved format).
+
+The vision backbones (``dl.backbones.ResNet``, ``TinyCNN``) keep flax's
+names and layouts too (convolution kernels HWIO), with the BatchNorm
+running statistics as buffers: ``resnet_from_reference`` turns flax's
+``{"params": ..., "batch_stats": ...}`` variables into the ``state_dict``,
+``resnet_to_reference`` turns it back, nested or as one flat dict keyed by
+``"params/<path>"`` and ``"batch_stats/<path>"`` (the vision model's saved
+``params.npz``). The round trip is bitwise.
 """
 
 from __future__ import annotations
@@ -97,6 +105,39 @@ def booster_from_reference(arrays: Dict[str, np.ndarray], config: dict,
                    missing_types=per_tree["missing_types"], device=device)
 
 
+def _flatten(tree, prefix: str = "", out: Optional[dict] = None) -> dict:
+    """A nested dict of arrays as one dict keyed by '/'-joined paths."""
+    out = {} if out is None else out
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            _flatten(value, f"{prefix}{name}/", out)
+        else:
+            out[prefix + name] = value
+    return out
+
+
+def _nest(flat: dict) -> dict:
+    """The reverse of ``_flatten``."""
+    tree: dict = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def _to_tensor(value) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, dtype=np.float32))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A float32 copy (``.numpy()`` of a CPU tensor would share its memory,
+    and a training step updates the tensor in place)."""
+    return t.detach().float().cpu().numpy().copy()
+
+
 def text_encoder_from_reference(params) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of this package's ``TransformerEncoder`` from the
     JAX package's flax parameters of the same configuration: the nested
@@ -108,18 +149,8 @@ def text_encoder_from_reference(params) -> Dict[str, torch.Tensor]:
     shape."""
     if set(params) == {"params"}:
         params = params["params"]
-    out: Dict[str, torch.Tensor] = {}
-
-    def walk(tree, prefix):
-        for name, value in tree.items():
-            if isinstance(value, Mapping):
-                walk(value, f"{prefix}{name}.")
-            else:
-                out[(prefix + name).replace("/", ".")] = torch.from_numpy(
-                    np.array(value, dtype=np.float32))
-
-    walk(params, "")
-    return out
+    return {path.replace("/", "."): _to_tensor(value)
+            for path, value in _flatten(params).items()}
 
 
 def text_encoder_to_reference(state_dict, nested: bool = True) -> dict:
@@ -127,15 +158,38 @@ def text_encoder_to_reference(state_dict, nested: bool = True) -> dict:
     ``named_parameters``) of the text modules as the flax parameter tree,
     nested dicts of float32 numpy arrays without the ``"params"`` level;
     with ``nested=False`` one flat dict keyed by '/'-joined flax paths."""
-    flat = {name.replace(".", "/"): t.detach().float().cpu().numpy()
+    flat = {name.replace(".", "/"): _to_numpy(t)
             for name, t in dict(state_dict).items()}
-    if not nested:
-        return flat
-    tree: dict = {}
-    for path, value in flat.items():
-        *parents, leaf = path.split("/")
-        node = tree
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = value
-    return tree
+    return _nest(flat) if nested else flat
+
+
+BATCH_STATS_LEAVES = ("mean", "var")
+
+
+def resnet_from_reference(variables) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of this package's vision backbone from the JAX
+    package's flax variables of the same configuration: ``{"params":
+    tree, "batch_stats": tree}`` (``batch_stats`` absent for ``TinyCNN``),
+    or the flat ``"params/..."``/``"batch_stats/..."`` dict of a saved
+    ``params.npz``. Load it with ``module.load_state_dict(sd)``."""
+    flat = _flatten(variables)
+    unknown = sorted({k.split("/", 1)[0] for k in flat}
+                     - {"params", "batch_stats"})
+    if unknown:
+        raise ValueError(f"flax variables hold collections {unknown}; "
+                         "expected 'params' and 'batch_stats'")
+    return {path.split("/", 1)[1].replace("/", "."): _to_tensor(value)
+            for path, value in flat.items()}
+
+
+def resnet_to_reference(state_dict, nested: bool = True) -> dict:
+    """The reverse of ``resnet_from_reference``: flax's ``{"params": ...,
+    "batch_stats": ...}`` of float32 numpy arrays (BatchNorm's ``mean`` and
+    ``var`` buffers under ``batch_stats``); with ``nested=False`` one flat
+    dict keyed by ``"params/<path>"`` and ``"batch_stats/<path>"``."""
+    flat = {}
+    for name, t in dict(state_dict).items():
+        leaf = name.rsplit(".", 1)[-1]
+        coll = "batch_stats" if leaf in BATCH_STATS_LEAVES else "params"
+        flat[f"{coll}/{name.replace('.', '/')}"] = _to_numpy(t)
+    return _nest(flat) if nested else flat

@@ -1,8 +1,21 @@
-"""Transformer units and sequence-parallel attention routing.
+"""Vision backbones, transformer units and sequence-parallel attention
+routing.
 
-Counterpart of the text part of the JAX package's ``dl/backbones.py``
+Counterpart of the JAX package's ``dl/backbones.py``: the ResNets and
+``TinyCNN`` with ``BACKBONES``/``make_backbone``, and the text part
 (``TextEmbedUnit``, ``TransformerLayerUnit``, ``TextClsHead`` and the
-``seq`` routing). Inside ``seq_attention_scope(mesh, variant)`` the
+``seq`` routing). The staged vision units (``StageGroup``, ``stage_units``,
+``partition_stages``) wait for pipeline parallelism.
+
+The vision backbones take NHWC images and keep flax's module names
+(``stem_conv``, ``stem_bn``, ``BottleneckBlock_3.Conv_1``, ``head``), so
+their ``state_dict`` is the flattened flax tree, ``params`` and
+``batch_stats`` alike (``convert.resnet_from_reference``). flax infers the
+input channels at ``init``; here ``in_channels`` (default 3) says them.
+``forward(x, train=False, generator=None)``: with ``train`` every
+BatchNorm normalises with the batch's statistics and updates its running
+ones. With ``dtype=torch.bfloat16`` the layers compute in bf16 (BatchNorm
+in float32) and the head in float32, as flax's. Inside ``seq_attention_scope(mesh, variant)`` the
 attention of ``TransformerLayerUnit`` and of a mask-free
 ``dl.text.TransformerEncoder`` runs sharded over the mesh's ``seq`` axis
 (ring or Ulysses) instead of the default attention, with the same
@@ -30,8 +43,9 @@ from torch import nn
 
 from ..parallel.collectives import all_gather
 from ..parallel.mesh import DATA_AXIS, SEQ_AXIS
-from .layers import (Dense, Embed, LayerNorm, MultiHeadDotProductAttention,
-                     dropout_mask, gelu)
+from .layers import (BatchNorm, Conv, Dense, Embed, LayerNorm,
+                     MultiHeadDotProductAttention, dropout_mask, gelu,
+                     max_pool)
 
 _SEQ_SCOPE: list = []
 
@@ -231,3 +245,163 @@ class TextClsHead(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.head(self.LayerNorm_0(x)[:, 0])
+
+
+class ResNetBlock(nn.Module):
+    """Two 3x3 convolutions (the first with ``strides``), each followed by
+    BatchNorm, the second's scale starting at 0; a 1x1 projection
+    (``Conv_2``/``BatchNorm_2``) where the shape changes."""
+
+    expansion = 1
+
+    def __init__(self, in_features: int, filters: int, strides: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, filters, (3, 3), strides,
+                           use_bias=False, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(filters, dtype)
+        self.Conv_1 = Conv(filters, filters, (3, 3), use_bias=False,
+                           dtype=dtype)
+        self.BatchNorm_1 = BatchNorm(filters, dtype, zero_scale=True)
+        if in_features != filters or strides != 1:
+            self.Conv_2 = Conv(in_features, filters, (1, 1), strides,
+                               use_bias=False, dtype=dtype)
+            self.BatchNorm_2 = BatchNorm(filters, dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x), train))
+        y = self.BatchNorm_1(self.Conv_1(y), train)
+        if hasattr(self, "Conv_2"):
+            x = self.BatchNorm_2(self.Conv_2(x), train)
+        return F.relu(y + x)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1, 3x3 (with ``strides``) and 1x1 to ``4 * filters`` convolutions,
+    each followed by BatchNorm, the last's scale starting at 0; a 1x1
+    projection (``Conv_3``/``BatchNorm_3``) where the shape changes."""
+
+    expansion = 4
+
+    def __init__(self, in_features: int, filters: int, strides: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out = filters * 4
+        self.Conv_0 = Conv(in_features, filters, (1, 1), use_bias=False,
+                           dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(filters, dtype)
+        self.Conv_1 = Conv(filters, filters, (3, 3), strides, use_bias=False,
+                           dtype=dtype)
+        self.BatchNorm_1 = BatchNorm(filters, dtype)
+        self.Conv_2 = Conv(filters, out, (1, 1), use_bias=False, dtype=dtype)
+        self.BatchNorm_2 = BatchNorm(out, dtype, zero_scale=True)
+        if in_features != out or strides != 1:
+            self.Conv_3 = Conv(in_features, out, (1, 1), strides,
+                               use_bias=False, dtype=dtype)
+            self.BatchNorm_3 = BatchNorm(out, dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x), train))
+        y = F.relu(self.BatchNorm_1(self.Conv_1(y), train))
+        y = self.BatchNorm_2(self.Conv_2(y), train)
+        if hasattr(self, "Conv_3"):
+            x = self.BatchNorm_3(self.Conv_3(x), train)
+        return F.relu(y + x)
+
+
+class ResNet(nn.Module):
+    """NHWC ResNet; ``num_classes=0`` gives the headless feature extractor
+    (pooled features). ``small_images``: the CIFAR stem (3x3 convolution,
+    no max-pool) in place of the ImageNet one (7x7 stride 2, padding 3,
+    then a 3x3 stride-2 ``"SAME"`` max-pool)."""
+
+    def __init__(self, stage_sizes, block, num_classes: int = 1000,
+                 width: int = 64, dtype: torch.dtype = torch.float32,
+                 small_images: bool = False, in_channels: int = 3):
+        super().__init__()
+        self.small_images = small_images
+        if small_images:
+            self.stem_conv = Conv(in_channels, width, (3, 3), use_bias=False,
+                                  dtype=dtype)
+        else:
+            self.stem_conv = Conv(in_channels, width, (7, 7), 2,
+                                  [(3, 3), (3, 3)], use_bias=False,
+                                  dtype=dtype)
+        self.stem_bn = BatchNorm(width, dtype)
+        self.blocks = []
+        features = width
+        for i, size in enumerate(stage_sizes):
+            for j in range(size):
+                strides = 2 if i > 0 and j == 0 else 1
+                name = f"{block.__name__}_{len(self.blocks)}"
+                self.add_module(name, block(features, width * 2 ** i,
+                                            strides, dtype))
+                self.blocks.append(name)
+                features = width * 2 ** i * block.expansion
+        self.head = Dense(features, num_classes) if num_classes else None
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = F.relu(self.stem_bn(self.stem_conv(x), train))
+        if not self.small_images:
+            x = max_pool(x, (3, 3), (2, 2))
+        for name in self.blocks:
+            x = self._modules[name](x, train)
+        x = x.mean(dim=(1, 2))                    # global average pool
+        return x if self.head is None else self.head(x)
+
+
+def resnet18(num_classes=1000, **kw) -> ResNet:
+    return ResNet([2, 2, 2, 2], ResNetBlock, num_classes, **kw)
+
+
+def resnet34(num_classes=1000, **kw) -> ResNet:
+    return ResNet([3, 4, 6, 3], ResNetBlock, num_classes, **kw)
+
+
+def resnet50(num_classes=1000, **kw) -> ResNet:
+    return ResNet([3, 4, 6, 3], BottleneckBlock, num_classes, **kw)
+
+
+def resnet101(num_classes=1000, **kw) -> ResNet:
+    return ResNet([3, 4, 23, 3], BottleneckBlock, num_classes, **kw)
+
+
+class TinyCNN(nn.Module):
+    """Two 3x3 stride-2 convolutions with bias and relu, the global mean
+    pool and a float32 head: the small backbone of the tests."""
+
+    def __init__(self, num_classes: int = 10,
+                 dtype: torch.dtype = torch.float32, in_channels: int = 3):
+        super().__init__()
+        self.Conv_0 = Conv(in_channels, 16, (3, 3), 2, dtype=dtype)
+        self.Conv_1 = Conv(16, 32, (3, 3), 2, dtype=dtype)
+        self.head = Dense(32, num_classes)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = F.relu(self.Conv_1(F.relu(self.Conv_0(x))))
+        return self.head(x.mean(dim=(1, 2)))
+
+
+BACKBONES: dict = {
+    "resnet18": resnet18,
+    "resnet34": resnet34,
+    "resnet50": resnet50,
+    "resnet101": resnet101,
+    "tiny": lambda num_classes=10, in_channels=3, **kw: TinyCNN(
+        num_classes=num_classes, in_channels=in_channels),
+}
+
+
+def make_backbone(name: str, num_classes: int,
+                  dtype: torch.dtype = torch.float32,
+                  small_images: bool = False, in_channels: int = 3):
+    """The named backbone; ``"tiny"`` ignores ``dtype`` and
+    ``small_images``, as the JAX package's does."""
+    if name not in BACKBONES:
+        raise ValueError(f"unknown backbone {name!r}; available: "
+                         f"{sorted(BACKBONES)}")
+    return BACKBONES[name](num_classes=num_classes, dtype=dtype,
+                           small_images=small_images,
+                           in_channels=in_channels)

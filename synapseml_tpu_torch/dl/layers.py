@@ -1,4 +1,5 @@
-"""The flax layers the text encoder is built from, in PyTorch.
+"""The flax layers the text encoder and the vision backbones are built
+from, in PyTorch.
 
 Each module keeps flax's parameter names and layouts (a dense kernel is
 ``(in, out)``, the attention projections ``(hidden, heads, head_dim)`` and
@@ -24,6 +25,24 @@ with probability ``dropout_rate`` and scales the survivors by
 ``1 / (1 - dropout_rate)``. The mask is drawn from the ``torch.Generator``
 the caller passes (flax draws from its ``dropout`` rng stream, so the masks
 differ from flax's; only their law is the same).
+
+Vision layers (``Conv``, ``BatchNorm``, ``max_pool``) take and return NHWC
+tensors, as flax's do; an NHWC-contiguous tensor permuted to NCHW is
+already ``channels_last``, so cuDNN reads it without a copy. What differs
+from a plain ``torch.nn`` translation:
+
+* ``"SAME"`` padding is XLA's: per spatial dim ``total = max((ceil(n/s) -
+  1)·s + k - n, 0)``, ``lo = total // 2`` before and ``hi = total - lo``
+  after. A 3x3 stride-2 window on an even input pads (0, 1), not torch's
+  symmetric 1; ``max_pool`` pads with -inf.
+* ``Conv`` keeps flax's HWIO kernel ``(kh, kw, in, out)``.
+* ``BatchNorm``: epsilon 1e-5; flax's ``momentum=0.9`` keeps 0.9 of the
+  running statistics (torch's ``momentum=0.1``), and the running ``var``
+  takes the biased batch variance (torch's the unbiased). In training the
+  batch's statistics are taken in float32 and the normalisation runs in
+  float32 whatever ``dtype`` (the output is ``dtype``). ``scale`` and
+  ``bias`` are parameters, ``mean`` and ``var`` buffers (flax's
+  ``batch_stats``).
 """
 
 from __future__ import annotations
@@ -35,6 +54,16 @@ import torch.nn.functional as F
 from torch import nn
 
 LAYER_NORM_EPS = 1e-6
+BATCH_NORM_EPS = 1e-5
+BATCH_NORM_MOMENTUM = 0.9
+_TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to +-2
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int) -> None:
+    """flax's ``lecun_normal``: truncated normal, variance 1 / fan_in."""
+    std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -55,12 +84,8 @@ class DenseGeneral(nn.Module):
         self.reset_parameters()
 
     def reset_parameters(self) -> None:
-        # flax's lecun_normal: truncated normal, variance 1 / fan_in
-        fan_in = math.prod(self.kernel.shape[:self._n_in])
-        std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+        lecun_normal_(self.kernel, math.prod(self.kernel.shape[:self._n_in]))
         with torch.no_grad():
-            nn.init.trunc_normal_(self.kernel, std=std, a=-2 * std,
-                                  b=2 * std)
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -106,7 +131,7 @@ class Embed(nn.Module):
         self.reset_parameters()
 
     def reset_parameters(self) -> None:
-        std = 1.0 / math.sqrt(self.embedding.shape[1]) / 0.87962566103423978
+        std = 1.0 / math.sqrt(self.embedding.shape[1]) / _TRUNC_STD
         with torch.no_grad():
             nn.init.trunc_normal_(self.embedding, std=std, a=-2 * std,
                                   b=2 * std)
@@ -184,3 +209,113 @@ class MultiHeadDotProductAttention(nn.Module):
             rate = 0.0 if deterministic else self.dropout_rate
             y = dot_product_attention(q, k, v, mask, rate, generator)
         return self.out(y)
+
+
+def same_padding(size: int, window: int, stride: int) -> tuple:
+    """XLA's ``"SAME"`` padding ``(lo, hi)`` of one spatial dim."""
+    total = max((-(-size // stride) - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pads(x: torch.Tensor, window: tuple, strides: tuple, padding) -> list:
+    """``[(lo, hi)]`` per spatial dim of NHWC ``x``: ``"SAME"`` or explicit
+    pairs."""
+    if padding == "SAME":
+        return [same_padding(n, k, s) for n, k, s in
+                zip(x.shape[1:3], window, strides)]
+    return [tuple(p) for p in padding]
+
+
+def _pad_nhwc(x: torch.Tensor, pads: list, value: float = 0.0):
+    (top, bottom), (left, right) = pads
+    return F.pad(x, (0, 0, left, right, top, bottom), value=value)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` on NHWC input: ``kernel`` ``(kh, kw, in, out)`` and,
+    with ``use_bias``, ``bias`` ``(out,)``; computes in ``dtype``.
+    ``padding`` is ``"SAME"`` (XLA's) or ``[(lo, hi), (lo, hi)]``."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: tuple,
+                 strides: int = 1, padding="SAME", use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.strides = (strides, strides)
+        self.padding = padding
+        self.kernel = nn.Parameter(torch.empty(*kernel_size, in_features,
+                                               features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self) -> None:
+        lecun_normal_(self.kernel, math.prod(self.kernel.shape[:3]))
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = x.to(dt)
+        pads = _pads(x, self.kernel.shape[:2], self.strides, self.padding)
+        if all(lo == hi for lo, hi in pads):
+            conv_pad = [lo for lo, _ in pads]
+        else:
+            x, conv_pad = _pad_nhwc(x, pads), 0
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x.permute(0, 3, 1, 2),
+                     self.kernel.to(dt).permute(3, 2, 0, 1), bias,
+                     self.strides, conv_pad)
+        return y.permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last axis of NHWC input (see the
+    module note). ``zero_scale`` starts ``scale`` at 0, as flax's
+    ``scale_init=zeros``. ``forward(x, train)``: with ``train`` the batch's
+    statistics normalise and update ``mean``/``var`` in place; without, the
+    running ones normalise."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 zero_scale: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.zero_scale = zero_scale
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.reset_parameters()
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.scale.fill_(0.0 if self.zero_scale else 1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xc = x.permute(0, 3, 1, 2)
+        if train:
+            with torch.no_grad():
+                var, mean = torch.var_mean(xc.float(), dim=(0, 2, 3),
+                                           correction=0)
+                m = BATCH_NORM_MOMENTUM
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+            y = F.batch_norm(xc, None, None, self.scale, self.bias,
+                             training=True, eps=BATCH_NORM_EPS)
+        else:
+            y = F.batch_norm(xc, self.mean, self.var, self.scale, self.bias,
+                             training=False, eps=BATCH_NORM_EPS)
+        return y.permute(0, 2, 3, 1).to(self.dtype)
+
+
+def max_pool(x: torch.Tensor, window: tuple, strides: tuple
+             ) -> torch.Tensor:
+    """flax ``nn.max_pool(..., padding="SAME")`` on NHWC input, padding
+    with -inf."""
+    pads = _pads(x, window, strides, "SAME")
+    x = _pad_nhwc(x, pads, value=float("-inf"))
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, strides)
+    return y.permute(0, 2, 3, 1)

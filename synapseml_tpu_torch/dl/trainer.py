@@ -31,6 +31,16 @@ the world. The replicated part (final LayerNorm and head) and the
 shard-local part then both hold the global gradient, and the parameters
 stay bitwise equal on every rank.
 
+Batch statistics (JAX: ``model.apply(..., mutable=["batch_stats"])``). A
+model's BatchNorm running statistics are buffers: a training forward
+updates them in place, microbatch by microbatch under ``accum_steps`` (the
+carry of the JAX package's ``scan``), frozen leaves' statistics included
+(``freeze_regex`` masks only the optimizer's update); ``predict_logits``
+and ``evaluate`` normalise with them. The optimizer, the gradient norms
+and the all-reduce see parameters only. A model with BatchNorm on a mesh
+of more than one rank is refused: the JAX package normalises over the
+global batch there, and per-rank statistics would differ.
+
 Batches come from ``np.random.default_rng([seed, epoch])`` with the epoch
 tail dropped, in the JAX package's order. Dropout masks are drawn from a
 ``torch.Generator`` seeded from ``(seed, step)`` (``(seed, step, i)`` for
@@ -57,6 +67,7 @@ from torch import nn
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..parallel.collectives import all_reduce_sum
+from .layers import BatchNorm
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 MOMENTUM = 0.9
@@ -256,8 +267,15 @@ class Trainer:
         self.model.to(self.device)
         return self
 
-    def load_params(self, state_dict) -> "Trainer":
-        self.model.load_state_dict(state_dict)
+    def load_params(self, params, batch_stats=None) -> "Trainer":
+        """Load ``params`` (a ``state_dict``: every parameter, and buffers
+        where it holds them) and ``batch_stats`` (buffers by name), as
+        ``FlaxTrainer.load_params``: buffers given in neither keep their
+        values. Names and shapes are checked."""
+        sd = {**dict(params), **dict(batch_stats or {})}
+        for name, buf in self.model.named_buffers():
+            sd.setdefault(name, buf)
+        self.model.load_state_dict(sd)
         self.model.to(self.device)
         return self
 
@@ -372,7 +390,12 @@ class Trainer:
         params = [p for _, p in named]
         self._names = [n for n, _ in named]
         world = self._world()
-        dev = self.device
+        if world > 1 and any(isinstance(m, BatchNorm)
+                             for m in self.model.modules()):
+            raise NotImplementedError(
+                "BatchNorm on a mesh of more than one rank is not ported to "
+                "the PyTorch package yet (the JAX package normalises over "
+                "the global batch)")
         self.stats = {}
         if self._seq_variant:
             self.stats["seq_attention"] = self._seq_variant

@@ -392,3 +392,71 @@ def test_family_phases_run_on_the_plain_versions(no_timing, monkeypatch):
             monkeypatch.setattr(mod, name, counted)
     cs.family_full_width(3000, "cpu")
     cs.family_cross_check("cpu")
+
+
+def test_vision_flops_match_a_hand_count():
+    """Phase 11's FLOP counter against the multiply-adds of each layer,
+    counted by hand: a one-block bottleneck ResNet with the CIFAR stem at
+    8x8, and a two-block basic ResNet with the ImageNet stem at 16x16
+    (7x7 stride 2 -> 8x8, max-pool -> 4x4, then a stride-2 block -> 2x2)."""
+    from synapseml_tpu_torch.dl.backbones import (BottleneckBlock, ResNet,
+                                                  ResNetBlock)
+
+    small = ResNet([1], BottleneckBlock, 10, width=8, small_images=True)
+    got = cs.vision_layer_flops(small, (8, 8, 3), "cpu")
+    want = [("stem_conv", 2 * 64 * 3 * 3 * 3 * 8),
+            ("BottleneckBlock_0.Conv_0", 2 * 64 * 8 * 8),
+            ("BottleneckBlock_0.Conv_1", 2 * 64 * 3 * 3 * 8 * 8),
+            ("BottleneckBlock_0.Conv_2", 2 * 64 * 8 * 32),
+            ("BottleneckBlock_0.Conv_3", 2 * 64 * 8 * 32),
+            ("head", 2 * 32 * 10)]
+    assert got == want
+    total = sum(f for _, f in want)
+    assert cs.vision_step_flops(got, 4) == 4 * (3 * total - want[0][1])
+
+    stem = ResNet([1, 1], ResNetBlock, 10, width=8)
+    got = cs.vision_layer_flops(stem, (16, 16, 3), "cpu")
+    assert got == [("stem_conv", 2 * 64 * 7 * 7 * 3 * 8),
+                   ("ResNetBlock_0.Conv_0", 2 * 16 * 9 * 8 * 8),
+                   ("ResNetBlock_0.Conv_1", 2 * 16 * 9 * 8 * 8),
+                   ("ResNetBlock_1.Conv_0", 2 * 4 * 9 * 8 * 16),
+                   ("ResNetBlock_1.Conv_1", 2 * 4 * 9 * 16 * 16),
+                   ("ResNetBlock_1.Conv_2", 2 * 4 * 8 * 16),
+                   ("head", 2 * 16 * 10)]
+
+
+def test_vision_bound_is_float32_off_the_tensor_cores_or_bf16():
+    assert cs.vision_bound_ms(67e12, "float32") == pytest.approx(1e3)
+    assert cs.vision_bound_ms(989e12, "bfloat16") == pytest.approx(1e3)
+    # ResNet-50: the stem, 16 blocks of 3 convolutions, 4 projections and
+    # the head (on the meta device: shapes only, nothing drawn or computed)
+    from synapseml_tpu_torch.dl import make_backbone
+
+    with torch.device("meta"):
+        resnet50 = make_backbone("resnet50", 10)
+    flops = cs.vision_layer_flops(resnet50, (224, 224, 3), "meta")
+    assert len(flops) == 1 + 16 * 3 + 4 + 1
+    assert sum(f for _, f in flops) == 8_174_313_472    # PERF.md's count
+    step = cs.vision_step_flops(flops, 16)
+    assert cs.vision_bound_ms(step, "float32") == pytest.approx(
+        step / 67e12 * 1e3)
+
+
+def test_check_frozen_rejects_a_moved_frozen_parameter():
+    from synapseml_tpu_torch.dl import make_backbone
+
+    net = make_backbone("resnet18", 10)
+    init = {k: v.clone() for k, v in net.state_dict().items()}
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.startswith(("ResNetBlock_6", "ResNetBlock_7", "head")):
+                p.add_(1.0)
+        for name, b in net.named_buffers():
+            b.add_(1.0)
+    cs.check_frozen("ok", net, init, 2)
+    with torch.no_grad():
+        net.ResNetBlock_0.Conv_0.kernel[0, 0, 0, 0] += 1e-3
+    with pytest.raises(AssertionError, match="frozen"):
+        cs.check_frozen("moved", net, init, 2)
+    with pytest.raises(AssertionError, match="frozen"):
+        cs.check_frozen("all trained", net, init, -1)
