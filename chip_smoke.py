@@ -132,6 +132,32 @@ Phases, each of which fails the run if it fails:
    and eval logits after them; the ImageNet stem at 224, batch 2, fit A's
    weights: eval logits), each within 1e-4 (``VISION_*_TOL``). No kernel
    of the port lies on this path (cuDNN and cuBLAS).
+12. the rest of the GBDT estimator surface, on the HIGGS-shaped ``--rows``
+   table with its last min(500,000, rows / 4) rows flagged in an ``isVal``
+   column (HIGGS's published split keeps its last 500,000 of 11,000,000
+   rows as the test set): ``LightGBMClassifier(numIterations=300,
+   learningRate=0.1, numLeaves=31, maxBin=255, earlyStoppingRound=20,
+   metric="auc", validationIndicatorCol="isVal")``, then the same fit
+   depthwise through ``train_booster(valid=...)``; counts zeroed just
+   before each fit and read just after (``child_histogram`` and
+   ``range_histogram``, or ``level_histograms``, above 0); fit seconds,
+   iterations run, best iteration and score, host syncs per tree logged;
+   a stopped fit must keep best + 1 trees, one that ran to the end must
+   name the first maximum of its AUC series, and ``best_score`` must be
+   the AUC of ``predict(num_iteration=best + 1)`` within 1e-6. Then
+   ``transform`` of the validation rows with ``leafPredictionCol`` (shape
+   (Nv, T); the picked leaf values summed within 1e-5 of max |raw| of
+   ``raw_score``), ``getFeatureShaps`` on 64 of them (additivity within
+   1e-4 of max |raw|, rows/s logged), ``dumpModel`` (parses, T trees, leaf
+   values within 1e-6 relative), a warm start from the model string with
+   ``numBatches=2`` x 10 iterations (T + 20 trees, the first T equal in
+   structure and thresholds, leaf values within 1e-6 relative), a custom
+   logistic ``fobj`` on 100,000 rows (AUC within 1e-3 of
+   ``objective="binary"``), a ``checkpoint_store`` fit stopped by a
+   ``PreemptionError`` after iteration 6 and resumed (the restored trees
+   bitwise the saved ones, AUC within 1e-3 of an uninterrupted fit), and a
+   100,000-row validation fit on the card and on the CPU (per-iteration
+   AUC within 1e-3).
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 9's ring and
@@ -255,6 +281,23 @@ VISION_RELOAD_TOL = 1e-6     # the same weights through the same kernels
 # 1 make the same steps chaotic: the float32 run's second loss is 8.5e-4
 # from float64 at lr 1e-3, so no bound could tell the card from the CPU.)
 VISION_LOGIT_TOL, VISION_LOSS_RTOL, VISION_STAT_TOL = 1e-4, 1e-4, 1e-4
+# phase 12: validation with early stopping on the --rows table (its last
+# min(SURFACE_VALID_ROWS, rows // 4) rows flagged, as HIGGS keeps its last
+# 500,000 rows for testing), then leaf indices, SHAP, the JSON dump, a
+# warm start, fobj, resume and a card-against-CPU curve on smaller tables
+SURFACE_VALID_ROWS, SURFACE_ITERS, SURFACE_ESR = 500_000, 300, 20
+SURFACE_SHAP_ROWS = 64
+SURFACE_WARM_ITERS, SURFACE_WARM_BATCHES = 10, 2
+SURFACE_SMALL_ROWS, SURFACE_SMALL_ITERS, SURFACE_RESUME_AT = 100_000, 10, 6
+# best_score against the AUC recomputed from raw_score: the same float32
+# AUC of scores summed in another order; the leaves' values summed against
+# raw_score (float64 against float32 sums of up to 300 trees) and SHAP's
+# additivity (float64 recursion against the float32 raw score), each
+# relative to max |raw|; dumped and string-carried leaf values against the
+# booster's (17 significant digits of a float32 and its float64 sum with
+# the base score); card against CPU (atomics flip near-tie splits)
+SURFACE_SCORE_TOL, SURFACE_LEAF_TOL, SURFACE_SHAP_TOL = 1e-6, 1e-5, 1e-4
+SURFACE_DUMP_RTOL, SURFACE_CURVE_TOL = 1e-6, 1e-3
 
 
 def log(msg: str) -> None:
@@ -2418,6 +2461,361 @@ def vision_path(dev: str) -> None:
     vision_cross_check(dev, trained)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: validation, early stopping, warm start, fobj, resume, leaf
+# indices, SHAP and the JSON dump
+# ---------------------------------------------------------------------------
+
+def surface_split(rows: int) -> int:
+    """Validation rows flagged at the end of the ``rows`` table: HIGGS's
+    published split keeps its last 500,000 of 11,000,000 rows as the test
+    set; a smaller table keeps a quarter."""
+    return min(SURFACE_VALID_ROWS, rows // 4)
+
+
+def _valid_auc(booster, Xv, yv, dev: str, num_iteration: int = -1) -> float:
+    from synapseml_tpu_torch.gbdt.objectives import auc
+
+    prob = booster.predict(Xv, num_iteration=num_iteration)
+    return float(auc(torch.as_tensor(yv, device=dev),
+                     torch.as_tensor(prob, device=dev)))
+
+
+def check_early_stop(label: str, booster, Xv, yv, dev: str,
+                     num_iterations: int) -> dict:
+    """Log and check one early-stopped fit: the trees end at the best
+    iteration if it stopped, else the best is the first maximum of the
+    logged series; ``best_score`` is the AUC of the cut forest."""
+    series = np.asarray(booster.metadata["valid_metric"]["values"])
+    best, ran = booster.best_iteration, len(series)
+    stopped = ran < num_iterations
+    if stopped:
+        if booster.num_trees != best + 1 or ran - 1 - best != SURFACE_ESR:
+            raise AssertionError(
+                f"{label}: stopped after {ran} iterations with best {best} "
+                f"but kept {booster.num_trees} trees")
+    elif best != int(np.argmax(series)):
+        raise AssertionError(f"{label}: best {best} is not the first "
+                             f"maximum {int(np.argmax(series))}")
+    again = _valid_auc(booster, Xv, yv, dev, num_iteration=best + 1)
+    gap = abs(again - booster.best_score)
+    log(f"  {label}: iterations run {ran} ({'stopped' if stopped else 'no stop'}"
+        f"), best_iteration={best} best_score={booster.best_score!r} AUC of "
+        f"raw_score(num_iteration=best+1)={again!r} |gap|={gap:.3g}; AUC "
+        f"series first/last {series[0]:.6f}/{series[-1]:.6f}")
+    if gap > SURFACE_SCORE_TOL:
+        raise AssertionError(f"{label}: best_score is {gap} from the AUC of "
+                             "the forest it names")
+    return dict(iterations=ran, stopped=stopped, best=best)
+
+
+def surface_fits(X, y, dev: str) -> dict:
+    """Steps 1 and 2: the classifier (leaf-wise) and depthwise
+    ``train_booster`` with validation and early stopping on the ``--rows``
+    table, launch counts zeroed just before each fit and read just after."""
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+    from synapseml_tpu_torch.models import LightGBMClassifier
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    rows = X.shape[0]
+    nv = surface_split(rows)
+    is_val = np.zeros(rows, bool)
+    is_val[rows - nv:] = True
+    t = table_of(X, y).with_column("isVal", is_val)
+    Xv, yv = X[rows - nv:], y[rows - nv:]
+    out = {}
+    for label, policy in (("leaf-wise classifier", "leafwise"),
+                          ("depthwise train_booster", "depthwise")):
+        _peak_gib(dev, reset=True)
+        hk.reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        if policy == "leafwise":
+            model = LightGBMClassifier(
+                numIterations=SURFACE_ITERS, learningRate=0.1, numLeaves=31,
+                maxBin=255, earlyStoppingRound=SURFACE_ESR, metric="auc",
+                validationIndicatorCol="isVal", device=dev).fit(t)
+            booster = model.booster
+        else:
+            booster = train_booster(
+                X[:rows - nv], y[:rows - nv], BoosterConfig(
+                    objective="binary", num_iterations=SURFACE_ITERS,
+                    learning_rate=0.1, num_leaves=31, max_bin=255,
+                    early_stopping_round=SURFACE_ESR, metric="auc",
+                    growth_policy="depthwise"),
+                valid=(Xv, yv), device=dev)
+        _sync(dev)
+        fit_s = time.perf_counter() - t0
+        launches = dict(hk.LAUNCHES)
+        grown = len(booster.metadata["valid_metric"]["values"])
+        syncs = booster.metadata["host_syncs"]
+        spans = booster.metadata["measures"]
+        log(f"  {label}: fit_s={fit_s:.3f} on {rows - nv} rows + {nv} "
+            f"validation rows, {grown} iterations "
+            f"({fit_s / grown * 1e3:.1f} ms each), host_syncs={syncs} "
+            f"host_syncs/tree={syncs / grown:.2f}, peak device memory="
+            f"{_peak_gib(dev):.3f} GiB, launches {json.dumps(launches)}")
+        log(f"  {label}: validation span {spans['validation']:.3f}s "
+            f"({spans['validation'] / grown * 1e3:.2f} ms per iteration: "
+            f"binned traversal of each tree and the AUC, host clock), "
+            f"trainingIterations {spans['trainingIterations']:.3f}s, "
+            f"referenceDataset {spans['referenceDataset']:.3f}s")
+        _check_launches(launches, MAIN_KERNELS if policy == "leafwise"
+                        else DEPTHWISE_KERNELS)
+        out[policy] = dict(check_early_stop(label, booster, Xv, yv, dev,
+                                            SURFACE_ITERS),
+                           fit_s=fit_s, launches=launches, booster=booster)
+        if policy == "leafwise":
+            out["model"], out["table"] = model, t
+    return out
+
+
+def leaf_and_shap_check(model, X, nv: int, dev: str) -> None:
+    """Steps 3 and 4: ``transform`` of the validation rows with
+    ``leafPredictionCol``, and ``getFeatureShaps`` on ``SURFACE_SHAP_ROWS``
+    of them."""
+    from synapseml_tpu_torch.core import Table
+
+    booster = model.booster
+    Xv = X[X.shape[0] - nv:]
+    T = booster.num_trees
+    model.set("leafPredictionCol", "leaves")
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = model.transform(Table({"features": Xv}))
+    _sync(dev)
+    transform_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    leaves = booster.predict_leaf(Xv)
+    leaf_s = time.perf_counter() - t0
+    model.set("leafPredictionCol", None)
+    col = out["leaves"]
+    if col.shape != (nv, T) or not np.array_equal(col, leaves):
+        raise AssertionError(f"leaf column shape {col.shape}, want {(nv, T)}")
+    lv = torch.as_tensor(np.stack([np.asarray(tr.leaf_value, np.float32)
+                                   for tr in booster.trees]), device=dev)
+    idx = torch.as_tensor(leaves, dtype=torch.int64, device=dev)
+    picked = lv[torch.arange(T, device=dev)[None, :], idx]       # (Nv, T)
+    raw = booster.raw_score(Xv)
+    summed = (picked.double().sum(1) + float(booster.base_score[0])).cpu().numpy()
+    gap = float(np.abs(summed - raw).max() / np.abs(raw).max())
+    log(f"  leafPredictionCol: transform of {nv} rows in {transform_s:.3f}s "
+        f"(raw, probability and leaves), predict_leaf alone {leaf_s:.3f}s; "
+        f"shape {col.shape}; leaf values summed vs raw_score "
+        f"{gap:.3g} of max |raw|")
+    if gap > SURFACE_LEAF_TOL:
+        raise AssertionError(f"the leaves' values sum {gap} away from the "
+                             "raw score")
+    rows = Xv[:SURFACE_SHAP_ROWS]
+    t0 = time.perf_counter()
+    phi = model.getFeatureShaps(rows)
+    shap_s = time.perf_counter() - t0
+    raw = booster.raw_score(rows)
+    gap = float(np.abs(phi.sum(1) - raw).max() / np.abs(raw).max())
+    log(f"  getFeatureShaps: {len(rows)} rows x {T} trees in {shap_s:.3f}s "
+        f"({len(rows) / shap_s:.1f} rows/s, host numpy), additivity "
+        f"{gap:.3g} of max |raw|")
+    if phi.shape != (len(rows), FEATURES + 1) or gap > SURFACE_SHAP_TOL:
+        raise AssertionError(f"SHAP shape {phi.shape} or additivity {gap}")
+
+
+def _dump_leaves(node: dict, out: dict) -> None:
+    stack = [node]
+    while stack:
+        nd = stack.pop()
+        if "leaf_index" in nd:
+            out[nd["leaf_index"]] = nd["leaf_value"]
+        else:
+            stack += [nd["left_child"], nd["right_child"]]
+
+
+def dump_check(model) -> None:
+    """Step 5: ``dumpModel`` parses, holds every tree, and its leaf values
+    (the base score folded into the first tree) match the booster's."""
+    booster = model.booster
+    t0 = time.perf_counter()
+    text = model.dumpModel()
+    dump_s = time.perf_counter() - t0
+    doc = json.loads(text)
+    trees = doc["tree_info"]
+    if len(trees) != booster.num_trees:
+        raise AssertionError(f"dump has {len(trees)} trees, the booster "
+                             f"{booster.num_trees}")
+    worst = 0.0
+    for i, entry in enumerate(trees):
+        got = {}
+        _dump_leaves(entry["tree_structure"], got)
+        lv = np.asarray(booster.trees[i].leaf_value, np.float64)
+        shift = float(booster.base_score[0]) if i == 0 else 0.0
+        for leaf, value in got.items():
+            want = lv[leaf] + shift
+            worst = max(worst, abs(value - want) / max(abs(want), 1e-30))
+    log(f"  dumpModel: {len(text)} bytes, {len(trees)} trees in "
+        f"{dump_s:.3f}s; leaf values within {worst:.3g} relative")
+    if worst > SURFACE_DUMP_RTOL:
+        raise AssertionError(f"dumped leaf values {worst} off")
+
+
+def warm_start_check(model, table, dev: str) -> None:
+    """Step 6: ``numBatches=2`` warm-started from step 1's model string,
+    ``numIterations`` each: the first T trees are step 1's."""
+    from synapseml_tpu_torch.models import LightGBMClassifier
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    first = model.booster
+    T = first.num_trees
+    train = table.filter(~np.asarray(table["isVal"], bool))
+    hk.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    warm = LightGBMClassifier(
+        numIterations=SURFACE_WARM_ITERS, learningRate=0.1, numLeaves=31,
+        maxBin=255, numBatches=SURFACE_WARM_BATCHES,
+        modelString=model.getNativeModel(), device=dev).fit(train)
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    booster = warm.booster
+    want = T + SURFACE_WARM_ITERS * SURFACE_WARM_BATCHES
+    worst = 0.0
+    for i in range(T):
+        a, b = booster.trees[i], first.trees[i]
+        ns = int(b.num_splits)
+        same = (int(a.num_splits) == ns and all(
+            np.array_equal(np.asarray(getattr(a, f))[:ns],
+                           np.asarray(getattr(b, f))[:ns])
+            for f in ("split_feature", "left_child", "right_child"))
+            and np.array_equal(booster._thresholds(i)[:ns],
+                               first._thresholds(i)[:ns]))
+        if not same:
+            raise AssertionError(f"warm-started tree {i} is not step 1's")
+        # the model string folds the base score into the first tree
+        shift = (float(first.base_score[0]) - float(booster.base_score[0])
+                 if i == 0 else 0.0)
+        la = np.asarray(a.leaf_value, np.float64)[:ns + 1]
+        lb = np.asarray(b.leaf_value, np.float64)[:ns + 1] + shift
+        worst = max(worst, float((np.abs(la - lb)
+                                  / np.maximum(np.abs(lb), 1e-30)).max()))
+    log(f"  warm start: {SURFACE_WARM_BATCHES} batches x "
+        f"{SURFACE_WARM_ITERS} iterations from a {T}-tree model string in "
+        f"{fit_s:.3f}s, {booster.num_trees} trees; the first {T} trees "
+        f"equal in structure and thresholds, leaf values within {worst:.3g} "
+        f"relative; launches {json.dumps(launches)}")
+    if booster.num_trees != want or worst > SURFACE_DUMP_RTOL:
+        raise AssertionError(f"warm start: {booster.num_trees} trees (want "
+                             f"{want}), leaf values {worst} off")
+    _check_launches(launches, MAIN_KERNELS)
+
+
+def _torch_logistic(score, label, weight):
+    p = torch.sigmoid(score)
+    return (p - label) * weight, p * (1 - p) * weight
+
+
+def fobj_and_resume_check(dev: str) -> None:
+    """Steps 7 and 8 on ``SURFACE_SMALL_ROWS`` rows: a custom logistic
+    objective against ``objective="binary"``, and a checkpointed fit
+    stopped after iteration ``SURFACE_RESUME_AT`` and resumed."""
+    from synapseml_tpu_torch.core.checkpoint import PreemptionError
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+    from synapseml_tpu_torch.gbdt.grower import trees_to_host
+    from synapseml_tpu_torch.gbdt.objectives import auc
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    X, y = higgs_like(SURFACE_SMALL_ROWS, seed=2)
+    cfg = BoosterConfig(objective="binary", num_iterations=SURFACE_SMALL_ITERS,
+                        num_leaves=31, max_bin=255)
+
+    def train_auc(booster):
+        return float(auc(torch.as_tensor(y, device=dev),
+                         torch.as_tensor(booster.predict(X), device=dev)))
+
+    plain = train_booster(X, y, cfg, device=dev)
+    hk.reset_launch_counts()
+    custom = train_booster(X, y, cfg, fobj=_torch_logistic, device=dev)
+    launches = dict(hk.LAUNCHES)
+    a, b = train_auc(custom), train_auc(plain)
+    log(f"  fobj: AUC {a:.6f} against objective='binary' {b:.6f} "
+        f"(|gap| {abs(a - b):.3g}); launches {json.dumps(launches)}")
+    _check_launches(launches, MAIN_KERNELS)
+    if abs(a - b) > SURFACE_CURVE_TOL:
+        raise AssertionError("the custom logistic objective fits another "
+                             "model")
+    saved = {}
+
+    def keep(it, trees):
+        if it == SURFACE_RESUME_AT - 1:
+            saved["trees"] = trees_to_host(trees)
+
+    def stop(it, trees):
+        if it == SURFACE_RESUME_AT:
+            raise PreemptionError(f"stopped after iteration {it}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            train_booster(X, y, cfg, device=dev, checkpoint_store=tmp,
+                          checkpoint_every=2, callbacks=[keep, stop])
+            raise AssertionError("the preempting callback did not stop the "
+                                 "fit")
+        except PreemptionError:
+            pass
+        t0 = time.perf_counter()
+        resumed = train_booster(X, y, cfg, device=dev, checkpoint_store=tmp,
+                                checkpoint_every=2)
+        resume_s = time.perf_counter() - t0
+    n_saved = len(saved["trees"])
+    bitwise = all(
+        np.array_equal(np.asarray(getattr(r, f)), np.asarray(getattr(s, f)))
+        for r, s in zip(resumed.trees[:n_saved], saved["trees"])
+        for f in r._fields)
+    a = train_auc(resumed)
+    log(f"  resume: {n_saved} trees restored "
+        f"{'bitwise' if bitwise else 'NOT bitwise'}, "
+        f"{resumed.num_trees - n_saved} regrown in {resume_s:.3f}s; AUC "
+        f"{a:.6f} against the uninterrupted fit's {b:.6f}")
+    if not bitwise or abs(a - b) > SURFACE_CURVE_TOL \
+            or resumed.num_trees != SURFACE_SMALL_ITERS:
+        raise AssertionError("resume lost or changed the saved trees")
+
+
+def valid_curve_check(dev: str) -> None:
+    """Step 9: a validation fit on the card and on the CPU; the
+    per-iteration validation AUC within ``SURFACE_CURVE_TOL``."""
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+
+    X, y = higgs_like(SURFACE_SMALL_ROWS, seed=3)
+    nv = SURFACE_SMALL_ROWS // 5
+    cfg = BoosterConfig(objective="binary", num_iterations=SURFACE_SMALL_ITERS,
+                        num_leaves=31, max_bin=255, metric="auc")
+    curves = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        booster = train_booster(X[:-nv], y[:-nv], cfg, valid=(X[-nv:],
+                                                              y[-nv:]),
+                                device=d)
+        curves[d] = np.asarray(booster.metadata["valid_metric"]["values"])
+        log(f"  validation curve on {d}: {time.perf_counter() - t0:.3f}s, "
+            f"AUC {curves[d][0]:.6f} .. {curves[d][-1]:.6f}")
+    gap = float(np.abs(curves[dev] - curves["cpu"]).max())
+    log(f"  card against CPU: max |AUC gap| over {len(curves['cpu'])} "
+        f"iterations {gap:.3g}")
+    if gap > SURFACE_CURVE_TOL:
+        raise AssertionError("card and CPU validation curves disagree")
+
+
+def surface_path(rows: int, dev: str) -> dict:
+    """Phase 12: every step above on the HIGGS-shaped ``rows`` table."""
+    X, y = higgs_like(rows)
+    fits = surface_fits(X, y, dev)
+    model = fits["model"]
+    leaf_and_shap_check(model, X, surface_split(rows), dev)
+    dump_check(model)
+    warm_start_check(model, fits["table"], dev)
+    fobj_and_resume_check(dev)
+    valid_curve_check(dev)
+    return fits
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -2490,6 +2888,11 @@ def main() -> int:
     log(f"[11] vision: DeepVisionClassifier({VISION_BACKBONE}) fine-tunes at "
         f"{VISION_SIZE}x{VISION_SIZE} on CIFAR-10-shaped images")
     vision_path(dev)
+    log(f"[12] estimator surface: validation and early stopping on "
+        f"{args.rows} rows, leaf indices, SHAP, dumpModel, warm start, "
+        "fobj, resume")
+    torch.cuda.empty_cache()
+    surface_path(args.rows, dev)
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},

@@ -2,10 +2,10 @@
 
 The part of the JAX package's ``core/logging.py`` that the GBDT path needs:
 ``InstrumentationMeasures`` (named phase spans, the LightGBMPerformance
-analog), ``StopWatch``, and the ``SynapseMLLogging`` mixin that every
-pipeline stage carries (construction and fit/transform records). Secret
-scrubbing and the failure counters of the JAX package are not ported: no
-payload logged here carries credentials.
+analog), ``StopWatch``, the ``SynapseMLLogging`` mixin that every
+pipeline stage carries (construction and fit/transform records), and the
+failure counters that checkpoint recovery increments (``record_failure``).
+Secret scrubbing is not ported: no payload logged here carries credentials.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import threading
 import time
 from typing import Any, Dict, Optional
 
@@ -120,3 +121,32 @@ class InstrumentationMeasures:
         out: Dict[str, Any] = dict(self.spans)
         out.update({f"count:{k}": v for k, v in self.counters.items()})
         return out
+
+
+# --- failure counters ---------------------------------------------------------
+
+_FAILURE_COUNTS: Dict[str, int] = {}
+_FAILURE_LOCK = threading.Lock()
+
+
+def record_failure(kind: str, n: int = 1, **detail: Any) -> None:
+    """Count one resilience event (dotted name, e.g. ``checkpoint.corrupt``)
+    and emit a structured DEBUG record carrying ``detail``."""
+    with _FAILURE_LOCK:
+        _FAILURE_COUNTS[kind] = _FAILURE_COUNTS.get(kind, 0) + n
+    if logger.isEnabledFor(logging.DEBUG):
+        payload = {"event": "failure", "kind": kind, "n": n,
+                   "protocolVersion": PROTOCOL_VERSION, **detail}
+        logger.debug(json.dumps(payload, default=str))
+
+
+def failure_counts() -> Dict[str, int]:
+    """Snapshot of all failure counters (a copy)."""
+    with _FAILURE_LOCK:
+        return dict(_FAILURE_COUNTS)
+
+
+def reset_failure_counts() -> None:
+    """Zero the counters (test isolation)."""
+    with _FAILURE_LOCK:
+        _FAILURE_COUNTS.clear()

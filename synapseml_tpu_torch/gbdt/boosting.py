@@ -3,22 +3,27 @@
 Counterpart of the JAX package's ``gbdt/boosting.py`` for the slice that is
 ported: plain gradient boosting (``boosting_type="gbdt"``) with every
 objective of ``objectives.py`` (binary, multiclass and multiclassova, the
-regression family, lambdarank over ``group_sizes``) on dense numeric data,
-grown leaf-wise (the partition row layout) or depthwise
-(``growth_policy="depthwise"``, one ``level_histograms`` pass per level).
+regression family, lambdarank over ``group_sizes``) or a custom ``fobj`` on
+dense numeric data, grown leaf-wise (the partition row layout) or depthwise
+(``growth_policy="depthwise"``, one ``level_histograms`` pass per level),
+with validation sets, early stopping, warm starts and checkpoint resume.
 ``train_booster`` is a plain Python loop over iterations: the gradients of
 all K classes once, then K trees in class order, each from its class's
-gradient row and each adding its leaves to its class's score column before
-the next; trees are stored iteration-major (``it * K + c``). These are the
-semantics of the JAX package's fused body; its ``lax.scan`` runner has no
-counterpart, since PyTorch runs eagerly.
+gradient row and each adding its leaves to its class's score column (and
+to the validation score) before the next; trees are stored
+iteration-major (``it * K + c``). These are the semantics of the JAX
+package's host loop; its fused ``lax.scan`` runner has no counterpart,
+since PyTorch runs eagerly, and gives the same trees and best iteration.
+
+``Booster`` scores with a prediction window (``num_iteration``,
+``start_iteration``), predicts leaf indices, computes TreeSHAP
+contributions (``shap.py``) and dumps LightGBM's text and JSON formats.
 
 ``BoosterConfig`` keeps every field name and default of the JAX config, so a
 config carries across unchanged. ``train_booster`` rejects every setting and
 argument the slice does not port with ``NotImplementedError`` naming it:
 sampling (bagging, GOSS, DART, RF, feature fractions), categorical features,
-monotone constraints, validation sets and early stopping, warm starts, custom
-objectives, meshes, checkpoints and sparse input.
+monotone constraints, meshes and sparse input.
 """
 
 from __future__ import annotations
@@ -34,11 +39,12 @@ from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..ops.quantize import (BinMapper, apply_bins, bin_threshold_to_value,
                             compute_bin_mapper)
 from .dataset import Dataset, _is_sparse
-from .grower import (Forest, GrowerConfig, TreeArrays, forest_max_depth,
-                     forest_predict, grow_tree, stack_trees, transpose_bins,
-                     trees_to_host)
-from .objectives import (Objective, get_objective, lambdarank_objective,
-                         make_grouped, regression_objective)
+from .grower import (Forest, GrowerConfig, TreeArrays, forest_leaves,
+                     forest_max_depth, forest_predict, grow_tree, stack_trees,
+                     transpose_bins, tree_leaves_binned, trees_to_host)
+from .objectives import (HIGHER_IS_BETTER, METRICS, Objective, get_objective,
+                         lambdarank_objective, make_grouped, map_at_k,
+                         metric_kwargs, ndcg_at_k, regression_objective)
 
 MULTICLASS = ("multiclass", "softmax", "multiclassova")
 
@@ -153,8 +159,6 @@ class BoosterConfig:
         check("feature_fraction_bynode", self.feature_fraction_bynode == 1.0)
         check("monotone_constraints",
               not any(self.monotone_constraints or ()))
-        check("early_stopping_round", self.early_stopping_round == 0)
-        check("start_iteration", self.start_iteration == 0)
         check("tree_learner", self.tree_learner not in ("voting", "feature"))
         check("partition_impl", self.partition_impl == "sort")
         check("row_layout", self.row_layout == "partition")
@@ -281,7 +285,14 @@ class Booster:
         return self._forest_cache
 
     # --- inference ------------------------------------------------------
-    def _raw_score_tensor(self, X) -> torch.Tensor:
+    def _window_start(self, start_iteration: Optional[int]) -> int:
+        if start_iteration is None:
+            start_iteration = getattr(self.config, "start_iteration", 0)
+        return max(int(start_iteration), 0)
+
+    def _raw_score_tensor(self, X, num_iteration: int = -1,
+                          start_iteration: Optional[int] = None
+                          ) -> torch.Tensor:
         k = self.models_per_iter
         X = torch.as_tensor(np.asarray(X, np.float32)).to(self.device)
         if X.dim() != 2:
@@ -292,20 +303,49 @@ class Booster:
             out = torch.zeros((X.shape[0], k), dtype=torch.float32,
                               device=self.device)
         else:
-            # (N, K): each class's trees summed in iteration order
+            # (N, K): each class's trees of the window summed in iteration
+            # order
             out = forest_predict(self.forest(), X, self._depth_cache,
-                                 num_class=k)
+                                 num_class=k,
+                                 start_iteration=self._window_start(
+                                     start_iteration),
+                                 num_iteration=num_iteration)
         out = out + base
         return out[:, 0] if k == 1 else out
 
-    def raw_score(self, X) -> np.ndarray:
-        """(N,) raw margin of the whole forest, (N, K) for K classes."""
-        return self._raw_score_tensor(X).cpu().numpy()
+    def raw_score(self, X, num_iteration: int = -1,
+                  start_iteration: Optional[int] = None) -> np.ndarray:
+        """(N,) raw margin, (N, K) for K classes. ``num_iteration`` > 0
+        scores with only that many boosting rounds; ``start_iteration``
+        (default: the config's prediction window) skips leading rounds.
+        Warm starts pass ``start_iteration=0``: the window is a prediction
+        feature and must not leak into a continued fit."""
+        return self._raw_score_tensor(X, num_iteration,
+                                      start_iteration).cpu().numpy()
 
-    def predict(self, X) -> np.ndarray:
+    def predict(self, X, num_iteration: int = -1) -> np.ndarray:
         """Probability / response-space prediction."""
         obj = self._objective_for_transform()
-        return obj.transform(self._raw_score_tensor(X)).cpu().numpy()
+        return obj.transform(self._raw_score_tensor(
+            X, num_iteration)).cpu().numpy()
+
+    def predict_leaf(self, X) -> np.ndarray:
+        """(N, T) int32 leaf index of every row in every tree after the
+        config's ``start_iteration`` window (predictLeaf), trees in the
+        order ``it * K + c``."""
+        X = torch.as_tensor(np.asarray(X, np.float32)).to(self.device)
+        start = self._window_start(None) * self.models_per_iter
+        if not self.trees:
+            return np.zeros((X.shape[0], 0), np.int32)
+        return forest_leaves(self.forest(), X, self._depth_cache,
+                             start_tree=start).cpu().numpy()
+
+    def feature_shap(self, X) -> np.ndarray:
+        """TreeSHAP contributions, (N, F+1) or (N, K*(F+1)) (host numpy,
+        ``shap.py``)."""
+        from .shap import forest_shap
+
+        return forest_shap(self, np.asarray(X, np.float32))
 
     def feature_importances(self, importance_type: str = "split") -> np.ndarray:
         """split count or total gain per feature."""
@@ -326,6 +366,12 @@ class Booster:
         return _objective(cfg, self.num_class)
 
     # --- persistence ----------------------------------------------------
+    def dump_model(self, num_iteration: int = -1) -> str:
+        """LightGBM-format JSON dump (dumpModel)."""
+        from .model_io import booster_dump_json
+
+        return booster_dump_json(self, num_iteration)
+
     def model_string(self) -> str:
         from .model_io import booster_to_string
         return booster_to_string(self)
@@ -383,7 +429,126 @@ def _reject_unported(config: BoosterConfig, **args) -> None:
         raise NotImplementedError(
             "not ported to the PyTorch package yet: " + ", ".join(bad)
             + " (the port trains gbdt boosting on dense numeric data, "
-            "without sampling, validation or warm start)")
+            "without sampling)")
+
+
+def _is_rank_metric(name: str) -> bool:
+    """ndcg/ndcg@k/map/map@k (not mape)."""
+    return name.split("@")[0] in ("ndcg", "map")
+
+
+def _default_metric(objective: str) -> str:
+    return {
+        "binary": "auc",
+        "multiclass": "multi_logloss",
+        "softmax": "multi_logloss",
+        "multiclassova": "multi_logloss",
+        "regression_l1": "mae",
+        "lambdarank": "ndcg@5",
+        # exp-family / robust objectives early-stop on their own loss
+        "poisson": "poisson",
+        "gamma": "gamma",
+        "tweedie": "tweedie",
+        "quantile": "quantile",
+        "huber": "huber",
+        "fair": "fair",
+        "mape": "mape",
+        "cross_entropy": "cross_entropy",
+        "xentropy": "cross_entropy",
+    }.get(objective, "rmse")
+
+
+def _metric_name(cfg: BoosterConfig) -> str:
+    """The validation metric: the config's, else the objective's default;
+    ndcg/map without a position take ``eval_at[0]`` (else
+    ``max_position``), the position early stopping tracks."""
+    name = cfg.metric or _default_metric(cfg.objective)
+    if name in ("ndcg", "map") or (cfg.metric is None
+                                   and name.startswith("ndcg")):
+        first_at = cfg.eval_at[0] if cfg.eval_at else cfg.max_position
+        name = f"{name.split('@')[0]}@{int(first_at)}"
+    if not _is_rank_metric(name) and name not in METRICS:
+        raise ValueError(f"unknown metric {name!r}; one of "
+                         f"{sorted(METRICS) + ['ndcg@k', 'map@k']}")
+    return name
+
+
+def _eval_metric(name, yv, pred_v, raw_v, gidx_v, cfg=None, wv=None):
+    """One validation metric value (a float32 scalar tensor); ``gidx_v``
+    is the ranking group index of the validation rows."""
+    if _is_rank_metric(name):
+        at = int(name.split("@")[1]) if "@" in name else 5
+        if name.startswith("map"):
+            return map_at_k(yv, raw_v[:, 0], gidx_v, at)
+        return ndcg_at_k(yv, raw_v[:, 0], gidx_v, at,
+                         cfg.label_gain if cfg is not None else ())
+    return METRICS[name](yv, pred_v, weight=wv, **metric_kwargs(cfg))
+
+
+def _train_fingerprint(cfg, n, nfeat, y, n_init_trees) -> str:
+    """Identity of a training run for resume: config, data shape, label
+    digest and warm-start length. A snapshot whose fingerprint differs
+    belongs to another run and is not resumed from."""
+    import hashlib
+    import zlib
+
+    h = hashlib.sha256()
+    h.update(repr(sorted(dataclasses.asdict(cfg).items())).encode())
+    h.update(repr((int(n), int(nfeat), int(n_init_trees),
+                   zlib.crc32(np.ascontiguousarray(
+                       np.asarray(y, np.float32)).tobytes()))).encode())
+    return h.hexdigest()
+
+
+def _ckpt_save_gbdt(store, iteration, payload, fingerprint, measures):
+    import pickle
+
+    with measures.span("checkpointSave"):
+        store.save(int(iteration),
+                   {"state.pkl": pickle.dumps(payload, protocol=4)},
+                   meta={"kind": "gbdt", "path": "host",
+                         "fingerprint": fingerprint})
+
+
+def _ckpt_load_gbdt(store, fingerprint):
+    """Newest verified snapshot of this run, or None (fresh start)."""
+    import pickle
+
+    from ..core.logging import record_failure
+
+    ckpt = store.load_latest()
+    if ckpt is None:
+        return None
+    if (ckpt.meta.get("kind") != "gbdt" or ckpt.meta.get("path") != "host"
+            or ckpt.meta.get("fingerprint") != fingerprint):
+        record_failure("checkpoint.fingerprint_mismatch", base=ckpt.base,
+                       ckpt_kind=ckpt.meta.get("kind"))
+        return None
+    return pickle.loads(ckpt.artifacts["state.pkl"])
+
+
+def _scores_of(booster: Booster, X, k: int, dev) -> torch.Tensor:
+    """(n, k) float32 raw score of a warm-start model on ``dev``, every
+    iteration counted (no prediction window)."""
+    raw = booster.raw_score(X, start_iteration=0)
+    return torch.as_tensor(np.asarray(raw, np.float32).reshape(
+        len(raw), k)).to(dev)
+
+
+def _custom_grad_hess(fobj, score, yj, wj, n: int, k: int):
+    """Call a custom objective and check what it returns."""
+    out = fobj(score[:, 0] if k == 1 else score, yj, wj)
+    if not (isinstance(out, (tuple, list)) and len(out) == 2):
+        raise ValueError("fobj must return a (grad, hess) pair")
+    res = []
+    for name, v in zip(("grad", "hess"), out):
+        v = torch.as_tensor(v)
+        if v.numel() != n * k:
+            raise ValueError(
+                f"fobj returned {name} of shape {tuple(v.shape)}; expected "
+                f"{n * k} values ({(n,) if k == 1 else (n, k)})")
+        res.append(v.to(device=score.device, dtype=torch.float32))
+    return res
 
 
 def train_booster(
@@ -408,23 +573,55 @@ def train_booster(
     device=DEFAULT_DEVICE,
 ) -> Booster:
     """Fit a forest on ``X`` (dense (N, F) floats or a :class:`Dataset`) and
-    labels ``y`` on ``device``. Arguments of the JAX signature that the port
-    does not implement must stay at their defaults (``NotImplementedError``
-    otherwise). ``Booster.metadata["host_syncs"]`` counts device→host reads
-    of the growth loop (the grower modules state how many a tree costs)."""
+    labels ``y`` on ``device``.
+
+    * ``valid=(Xv, yv)``, or ``(Xv, yv, wv_or_None, group_sizes_v)`` for
+      ranking metrics: binned with the training mapper; its score stays on
+      the device and each new tree adds to it through a binned traversal.
+      The metric (``config.metric``, else the objective's default) is read
+      once per iteration (one host sync, counted); ``best_iteration`` and
+      ``best_score`` keep the first best. With
+      ``config.early_stopping_round`` the fit stops once that many
+      iterations pass without an improvement above
+      ``config.improvement_tolerance``, and the trees after the best
+      iteration are dropped.
+    * ``init_model``: warm start. Its trees keep their thresholds and
+      missing types; the score starts from its raw score (every
+      iteration); ``best_iteration`` counts its iterations too.
+    * ``fobj(score, label, weight) -> (grad, hess)``: a custom objective.
+      It takes torch tensors on the fit device: score (N,) float32, or
+      (N, K) for K classes, the labels and the sample weights (N,); it
+      returns grad and hess of N (N*K) float32 values each. A wrong count
+      raises ``ValueError``.
+    * ``checkpoint_store`` (a :class:`CheckpointStore` or a directory):
+      a snapshot every ``checkpoint_every`` iterations (default 10) of the
+      trees, score, validation score and best metric; with ``resume`` a
+      rerun of the same call continues from the newest snapshot of the
+      same run.
+    * ``callbacks``: ``cb(iteration, trees)`` after each iteration.
+
+    Arguments of the JAX signature that the port does not implement
+    (``categorical_features``, ``mesh``, sparse input) must stay at their
+    defaults (``NotImplementedError`` otherwise).
+    ``Booster.metadata["host_syncs"]`` counts device→host reads of the
+    growth loop (the grower modules state how many a tree costs, plus one
+    per iteration for the validation metric)."""
     from ..core.logging import InstrumentationMeasures
 
     cfg = config
     _reject_unported(cfg, categorical_features=categorical_features,
-                     valid=valid, fobj=fobj,
-                     init_model=init_model, mesh=mesh,
-                     checkpoint_store=checkpoint_store,
-                     checkpoint_every=checkpoint_every or None,
-                     sparse_input=_is_sparse(X) or None)
+                     mesh=mesh, sparse_input=_is_sparse(X) or None)
     if measures is None:
         measures = InstrumentationMeasures()
     dev = resolve_device(device)
     fit_t0 = _time.perf_counter()
+    ckpt_store = checkpoint_store
+    if isinstance(ckpt_store, str):
+        from ..core.checkpoint import CheckpointStore
+
+        ckpt_store = CheckpointStore(ckpt_store)
+    if ckpt_store is not None and checkpoint_every <= 0:
+        checkpoint_every = 10
 
     binned = None
     if isinstance(X, Dataset):
@@ -432,14 +629,17 @@ def train_booster(
             y = X.label
         if sample_weight is None:
             sample_weight = X.weight
-        if mapper is None or mapper is X.mapper:
+        if (mapper is None or mapper is X.mapper) and init_model is None:
             mapper = X.mapper
             binned = X.binned.to(dev)
         else:
+            # another mapper, or a warm start (its model scores raw rows)
+            mapper = X.mapper if mapper is None else mapper
             X = X.X
             if X is None:
                 raise ValueError("Dataset was built with keep_raw=False; "
-                                 "binning under another mapper needs raw rows")
+                                 "binning under another mapper and warm "
+                                 "starts need raw rows")
         n_orig, nfeat = (X.shape if binned is None else binned.shape)
     else:
         X = np.asarray(X, np.float32)
@@ -483,24 +683,100 @@ def train_booster(
     wj = torch.as_tensor(w).to(dev)
     base = (np.atleast_1d(np.asarray(obj.init_score(yj, wj).cpu(), np.float64))
             if cfg.boost_from_average else np.zeros(max(k, 1)))
-    # (n, K): the base score of each class, plus init_score
-    score = torch.as_tensor(base[:k].astype(np.float32)).to(dev).repeat(
-        n_orig, 1)
+    trees: List[TreeArrays] = []
+    tree_weights: List[float] = []
+    init_thr = init_mt = None
+    if init_model is not None:
+        if init_model.models_per_iter != k:
+            raise ValueError(
+                f"init_model has {init_model.models_per_iter} trees per "
+                f"iteration, this config {k}")
+        # the init trees keep the thresholds and missing types of their
+        # own mapper (or their model string); new trees take None slots,
+        # resolved from this fit's mapper
+        trees = list(init_model.trees)
+        tree_weights = list(init_model.tree_weights)
+        base = init_model.base_score
+        init_thr = [init_model._thresholds(i) for i in range(len(trees))]
+        init_mt = [init_model._missing_types(i) for i in range(len(trees))]
+        score = _scores_of(init_model, X, k, dev)
+    else:
+        # (n, K): the base score of each class
+        score = torch.as_tensor(base[:k].astype(np.float32)).to(dev).repeat(
+            n_orig, 1)
     if init_score is not None:
         score = score + torch.as_tensor(
             np.asarray(init_score, np.float32).reshape(n_orig, -1)).to(dev)
+    n_init_trees = len(trees)
+
+    has_valid = valid is not None
+    if has_valid:
+        Xv = np.asarray(valid[0], np.float32)
+        yv = np.asarray(valid[1], np.float32)
+        nv = Xv.shape[0]
+        metric_name = _metric_name(cfg)
+        higher_better = metric_name.split("@")[0] in HIGHER_IS_BETTER
+        gidx_v = None
+        if _is_rank_metric(metric_name):
+            if len(valid) < 4:
+                raise ValueError("ranking validation requires "
+                                 "valid=(Xv, yv, wv_or_None, group_sizes_v)")
+            gidx_v = make_grouped(yv, valid[3])
+        with measures.span("dataPreparation"):
+            binned_v = apply_bins(mapper, Xv, dev)
+        nan_bins_v = torch.as_tensor(np.asarray(mapper.nan_bins, np.int64),
+                                     device=dev)
+        yv_j = torch.as_tensor(yv).to(dev)
+        # validation weights move to the device once
+        wv_j = (torch.as_tensor(np.asarray(valid[2], np.float32)).to(dev)
+                if len(valid) > 2 and valid[2] is not None else None)
+        score_v = (_scores_of(init_model, Xv, k, dev)
+                   if init_model is not None else
+                   torch.as_tensor(base[:k].astype(np.float32)).to(dev)
+                   .repeat(nv, 1))
+        best_metric, best_iter = None, -1
+        history: List[float] = []
 
     grower_cfg = cfg.grower()
     nan_bins = np.asarray(mapper.nan_bins, np.int32)
     feature_active = torch.ones(nfeat, dtype=torch.bool, device=dev)
     in_bag = torch.ones(n_orig, dtype=torch.float32, device=dev)
     stats = {"host_syncs": 0}
-    trees: List[TreeArrays] = []
+
+    start_it = 0
+    if ckpt_store is not None:
+        from ..core.checkpoint import CheckpointError, preemption_point
+
+        fingerprint = _train_fingerprint(cfg, n_orig, nfeat, y, n_init_trees)
+        state = _ckpt_load_gbdt(ckpt_store, fingerprint) if resume else None
+        if state is not None:
+            start_it = int(state["iteration"])
+            trees = list(state["trees"])
+            tree_weights = list(state["tree_weights"])
+            score = torch.as_tensor(state["score"]).to(dev)
+            if has_valid:
+                sv = np.asarray(state["score_v"], np.float32)
+                if sv.shape != tuple(score_v.shape):
+                    raise CheckpointError(
+                        f"validation score shape changed {sv.shape} -> "
+                        f"{tuple(score_v.shape)}; resume with the original "
+                        "validation set (or pass resume=False)")
+                score_v = torch.as_tensor(sv).to(dev)
+                best_metric = state["best_metric"]
+                best_iter = int(state["best_iter"])
+                history = list(state["history"])
+
+    done = start_it
     with measures.span("trainingIterations"):
-        for it in range(cfg.num_iterations):
+        for it in range(start_it, cfg.num_iterations):
+            if ckpt_store is not None:
+                preemption_point("gbdt.iteration", it)
             # every class's gradients once per iteration, as (K, n) rows so
             # that each tree reads a contiguous one
-            g, h = obj.grad_hess(score[:, 0] if k == 1 else score, yj, wj)
+            if fobj is not None:
+                g, h = _custom_grad_hess(fobj, score, yj, wj, n_orig, k)
+            else:
+                g, h = obj.grad_hess(score[:, 0] if k == 1 else score, yj, wj)
             g = g.reshape(n_orig, k).t().contiguous()
             h = h.reshape(n_orig, k).t().contiguous()
             for c in range(k):
@@ -509,15 +785,66 @@ def train_booster(
                                        nan_bins=nan_bins, bT0=bT, stats=stats)
                 score[:, c] += tree.leaf_value[node]
                 trees.append(tree)
+                tree_weights.append(1.0)
+                if has_valid:
+                    with measures.span("validation"):
+                        leaf_v = tree_leaves_binned(tree, binned_v,
+                                                    nan_bins_v)
+                        score_v[:, c] += tree.leaf_value[leaf_v]
+            done = it + 1
+            if has_valid:
+                with measures.span("validation"):
+                    raw_v = score_v
+                    pred_v = obj.transform(raw_v[:, 0] if k == 1 else raw_v)
+                    mval = float(_eval_metric(metric_name, yv_j, pred_v,
+                                              raw_v, gidx_v, cfg, wv_j))
+                stats["host_syncs"] += 1
+                history.append(mval)
+                tol = cfg.improvement_tolerance
+                if (best_metric is None
+                        or (mval > best_metric + tol if higher_better
+                            else mval < best_metric - tol)):
+                    best_metric, best_iter = mval, it
+                if (cfg.early_stopping_round > 0
+                        and it - best_iter >= cfg.early_stopping_round):
+                    # best_iter counts new iterations: keep every
+                    # warm-start tree
+                    cut = n_init_trees + (best_iter + 1) * k
+                    trees, tree_weights = trees[:cut], tree_weights[:cut]
+                    break
             if callbacks:
                 for cb in callbacks:
                     cb(it, trees)
+            if ckpt_store is not None and (it + 1) % checkpoint_every == 0:
+                trees = trees_to_host(trees)
+                payload = {"iteration": it + 1, "trees": trees,
+                           "tree_weights": list(tree_weights),
+                           "score": score.cpu().numpy()}
+                if has_valid:
+                    payload.update(score_v=score_v.cpu().numpy(),
+                                   best_metric=best_metric,
+                                   best_iter=best_iter, history=history)
+                _ckpt_save_gbdt(ckpt_store, it + 1, payload, fingerprint,
+                                measures)
         # one batched device→host transfer of every tree's leaf fields; it
         # waits for the device, so the span ends with the work done
         trees = trees_to_host(trees)
-    measures.count("iterations", cfg.num_iterations)
+    measures.count("iterations", done - start_it)
+    merged_thr = merged_mt = None
+    if init_thr is not None:
+        pad = [None] * max(len(trees) - len(init_thr), 0)
+        merged_thr = (init_thr + pad)[: len(trees)]
+        merged_mt = (init_mt + pad)[: len(trees)]
     metadata = {"host_syncs": stats["host_syncs"], "device": str(dev),
                 "observed_fit_s": round(_time.perf_counter() - fit_t0, 6),
                 "measures": measures.report()}
-    return Booster(mapper, cfg, trees, [1.0] * len(trees), base,
-                   feature_names, metadata=metadata, device=dev)
+    if has_valid:
+        metadata["valid_metric"] = {"name": metric_name, "values": history}
+    # best_iter counts new iterations; best_iteration addresses the whole
+    # returned forest, so warm-start iterations offset it
+    return Booster(mapper, cfg, trees, tree_weights, base, feature_names,
+                   best_iteration=(n_init_trees // max(k, 1) + best_iter
+                                   if has_valid else -1),
+                   thresholds=merged_thr, missing_types=merged_mt,
+                   best_score=(best_metric if has_valid else None),
+                   metadata=metadata, device=dev)

@@ -517,21 +517,43 @@ def _descend(forest: Forest, X: torch.Tensor, depth: int) -> torch.Tensor:
     return ~node
 
 
+def _tree_window(forest: Forest, t0: int, t1: int) -> Forest:
+    """Trees ``t0..t1-1`` of ``forest`` (views)."""
+    if t0 == 0 and t1 == forest.num_trees:
+        return forest
+    return Forest(*(a[t0:t1] for a in forest))
+
+
+def _chunk_rows(T: int, rows_per_chunk: Optional[int]) -> int:
+    """Rows per chunk, keeping a (rows, T) temporary near 16M elements."""
+    return rows_per_chunk or max(1, (1 << 24) // max(T, 1))
+
+
 def forest_predict(forest: Forest, X: torch.Tensor, depth: int,
                    rows_per_chunk: Optional[int] = None,
-                   num_class: int = 1) -> torch.Tensor:
+                   num_class: int = 1, start_iteration: int = 0,
+                   num_iteration: int = -1) -> torch.Tensor:
     """(N, num_class) float32 sum of tree outputs per row: tree ``t``
     belongs to class ``t % num_class`` (iteration-major order), and each
-    class sums its trees in iteration order (as the JAX scan does). Rows go
-    in chunks so the (rows, T) temporaries stay near 16M elements."""
-    T = forest.num_trees
-    L = forest.leaf_value.shape[1]
+    class sums its trees in iteration order (as the JAX scan does). Only
+    iterations ``start_iteration`` .. ``start_iteration + num_iteration - 1``
+    count (``num_iteration <= 0``: through the last). Rows go in chunks so
+    the (rows, T) temporaries stay near 16M elements."""
     k = num_class
+    t0 = min(max(int(start_iteration), 0) * k, forest.num_trees)
+    t1 = forest.num_trees
+    if num_iteration and num_iteration > 0:
+        t1 = min(t1, t0 + int(num_iteration) * k)
+    out = torch.zeros((X.shape[0], k), dtype=torch.float32, device=X.device)
+    if t1 <= t0:
+        return out
+    forest = _tree_window(forest, t0, t1)
+    T = t1 - t0
+    L = forest.leaf_value.shape[1]
     depth = max(int(depth), 1)
-    step = rows_per_chunk or max(1, (1 << 24) // max(T, 1))
+    step = _chunk_rows(T, rows_per_chunk)
     lv = forest.leaf_value.reshape(-1)
     tbase = (torch.arange(T, device=X.device) * L)[None, :]
-    out = torch.empty((X.shape[0], k), dtype=torch.float32, device=X.device)
     for s in range(0, X.shape[0], step):
         vals = lv[_descend(forest, X[s:s + step], depth) + tbase]   # (r, T)
         total = torch.zeros((vals.shape[0], k), dtype=torch.float32,
@@ -540,6 +562,50 @@ def forest_predict(forest: Forest, X: torch.Tensor, depth: int,
             total = total + vals[:, t:t + k]
         out[s:s + step] = total
     return out
+
+
+def forest_leaves(forest: Forest, X: torch.Tensor, depth: int,
+                  start_tree: int = 0) -> torch.Tensor:
+    """(N, T - start_tree) int32 leaf index of every row in trees
+    ``start_tree`` onward (predictLeaf), in row chunks."""
+    forest = _tree_window(forest, min(start_tree, forest.num_trees),
+                          forest.num_trees)
+    T = forest.num_trees
+    out = torch.empty((X.shape[0], T), dtype=torch.int32, device=X.device)
+    if T == 0:
+        return out
+    step = _chunk_rows(T, None)
+    for s in range(0, X.shape[0], step):
+        out[s:s + step] = _descend(forest, X[s:s + step],
+                                   max(int(depth), 1)).to(torch.int32)
+    return out
+
+
+def tree_leaves_binned(tree: TreeArrays, binned: torch.Tensor,
+                       nan_bins: torch.Tensor) -> torch.Tensor:
+    """(N,) leaf index of each binned row in one grown (numeric) tree: bin
+    ``> split_bin`` goes right, a row in its feature's NaN bin
+    (``nan_bins`` (F,) on ``binned``'s device) takes the split's default
+    side. The JAX package's ``_tree_assign_binned``; it scores validation
+    rows tree by tree."""
+    ns = int(tree.num_splits)
+    dev = binned.device
+    node = torch.zeros(binned.shape[0], dtype=torch.int64, device=dev)
+    if ns == 0:
+        return node
+    packed = torch.as_tensor(np.stack([
+        np.asarray(getattr(tree, f))[:ns].astype(np.int64)
+        for f in ("split_feature", "split_bin", "default_left",
+                  "left_child", "right_child")]), device=dev)
+    sf, sbin, dl, lc, rc = packed
+    for _ in range(forest_max_depth([tree])):
+        nd = torch.clamp_min(node, 0)
+        f = sf[nd]
+        xb = torch.gather(binned, 1, f[:, None])[:, 0].to(torch.int64)
+        go_right = torch.where(xb == nan_bins[f], dl[nd] == 0, xb > sbin[nd])
+        nxt = torch.where(go_right, rc[nd], lc[nd])
+        node = torch.where(node < 0, node, nxt)
+    return ~node
 
 
 def forest_max_depth(trees: list) -> int:

@@ -1,8 +1,9 @@
 """LightGBM-compatible model-string serialization.
 
 A copy of the JAX package's ``gbdt/model_io.py`` (numpy logic; the port
-imports nothing of that package), without the JSON dump. A forest trained by
-either package writes the same text, byte for byte, when its arrays agree.
+imports nothing of that package), with its JSON dump. A forest trained by
+either package writes the same text and the same JSON, byte for byte, when
+its arrays agree.
 
 The reference's model artifact IS the LightGBM text model string (saved via
 saveNativeModel, LightGBMBooster.scala:458-470; loaded into models at
@@ -416,3 +417,117 @@ def _collect_thr(parsed, L):
         pad[: min(len(a), size)] = a[:size]
         out.append(pad.astype(np.float32))
     return out
+
+
+# ---------------------------------------------------------------------------
+# JSON dump (LightGBMBooster.dumpModel parity — LightGBMBooster.scala:458-516)
+# ---------------------------------------------------------------------------
+
+def _tree_to_json(index: int, tree: TreeArrays, thresholds, weight: float,
+                  shrinkage: float, base_shift: float = 0.0,
+                  missing_types=None) -> dict:
+    ns = int(tree.num_splits)
+    sf = np.asarray(tree.split_feature)[:ns]
+    stype = np.asarray(tree.split_type)[:ns]
+    dleft = np.asarray(tree.default_left)[:ns]
+    thr = np.asarray(thresholds)[:ns].astype(np.float64)
+    lc = np.asarray(tree.left_child)[:ns]
+    rc = np.asarray(tree.right_child)[:ns]
+    # same base-score fold as the text serializer: LightGBM models carry no
+    # separate base score, so a dump consumer summing leaves must see it
+    lv = (np.asarray(tree.leaf_value).astype(np.float64) * weight + base_shift)
+    lw = np.asarray(tree.leaf_weight).astype(np.float64)
+    lcnt = np.asarray(tree.leaf_count)
+    gain = np.asarray(tree.split_gain).astype(np.float64)
+    iv = np.asarray(tree.internal_value).astype(np.float64)
+    icnt = np.asarray(tree.internal_count)
+    bits = np.asarray(tree.cat_bitset)[:ns]
+    mt = (np.asarray(missing_types, np.int64)[:ns]
+          if missing_types is not None and len(sf)
+          else np.zeros(len(sf), np.int64))
+
+    # dangling internal pointers (num_splits < num_leaves-1) clamp to leaf 0,
+    # exactly like the text serializer's fix_child
+    def fix_child(c):
+        return int(c) if (c < 0 or c < ns) else ~0
+
+    def leaf_node(leaf: int) -> dict:
+        return {"leaf_index": int(leaf), "leaf_value": float(lv[leaf]),
+                "leaf_weight": float(lw[leaf]), "leaf_count": int(lcnt[leaf])}
+
+    def internal_node(i: int) -> dict:
+        cat = bool(stype[i] == 1)
+        if cat:
+            # LightGBM JSON encodes the left-going category set as "a||b||c"
+            cats = [str(b) for b in range(bits.shape[1] * 32)
+                    if (int(bits[i][b >> 5]) >> (b & 31)) & 1]
+            threshold = "||".join(cats)
+        else:
+            threshold = float(thr[i])
+        return {
+            "split_index": int(i),
+            "split_feature": int(sf[i]),
+            "split_gain": float(gain[i]),
+            "threshold": threshold,
+            "decision_type": "==" if cat else "<=",
+            "default_left": bool(dleft[i]),
+            "missing_type": {0: "None", 1: "Zero", 2: "NaN"}.get(
+                int(mt[i]), "None"),
+            "internal_value": float(iv[i]),
+            "internal_weight": float(max(int(icnt[i]), 1)),
+            "internal_count": int(icnt[i]),
+        }
+
+    if ns == 0:
+        structure = leaf_node(0)
+    else:
+        # iterative build (deep skewed trees exceed Python's recursion limit)
+        structure = internal_node(0)
+        stack = [(structure, "left_child", fix_child(lc[0])),
+                 (structure, "right_child", fix_child(rc[0]))]
+        while stack:
+            parent, slot, child = stack.pop()
+            if child < 0:
+                parent[slot] = leaf_node(~child)
+            else:
+                nd = internal_node(child)
+                parent[slot] = nd
+                stack.append((nd, "left_child", fix_child(lc[child])))
+                stack.append((nd, "right_child", fix_child(rc[child])))
+
+    return {"tree_index": index,
+            "num_leaves": max(ns + 1, 1),
+            "num_cat": int((stype == 1).sum()),
+            "shrinkage": float(shrinkage),
+            "tree_structure": structure}
+
+
+def booster_dump_json(booster, num_iteration: int = -1) -> str:
+    """LightGBM-format JSON model dump (``dumpModel`` parity): the same
+    recursive ``tree_structure`` layout lightgbm's own dump_model emits,
+    including the base-score fold and "a||b" categorical thresholds. For rf
+    boosting, leaves are UNscaled and ``average_output`` is true — the
+    consumer averages, as with native dumps."""
+    import json
+
+    cfg = booster.config
+    mapper = booster.mapper
+    k = booster.models_per_iter
+    tree_info = [
+        _tree_to_json(i, t, thr, w, cfg.learning_rate, base_shift,
+                      booster._missing_types(i))
+        for i, t, thr, w, base_shift in _tree_dump_seq(booster, num_iteration)]
+    doc = {
+        "name": "tree",
+        "version": "v3",
+        "num_class": booster.num_class if k > 1 else 1,
+        "num_tree_per_iteration": k,
+        "label_index": 0,
+        "max_feature_idx": (mapper.num_features - 1) if mapper else 0,
+        "objective": _objective_string(cfg),
+        "average_output": bool(booster.average_output),
+        "feature_names": list(booster.feature_names),
+        "monotone_constraints": list(cfg.monotone_constraints or []),
+        "tree_info": tree_info,
+    }
+    return json.dumps(doc)

@@ -40,6 +40,15 @@ def _average(y, w):
     return (y * w).sum() / w.sum()
 
 
+def _sigmoid_out(x: torch.Tensor) -> torch.Tensor:
+    """The output transform's sigmoid: computed in float64 and rounded to
+    float32, so equal raw scores give equal probabilities wherever they sit
+    in the tensor (torch's CPU kernel takes another route for the tail of
+    its vector loop, an ulp away, and an ulp splits a tie of raw scores
+    that AUC counts as one)."""
+    return torch.sigmoid(x.to(torch.float64)).to(torch.float32)
+
+
 def binary_objective(sigmoid: float = 1.0) -> Objective:
     s = sigmoid
 
@@ -53,7 +62,7 @@ def binary_objective(sigmoid: float = 1.0) -> Objective:
         p = torch.clamp(_average(y, w), 1e-12, 1 - 1e-12)
         return torch.log(p / (1 - p)) / s
 
-    return Objective("binary", 1, gh, init, lambda sc: torch.sigmoid(s * sc))
+    return Objective("binary", 1, gh, init, lambda sc: _sigmoid_out(s * sc))
 
 
 def _class_counts(y, w, num_class: int):
@@ -104,7 +113,7 @@ def multiclassova_objective(num_class: int, sigmoid: float = 1.0) -> Objective:
     # LightGBM MulticlassOVA::ConvertOutput: per-class sigmoid, no
     # normalization (each class is an independent binary problem)
     return Objective("multiclassova", num_class, gh, init,
-                     lambda sc: torch.sigmoid(s * sc))
+                     lambda sc: _sigmoid_out(s * sc))
 
 
 def regression_objective() -> Objective:

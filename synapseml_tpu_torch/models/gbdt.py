@@ -4,14 +4,19 @@ port's engine.
 Counterpart of the JAX package's ``models/gbdt.py`` for the ported slice:
 binary and multiclass classification, regression with every LightGBM
 regression objective, and LambdaRank ranking, with plain gradient boosting
-on dense numeric data. camelCase param names match the reference so code
-ports 1:1. A param of the JAX estimators that the slice does not implement
-(sampling, DART, GOSS, categorical and monotone features, validation, the
-metric and early stopping, warm starts, custom objectives, leaf and SHAP
-outputs, the distributed learners) is not declared here; passing one raises
-``NotImplementedError`` naming it, and so do ``numBatches > 1`` and a
-``boostingType`` other than ``gbdt``. The Spark/JNI plumbing params stay
-accepted as no-ops, as in the JAX package.
+on dense numeric data; validation rows (``validationIndicatorCol``) with
+the metric and early stopping, warm starts (``modelString``, and
+``numBatches`` sequential batches each warm-started from the last), custom
+objectives (``fobj``), the prediction window (``startIteration``) and the
+leaf-index and SHAP output columns. camelCase param names match the
+reference so code ports 1:1. A param of the JAX estimators that the slice
+does not implement (sampling, DART, GOSS, categorical and monotone
+features, the distributed learners) is not declared here; passing one
+raises ``NotImplementedError`` naming it, and so does a ``boostingType``
+other than ``gbdt``. The JAX ranker takes ``modelString`` and
+``numBatches`` but does not use them; the port's ranker refuses them
+instead. The Spark/JNI plumbing params stay accepted as no-ops, as in the
+JAX package.
 
 ``device`` (default ``"cuda"``) is where the booster trains and scores; a
 missing card raises rather than falling back to the CPU.
@@ -26,8 +31,8 @@ import numpy as np
 
 from ..core import (Estimator, HasFeaturesCol, HasGroupCol, HasInitScoreCol,
                     HasLabelCol, HasPredictionCol, HasProbabilityCol,
-                    HasRawPredictionCol, HasWeightCol, Model, Param, Table,
-                    feature_matrix)
+                    HasRawPredictionCol, HasValidationIndicatorCol,
+                    HasWeightCol, Model, Param, Table, feature_matrix)
 from ..core.device import DEFAULT_DEVICE
 from ..gbdt.boosting import Booster, BoosterConfig, train_booster
 
@@ -40,9 +45,7 @@ UNPORTED_PARAMS = frozenset({
     "monotoneConstraints", "monotoneConstraintsMethod", "monotonePenalty",
     "categoricalSlotIndexes", "categoricalSlotNames", "catSmooth",
     "maxCatThreshold", "catl2", "maxCatToOnehot", "minDataPerGroup",
-    "earlyStoppingRound", "improvementTolerance", "metric",
-    "validationIndicatorCol", "modelString", "fobj", "startIteration",
-    "leafPredictionCol", "featuresShapCol", "topK", "parallelism",
+    "topK", "parallelism",
 })
 
 
@@ -59,7 +62,8 @@ class _DeviceParam:
 
 
 class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
-                      HasInitScoreCol, HasPredictionCol, _DeviceParam):
+                      HasValidationIndicatorCol, HasInitScoreCol,
+                      HasPredictionCol, _DeviceParam):
     # core boosting params (defaults = LightGBM defaults, as in the reference)
     numIterations = Param("numIterations", "Number of boosting iterations", int, 100)
     learningRate = Param("learningRate", "Shrinkage rate", float, 0.1)
@@ -74,15 +78,22 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
     minSumHessianInLeaf = Param("minSumHessianInLeaf", "Min hessian sum per leaf", float, 1e-3)
     minGainToSplit = Param("minGainToSplit", "Min gain to perform a split", float, 0.0)
     maxDeltaStep = Param("maxDeltaStep", "Max absolute leaf output", float, 0.0)
+    earlyStoppingRound = Param("earlyStoppingRound", "Early stopping patience (0=off)", int, 0)
+    improvementTolerance = Param("improvementTolerance", "Min metric improvement", float, 0.0)
+    metric = Param("metric", "Eval metric for validation", str)
     slotNames = Param("slotNames", "Feature names", list)
     seed = Param("seed", "Main random seed", int, 0)
     objectiveSeed = Param("objectiveSeed", "Objective seed", int, 5)
     dataRandomSeed = Param("dataRandomSeed", "Data random seed", int, 1)
     boostFromAverage = Param("boostFromAverage", "Initialize score to label average", bool, True)
-    numBatches = Param("numBatches", "Sequential warm-started batches "
-                       "(values above 1 are not ported)", int, 0)
+    numBatches = Param("numBatches", "Split training into N sequential "
+                       "warm-started batches", int, 0)
+    modelString = Param("modelString", "Initial model string to continue "
+                        "training from", str)
     binSampleCount = Param("binSampleCount", "Rows sampled for bin boundaries", int, 200000)
     verbosity = Param("verbosity", "Verbosity", int, -1)
+    leafPredictionCol = Param("leafPredictionCol", "Output column for leaf indices", str)
+    featuresShapCol = Param("featuresShapCol", "Output column for SHAP values", str)
     predictDisableShapeCheck = Param("predictDisableShapeCheck", "Disable shape check at predict", bool, False)
     passThroughArgs = Param("passThroughArgs", "Raw LightGBM-style 'key=value' args overriding params", str)
     # Spark/JNI-plumbing compat no-ops (as in the JAX package)
@@ -116,6 +127,11 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                              is_complex=True)
     useMissing = Param("useMissing", "Handle missing values specially", bool, True)
     zeroAsMissing = Param("zeroAsMissing", "Treat zero as missing", bool, False)
+    startIteration = Param("startIteration", "First boosting round used at "
+                           "prediction time", int, 0)
+    fobj = Param("fobj", "Custom objective: fn(score, label, weight) -> "
+                 "(grad, hess), torch tensors on the fit device (see "
+                 "gbdt.train_booster)", is_complex=True)
 
     def set(self, name: str, value) -> "_LightGBMParams":
         _reject_unported([name])
@@ -154,6 +170,10 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             min_sum_hessian_in_leaf=self.getMinSumHessianInLeaf(),
             min_gain_to_split=self.getMinGainToSplit(),
             max_delta_step=self.getMaxDeltaStep(),
+            early_stopping_round=self.getEarlyStoppingRound(),
+            metric=self.get("metric"),
+            improvement_tolerance=self.getImprovementTolerance(),
+            start_iteration=self.getStartIteration(),
             seed=self.getSeed(),
             boost_from_average=self.getBoostFromAverage(),
             bin_sample_count=(self.getSamplingSubsetSize()
@@ -210,33 +230,56 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                 if self.get("initScoreCol") and self.get("initScoreCol") in df else None)
         return X, y, w, init
 
-    def _train(self, X, y, w, init, cfg, **kw) -> Booster:
-        """One ``train_booster`` fit on the estimator's device, its phase
-        spans logged as ``trainingMeasures``."""
+    def _split_validation(self, df: Table):
+        """(training rows, validation rows or None) by the
+        ``validationIndicatorCol`` flag."""
+        vcol = self.get("validationIndicatorCol")
+        if vcol and vcol in df:
+            mask = np.asarray(df[vcol], bool)
+            return df.filter(~mask), df.filter(mask)
+        return df, None
+
+    def _train(self, X, y, w, init, cfg, valid=None, **kw) -> Booster:
+        """``train_booster`` on the estimator's device, warm-started from
+        ``modelString`` and split into ``numBatches`` sequential batches
+        (a permutation of the rows from ``seed``; each batch bins with its
+        own mapper and warm-starts from the last), the phase spans logged
+        as ``trainingMeasures``."""
         from ..core.logging import InstrumentationMeasures
 
-        if self.getNumBatches() > 1:
-            raise NotImplementedError(
-                f"numBatches={self.getNumBatches()} is not ported to the "
-                "PyTorch package yet (warm-started batches)")
         measures = InstrumentationMeasures()
-        booster = train_booster(X, y, cfg, sample_weight=w, init_score=init,
+        dev = self.getDevice()
+        bst = (Booster.from_model_string(self.get("modelString"), device=dev)
+               if self.get("modelString") else None)
+        nb = self.getNumBatches()
+        parts = (np.array_split(np.random.default_rng(
+            self.getSeed()).permutation(len(y)), nb)
+            if nb and nb > 1 else [slice(None)])
+        for part in parts:
+            def pick(a, part=part):
+                return None if a is None else a[part]
+
+            bst = train_booster(pick(X), pick(y), cfg,
+                                sample_weight=pick(w), init_score=pick(init),
+                                valid=valid,
                                 feature_names=self.get("slotNames"),
-                                mapper=self._reference_mapper(X),
-                                measures=measures, device=self.getDevice(),
-                                **kw)
+                                init_model=bst, fobj=self.get("fobj"),
+                                mapper=self._reference_mapper(pick(X)),
+                                measures=measures, device=dev, **kw)
         self._log_base("trainingMeasures", measures.report())
-        return booster
+        return bst
 
     def _copy_model_params(self, model) -> None:
         for p in ("featuresCol", "predictionCol", "probabilityCol",
-                  "rawPredictionCol", "thresholds", "predictDisableShapeCheck",
-                  "device"):
+                  "rawPredictionCol", "leafPredictionCol", "featuresShapCol",
+                  "thresholds", "predictDisableShapeCheck", "device"):
             if self.hasParam(p) and model.hasParam(p) and self.isSet(p):
                 model.set(p, self.get(p))
 
 
 class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol, _DeviceParam):
+    leafPredictionCol = Param("leafPredictionCol", "Output column for leaf indices", str)
+    featuresShapCol = Param("featuresShapCol", "Output column for SHAP values", str)
     predictDisableShapeCheck = Param(
         "predictDisableShapeCheck",
         "Truncate/pad prediction features to the trained width instead of "
@@ -258,6 +301,10 @@ class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol, _DeviceParam):
                 self.booster = Booster.from_model_string(
                     fh.read(), device=self.getDevice())
 
+    def dumpModel(self, num_iteration: int = -1) -> str:
+        """JSON model dump (dumpModel)."""
+        return self.booster.dump_model(num_iteration)
+
     def saveNativeModel(self, path: str, overwrite: bool = True) -> None:
         """LightGBMModelMethods.saveNativeModel parity."""
         if os.path.exists(path) and not overwrite:
@@ -265,7 +312,12 @@ class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol, _DeviceParam):
         self.booster.save_native(path)
 
     def getBoosterBestIteration(self) -> int:
+        """Best validation iteration (-1 without validation)."""
         return int(self.booster.best_iteration)
+
+    def getBoosterBestScore(self):
+        """Best validation metric value (None without validation)."""
+        return self.booster.best_score
 
     def getBoosterNumTotalIterations(self) -> int:
         return self.booster.num_trees // self.booster.models_per_iter
@@ -285,6 +337,9 @@ class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol, _DeviceParam):
     def getFeatureImportances(self, importance_type: str = "split"):
         return list(self.booster.feature_importances(importance_type))
 
+    def getFeatureShaps(self, X) -> np.ndarray:
+        return self.booster.feature_shap(np.asarray(X, np.float32))
+
     def _predict_matrix(self, df: Table) -> np.ndarray:
         """Feature matrix for prediction, validated against the trained
         width; predictDisableShapeCheck=True truncates / zero-pads instead."""
@@ -303,6 +358,17 @@ class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol, _DeviceParam):
                     [X, np.zeros((X.shape[0], nf - X.shape[1]),
                                  X.dtype)], axis=1)
         return X
+
+    def _maybe_extra_cols(self, out: Table, X) -> Table:
+        """The leaf-index and SHAP columns, when their params are set."""
+        if self.get("leafPredictionCol"):
+            out = out.with_column(
+                self.get("leafPredictionCol"),
+                self.booster.predict_leaf(X).astype(np.float64))
+        if self.get("featuresShapCol"):
+            out = out.with_column(self.get("featuresShapCol"),
+                                  self.booster.feature_shap(X))
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +393,8 @@ class LightGBMClassifier(Estimator, _LightGBMParams, HasProbabilityCol, HasRawPr
         super().__init__(**kwargs)
 
     def _fit(self, df: Table) -> "LightGBMClassificationModel":
-        X, y, w, init = self._extract_training_arrays(df)
+        train_df, valid_df = self._split_validation(df)
+        X, y, w, init = self._extract_training_arrays(train_df)
         # map arbitrary label values to 0..K-1; the model maps predictions
         # back through classes_
         classes, y_idx = np.unique(y, return_inverse=True)
@@ -355,7 +422,12 @@ class LightGBMClassifier(Estimator, _LightGBMParams, HasProbabilityCol, HasRawPr
             w = (w if w is not None else np.ones_like(y)) * np.where(
                 y > 0, self.getScalePosWeight(), 1.0)
 
-        model = LightGBMClassificationModel(self._train(X, y, w, init, cfg))
+        valid = None
+        if valid_df is not None and valid_df.num_rows:
+            Xv, yv, _, _ = self._extract_training_arrays(valid_df)
+            valid = (Xv, np.searchsorted(classes, yv).astype(np.float32))
+        model = LightGBMClassificationModel(
+            self._train(X, y, w, init, cfg, valid))
         model.classes_ = classes.astype(np.float64)
         self._copy_model_params(model)
         return model
@@ -382,7 +454,8 @@ class LightGBMClassificationModel(_LightGBMModelBase, HasProbabilityCol, HasRawP
         pred = np.argmax(scaled, 1)
         if self.classes_ is not None:
             pred = np.asarray(self.classes_)[pred]
-        return out.with_column(self.getPredictionCol(), pred.astype(np.float64))
+        out = out.with_column(self.getPredictionCol(), pred.astype(np.float64))
+        return self._maybe_extra_cols(out, X)
 
     def _save_extra(self, path: str) -> None:
         super()._save_extra(path)
@@ -414,11 +487,16 @@ class LightGBMRegressor(Estimator, _LightGBMParams):
         super().__init__(**kwargs)
 
     def _fit(self, df: Table) -> "LightGBMRegressionModel":
-        X, y, w, init = self._extract_training_arrays(df)
+        train_df, valid_df = self._split_validation(df)
+        X, y, w, init = self._extract_training_arrays(train_df)
         cfg = self._base_config(objective=self.getObjective(),
                                 alpha=self.getAlpha(),
                                 tweedie_variance_power=self.getTweedieVariancePower())
-        model = LightGBMRegressionModel(self._train(X, y, w, init, cfg))
+        valid = None
+        if valid_df is not None and valid_df.num_rows:
+            Xv, yv, _, _ = self._extract_training_arrays(valid_df)
+            valid = (Xv, yv)
+        model = LightGBMRegressionModel(self._train(X, y, w, init, cfg, valid))
         self._copy_model_params(model)
         return model
 
@@ -426,8 +504,9 @@ class LightGBMRegressor(Estimator, _LightGBMParams):
 class LightGBMRegressionModel(_LightGBMModelBase):
     def _transform(self, df: Table) -> Table:
         X = self._predict_matrix(df)
-        return df.with_column(self.getPredictionCol(),
-                              self.booster.predict(X).astype(np.float64))
+        out = df.with_column(self.getPredictionCol(),
+                             self.booster.predict(X).astype(np.float64))
+        return self._maybe_extra_cols(out, X)
 
 
 # ---------------------------------------------------------------------------
@@ -449,15 +528,26 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
         super().__init__(**kwargs)
 
     def _fit(self, df: Table) -> "LightGBMRankerModel":
+        if self.get("modelString") or self.getNumBatches() > 1:
+            raise NotImplementedError(
+                "LightGBMRanker does not warm-start (modelString) or fit in "
+                "batches (numBatches > 1)")
+        train_df, valid_df = self._split_validation(df)
         gcol = self.getGroupCol()
-        df = df.sort_by(gcol)                  # group-contiguous layout
-        X, y, w, init = self._extract_training_arrays(df)
-        _, sizes = np.unique(np.asarray(df[gcol]), return_counts=True)
+        train_df = train_df.sort_by(gcol)      # group-contiguous layout
+        X, y, w, init = self._extract_training_arrays(train_df)
+        _, sizes = np.unique(np.asarray(train_df[gcol]), return_counts=True)
         cfg = self._base_config(objective="lambdarank",
                                 lambdarank_truncation_level=self.getMaxPosition(),
                                 eval_at=tuple(self.getEvalAt()),
                                 label_gain=tuple(self.get("labelGain") or ()))
-        model = LightGBMRankerModel(self._train(X, y, w, init, cfg,
+        valid = None
+        if valid_df is not None and valid_df.num_rows:
+            valid_df = valid_df.sort_by(gcol)
+            Xv, yv, _, _ = self._extract_training_arrays(valid_df)
+            _, sv = np.unique(np.asarray(valid_df[gcol]), return_counts=True)
+            valid = (Xv, yv, None, sv)
+        model = LightGBMRankerModel(self._train(X, y, w, init, cfg, valid,
                                                 group_sizes=sizes))
         self._copy_model_params(model)
         return model
@@ -466,5 +556,6 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
 class LightGBMRankerModel(_LightGBMModelBase):
     def _transform(self, df: Table) -> Table:
         X = self._predict_matrix(df)
-        return df.with_column(self.getPredictionCol(),
-                              self.booster.predict(X).astype(np.float64))
+        out = df.with_column(self.getPredictionCol(),
+                             self.booster.predict(X).astype(np.float64))
+        return self._maybe_extra_cols(out, X)

@@ -18,6 +18,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
 from synapseml_tpu_torch.ops import hist_kernel as hk  # noqa: E402
+from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)  # noqa: E402
 
 
 def test_attention_bound_float32_is_3xtf32_on_the_tensor_cores():
@@ -392,6 +393,46 @@ def test_family_phases_run_on_the_plain_versions(no_timing, monkeypatch):
             monkeypatch.setattr(mod, name, counted)
     cs.family_full_width(3000, "cpu")
     cs.family_cross_check("cpu")
+
+
+def _count_grower_launches(monkeypatch):
+    """Wrap the grower modules' kernel names with counting stand-ins (the
+    plain versions launch nothing)."""
+    from synapseml_tpu_torch.gbdt import grower, grower_depthwise
+
+    for mod, names in ((grower, ("child_histogram", "range_histogram")),
+                       (grower_depthwise, ("level_histograms",))):
+        for name in names:
+            def counted(*a, _f=getattr(mod, name), _n=name, **k):
+                hk.LAUNCHES[_n] += 1
+                return _f(*a, **k)
+            monkeypatch.setattr(mod, name, counted)
+
+
+def test_surface_phase_runs_on_the_plain_versions(monkeypatch):
+    """Phase 12 on the CPU at small sizes: without launches the first fit's
+    check refuses the run; with counting stand-ins every step passes (the
+    card-against-CPU curve is CPU against CPU here), and a best score moved
+    off the AUC of the forest it names is refused."""
+    monkeypatch.setattr(cs, "SURFACE_ITERS", 30)
+    monkeypatch.setattr(cs, "SURFACE_ESR", 3)
+    monkeypatch.setattr(cs, "SURFACE_SHAP_ROWS", 8)
+    monkeypatch.setattr(cs, "SURFACE_WARM_ITERS", 2)
+    monkeypatch.setattr(cs, "SURFACE_SMALL_ROWS", 1500)
+    monkeypatch.setattr(cs, "SURFACE_SMALL_ITERS", 8)
+    with pytest.raises(AssertionError, match="never launched"):
+        cs.surface_path(3000, "cpu")
+    _count_grower_launches(monkeypatch)
+    fits = cs.surface_path(3000, "cpu")
+    booster = fits["depthwise"]["booster"]
+    assert fits["leafwise"]["launches"]["range_histogram"] > 0
+    assert booster.num_trees <= cs.SURFACE_ITERS
+    X, y = cs.higgs_like(3000)
+    Xv, yv = X[-cs.surface_split(3000):], y[-cs.surface_split(3000):]
+    booster.best_score += 1e-4
+    with pytest.raises(AssertionError, match="best_score"):
+        cs.check_early_stop("moved", booster, Xv, yv, "cpu",
+                            cs.SURFACE_ITERS)
 
 
 def test_vision_flops_match_a_hand_count():

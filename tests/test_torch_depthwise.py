@@ -32,6 +32,7 @@ from synapseml_tpu_torch.gbdt import boosting as tboost
 from synapseml_tpu_torch.gbdt import grower as tgrower
 from synapseml_tpu_torch.gbdt import objectives as tobj
 from synapseml_tpu_torch.ops import hist_kernel as thk
+from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)
 
 from test_torch_gbdt import _higgs_like, _tree_struct
 

@@ -40,6 +40,7 @@ from synapseml_tpu_torch.gbdt import grower as tgrower
 from synapseml_tpu_torch.gbdt import objectives as tobj
 from synapseml_tpu_torch.models import LightGBMClassifier
 from synapseml_tpu_torch.ops import quantize as tq
+from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "synapseml_tpu_torch"
@@ -274,8 +275,7 @@ def test_cuda_fit_matches_reference(data, tables, cuda):
     ("boosting_type", "goss"), ("boosting_type", "rf"),
     ("bagging_fraction", 0.5), ("bagging_freq", 1),
     ("feature_fraction", 0.8), ("monotone_constraints", [1] + [0] * 27),
-    ("early_stopping_round", 5), ("row_layout", "masked"),
-    ("feature_fraction_bynode", 0.5),
+    ("row_layout", "masked"), ("feature_fraction_bynode", 0.5),
 ])
 def test_train_booster_rejects_unported_config(data, field, value):
     X, y = data
@@ -286,8 +286,7 @@ def test_train_booster_rejects_unported_config(data, field, value):
 
 
 @pytest.mark.parametrize("arg,value", [
-    ("categorical_features", [0]), ("valid", "v"), ("fobj", len),
-    ("init_model", "m"), ("mesh", "mesh"), ("checkpoint_store", "dir"),
+    ("categorical_features", [0]), ("mesh", "mesh"),
 ])
 def test_train_booster_rejects_unported_arguments(data, arg, value):
     X, y = data
@@ -295,6 +294,44 @@ def test_train_booster_rejects_unported_arguments(data, arg, value):
     with pytest.raises(NotImplementedError, match=arg):
         tboost.train_booster(X[:256], y[:256], cfg, device=CPU,
                              **{arg: value})
+
+
+@pytest.mark.parametrize("arg", ["early_stopping_round", "valid", "fobj",
+                                 "init_model", "checkpoint_store"])
+def test_train_booster_takes_what_it_once_refused(data, arg, tmp_path):
+    X, y = data
+    Xt, yt, valid = X[:512], y[:512], (X[512:768], y[512:768])
+    cfg = tboost.BoosterConfig(objective="binary", num_iterations=3,
+                               num_leaves=7)
+    kw = {}
+    if arg == "early_stopping_round":
+        cfg.early_stopping_round, cfg.learning_rate = 1, 1.0
+        kw["valid"] = valid
+    elif arg == "valid":
+        kw["valid"] = valid
+    elif arg == "fobj":
+        def logistic(score, label, weight):
+            p = torch.sigmoid(score)
+            return (p - label) * weight, p * (1 - p) * weight
+        kw["fobj"] = logistic
+    elif arg == "init_model":
+        kw["init_model"] = tboost.train_booster(Xt, yt, cfg, device=CPU)
+    else:
+        kw.update(checkpoint_store=str(tmp_path), checkpoint_every=1)
+    booster = tboost.train_booster(Xt, yt, cfg, device=CPU, **kw)
+    if arg == "early_stopping_round":
+        assert booster.num_trees == booster.best_iteration + 1
+    elif arg == "valid":
+        assert booster.best_iteration >= 0 and booster.best_score > 0.5
+    elif arg == "fobj":
+        plain = tboost.train_booster(Xt, yt, cfg, device=CPU)
+        assert [_tree_struct(t) for t in booster.trees] \
+            == [_tree_struct(t) for t in plain.trees]
+    elif arg == "init_model":
+        assert booster.num_trees == 6
+    else:
+        from synapseml_tpu_torch.core.checkpoint import CheckpointStore
+        assert CheckpointStore(str(tmp_path)).latest_step() == 3
 
 
 def test_sparse_input_is_rejected(data):
@@ -314,15 +351,16 @@ def test_classifier_rejects_unported_params(data):
     # every param of the JAX estimator is either ported or rejected
     from synapseml_tpu_torch.models.gbdt import UNPORTED_PARAMS
     assert jparams - tparams == set(UNPORTED_PARAMS)
-    for name, value in (("baggingFraction", 0.5), ("modelString", "tree"),
-                        ("validationIndicatorCol", "v"), ("fobj", len)):
+    for name, value in (("baggingFraction", 0.5), ("featureFraction", 0.8),
+                        ("categoricalSlotIndexes", [0]), ("dropRate", 0.2)):
         with pytest.raises(NotImplementedError, match=name):
             LightGBMClassifier(**{name: value})
         with pytest.raises(NotImplementedError, match=name):
             LightGBMClassifier(device=CPU).set(name, value)
     t = assemble_features(Table({"a": X[:256, 0], "b": X[:256, 1],
                                  "label": y[:256]}), ["a", "b"])
-    for params in ({"numBatches": 2}, {"boostingType": "dart"}):
+    for params in ({"passThroughArgs": "bagging_fraction=0.5"},
+                   {"boostingType": "dart"}):
         with pytest.raises(NotImplementedError):
             LightGBMClassifier(device=CPU, numIterations=1, **params).fit(t)
 

@@ -33,6 +33,7 @@ from synapseml_tpu_torch.core import PipelineStage, Table, assemble_features
 from synapseml_tpu_torch.gbdt import boosting as tboost
 from synapseml_tpu_torch.models import (LightGBMClassifier, LightGBMRanker,
                                         LightGBMRegressor)
+from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)
 
 CPU = "cpu"
 N, F = 2000, 6
@@ -290,8 +291,8 @@ def test_estimators_refuse_unported_params_by_name(cls, jcls):
     # every param of the JAX estimator is either ported or refused by name
     assert set(jcls()._params) - set(cls(device=CPU)._params) \
         == set(UNPORTED_PARAMS)
-    for name, value in (("metric", "l2"), ("earlyStoppingRound", 5),
-                        ("validationIndicatorCol", "v")):
+    for name, value in (("featureFraction", 0.8),
+                        ("categoricalSlotIndexes", [0]), ("dropRate", 0.2)):
         with pytest.raises(NotImplementedError, match=name):
             cls(**{name: value})
         with pytest.raises(NotImplementedError, match=name):

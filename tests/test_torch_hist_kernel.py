@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from synapseml_tpu.ops import hist_kernel as jhk
 from synapseml_tpu_torch.ops import hist_kernel as thk
+from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)
 
 RTOL, ATOL = 1e-5, 1e-4
 

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from synapseml_tpu.gbdt import objectives as jobj
 from synapseml_tpu_torch.gbdt import objectives as tobj
+from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)
 
 RTOL, ATOL = 1e-6, 1e-7
 INIT_ATOL = 2e-6
