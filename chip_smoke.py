@@ -135,7 +135,7 @@ Phases, each of which fails the run if it fails:
 12. the rest of the GBDT estimator surface, on the HIGGS-shaped ``--rows``
    table with its last min(500,000, rows / 4) rows flagged in an ``isVal``
    column (HIGGS's published split keeps its last 500,000 of 11,000,000
-   rows as the test set): ``LightGBMClassifier(numIterations=300,
+   rows as the test set): ``LightGBMClassifier(numIterations=150,
    learningRate=0.1, numLeaves=31, maxBin=255, earlyStoppingRound=20,
    metric="auc", validationIndicatorCol="isVal")``, then the same fit
    depthwise through ``train_booster(valid=...)``; counts zeroed just
@@ -158,6 +158,35 @@ Phases, each of which fails the run if it fails:
    bitwise the saved ones, AUC within 1e-3 of an uninterrupted fit), and a
    100,000-row validation fit on the card and on the CPU (per-iteration
    AUC within 1e-3).
+13. sampling and monotone constraints on phase 12's table and split:
+   first the draws of ``core/prng.py`` (threefry uniforms over the
+   ``--rows`` rows, the bag under ``baggingFreq=5``, GOSS's rows, the
+   feature permutation and mask at iterations 0, 1, 5 and 7, every node
+   mask of one tree) made on the card and on the CPU, bitwise equal; then
+   ``LightGBMClassifier(numIterations=50, learningRate=0.1,
+   numLeaves=31, maxBin=255, metric="auc")`` leaf-wise with the
+   validation column for each mode: bagging 0.8 every 5 iterations with
+   feature fraction 0.9 (LightGBM's ``simple_example.py``), GOSS and DART
+   at their defaults, RF (bagging 0.8 every iteration, feature fraction
+   0.8), ``featureFractionByNode=0.5`` and ``monotoneConstraints`` +1 on
+   X2, beside the same fit unsampled; and depthwise ``train_booster`` with
+   GOSS and with DART. Counts zeroed just before each fit and read just
+   after (each kernel of the policy above 0); fit seconds, seconds per
+   iteration, host syncs per tree, validation AUC, launches per iteration
+   against phase 3's, and the histogram kernels' time per iteration (CUDA
+   events around each launch) against the unsampled fit's logged. Checks: ``child_histogram`` and ``range_histogram`` on the
+   arguments of the GOSS fit's first root and split, ``level_histograms``
+   on the GOSS depthwise fit's first level, against their plain versions
+   at phase 2's tolerance; every split on X2 of the monotone fit orders
+   its children's outputs upward (the raw score along a 64-point grid of
+   X2 over 1,000 rows is logged: the constraint, as the JAX package
+   enforces it, does not bound a split's descendants); DART's tree
+   weights equal a host replay of its drops; the RF model string carries
+   ``average_output`` and reloads within 1e-5. CUDA events time the
+   sampling work of one iteration alone. Then every mode (and
+   the depthwise GOSS and DART fits) at 100,000 rows for 10 iterations on
+   the card and on the CPU (the CPU fits in spawned worker processes):
+   per-iteration validation AUC within 1e-3.
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 9's ring and
@@ -168,6 +197,7 @@ Ulysses fits, summed over both ranks) and ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -284,8 +314,10 @@ VISION_LOGIT_TOL, VISION_LOSS_RTOL, VISION_STAT_TOL = 1e-4, 1e-4, 1e-4
 # phase 12: validation with early stopping on the --rows table (its last
 # min(SURFACE_VALID_ROWS, rows // 4) rows flagged, as HIGGS keeps its last
 # 500,000 rows for testing), then leaf indices, SHAP, the JSON dump, a
-# warm start, fobj, resume and a card-against-CPU curve on smaller tables
-SURFACE_VALID_ROWS, SURFACE_ITERS, SURFACE_ESR = 500_000, 300, 20
+# warm start, fobj, resume and a card-against-CPU curve on smaller tables.
+# 150 iterations (300 before phase 13 was added: both fits stopped after
+# 189-239 of them, so a fit now may run to the end unstopped)
+SURFACE_VALID_ROWS, SURFACE_ITERS, SURFACE_ESR = 500_000, 150, 20
 SURFACE_SHAP_ROWS = 64
 SURFACE_WARM_ITERS, SURFACE_WARM_BATCHES = 10, 2
 SURFACE_SMALL_ROWS, SURFACE_SMALL_ITERS, SURFACE_RESUME_AT = 100_000, 10, 6
@@ -298,6 +330,40 @@ SURFACE_SMALL_ROWS, SURFACE_SMALL_ITERS, SURFACE_RESUME_AT = 100_000, 10, 6
 # the base score); card against CPU (atomics flip near-tie splits)
 SURFACE_SCORE_TOL, SURFACE_LEAF_TOL, SURFACE_SHAP_TOL = 1e-6, 1e-5, 1e-4
 SURFACE_DUMP_RTOL, SURFACE_CURVE_TOL = 1e-6, 1e-3
+# phase 13: sampling and monotone constraints on phase 12's table and
+# split. (label, LightGBMClassifier params, the same as BoosterConfig
+# fields): bagging as LightGBM's examples/python-guide/simple_example.py
+# sets it, GOSS and DART at their defaults, RF, per-node feature sampling,
+# and X2 (which the label rises with by construction) constrained upward
+SAMPLING_ITERS = 50
+SAMPLING_MODES = [
+    ("bagging", dict(baggingFraction=0.8, baggingFreq=5,
+                     featureFraction=0.9),
+     dict(bagging_fraction=0.8, bagging_freq=5, feature_fraction=0.9)),
+    ("goss", dict(boostingType="goss"), dict(boosting_type="goss")),
+    ("dart", dict(boostingType="dart"), dict(boosting_type="dart")),
+    ("rf", dict(boostingType="rf", baggingFraction=0.8, baggingFreq=1,
+                featureFraction=0.8),
+     dict(boosting_type="rf", bagging_fraction=0.8, bagging_freq=1,
+          feature_fraction=0.8)),
+    ("bynode", dict(featureFractionByNode=0.5),
+     dict(feature_fraction_bynode=0.5)),
+    ("monotone", dict(monotoneConstraints=[0, 0, 1]),
+     dict(monotone_constraints=[0, 0, 1])),
+]
+# the depthwise fits (train_booster, growth_policy="depthwise")
+SAMPLING_DEPTHWISE = ("goss", "dart")
+# the unsampled fit every mode's launches and kernel time are held beside
+PLAIN_MODE = ("plain", {}, {})
+SAMPLING_BITWISE_ITS = (0, 1, 5, 7)      # iterations drawn on both devices
+MONOTONE_FEATURE, MONOTONE_ROWS, MONOTONE_GRID = 2, 1000, 64
+# a split on the constrained feature orders its children's outputs; the
+# children's values are float32 sums of their rows in another order than
+# the split search's prefix sums, so the order is held within 1e-5 of the
+# tree's largest |value|
+MONOTONE_TOL = 1e-5
+SAMPLING_CROSS_ROWS, SAMPLING_CROSS_ITERS = 100_000, 10
+SAMPLING_RELOAD_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -377,18 +443,7 @@ def kernel_phase(rows: int, dev: str) -> dict:
     g = torch.randn(rows, generator=gen, device=dev) * m
     h = torch.rand(rows, generator=gen, device=dev) * m
 
-    def compare(label, got, want):
-        torch.cuda.synchronize()
-        err = (got - want).abs().reshape(-1, 3).amax(dim=0).tolist()
-        ok = (torch.allclose(got[..., :2], want[..., :2], rtol=KERNEL_RTOL,
-                             atol=KERNEL_ATOL)
-              and torch.equal(got[..., 2], want[..., 2]))
-        log(f"  {label}: max |kernel - plain| g={err[0]:.3g} h={err[1]:.3g} "
-            f"count={err[2]:.3g} -> {'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            raise AssertionError(f"{label} disagrees with its plain version")
-        return max(err)
-
+    compare = compare_histograms
     results = {}
     err = compare("child_histogram n=%d" % rows,
                   hk.child_histogram(bT, g, h, m, B),
@@ -450,6 +505,42 @@ def kernel_phase(rows: int, dev: str) -> dict:
     return results
 
 
+def compare_histograms(label, got, want) -> float:
+    """Hold a kernel's histograms to its plain version's: rtol 1e-5 / atol
+    1e-3 on the gradient and hessian sums, exact counts. Returns the largest
+    absolute gap."""
+    _sync(str(got.device))
+    err = (got - want).abs().reshape(-1, 3).amax(dim=0).tolist()
+    ok = (torch.allclose(got[..., :2], want[..., :2], rtol=KERNEL_RTOL,
+                         atol=KERNEL_ATOL)
+          and torch.equal(got[..., 2], want[..., 2]))
+    log(f"  {label}: max |kernel - plain| g={err[0]:.3g} h={err[1]:.3g} "
+        f"count={err[2]:.3g} -> {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return max(err)
+
+
+def fit_shaped_check(label, got, want, vals, compare) -> float:
+    """Histograms of fit-shaped bins (features FEATURES..FP-1 with every
+    row in bin 0) over rows whose bf16-rounded values are ``vals`` (rows,
+    3) float64: the real features held to the plain version by
+    ``compare``, the padded features to the float64 sum by
+    ``padded_check``. Returns the real features' largest gap."""
+    err = compare(f"{label} real features", got[:FEATURES], want[:FEATURES])
+    ok, gap, unit, bound = padded_check(got[FEATURES:].double(), vals)
+    log(f"  {label} padded features (one bin, {len(vals)} rows): |kernel - "
+        f"float64| g={gap[0]:.3g} ({gap[0] / unit[0]:.3g} units) "
+        f"h={gap[1]:.3g} ({gap[1] / unit[1]:.3g} units) "
+        f"count={gap[2]:.3g}, limit g={bound[0]:.3g} h={bound[1]:.3g} "
+        f"({PAD_SUM_ULPS} units) -> "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{label}: padded features outside "
+                             "PAD_SUM_ULPS of the float64 sum")
+    return err
+
+
 def fit_shaped_phase(bT, g, h, m, B: int, compare, results: dict,
                      iters: int) -> None:
     """``child_histogram`` and ``range_histogram`` (length n/2) checked and
@@ -469,20 +560,7 @@ def fit_shaped_phase(bT, g, h, m, B: int, compare, results: dict,
     vals = hk._rounded_values(g, h, m).double()
 
     def check(label, got, want, s, ln):
-        err = compare(f"{label} real features", got[:FEATURES],
-                      want[:FEATURES])
-        ok, gap, unit, bound = padded_check(got[FEATURES:].double(),
-                                            vals[s:s + ln])
-        log(f"  {label} padded features (one bin, {ln} rows): |kernel - "
-            f"float64| g={gap[0]:.3g} ({gap[0] / unit[0]:.3g} units) "
-            f"h={gap[1]:.3g} ({gap[1] / unit[1]:.3g} units) "
-            f"count={gap[2]:.3g}, limit g={bound[0]:.3g} h={bound[1]:.3g} "
-            f"({PAD_SUM_ULPS} units) -> "
-            f"{'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            raise AssertionError(f"{label}: padded features outside "
-                                 "PAD_SUM_ULPS of the float64 sum")
-        return err
+        return fit_shaped_check(label, got, want, vals[s:s + ln], compare)
 
     fit_err = {"child_histogram": check(
         f"child_histogram fit-shaped n={rows}",
@@ -2816,6 +2894,522 @@ def surface_path(rows: int, dev: str) -> dict:
     return fits
 
 
+# ---------------------------------------------------------------------------
+# phase 13: sampling (bagging, GOSS, DART, RF, feature fractions) and
+# monotone constraints
+# ---------------------------------------------------------------------------
+
+def _mode(label: str) -> tuple:
+    """(estimator params, BoosterConfig fields) of mode ``label``."""
+    return next((params, cfg) for name, params, cfg
+                in SAMPLING_MODES + [PLAIN_MODE] if name == label)
+
+
+def _mode_config(label: str) -> dict:
+    return _mode(label)[1]
+
+
+class _TimedLibrary:
+    """The loaded histogram library with each launch bracketed by CUDA
+    events on the current stream: ``events`` collects (start, end) pairs
+    per C function."""
+
+    def __init__(self, lib, events: dict):
+        self._lib, self._events = lib, events
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in self._events:
+            return fn
+
+        def launch(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = fn(*args)
+            end.record()
+            self._events[name].append((start, end))
+            return rc
+
+        return launch
+
+
+@contextlib.contextmanager
+def kernel_timer(dev: str):
+    """Time every histogram kernel launched in the block: CUDA events just
+    before and after each launch of the built library (``ops._build``
+    hands the wrappers the library it holds). Yields {C function: [(start,
+    end), ...]}; read them with ``timed_ms`` after a synchronise. Off the
+    card nothing is timed (the lists stay empty)."""
+    from synapseml_tpu_torch.ops import _build
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    events = {"child_histogram": [], "range_histogram": [],
+              "level_histogram": []}
+    if not _on_card(dev):
+        yield events
+        return
+    lib = hk._lib()
+    _build._LIBS["hist_kernel"] = _TimedLibrary(lib, events)
+    try:
+        yield events
+    finally:
+        _build._LIBS["hist_kernel"] = lib
+
+
+def timed_ms(events: dict) -> dict:
+    """{name: summed milliseconds} of ``kernel_timer``'s events."""
+    return {name: sum(s.elapsed_time(e) for s, e in pairs)
+            for name, pairs in events.items()}
+
+
+@contextlib.contextmanager
+def captured_call(module, name: str, index: int = 0):
+    """Wrap ``module.name`` for the block: the ``index``-th call's
+    arguments are kept (tensors cloned: the growers partition theirs in
+    place afterwards) in the yielded dict under ``"args"``."""
+    real = getattr(module, name)
+    calls, out = [0], {}
+
+    def wrapper(*a, **k):
+        if calls[0] == index:
+            out["args"] = [x.clone() if isinstance(x, torch.Tensor) else x
+                           for x in a]
+        calls[0] += 1
+        return real(*a, **k)
+
+    setattr(module, name, wrapper)
+    try:
+        yield out
+    finally:
+        setattr(module, name, real)
+
+
+def sampling_bitwise_check(rows: int, dev: str) -> None:
+    """The draws on the card against the same draws on the CPU, bit for
+    bit, at iterations ``SAMPLING_BITWISE_ITS``: threefry uniforms over
+    ``rows`` rows, the bag under ``baggingFreq=5`` (carried between
+    draws), GOSS's rows from the first iteration's gradients (two values:
+    the stable order is all that separates ties), the feature permutation
+    and mask, and every node mask of one 31-leaf tree."""
+    from synapseml_tpu_torch.core import prng
+    from synapseml_tpu_torch.gbdt import BoosterConfig
+    from synapseml_tpu_torch.gbdt import boosting as gb
+    from synapseml_tpu_torch.gbdt.grower import GrowerConfig, node_masks
+    from synapseml_tpu_torch.ops.hist_kernel import features_padded
+
+    _, y = higgs_like(rows)
+    p = np.float32(1 / (1 + np.exp(-0.1)))
+    g0 = (p - y).astype(np.float32)[None]
+    h0 = np.full_like(g0, p * (1 - p))
+    bag_cfg = BoosterConfig(objective="binary", **_mode_config("bagging"))
+    goss_cfg = BoosterConfig(objective="binary", boosting_type="goss")
+    FP = features_padded(FEATURES)
+    draws = {}
+    for d in (dev, "cpu"):
+        _sync(dev)
+        t0 = time.perf_counter()
+        key0 = prng.prng_key(0)
+        g, h = torch.as_tensor(g0).to(d), torch.as_tensor(h0).to(d)
+        cur = torch.ones(rows, device=d)
+        out = {}
+        for it in range(max(SAMPLING_BITWISE_ITS) + 1):
+            bag, _, _, cur = gb._sample_rows_impl(bag_cfg, rows, key0, it, g,
+                                                  h, cur)
+            if it not in SAMPLING_BITWISE_ITS:
+                continue
+            out[f"uniform it={it}"] = prng.uniform(
+                prng.fold_in(key0, 20_000_000 + it), rows, d)
+            out[f"bag it={it}"] = bag
+            out[f"goss rows it={it}"] = gb._sample_rows_impl(
+                goss_cfg, rows, key0, it, g, h, cur)[1]
+            out[f"permutation it={it}"] = prng.permutation(
+                prng.fold_in(key0, 10_000_000 + it), FEATURES, d)
+            out[f"feature mask it={it}"] = gb._sample_features_impl(
+                bag_cfg, FEATURES, key0, it, d)
+        featp = torch.zeros(FP, dtype=torch.bool, device=d)
+        featp[:FEATURES] = out[f"feature mask it={SAMPLING_BITWISE_ITS[-1]}"]
+        out["node masks"] = node_masks(
+            GrowerConfig(feature_fraction_bynode=0.5), featp,
+            gb._node_key_data(key0, 3, 0), 31)
+        _sync(dev)
+        draws[d] = {k: v.cpu() for k, v in out.items()}
+        log(f"  draws on {d}: {len(out)} tensors in "
+            f"{time.perf_counter() - t0:.3f}s")
+    bad = [k for k in draws["cpu"]
+           if not torch.equal(draws[dev][k], draws["cpu"][k])]
+    kept = int(draws[dev][f"bag it={SAMPLING_BITWISE_ITS[0]}"].sum())
+    log(f"  card against CPU: {len(draws['cpu']) - len(bad)} of "
+        f"{len(draws['cpu'])} draws bitwise equal (bag keeps {kept} of "
+        f"{rows} rows); differing: {bad}")
+    if bad:
+        raise AssertionError(f"sampling differs between the card and the "
+                             f"CPU: {bad}")
+
+
+def sampling_table(rows: int):
+    """Phase 12's table and split, and the bin mapper of its training rows
+    (computed once and passed as ``referenceDataset``: the same bounds each
+    fit would compute)."""
+    from synapseml_tpu_torch.ops.quantize import compute_bin_mapper
+
+    X, y = higgs_like(rows)
+    nv = surface_split(rows)
+    is_val = np.zeros(rows, bool)
+    is_val[rows - nv:] = True
+    t0 = time.perf_counter()
+    mapper = compute_bin_mapper(X[:rows - nv], 255, 200_000, 0)
+    log(f"  bin mapper of {rows - nv} training rows in "
+        f"{time.perf_counter() - t0:.3f}s (shared by every fit)")
+    return X, y, nv, table_of(X, y).with_column("isVal", is_val), mapper
+
+
+def sampling_fit(label: str, X, y, nv: int, table, mapper, dev: str,
+                 policy: str, plain_per_iter: dict) -> dict:
+    """One 50-iteration fit of mode ``label``: the classifier leaf-wise, or
+    ``train_booster`` depthwise, with the validation rows; launch counts
+    zeroed just before and read just after."""
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+    from synapseml_tpu_torch.models import LightGBMClassifier
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    rows = X.shape[0]
+    params, cfg = _mode(label)
+    kernels = MAIN_KERNELS if policy == "leafwise" else DEPTHWISE_KERNELS
+    _peak_gib(dev, reset=True)
+    hk.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with kernel_timer(dev) as events:
+        if policy == "leafwise":
+            model = LightGBMClassifier(
+                numIterations=SAMPLING_ITERS, learningRate=0.1,
+                numLeaves=31, maxBin=255, metric="auc",
+                validationIndicatorCol="isVal", referenceDataset=mapper,
+                device=dev, **params).fit(table)
+            booster = model.booster
+        else:
+            booster = train_booster(
+                X[:rows - nv], y[:rows - nv], BoosterConfig(
+                    objective="binary", num_iterations=SAMPLING_ITERS,
+                    learning_rate=0.1, num_leaves=31, max_bin=255,
+                    metric="auc", growth_policy="depthwise", **cfg),
+                valid=(X[rows - nv:], y[rows - nv:]), mapper=mapper,
+                device=dev)
+        _sync(dev)
+    fit_s = time.perf_counter() - t0
+    kernel_ms = sum(timed_ms(events).values()) / SAMPLING_ITERS
+    launches = dict(hk.LAUNCHES)
+    series = booster.metadata["valid_metric"]["values"]
+    syncs = booster.metadata["host_syncs"]
+    spans = booster.metadata["measures"]
+    per_iter = {k: launches[k] / SAMPLING_ITERS for k in kernels}
+    ratio = {k: per_iter[k] / plain_per_iter[k] for k in kernels
+             if plain_per_iter.get(k)}
+    log(f"  {label} {policy}: fit_s={fit_s:.3f} "
+        f"({fit_s / SAMPLING_ITERS * 1e3:.1f} ms per iteration, "
+        f"{len(series)} iterations), host_syncs/tree="
+        f"{syncs / booster.num_trees:.2f}, validation AUC last "
+        f"{series[-1]:.6f} best {booster.best_score:.6f} at "
+        f"{booster.best_iteration}; launches {json.dumps(launches)} "
+        f"({json.dumps({k: round(v, 2) for k, v in ratio.items()})} x phase "
+        f"3's per iteration); histogram kernels {kernel_ms:.3f} ms per "
+        f"iteration (CUDA events); sampling span "
+        f"{spans.get('sampling', 0.0) / SAMPLING_ITERS * 1e3:.3f} ms per "
+        f"iteration (host clock), peak {_peak_gib(dev):.3f} GiB")
+    _check_launches(launches, kernels)
+    if len(series) != SAMPLING_ITERS or not np.isfinite(series).all() \
+            or series[-1] < 0.75:
+        raise AssertionError(f"{label} {policy}: validation AUC series "
+                             f"{series[:3]}..{series[-3:]}")
+    return dict(booster=booster, fit_s=fit_s, launches=launches,
+                auc=series[-1], kernel_ms=kernel_ms)
+
+
+def dart_weight_replay(cfg: dict, iterations: int) -> list:
+    """DART's tree weights after ``iterations`` one-tree iterations,
+    replayed on the host from the config's drop parameters and seeds alone
+    (LightGBM's DART: weighted or uniform drops, ``max_drop``,
+    ``skip_drop``; the new tree at 1 / (k + 1) and the dropped trees scaled
+    by k / (k + 1), or with the learning rate in place of 1 in xgboost
+    mode)."""
+    from synapseml_tpu_torch.gbdt import BoosterConfig
+
+    c = BoosterConfig(**cfg)
+    rng = np.random.default_rng(c.seed)
+    weights: list = []
+    for it in range(iterations):
+        drop = []
+        if weights:
+            draw = (np.random.default_rng([c.drop_seed, it]) if c.drop_seed
+                    else rng)
+            if draw.random() >= c.skip_drop:
+                w = np.asarray(weights)
+                p = (np.full(len(w), c.drop_rate) if c.uniform_drop else
+                     np.minimum(c.drop_rate * w * len(w) / w.sum(), 1.0))
+                drop = list(np.nonzero(draw.random(len(w)) < p)[0]
+                            [: c.max_drop])
+        k = len(drop)
+        one = c.learning_rate if c.xgboost_dart_mode else 1.0
+        for j in drop:
+            weights[j] *= k / (k + one)
+        weights.append(1.0 / (k + one) if k else 1.0)
+    return weights
+
+
+def monotone_check(booster, dev: str) -> None:
+    """The constraint as the port (and the JAX package) enforces it: at
+    every split on X2 the right child's output is at least the left's
+    (within ``MONOTONE_TOL`` of the tree's largest |value|). The raw score
+    along a ``MONOTONE_GRID``-point grid of X2 over ``MONOTONE_ROWS`` rows
+    is logged: neither package bounds a split's descendants (LightGBM's
+    basic method does), so it need not rise."""
+    checked, worst = 0, 0.0
+    for tree in booster.trees:
+        ns = int(tree.num_splits)
+        lv = np.asarray(tree.leaf_value, np.float64)
+        iv = np.asarray(tree.internal_value, np.float64)
+        scale = max(np.abs(lv[:ns + 1]).max(), np.abs(iv[:ns]).max(), 1e-30)
+
+        def value(c):
+            return iv[c] if c >= 0 else lv[~c]
+
+        for i in np.nonzero(np.asarray(tree.split_feature)[:ns]
+                            == MONOTONE_FEATURE)[0]:
+            gap = (value(tree.right_child[i]) - value(tree.left_child[i])) \
+                / scale
+            worst = min(worst, gap)
+            checked += 1
+    X, _ = higgs_like(MONOTONE_ROWS, seed=5)
+    grid = np.linspace(-3, 3, MONOTONE_GRID, dtype=np.float32)
+    tiled = np.repeat(X[None], MONOTONE_GRID, 0)
+    tiled[:, :, MONOTONE_FEATURE] = grid[:, None]
+    raw = booster.raw_score(tiled.reshape(-1, FEATURES)).reshape(
+        MONOTONE_GRID, MONOTONE_ROWS)
+    step = np.diff(raw, axis=0)
+    log(f"  monotone: {checked} splits on X{MONOTONE_FEATURE} in "
+        f"{booster.num_trees} trees, right child - left child >= "
+        f"{worst:.3g} of the tree's max |value| (limit -{MONOTONE_TOL}); raw "
+        f"score over a {MONOTONE_GRID}-point grid of X{MONOTONE_FEATURE}: "
+        f"{int((step < 0).any(0).sum())} of {MONOTONE_ROWS} rows fall "
+        f"somewhere, largest fall {max(-step.min(), 0.0):.4g}")
+    if checked == 0 or worst < -MONOTONE_TOL:
+        raise AssertionError(f"monotone: {checked} constrained splits, "
+                             f"worst order {worst}")
+
+
+def dart_and_rf_check(fits: dict, X, dev: str) -> None:
+    """DART's kept tree weights against ``dart_weight_replay``; the RF
+    model string carries ``average_output`` and reloads within
+    ``SAMPLING_RELOAD_TOL``."""
+    from synapseml_tpu_torch.gbdt.boosting import Booster
+
+    dart = fits["dart leafwise"]["booster"]
+    want = dart_weight_replay(dict(objective="binary", learning_rate=0.1,
+                                   **_mode_config("dart")), SAMPLING_ITERS)
+    dropped = sum(w < 1.0 for w in dart.tree_weights)
+    log(f"  dart: {dropped} of {dart.num_trees} trees reweighted, weights "
+        f"{min(dart.tree_weights):.4g}..{max(dart.tree_weights):.4g}; host "
+        f"replay {'equal' if dart.tree_weights == want else 'DIFFERS'}")
+    if dart.tree_weights != want or not dropped:
+        raise AssertionError("DART's tree weights are not the replay's")
+    rf = fits["rf leafwise"]["booster"]
+    text = rf.model_string()
+    sub = X[:10_000]
+    gap = float(np.abs(Booster.from_model_string(text, device=dev)
+                       .predict(sub) - rf.predict(sub)).max())
+    log(f"  rf: model string {'has' if 'average_output' in text else 'LACKS'}"
+        f" average_output, reload max |diff| {gap:.3g}")
+    if "average_output" not in text or gap > SAMPLING_RELOAD_TOL:
+        raise AssertionError("the RF model string does not reload")
+
+
+def goss_kernel_check(captured: dict) -> None:
+    """``child_histogram`` and ``range_histogram`` on the arguments of the
+    GOSS fit's first root and first split (bins as the fit has them; g and
+    h amplified on the sampled rows, m in {0, 1}) against their plain
+    versions, as phase 2 holds them; ``level_histograms`` on the GOSS
+    depthwise fit's first level below the root."""
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    bT, g, h, m, B = captured["child_histogram"]
+    log(f"  GOSS root: {int(m.sum())} of {m.numel()} rows sampled, max |g| "
+        f"{float(g.abs().max()):.4g}")
+    fit_shaped_check("child_histogram GOSS root",
+                     hk.child_histogram(bT, g, h, m, B),
+                     hk._hist_plain(bT, g, h, m, B),
+                     hk._rounded_values(g, h, m).double(),
+                     compare_histograms)
+    bT, g, h, m, st, ln, B = captured["range_histogram"]
+    s, n = int(st), int(ln)
+    fit_shaped_check(f"range_histogram GOSS split [{s}, {s + n})",
+                     hk.range_histogram(bT, g, h, m, st, ln, B),
+                     hk._range_hist_plain(bT, g, h, m, s, n, B),
+                     hk._rounded_values(g, h, m)[s:s + n].double(),
+                     compare_histograms)
+    bT, g, h, m, starts, slot, B, L = captured["level_histograms"]
+    level_fit_shaped_check(
+        f"level_histograms GOSS depthwise level CAP={bT.shape[1]}",
+        hk.level_histograms(bT, g, h, m, starts, slot, B, L),
+        hk._level_hist_plain(bT, g, h, m, slot, B, L),
+        hk._rounded_values(g, h, m).double(), slot, L, compare_histograms)
+
+
+def sampling_cost(rows: int, dev: str) -> None:
+    """The sampling work of one iteration alone, per mode, timed with CUDA
+    events at the fit's row count (draws, GOSS's order, masks), and DART's
+    score rebuild from 50 contributions."""
+    from synapseml_tpu_torch.core import prng
+    from synapseml_tpu_torch.gbdt import BoosterConfig
+    from synapseml_tpu_torch.gbdt import boosting as gb
+    from synapseml_tpu_torch.gbdt.grower import GrowerConfig, node_masks
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    if not _on_card(dev):
+        return
+    key0 = prng.prng_key(0)
+    g = torch.randn((1, rows), device=dev)
+    cur = torch.ones(rows, device=dev)
+    featp = torch.ones(hk.features_padded(FEATURES), dtype=torch.bool,
+                       device=dev)
+    timed = {}
+    for label, _, cfg in SAMPLING_MODES:
+        bc = BoosterConfig(objective="binary", **cfg)
+
+        def sample(bc=bc):
+            gb._sample_rows_impl(bc, rows, key0, 0, g, g, cur)
+            gb._sample_features_impl(bc, FEATURES, key0, 0, dev)
+            if bc.feature_fraction_bynode < 1:
+                node_masks(GrowerConfig(feature_fraction_bynode=0.5), featp,
+                           gb._node_key_data(key0, 0, 0), 31)
+
+        timed[label] = time_ms(sample, 5)
+    contribs = gb._Contribs(rows, dev)
+    for _ in range(SAMPLING_ITERS):
+        contribs.append(0, g[0])
+    timed["dart rebuild of 50 trees"] = time_ms(
+        lambda: contribs.weighted([0.5] * SAMPLING_ITERS, 1), 5)
+    log("  sampling alone per iteration (CUDA events, "
+        f"{rows} rows): " + ", ".join(f"{k} {v:.3f} ms"
+                                      for k, v in timed.items()))
+
+
+def sampling_curve(name: str, policy: str, rows: int, iters: int,
+                   dev: str, threads: int = 0) -> tuple:
+    """(per-iteration validation AUC, fit seconds) of mode ``name`` on
+    ``rows`` HIGGS-shaped rows from seed 4, the last fifth as validation;
+    ``threads`` > 0 sets torch's intra-op threads (a worker process)."""
+    if threads:
+        torch.set_num_threads(threads)
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+
+    X, y = higgs_like(rows, seed=4)
+    nv = rows // 5
+    cfg = BoosterConfig(objective="binary", num_iterations=iters,
+                        num_leaves=31, max_bin=255, metric="auc",
+                        growth_policy=policy, **_mode_config(name))
+    t0 = time.perf_counter()
+    booster = train_booster(X[:-nv], y[:-nv], cfg, valid=(X[-nv:], y[-nv:]),
+                            device=dev)
+    return (np.asarray(booster.metadata["valid_metric"]["values"]),
+            time.perf_counter() - t0)
+
+
+def sampling_cross_check(dev: str) -> None:
+    """Every mode (and the depthwise GOSS and DART fits) on
+    ``SAMPLING_CROSS_ROWS`` rows, the last fifth as validation, for
+    ``SAMPLING_CROSS_ITERS`` iterations on the card and on the CPU: the
+    per-iteration validation AUC within ``CROSS_TOL`` (atomics flip
+    near-tie splits). The CPU fits run at once in spawned worker
+    processes, one per fit (the leaf-wise loop gains nothing from
+    intra-op threads), while the card fits run here; the pool is shut
+    down before the phase goes on."""
+    from concurrent.futures import ProcessPoolExecutor
+
+    cases = ([(name, "leafwise") for name, _, _ in SAMPLING_MODES]
+             + [(name, "depthwise") for name in SAMPLING_DEPTHWISE])
+    args = (SAMPLING_CROSS_ROWS, SAMPLING_CROSS_ITERS)
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=len(cases), mp_context=ctx) as pool:
+        cpu = [pool.submit(sampling_curve, name, policy, *args, "cpu",
+                           2 if policy == "depthwise" else 1)
+               for name, policy in cases]
+        card = [sampling_curve(name, policy, *args, dev)
+                for name, policy in cases]
+        cpu = [f.result() for f in cpu]
+    worst = 0.0
+    for (name, policy), (got, t_card), (want, t_cpu) in zip(cases, card,
+                                                            cpu):
+        gap = float(np.abs(got - want).max())
+        worst = max(worst, gap)
+        log(f"  {name} {policy}: max |AUC gap| {gap:.3g} over {len(want)} "
+            f"iterations (AUC {want[-1]:.6f}; {t_card:.2f}s card, "
+            f"{t_cpu:.2f}s CPU)")
+        if gap > CROSS_TOL or len(got) != len(want):
+            raise AssertionError(f"{name} {policy}: card and CPU validation "
+                                 "curves disagree")
+    log(f"  card against CPU: every mode within {worst:.3g}, "
+        f"{time.perf_counter() - t0:.1f}s with the CPU fits in parallel")
+
+
+def sampling_path(rows: int, dev: str, plain_launches: dict) -> dict:
+    """Phase 13: the draws bitwise, every mode's fit on the ``rows`` table
+    with its checks, the kernels on GOSS inputs, the sampling cost and the
+    card-against-CPU curves. ``plain_launches`` are phase 3's (10
+    iterations of the plain fit)."""
+    from synapseml_tpu_torch.gbdt import grower, grower_depthwise
+
+    t_start = time.perf_counter()
+
+    def lap(step: str) -> None:
+        log(f"  [{time.perf_counter() - t_start:.1f}s] {step} done")
+
+    sampling_bitwise_check(rows, dev)
+    lap("draws")
+    X, y, nv, table, mapper = sampling_table(rows)
+    plain = {k: v / 10 for k, v in plain_launches.items()}
+    fits, captured = {}, {}
+    for label, _, _ in [PLAIN_MODE] + SAMPLING_MODES:
+        if label == "goss":
+            with captured_call(grower, "child_histogram") as c, \
+                    captured_call(grower, "range_histogram") as r:
+                fits["goss leafwise"] = sampling_fit(
+                    label, X, y, nv, table, mapper, dev, "leafwise", plain)
+            captured["child_histogram"] = c["args"]
+            captured["range_histogram"] = r["args"]
+        else:
+            fits[f"{label} leafwise"] = sampling_fit(
+                label, X, y, nv, table, mapper, dev, "leafwise", plain)
+    for label in SAMPLING_DEPTHWISE:
+        # the GOSS fit's first level below the root
+        index = 1 if label == "goss" else -1
+        with captured_call(grower_depthwise, "level_histograms", index) as c:
+            fits[f"{label} depthwise"] = sampling_fit(
+                label, X, y, nv, table, mapper, dev, "depthwise", plain)
+        if label == "goss":
+            captured["level_histograms"] = c["args"]
+    del table
+    base = fits["plain leafwise"]["kernel_ms"]
+    if base:
+        log("  histogram kernel time per iteration against the plain fit's "
+            f"{base:.3f} ms: " + ", ".join(
+                f"{k} {f['kernel_ms'] / base:.2f}x" for k, f in fits.items()
+                if k.endswith("leafwise")))
+    lap("fits")
+    goss_kernel_check(captured)
+    del captured
+    monotone_check(fits["monotone leafwise"]["booster"], dev)
+    dart_and_rf_check(fits, X, dev)
+    lap("checks")
+    sampling_cost(X.shape[0] - nv, dev)
+    lap("sampling alone")
+    del X, y
+    sampling_cross_check(dev)
+    log(f"  phase 13 took {time.perf_counter() - t_start:.1f}s")
+    return fits
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -2893,6 +3487,11 @@ def main() -> int:
         "fobj, resume")
     torch.cuda.empty_cache()
     surface_path(args.rows, dev)
+    log(f"[13] sampling: bagging, GOSS, DART, RF, per-node feature "
+        f"fractions and monotone constraints, {SAMPLING_ITERS} iterations "
+        f"each on {args.rows} rows")
+    torch.cuda.empty_cache()
+    sampling_path(args.rows, dev, main["launches"])
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},

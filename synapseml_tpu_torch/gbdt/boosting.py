@@ -1,12 +1,14 @@
 """Boosting driver: the training-iteration loop and the Booster model.
 
 Counterpart of the JAX package's ``gbdt/boosting.py`` for the slice that is
-ported: plain gradient boosting (``boosting_type="gbdt"``) with every
-objective of ``objectives.py`` (binary, multiclass and multiclassova, the
-regression family, lambdarank over ``group_sizes``) or a custom ``fobj`` on
-dense numeric data, grown leaf-wise (the partition row layout) or depthwise
+ported: every boosting type (gbdt, goss, dart, rf) with every objective of
+``objectives.py`` (binary, multiclass and multiclassova, the regression
+family, lambdarank over ``group_sizes``) or a custom ``fobj`` on dense
+numeric data, grown leaf-wise (the partition row layout) or depthwise
 (``growth_policy="depthwise"``, one ``level_histograms`` pass per level),
-with validation sets, early stopping, warm starts and checkpoint resume.
+with bagging (plain and stratified), feature fractions per tree and per
+node, monotone constraints, validation sets, early stopping, warm starts
+and checkpoint resume.
 ``train_booster`` is a plain Python loop over iterations: the gradients of
 all K classes once, then K trees in class order, each from its class's
 gradient row and each adding its leaves to its class's score column (and
@@ -15,6 +17,15 @@ iteration-major (``it * K + c``). These are the semantics of the JAX
 package's host loop; its fused ``lax.scan`` runner has no counterpart,
 since PyTorch runs eagerly, and gives the same trees and best iteration.
 
+Sampling is the JAX package's, draw for draw: every per-iteration sample
+comes from ``core.prng`` (the threefry stream of ``jax.random``) keyed by
+``fold_in`` of the config's seeds and the iteration, on the fit's device
+(``_sample_rows_impl``, ``_sample_features_impl``, ``_node_key_data``), and
+DART's drop decisions from the same host ``numpy`` generator. DART keeps
+each tree's training contribution on the device and rebuilds the score
+from them after a drop; DART and RF score validation rows from the stacked
+per-tree contributions with the current weights.
+
 ``Booster`` scores with a prediction window (``num_iteration``,
 ``start_iteration``), predicts leaf indices, computes TreeSHAP
 contributions (``shap.py``) and dumps LightGBM's text and JSON formats.
@@ -22,19 +33,21 @@ contributions (``shap.py``) and dumps LightGBM's text and JSON formats.
 ``BoosterConfig`` keeps every field name and default of the JAX config, so a
 config carries across unchanged. ``train_booster`` rejects every setting and
 argument the slice does not port with ``NotImplementedError`` naming it:
-sampling (bagging, GOSS, DART, RF, feature fractions), categorical features,
-monotone constraints, meshes and sparse input.
+categorical features, the voting and feature-parallel learners, the JAX
+grower's other engine knobs, meshes and sparse input.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time as _time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..core import prng
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..ops.quantize import (BinMapper, apply_bins, bin_threshold_to_value,
                             compute_bin_mapper)
@@ -150,15 +163,8 @@ class BoosterConfig:
             if not ok:
                 out.append(f"{name}={getattr(self, name)!r}")
 
-        check("boosting_type", self.boosting_type == "gbdt")
-        check("bagging_fraction", self.bagging_fraction == 1.0)
-        check("bagging_freq", self.bagging_freq == 0)
-        check("pos_bagging_fraction", self.pos_bagging_fraction == 1.0)
-        check("neg_bagging_fraction", self.neg_bagging_fraction == 1.0)
-        check("feature_fraction", self.feature_fraction == 1.0)
-        check("feature_fraction_bynode", self.feature_fraction_bynode == 1.0)
-        check("monotone_constraints",
-              not any(self.monotone_constraints or ()))
+        check("boosting_type",
+              self.boosting_type in ("gbdt", "goss", "dart", "rf"))
         check("tree_learner", self.tree_learner not in ("voting", "feature"))
         check("partition_impl", self.partition_impl == "sort")
         check("row_layout", self.row_layout == "partition")
@@ -166,6 +172,8 @@ class BoosterConfig:
         return out
 
     def grower(self) -> GrowerConfig:
+        # rf trees are averaged, not shrunk
+        lr = 1.0 if self.boosting_type == "rf" else self.learning_rate
         return GrowerConfig(
             num_leaves=self.num_leaves,
             num_bins=self.max_bin,
@@ -175,9 +183,10 @@ class BoosterConfig:
             min_data_in_leaf=self.min_data_in_leaf,
             min_sum_hessian_in_leaf=self.min_sum_hessian_in_leaf,
             min_gain_to_split=self.min_gain_to_split,
-            learning_rate=self.learning_rate,
+            learning_rate=lr,
             max_delta_step=self.max_delta_step,
             growth_policy=self.growth_policy,
+            feature_fraction_bynode=self.feature_fraction_bynode,
         )
 
 
@@ -428,8 +437,8 @@ def _reject_unported(config: BoosterConfig, **args) -> None:
     if bad:
         raise NotImplementedError(
             "not ported to the PyTorch package yet: " + ", ".join(bad)
-            + " (the port trains gbdt boosting on dense numeric data, "
-            "without sampling)")
+            + " (the port trains on dense numeric data with the serial "
+            "learner)")
 
 
 def _is_rank_metric(name: str) -> bool:
@@ -551,6 +560,193 @@ def _custom_grad_hess(fobj, score, yj, wj, n: int, k: int):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Per-iteration sampling (on the fit's device, from the threefry stream)
+# ---------------------------------------------------------------------------
+
+def _check_sampling_config(cfg: BoosterConfig) -> None:
+    """The JAX package's refusals of degenerate sampling configs."""
+    if ((cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0)
+            and cfg.objective not in ("binary",)):
+        raise ValueError("pos_bagging_fraction / neg_bagging_fraction require "
+                         f"objective='binary' (got {cfg.objective!r})")
+    if cfg.boosting_type == "rf" and not (
+            cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0
+            or cfg.feature_fraction < 1.0):
+        raise ValueError("boosting_type='rf' requires bagging (bagging_freq > "
+                         "0 and bagging_fraction < 1) and/or "
+                         "feature_fraction < 1")
+
+
+def _f32(x: float, dev) -> torch.Tensor:
+    """A Python float as a float32 scalar tensor: the JAX package compares
+    and multiplies float32 arrays with weakly typed Python floats, which
+    round to float32 first."""
+    return torch.tensor(x, dtype=torch.float32, device=dev)
+
+
+def _sample_rows_impl(cfg: BoosterConfig, n: int, key0, it: int, g, h,
+                      in_bag_cur, yj=None):
+    """(in_bag, g, h, in_bag_cur) of iteration ``it``; ``g``/``h`` are the
+    (K, n) gradient rows, ``in_bag_cur`` the bag carried between bagging
+    rounds. GOSS keeps the ``int(top_rate n)`` rows of largest sum over
+    classes of |g| (a stable order) and draws the rest with probability
+    ``other_rate n / (n - top_n)``, their g and h amplified by
+    ``(1 - top_rate) / other_rate``; bagging draws a fresh bag (per label
+    when stratified) every ``bagging_freq`` iterations and carries it
+    between."""
+    dev = g.device
+    stratified = (cfg.pos_bagging_fraction < 1.0
+                  or cfg.neg_bagging_fraction < 1.0)
+    do_bag = ((cfg.boosting_type == "rf" or cfg.bagging_freq > 0)
+              and (cfg.bagging_fraction < 1.0 or stratified))
+    if cfg.boosting_type == "goss":
+        gnorm = g[0].abs()
+        for c in range(1, g.shape[0]):
+            gnorm = gnorm + g[c].abs()
+        top_n = int(cfg.top_rate * n)
+        rand_n = int(cfg.other_rate * n)
+        amp = (1.0 - cfg.top_rate) / max(cfg.other_rate, 1e-12)
+        order = torch.argsort(-gnorm, stable=True)
+        ranks = torch.empty_like(order)
+        ranks[order] = torch.arange(n, device=dev)
+        kg = prng.fold_in(key0, cfg.extra_seed) if cfg.extra_seed else key0
+        u = prng.uniform(prng.fold_in(kg, it), n, dev)
+        pick = (ranks >= top_n) & (u < _f32(rand_n / max(n - top_n, 1), dev))
+        wmask = torch.where(ranks < top_n, _f32(1.0, dev),
+                            torch.where(pick, _f32(amp, dev),
+                                        _f32(0.0, dev)))
+        return ((wmask > 0).to(torch.float32), g * wmask[None],
+                h * wmask[None], in_bag_cur)
+    if do_bag:
+        if it % max(cfg.bagging_freq, 1):
+            return in_bag_cur, g, h, in_bag_cur
+        kb = (prng.fold_in(key0, cfg.bagging_seed) if cfg.bagging_seed != 3
+              else key0)
+        u = prng.uniform(prng.fold_in(kb, 20_000_000 + it), n, dev)
+        if stratified and yj is not None:
+            frac = torch.where(yj > 0, _f32(cfg.pos_bagging_fraction, dev),
+                               _f32(cfg.neg_bagging_fraction, dev))
+        else:
+            frac = _f32(cfg.bagging_fraction, dev)
+        bag = (u < frac).to(torch.float32)
+        return bag, g, h, bag
+    return in_bag_cur, g, h, in_bag_cur
+
+
+def _sample_features_impl(cfg: BoosterConfig, nfeat: int, key0, it: int,
+                          device="cpu") -> torch.Tensor:
+    """(F,) bool tree mask on ``device``: the first
+    ``ceil(feature_fraction F)`` of a permutation drawn for iteration
+    ``it``."""
+    mask = torch.zeros(nfeat, dtype=torch.bool, device=device)
+    if cfg.feature_fraction >= 1.0:
+        return mask.fill_(True)
+    nf_keep = max(1, int(math.ceil(cfg.feature_fraction * nfeat)))
+    kf = (prng.fold_in(key0, cfg.feature_fraction_seed)
+          if cfg.feature_fraction_seed else key0)
+    perm = prng.permutation(prng.fold_in(kf, 10_000_000 + it), nfeat,
+                            device)
+    mask[perm[:nf_keep]] = True
+    return mask
+
+
+def _node_key_data(key0, it: int, cls: int):
+    """The key of tree (``it``, ``cls``) for ``feature_fraction_bynode``."""
+    return prng.fold_in(prng.fold_in(key0, 30_000_000 + cls), it)
+
+
+def _dart_drops(cfg: BoosterConfig, rng, it: int,
+                tree_weights: List[float]) -> np.ndarray:
+    """Indices of the trees DART drops at iteration ``it`` (host numpy
+    draws: ``rng``, or ``default_rng([drop_seed, it])``): skipped with
+    probability ``skip_drop``, else each tree with probability
+    ``drop_rate`` (uniform) or ``drop_rate`` scaled by its weight over the
+    mean weight (weighted), the first ``max_drop`` kept."""
+    nt = len(tree_weights)
+    drop_rng = (np.random.default_rng([cfg.drop_seed, it])
+                if cfg.drop_seed else rng)
+    if drop_rng.random() < cfg.skip_drop:
+        return np.array([], np.int64)
+    if cfg.uniform_drop:
+        p = np.full(nt, cfg.drop_rate)
+    else:
+        w = np.asarray(tree_weights[:nt], np.float64)
+        p = np.minimum(cfg.drop_rate * w * nt / max(w.sum(), 1e-12), 1.0)
+    return np.nonzero(drop_rng.random(nt) < p)[0][: cfg.max_drop]
+
+
+class _Contribs:
+    """Per-tree contributions to a score, stacked on the device: row ``t``
+    holds tree ``t``'s (n,) leaf values, with its class. The buffer grows
+    by doubling, so appending a tree moves no earlier row."""
+
+    def __init__(self, n: int, dev):
+        self.buf = torch.zeros((0, n), dtype=torch.float32, device=dev)
+        self.cls: List[int] = []
+
+    def __len__(self) -> int:
+        return len(self.cls)
+
+    def append(self, cls: int, vec: torch.Tensor) -> None:
+        t = len(self.cls)
+        if t == self.buf.shape[0]:
+            grown = torch.zeros((max(2 * t, 8), self.buf.shape[1]),
+                                dtype=torch.float32, device=self.buf.device)
+            grown[:t] = self.buf
+            self.buf = grown
+        self.buf[t] = vec
+        self.cls.append(int(cls))
+
+    def weighted(self, weights, k: int) -> torch.Tensor:
+        """(n, k): each class's contributions times ``weights`` (one per
+        tree, float32), summed."""
+        T = len(self.cls)
+        w = torch.as_tensor(np.asarray(weights[:T], np.float32),
+                            device=self.buf.device)
+        cls = np.asarray(self.cls)
+        out = torch.zeros((self.buf.shape[1], k), dtype=torch.float32,
+                          device=self.buf.device)
+        for c in range(k):
+            sel = torch.as_tensor(np.nonzero(cls == c)[0],
+                                  device=self.buf.device)
+            if len(sel):
+                out[:, c] = (self.buf[sel] * w[sel, None]).sum(0)
+        return out
+
+    def to_host(self) -> list:
+        """[(class, (n,) float32 numpy)] in tree order (checkpoints)."""
+        rows = self.buf[:len(self.cls)].cpu().numpy()
+        return [(c, rows[t].copy()) for t, c in enumerate(self.cls)]
+
+    @classmethod
+    def from_host(cls, items, n: int, dev) -> "_Contribs":
+        out = cls(n, dev)
+        for c, v in items:
+            out.append(c, torch.as_tensor(np.asarray(v, np.float32)).to(dev))
+        return out
+
+
+def _per_tree_contribs(booster: Booster, X, n: int, dev) -> _Contribs:
+    """Each tree's unweighted output on the rows of ``X`` (rf trees keep
+    their 1 / trees-per-class average), as the JAX package recovers a warm
+    start's prior trees for DART and RF validation."""
+    out = _Contribs(n, dev)
+    if not booster.trees:
+        return out
+    Xb = torch.as_tensor(np.asarray(X, np.float32)).to(booster.device)
+    leaves = forest_leaves(booster.forest(), Xb, booster._depth_cache).to(
+        device=dev, dtype=torch.int64)
+    scale = np.ones(1, np.float32)
+    if booster.average_output:
+        scale = scale / booster.trees_per_class
+    for t, tree in enumerate(booster.trees):
+        lv = torch.as_tensor(np.asarray(tree.leaf_value, np.float32) * scale,
+                             device=dev)
+        out.append(t % booster.models_per_iter, lv[leaves[:, t]])
+    return out
+
+
 def train_booster(
     X,
     y: Optional[np.ndarray],
@@ -599,6 +795,10 @@ def train_booster(
       rerun of the same call continues from the newest snapshot of the
       same run.
     * ``callbacks``: ``cb(iteration, trees)`` after each iteration.
+    * sampling and constraints (``boosting_type`` goss / dart / rf, the
+      bagging and feature fractions and their seeds, DART's drop params,
+      ``monotone_constraints``): the JAX package's draws (module
+      docstring); none adds a host sync.
 
     Arguments of the JAX signature that the port does not implement
     (``categorical_features``, ``mesh``, sparse input) must stay at their
@@ -679,6 +879,8 @@ def train_booster(
     k = cfg.num_class if cfg.objective in MULTICLASS else 1
     obj = (_ranking_objective(cfg, y, group_sizes)
            if cfg.objective == "lambdarank" else _objective(cfg, k))
+    _check_sampling_config(cfg)
+    rf_mode, dart_mode = cfg.boosting_type == "rf", cfg.boosting_type == "dart"
     yj = torch.as_tensor(y).to(dev)
     wj = torch.as_tensor(w).to(dev)
     base = (np.atleast_1d(np.asarray(obj.init_score(yj, wj).cpu(), np.float64))
@@ -699,15 +901,26 @@ def train_booster(
         base = init_model.base_score
         init_thr = [init_model._thresholds(i) for i in range(len(trees))]
         init_mt = [init_model._missing_types(i) for i in range(len(trees))]
-        score = _scores_of(init_model, X, k, dev)
-    else:
-        # (n, K): the base score of each class
-        score = torch.as_tensor(base[:k].astype(np.float32)).to(dev).repeat(
-            n_orig, 1)
+    # (n, K): the base score of each class (and init_score), the margin
+    # DART rebuilds its score from
+    init_margin = torch.as_tensor(base[:k].astype(np.float32)).to(dev).repeat(
+        n_orig, 1)
     if init_score is not None:
-        score = score + torch.as_tensor(
+        extra = torch.as_tensor(
             np.asarray(init_score, np.float32).reshape(n_orig, -1)).to(dev)
+        init_margin = init_margin + extra
+    if init_model is None:
+        score = init_margin.clone()
+    else:
+        score = _scores_of(init_model, X, k, dev)
+        if init_score is not None:
+            score = score + extra
     n_init_trees = len(trees)
+    # dart: every tree's training contribution (a warm start's too: they
+    # are drop candidates)
+    tree_contribs = (_per_tree_contribs(init_model, X, n_orig, dev)
+                     if dart_mode and init_model is not None
+                     else _Contribs(n_orig, dev))
 
     has_valid = valid is not None
     if has_valid:
@@ -736,11 +949,23 @@ def train_booster(
                    .repeat(nv, 1))
         best_metric, best_iter = None, -1
         history: List[float] = []
+        # dart / rf: per-tree validation contributions, summed with the
+        # current weights each iteration
+        valid_contribs = (_per_tree_contribs(init_model, Xv, nv, dev)
+                          if (rf_mode or dart_mode) and init_model is not None
+                          else _Contribs(nv, dev))
 
     grower_cfg = cfg.grower()
     nan_bins = np.asarray(mapper.nan_bins, np.int32)
-    feature_active = torch.ones(nfeat, dtype=torch.bool, device=dev)
-    in_bag = torch.ones(n_orig, dtype=torch.float32, device=dev)
+    mono = np.zeros(nfeat, np.int32)
+    if cfg.monotone_constraints is not None:
+        mc = np.asarray(cfg.monotone_constraints, np.int32)
+        mono[: len(mc)] = mc
+    key0 = prng.prng_key(cfg.seed)
+    bynode = cfg.feature_fraction_bynode < 1.0
+    in_bag_cur = torch.ones(n_orig, dtype=torch.float32, device=dev)
+    # DART's drop decisions (host numpy, as in the JAX package)
+    rng = np.random.default_rng(cfg.seed)
     stats = {"host_syncs": 0}
 
     start_it = 0
@@ -754,6 +979,10 @@ def train_booster(
             trees = list(state["trees"])
             tree_weights = list(state["tree_weights"])
             score = torch.as_tensor(state["score"]).to(dev)
+            in_bag_cur = torch.as_tensor(state["in_bag_cur"]).to(dev)
+            tree_contribs = _Contribs.from_host(state["tree_contribs"],
+                                                n_orig, dev)
+            rng = state["rng"]
             if has_valid:
                 sv = np.asarray(state["score_v"], np.float32)
                 if sv.shape != tuple(score_v.shape):
@@ -762,6 +991,8 @@ def train_booster(
                         f"{tuple(score_v.shape)}; resume with the original "
                         "validation set (or pass resume=False)")
                 score_v = torch.as_tensor(sv).to(dev)
+                valid_contribs = _Contribs.from_host(
+                    state["valid_contribs"], nv, dev)
                 best_metric = state["best_metric"]
                 best_iter = int(state["best_iter"])
                 history = list(state["history"])
@@ -771,30 +1002,89 @@ def train_booster(
         for it in range(start_it, cfg.num_iterations):
             if ckpt_store is not None:
                 preemption_point("gbdt.iteration", it)
+            # dart: drop trees and take their weighted contributions out of
+            # the score the gradients see
+            drop, score_it = (), score
+            if dart_mode and trees:
+                drop = _dart_drops(cfg, rng, it, tree_weights)
+                if len(drop):
+                    dropped = torch.zeros_like(score)
+                    for j in drop:
+                        # the weight rounded to float32, as the JAX
+                        # package multiplies it into a float32 array
+                        dropped[:, tree_contribs.cls[j]] += (
+                            tree_contribs.buf[j]
+                            * float(np.float32(tree_weights[j])))
+                    score_it = score - dropped
+            kdrop = len(drop)
             # every class's gradients once per iteration, as (K, n) rows so
             # that each tree reads a contiguous one
             if fobj is not None:
-                g, h = _custom_grad_hess(fobj, score, yj, wj, n_orig, k)
+                g, h = _custom_grad_hess(fobj, score_it, yj, wj, n_orig, k)
             else:
-                g, h = obj.grad_hess(score[:, 0] if k == 1 else score, yj, wj)
+                g, h = obj.grad_hess(score_it[:, 0] if k == 1 else score_it,
+                                     yj, wj)
             g = g.reshape(n_orig, k).t().contiguous()
             h = h.reshape(n_orig, k).t().contiguous()
+            with measures.span("sampling"):
+                in_bag, g, h, in_bag_cur = _sample_rows_impl(
+                    cfg, n_orig, key0, it, g, h, in_bag_cur, yj)
+                feature_active = _sample_features_impl(cfg, nfeat, key0,
+                                                       it, dev)
+            new_weight = 1.0
+            if kdrop:
+                new_weight = (1.0 / (kdrop + cfg.learning_rate)
+                              if cfg.xgboost_dart_mode
+                              else 1.0 / (kdrop + 1.0))
             for c in range(k):
-                tree, node = grow_tree(binned, g[c], h[c], in_bag,
-                                       feature_active, grower_cfg,
-                                       nan_bins=nan_bins, bT0=bT, stats=stats)
-                score[:, c] += tree.leaf_value[node]
+                tree, node = grow_tree(
+                    binned, g[c], h[c], in_bag, feature_active, grower_cfg,
+                    nan_bins=nan_bins, bT0=bT, stats=stats, monotone=mono,
+                    node_key=(_node_key_data(key0, it, c) if bynode
+                              else None))
+                contrib = tree.leaf_value[node]
+                if dart_mode:
+                    tree_contribs.append(c, contrib)
+                    if kdrop and c == k - 1:
+                        # dropped trees scaled by kdrop / (kdrop + 1), then
+                        # the score rebuilt from the margin and every
+                        # weighted contribution (this iteration's trees at
+                        # the new weight)
+                        factor = (kdrop / (kdrop + cfg.learning_rate)
+                                  if cfg.xgboost_dart_mode
+                                  else kdrop / (kdrop + 1.0))
+                        for j in drop:
+                            tree_weights[j] *= factor
+                        wts = tree_weights + [new_weight] * (
+                            len(tree_contribs) - len(tree_weights))
+                        score = init_margin + tree_contribs.weighted(wts, k)
+                    elif not kdrop:
+                        score[:, c] += contrib
+                elif not rf_mode:
+                    # rf: gradients always from the base score
+                    score[:, c] += contrib
                 trees.append(tree)
-                tree_weights.append(1.0)
+                tree_weights.append(new_weight)
                 if has_valid:
                     with measures.span("validation"):
                         leaf_v = tree_leaves_binned(tree, binned_v,
                                                     nan_bins_v)
-                        score_v[:, c] += tree.leaf_value[leaf_v]
+                        contrib_v = tree.leaf_value[leaf_v]
+                        if rf_mode or dart_mode:
+                            valid_contribs.append(c, contrib_v)
+                        else:
+                            score_v[:, c] += contrib_v
             done = it + 1
             if has_valid:
                 with measures.span("validation"):
                     raw_v = score_v
+                    if rf_mode or dart_mode:
+                        wts_v = np.asarray(tree_weights, np.float32)
+                        if rf_mode:
+                            wts_v = wts_v / max(len(trees) // k, 1)
+                        raw_v = (torch.as_tensor(base[:k].astype(np.float32))
+                                 .to(dev).repeat(nv, 1)
+                                 + valid_contribs.weighted(wts_v, k))
                     pred_v = obj.transform(raw_v[:, 0] if k == 1 else raw_v)
                     mval = float(_eval_metric(metric_name, yv_j, pred_v,
                                               raw_v, gidx_v, cfg, wv_j))
@@ -819,9 +1109,13 @@ def train_booster(
                 trees = trees_to_host(trees)
                 payload = {"iteration": it + 1, "trees": trees,
                            "tree_weights": list(tree_weights),
-                           "score": score.cpu().numpy()}
+                           "score": score.cpu().numpy(),
+                           "in_bag_cur": in_bag_cur.cpu().numpy(),
+                           "tree_contribs": tree_contribs.to_host(),
+                           "rng": rng}
                 if has_valid:
                     payload.update(score_v=score_v.cpu().numpy(),
+                                   valid_contribs=valid_contribs.to_host(),
                                    best_metric=best_metric,
                                    best_iter=best_iter, history=history)
                 _ckpt_save_gbdt(ckpt_store, it + 1, payload, fingerprint,

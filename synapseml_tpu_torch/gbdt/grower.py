@@ -33,9 +33,19 @@ without touching the kernel.
 ``GrowerConfig(growth_policy="depthwise")`` sends ``grow_tree`` to the
 level-batched grower of ``grower_depthwise.py`` instead.
 
-Not ported yet: categorical splits, monotone constraints, per-node feature
-sampling, the "masked"/"gather" layouts and the distributed (sharded)
-reductions.
+Sampling and constraints: ``feature_active`` is the tree's feature mask
+(``feature_fraction``); with ``feature_fraction_bynode`` below 1 every
+node's split search sees its own subset, drawn from the tree's
+``node_key`` with the JAX package's node ids (the root ``2 (L - 1)``, the
+children of split ``i`` ``2i`` and ``2i + 1``), all ``2L - 1`` masks in
+one batched draw per tree (``node_masks``), so sampling adds no host
+sync. ``monotone`` (-1 / 0 / +1 per feature) drops every candidate whose
+two child outputs ``-G / (H + l2)`` break the constraint, as the JAX
+grower does; like it, this bounds no split's descendants (LightGBM's
+basic method also clamps them), so the raw score need not be monotone.
+
+Not ported yet: categorical splits, the "masked"/"gather" layouts and the
+distributed (sharded) reductions.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core import prng
 from ..ops.hist_kernel import (child_histogram, features_padded, pad_bins,
                                range_histogram)
 
@@ -66,6 +77,7 @@ class GrowerConfig(NamedTuple):
     learning_rate: float = 0.1
     max_delta_step: float = 0.0
     growth_policy: str = "leafwise"  # or "depthwise" (grower_depthwise.py)
+    feature_fraction_bynode: float = 1.0
 
 
 class TreeArrays(NamedTuple):
@@ -151,10 +163,13 @@ def _leaf_output_host(g, h, cfg: GrowerConfig) -> np.float32:
 # Split finding over leaf histograms
 # ---------------------------------------------------------------------------
 
-def _best_for_leaf(hist, feature_active, nan_bins, cfg: GrowerConfig):
+def _best_for_leaf(hist, feature_mask, nan_bins, cfg: GrowerConfig,
+                   monotone=None):
     """hist (K, FP, B, 3) → (K, 8) float64 rows of
     [gain, feature, bin, default_left, count_left, G, H, C] — each leaf's
-    best numeric split (learned NaN direction) and its totals."""
+    best numeric split (learned NaN direction) and its totals.
+    ``feature_mask`` is (FP,) for every leaf or (K, FP) per leaf;
+    ``monotone`` (FP,) int -1/0/+1 or None (no constraint)."""
     K, FP, B, _ = hist.shape
     l1, l2 = cfg.lambda_l1, cfg.lambda_l2
     totals = hist[:, 0].sum(dim=1)                     # (K, 3) — feature 0 spans the leaf
@@ -173,6 +188,13 @@ def _best_for_leaf(hist, feature_active, nan_bins, cfg: GrowerConfig):
         valid = ((CL >= cfg.min_data_in_leaf) & (CR >= cfg.min_data_in_leaf)
                  & (HL >= cfg.min_sum_hessian_in_leaf)
                  & (HR >= cfg.min_sum_hessian_in_leaf))
+        if monotone is not None:
+            # the child outputs without l1, as the JAX grower compares them
+            vl = -GL / (HL + l2)
+            vr = -GR / (HR + l2)
+            mc = monotone[None, :, None]
+            valid = valid & torch.where(
+                mc == 0, True, torch.where(mc > 0, vl <= vr, vl >= vr))
         return torch.where(valid, gain, -torch.inf), CL
 
     cum = torch.cumsum(hist, dim=2)                    # (K, FP, B, 3)
@@ -190,7 +212,8 @@ def _best_for_leaf(hist, feature_active, nan_bins, cfg: GrowerConfig):
     use_left = has_nan & (gain_l > gain_r)
     gain = torch.where(use_left, gain_l, gain_r)
     CLsel = torch.where(use_left, CL_l, CL_r)
-    gain = torch.where(feature_active[None, :, None], gain, -torch.inf)
+    fmask = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
+    gain = torch.where(fmask[:, :, None], gain, -torch.inf)
 
     flat = gain.reshape(K, FP * B)
     best = torch.argmax(flat, dim=1, keepdim=True)     # first max, as jnp.argmax
@@ -221,17 +244,52 @@ def transpose_bins(binned: torch.Tensor) -> torch.Tensor:
 # Tree growth
 # ---------------------------------------------------------------------------
 
-def _padded_features(feature_active, nan_bins, FP: int, dev):
-    """(featp (FP,) bool, nanp (FP,) i64 on ``dev``, nanp as numpy): the
-    active mask and each feature's NaN bin (``NO_NAN_BIN``: none), padded
-    to FP features that are inactive and have no NaN bin."""
+def _padded_features(feature_active, nan_bins, FP: int, dev, monotone=None):
+    """(featp (FP,) bool, nanp (FP,) i64 on ``dev``, nanp as numpy, monop
+    (FP,) i64 on ``dev`` or None): the active mask, each feature's NaN bin
+    (``NO_NAN_BIN``: none) and monotone constraint, padded to FP features
+    that are inactive, have no NaN bin and no constraint. ``monotone``
+    that is None or all zero gives None."""
     f = feature_active.shape[0]
     featp = torch.zeros(FP, dtype=torch.bool, device=dev)
     featp[:f] = feature_active
     nanp_host = np.full(FP, NO_NAN_BIN, np.int64)
     if nan_bins is not None:
         nanp_host[:f] = np.asarray(nan_bins)
-    return featp, torch.as_tensor(nanp_host, device=dev), nanp_host
+    monop = None
+    if monotone is not None and np.any(np.asarray(monotone)):
+        mono_host = np.zeros(FP, np.int64)
+        mono_host[:f] = np.asarray(monotone)
+        monop = torch.as_tensor(mono_host, device=dev)
+    return featp, torch.as_tensor(nanp_host, device=dev), nanp_host, monop
+
+
+def node_masks(cfg: GrowerConfig, featp: torch.Tensor, node_key,
+               L: int) -> Optional[torch.Tensor]:
+    """(2L - 1, FP) bool feature mask of every node id of one tree for
+    ``feature_fraction_bynode`` (None at 1): node ``nid`` folds into the
+    tree's key ``node_key`` (two 32-bit words, see ``core.prng``), draws
+    one uniform per padded feature and keeps the
+    ``max(1, ceil(frac * |featp|))`` lowest among the tree's active
+    features (LightGBM's ColSampler::GetByNode; the JAX package's
+    ``_node_mask_fn``). One batched draw on ``featp``'s device."""
+    if cfg.feature_fraction_bynode >= 1.0:
+        return None
+    if node_key is None:
+        raise ValueError("feature_fraction_bynode < 1 requires node_key")
+    FP = featp.shape[0]
+    dev = featp.device
+    nids = torch.arange(2 * L - 1, dtype=torch.int64, device=dev)
+    u = prng.uniform(prng.fold_in(node_key, nids), FP)
+    u = torch.where(featp, u, torch.inf)
+    frac = torch.tensor(cfg.feature_fraction_bynode, dtype=torch.float32,
+                        device=dev)
+    keep = torch.clamp_min(torch.ceil(frac * featp.sum().to(torch.float32)),
+                           1).to(torch.int64)
+    order = torch.argsort(u, dim=1, stable=True)
+    ranks = torch.empty_like(order).scatter_(
+        1, order, torch.arange(FP, device=dev).expand_as(order).contiguous())
+    return featp & (ranks < keep)
 
 
 class _TreeBook:
@@ -260,6 +318,9 @@ class _TreeBook:
         self.right_child = np.full(S, ~0, np.int32)
         self.internal_value = np.zeros(S, np.float32)
         self.internal_count = np.zeros(S, np.int32)
+        # each leaf's node id for per-node feature masks: the root's, then
+        # 2i / 2i + 1 for the left / right child of split i
+        self.mask_id = np.full(L, 2 * (L - 1), np.int64)
         self.num_splits = 0
 
     def set_best(self, leaves, rows: np.ndarray) -> None:
@@ -296,6 +357,7 @@ class _TreeBook:
         self.depth[l] += 1
         self.leaf_parent[l] = self.leaf_parent[new_right] = i_node
         self.leaf_is_right[l], self.leaf_is_right[new_right] = False, True
+        self.mask_id[l], self.mask_id[new_right] = 2 * i_node, 2 * i_node + 1
         self.num_splits += 1
         return new_right
 
@@ -323,7 +385,8 @@ class _TreeBook:
 
 
 def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
-              nan_bins=None, bT0=None, stats: Optional[dict] = None):
+              nan_bins=None, bT0=None, stats: Optional[dict] = None,
+              monotone=None, node_key=None):
     """Grow one tree; returns (TreeArrays, node_of_row) where node_of_row is
     each row's final leaf index (used for the O(1) training-score update).
 
@@ -332,13 +395,17 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
     holds each feature's NaN bin (0x7FFF: none). ``bT0`` is the
     ``transpose_bins(binned)`` matrix when the caller keeps one across trees
     (it is not modified). ``stats["host_syncs"]`` counts host reads.
+    ``monotone`` (F,) -1/0/+1 constraints (host array or None);
+    ``node_key`` the tree's key (``core.prng``) for
+    ``feature_fraction_bynode``.
     """
     if cfg.growth_policy == "depthwise":
         from .grower_depthwise import grow_tree_depthwise
 
         return grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
                                    cfg, nan_bins=nan_bins, bT0=bT0,
-                                   stats=stats)
+                                   stats=stats, monotone=monotone,
+                                   node_key=node_key)
     if cfg.growth_policy != "leafwise":
         raise ValueError("growth_policy must be 'leafwise' or 'depthwise', "
                          f"got {cfg.growth_policy!r}")
@@ -354,14 +421,20 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
     hs = hess.to(torch.float32) * in_bag
     ms = in_bag.clone()
     pos = torch.arange(n, dtype=torch.int64, device=dev)
-    featp, nanp, nanp_host = _padded_features(feature_active, nan_bins, FP,
-                                              dev)
+    featp, nanp, nanp_host, monop = _padded_features(
+        feature_active, nan_bins, FP, dev, monotone)
+    masks = node_masks(cfg, featp, node_key, L)
+
+    def mask_of(i: int, count: int = 1):
+        """The masks of node ids ``i .. i + count - 1`` (the tree's mask
+        without per-node sampling)."""
+        return featp if masks is None else masks[i:i + count]
 
     hist = torch.zeros((L, FP, B, 3), dtype=torch.float32, device=dev)
     hist[0] = child_histogram(bT, gs, hs, ms, B)
     book = _TreeBook(L, B)
-    book.set_best([0], _to_host(_best_for_leaf(hist[:1], featp, nanp, cfg),
-                                stats))
+    book.set_best([0], _to_host(_best_for_leaf(
+        hist[:1], mask_of(2 * (L - 1)), nanp, cfg, monop), stats))
     leaf_start = np.zeros(L, np.int64)
     leaf_len = np.zeros(L, np.int64)
     leaf_len[0] = n
@@ -404,7 +477,8 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
         hist_left = hist_small if left_small else hist_parent - hist_small
         hist_right = hist_parent - hist_left
         children = torch.stack([hist_left, hist_right])
-        best2 = _best_for_leaf(children, featp, nanp, cfg)
+        best2 = _best_for_leaf(children, mask_of(2 * book.num_splits, 2),
+                               nanp, cfg, monop)
         rec = _to_host(torch.cat([nl_loc.reshape(1).double(),
                                   best2.reshape(-1)]), stats)
         new_right = book.split(l, cfg)

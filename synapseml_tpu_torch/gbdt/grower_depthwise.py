@@ -27,9 +27,13 @@ budget or the depth limit already ends the tree, so a tree costs
 ``passes - 1`` host syncs then and ``passes`` otherwise, where ``passes`` is
 1 (the root) plus the number of levels that applied a split.
 
-Not ported: categorical bitsets, monotone constraints, per-node feature
-sampling and the cross-shard histogram reduction (``train_booster`` rejects
-their settings).
+Per-node feature masks follow each slot's node id (``_TreeBook.mask_id``,
+uploaded with the level's plan), as the JAX grower's ``mask_id``; monotone
+constraints mask candidates in ``_best_for_leaf`` as in the leaf-wise
+grower.
+
+Not ported: categorical bitsets and the cross-shard histogram reduction
+(``train_booster`` rejects their settings).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 from ..ops.hist_kernel import (CHUNK, features_padded, level_histograms,
                                pad_bins)
 from .grower import (GrowerConfig, _best_for_leaf, _padded_features,
-                     _to_host, _TreeBook, transpose_bins)
+                     _to_host, _TreeBook, node_masks, transpose_bins)
 
 
 class _LevelPlan(NamedTuple):
@@ -54,6 +58,7 @@ class _LevelPlan(NamedTuple):
     bsel: torch.Tensor        # i64 bin threshold (left if bin <= it)
     dl: torch.Tensor          # bool default-left (NaN bin's side)
     right_of: torch.Tensor    # i64 right child's leaf (itself if unsplit)
+    mask_id: torch.Tensor     # i64 each slot's node id after the level
 
 
 def _level_candidates(book: _TreeBook, level: int, cfg: GrowerConfig):
@@ -77,16 +82,17 @@ def _apply_level_splits(book: _TreeBook, do, order, cfg: GrowerConfig, dev
     """Apply the level's splits to ``book`` in gain order; returns the plan
     the rows route by, uploaded in one transfer."""
     L = book.L
-    plan = np.zeros((5, L), np.int64)
+    plan = np.zeros((6, L), np.int64)
     plan[4] = np.arange(L)                         # right_of: identity
     for l in order:
         if not do[l]:
             continue
         plan[:4, l] = 1, book.bfeat[l], book.bbin[l], book.bdl[l]
         plan[4, l] = book.split(int(l), cfg)
+    plan[5] = book.mask_id
     p = torch.as_tensor(plan, device=dev)
     return _LevelPlan(do=p[0] != 0, fsel=p[1], bsel=p[2], dl=p[3] != 0,
-                      right_of=p[4])
+                      right_of=p[4], mask_id=p[5])
 
 
 def _route_level(bT, rleaf, plan: _LevelPlan, nanp):
@@ -132,7 +138,8 @@ def _repartition(new_rleaf, is_pad, exists, chunk: int, CAP: int):
 
 def grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
                         cfg: GrowerConfig, nan_bins=None, bT0=None,
-                        stats: Optional[dict] = None):
+                        stats: Optional[dict] = None, monotone=None,
+                        node_key=None):
     """Grow one tree level by level; arguments and result as
     ``grower.grow_tree`` (``bT0`` is read, never modified)."""
     n, f = binned.shape
@@ -153,7 +160,9 @@ def grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
     ms = in_bag
     pos = torch.arange(n, dtype=torch.int64, device=dev)
     rleaf = torch.zeros(n, dtype=torch.int64, device=dev)
-    featp, nanp, _ = _padded_features(feature_active, nan_bins, FP, dev)
+    featp, nanp, _, monop = _padded_features(feature_active, nan_bins, FP,
+                                             dev, monotone)
+    masks = node_masks(cfg, featp, node_key, L)
     root_starts = torch.full((L,), CAP // chunk, dtype=torch.int32,
                              device=dev)
     root_starts[0] = 0
@@ -166,8 +175,9 @@ def grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
         return book.num_splits < L - 1 and level < max_levels
 
     if growing():
+        root_mask = featp if masks is None else masks[2 * (L - 1)]
         book.set_best([0], _to_host(
-            _best_for_leaf(hist[:1], featp, nanp, cfg), stats))
+            _best_for_leaf(hist[:1], root_mask, nanp, cfg, monop), stats))
     while growing():
         do, order = _level_candidates(book, level, cfg)
         if not do.any():
@@ -185,7 +195,9 @@ def grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
         hist = level_histograms(bT, gs, hs, ms, start_chunks, rleaf, B, L)
         level += 1
         if growing():
-            rows = _to_host(_best_for_leaf(hist, featp, nanp, cfg), stats)
+            slot_masks = featp if masks is None else masks[plan.mask_id]
+            rows = _to_host(_best_for_leaf(hist, slot_masks, nanp, cfg,
+                                           monop), stats)
             book.set_best(np.arange(L), rows)
             book.bgain[book.num_splits + 1:] = -np.inf
 

@@ -3,17 +3,24 @@ port's engine.
 
 Counterpart of the JAX package's ``models/gbdt.py`` for the ported slice:
 binary and multiclass classification, regression with every LightGBM
-regression objective, and LambdaRank ranking, with plain gradient boosting
-on dense numeric data; validation rows (``validationIndicatorCol``) with
-the metric and early stopping, warm starts (``modelString``, and
+regression objective, and LambdaRank ranking, with every boosting type
+(gbdt, goss, dart, rf) on dense numeric data; bagging (``baggingFraction``,
+``baggingFreq``, ``baggingSeed``, stratified ``pos``/``negBaggingFraction``),
+feature fractions per tree and per node with their seed, DART's
+``dropRate``, ``maxDrop``, ``skipDrop``, ``uniformDrop``, ``dropSeed`` and
+``xGBoostDartMode``, GOSS's ``topRate``/``otherRate``, ``extraSeed``,
+``monotoneConstraints`` (each split on a constrained feature orders its
+two children's outputs, as in the JAX package; ``monotoneConstraintsMethod``
+and ``monotonePenalty`` are accepted and inert there and here);
+validation rows (``validationIndicatorCol``)
+with the metric and early stopping, warm starts (``modelString``, and
 ``numBatches`` sequential batches each warm-started from the last), custom
 objectives (``fobj``), the prediction window (``startIteration``) and the
 leaf-index and SHAP output columns. camelCase param names match the
 reference so code ports 1:1. A param of the JAX estimators that the slice
-does not implement (sampling, DART, GOSS, categorical and monotone
-features, the distributed learners) is not declared here; passing one
-raises ``NotImplementedError`` naming it, and so does a ``boostingType``
-other than ``gbdt``. The JAX ranker takes ``modelString`` and
+does not implement (categorical features, the distributed learners) is
+not declared here; passing one raises ``NotImplementedError`` naming it.
+The JAX ranker takes ``modelString`` and
 ``numBatches`` but does not use them; the port's ranker refuses them
 instead. The Spark/JNI plumbing params stay accepted as no-ops, as in the
 JAX package.
@@ -38,11 +45,6 @@ from ..gbdt.boosting import Booster, BoosterConfig, train_booster
 
 # params of the JAX estimator that the port does not implement yet
 UNPORTED_PARAMS = frozenset({
-    "baggingFraction", "baggingFreq", "baggingSeed", "posBaggingFraction",
-    "negBaggingFraction", "featureFraction", "featureFractionByNode",
-    "featureFractionSeed", "dropRate", "maxDrop", "skipDrop", "uniformDrop",
-    "dropSeed", "xGBoostDartMode", "topRate", "otherRate", "extraSeed",
-    "monotoneConstraints", "monotoneConstraintsMethod", "monotonePenalty",
     "categoricalSlotIndexes", "categoricalSlotNames", "catSmooth",
     "maxCatThreshold", "catl2", "maxCatToOnehot", "minDataPerGroup",
     "topK", "parallelism",
@@ -70,13 +72,37 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
     numLeaves = Param("numLeaves", "Max leaves per tree", int, 31)
     maxBin = Param("maxBin", "Max number of feature bins", int, 255)
     maxDepth = Param("maxDepth", "Max tree depth (-1 = unlimited)", int, -1)
-    boostingType = Param("boostingType", "gbdt (rf, dart and goss are not "
-                         "ported)", str, "gbdt")
+    boostingType = Param("boostingType", "gbdt, rf, dart or goss", str, "gbdt")
     lambdaL1 = Param("lambdaL1", "L1 regularization", float, 0.0)
     lambdaL2 = Param("lambdaL2", "L2 regularization", float, 0.0)
     minDataInLeaf = Param("minDataInLeaf", "Min rows per leaf", int, 20)
     minSumHessianInLeaf = Param("minSumHessianInLeaf", "Min hessian sum per leaf", float, 1e-3)
     minGainToSplit = Param("minGainToSplit", "Min gain to perform a split", float, 0.0)
+    baggingFraction = Param("baggingFraction", "Row subsample fraction", float, 1.0)
+    baggingFreq = Param("baggingFreq", "Resample bagging every k iterations (0=off)", int, 0)
+    baggingSeed = Param("baggingSeed", "Bagging seed", int, 3)
+    featureFraction = Param("featureFraction", "Feature subsample fraction per tree", float, 1.0)
+    featureFractionByNode = Param("featureFractionByNode", "Feature subsample fraction per node", float, 1.0)
+    posBaggingFraction = Param("posBaggingFraction", "Positive-class bagging fraction", float, 1.0)
+    negBaggingFraction = Param("negBaggingFraction", "Negative-class bagging fraction", float, 1.0)
+    dropRate = Param("dropRate", "DART tree drop probability", float, 0.1)
+    maxDrop = Param("maxDrop", "DART max trees dropped per iteration", int, 50)
+    skipDrop = Param("skipDrop", "DART probability of skipping dropout", float, 0.5)
+    uniformDrop = Param("uniformDrop", "DART uniform drop", bool, False)
+    topRate = Param("topRate", "GOSS large-gradient keep fraction", float, 0.2)
+    otherRate = Param("otherRate", "GOSS small-gradient sample fraction", float, 0.1)
+    monotoneConstraints = Param("monotoneConstraints", "Per-feature -1/0/+1 constraints", list)
+    monotoneConstraintsMethod = Param("monotoneConstraintsMethod", "basic/intermediate/advanced (inert, as in the JAX package)", str, "basic")
+    monotonePenalty = Param("monotonePenalty", "Monotone split penalty (inert)", float, 0.0)
+    dropSeed = Param("dropSeed", "DART drop-selection seed (0 = derive from "
+                     "seed)", int, 0)
+    featureFractionSeed = Param("featureFractionSeed", "Feature-sampling seed "
+                                "(0 = derive from seed)", int, 0)
+    extraSeed = Param("extraSeed", "Extra sampling seed (0 = derive from "
+                      "seed)", int, 0)
+    xGBoostDartMode = Param("xGBoostDartMode", "XGBoost-style DART "
+                            "normalization (learning-rate weighted)", bool,
+                            False)
     maxDeltaStep = Param("maxDeltaStep", "Max absolute leaf output", float, 0.0)
     earlyStoppingRound = Param("earlyStoppingRound", "Early stopping patience (0=off)", int, 0)
     improvementTolerance = Param("improvementTolerance", "Min metric improvement", float, 0.0)
@@ -169,6 +195,24 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             min_data_in_leaf=self.getMinDataInLeaf(),
             min_sum_hessian_in_leaf=self.getMinSumHessianInLeaf(),
             min_gain_to_split=self.getMinGainToSplit(),
+            bagging_fraction=self.getBaggingFraction(),
+            bagging_freq=self.getBaggingFreq(),
+            feature_fraction=self.getFeatureFraction(),
+            feature_fraction_bynode=self.getFeatureFractionByNode(),
+            pos_bagging_fraction=self.getPosBaggingFraction(),
+            neg_bagging_fraction=self.getNegBaggingFraction(),
+            drop_rate=self.getDropRate(),
+            max_drop=self.getMaxDrop(),
+            skip_drop=self.getSkipDrop(),
+            uniform_drop=self.getUniformDrop(),
+            top_rate=self.getTopRate(),
+            other_rate=self.getOtherRate(),
+            monotone_constraints=self.get("monotoneConstraints"),
+            drop_seed=self.getDropSeed(),
+            feature_fraction_seed=self.getFeatureFractionSeed(),
+            extra_seed=self.getExtraSeed(),
+            bagging_seed=self.getBaggingSeed(),
+            xgboost_dart_mode=self.getXGBoostDartMode(),
             max_delta_step=self.getMaxDeltaStep(),
             early_stopping_round=self.getEarlyStoppingRound(),
             metric=self.get("metric"),

@@ -10,7 +10,9 @@ import ctypes
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -501,3 +503,116 @@ def test_check_frozen_rejects_a_moved_frozen_parameter():
         cs.check_frozen("moved", net, init, 2)
     with pytest.raises(AssertionError, match="frozen"):
         cs.check_frozen("all trained", net, init, -1)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: sampling and monotone constraints
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cfg", [
+    dict(boosting_type="dart"),
+    dict(boosting_type="dart", uniform_drop=True, xgboost_dart_mode=True,
+         skip_drop=0.2, drop_rate=0.4, max_drop=2),
+    dict(boosting_type="dart", drop_seed=7, skip_drop=0.1),
+])
+def test_dart_weight_replay_is_a_dart_fits_weights(cfg):
+    """The host replay that phase 13 holds the card's DART weights to
+    gives a CPU fit's weights exactly, drops included."""
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+
+    X, y = cs.higgs_like(600)
+    full = dict(objective="binary", num_iterations=12, num_leaves=7,
+                min_data_in_leaf=5, **cfg)
+    booster = train_booster(X, y, BoosterConfig(**full), device="cpu")
+    want = cs.dart_weight_replay(full, 12)
+    assert booster.tree_weights == want
+    assert min(want) < 1.0
+
+
+def test_monotone_check_rejects_a_split_out_of_order():
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+
+    X, y = cs.higgs_like(1500)
+    booster = train_booster(X, y, BoosterConfig(
+        objective="binary", num_iterations=3, num_leaves=15,
+        monotone_constraints=[0, 0, 1]), device="cpu")
+    cs.monotone_check(booster, "cpu")
+    tree = booster.trees[0]
+    i = int(np.nonzero(np.asarray(tree.split_feature)[:int(tree.num_splits)]
+                       == cs.MONOTONE_FEATURE)[0][0])
+    # swap the two children of one split on X2: the order breaks
+    lc, rc = tree.left_child.copy(), tree.right_child.copy()
+    lc[i], rc[i] = rc[i], lc[i]
+    booster.trees[0] = tree._replace(left_child=lc, right_child=rc)
+    with pytest.raises(AssertionError, match="monotone"):
+        cs.monotone_check(booster, "cpu")
+
+
+def test_captured_call_clones_one_calls_arguments_and_restores():
+    def real(x, n):
+        return n
+
+    module = SimpleNamespace(kernel=real)
+    x = torch.zeros(3)
+    with cs.captured_call(module, "kernel", 1) as got:
+        for v in (1.0, 2.0, 3.0):
+            x.fill_(v)
+            assert module.kernel(x, int(v)) == int(v)
+    assert module.kernel is real
+    # the second call's tensor as it was then, not as the caller left it
+    assert torch.equal(got["args"][0], torch.full((3,), 2.0))
+    assert got["args"][1] == 2
+
+
+def test_sampling_phase_runs_on_the_plain_versions(monkeypatch):
+    """Phase 13 on the CPU at small sizes: without launches the first fit's
+    check refuses the run; with counting stand-ins every step passes (the
+    bitwise and card-against-CPU checks are CPU against CPU here)."""
+    monkeypatch.setattr(cs, "SAMPLING_ITERS", 8)
+    monkeypatch.setattr(cs, "MONOTONE_ROWS", 50)
+    monkeypatch.setattr(cs, "SAMPLING_CROSS_ROWS", 1000)
+    monkeypatch.setattr(cs, "SAMPLING_CROSS_ITERS", 1)
+    plain = {"child_histogram": 10, "range_histogram": 300,
+             "level_histograms": 60}
+    with pytest.raises(AssertionError, match="never launched"):
+        cs.sampling_path(2500, "cpu", plain)
+    _count_grower_launches(monkeypatch)
+    fits = cs.sampling_path(2500, "cpu", plain)
+    assert fits["goss leafwise"]["launches"]["range_histogram"] > 0
+    assert fits["dart depthwise"]["launches"]["level_histograms"] > 0
+    assert fits["rf leafwise"]["booster"].average_output
+
+
+def test_kernel_timer_brackets_each_launch_and_restores_the_library(
+        monkeypatch):
+    """Phase 13's kernel timer on a stand-in library: each launch of a
+    histogram function gets a start and an end event, other functions pass
+    through, and the built library is back in place after the block."""
+    from synapseml_tpu_torch.ops import _build
+
+    class Event:
+        def __init__(self, enable_timing):
+            self.recorded = 0
+
+        def record(self):
+            self.recorded += 1
+
+        def elapsed_time(self, end):
+            return 0.5
+
+    lib = SimpleNamespace(child_histogram=lambda *a: 0,
+                          other=lambda: "passed")
+    monkeypatch.setattr(cs, "_on_card", lambda dev: True)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(hk, "_lib", lambda: lib)
+    monkeypatch.setitem(_build._LIBS, "hist_kernel", lib)
+    with cs.kernel_timer("cuda") as events:
+        timed = _build._LIBS["hist_kernel"]
+        assert timed.child_histogram(1, 2) == 0
+        assert timed.child_histogram(3) == 0
+        assert timed.other() == "passed"
+    assert _build._LIBS["hist_kernel"] is lib
+    assert len(events["child_histogram"]) == 2
+    assert all(s.recorded == e.recorded == 1
+               for s, e in events["child_histogram"])
+    assert cs.timed_ms(events)["child_histogram"] == 1.0

@@ -271,11 +271,8 @@ def test_cuda_fit_matches_reference(data, tables, cuda):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value", [
-    ("tree_learner", "voting"), ("boosting_type", "dart"),
-    ("boosting_type", "goss"), ("boosting_type", "rf"),
-    ("bagging_fraction", 0.5), ("bagging_freq", 1),
-    ("feature_fraction", 0.8), ("monotone_constraints", [1] + [0] * 27),
-    ("row_layout", "masked"), ("feature_fraction_bynode", 0.5),
+    ("tree_learner", "voting"), ("row_layout", "masked"),
+    ("partition_impl", "scan"), ("use_segmented", False),
 ])
 def test_train_booster_rejects_unported_config(data, field, value):
     X, y = data
@@ -283,6 +280,30 @@ def test_train_booster_rejects_unported_config(data, field, value):
     setattr(cfg, field, value)
     with pytest.raises(NotImplementedError, match=field):
         tboost.train_booster(X[:256], y[:256], cfg, device=CPU)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("boosting_type", "dart"), ("boosting_type", "goss"),
+    ("boosting_type", "rf"), ("bagging_fraction", 0.5),
+    ("bagging_freq", 1), ("feature_fraction", 0.8),
+    ("monotone_constraints", [1] + [0] * 27),
+    ("feature_fraction_bynode", 0.5),
+])
+def test_train_booster_trains_the_sampling_it_once_refused(data, field,
+                                                           value):
+    """Each setting the port once refused by name now trains (rf with the
+    bagging it requires); ``test_torch_gbdt_sampling.py`` holds the trees
+    to the JAX package's."""
+    X, y = data
+    cfg = tboost.BoosterConfig(objective="binary", num_iterations=2,
+                               num_leaves=7)
+    setattr(cfg, field, value)
+    if value == "rf":
+        cfg.bagging_fraction, cfg.bagging_freq = 0.5, 1
+    booster = tboost.train_booster(X[:256], y[:256], cfg, device=CPU)
+    assert booster.num_trees == 2
+    assert getattr(booster.config, field) == value
+    assert np.isfinite(booster.raw_score(X[:256])).all()
 
 
 @pytest.mark.parametrize("arg,value", [
@@ -351,16 +372,17 @@ def test_classifier_rejects_unported_params(data):
     # every param of the JAX estimator is either ported or rejected
     from synapseml_tpu_torch.models.gbdt import UNPORTED_PARAMS
     assert jparams - tparams == set(UNPORTED_PARAMS)
-    for name, value in (("baggingFraction", 0.5), ("featureFraction", 0.8),
-                        ("categoricalSlotIndexes", [0]), ("dropRate", 0.2)):
+    for name, value in (("catSmooth", 5.0), ("maxCatToOnehot", 8),
+                        ("categoricalSlotIndexes", [0]),
+                        ("parallelism", "voting_parallel")):
         with pytest.raises(NotImplementedError, match=name):
             LightGBMClassifier(**{name: value})
         with pytest.raises(NotImplementedError, match=name):
             LightGBMClassifier(device=CPU).set(name, value)
     t = assemble_features(Table({"a": X[:256, 0], "b": X[:256, 1],
                                  "label": y[:256]}), ["a", "b"])
-    for params in ({"passThroughArgs": "bagging_fraction=0.5"},
-                   {"boostingType": "dart"}):
+    for params in ({"passThroughArgs": "tree_learner=voting"},
+                   {"passThroughArgs": "row_layout=masked"}):
         with pytest.raises(NotImplementedError):
             LightGBMClassifier(device=CPU, numIterations=1, **params).fit(t)
 

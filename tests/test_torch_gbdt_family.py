@@ -291,8 +291,8 @@ def test_estimators_refuse_unported_params_by_name(cls, jcls):
     # every param of the JAX estimator is either ported or refused by name
     assert set(jcls()._params) - set(cls(device=CPU)._params) \
         == set(UNPORTED_PARAMS)
-    for name, value in (("featureFraction", 0.8),
-                        ("categoricalSlotIndexes", [0]), ("dropRate", 0.2)):
+    for name, value in (("topK", 10), ("categoricalSlotIndexes", [0]),
+                        ("parallelism", "voting_parallel")):
         with pytest.raises(NotImplementedError, match=name):
             cls(**{name: value})
         with pytest.raises(NotImplementedError, match=name):
