@@ -187,6 +187,32 @@ Phases, each of which fails the run if it fails:
    the depthwise GOSS and DART fits) at 100,000 rows for 10 iterations on
    the card and on the CPU (the CPU fits in spawned worker processes):
    per-iteration validation AUC within 1e-3.
+14. categorical and sparse data on phase 10's Covertype-shaped table:
+   its 4 wilderness and 40 soil one-hot columns folded into two ids (the
+   12 columns of UCI's raw ``covtype.data``), then
+   ``LightGBMClassifier(categoricalSlotIndexes=[10, 11])`` leaf-wise and
+   depthwise ``train_booster(categorical_features=[10, 11])``, 7 classes,
+   ``FAMILY_ITERS`` iterations, the categorical params at their defaults.
+   Counts zeroed just before each fit and read just after (each kernel of
+   the policy above 0); fit seconds, rows x iterations per second, host
+   syncs per tree and the histogram kernels' time per iteration (CUDA
+   events) beside phase 10's one-hot fits. Checks: one-vs-rest splits on
+   wilderness and category sets of several soils in each policy; host
+   syncs per tree those of a numeric tree (leaf-wise one per split and one
+   for the root, depthwise at most one per level); reloads within 1e-5;
+   the three kernels on the fits' first root, split and level against
+   their plain versions at phase 2's tolerance or within ``PAD_SUM_ULPS``
+   units of the float64 sums, counts exact; both fits at 50,000 rows on
+   the card and on the CPU, mean |probability difference| within 1e-3,
+   classes agreeing on 99.9% of rows. Then the 54-column one-hot table as
+   scipy CSR (12 entries per row, LIBSVM's layout) through
+   ``train_booster`` beside phase 10's dense fit of the same rows and
+   config: ``Dataset(csr)``'s bins bitwise ``apply_bins`` of the dense
+   rows on the card, the mappers equal, the same trees (model strings
+   equal but for the lines of float sums, which the card's atomic adds
+   order differently from fit to fit), the same predictions, and
+   ``predict`` of the CSR rows bitwise that of the dense rows; both fits'
+   ``referenceDataset`` and ``dataPreparation`` spans logged.
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 9's ring and
@@ -364,6 +390,13 @@ MONOTONE_FEATURE, MONOTONE_ROWS, MONOTONE_GRID = 2, 1000, 64
 MONOTONE_TOL = 1e-5
 SAMPLING_CROSS_ROWS, SAMPLING_CROSS_ITERS = 100_000, 10
 SAMPLING_RELOAD_TOL = 1e-5
+# phase 14: categorical and sparse data on phase 10's Covertype-shaped
+# table. UCI's raw covtype.data stores wilderness and soil as one id each
+# (12 columns: the last two categorical, 4 and 40 categories); LIBSVM's
+# covtype is the 54-column one-hot table, 12 non-zeros per row, as CSR.
+CAT_FEATURES = [COVTYPE_NUMERIC, COVTYPE_NUMERIC + 1]
+CAT_CROSS_ROWS = 50_000     # phase 10's 100,000, halved for the time limit
+CAT_RELOAD_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -2048,10 +2081,22 @@ def _save_reload_gap(model, X, want, dev: str) -> float:
     return float(np.abs(reloaded.predict(X[:10_000]) - want[:10_000]).max())
 
 
-def family_full_width(rows: int, dev: str) -> None:
+def _numeric_baseline(booster, fit_s: float, events: dict) -> dict:
+    """Phase 14's yardstick from a phase-10 Covertype fit: the booster,
+    fit seconds, host syncs per tree and histogram kernel ms per iteration
+    (CUDA events; 0 off the card)."""
+    iters = booster.num_trees // max(booster.models_per_iter, 1)
+    return dict(booster=booster, fit_s=fit_s,
+                syncs_per_tree=booster.metadata["host_syncs"]
+                / booster.num_trees,
+                kernel_ms=sum(timed_ms(events).values()) / max(iters, 1))
+
+
+def family_full_width(rows: int, dev: str) -> dict:
     """The regressor on the HIGGS-shaped table, the 7-class classifier on
     the Covertype-shaped one (then once more depthwise through
-    ``train_booster``) and the ranker on the MSLR-shaped one."""
+    ``train_booster``) and the ranker on the MSLR-shaped one. Returns the
+    Covertype fits' ``_numeric_baseline`` by policy."""
     from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
     from synapseml_tpu_torch.gbdt.objectives import (lambdarank_objective,
                                                      make_grouped, ndcg_at_k)
@@ -2080,10 +2125,14 @@ def family_full_width(rows: int, dev: str) -> None:
 
     X, y = covertype_like(COVTYPE_ROWS)
     table = table_of(X, y)
-    model = family_fit(
-        f"LightGBMClassifier {COVTYPE_CLASSES} classes {COVTYPE_ROWS} x "
-        f"{X.shape[1]}", LightGBMClassifier(**common), table, COVTYPE_ROWS,
-        MAIN_KERNELS, dev)
+    t0 = time.perf_counter()
+    with kernel_timer(dev) as events:
+        model = family_fit(
+            f"LightGBMClassifier {COVTYPE_CLASSES} classes {COVTYPE_ROWS} x "
+            f"{X.shape[1]}", LightGBMClassifier(**common), table,
+            COVTYPE_ROWS, MAIN_KERNELS, dev)
+    baselines = {"leafwise": _numeric_baseline(
+        model.booster, time.perf_counter() - t0, events)}
     out = model.transform(table)
     prob = out["probability"]
     acc = float((out["prediction"] == y).mean())
@@ -2106,9 +2155,11 @@ def family_full_width(rows: int, dev: str) -> None:
     hk.reset_launch_counts()
     _sync(dev)
     t0 = time.perf_counter()
-    booster = train_booster(X, y, cfg, device=dev)
-    _sync(dev)
+    with kernel_timer(dev) as events:
+        booster = train_booster(X, y, cfg, device=dev)
+        _sync(dev)
     fit_s = time.perf_counter() - t0
+    baselines["depthwise"] = _numeric_baseline(booster, fit_s, events)
     launches = dict(hk.LAUNCHES)
     acc_d = float((np.argmax(booster.predict(X), 1) == y).mean())
     spans = {k: round(v, 4) for k, v in booster.metadata["measures"].items()}
@@ -2160,6 +2211,7 @@ def family_full_width(rows: int, dev: str) -> None:
         ms = time_ms(lambda: obj.grad_hess(score, yt, w), 3)
         log(f"  lambdarank gradients, {what}: {ms:.3f} ms per iteration, "
             f"peak device memory {_peak_gib(dev):.3f} GiB")
+    return baselines
 
 
 def family_cross_check(dev: str) -> None:
@@ -3058,7 +3110,7 @@ def sampling_table(rows: int):
     is_val = np.zeros(rows, bool)
     is_val[rows - nv:] = True
     t0 = time.perf_counter()
-    mapper = compute_bin_mapper(X[:rows - nv], 255, 200_000, 0)
+    mapper = compute_bin_mapper(X[:rows - nv], 255, 200_000, seed=0)
     log(f"  bin mapper of {rows - nv} training rows in "
         f"{time.perf_counter() - t0:.3f}s (shared by every fit)")
     return X, y, nv, table_of(X, y).with_column("isVal", is_val), mapper
@@ -3410,6 +3462,399 @@ def sampling_path(rows: int, dev: str, plain_launches: dict) -> dict:
     return fits
 
 
+# ---------------------------------------------------------------------------
+# phase 14: categorical and sparse (CSR) data
+# ---------------------------------------------------------------------------
+
+def fold_one_hot(X: np.ndarray) -> np.ndarray:
+    """(n, 54) Covertype one-hot table → (n, 12): the numeric columns, then
+    the index of the set wilderness column and of the set soil column (the
+    raw ``covtype.data`` layout)."""
+    num, wild = COVTYPE_NUMERIC, COVTYPE_WILD
+    out = np.empty((X.shape[0], num + 2), np.float32)
+    out[:, :num] = X[:, :num]
+    out[:, num] = np.argmax(X[:, num:num + wild], axis=1)
+    out[:, num + 1] = np.argmax(X[:, num + wild:], axis=1)
+    return out
+
+
+def covtype_csr(X: np.ndarray):
+    """The one-hot table as a scipy CSR matrix (LIBSVM's ``covtype``
+    layout): 12 non-zeros per row (10 numeric values, one wilderness, one
+    soil)."""
+    from scipy import sparse
+
+    csr = sparse.csr_matrix(X)
+    want = (COVTYPE_NUMERIC + 2) * X.shape[0]
+    if csr.nnz != want:
+        raise AssertionError(f"CSR holds {csr.nnz} entries, not {want}")
+    return csr
+
+
+def category_sets(booster, feature: int) -> list:
+    """The number of categories sent left by every categorical split on
+    ``feature`` (the popcount of its bitset)."""
+    out = []
+    for t in booster.trees:
+        ns = int(t.num_splits)
+        for i in np.flatnonzero((np.asarray(t.split_type)[:ns] == 1)
+                                & (np.asarray(t.split_feature)[:ns]
+                                   == feature)):
+            out.append(int(sum(bin(int(w)).count("1")
+                               for w in t.cat_bitset[i])))
+    return out
+
+
+def check_split_modes(label: str, booster) -> None:
+    """Wilderness (4 categories, at most ``max_cat_to_onehot``) splits
+    one-vs-rest; soil (40) takes category sets, at least one of several
+    categories."""
+    wild, soil = (category_sets(booster, f) for f in CAT_FEATURES)
+    log(f"  {label}: {len(wild)} wilderness splits (sets of "
+        f"{sorted(set(wild))}), {len(soil)} soil splits (sets of "
+        f"{sorted(set(soil))})")
+    if not wild or set(wild) != {1} or not soil or max(soil) < 2:
+        raise AssertionError(f"{label}: expected one-vs-rest wilderness and "
+                             "many-vs-many soil splits")
+
+
+def check_syncs(label: str, booster, policy: str) -> float:
+    """Host syncs per tree; a categorical split reads nothing more than a
+    numeric one: leaf-wise one read for the root and one per split,
+    depthwise at most one per level of the tree and the root's."""
+    from synapseml_tpu_torch.gbdt.grower import forest_max_depth
+
+    syncs = booster.metadata["host_syncs"]
+    if policy == "leafwise":
+        bound = sum(1 + int(t.num_splits) for t in booster.trees)
+        ok = syncs == bound
+    else:
+        bound = sum(1 + forest_max_depth([t]) for t in booster.trees)
+        ok = syncs <= bound
+    if not ok:
+        raise AssertionError(f"{label}: {syncs} host syncs for a bound of "
+                             f"{bound}")
+    return syncs / booster.num_trees
+
+
+def categorical_fit(policy: str, X, y, table, dev: str) -> dict:
+    """The 7-class fit on the 12-column table with its two categorical
+    columns: the classifier leaf-wise, ``train_booster`` depthwise. Counts
+    zeroed just before and read just after; the first root, split and
+    level kernel calls captured; kernel time by CUDA events."""
+    from synapseml_tpu_torch.gbdt import (BoosterConfig, grower,
+                                          grower_depthwise, train_booster)
+    from synapseml_tpu_torch.models import LightGBMClassifier
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    rows = X.shape[0]
+    kernels = MAIN_KERNELS if policy == "leafwise" else DEPTHWISE_KERNELS
+    captured = {}
+    _peak_gib(dev, reset=True)
+    hk.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with kernel_timer(dev) as events:
+        if policy == "leafwise":
+            with captured_call(grower, "child_histogram") as c, \
+                    captured_call(grower, "range_histogram") as r:
+                model = LightGBMClassifier(
+                    numIterations=FAMILY_ITERS, numLeaves=31, maxBin=255,
+                    categoricalSlotIndexes=CAT_FEATURES,
+                    device=dev).fit(table)
+                _sync(dev)
+            captured.update(child_histogram=c["args"],
+                            range_histogram=r["args"])
+            booster = model.booster
+        else:
+            with captured_call(grower_depthwise, "level_histograms", 1) as c:
+                booster = train_booster(X, y, BoosterConfig(
+                    objective="multiclass", num_class=COVTYPE_CLASSES,
+                    growth_policy="depthwise", num_iterations=FAMILY_ITERS,
+                    num_leaves=31, max_bin=255),
+                    categorical_features=CAT_FEATURES, device=dev)
+                _sync(dev)
+            captured["level_histograms"] = c["args"]
+            model = None
+    fit_s = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    label = f"categorical {policy}"
+    syncs = check_syncs(label, booster, policy)
+    kernel_ms = sum(timed_ms(events).values()) / FAMILY_ITERS
+    spans = {k: round(v, 4) for k, v in booster.metadata["measures"].items()}
+    log(f"  {label} ({rows} x {X.shape[1]}, features {CAT_FEATURES} "
+        f"categorical): fit_s={fit_s:.3f} row_iterations/s="
+        f"{rows * FAMILY_ITERS / fit_s:.0f} trees={booster.num_trees} "
+        f"host_syncs/tree={syncs:.2f} histogram kernels {kernel_ms:.3f} ms "
+        f"per iteration (CUDA events) peak {_peak_gib(dev):.3f} GiB "
+        f"launches {json.dumps(launches)} fit spans {json.dumps(spans)}")
+    _check_launches(launches, kernels)
+    check_split_modes(label, booster)
+    if booster.num_trees != FAMILY_ITERS * COVTYPE_CLASSES:
+        raise AssertionError(f"{label}: {booster.num_trees} trees")
+    return dict(model=model, booster=booster, fit_s=fit_s, syncs=syncs,
+                kernel_ms=kernel_ms, captured=captured)
+
+
+def hist_float64(bT, vals, B: int, slot=None, slots: int = 1):
+    """(slots, FP, B, 6) float64: per (slot, feature, bin) the sums of the
+    rows' bf16-rounded [g, h, m] ``vals`` (n, 3) and of their magnitudes
+    (one slot without ``slot``)."""
+    FP, n = bT.shape
+    b = bT.to(torch.int64)
+    f = torch.arange(FP, device=bT.device)[:, None]
+    s = (torch.zeros_like(b[:1]) if slot is None
+         else slot.to(torch.int64)[None, :])
+    flat = (s * FP + f) * B + b
+    ok = (b >= 0) & (b < B) & (s >= 0) & (s < slots)
+    flat = torch.where(ok, flat, slots * FP * B)
+    v = vals.double()
+    out = torch.zeros((slots * FP * B + 1, 6), dtype=torch.float64,
+                      device=bT.device)
+    out.index_add_(0, flat.reshape(-1), torch.cat([v, v.abs()], 1)
+                   .expand(FP, n, 6).reshape(-1, 6))
+    return out[:-1].reshape(slots, FP, B, 6)
+
+
+def check_against_float64(label, got, plain, ref) -> None:
+    """Phase 2's tolerance bin by bin: g and h within rtol 1e-5 / atol
+    1e-3 of the plain version, or within ``PAD_SUM_ULPS`` units (2^-24 of
+    the bin's sum of magnitudes) of the float64 sum ``ref`` (the bound
+    phase 2 holds a bin of every row to: a float32 sum of 10^5 rows of
+    near-equal values is rounded in the plain version's own order too);
+    counts exact against both."""
+    got, plain, ref = got.double(), plain.double(), ref.reshape(got.shape[:-1]
+                                                                + (6,))
+    exact, unit = ref[..., :3], 2.0 ** -24 * ref[..., 3:]
+    near_plain = ((got - plain).abs()
+                  <= KERNEL_ATOL + KERNEL_RTOL * plain.abs())[..., :2]
+    near_exact = ((got - exact).abs() <= PAD_SUM_ULPS * unit)[..., :2]
+    ok = (bool((near_plain | near_exact).all())
+          and torch.equal(got[..., 2], plain[..., 2])
+          and torch.equal(got[..., 2], exact[..., 2]))
+
+    def units(a):
+        gap = (a - exact).abs()[..., :2] / unit[..., :2].clamp_min(1e-300)
+        return float(gap.max())
+
+    gap_plain = (got - plain).abs().reshape(-1, 3).amax(0).tolist()
+    log(f"  {label}: max |kernel - plain| g={gap_plain[0]:.3g} "
+        f"h={gap_plain[1]:.3g} count={gap_plain[2]:.3g}; against float64: "
+        f"kernel {units(got):.3g} units, plain {units(plain):.3g} units "
+        f"(limit {PAD_SUM_ULPS}) -> {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{label} is off both its plain version and "
+                             "the float64 sums")
+
+
+def categorical_kernel_check(captured: dict) -> None:
+    """The three kernels on the categorical fits' own first root, first
+    split and first level below the root, against their plain versions
+    and the float64 sums (``check_against_float64``)."""
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    bT, g, h, m, B = captured["child_histogram"]
+    vals = hk._rounded_values(g, h, m)
+    check_against_float64("child_histogram categorical root",
+                          hk.child_histogram(bT, g, h, m, B),
+                          hk._hist_plain(bT, g, h, m, B),
+                          hist_float64(bT, vals, B))
+    bT, g, h, m, st, ln, B = captured["range_histogram"]
+    s, n = int(st), int(ln)
+    check_against_float64(
+        f"range_histogram categorical split [{s}, {s + n})",
+        hk.range_histogram(bT, g, h, m, st, ln, B),
+        hk._range_hist_plain(bT, g, h, m, s, n, B),
+        hist_float64(bT[:, s:s + n], hk._rounded_values(g, h, m)[s:s + n],
+                     B))
+    bT, g, h, m, starts, slot, B, L = captured["level_histograms"]
+    check_against_float64(
+        f"level_histograms categorical depthwise level CAP={bT.shape[1]}",
+        hk.level_histograms(bT, g, h, m, starts, slot, B, L),
+        hk._level_hist_plain(bT, g, h, m, slot, B, L),
+        hist_float64(bT, hk._rounded_values(g, h, m), B, slot, L))
+
+
+def categorical_checks(fits: dict, X, y, dev: str) -> None:
+    """Accuracy, reload within ``CAT_RELOAD_TOL`` and the kernels on the
+    categorical fits' own inputs."""
+    from synapseml_tpu_torch.gbdt.boosting import Booster
+
+    base = float(np.bincount(y.astype(np.int64)).max() / len(y))
+    sub = X[:10_000]
+    for policy, fit in fits.items():
+        booster = fit["booster"]
+        prob = booster.predict(X)
+        acc = float((np.argmax(prob, 1) == y).mean())
+        reloaded = Booster.from_model_string(booster.model_string(),
+                                             device=dev)
+        gap = float(np.abs(reloaded.predict(sub) - prob[:10_000]).max())
+        log(f"  categorical {policy}: train accuracy={acc:.4f} (largest "
+            f"class {base:.4f}), reload max |diff|={gap:.3g}")
+        if not np.allclose(prob.sum(1), 1.0, atol=1e-5) \
+                or gap > CAT_RELOAD_TOL or not acc > base + 0.1:
+            raise AssertionError(f"categorical {policy}: predictions or "
+                                 "reload wrong")
+    categorical_kernel_check({**fits["leafwise"]["captured"],
+                              **fits["depthwise"]["captured"]})
+
+
+def categorical_cross_check(Xc, y, dev: str) -> None:
+    """Both categorical fits at ``CAT_CROSS_ROWS`` rows for
+    ``FAMILY_CROSS_ITERS`` iterations on the card and on the CPU: mean
+    |probability difference| within ``CROSS_TOL``, classes agreeing on
+    ``CLASS_AGREEMENT`` of the rows."""
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+
+    X, y = Xc[:CAT_CROSS_ROWS], y[:CAT_CROSS_ROWS]
+    for policy in ("leafwise", "depthwise"):
+        cfg = BoosterConfig(objective="multiclass", num_class=COVTYPE_CLASSES,
+                            growth_policy=policy,
+                            num_iterations=FAMILY_CROSS_ITERS, num_leaves=31,
+                            max_bin=255)
+        probs = {}
+        for d in (dev, "cpu"):
+            t0 = time.perf_counter()
+            probs[d] = train_booster(X, y, cfg,
+                                     categorical_features=CAT_FEATURES,
+                                     device=d).predict(X)
+            log(f"  categorical {policy} {d}: fit+predict "
+                f"{time.perf_counter() - t0:.2f}s")
+        gap = float(np.abs(probs[dev] - probs["cpu"]).mean())
+        agree = float((np.argmax(probs[dev], 1)
+                       == np.argmax(probs["cpu"], 1)).mean())
+        ok = gap <= CROSS_TOL and agree >= CLASS_AGREEMENT
+        log(f"  categorical {policy}: card against CPU mean |prob diff|="
+            f"{gap:.3g}, classes agree {agree:.4%} -> "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"categorical {policy}: card and CPU fits "
+                                 "disagree")
+
+
+# model-string lines that depend on float sums rather than the trees'
+# structure (two fits on the same bins differ there only by the order of
+# the card's atomic adds)
+_SUM_FIELDS = ("tree_sizes=", "split_gain=", "leaf_value=", "leaf_weight=",
+               "internal_value=", "internal_weight=")
+
+
+def model_structure(text: str) -> list:
+    return [ln for ln in text.splitlines() if not ln.startswith(_SUM_FIELDS)]
+
+
+def _log_fit(what: str, booster, rows: int, fit_s: float,
+             launches=None) -> None:
+    syncs = check_syncs(what, booster, "leafwise")
+    spans = booster.metadata["measures"]
+    log(f"  {what}: fit_s={fit_s:.3f} row_iterations/s="
+        f"{rows * FAMILY_ITERS / fit_s:.0f} host_syncs/tree={syncs:.2f} "
+        f"referenceDataset {spans.get('referenceDataset', 0.0):.4f}s "
+        f"dataPreparation {spans.get('dataPreparation', 0.0):.4f}s "
+        f"trainingIterations {spans.get('trainingIterations', 0.0):.4f}s"
+        + (f" launches {json.dumps(launches)}" if launches else ""))
+
+
+def sparse_fit(X, y, dev: str, dense=None, dense_s: float = 0.0) -> float:
+    """The one-hot table as CSR through ``train_booster`` beside the same
+    rows dense (``dense``: phase 10's leaf-wise fit of them, else fitted
+    here): bins bitwise equal, the same trees, predictions on the CSR rows
+    equal to the dense rows'. The CSR fit takes the dense fit's config.
+    Returns the CSR fit's seconds."""
+    from synapseml_tpu_torch.gbdt import BoosterConfig, Dataset, train_booster
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+    from synapseml_tpu_torch.ops.quantize import apply_bins
+
+    rows = X.shape[0]
+    t0 = time.perf_counter()
+    csr = covtype_csr(X)
+    log(f"  CSR: {csr.shape[0]} x {csr.shape[1]}, {csr.nnz} entries "
+        f"({csr.nnz / rows:.1f} per row), built in "
+        f"{time.perf_counter() - t0:.2f}s")
+    if dense is None:
+        t0 = time.perf_counter()
+        dense = train_booster(X, y, BoosterConfig(
+            objective="multiclass", num_class=COVTYPE_CLASSES,
+            num_iterations=FAMILY_ITERS, num_leaves=31, max_bin=255),
+            device=dev)
+        dense_s = time.perf_counter() - t0
+    _log_fit("dense fit (one-hot)", dense, rows, dense_s)
+    hk.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with kernel_timer(dev) as events:
+        sparse_b = train_booster(csr, y, dense.config, device=dev)
+        _sync(dev)
+    launches = dict(hk.LAUNCHES)
+    sparse_s = time.perf_counter() - t0
+    _log_fit("CSR fit (train_booster)", sparse_b, rows, sparse_s, launches)
+    log(f"  CSR fit: histogram kernels "
+        f"{sum(timed_ms(events).values()) / FAMILY_ITERS:.3f} ms per "
+        "iteration (CUDA events)")
+    _check_launches(launches, MAIN_KERNELS)
+    t0 = time.perf_counter()
+    ds = Dataset(csr, y, device=dev)
+    _sync(dev)
+    ds_s = time.perf_counter() - t0
+    same_bins = bool(torch.equal(ds.binned, apply_bins(ds.mapper, X, dev)))
+    same_mapper = all(np.array_equal(getattr(ds.mapper, f),
+                                     getattr(dense.mapper, f))
+                      for f in ("boundaries", "num_bins", "has_nan"))
+    text_d, text_s = dense.model_string(), sparse_b.model_string()
+    identical = text_d == text_s
+    same_trees = model_structure(text_d) == model_structure(text_s)
+    differ = sorted({a.split("=")[0] for a, b in zip(text_d.splitlines(),
+                                                     text_s.splitlines())
+                     if a != b})
+    pd_, ps = sparse_b.predict(X), sparse_b.predict(csr)
+    same_pred = bool(np.array_equal(pd_, ps))
+    gap = float(np.abs(dense.predict(X) - pd_).mean())
+    log(f"  Dataset(CSR) in {ds_s:.2f}s: bins bitwise the dense rows' "
+        f"{same_bins}, mappers equal {same_mapper}; model strings "
+        f"byte-identical {identical} (lines that differ: {differ}; tree "
+        f"structure identical {same_trees}, mean |prob diff| {gap:.3g}); "
+        f"predict(CSR) == "
+        f"predict(dense) {same_pred}")
+    if not (same_bins and same_mapper and same_trees and same_pred
+            and gap <= CROSS_TOL):
+        raise AssertionError("the CSR fit is not the dense fit")
+    return sparse_s
+
+
+def categorical_path(dev: str, numeric: dict) -> None:
+    """Phase 14: the categorical fits of both policies on the 12-column
+    Covertype table with their checks, beside phase 10's numeric one-hot
+    fits (``numeric``: ``_numeric_baseline`` by policy); card against CPU;
+    then the CSR fit."""
+    t_start = time.perf_counter()
+    X, y = covertype_like(COVTYPE_ROWS)
+    Xc = fold_one_hot(X)
+    table = table_of(Xc, y)
+    fits = {p: categorical_fit(p, Xc, y, table, dev)
+            for p in ("leafwise", "depthwise")}
+    del table
+    for policy, fit in fits.items():
+        base = numeric.get(policy, {})
+        if base.get("kernel_ms"):
+            log(f"  {policy}: against phase 10's one-hot fit: histogram "
+                f"kernels {fit['kernel_ms']:.3f} / {base['kernel_ms']:.3f} ms"
+                f" per iteration ({fit['kernel_ms'] / base['kernel_ms']:.2f}"
+                f"x), fit {fit['fit_s']:.3f} / {base['fit_s']:.3f} s, host "
+                f"syncs per tree {fit['syncs']:.2f} / "
+                f"{base['syncs_per_tree']:.2f}")
+    categorical_checks(fits, Xc, y, dev)
+    cat_s = {p: f["fit_s"] for p, f in fits.items()}
+    del fits
+    categorical_cross_check(Xc, y, dev)
+    base = numeric.get("leafwise", {})
+    sparse_s = sparse_fit(X, y, dev, base.get("booster"),
+                          base.get("fit_s", 0.0))
+    log(f"  categorical leaf-wise fit {cat_s['leafwise']:.3f} s against "
+        f"the one-hot CSR fit's {sparse_s:.3f} s in this phase "
+        f"({cat_s['leafwise'] / sparse_s:.2f}x)")
+    log(f"  phase 14 took {time.perf_counter() - t_start:.1f}s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -3475,7 +3920,7 @@ def main() -> int:
     train_launches = train_path(dev)
     log("[10] objective family: regressor, 7-class classifier and ranker at "
         "full width")
-    family_full_width(args.rows, dev)
+    numeric = family_full_width(args.rows, dev)
     log(f"    cross-check: card against CPU, {FAMILY_CROSS_ROWS} rows, "
         f"{FAMILY_CROSS_ITERS} iterations, every objective")
     family_cross_check(dev)
@@ -3492,6 +3937,10 @@ def main() -> int:
         f"each on {args.rows} rows")
     torch.cuda.empty_cache()
     sampling_path(args.rows, dev, main["launches"])
+    log("[14] categorical and sparse data: Covertype's raw 12 columns (2 "
+        "categorical), both policies, and its one-hot table as CSR")
+    torch.cuda.empty_cache()
+    categorical_path(dev, numeric)
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},

@@ -255,7 +255,15 @@ class DeepTextModel(Model, HasPredictionCol):
     classes: Optional[np.ndarray] = None
 
     def __init__(self, trainer: Optional[Trainer] = None,
-                 classes: Optional[np.ndarray] = None, **kwargs):
+                 classes: Optional[np.ndarray] = None, hfModel=None,
+                 hfTokenizer=None, **kwargs):
+        for name, value in (("hfModel", hfModel),
+                            ("hfTokenizer", hfTokenizer)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"DeepTextModel's {name} (a HuggingFace model behind the "
+                    "checkpoint param) is not ported to the PyTorch package "
+                    "yet")
         super().__init__(**kwargs)
         self.trainer = trainer
         self.classes = classes

@@ -80,12 +80,11 @@ class NonFiniteLossError(FloatingPointError):
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The JAX package's ``TrainConfig`` fields and defaults, less those of
-    its checkpoint store, input pipeline, buffer donation and pipeline
-    parallelism, which the port does not have. The port runs the replicated
-    configuration: ``checkpoint_dir``, ``param_sharding`` and
-    ``nonfinite_policy`` are kept so that ``Trainer.unported`` can refuse
-    their other values by name."""
+    """The JAX package's ``TrainConfig`` fields and defaults. The port runs
+    the replicated configuration without a checkpoint store, an input
+    pipeline, buffer donation or pipeline parallelism: the fields of those
+    are kept so that ``Trainer.unported`` refuses any value but the default
+    by name (``resume`` is inert while ``checkpoint_dir`` is refused)."""
     batch_size: int = 64
     max_epochs: int = 1
     learning_rate: float = 1e-3
@@ -100,11 +99,27 @@ class TrainConfig:
     shuffle: bool = True
     steps_per_epoch: Optional[int] = None
     checkpoint_dir: Optional[str] = None
+    save_every_epochs: int = 1
+    resume: bool = True
+    keep_checkpoints: int = 3
     nonfinite_policy: str = "raise"
     param_sharding: str = "replicated"
     accum_steps: int = 1
+    prefetch_batches: int = 2
+    donate_buffers: bool = True
+    pipeline_microbatches: int = 0
+    pipeline_param_sharding: str = "replicated"
+    pipeline_schedule: str = "fill_drain"
     seq_parallel: bool = True
     seq_attention: str = "auto"        # auto | ring | ulysses
+
+
+# fields whose machinery the port does not have: only the default is taken
+_UNPORTED_AT_DEFAULT = tuple(
+    f for f in dataclasses.fields(TrainConfig)
+    if f.name in ("save_every_epochs", "keep_checkpoints", "prefetch_batches",
+                  "donate_buffers", "pipeline_microbatches",
+                  "pipeline_param_sharding", "pipeline_schedule"))
 
 
 def freeze_mask(names: List[str], freeze_regex: Optional[str]
@@ -289,6 +304,10 @@ class Trainer:
             out.append(f"checkpoint_dir={cfg.checkpoint_dir!r}")
         if cfg.nonfinite_policy != "raise":
             out.append(f"nonfinite_policy={cfg.nonfinite_policy!r}")
+        for f in _UNPORTED_AT_DEFAULT:
+            v = getattr(cfg, f.name)
+            if v != f.default:
+                out.append(f"{f.name}={v!r}")
         return out
 
     def _world(self) -> int:

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``gbdt/boosting.py`` for the slice that is
 ported: every boosting type (gbdt, goss, dart, rf) with every objective of
 ``objectives.py`` (binary, multiclass and multiclassova, the regression
-family, lambdarank over ``group_sizes``) or a custom ``fobj`` on dense
-numeric data, grown leaf-wise (the partition row layout) or depthwise
+family, lambdarank over ``group_sizes``) or a custom ``fobj`` on dense or
+scipy sparse (CSR) rows with numeric and categorical features, grown
+leaf-wise (the partition row layout) or depthwise
 (``growth_policy="depthwise"``, one ``level_histograms`` pass per level),
 with bagging (plain and stratified), feature fractions per tree and per
 node, monotone constraints, validation sets, early stopping, warm starts
@@ -33,8 +34,9 @@ contributions (``shap.py``) and dumps LightGBM's text and JSON formats.
 ``BoosterConfig`` keeps every field name and default of the JAX config, so a
 config carries across unchanged. ``train_booster`` rejects every setting and
 argument the slice does not port with ``NotImplementedError`` naming it:
-categorical features, the voting and feature-parallel learners, the JAX
-grower's other engine knobs, meshes and sparse input.
+the voting and feature-parallel learners, the JAX grower's other engine
+knobs and meshes. ``Booster.serving_fn`` and ``Booster.to_onnx`` raise it
+too.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from ..core import prng
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..ops.quantize import (BinMapper, apply_bins, bin_threshold_to_value,
                             compute_bin_mapper)
-from .dataset import Dataset, _is_sparse
+from .dataset import Dataset, _is_sparse, sparse_bin_mapper
 from .grower import (Forest, GrowerConfig, TreeArrays, forest_leaves,
                      forest_max_depth, forest_predict, grow_tree, stack_trees,
                      transpose_bins, tree_leaves_binned, trees_to_host)
@@ -171,10 +173,16 @@ class BoosterConfig:
         check("use_segmented", self.use_segmented in (None, True))
         return out
 
-    def grower(self) -> GrowerConfig:
+    def grower(self, has_categorical: bool = False) -> GrowerConfig:
         # rf trees are averaged, not shrunk
         lr = 1.0 if self.boosting_type == "rf" else self.learning_rate
         return GrowerConfig(
+            has_categorical=has_categorical,
+            cat_smooth=self.cat_smooth,
+            cat_l2=self.cat_l2,
+            max_cat_threshold=self.max_cat_threshold,
+            max_cat_to_onehot=self.max_cat_to_onehot,
+            min_data_per_group=self.min_data_per_group,
             num_leaves=self.num_leaves,
             num_bins=self.max_bin,
             max_depth=self.max_depth,
@@ -279,6 +287,16 @@ class Booster:
                         np.where(has_nan[sf_safe], nan_code,
                                  0)).astype(np.int32)
 
+    def unweighted(self) -> "Booster":
+        """Copy with unit tree weights and zero base — the raw per-tree
+        contributions. Thresholds and missing codes ride along (a loaded
+        model's mapper has no boundaries)."""
+        return Booster(self.mapper, self.config, self.trees,
+                       [1.0] * len(self.trees),
+                       np.zeros_like(self.base_score),
+                       thresholds=self.thresholds,
+                       missing_types=self.missing_types, device=self.device)
+
     def forest(self) -> Forest:
         if self._forest_cache is None or self._forest_cache.num_trees != len(self.trees):
             weights = np.asarray(self.tree_weights, np.float32)
@@ -300,10 +318,16 @@ class Booster:
         return max(int(start_iteration), 0)
 
     def _raw_score_tensor(self, X, num_iteration: int = -1,
-                          start_iteration: Optional[int] = None
-                          ) -> torch.Tensor:
+                          start_iteration: Optional[int] = None,
+                          binned: bool = False) -> torch.Tensor:
         k = self.models_per_iter
-        X = torch.as_tensor(np.asarray(X, np.float32)).to(self.device)
+        nan_bins = None
+        if binned:
+            X = torch.as_tensor(np.asarray(X)).to(self.device, torch.int64)
+            nan_bins = torch.as_tensor(
+                np.asarray(self.mapper.nan_bins, np.int64), device=self.device)
+        else:
+            X = torch.as_tensor(_densify(X)).to(self.device)
         if X.dim() != 2:
             raise ValueError(f"X must be (N, F), got shape {tuple(X.shape)}")
         base = torch.as_tensor(self.base_score[:k].astype(np.float32),
@@ -318,31 +342,64 @@ class Booster:
                                  num_class=k,
                                  start_iteration=self._window_start(
                                      start_iteration),
-                                 num_iteration=num_iteration)
+                                 num_iteration=num_iteration,
+                                 nan_bins=nan_bins)
         out = out + base
         return out[:, 0] if k == 1 else out
 
-    def raw_score(self, X, num_iteration: int = -1,
+    def raw_score(self, X, binned: bool = False, num_iteration: int = -1,
                   start_iteration: Optional[int] = None) -> np.ndarray:
-        """(N,) raw margin, (N, K) for K classes. ``num_iteration`` > 0
-        scores with only that many boosting rounds; ``start_iteration``
-        (default: the config's prediction window) skips leading rounds.
-        Warm starts pass ``start_iteration=0``: the window is a prediction
-        feature and must not leak into a continued fit."""
-        return self._raw_score_tensor(X, num_iteration,
-                                      start_iteration).cpu().numpy()
+        """(N,) raw margin, (N, K) for K classes, of dense or scipy sparse
+        rows, or of rows already binned with the booster's mapper
+        (``binned=True``). ``num_iteration`` > 0 scores with only that many
+        boosting rounds; ``start_iteration`` (default: the config's
+        prediction window) skips leading rounds. Warm starts pass
+        ``start_iteration=0``: the window is a prediction feature and must
+        not leak into a continued fit."""
+        return self._raw_score_tensor(X, num_iteration, start_iteration,
+                                      binned).cpu().numpy()
 
-    def predict(self, X, num_iteration: int = -1) -> np.ndarray:
-        """Probability / response-space prediction."""
+    def predict(self, X, binned: bool = False, num_iteration: int = -1,
+                batch_size: Optional[int] = None) -> np.ndarray:
+        """Probability / response-space prediction. ``batch_size`` scores
+        the rows ``batch_size`` at a time (the values are the unbatched
+        ones); it serves the full raw-value model, so ``binned`` rows and an
+        iteration window raise ``ValueError`` with it."""
         obj = self._objective_for_transform()
+        if batch_size is not None:
+            if binned or (num_iteration and num_iteration > 0):
+                raise ValueError(
+                    "predict(batch_size=...) serves the full raw-value "
+                    "model; binned inputs or an iteration window need the "
+                    "unbatched path")
+            if int(batch_size) < 1:
+                raise ValueError(
+                    f"batch_size must be >= 1, got {batch_size}")
+            X = _densify(X)
+            if len(X) == 0:
+                raise ValueError("cannot predict an empty batch")
+            return np.concatenate([obj.transform(self._raw_score_tensor(
+                X[s:s + int(batch_size)])).cpu().numpy()
+                for s in range(0, len(X), int(batch_size))])
         return obj.transform(self._raw_score_tensor(
-            X, num_iteration)).cpu().numpy()
+            X, num_iteration, binned=binned)).cpu().numpy()
+
+    def serving_fn(self, max_batch_size: int = 64, bucketed: bool = True):
+        """Not ported: the JAX package's fused, shape-bucketed serving
+        program (``predict(batch_size=...)`` scores in batches)."""
+        raise NotImplementedError(
+            "Booster.serving_fn is not ported to the PyTorch package yet")
+
+    def to_onnx(self, input_name: str = "input", num_iteration: int = -1):
+        """Not ported: the ONNX TreeEnsemble export."""
+        raise NotImplementedError(
+            "Booster.to_onnx is not ported to the PyTorch package yet")
 
     def predict_leaf(self, X) -> np.ndarray:
         """(N, T) int32 leaf index of every row in every tree after the
         config's ``start_iteration`` window (predictLeaf), trees in the
         order ``it * K + c``."""
-        X = torch.as_tensor(np.asarray(X, np.float32)).to(self.device)
+        X = torch.as_tensor(_densify(X)).to(self.device)
         start = self._window_start(None) * self.models_per_iter
         if not self.trees:
             return np.zeros((X.shape[0], 0), np.int32)
@@ -354,7 +411,7 @@ class Booster:
         ``shap.py``)."""
         from .shap import forest_shap
 
-        return forest_shap(self, np.asarray(X, np.float32))
+        return forest_shap(self, _densify(X))
 
     def feature_importances(self, importance_type: str = "split") -> np.ndarray:
         """split count or total gain per feature."""
@@ -400,6 +457,14 @@ class Booster:
 # Training
 # ---------------------------------------------------------------------------
 
+def _densify(X) -> np.ndarray:
+    """Dense float32 rows of a scipy sparse matrix or anything array-like
+    (scoring and validation take CSR as training does)."""
+    if _is_sparse(X):
+        return np.asarray(X.tocsr().todense(), np.float32)
+    return np.asarray(X, np.float32)
+
+
 def _objective(cfg: BoosterConfig, num_class: int) -> Objective:
     """The config's (non-ranking) objective with its parameters."""
     return get_objective(cfg.objective, num_class=num_class,
@@ -437,8 +502,7 @@ def _reject_unported(config: BoosterConfig, **args) -> None:
     if bad:
         raise NotImplementedError(
             "not ported to the PyTorch package yet: " + ", ".join(bad)
-            + " (the port trains on dense numeric data with the serial "
-            "learner)")
+            + " (the port trains with the serial learner)")
 
 
 def _is_rank_metric(name: str) -> bool:
@@ -768,8 +832,13 @@ def train_booster(
     resume: bool = True,
     device=DEFAULT_DEVICE,
 ) -> Booster:
-    """Fit a forest on ``X`` (dense (N, F) floats or a :class:`Dataset`) and
-    labels ``y`` on ``device``.
+    """Fit a forest on ``X`` (dense (N, F) floats, a scipy sparse matrix or
+    a :class:`Dataset`) and labels ``y`` on ``device``.
+
+    * ``categorical_features``: column indices binned as categories (their
+      integer values; see ``ops.quantize``) and split by category sets
+      (``grower``). Sparse rows bin through ``Dataset`` (``bin_sparse``)
+      into bitwise the dense rows' bins.
 
     * ``valid=(Xv, yv)``, or ``(Xv, yv, wv_or_None, group_sizes_v)`` for
       ranking metrics: binned with the training mapper; its score stays on
@@ -800,17 +869,15 @@ def train_booster(
       ``monotone_constraints``): the JAX package's draws (module
       docstring); none adds a host sync.
 
-    Arguments of the JAX signature that the port does not implement
-    (``categorical_features``, ``mesh``, sparse input) must stay at their
-    defaults (``NotImplementedError`` otherwise).
+    ``mesh``, the one argument of the JAX signature that the port does not
+    implement, must stay None (``NotImplementedError`` otherwise).
     ``Booster.metadata["host_syncs"]`` counts device→host reads of the
     growth loop (the grower modules state how many a tree costs, plus one
     per iteration for the validation metric)."""
     from ..core.logging import InstrumentationMeasures
 
     cfg = config
-    _reject_unported(cfg, categorical_features=categorical_features,
-                     mesh=mesh, sparse_input=_is_sparse(X) or None)
+    _reject_unported(cfg, mesh=mesh)
     if measures is None:
         measures = InstrumentationMeasures()
     dev = resolve_device(device)
@@ -824,18 +891,42 @@ def train_booster(
         checkpoint_every = 10
 
     binned = None
+    if _is_sparse(X):
+        if init_model is not None:
+            # the warm start's model scores raw rows
+            X = _densify(X)
+        else:
+            # rows bin chunk by chunk from the CSR entries (the JAX package
+            # samples the boundaries with cfg.seed on this path)
+            X = X.tocsr()
+            if mapper is None:
+                with measures.span("referenceDataset"):
+                    mapper = sparse_bin_mapper(
+                        X, cfg.max_bin, cfg.bin_sample_count,
+                        categorical_features, cfg.seed,
+                        cfg.min_data_in_bin, cfg.max_bin_by_feature)
+            with measures.span("dataPreparation"):
+                X = Dataset(X, mapper=mapper, max_bin=cfg.max_bin,
+                            categorical_features=categorical_features,
+                            device=dev)
     if isinstance(X, Dataset):
         if y is None:
             y = X.label
         if sample_weight is None:
             sample_weight = X.weight
+        if init_score is None:
+            init_score = X.init_score
+        if group_sizes is None:
+            group_sizes = X.group_sizes
+        if categorical_features is None:
+            categorical_features = X.categorical_features
         if (mapper is None or mapper is X.mapper) and init_model is None:
             mapper = X.mapper
             binned = X.binned.to(dev)
         else:
             # another mapper, or a warm start (its model scores raw rows)
             mapper = X.mapper if mapper is None else mapper
-            X = X.X
+            X = X.raw_dense()
             if X is None:
                 raise ValueError("Dataset was built with keep_raw=False; "
                                  "binning under another mapper and warm "
@@ -858,7 +949,7 @@ def train_booster(
     if mapper is None:
         with measures.span("referenceDataset"):
             mapper = compute_bin_mapper(
-                X, cfg.max_bin, cfg.bin_sample_count,
+                X, cfg.max_bin, cfg.bin_sample_count, categorical_features,
                 (cfg.seed if cfg.data_random_seed is None
                  else int(cfg.data_random_seed)),
                 min_data_in_bin=cfg.min_data_in_bin,
@@ -868,9 +959,6 @@ def train_booster(
             f"bin mapper has max_bin={mapper.max_bin} but config.max_bin="
             f"{cfg.max_bin}; rebuild the Dataset/mapper with the matching "
             "max_bin")
-    if mapper.is_categorical.any():
-        raise NotImplementedError(
-            "categorical features are not ported to the PyTorch package yet")
     with measures.span("dataPreparation"):
         if binned is None:
             binned = apply_bins(mapper, X, dev)
@@ -924,7 +1012,7 @@ def train_booster(
 
     has_valid = valid is not None
     if has_valid:
-        Xv = np.asarray(valid[0], np.float32)
+        Xv = _densify(valid[0])
         yv = np.asarray(valid[1], np.float32)
         nv = Xv.shape[0]
         metric_name = _metric_name(cfg)
@@ -955,7 +1043,14 @@ def train_booster(
                           if (rf_mode or dart_mode) and init_model is not None
                           else _Contribs(nv, dev))
 
-    grower_cfg = cfg.grower()
+    is_cat = np.asarray(mapper.is_categorical, bool)
+    grower_cfg = cfg.grower(has_categorical=bool(is_cat.any()))
+    # each categorical feature's DISTINCT category count picks one-vs-rest
+    # (a mapper without cat_counts falls back to its bin count)
+    cc = (np.asarray(mapper.cat_counts, np.int32)
+          if mapper.cat_counts is not None
+          else np.asarray(mapper.num_bins, np.int32) - 1)
+    cat_nbins = np.where(is_cat, cc, np.int32(0x7FFF))
     nan_bins = np.asarray(mapper.nan_bins, np.int32)
     mono = np.zeros(nfeat, np.int32)
     if cfg.monotone_constraints is not None:
@@ -1041,7 +1136,8 @@ def train_booster(
                     binned, g[c], h[c], in_bag, feature_active, grower_cfg,
                     nan_bins=nan_bins, bT0=bT, stats=stats, monotone=mono,
                     node_key=(_node_key_data(key0, it, c) if bynode
-                              else None))
+                              else None),
+                    is_categorical=is_cat, cat_nbins=cat_nbins)
                 contrib = tree.leaf_value[node]
                 if dart_mode:
                     tree_contribs.append(c, contrib)

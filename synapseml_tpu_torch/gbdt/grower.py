@@ -44,8 +44,21 @@ two child outputs ``-G / (H + l2)`` break the constraint, as the JAX
 grower does; like it, this bounds no split's descendants (LightGBM's
 basic method also clamps them), so the raw score need not be monotone.
 
-Not ported yet: categorical splits, the "masked"/"gather" layouts and the
-distributed (sharded) reductions.
+  * **Categorical splits** (``has_categorical``; LightGBM's many-vs-many
+    algorithm): a categorical feature's bins are ordered by
+    ``G / (H + cat_smooth)`` (a stable sort; bins with fewer than
+    ``min_data_per_group`` rows last), and the candidates are the prefixes
+    of that order (at most ``max_cat_threshold``) or, for a feature of at
+    most ``max_cat_to_onehot`` categories, single categories
+    (one-vs-rest); their gains carry ``l2 + cat_l2``. The winning set
+    travels as a bitset of ``ceil(B / 32)`` uint32 words: built on the
+    device by the split search itself (``_best_for_leaf``, one order shared
+    with the scan) and read back with the split's record, so a categorical
+    tree costs no more host syncs than a numeric one. A row goes left when
+    its bin is in the set.
+
+Not ported yet: the "masked"/"gather" layouts and the distributed (sharded)
+reductions.
 """
 
 from __future__ import annotations
@@ -59,8 +72,9 @@ from ..core import prng
 from ..ops.hist_kernel import (child_histogram, features_padded, pad_bins,
                                range_histogram)
 
-BITS = 32  # bitset word width for categorical splits (loaded models only)
+BITS = 32  # bitset word width for categorical splits
 NO_NAN_BIN = 0x7FFF
+REC = 8    # leading columns of a best-split record (``_best_for_leaf``)
 
 
 class GrowerConfig(NamedTuple):
@@ -78,6 +92,12 @@ class GrowerConfig(NamedTuple):
     max_delta_step: float = 0.0
     growth_policy: str = "leafwise"  # or "depthwise" (grower_depthwise.py)
     feature_fraction_bynode: float = 1.0
+    cat_smooth: float = 10.0
+    cat_l2: float = 10.0         # extra L2 applied to categorical split gains
+    max_cat_threshold: int = 32
+    max_cat_to_onehot: int = 4   # <= this many categories: one-vs-rest splits
+    min_data_per_group: int = 100  # thin categorical groups excluded
+    has_categorical: bool = False  # the split search scores categorical bins
 
 
 class TreeArrays(NamedTuple):
@@ -163,33 +183,71 @@ def _leaf_output_host(g, h, cfg: GrowerConfig) -> np.float32:
 # Split finding over leaf histograms
 # ---------------------------------------------------------------------------
 
+def _cat_order_usable(hist, cfg: GrowerConfig):
+    """Categorical ordering state of (..., B, 3) histograms: (each feature's
+    bins ordered by G / (H + cat_smooth), thin groups last; the count of
+    usable bins). ONE definition for the split search and the winning
+    bitset, which must agree bit for bit; the sort is stable, as
+    ``jnp.argsort``, so ties (common among empty bins) keep bin order."""
+    cnt = hist[..., 2]
+    usable = (cnt >= cfg.min_data_per_group) & (cnt > 0)
+    key = torch.where(usable, hist[..., 0] / (hist[..., 1] + cfg.cat_smooth),
+                      torch.inf)
+    return torch.argsort(key, dim=-1, stable=True), usable.sum(dim=-1)
+
+
 def _best_for_leaf(hist, feature_mask, nan_bins, cfg: GrowerConfig,
-                   monotone=None):
+                   monotone=None, catp=None, catb=None):
     """hist (K, FP, B, 3) → (K, 8) float64 rows of
     [gain, feature, bin, default_left, count_left, G, H, C] — each leaf's
-    best numeric split (learned NaN direction) and its totals.
+    best split (numeric with a learned NaN direction, or categorical) and
+    its totals; with ``cfg.has_categorical`` each row carries the winner's
+    ``ceil(B / 32)`` bitset words after those 8 (``_winning_bitset``).
     ``feature_mask`` is (FP,) for every leaf or (K, FP) per leaf;
-    ``monotone`` (FP,) int -1/0/+1 or None (no constraint)."""
+    ``monotone`` (FP,) int -1/0/+1 or None (no constraint); ``catp`` (FP,)
+    bool marks the categorical features and ``catb`` (FP,) their category
+    counts (which pick one-vs-rest). A categorical winner's ``bin`` is its
+    position in the feature's bin order."""
     K, FP, B, _ = hist.shape
     l1, l2 = cfg.lambda_l1, cfg.lambda_l2
     totals = hist[:, 0].sum(dim=1)                     # (K, 3) — feature 0 spans the leaf
     G = totals[:, 0, None, None]
     H = totals[:, 1, None, None]
     C = totals[:, 2, None, None]
-    parent = _leaf_objective(G, H, l1, l2)
+    cum = torch.cumsum(hist, dim=2)                    # (K, FP, B, 3)
+    l2s, order = l2, None
+    if cfg.has_categorical:
+        # a categorical feature scans its bins in their order: prefixes
+        # (many-vs-many) or, with at most max_cat_to_onehot categories,
+        # single categories (one-vs-rest: the unsummed sorted histogram);
+        # the mode comes from the feature's category count, not from the
+        # leaf's occupancy. Its gains carry l2 + cat_l2, in the children
+        # and the parent term alike; one scan serves both kinds
+        order, n_usable = _cat_order_usable(hist, cfg)
+        hist_sorted = torch.gather(hist, 2,
+                                   order[..., None].expand(K, FP, B, 3))
+        onehot = (catb <= cfg.max_cat_to_onehot)[None, :, None]
+        is_cat = catp[None, :, None]
+        cum = torch.where(is_cat[..., None], torch.where(
+            onehot[..., None], hist_sorted,
+            torch.cumsum(hist_sorted, dim=2)), cum)
+        l2c = float(np.float32(l2) + np.float32(cfg.cat_l2))
+        l2s = torch.where(is_cat, l2c, l2)            # (1, FP, 1) float32
+    parent = _leaf_objective(G, H, l1, l2s)
 
     def scan_gains(cum, extra=None):
         GL, HL, CL = cum[..., 0], cum[..., 1], cum[..., 2]
         if extra is not None:
             GL, HL, CL = GL + extra[..., 0], HL + extra[..., 1], CL + extra[..., 2]
         GR, HR, CR = G - GL, H - HL, C - CL
-        gain = (_leaf_objective(GL, HL, l1, l2)
-                + _leaf_objective(GR, HR, l1, l2) - parent)
+        gain = (_leaf_objective(GL, HL, l1, l2s)
+                + _leaf_objective(GR, HR, l1, l2s) - parent)
         valid = ((CL >= cfg.min_data_in_leaf) & (CR >= cfg.min_data_in_leaf)
                  & (HL >= cfg.min_sum_hessian_in_leaf)
                  & (HR >= cfg.min_sum_hessian_in_leaf))
         if monotone is not None:
-            # the child outputs without l1, as the JAX grower compares them
+            # the child outputs without l1 or cat_l2, as the JAX grower
+            # compares them
             vl = -GL / (HL + l2)
             vr = -GR / (HR + l2)
             mc = monotone[None, :, None]
@@ -197,8 +255,8 @@ def _best_for_leaf(hist, feature_mask, nan_bins, cfg: GrowerConfig,
                 mc == 0, True, torch.where(mc > 0, vl <= vr, vl >= vr))
         return torch.where(valid, gain, -torch.inf), CL
 
-    cum = torch.cumsum(hist, dim=2)                    # (K, FP, B, 3)
-    # NaN-bin totals per feature (zero when the feature has no NaN bin)
+    # NaN-bin totals per feature (zero when the feature has no NaN bin,
+    # as no categorical feature has)
     nb = torch.clamp(nan_bins, 0, B - 1)
     fidx = torch.arange(FP, device=hist.device)
     nan_tot = hist[:, fidx, nb, :]                     # (K, FP, 3)
@@ -212,17 +270,55 @@ def _best_for_leaf(hist, feature_mask, nan_bins, cfg: GrowerConfig,
     use_left = has_nan & (gain_l > gain_r)
     gain = torch.where(use_left, gain_l, gain_r)
     CLsel = torch.where(use_left, CL_l, CL_r)
+    if order is not None:
+        kk = torch.arange(B, device=hist.device)[None, None, :]
+        nu = n_usable[..., None]
+        # thin groups sort last and are never candidates; max_cat_threshold
+        # caps only the many-vs-many prefix
+        valid_k = torch.where(onehot, kk < nu,
+                              (kk < cfg.max_cat_threshold) & (kk < nu))
+        gain = torch.where(is_cat & ~valid_k, -torch.inf, gain)
+        use_left = use_left & ~is_cat              # never default-left
     fmask = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
     gain = torch.where(fmask[:, :, None], gain, -torch.inf)
 
     flat = gain.reshape(K, FP * B)
     best = torch.argmax(flat, dim=1, keepdim=True)     # first max, as jnp.argmax
     pick = lambda a: torch.gather(a.reshape(K, FP * B), 1, best)[:, 0]
-    return torch.stack([
-        pick(gain).double(), (best[:, 0] // B).double(),
-        (best[:, 0] % B).double(), pick(use_left.expand(K, FP, B)).double(),
+    fsel, bsel = best[:, 0] // B, best[:, 0] % B
+    rows = torch.stack([
+        pick(gain).double(), fsel.double(), bsel.double(),
+        pick(use_left.expand(K, FP, B)).double(),
         pick(CLsel).double(), totals[:, 0].double(), totals[:, 1].double(),
         totals[:, 2].double()], dim=1)
+    if order is None:
+        return rows
+    bits = _winning_bitset(order, fsel, bsel, catb, cfg)
+    return torch.cat([rows, bits.double()], dim=1)
+
+
+def _winning_bitset(order, fsel, bsel, catb, cfg: GrowerConfig):
+    """(K, ceil(B / 32)) int64 bitset words (uint32 values) of each leaf's
+    winner: the bins at sorted positions ``<= bsel`` of feature ``fsel``
+    (one-vs-rest: the one at ``bsel``). As in the JAX package, a numeric
+    winner gets the words its feature's bin order would give; a split uses
+    them only when its feature is categorical."""
+    K, _, B = order.shape
+    order_f = order[torch.arange(K, device=order.device), fsel]   # (K, B)
+    idx = torch.arange(B, device=order.device)[None, :]
+    onehot = (catb[fsel] <= cfg.max_cat_to_onehot)[:, None]
+    take = torch.where(onehot, idx == bsel[:, None], idx <= bsel[:, None])
+    vals = torch.where(take, torch.ones_like(order_f) << (order_f & 31), 0)
+    return torch.zeros((K, -(-B // BITS)), dtype=torch.int64,
+                       device=order.device).scatter_add_(1, order_f >> 5, vals)
+
+
+def _member(bits: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Whether bin ``b`` is in the bitset whose words are ``bits`` (the
+    same leading shape as ``b``, words last; int64 lanes of uint32)."""
+    w = torch.gather(bits, -1, torch.clamp(b >> 5, 0, bits.shape[-1] - 1)
+                     .unsqueeze(-1)).squeeze(-1)
+    return ((w >> (b & 31)) & 1) == 1
 
 
 def _to_host(t: torch.Tensor, stats: Optional[dict]) -> np.ndarray:
@@ -264,6 +360,22 @@ def _padded_features(feature_active, nan_bins, FP: int, dev, monotone=None):
     return featp, torch.as_tensor(nanp_host, device=dev), nanp_host, monop
 
 
+def _padded_categorical(cfg: GrowerConfig, is_categorical, cat_nbins,
+                        FP: int, B: int, dev):
+    """(catp (FP,) bool and catb (FP,) i64 on ``dev``, catp as numpy): the
+    categorical flags and category counts padded to FP features (not
+    categorical, count B); three Nones without ``cfg.has_categorical``."""
+    if not cfg.has_categorical:
+        return None, None, None
+    f = len(is_categorical)
+    catp_host = np.zeros(FP, bool)
+    catp_host[:f] = is_categorical
+    catb_host = np.full(FP, B, np.int64)
+    catb_host[:f] = cat_nbins
+    return (torch.as_tensor(catp_host, device=dev),
+            torch.as_tensor(catb_host, device=dev), catp_host)
+
+
 def node_masks(cfg: GrowerConfig, featp: torch.Tensor, node_key,
                L: int) -> Optional[torch.Tensor]:
     """(2L - 1, FP) bool feature mask of every node id of one tree for
@@ -298,9 +410,12 @@ class _TreeBook:
     depth and parent, and the tree arrays. Leaf numbering follows LightGBM's
     Tree::Split (see ``split``)."""
 
-    def __init__(self, L: int, B: int):
+    def __init__(self, L: int, B: int, catp: Optional[np.ndarray] = None):
         S = max(L - 1, 1)
+        BW = -(-B // BITS)
         self.L, self.B = L, B
+        self.catp = catp                              # (FP,) or None
+        self.bbits = np.zeros((L, BW), np.uint32)     # best split's bitset
         self.bgain = np.full(L, -np.inf, np.float32)
         self.bfeat = np.zeros(L, np.int64)
         self.bbin = np.zeros(L, np.int64)
@@ -314,6 +429,8 @@ class _TreeBook:
         self.split_bin = np.full(S, B - 1, np.int32)
         self.split_gain = np.zeros(S, np.float32)
         self.default_left = np.zeros(S, bool)
+        self.split_type = np.zeros(S, np.int32)
+        self.cat_bitset = np.zeros((S, BW), np.uint32)
         self.left_child = np.full(S, ~0, np.int32)
         self.right_child = np.full(S, ~0, np.int32)
         self.internal_value = np.zeros(S, np.float32)
@@ -324,13 +441,16 @@ class _TreeBook:
         self.num_splits = 0
 
     def set_best(self, leaves, rows: np.ndarray) -> None:
-        """Store (K, 8) ``_best_for_leaf`` rows for ``leaves``."""
+        """Store (K, 8) ``_best_for_leaf`` rows for ``leaves`` (and the
+        bitset words that follow them with categorical features)."""
         self.bgain[leaves] = rows[:, 0]
         self.bfeat[leaves] = rows[:, 1]
         self.bbin[leaves] = rows[:, 2]
         self.bdl[leaves] = rows[:, 3] != 0
         self.bcl[leaves] = rows[:, 4]
-        self.tot[leaves] = rows[:, 5:8]
+        self.tot[leaves] = rows[:, 5:REC]
+        if rows.shape[1] > REC:
+            self.bbits[leaves] = rows[:, REC:].astype(np.uint32)
 
     def split(self, l: int, cfg: GrowerConfig) -> int:
         """Apply leaf ``l``'s best split as internal node ``num_splits``:
@@ -350,6 +470,9 @@ class _TreeBook:
         self.split_bin[i_node] = self.bbin[l]
         self.split_gain[i_node] = self.bgain[l]
         self.default_left[i_node] = self.bdl[l]
+        if self.catp is not None:
+            self.split_type[i_node] = int(self.catp[self.bfeat[l]])
+            self.cat_bitset[i_node] = self.bbits[l]
         self.internal_value[i_node] = _leaf_output_host(
             self.tot[l, 0], self.tot[l, 1], cfg)
         self.internal_count[i_node] = np.int32(self.tot[l, 2])
@@ -365,7 +488,7 @@ class _TreeBook:
         """The grown tree; leaf stats come from the per-leaf histograms
         ``hist`` (L, FP, B, 3) (per-leaf float32 sums) and stay on the
         device."""
-        L, S = self.L, max(self.L - 1, 1)
+        L = self.L
         leaf_tot = hist[:, 0].sum(dim=1)               # (L, 3)
         exists = torch.arange(L, device=hist.device) <= self.num_splits
         leaf_value = torch.where(
@@ -373,9 +496,8 @@ class _TreeBook:
             * cfg.learning_rate, 0.0)
         return TreeArrays(
             split_feature=self.split_feature, split_bin=self.split_bin,
-            split_gain=self.split_gain, split_type=np.zeros(S, np.int32),
-            default_left=self.default_left,
-            cat_bitset=np.zeros((S, (self.B + BITS - 1) // BITS), np.uint32),
+            split_gain=self.split_gain, split_type=self.split_type,
+            default_left=self.default_left, cat_bitset=self.cat_bitset,
             left_child=self.left_child, right_child=self.right_child,
             internal_value=self.internal_value,
             internal_count=self.internal_count,
@@ -386,7 +508,8 @@ class _TreeBook:
 
 def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
               nan_bins=None, bT0=None, stats: Optional[dict] = None,
-              monotone=None, node_key=None):
+              monotone=None, node_key=None, is_categorical=None,
+              cat_nbins=None):
     """Grow one tree; returns (TreeArrays, node_of_row) where node_of_row is
     each row's final leaf index (used for the O(1) training-score update).
 
@@ -397,7 +520,9 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
     (it is not modified). ``stats["host_syncs"]`` counts host reads.
     ``monotone`` (F,) -1/0/+1 constraints (host array or None);
     ``node_key`` the tree's key (``core.prng``) for
-    ``feature_fraction_bynode``.
+    ``feature_fraction_bynode``. With ``cfg.has_categorical``,
+    ``is_categorical`` (F,) bool marks the categorical features and
+    ``cat_nbins`` (F,) holds their distinct category counts (host arrays).
     """
     if cfg.growth_policy == "depthwise":
         from .grower_depthwise import grow_tree_depthwise
@@ -405,7 +530,9 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
         return grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
                                    cfg, nan_bins=nan_bins, bT0=bT0,
                                    stats=stats, monotone=monotone,
-                                   node_key=node_key)
+                                   node_key=node_key,
+                                   is_categorical=is_categorical,
+                                   cat_nbins=cat_nbins)
     if cfg.growth_policy != "leafwise":
         raise ValueError("growth_policy must be 'leafwise' or 'depthwise', "
                          f"got {cfg.growth_policy!r}")
@@ -423,6 +550,8 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
     pos = torch.arange(n, dtype=torch.int64, device=dev)
     featp, nanp, nanp_host, monop = _padded_features(
         feature_active, nan_bins, FP, dev, monotone)
+    catp, catb, catp_host = _padded_categorical(cfg, is_categorical,
+                                                cat_nbins, FP, B, dev)
     masks = node_masks(cfg, featp, node_key, L)
 
     def mask_of(i: int, count: int = 1):
@@ -432,9 +561,15 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
 
     hist = torch.zeros((L, FP, B, 3), dtype=torch.float32, device=dev)
     hist[0] = child_histogram(bT, gs, hs, ms, B)
-    book = _TreeBook(L, B)
-    book.set_best([0], _to_host(_best_for_leaf(
-        hist[:1], mask_of(2 * (L - 1)), nanp, cfg, monop), stats))
+    book = _TreeBook(L, B, catp_host)
+    root = _best_for_leaf(hist[:1], mask_of(2 * (L - 1)), nanp, cfg, monop,
+                          catp, catb)
+    # each leaf's best bitset also stays on the device for the partition
+    dbits = (torch.zeros((L, root.shape[1] - REC), dtype=torch.int64,
+                         device=dev) if catp is not None else None)
+    if dbits is not None:
+        dbits[0] = root[0, REC:].to(torch.int64)
+    book.set_best([0], _to_host(root, stats))
     leaf_start = np.zeros(L, np.int64)
     leaf_len = np.zeros(L, np.int64)
     leaf_len[0] = n
@@ -454,10 +589,13 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
 
         # stable partition of the leaf's range: left-going rows first
         binrow = bT[fsel, start:end]
-        gr = binrow > bsel
-        if nanp_host[fsel] < B:
-            is_nan = binrow == int(nanp_host[fsel])
-            gr = (gr & ~is_nan) if dl else (gr | is_nan)
+        if catp_host is not None and catp_host[fsel]:
+            gr = ~_member(dbits[l].expand(length, -1), binrow.to(torch.int64))
+        else:
+            gr = binrow > bsel
+            if nanp_host[fsel] < B:
+                is_nan = binrow == int(nanp_host[fsel])
+                gr = (gr & ~is_nan) if dl else (gr | is_nan)
         src = torch.argsort(gr.to(torch.uint8), stable=True)
         nl_loc = length - gr.sum()
         pos[start:end] = pos[start:end][src]
@@ -478,13 +616,16 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
         hist_right = hist_parent - hist_left
         children = torch.stack([hist_left, hist_right])
         best2 = _best_for_leaf(children, mask_of(2 * book.num_splits, 2),
-                               nanp, cfg, monop)
+                               nanp, cfg, monop, catp, catb)
         rec = _to_host(torch.cat([nl_loc.reshape(1).double(),
                                   best2.reshape(-1)]), stats)
         new_right = book.split(l, cfg)
         hist[l] = children[0]
         hist[new_right] = children[1]
-        book.set_best([l, new_right], rec[1:].reshape(2, 8))
+        if dbits is not None:
+            dbits[l] = best2[0, REC:].to(torch.int64)
+            dbits[new_right] = best2[1, REC:].to(torch.int64)
+        book.set_best([l, new_right], rec[1:].reshape(2, -1))
         nl = int(rec[0])
         leaf_start[new_right] = start + nl
         leaf_len[l], leaf_len[new_right] = nl, length - nl
@@ -512,6 +653,7 @@ class Forest(NamedTuple):
 
     split_feature: torch.Tensor  # (T, L-1) i64
     threshold: torch.Tensor      # (T, L-1) f32
+    split_bin: torch.Tensor      # (T, L-1) i64 (binned traversal)
     split_type: torch.Tensor     # (T, L-1) i64
     default_left: torch.Tensor   # (T, L-1) bool
     cat_bitset: torch.Tensor     # (T, L-1, BW) i64 (uint32 words)
@@ -538,6 +680,7 @@ def stack_trees(trees: list, thresholds: list, missing_types: list,
         split_feature=cat("split_feature", np.int64),
         threshold=torch.as_tensor(np.stack(
             [np.asarray(t, np.float32) for t in thresholds]), device=device),
+        split_bin=cat("split_bin", np.int64),
         split_type=cat("split_type", np.int64),
         default_left=cat("default_left", bool),
         cat_bitset=cat("cat_bitset", np.int64),
@@ -549,15 +692,20 @@ def stack_trees(trees: list, thresholds: list, missing_types: list,
     )
 
 
-def _descend(forest: Forest, X: torch.Tensor, depth: int) -> torch.Tensor:
+def _descend(forest: Forest, X: torch.Tensor, depth: int,
+             nan_bins: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Vectorized pointer-chase of every tree at once: (N, F) → (N, T) leaf
-    indices (LightGBM Tree::NumericalDecision / CategoricalDecision)."""
+    indices (LightGBM Tree::NumericalDecision / CategoricalDecision). With
+    ``nan_bins`` (F,) ``X`` holds bins: a bin ``> split_bin`` goes right, a
+    row in its feature's NaN bin takes the split's default side, and a
+    categorical split tests the bin against its bitset."""
     T, S = forest.split_feature.shape
     BW = forest.cat_bitset.shape[2]
     dev = X.device
     base = (torch.arange(T, device=dev) * S)[None, :]
     sf = forest.split_feature.reshape(-1)
     thr = forest.threshold.reshape(-1)
+    sbin = forest.split_bin.reshape(-1)
     stype = forest.split_type.reshape(-1)
     dleft = forest.default_left.reshape(-1)
     bits = forest.cat_bitset.reshape(-1)
@@ -567,23 +715,28 @@ def _descend(forest: Forest, X: torch.Tensor, depth: int) -> torch.Tensor:
     node = torch.zeros((X.shape[0], T), dtype=torch.int64, device=dev)
     for _ in range(depth):
         nd = torch.clamp_min(node, 0) + base
-        x = torch.gather(X, 1, sf[nd])
+        f = sf[nd]
+        x = torch.gather(X, 1, f)
         dl = dleft[nd]
-        mt = mts[nd]
-        # NaN coerces to 0.0 unless missing_type is nan; zero missing routes
-        # |x| <= 1e-35 to the default side (kZeroThreshold)
-        isnan_x = torch.isnan(x)
-        x0 = torch.where(isnan_x & (mt != 2), 0.0, x)
-        is_missing = torch.where(mt == 1, torch.abs(x0) <= 1e-35,
-                                 (mt == 2) & isnan_x)
-        num_right = torch.where(is_missing, ~dl, ~(x0 <= thr[nd]))
-        # categorical NaN: member test on category 0 unless missing_type is
-        # nan, where NaN is never a member
-        cat_nan = torch.where(mt == 2, -1.0, 0.0)
-        c = torch.clamp(torch.where(isnan_x, cat_nan, x), -1,
-                        BW * BITS - 1).to(torch.int64)
+        if nan_bins is not None:
+            c = x.to(torch.int64)
+            num_right = torch.where(c == nan_bins[f], ~dl, c > sbin[nd])
+        else:
+            mt = mts[nd]
+            # NaN coerces to 0.0 unless missing_type is nan; zero missing
+            # routes |x| <= 1e-35 to the default side (kZeroThreshold)
+            isnan_x = torch.isnan(x)
+            x0 = torch.where(isnan_x & (mt != 2), 0.0, x)
+            is_missing = torch.where(mt == 1, torch.abs(x0) <= 1e-35,
+                                     (mt == 2) & isnan_x)
+            num_right = torch.where(is_missing, ~dl, ~(x0 <= thr[nd]))
+            # categorical NaN: member test on category 0 unless
+            # missing_type is nan, where NaN is never a member
+            cat_nan = torch.where(mt == 2, -1.0, 0.0)
+            c = torch.clamp(torch.where(isnan_x, cat_nan, x), -1,
+                            BW * BITS - 1).to(torch.int64)
         cw = torch.clamp_min(c, 0)
-        word = bits[nd * BW + (cw >> 5)]
+        word = bits[nd * BW + torch.clamp(cw >> 5, max=BW - 1)]
         member = (((word >> (cw & 31)) & 1) == 1) & (c >= 0)
         go_right = torch.where(stype[nd] == 1, ~member, num_right)
         nxt = torch.where(go_right, rc[nd], lc[nd])
@@ -606,13 +759,15 @@ def _chunk_rows(T: int, rows_per_chunk: Optional[int]) -> int:
 def forest_predict(forest: Forest, X: torch.Tensor, depth: int,
                    rows_per_chunk: Optional[int] = None,
                    num_class: int = 1, start_iteration: int = 0,
-                   num_iteration: int = -1) -> torch.Tensor:
+                   num_iteration: int = -1,
+                   nan_bins: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(N, num_class) float32 sum of tree outputs per row: tree ``t``
     belongs to class ``t % num_class`` (iteration-major order), and each
     class sums its trees in iteration order (as the JAX scan does). Only
     iterations ``start_iteration`` .. ``start_iteration + num_iteration - 1``
     count (``num_iteration <= 0``: through the last). Rows go in chunks so
-    the (rows, T) temporaries stay near 16M elements."""
+    the (rows, T) temporaries stay near 16M elements. ``nan_bins``: ``X``
+    holds bins (``_descend``)."""
     k = num_class
     t0 = min(max(int(start_iteration), 0) * k, forest.num_trees)
     t1 = forest.num_trees
@@ -629,7 +784,8 @@ def forest_predict(forest: Forest, X: torch.Tensor, depth: int,
     lv = forest.leaf_value.reshape(-1)
     tbase = (torch.arange(T, device=X.device) * L)[None, :]
     for s in range(0, X.shape[0], step):
-        vals = lv[_descend(forest, X[s:s + step], depth) + tbase]   # (r, T)
+        vals = lv[_descend(forest, X[s:s + step], depth, nan_bins)
+                  + tbase]                                       # (r, T)
         total = torch.zeros((vals.shape[0], k), dtype=torch.float32,
                             device=X.device)
         for t in range(0, T, k):
@@ -657,26 +813,35 @@ def forest_leaves(forest: Forest, X: torch.Tensor, depth: int,
 
 def tree_leaves_binned(tree: TreeArrays, binned: torch.Tensor,
                        nan_bins: torch.Tensor) -> torch.Tensor:
-    """(N,) leaf index of each binned row in one grown (numeric) tree: bin
+    """(N,) leaf index of each binned row in one grown tree: bin
     ``> split_bin`` goes right, a row in its feature's NaN bin
     (``nan_bins`` (F,) on ``binned``'s device) takes the split's default
-    side. The JAX package's ``_tree_assign_binned``; it scores validation
-    rows tree by tree."""
+    side, a categorical split sends the bins outside its bitset right. The
+    JAX package's ``_tree_assign_binned``; it scores validation rows tree
+    by tree (one upload of the tree's arrays)."""
     ns = int(tree.num_splits)
     dev = binned.device
     node = torch.zeros(binned.shape[0], dtype=torch.int64, device=dev)
     if ns == 0:
         return node
-    packed = torch.as_tensor(np.stack([
+    fields = np.stack([
         np.asarray(getattr(tree, f))[:ns].astype(np.int64)
         for f in ("split_feature", "split_bin", "default_left",
-                  "left_child", "right_child")]), device=dev)
-    sf, sbin, dl, lc, rc = packed
+                  "left_child", "right_child", "split_type")])
+    bits_host = np.asarray(tree.cat_bitset)[:ns].astype(np.int64)
+    packed = torch.as_tensor(np.concatenate([fields, bits_host.T]),
+                             device=dev)
+    sf, sbin, dl, lc, rc, stype = packed[:6]
+    bits = packed[6:].T
+    has_cat = bool((fields[5] == 1).any())
     for _ in range(forest_max_depth([tree])):
         nd = torch.clamp_min(node, 0)
         f = sf[nd]
         xb = torch.gather(binned, 1, f[:, None])[:, 0].to(torch.int64)
         go_right = torch.where(xb == nan_bins[f], dl[nd] == 0, xb > sbin[nd])
+        if has_cat:
+            go_right = torch.where(stype[nd] == 1, ~_member(bits[nd], xb),
+                                   go_right)
         nxt = torch.where(go_right, rc[nd], lc[nd])
         node = torch.where(node < 0, node, nxt)
     return ~node

@@ -20,9 +20,11 @@ subtraction): the float32 sums, and so the trees, are the reference's.
 Where the state lives. The routing, the sort, the gather, the histograms and
 split scoring stay on the device. The bookkeeping sits on the host
 (``grower._TreeBook``, shared with the leaf-wise grower): each level pass
-ends with ONE read of the ``(L, 8)`` best-split rows, the host applies the
-level's splits and uploads the level's plan (``do``, ``fsel``, ``bsel``,
-``dl``, ``right_of``, each ``(L,)``). The last pass is not read when the
+ends with ONE read of the ``(L, 8)`` best-split rows (with categorical
+features, each row's bitset words too), the host applies the level's
+splits and uploads the level's plan (``do``, ``fsel``, ``bsel``, ``dl``,
+``cat``, ``right_of``, each ``(L,)``, and the ``(L, ceil(B / 32))``
+bitsets) in one transfer. The last pass is not read when the
 budget or the depth limit already ends the tree, so a tree costs
 ``passes - 1`` host syncs then and ``passes`` otherwise, where ``passes`` is
 1 (the root) plus the number of levels that applied a split.
@@ -32,8 +34,9 @@ uploaded with the level's plan), as the JAX grower's ``mask_id``; monotone
 constraints mask candidates in ``_best_for_leaf`` as in the leaf-wise
 grower.
 
-Not ported: categorical bitsets and the cross-shard histogram reduction
-(``train_booster`` rejects their settings).
+A categorical split routes a row left when its bin is in the split's bitset
+(``grower._member``). Not ported: the cross-shard histogram reduction
+(``train_booster`` rejects its settings).
 """
 
 from __future__ import annotations
@@ -45,8 +48,9 @@ import torch
 
 from ..ops.hist_kernel import (CHUNK, features_padded, level_histograms,
                                pad_bins)
-from .grower import (GrowerConfig, _best_for_leaf, _padded_features,
-                     _to_host, _TreeBook, node_masks, transpose_bins)
+from .grower import (GrowerConfig, _best_for_leaf, _member,
+                     _padded_categorical, _padded_features, _to_host,
+                     _TreeBook, node_masks, transpose_bins)
 
 
 class _LevelPlan(NamedTuple):
@@ -59,6 +63,8 @@ class _LevelPlan(NamedTuple):
     dl: torch.Tensor          # bool default-left (NaN bin's side)
     right_of: torch.Tensor    # i64 right child's leaf (itself if unsplit)
     mask_id: torch.Tensor     # i64 each slot's node id after the level
+    cat: torch.Tensor         # bool categorical split
+    bits: torch.Tensor        # (L, BW) i64 its bitset words
 
 
 def _level_candidates(book: _TreeBook, level: int, cfg: GrowerConfig):
@@ -82,26 +88,34 @@ def _apply_level_splits(book: _TreeBook, do, order, cfg: GrowerConfig, dev
     """Apply the level's splits to ``book`` in gain order; returns the plan
     the rows route by, uploaded in one transfer."""
     L = book.L
-    plan = np.zeros((6, L), np.int64)
+    plan = np.zeros((7 + book.bbits.shape[1], L), np.int64)
     plan[4] = np.arange(L)                         # right_of: identity
     for l in order:
         if not do[l]:
             continue
         plan[:4, l] = 1, book.bfeat[l], book.bbin[l], book.bdl[l]
+        i_node = book.num_splits
         plan[4, l] = book.split(int(l), cfg)
+        plan[6, l] = book.split_type[i_node]
+        plan[7:, l] = book.cat_bitset[i_node]
     plan[5] = book.mask_id
     p = torch.as_tensor(plan, device=dev)
     return _LevelPlan(do=p[0] != 0, fsel=p[1], bsel=p[2], dl=p[3] != 0,
-                      right_of=p[4], mask_id=p[5])
+                      right_of=p[4], mask_id=p[5], cat=p[6] != 0,
+                      bits=p[7:].T)
 
 
-def _route_level(bT, rleaf, plan: _LevelPlan, nanp):
+def _route_level(bT, rleaf, plan: _LevelPlan, nanp, has_categorical=False):
     """Each row's leaf after the level's splits: ``bT`` (FP, R) bins,
     ``rleaf`` (R,) current leaves → (R,) new leaves."""
     fr = plan.fsel[rleaf]
     binrow = bT.gather(0, fr[None, :])[0]
     gr = binrow > plan.bsel[rleaf]
     gr = torch.where(binrow == nanp[fr], ~plan.dl[rleaf], gr)
+    if has_categorical:
+        gr = torch.where(plan.cat[rleaf],
+                         ~_member(plan.bits[rleaf], binrow.to(torch.int64)),
+                         gr)
     return torch.where(plan.do[rleaf] & gr, plan.right_of[rleaf], rleaf)
 
 
@@ -139,7 +153,7 @@ def _repartition(new_rleaf, is_pad, exists, chunk: int, CAP: int):
 def grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
                         cfg: GrowerConfig, nan_bins=None, bT0=None,
                         stats: Optional[dict] = None, monotone=None,
-                        node_key=None):
+                        node_key=None, is_categorical=None, cat_nbins=None):
     """Grow one tree level by level; arguments and result as
     ``grower.grow_tree`` (``bT0`` is read, never modified)."""
     n, f = binned.shape
@@ -162,13 +176,15 @@ def grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
     rleaf = torch.zeros(n, dtype=torch.int64, device=dev)
     featp, nanp, _, monop = _padded_features(feature_active, nan_bins, FP,
                                              dev, monotone)
+    catp, catb, catp_host = _padded_categorical(cfg, is_categorical,
+                                                cat_nbins, FP, B, dev)
     masks = node_masks(cfg, featp, node_key, L)
     root_starts = torch.full((L,), CAP // chunk, dtype=torch.int32,
                              device=dev)
     root_starts[0] = 0
     hist = level_histograms(bT, gs, hs, ms, root_starts, rleaf, B, L)
 
-    book = _TreeBook(L, B)
+    book = _TreeBook(L, B, catp_host)
     level = 0
 
     def growing() -> bool:
@@ -177,13 +193,14 @@ def grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
     if growing():
         root_mask = featp if masks is None else masks[2 * (L - 1)]
         book.set_best([0], _to_host(
-            _best_for_leaf(hist[:1], root_mask, nanp, cfg, monop), stats))
+            _best_for_leaf(hist[:1], root_mask, nanp, cfg, monop, catp,
+                           catb), stats))
     while growing():
         do, order = _level_candidates(book, level, cfg)
         if not do.any():
             break
         plan = _apply_level_splits(book, do, order, cfg, dev)
-        new_rleaf = _route_level(bT, rleaf, plan, nanp)
+        new_rleaf = _route_level(bT, rleaf, plan, nanp, catp is not None)
         exists = torch.arange(L, device=dev) <= book.num_splits
         src, valid, rleaf, start_chunks = _repartition(
             new_rleaf, pos >= n, exists, chunk, CAP)
@@ -197,7 +214,7 @@ def grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
         if growing():
             slot_masks = featp if masks is None else masks[plan.mask_id]
             rows = _to_host(_best_for_leaf(hist, slot_masks, nanp, cfg,
-                                           monop), stats)
+                                           monop, catp, catb), stats)
             book.set_best(np.arange(L), rows)
             book.bgain[book.num_splits + 1:] = -np.inf
 

@@ -4,7 +4,10 @@ port's engine.
 Counterpart of the JAX package's ``models/gbdt.py`` for the ported slice:
 binary and multiclass classification, regression with every LightGBM
 regression objective, and LambdaRank ranking, with every boosting type
-(gbdt, goss, dart, rf) on dense numeric data; bagging (``baggingFraction``,
+(gbdt, goss, dart, rf) on numeric and categorical features
+(``categoricalSlotIndexes``, or ``categoricalSlotNames`` resolved through
+``slotNames``, with ``catSmooth``, ``catl2``, ``maxCatThreshold``,
+``maxCatToOnehot`` and ``minDataPerGroup``); bagging (``baggingFraction``,
 ``baggingFreq``, ``baggingSeed``, stratified ``pos``/``negBaggingFraction``),
 feature fractions per tree and per node with their seed, DART's
 ``dropRate``, ``maxDrop``, ``skipDrop``, ``uniformDrop``, ``dropSeed`` and
@@ -18,8 +21,9 @@ with the metric and early stopping, warm starts (``modelString``, and
 objectives (``fobj``), the prediction window (``startIteration``) and the
 leaf-index and SHAP output columns. camelCase param names match the
 reference so code ports 1:1. A param of the JAX estimators that the slice
-does not implement (categorical features, the distributed learners) is
-not declared here; passing one raises ``NotImplementedError`` naming it.
+does not implement (the distributed learners' ``topK`` and
+``parallelism``) is not declared here; passing one raises
+``NotImplementedError`` naming it.
 The JAX ranker takes ``modelString`` and
 ``numBatches`` but does not use them; the port's ranker refuses them
 instead. The Spark/JNI plumbing params stay accepted as no-ops, as in the
@@ -32,7 +36,7 @@ missing card raises rather than falling back to the CPU.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -44,11 +48,7 @@ from ..core.device import DEFAULT_DEVICE
 from ..gbdt.boosting import Booster, BoosterConfig, train_booster
 
 # params of the JAX estimator that the port does not implement yet
-UNPORTED_PARAMS = frozenset({
-    "categoricalSlotIndexes", "categoricalSlotNames", "catSmooth",
-    "maxCatThreshold", "catl2", "maxCatToOnehot", "minDataPerGroup",
-    "topK", "parallelism",
-})
+UNPORTED_PARAMS = frozenset({"topK", "parallelism"})
 
 
 def _reject_unported(names) -> None:
@@ -94,6 +94,16 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
     monotoneConstraints = Param("monotoneConstraints", "Per-feature -1/0/+1 constraints", list)
     monotoneConstraintsMethod = Param("monotoneConstraintsMethod", "basic/intermediate/advanced (inert, as in the JAX package)", str, "basic")
     monotonePenalty = Param("monotonePenalty", "Monotone split penalty (inert)", float, 0.0)
+    categoricalSlotIndexes = Param("categoricalSlotIndexes", "Categorical feature indices", list)
+    categoricalSlotNames = Param("categoricalSlotNames", "Categorical feature names", list)
+    catSmooth = Param("catSmooth", "Categorical smoothing", float, 10.0)
+    maxCatThreshold = Param("maxCatThreshold", "Max categories on one split side", int, 32)
+    catl2 = Param("catl2", "Extra L2 applied to categorical split gains",
+                  float, 10.0)
+    maxCatToOnehot = Param("maxCatToOnehot", "One-vs-rest categorical splits "
+                           "at or below this many categories", int, 4)
+    minDataPerGroup = Param("minDataPerGroup", "Minimum rows per categorical "
+                            "group considered for splitting", int, 100)
     dropSeed = Param("dropSeed", "DART drop-selection seed (0 = derive from "
                      "seed)", int, 0)
     featureFractionSeed = Param("featureFractionSeed", "Feature-sampling seed "
@@ -214,6 +224,11 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             bagging_seed=self.getBaggingSeed(),
             xgboost_dart_mode=self.getXGBoostDartMode(),
             max_delta_step=self.getMaxDeltaStep(),
+            cat_smooth=self.getCatSmooth(),
+            cat_l2=self.getCatl2(),
+            max_cat_threshold=self.getMaxCatThreshold(),
+            max_cat_to_onehot=self.getMaxCatToOnehot(),
+            min_data_per_group=self.getMinDataPerGroup(),
             early_stopping_round=self.getEarlyStoppingRound(),
             metric=self.get("metric"),
             improvement_tolerance=self.getImprovementTolerance(),
@@ -253,6 +268,17 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                     setattr(cfg, key, typ(float(val)))
                 else:
                     setattr(cfg, key, val)
+
+    def _categorical_indexes(self, feature_names: Optional[List[str]]
+                             ) -> List[int]:
+        """``categoricalSlotIndexes`` plus the indexes of the
+        ``categoricalSlotNames`` found in ``feature_names``, sorted."""
+        idx = list(self.get("categoricalSlotIndexes") or [])
+        names = self.get("categoricalSlotNames") or []
+        if names and feature_names:
+            idx += [feature_names.index(n) for n in names
+                    if n in feature_names]
+        return sorted(set(int(i) for i in idx))
 
     def _apply_missing_params(self, X: np.ndarray) -> np.ndarray:
         """useMissing=False coerces NaN to 0; zeroAsMissing=True maps
@@ -299,13 +325,14 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
         parts = (np.array_split(np.random.default_rng(
             self.getSeed()).permutation(len(y)), nb)
             if nb and nb > 1 else [slice(None)])
+        cats = self._categorical_indexes(self.get("slotNames"))
         for part in parts:
             def pick(a, part=part):
                 return None if a is None else a[part]
 
             bst = train_booster(pick(X), pick(y), cfg,
                                 sample_weight=pick(w), init_score=pick(init),
-                                valid=valid,
+                                categorical_features=cats, valid=valid,
                                 feature_names=self.get("slotNames"),
                                 init_model=bst, fobj=self.get("fobj"),
                                 mapper=self._reference_mapper(pick(X)),

@@ -13,9 +13,15 @@ Bin semantics (matching LightGBM's BinMapper):
   * Features containing NaN get a DEDICATED missing bin at index
     ``num_bins[f] - 1``; the split finder learns the missing direction per
     split (``default_left``).
+  * categorical features use the category's integer value as its bin, capped
+    by max_bin (values past the last observed category share one overflow
+    bin); NaN and negative categories go to bin 0.
 
-Categorical features and sparse input are not ported: ``apply_bins`` rejects
-a mapper with categorical features.
+Sparse (scipy CSR) rows bin through ``CsrBinner``: each chunk starts as a
+broadcast of the bins of an all-zero row and only the explicit entries'
+bins are scattered in, so the implicit zeros never materialise as floats.
+The JAX package's ``StreamingQuantileSketch`` (out-of-core ingest) is not
+ported.
 """
 
 from __future__ import annotations
@@ -57,34 +63,75 @@ class BinMapper(NamedTuple):
         return np.where(self.nan_mask, nb, np.int32(0x7FFF))
 
 
+def cat_presence_bitmap(col: np.ndarray, cap: int) -> np.ndarray:
+    """(cap,) bool: which identity bins a categorical column occupies.
+    Values clip into [0, cap-1] exactly as identity binning does, so the
+    popcount equals the number of distinct OBSERVED bins — the quantity the
+    maxCatToOnehot one-vs-rest decision needs (LightGBM decides from
+    full-data bin counts). O(n) bincount, no sort."""
+    v = col[~np.isnan(col)]
+    if not v.size:
+        return np.zeros(cap, bool)
+    iv = np.clip(v.astype(np.int64), 0, cap - 1)
+    return np.bincount(iv, minlength=cap).astype(bool)
+
+
 def compute_bin_mapper(
     X: np.ndarray,
     max_bin: int = 255,
     sample_count: int = 200_000,
+    categorical_features: Optional[Sequence[int]] = None,
     seed: int = 0,
+    has_nan: Optional[np.ndarray] = None,
     min_data_in_bin: int = 3,
     max_bin_by_feature: Optional[Sequence[int]] = None,
+    cat_presence: Optional[np.ndarray] = None,
 ) -> BinMapper:
     """Driver-side boundary computation from a sample (the analog of
     LightGBMBase.getSampledRows + LGBM_DatasetCreateFromSampledColumn;
     binSampleCount param default 200000 — params/LightGBMParams.scala).
-    Numeric features only: the JAX package's categorical and sparse-path
-    arguments are not ported."""
+
+    ``has_nan`` overrides per-feature missing-ness when the caller has
+    computed it on MORE data than ``X`` (the sparse path samples rows for
+    boundaries but elects NaN bins from the full matrix). ``cat_presence``
+    ((F, max_bin) bool) likewise overrides categorical bin occupancy, so the
+    maxCatToOnehot decision never depends on the sampling seed."""
     X = np.asarray(X, dtype=np.float32)
     n, f = X.shape
+    cat = np.zeros(f, dtype=bool)
+    if categorical_features:
+        cat[list(categorical_features)] = True
     # missing-ness decided on the FULL matrix (binning must route every NaN)
-    has_nan = np.isnan(X).any(axis=0)
+    if has_nan is None:
+        has_nan = np.isnan(X).any(axis=0) & ~cat
+    else:
+        has_nan = np.asarray(has_nan, bool) & ~cat
+
+    X_full = X
     if n > sample_count:
         rng = np.random.default_rng(seed)
         X = X[rng.choice(n, size=sample_count, replace=False)]
 
     bounds = np.full((f, max_bin - 1), np.inf, dtype=np.float32)
     nbins = np.zeros(f, dtype=np.int32)
+    cat_counts = np.zeros(f, dtype=np.int32)
     caps = np.full(f, max_bin, np.int64)
     if max_bin_by_feature is not None:
         mb = np.asarray(max_bin_by_feature, np.int64)
         caps[: len(mb)] = np.clip(mb[:f], 2, max_bin)
     for j in range(f):
+        if cat[j]:
+            # identity bins capped at max_bin, plus one overflow bin; the
+            # occupancy (and so cat_counts, which decides one-vs-rest) comes
+            # from the FULL column, or from the caller's full-data bitmap
+            pres = (np.asarray(cat_presence[j], bool)
+                    if cat_presence is not None
+                    else cat_presence_bitmap(X_full[:, j], max_bin))
+            nz = np.flatnonzero(pres)
+            hi = int(nz[-1]) if nz.size else 0
+            nbins[j] = min(hi + 1, int(caps[j]) - 1) + 1
+            cat_counts[j] = int(pres.sum())
+            continue
         col = X[:, j]
         col = col[~np.isnan(col)]
         # features with NaN reserve one bin; real values get one fewer
@@ -122,20 +169,30 @@ def compute_bin_mapper(
         # bins: b.size+1 real-value bins (+1 overflow shares the last), plus a
         # dedicated NaN bin when the feature has missing values
         nbins[j] = b.size + 2 + int(has_nan[j])
-    return BinMapper(boundaries=bounds, num_bins=nbins,
-                     is_categorical=np.zeros(f, bool), max_bin=max_bin,
-                     has_nan=has_nan, cat_counts=np.zeros(f, np.int32))
+    return BinMapper(boundaries=bounds, num_bins=nbins, is_categorical=cat,
+                     max_bin=max_bin, has_nan=has_nan, cat_counts=cat_counts)
+
+
+def _bin_dtype(mapper: BinMapper) -> torch.dtype:
+    return torch.uint8 if mapper.max_bin <= 256 else torch.int32
+
+
+def _identity_bins(x: torch.Tensor, max_bin: int,
+                   limit: torch.Tensor) -> torch.Tensor:
+    """Categorical bins of raw values ``x``: NaN → 0, clipped into
+    [0, max_bin - 1] and truncated toward zero, then capped at ``limit``
+    (each value's feature's num_bins - 1)."""
+    ident = torch.clamp(torch.nan_to_num(x, nan=0.0), 0, max_bin - 1)
+    return torch.minimum(ident.to(torch.int64), limit)
 
 
 def apply_bins(mapper: BinMapper, X, device="cuda") -> torch.Tensor:
     """(N, F) raw floats → (N, F) bin ids on ``device`` (uint8 when
     max_bin <= 256, else int32). Non-NaN overflow clamps into the last REAL
-    value bin; NaN goes to the feature's dedicated NaN bin when it has one."""
+    value bin; NaN goes to the feature's dedicated NaN bin when it has one;
+    categorical features take identity bins (``_identity_bins``)."""
     from ..core.device import resolve_device
 
-    if mapper.is_categorical.any():
-        raise NotImplementedError(
-            "categorical features are not ported to the PyTorch package yet")
     dev = resolve_device(device)
     X = torch.as_tensor(np.asarray(X, np.float32)).to(dev)
     bounds = torch.as_tensor(np.asarray(mapper.boundaries, np.float32)).to(dev)
@@ -146,7 +203,88 @@ def apply_bins(mapper: BinMapper, X, device="cuda") -> torch.Tensor:
     binned = torch.minimum(binned, real_limit[None, :])
     binned = torch.where(torch.isnan(X) & nan_mask[None, :],
                          (num_bins - 1)[None, :], binned)
-    return binned.to(torch.uint8 if mapper.max_bin <= 256 else torch.int32)
+    cat = np.asarray(mapper.is_categorical, bool)
+    if cat.any():
+        cats = torch.as_tensor(cat).to(dev)
+        ident = _identity_bins(X, mapper.max_bin, (num_bins - 1)[None, :])
+        binned = torch.where(cats[None, :], ident, binned)
+    return binned.to(_bin_dtype(mapper))
+
+
+def _searchsorted_rows(bounds: torch.Tensor, rows: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """``searchsorted(bounds[rows[i]], x[i], side="left")`` for every entry
+    ``i`` without gathering whole rows: one vectorised binary search, a
+    gather of one boundary per entry per halving. NaN sorts after every
+    boundary, as in ``torch.searchsorted``."""
+    M = bounds.shape[1]
+    lo = torch.zeros_like(rows)
+    hi = torch.full_like(rows, M)
+    flat = bounds.reshape(-1)
+    base = rows * M
+    x_nan = torch.isnan(x)
+    for _ in range(M.bit_length()):
+        live = lo < hi
+        mid = (lo + hi) // 2
+        v = flat[base + torch.clamp(mid, max=M - 1)]
+        right = (v < x) | x_nan
+        lo = torch.where(live & right, mid + 1, lo)
+        hi = torch.where(live & ~right, mid, hi)
+    return lo
+
+
+class CsrBinner:
+    """CSR chunk binning on the device with the mapper state uploaded ONCE
+    (boundaries, limits, masks and the bins of an all-zero row are the same
+    for every chunk). A chunk's (rows, F) bins start as a broadcast of the
+    zero row's bins; only the explicit entries' bins are computed, each
+    against its feature's boundaries, and scattered in. Each entry's bin is
+    ``apply_bins``' for that value, so the result is bitwise the dense
+    binning of the same rows."""
+
+    def __init__(self, mapper: BinMapper, device="cuda"):
+        from ..core.device import resolve_device
+
+        dev = self.device = resolve_device(device)
+        self.max_bin = mapper.max_bin
+        self.dtype = _bin_dtype(mapper)
+        self.zero = apply_bins(mapper, np.zeros((1, mapper.num_features),
+                                                np.float32), dev)[0]
+        self.boundaries = torch.as_tensor(
+            np.asarray(mapper.boundaries, np.float32)).to(dev)
+        self.nan_mask = torch.as_tensor(
+            np.asarray(mapper.nan_mask, bool)).to(dev)
+        num_bins = torch.as_tensor(
+            np.asarray(mapper.num_bins, np.int64)).to(dev)
+        self.nan_bin = num_bins - 1
+        self.real_limit = self.nan_bin - self.nan_mask.to(torch.int64)
+        self.is_cat = torch.as_tensor(
+            np.asarray(mapper.is_categorical, bool)).to(dev)
+
+    def __call__(self, data, rows, cols, n_rows: int) -> torch.Tensor:
+        """(n_rows, F) bins of the chunk whose explicit entries are
+        ``data`` at (``rows``, ``cols``), rows counted from the chunk's
+        first."""
+        dev = self.device
+        data = torch.as_tensor(np.asarray(data, np.float32)).to(dev)
+        rows = torch.as_tensor(np.asarray(rows, np.int64)).to(dev)
+        cols = torch.as_tensor(np.asarray(cols, np.int64)).to(dev)
+        b = _searchsorted_rows(self.boundaries, cols, data)
+        b = torch.minimum(b, self.real_limit[cols])
+        b = torch.where(torch.isnan(data) & self.nan_mask[cols],
+                        self.nan_bin[cols], b)
+        b = torch.where(self.is_cat[cols],
+                        _identity_bins(data, self.max_bin,
+                                       self.nan_bin[cols]), b)
+        out = self.zero[None, :].expand(int(n_rows), -1).clone()
+        out[rows, cols] = b.to(self.dtype)
+        return out
+
+
+def bin_csr_chunk(mapper: BinMapper, data, rows, cols, n_rows,
+                  device="cuda") -> torch.Tensor:
+    """One-shot convenience wrapper; loops should hold a :class:`CsrBinner`."""
+    return CsrBinner(mapper, device)(data, rows, cols, n_rows)
 
 
 def bin_threshold_to_value(mapper: BinMapper, feature: int, bin_id: int) -> float:

@@ -1,0 +1,215 @@
+"""The port's API against the JAX package's, name by name: the fields and
+defaults of ``TrainConfig`` and ``BoosterConfig``, the arguments of
+``train_booster``, ``Dataset`` and every public ``Booster`` method, the
+public names of ``Booster`` and ``Dataset``, and the params of the GBDT and
+DL estimators. A name of the JAX package is either ported or declared here
+as unported, and every unported name raises ``NotImplementedError`` naming
+itself (never ``TypeError`` or ``AttributeError``), so the gap cannot
+reopen unseen. Then the scoring arguments ported by name: ``binned``,
+``batch_size`` and ``Booster.unweighted``, against the JAX package on a
+booster carried across by ``convert`` (the same trees: exact, or 1e-6 for
+probabilities from another library's sigmoid).
+"""
+
+import dataclasses
+import inspect
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+
+from synapseml_tpu.dl import text as jtext
+from synapseml_tpu.dl import trainer as jtrainer
+from synapseml_tpu.dl import vision as jvision
+from synapseml_tpu.gbdt import boosting as jboost
+from synapseml_tpu.gbdt import dataset as jdataset
+from synapseml_tpu.models import gbdt as jmodels
+
+from synapseml_tpu_torch.convert import booster_arrays, booster_from_reference
+from synapseml_tpu_torch.dl import text as ttext
+from synapseml_tpu_torch.dl import trainer as ttrainer
+from synapseml_tpu_torch.dl import vision as tvision
+from synapseml_tpu_torch.gbdt import boosting as tboost
+from synapseml_tpu_torch.gbdt import dataset as tdataset
+from synapseml_tpu_torch.models import gbdt as tmodels
+from synapseml_tpu_torch.ops import quantize as tq
+from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)
+
+CPU = "cpu"
+
+# names of the JAX package the port declares unported (each refused below)
+UNPORTED_BOOSTER = {"serving_fn", "to_onnx"}
+UNPORTED_DATASET = {"from_batches"}
+UNPORTED_ESTIMATOR_PARAMS = {"topK", "parallelism"}
+# TrainConfig fields that take only their default (machinery not ported);
+# ``resume`` is inert while ``checkpoint_dir`` is refused
+DEFAULT_ONLY = {"save_every_epochs": 2, "keep_checkpoints": 5,
+                "prefetch_batches": 4, "donate_buffers": False,
+                "pipeline_microbatches": 4,
+                "pipeline_param_sharding": "zero",
+                "pipeline_schedule": "overlap"}
+
+
+def _fields(cls) -> dict:
+    return {f.name: f.default for f in dataclasses.fields(cls)}
+
+
+def _args(fn) -> set:
+    return set(inspect.signature(fn).parameters) - {"self", "cls"}
+
+
+def _public(cls) -> set:
+    return {n for n in dir(cls) if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("jcls,tcls", [
+    (jtrainer.TrainConfig, ttrainer.TrainConfig),
+    (jboost.BoosterConfig, tboost.BoosterConfig)])
+def test_config_fields_and_defaults_are_the_references(jcls, tcls):
+    jf, tf = _fields(jcls), _fields(tcls)
+    assert tf.keys() == jf.keys()
+    # the JAX package draws a few engine knobs from its tuned defaults
+    # (a default_factory): those keep only their names here
+    assert {k: v for k, v in tf.items() if jf[k] is not dataclasses.MISSING} \
+        == {k: v for k, v in jf.items() if v is not dataclasses.MISSING}
+
+
+@pytest.mark.parametrize("field", list(DEFAULT_ONLY))
+def test_default_only_train_config_fields_are_refused_by_name(field):
+    from synapseml_tpu_torch.dl.text import TransformerEncoder
+
+    assert ttrainer.Trainer.unported(ttrainer.TrainConfig(resume=False)) \
+        == []
+    model = TransformerEncoder(vocab_size=16, num_layers=1, num_heads=2,
+                               hidden=8, max_len=8)
+    cfg = ttrainer.TrainConfig(**{field: DEFAULT_ONLY[field]})
+    trainer = ttrainer.Trainer(model, cfg, device=CPU)
+    with pytest.raises(NotImplementedError, match=field):
+        trainer.fit(np.zeros((4, 8), np.int64), np.zeros(4, np.int64))
+
+
+@pytest.mark.parametrize("jfn,tfn", [
+    (jboost.train_booster, tboost.train_booster),
+    (jdataset.Dataset.__init__, tdataset.Dataset.__init__),
+    (jdataset.bin_sparse, tdataset.bin_sparse)])
+def test_functions_take_every_reference_argument(jfn, tfn):
+    assert _args(jfn) - _args(tfn) == set()
+
+
+@pytest.mark.parametrize("jcls,tcls,unported", [
+    (jboost.Booster, tboost.Booster, UNPORTED_BOOSTER),
+    (jdataset.Dataset, tdataset.Dataset, UNPORTED_DATASET)])
+def test_public_methods_take_every_reference_argument(jcls, tcls, unported):
+    assert _public(jcls) - _public(tcls) == set()
+    for name in sorted(_public(jcls)):
+        jattr = inspect.getattr_static(jcls, name)
+        if isinstance(jattr, property) or not callable(getattr(jcls, name)):
+            continue
+        assert _args(getattr(jcls, name)) - _args(getattr(tcls, name)) \
+            == set(), name
+    # the declared unported names exist, so they refuse rather than vanish
+    assert unported <= _public(tcls)
+
+
+@pytest.fixture(scope="module")
+def boosters():
+    """(X, JAX booster, the port's copy of it by ``convert``)."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(600, 4)).astype(np.float32)
+    X[rng.random(600) < 0.1, 2] = np.nan
+    y = (X[:, 0] + X[:, 1] * X[:, 3] > 0).astype(np.float32)
+    jb = jboost.train_booster(X, y, jboost.BoosterConfig(
+        objective="binary", num_iterations=3, num_leaves=7))
+    arrays, config = booster_arrays(jb)
+    return X, jb, booster_from_reference(arrays, config, device=CPU)
+
+
+def test_unported_names_raise_naming_themselves(boosters):
+    X, _, tb = boosters
+    for name, call in (
+            ("serving_fn", lambda: tb.serving_fn(max_batch_size=8)),
+            ("to_onnx", lambda: tb.to_onnx()),
+            ("from_batches", lambda: tdataset.Dataset.from_batches(iter([X]))),
+            ("mesh", lambda: tboost.train_booster(
+                X, np.zeros(len(X)), tboost.BoosterConfig(), mesh="mesh",
+                device=CPU)),
+            ("hfModel", lambda: ttext.DeepTextModel(hfModel=object())),
+            ("hfTokenizer", lambda: ttext.DeepTextModel(
+                hfTokenizer=object()))):
+        with pytest.raises(NotImplementedError, match=name):
+            call()
+
+
+@pytest.mark.parametrize("jcls,tcls,unported", [
+    (jmodels.LightGBMClassifier, tmodels.LightGBMClassifier,
+     UNPORTED_ESTIMATOR_PARAMS),
+    (jmodels.LightGBMRegressor, tmodels.LightGBMRegressor,
+     UNPORTED_ESTIMATOR_PARAMS),
+    (jmodels.LightGBMRanker, tmodels.LightGBMRanker,
+     UNPORTED_ESTIMATOR_PARAMS),
+    (jtext.DeepTextClassifier, ttext.DeepTextClassifier, set()),
+    (jtext.DeepTextModel, ttext.DeepTextModel, set()),
+    (jvision.DeepVisionClassifier, tvision.DeepVisionClassifier, set()),
+    (jvision.DeepVisionModel, tvision.DeepVisionModel, set())])
+def test_estimator_params_are_ported_or_refused_by_name(jcls, tcls,
+                                                        unported):
+    assert set(jcls()._params) - set(tcls()._params) == unported
+    assert _args(jcls.__init__) - _args(tcls.__init__) == set()
+    if jcls.__module__.endswith("gbdt"):
+        assert tmodels.UNPORTED_PARAMS == unported
+        for name in unported:
+            with pytest.raises(NotImplementedError, match=name):
+                tcls(**{name: jcls().get(name)})
+
+
+# ---------------------------------------------------------------------------
+# scoring arguments ported by name
+# ---------------------------------------------------------------------------
+
+def test_predict_binned_matches_the_reference(boosters):
+    X, jb, tb = boosters
+    binned = tq.apply_bins(tb.mapper, X, CPU).numpy()
+    np.testing.assert_array_equal(
+        tb.raw_score(binned, binned=True),
+        np.asarray(jb.raw_score(jnp.asarray(binned), binned=True)))
+    np.testing.assert_allclose(
+        tb.predict(binned, binned=True),
+        np.asarray(jb.predict(jnp.asarray(binned), binned=True)), rtol=0,
+        atol=1e-6)
+    # the same leaves as the raw rows' (NaN bins take the learned side)
+    np.testing.assert_array_equal(tb.raw_score(binned, binned=True),
+                                  tb.raw_score(X))
+
+
+@pytest.mark.parametrize("batch_size", [1, 7, 600, 1000])
+def test_predict_batch_size_gives_the_unbatched_values(boosters, batch_size):
+    X, jb, tb = boosters
+    got = tb.predict(X, batch_size=batch_size)
+    np.testing.assert_array_equal(got, tb.predict(X))
+    np.testing.assert_allclose(
+        got, np.asarray(jb.predict(X, batch_size=batch_size)), rtol=0,
+        atol=1e-6)
+
+
+@pytest.mark.parametrize("kw", [dict(binned=True), dict(num_iteration=2),
+                                dict(batch_size=0), dict(empty=True)])
+def test_predict_batch_size_refuses_what_the_reference_refuses(boosters,
+                                                               kw):
+    X, jb, tb = boosters
+    kw = dict(kw)
+    rows = X[:0] if kw.pop("empty", False) else X
+    kw.setdefault("batch_size", 8)
+    for b in (jb, tb):
+        with pytest.raises(ValueError):
+            b.predict(rows, **kw)
+
+
+def test_unweighted_matches_the_reference(boosters):
+    X, jb, tb = boosters
+    tu, ju = tb.unweighted(), jb.unweighted()
+    assert tu.tree_weights == [1.0] * tb.num_trees
+    assert not tu.base_score.any()
+    np.testing.assert_array_equal(tu.raw_score(X),
+                                  np.asarray(ju.raw_score(X)))
+    assert tu.device == tb.device

@@ -616,3 +616,62 @@ def test_kernel_timer_brackets_each_launch_and_restores_the_library(
     assert all(s.recorded == e.recorded == 1
                for s, e in events["child_histogram"])
     assert cs.timed_ms(events)["child_histogram"] == 1.0
+
+
+def test_covertype_folds_to_its_raw_ids_and_its_one_hot_csr():
+    """Phase 14's tables: the one-hot blocks fold to the wilderness and soil
+    ids (``covtype.data``'s 12 columns), and the one-hot table as CSR holds
+    12 entries per row (LIBSVM's ``covtype``) and densifies back."""
+    X, _ = cs.covertype_like(500, seed=2)
+    Xc = cs.fold_one_hot(X)
+    num = cs.COVTYPE_NUMERIC
+    assert Xc.shape == (500, num + 2)
+    np.testing.assert_array_equal(Xc[:, :num], X[:, :num])
+    for col, lo, width in ((num, num, cs.COVTYPE_WILD),
+                           (num + 1, num + cs.COVTYPE_WILD, cs.COVTYPE_SOIL)):
+        ids = Xc[:, col].astype(int)
+        assert ids.min() >= 0 and ids.max() < width
+        assert (X[np.arange(500), lo + ids] == 1.0).all()
+    csr = cs.covtype_csr(X)
+    assert csr.nnz == 12 * 500
+    np.testing.assert_array_equal(csr.toarray(), X)
+
+
+def _tree(features, words, B=256):
+    """A stand-in tree of categorical splits on ``features`` whose bitsets
+    hold ``words`` (one int per split, the first word)."""
+    n = len(features)
+    bits = np.zeros((n, B // 32), np.uint32)
+    bits[:, 0] = words
+    return SimpleNamespace(num_splits=n, split_type=np.ones(n, np.int32),
+                           split_feature=np.asarray(features),
+                           cat_bitset=bits)
+
+
+def test_split_mode_check_wants_one_vs_rest_and_category_sets():
+    wild, soil = cs.CAT_FEATURES
+    good = SimpleNamespace(trees=[_tree([wild, soil, soil],
+                                        [0b100, 0b1, 0b1011])])
+    assert cs.category_sets(good, soil) == [1, 3]
+    cs.check_split_modes("good", good)
+    for trees in ([_tree([wild, soil], [0b11, 0b111])],   # wild set of 2
+                  [_tree([wild, soil], [0b1, 0b1])],      # soil sets of 1
+                  [_tree([soil], [0b111])]):              # no wild split
+        with pytest.raises(AssertionError, match="one-vs-rest"):
+            cs.check_split_modes("bad", SimpleNamespace(trees=trees))
+
+
+def test_sync_check_holds_categorical_trees_to_the_numeric_count():
+    """Leaf-wise: exactly one read for the root and one per split;
+    depthwise: at most one per level and the root's."""
+    tree = SimpleNamespace(num_splits=3, left_child=np.array([1, ~0, ~1]),
+                           right_child=np.array([2, ~2, ~3]))
+    booster = SimpleNamespace(trees=[tree, tree], num_trees=2,
+                              metadata={"host_syncs": 8})
+    assert cs.check_syncs("leafwise", booster, "leafwise") == 4.0
+    booster.metadata["host_syncs"] = 6
+    assert cs.check_syncs("depthwise", booster, "depthwise") == 3.0
+    for policy, syncs in (("leafwise", 9), ("depthwise", 7)):
+        booster.metadata["host_syncs"] = syncs
+        with pytest.raises(AssertionError, match="host syncs"):
+            cs.check_syncs(policy, booster, policy)

@@ -307,7 +307,7 @@ def test_train_booster_trains_the_sampling_it_once_refused(data, field,
 
 
 @pytest.mark.parametrize("arg,value", [
-    ("categorical_features", [0]), ("mesh", "mesh"),
+    ("mesh", "mesh"),
 ])
 def test_train_booster_rejects_unported_arguments(data, arg, value):
     X, y = data
@@ -355,16 +355,6 @@ def test_train_booster_takes_what_it_once_refused(data, arg, tmp_path):
         assert CheckpointStore(str(tmp_path)).latest_step() == 3
 
 
-def test_sparse_input_is_rejected(data):
-    from scipy import sparse
-
-    X, y = data
-    cfg = tboost.BoosterConfig(objective="binary", num_iterations=1)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tboost.train_booster(sparse.csr_matrix(X[:256]), y[:256], cfg,
-                             device=CPU)
-
-
 def test_classifier_rejects_unported_params(data):
     X, y = data
     jparams = set(JClassifier()._params)
@@ -372,8 +362,7 @@ def test_classifier_rejects_unported_params(data):
     # every param of the JAX estimator is either ported or rejected
     from synapseml_tpu_torch.models.gbdt import UNPORTED_PARAMS
     assert jparams - tparams == set(UNPORTED_PARAMS)
-    for name, value in (("catSmooth", 5.0), ("maxCatToOnehot", 8),
-                        ("categoricalSlotIndexes", [0]),
+    for name, value in (("topK", 10),
                         ("parallelism", "voting_parallel")):
         with pytest.raises(NotImplementedError, match=name):
             LightGBMClassifier(**{name: value})

@@ -291,7 +291,7 @@ def test_estimators_refuse_unported_params_by_name(cls, jcls):
     # every param of the JAX estimator is either ported or refused by name
     assert set(jcls()._params) - set(cls(device=CPU)._params) \
         == set(UNPORTED_PARAMS)
-    for name, value in (("topK", 10), ("categoricalSlotIndexes", [0]),
+    for name, value in (("topK", 10),
                         ("parallelism", "voting_parallel")):
         with pytest.raises(NotImplementedError, match=name):
             cls(**{name: value})
