@@ -213,6 +213,32 @@ Phases, each of which fails the run if it fails:
    order differently from fit to fit), the same predictions, and
    ``predict`` of the CSR rows bitwise that of the dense rows; both fits'
    ``referenceDataset`` and ``dataPreparation`` spans logged.
+15. serving: phase 12's early-stopped leaf-wise classifier (28 float32
+   features) through ``Booster.serving_fn(max_batch_size=64)``, its ladder
+   1..64 captured as CUDA graphs by ``warmup()`` (seconds per rung
+   logged); graphs against ``serving_fn(bucketed=False)`` (eager) at 1, 64
+   and 4096 rows (4096 also through the ``predict(batch_size=4096)``
+   runner, one replay), median host and CUDA-event milliseconds of 50
+   calls, replies bitwise equal or within 1e-6; ``predict(batch_size=4096)``
+   over phase 12's validation rows against the unbatched ``predict``
+   (within 1e-6, rows/s of both). Then one ``ServingServer(max_batch_size=
+   64, max_batch_latency=0.005)`` with a ``QoSController`` and two
+   tenants: ``"higgs"`` over the graphs, ``"covtype"`` over
+   ``serving_main.build_handler`` of phase 14's categorical model, saved
+   and reloaded (``probability``). 32 client threads with keep-alive
+   connections and 10 s timeouts send 4000 one-row requests to ``"higgs"``
+   and 1000 to ``"covtype"``, interleaved; halfway, ``ModelRegistry.
+   swap_to`` flips ``"higgs"`` to phase 3's 10-iteration model, captured
+   off the hot path. Checks: every reply 200; each within 1e-6 of
+   ``predict`` of its row by the version that was serving when it was
+   sent (either version inside the swap), covtype classes equal; no
+   capture after warmup on either version. Logged: p50 and p99 latency,
+   requests/s, mean batch size, the runners' hits by rung and the swap's
+   seconds. Then a burst of 200 requests against ``max_queue_size=8``
+   (the handler stalled until the burst is in) must see 503s, each within
+   1 s, and 200s within 1e-6 of ``predict``; ``X-Deadline-Ms: 1`` in front
+   of a 50 ms handler must get a 504. No kernel of ours runs on this path
+   (forest traversal is PyTorch operations, replayed from the graphs).
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 9's ring and
@@ -224,13 +250,18 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import http.client
 import json
+import multiprocessing as mp
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from urllib.parse import urlsplit
 
 import numpy as np
 import torch
@@ -397,6 +428,22 @@ SAMPLING_RELOAD_TOL = 1e-5
 CAT_FEATURES = [COVTYPE_NUMERIC, COVTYPE_NUMERIC + 1]
 CAT_CROSS_ROWS = 50_000     # phase 10's 100,000, halved for the time limit
 CAT_RELOAD_TOL = 1e-5
+
+# phase 15: serving on the card. The bucketed runner at the JAX package's
+# default ladder (max batch 64), graphs against eager at 1, 64 and 4096
+# rows (median of SERVE_CALLS calls), batch predict in SERVE_PREDICT_BATCH
+# chunks, then two tenants behind one ServingServer under SERVE_CLIENTS
+# client threads with a hot swap halfway, a burst against a queue of
+# SERVE_BURST_QUEUE, and a 1 ms deadline. Replies are held to predict on the
+# same rows: traversal treats each row on its own, so padding and batching
+# change no value (the tolerance covers another sum order)
+SERVE_MAX_BATCH, SERVE_SIZES, SERVE_CALLS = 64, (1, 64, 4096), 50
+SERVE_PREDICT_BATCH = 4096
+SERVE_CLIENTS, SERVE_HIGGS_REQUESTS, SERVE_COVTYPE_REQUESTS = 32, 4000, 1000
+SERVE_BATCH_LATENCY, SERVE_TOL = 0.005, 1e-6
+SERVE_BURST, SERVE_BURST_QUEUE, SERVE_BURST_BATCH = 200, 8, 8
+SERVE_STALL_S = 2.0
+SERVE_CLIENT_TIMEOUT, SERVE_LOAD_TIMEOUT = 10.0, 300.0
 
 
 def log(msg: str) -> None:
@@ -899,7 +946,7 @@ def main_path(X, y, dev: str) -> dict:
     if a < 0.75:
         raise AssertionError(f"train AUC {a} is too low for this table")
     _check_launches(launches, MAIN_KERNELS)
-    return dict(launches=launches, fit_s=fit_s, auc=a)
+    return dict(launches=launches, fit_s=fit_s, auc=a, booster=booster)
 
 
 def depthwise_path(X, y, dev: str) -> dict:
@@ -2943,6 +2990,7 @@ def surface_path(rows: int, dev: str) -> dict:
     warm_start_check(model, fits["table"], dev)
     fobj_and_resume_check(dev)
     valid_curve_check(dev)
+    fits["Xv"] = X[X.shape[0] - surface_split(rows):]
     return fits
 
 
@@ -3821,11 +3869,12 @@ def sparse_fit(X, y, dev: str, dense=None, dense_s: float = 0.0) -> float:
     return sparse_s
 
 
-def categorical_path(dev: str, numeric: dict) -> None:
+def categorical_path(dev: str, numeric: dict) -> dict:
     """Phase 14: the categorical fits of both policies on the 12-column
     Covertype table with their checks, beside phase 10's numeric one-hot
     fits (``numeric``: ``_numeric_baseline`` by policy); card against CPU;
-    then the CSR fit."""
+    then the CSR fit. Returns the leaf-wise model and its 12-column rows
+    (phase 15 serves them)."""
     t_start = time.perf_counter()
     X, y = covertype_like(COVTYPE_ROWS)
     Xc = fold_one_hot(X)
@@ -3844,6 +3893,7 @@ def categorical_path(dev: str, numeric: dict) -> None:
                 f"{base['syncs_per_tree']:.2f}")
     categorical_checks(fits, Xc, y, dev)
     cat_s = {p: f["fit_s"] for p, f in fits.items()}
+    served = dict(model=fits["leafwise"]["model"], Xc=Xc)
     del fits
     categorical_cross_check(Xc, y, dev)
     base = numeric.get("leafwise", {})
@@ -3853,6 +3903,588 @@ def categorical_path(dev: str, numeric: dict) -> None:
         f"the one-hot CSR fit's {sparse_s:.3f} s in this phase "
         f"({cat_s['leafwise'] / sparse_s:.2f}x)")
     log(f"  phase 14 took {time.perf_counter() - t_start:.1f}s")
+    return served
+
+
+# ---------------------------------------------------------------------------
+# phase 15: serving on the card
+# ---------------------------------------------------------------------------
+
+def _serve_handler(serve):
+    """A ``ServingServer`` handler over a bucketed serving callable: each
+    request is ``{"features": [...]}``, each reply the row's prediction."""
+    from synapseml_tpu_torch.core import Table
+
+    def handler(df):
+        x = np.asarray([v["features"] for v in df["value"]], np.float32)
+        return Table({"id": df["id"], "reply": serve(x)})
+
+    handler.warmup = serve.warmup
+    handler.runner = serve.runner
+    return handler
+
+
+def _median_call_ms(fn, dev: str, stream, calls: int) -> tuple:
+    """(median host ms, median CUDA-event ms on ``stream``, or None on the
+    CPU) over ``calls`` calls of ``fn`` after one warm call. ``fn`` ends in
+    a host copy of its result, so the host time is the caller's latency;
+    the events span the stream from before the call to after it, gaps
+    while the stream waits on the host included."""
+    fn()
+    wall, event = [], []
+    for _ in range(calls):
+        if _on_card(dev):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record(stream)
+        t0 = time.perf_counter()
+        fn()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if _on_card(dev):
+            e1.record(stream)
+            e1.synchronize()
+            event.append(e0.elapsed_time(e1))
+    return (float(np.median(wall)),
+            float(np.median(event)) if event else None)
+
+
+def _check_gap(label: str, got, want, tol: float = SERVE_TOL) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{label}: shape {got.shape} against "
+                             f"{want.shape}, finite {np.isfinite(got).all()}")
+    gap = float(np.abs(got.astype(np.float64) - want).max()) \
+        if got.size else 0.0
+    if gap > tol:
+        raise AssertionError(f"{label}: max |gap| {gap} above {tol}")
+    return gap
+
+
+def _check_no_capture(label: str, runner) -> dict:
+    stats = runner.stats()
+    if stats["total_compiles"] != stats["warmup_compiles"]:
+        raise AssertionError(f"{label}: {stats['total_compiles']} captures, "
+                             f"{stats['warmup_compiles']} of them in "
+                             "warmup: a request waited on a capture")
+    return stats
+
+
+def serving_warmup(booster, dev: str):
+    """Step 1: the bucketed serving callable, every rung captured."""
+    serve = booster.serving_fn(max_batch_size=SERVE_MAX_BATCH)
+    _sync(dev)
+    t0 = time.perf_counter()
+    stats = serve.warmup()
+    _sync(dev)
+    warm_s = time.perf_counter() - t0
+    per_rung = {b: round(s, 4) for (b, _), s in
+                sorted(serve.runner.capture_seconds.items())}
+    log(f"  warmup: {stats['total_compiles']} rungs {stats['buckets']} "
+        f"captured in {warm_s:.3f}s ({booster.num_trees} trees, depth "
+        f"{booster._depth_cache}); capture seconds by rung "
+        f"{json.dumps(per_rung)}")
+    if stats["total_compiles"] != len(stats["buckets"]):
+        raise AssertionError(f"warmup captured {stats['compiles']}")
+    return serve, per_rung
+
+
+def serving_batch_predict(booster, Xv, dev: str) -> dict:
+    """Step 3: ``predict(batch_size=SERVE_PREDICT_BATCH)`` over the
+    validation rows against the unbatched ``predict``."""
+    rows = Xv.shape[0]
+    t0 = time.perf_counter()
+    booster.predict(Xv, batch_size=SERVE_PREDICT_BATCH)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = booster.predict(Xv, batch_size=SERVE_PREDICT_BATCH)
+    batched_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = booster.predict(Xv)
+    plain_s = time.perf_counter() - t0
+    gap = _check_gap("predict(batch_size)", got, want)
+    out = dict(rows_per_s=rows / batched_s, plain_rows_per_s=rows / plain_s,
+               first_s=first_s, gap=gap)
+    log(f"  predict(batch_size={SERVE_PREDICT_BATCH}) of {rows} rows: "
+        f"{rows / batched_s:.0f} rows/s ({batched_s:.3f}s; first call with "
+        f"its captures {first_s:.3f}s) against unbatched predict "
+        f"{rows / plain_s:.0f} rows/s ({plain_s:.3f}s), max |gap| {gap:.3g}")
+    return out
+
+
+def serving_graph_vs_eager(booster, serve, Xv, dev: str) -> dict:
+    """Step 2: the captured graphs against ``serving_fn(bucketed=False)``
+    (eager) at each of ``SERVE_SIZES`` rows; at the largest size also the
+    ``predict(batch_size=...)`` runner, one replay of its top rung."""
+    plain = booster.serving_fn(bucketed=False)
+    big = booster._serving_cache[SERVE_PREDICT_BATCH]
+    eager_stream = torch.cuda.current_stream() if _on_card(dev) else None
+    out = {}
+    for rows in SERVE_SIZES:
+        X = Xv[:rows]
+        want = plain(X).cpu().numpy()
+        cases = [("graphs", serve)]
+        if rows > SERVE_MAX_BATCH:
+            cases.append((f"graphs, top rung {SERVE_PREDICT_BATCH}", big))
+        eager = _median_call_ms(lambda: plain(X).cpu().numpy(), dev,
+                                eager_stream, SERVE_CALLS)
+        for label, fn in cases:
+            got = fn(X)
+            gap = 0.0 if np.array_equal(got, want) else \
+                _check_gap(f"{label} at {rows} rows", got, want)
+            ms = _median_call_ms(lambda: fn(X), dev, fn.runner.stream,
+                                 SERVE_CALLS)
+            out[(rows, label)] = dict(graph=ms, eager=eager, gap=gap)
+            speed = eager[0] / ms[0]
+            ev = (f"; CUDA-event ms {ms[1]:.4f} against {eager[1]:.4f} "
+                  f"({eager[1] / ms[1]:.2f}x)" if ms[1] else "")
+            log(f"  {rows} rows, {label}: median of {SERVE_CALLS} calls "
+                f"{ms[0]:.4f} ms against eager {eager[0]:.4f} ms "
+                f"({speed:.2f}x){ev}; "
+                + ("replies bitwise equal" if gap == 0.0
+                   else f"max |gap| {gap:.3g}"))
+    return out
+
+
+def serving_replay_stages(serve, Xv, dev: str) -> dict:
+    """Where one dispatch's time goes at 1 and ``SERVE_MAX_BATCH`` rows,
+    median of ``SERVE_CALLS`` after one warm call: the host's padding into a
+    pinned staging buffer (host ms), then on the runner's stream the
+    copy-in, the replay and the copy-out into fresh tensors (CUDA events
+    between them), then ``PendingBatch.result``'s wait, copy to the host
+    and slice (host ms). These are ``_Graph.run``'s steps taken one by one
+    under the runner's replay lock, and each reply must equal ``serve``'s.
+    Nothing is captured on the CPU, so there it returns {}."""
+    if not _on_card(dev):
+        return {}
+    from synapseml_tpu_torch.core.inference import PendingBatch, _pad_to
+
+    runner = serve.runner
+    out = {}
+    for rows in (1, SERVE_MAX_BATCH):
+        X = np.ascontiguousarray(Xv[:rows], dtype=np.float32)
+        bucket = runner.bucket_for(rows)
+        graph = runner._compiled[(bucket, (runner._spec_of(X),))]
+        want = serve(X)
+        times = {k: [] for k in ("staging", "copy_in", "replay", "copy_out",
+                                 "result")}
+        for call in range(SERVE_CALLS + 1):
+            t0 = time.perf_counter()
+            host = torch.empty(graph.inputs[0].shape,
+                               dtype=graph.inputs[0].dtype, pin_memory=True)
+            _pad_to(X, bucket, out=host.numpy())
+            t1 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            with graph.lock, torch.cuda.stream(runner.stream):
+                ev[0].record()
+                graph.inputs[0].copy_(host, non_blocking=True)
+                ev[1].record()
+                graph.graph.replay()
+                ev[2].record()
+                outs = [o.clone() for o in graph.outputs]
+                ev[3].record()
+            t2 = time.perf_counter()
+            got = PendingBatch([(outs, rows, bucket)], graph.kind, rows,
+                               ev[3]).result()
+            t3 = time.perf_counter()
+            if not np.array_equal(got, want):
+                _check_gap(f"replay stages at {rows} rows", got, want)
+            if not call:
+                continue
+            times["staging"].append((t1 - t0) * 1e3)
+            times["copy_in"].append(ev[0].elapsed_time(ev[1]))
+            times["replay"].append(ev[1].elapsed_time(ev[2]))
+            times["copy_out"].append(ev[2].elapsed_time(ev[3]))
+            times["result"].append((t3 - t2) * 1e3)
+        out[rows] = {k: float(np.median(v)) for k, v in times.items()}
+        m = out[rows]
+        log(f"  dispatch stages at {rows} rows (rung {bucket}), median of "
+            f"{SERVE_CALLS}: host staging {m['staging']:.4f} ms, copy-in "
+            f"{m['copy_in']:.4f} ms, replay {m['replay']:.4f} ms, copy-out "
+            f"{m['copy_out']:.4f} ms (CUDA events on the runner's stream), "
+            f"result (wait, copy to host, slice) {m['result']:.4f} ms")
+    return out
+
+
+def _client_loop(url: str, work, results: list, lock, done) -> None:
+    """One client thread: a keep-alive connection, requests taken from the
+    shared ``work`` iterator until it is empty; each result is (index,
+    status, reply, sent at, seconds), and ``done`` counts them."""
+    parts = urlsplit(url)
+    conn = None
+    while True:
+        with lock:
+            item = next(work, None)
+        if item is None:
+            break
+        i, tenant, body = item
+        if conn is None:
+            conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                              timeout=SERVE_CLIENT_TIMEOUT)
+        t0 = time.monotonic()
+        try:
+            conn.request("POST", parts.path or "/", body=body, headers={
+                "Content-Type": "application/json", "X-Tenant": tenant})
+            resp = conn.getresponse()
+            status, payload = resp.status, resp.read()
+        except (OSError, http.client.HTTPException) as e:
+            status, payload = -1, repr(e).encode()
+            conn.close()
+            conn = None
+        reply = json.loads(payload) if status == 200 else payload
+        results.append((i, status, reply, t0, time.monotonic() - t0))
+        with done.get_lock():
+            done.value += 1
+    if conn is not None:
+        conn.close()
+
+
+def _client_process(url: str, items: list, threads: int, done, out) -> None:
+    """The load's clients, in a process of their own so that they do not
+    share the server's interpreter lock: ``threads`` client threads over
+    ``items``; the results go to the queue ``out``."""
+    results: list = []
+    lock = threading.Lock()
+    work = iter(items)
+    pool = [threading.Thread(target=_client_loop,
+                             args=(url, work, results, lock, done))
+            for _ in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    out.put(results)
+
+
+def _post_once(url: str, body: bytes, headers=None) -> tuple:
+    """(status, reply or None, seconds) of one POST on a fresh connection
+    (``http.client``: ``urllib``'s first calls in many threads at once
+    each build an opener and load the system's TLS certificates)."""
+    parts = urlsplit(url)
+    t0 = time.monotonic()
+    conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                      timeout=SERVE_CLIENT_TIMEOUT)
+    try:
+        conn.request("POST", parts.path or "/", body=body, headers={
+            "Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        status, payload = resp.status, resp.read()
+    finally:
+        conn.close()
+    reply = json.loads(payload) if status == 200 else None
+    return status, reply, time.monotonic() - t0
+
+
+def _stamp_stages(server, batch_s: list, stages: list) -> None:
+    """Stamp each request of ``server`` as the batch loop takes it from the
+    queue and as its batch is handed to the batch thread, and keep
+    (admitted, taken, handed, run start, run end) of every request the
+    batch thread runs in ``stages``, each batch's seconds in ``batch_s``.
+    Wraps the server's queues and ``_run_batch``; the server's code is
+    unchanged."""
+    q, handoff = server._queue, server._handoff
+
+    def stamped(get):
+        def take(*args, **kw):
+            req = get(*args, **kw)
+            req.taken_at = time.monotonic()
+            return req
+        return take
+
+    def hand(batch, *args, **kw):
+        now = time.monotonic()
+        for req in batch or ():
+            req.handed_at = now
+        return put(batch, *args, **kw)
+
+    q.get, q.get_nowait = stamped(q.get), stamped(q.get_nowait)
+    put, handoff.put = handoff.put, hand
+    run_batch = server._run_batch
+
+    def run(batch):
+        t0 = time.monotonic()
+        try:
+            return run_batch(batch)
+        finally:
+            t1 = time.monotonic()
+            batch_s.append(t1 - t0)
+            stages.extend((r.admitted_at, r.taken_at, r.handed_at, t0, t1)
+                          for r in batch)
+
+    server._run_batch = run
+
+
+def _request_stages(stages: list, lat_ms, n: int) -> dict:
+    """Mean and p50 ms of each stage of a request on the server: queue wait
+    (admitted to taken by the batch loop), batch formation (taken to its
+    batch's hand-off), hand-off wait (to its batch's run start, while the
+    batch thread runs earlier batches), the batch's run (decode, handlers,
+    reply encode); HTTP in and out is the clients' mean latency less the
+    server's mean admitted-to-run-end (means add up, medians do not)."""
+    st = np.asarray(stages, np.float64)
+    if st.shape != (n, 5):
+        raise AssertionError(f"request stages: {st.shape[0]} of {n} "
+                             "requests stamped")
+    names = ("queue_wait", "formation", "handoff", "run")
+    out = {k: dict(mean_ms=float((st[:, i + 1] - st[:, i]).mean() * 1e3),
+                   p50_ms=float(np.median(st[:, i + 1] - st[:, i]) * 1e3))
+           for i, k in enumerate(names)}
+    out["http"] = dict(mean_ms=float(np.mean(lat_ms)
+                                     - (st[:, 4] - st[:, 0]).mean() * 1e3))
+    return out
+
+
+def serving_load(serve, booster, swap_booster, cat_stage, Xv, Xc,
+                 dev: str) -> dict:
+    """Steps 4-6: two tenants behind one ``ServingServer`` under
+    ``SERVE_CLIENTS`` client threads (in a process of their own), and a hot
+    swap of ``"higgs"`` to ``swap_booster`` halfway through its requests.
+    The batch thread's and each handler's host seconds are kept."""
+    from synapseml_tpu_torch.core.qos import QoSController
+    from synapseml_tpu_torch.io.serving import ServingServer
+    from synapseml_tpu_torch.io.serving_main import build_handler
+
+    nh, nc = SERVE_HIGGS_REQUESTS, SERVE_COVTYPE_REQUESTS
+    rng = np.random.default_rng(15)
+    hrows = rng.integers(0, Xv.shape[0], nh)
+    crows = rng.integers(0, Xc.shape[0], nc)
+    want = {"v1": booster.predict(Xv[hrows]),
+            "v2": swap_booster.predict(Xv[hrows]),
+            "covtype": cat_stage.booster.predict(Xc[crows])}
+    tenants = np.array(["higgs"] * nh + ["covtype"] * nc)
+    items = [(int(i), str(tenants[i]), json.dumps({"features": (
+        Xv[hrows[i]] if i < nh else Xc[crows[i - nh]]).tolist()}).encode())
+        for i in rng.permutation(nh + nc)]
+    busy = {"batch": [], "higgs": [], "covtype": []}
+    # (admitted, taken from the queue, batch run start, batch run end) of
+    # every request the batch thread ran
+    stages: list = []
+
+    def timed(name, fn):
+        """``fn`` with its host seconds per call kept under ``name``."""
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                busy[name].append(time.perf_counter() - t)
+
+        for attr in ("warmup", "runner"):
+            if hasattr(fn, attr):
+                setattr(call, attr, getattr(fn, attr))
+        return call
+
+    higgs_v1 = _serve_handler(serve)
+    higgs_v2 = _serve_handler(swap_booster.serving_fn(
+        max_batch_size=SERVE_MAX_BATCH))
+    covtype = build_handler(cat_stage, "probability")
+    serve.runner.reset_stats()
+    server = ServingServer(higgs_v1, host="127.0.0.1", port=0,
+                           max_batch_size=SERVE_MAX_BATCH,
+                           max_batch_latency=SERVE_BATCH_LATENCY,
+                           qos=QoSController())
+    _stamp_stages(server, busy["batch"], stages)
+    ctx = mp.get_context("spawn")
+    done, out = ctx.Value("i", 0), ctx.Queue()
+    clients, swap = None, {}
+
+    def swapper():
+        # the tenants' requests are interleaved at random: half of all
+        # replies is about half of "higgs"'s
+        while done.value < (nh + nc) // 2 and clients.is_alive():
+            time.sleep(0.002)
+        swap["start"] = time.monotonic()
+        reg.swap_to("v2", timed("higgs", higgs_v2))
+        swap["end"] = time.monotonic()
+
+    server.start()
+    try:
+        reg = server.add_tenant("higgs", timed("higgs", higgs_v1),
+                                version="v1")
+        server.add_tenant("covtype", timed("covtype", covtype))
+        clients = ctx.Process(target=_client_process, args=(
+            server.url, items, SERVE_CLIENTS, done, out))
+        swap_thread = threading.Thread(target=swapper)
+        clients.start()
+        swap_thread.start()
+        results = out.get(timeout=SERVE_LOAD_TIMEOUT)
+        clients.join(timeout=SERVE_LOAD_TIMEOUT)
+        swap_thread.join(timeout=SERVE_LOAD_TIMEOUT)
+        metrics = server.metrics.snapshot()
+    finally:
+        server.stop()
+        if clients is not None and clients.is_alive():
+            clients.kill()
+            clients.join()
+    if clients.exitcode != 0 or swap_thread.is_alive() or "end" not in swap:
+        raise AssertionError("serving load: a client or the swap did not "
+                             "finish")
+    failed = [(i, s, r) for i, s, r, _, _ in results if s != 200]
+    if len(results) != nh + nc or failed:
+        raise AssertionError(f"serving load: {len(results)} of {nh + nc} "
+                             f"replies, not 200: {failed[:5]}")
+    by_version = {"v1": 0, "v2": 0}
+    for i, _, reply, sent, secs in results:
+        if i >= nh:
+            j = i - nh
+            _check_gap(f"covtype request {i}", reply, want["covtype"][j])
+            if int(np.argmax(reply)) != int(np.argmax(want["covtype"][j])):
+                raise AssertionError(f"covtype request {i}: class differs")
+            continue
+        gaps = {v: abs(float(reply) - float(want[v][i])) for v in by_version}
+        allowed = ("v1",) if sent + secs < swap["start"] else \
+            ("v2",) if sent > swap["end"] else ("v1", "v2")
+        fits = [v for v in allowed if gaps[v] <= SERVE_TOL]
+        if not fits:
+            raise AssertionError(f"higgs request {i}: reply {reply} is none "
+                                 f"of {allowed}'s predict ({gaps})")
+        by_version[fits[-1]] += 1
+    lat = np.asarray([r[4] for r in results]) * 1e3
+    # from the first request sent to the last reply (the client process's
+    # start-up is not the server's)
+    wall = max(r[3] + r[4] for r in results) - min(r[3] for r in results)
+    stats_v1 = _check_no_capture("higgs v1", serve.runner)
+    stats_v2 = _check_no_capture("higgs v2", higgs_v2.runner)
+    swap_capture = sum(higgs_v2.runner.capture_seconds.values())
+    out = dict(p50_ms=float(np.percentile(lat, 50)),
+               p99_ms=float(np.percentile(lat, 99)),
+               rps=len(results) / wall,
+               mean_batch=metrics["completed"] / max(metrics["batches"], 1),
+               swap_s=swap["end"] - swap["start"], swap_capture_s=swap_capture)
+    for tenant, sel in (("higgs", lambda i: i < nh),
+                        ("covtype", lambda i: i >= nh)):
+        tl = np.asarray([r[4] for r in results if sel(r[0])]) * 1e3
+        log(f"  {tenant}: {len(tl)} requests, p50 {np.percentile(tl, 50):.3f}"
+            f" ms p99 {np.percentile(tl, 99):.3f} ms")
+    log(f"  load: {len(results)} requests from {SERVE_CLIENTS} clients in "
+        f"{wall:.3f}s ({out['rps']:.1f} requests/s), latency p50 "
+        f"{out['p50_ms']:.3f} ms p99 {out['p99_ms']:.3f} ms, mean batch "
+        f"{out['mean_batch']:.2f} rows over {metrics['batches']} batches, "
+        f"every reply 200 and within {SERVE_TOL} of predict, covtype "
+        "classes equal")
+    per = {k: (len(v), float(np.sum(v))) for k, v in busy.items()}
+    out["busy"] = per
+    out["stages"] = _request_stages(stages, lat, nh + nc)
+    log(f"  server: the batch thread busy {per['batch'][1]:.3f}s of "
+        f"{wall:.3f}s over {per['batch'][0]} batches ("
+        f"{per['batch'][1] / max(per['batch'][0], 1) * 1e3:.3f} ms each): "
+        f"higgs handler {per['higgs'][1]:.3f}s in {per['higgs'][0]} calls "
+        f"({per['higgs'][1] / max(per['higgs'][0], 1) * 1e3:.3f} ms each), "
+        f"covtype transform {per['covtype'][1]:.3f}s in "
+        f"{per['covtype'][0]} calls ("
+        f"{per['covtype'][1] / max(per['covtype'][0], 1) * 1e3:.3f} ms "
+        f"each), the rest request decode and reply encode")
+    rs = out["stages"]
+    log(f"  a request's time on the server, mean (p50) ms: queue wait "
+        f"{rs['queue_wait']['mean_ms']:.3f} ({rs['queue_wait']['p50_ms']:.3f})"
+        f", batch formation {rs['formation']['mean_ms']:.3f} "
+        f"({rs['formation']['p50_ms']:.3f}), hand-off wait "
+        f"{rs['handoff']['mean_ms']:.3f} ({rs['handoff']['p50_ms']:.3f}), "
+        f"its batch's run "
+        f"{rs['run']['mean_ms']:.3f} ({rs['run']['p50_ms']:.3f}); HTTP in "
+        f"and out (client latency less admitted-to-run-end) "
+        f"{rs['http']['mean_ms']:.3f} mean, of a mean latency "
+        f"{float(np.mean(lat)):.3f}")
+    log(f"  runner hits by rung: v1 {json.dumps(stats_v1['hits'])}, v2 "
+        f"{json.dumps(stats_v2['hits'])}; captures after warmup: none")
+    log(f"  hot swap to phase 3's model ({swap_booster.num_trees} trees) "
+        f"halfway through: swap_to took {out['swap_s']:.3f}s, of it "
+        f"{swap_capture:.3f}s capturing v2's {stats_v2['total_compiles']} "
+        f"rungs while v1 served; higgs replies by version {by_version}")
+    if not by_version["v2"] or not by_version["v1"]:
+        raise AssertionError(f"hot swap: replies by version {by_version}")
+    return out
+
+
+def serving_overload(serve, booster, Xv, dev: str) -> dict:
+    """Step 7: a burst against ``max_queue_size=SERVE_BURST_QUEUE`` while
+    the handler is stalled must see fast 503s and correct 200s; a 1 ms
+    deadline in front of a 50 ms handler must get a 504."""
+    from synapseml_tpu_torch.io.serving import ServingServer
+
+    inner = _serve_handler(serve)
+    want = booster.predict(Xv[:SERVE_BURST])
+
+    def stalled(df):
+        # a model busy for the whole burst: every request is either queued
+        # or shed before the first batch is answered (at most SERVE_STALL_S)
+        end = time.monotonic() + SERVE_STALL_S
+        while time.monotonic() < end and (
+                server.metrics["accepted"] + server.metrics["shed"]
+                < SERVE_BURST):
+            time.sleep(0.002)
+        return inner(df)
+
+    server = ServingServer(stalled, host="127.0.0.1", port=0,
+                           max_batch_size=SERVE_BURST_BATCH,
+                           max_batch_latency=SERVE_BATCH_LATENCY,
+                           max_queue_size=SERVE_BURST_QUEUE, warmup=False)
+    server.start()
+    try:
+        bodies = [json.dumps({"features": Xv[i].tolist()}).encode()
+                  for i in range(SERVE_BURST)]
+        with ThreadPoolExecutor(max_workers=SERVE_BURST) as pool:
+            burst = list(pool.map(lambda b: _post_once(server.url, b),
+                                  bodies))
+        shed = server.metrics["shed"]
+    finally:
+        server.stop()
+    statuses = [s for s, _, _ in burst]
+    slow_503 = [t for s, _, t in burst if s == 503 and t >= 1.0]
+    if not statuses.count(503) or set(statuses) - {200, 503} or slow_503 \
+            or shed != statuses.count(503):
+        raise AssertionError(f"overload: statuses {sorted(set(statuses))}, "
+                             f"{statuses.count(503)} 503s ({shed} shed), "
+                             f"{len(slow_503)} of them after 1 s")
+    for i, (status, reply, _) in enumerate(burst):
+        if status == 200:
+            _check_gap(f"burst request {i}", reply, want[i])
+    log(f"  overload: {SERVE_BURST} requests at once against "
+        f"max_queue_size={SERVE_BURST_QUEUE}, max_batch_size="
+        f"{SERVE_BURST_BATCH}, the handler stalled until the burst is in: "
+        f"{statuses.count(200)} x 200, {statuses.count(503)} x "
+        f"503, the slowest 503 in "
+        f"{max(t for s, _, t in burst if s == 503) * 1e3:.1f} ms; the 200s "
+        f"within {SERVE_TOL} of predict")
+
+    def sleepy(df):
+        time.sleep(0.05)
+        return inner(df)
+
+    server = ServingServer(sleepy, host="127.0.0.1", port=0, warmup=False)
+    server.start()
+    try:
+        status, _, secs = _post_once(server.url, bodies[0],
+                                     {"X-Deadline-Ms": "1"})
+    finally:
+        server.stop()
+    if status != 504:
+        raise AssertionError(f"deadline: status {status}, not 504")
+    log(f"  deadline: X-Deadline-Ms: 1 in front of a 50 ms handler got 504 "
+        f"in {secs * 1e3:.1f} ms")
+    return dict(shed=statuses.count(503))
+
+
+def serving_path(dev: str, booster, Xv, cat_model, Xc, swap_booster
+                 ) -> dict:
+    """Phase 15: phase 12's early-stopped classifier served through captured
+    graphs and behind the HTTP server beside phase 14's categorical model
+    (saved and reloaded), with a hot swap to phase 3's model."""
+    from synapseml_tpu_torch.core import PipelineStage
+
+    t_start = time.perf_counter()
+    serve, per_rung = serving_warmup(booster, dev)
+    predict = serving_batch_predict(booster, Xv, dev)
+    timed = serving_graph_vs_eager(booster, serve, Xv, dev)
+    replay = serving_replay_stages(serve, Xv, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        cat_model.save(tmp)
+        cat_stage = PipelineStage.load(tmp, device=dev)
+    load = serving_load(serve, booster, swap_booster, cat_stage, Xv, Xc,
+                        dev)
+    overload = serving_overload(serve, booster, Xv, dev)
+    log(f"  phase 15 took {time.perf_counter() - t_start:.1f}s")
+    return dict(per_rung=per_rung, predict=predict, timed=timed,
+                replay=replay, load=load, overload=overload)
 
 
 def main() -> int:
@@ -3931,7 +4563,9 @@ def main() -> int:
         f"{args.rows} rows, leaf indices, SHAP, dumpModel, warm start, "
         "fobj, resume")
     torch.cuda.empty_cache()
-    surface_path(args.rows, dev)
+    surface = surface_path(args.rows, dev)
+    served = dict(booster=surface["leafwise"]["booster"], Xv=surface["Xv"])
+    del surface
     log(f"[13] sampling: bagging, GOSS, DART, RF, per-node feature "
         f"fractions and monotone constraints, {SAMPLING_ITERS} iterations "
         f"each on {args.rows} rows")
@@ -3940,7 +4574,13 @@ def main() -> int:
     log("[14] categorical and sparse data: Covertype's raw 12 columns (2 "
         "categorical), both policies, and its one-hot table as CSR")
     torch.cuda.empty_cache()
-    categorical_path(dev, numeric)
+    categorical = categorical_path(dev, numeric)
+    log(f"[15] serving: phase 12's classifier through captured graphs and "
+        f"behind the HTTP server with phase 14's model, {SERVE_CLIENTS} "
+        f"clients, a hot swap to phase 3's model")
+    torch.cuda.empty_cache()
+    serving_path(dev, served["booster"], served["Xv"], categorical["model"],
+                 categorical["Xc"], main["booster"])
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},

@@ -15,13 +15,17 @@ hand-written CUDA C++ for ``sm_90a`` (``csrc/hist_kernel.cu``), built with
 hand-written flash kernels of ``csrc/attention_kernel.cu``. And the text
 and vision estimators: ``DeepTextClassifier`` through those kernels,
 ``DeepVisionClassifier`` on flax-exact ResNets (convolutions and BatchNorm
-on cuDNN, outside any TPU kernel in the JAX package too).
+on cuDNN, outside any TPU kernel in the JAX package too). And the serving
+layer: ``Booster.serving_fn`` through the bucketed runner, one captured
+CUDA graph per batch bucket, behind the micro-batching HTTP server with hot
+swap, tenants and deadlines.
 
 Every public entry point takes ``device`` (default ``"cuda"``). A CUDA
 tensor goes through the hand-written kernel or the call raises; the plain
 PyTorch version of a kernel runs only for tensors on the CPU.
 
-  core/     — Params, Table, Estimator/Model, device resolution, logging
+  core/     — Params, Table, Estimator/Model, device resolution, logging,
+              the bucketed inference runner, QoS and resilience primitives
   ops/      — quantile binning, histogram and flash-attention kernels and
               their CUDA build, host image decode and resize
   gbdt/     — objectives, leaf-wise and depthwise growers, boosting loop,
@@ -29,6 +33,7 @@ PyTorch version of a kernel runs only for tensors on the CPU.
   models/   — LightGBMClassifier / LightGBMClassificationModel
   parallel/ — meshes over torch.distributed, seq-axis collectives, ring and
               Ulysses attention
+  io/       — the micro-batching HTTP server, its model registry and CLI
   dl/       — flax's layers, ResNets, transformer units, the text encoder,
               the trainer and the text and vision estimators
   convert   — carry a JAX-trained booster or flax variables across

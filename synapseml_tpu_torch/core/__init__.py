@@ -31,3 +31,17 @@ from .logging import (  # noqa: F401
     StopWatch,
     SynapseMLLogging,
 )
+from .qos import (  # noqa: F401
+    BudgetLeaseLedger,
+    QoSClass,
+    QoSController,
+    WeightedFairQueue,
+)
+from .resilience import (  # noqa: F401
+    DEADLINE_HEADER,
+    CircuitBreaker,
+    Deadline,
+    Membership,
+    RetryBudget,
+    default_retry_budget,
+)

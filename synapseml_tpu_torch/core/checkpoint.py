@@ -2,8 +2,9 @@
 
 A copy of the part of the JAX package's ``core/checkpoint.py`` that
 ``train_booster``'s resume needs: the error types, atomic writes, the
-manifest-verified keep-last-N :class:`CheckpointStore` and the cooperative
-:func:`preemption_point` hook. The sharded pytree checkpoints and the
+manifest-verified keep-last-N :class:`CheckpointStore` (with the content
+digest and version id that the serving model registry keys hot swaps on)
+and the cooperative :func:`preemption_point` hook. The sharded pytree checkpoints and the
 non-finite loss guard are not copied.
 
 * **Atomic writes**: every artifact lands via tmp + ``os.replace``; the
@@ -85,6 +86,28 @@ class Checkpoint:
     artifacts: Dict[str, bytes]
     meta: Dict[str, Any]
     base: str      # e.g. "ckpt_00000007" (for diagnostics)
+
+    @property
+    def digest(self) -> str:
+        """Content digest of the whole checkpoint: SHA-256 over the sorted
+        per-artifact (name, sha256) pairs. Two checkpoints with identical
+        bytes share a digest regardless of step number — the identity the
+        serving model registry keys hot-swap versions on."""
+        h = hashlib.sha256()
+        for name in sorted(self.artifacts):
+            h.update(name.encode("utf-8"))
+            h.update(b"\x00")
+            h.update(hashlib.sha256(self.artifacts[name]).hexdigest()
+                     .encode("ascii"))
+            h.update(b"\x00")
+        return h.hexdigest()
+
+    @property
+    def version(self) -> str:
+        """Version id (``<base>@<digest12>``) for the serving model
+        registry: names the step AND pins the exact bytes, so a re-written
+        step with different content is a different version."""
+        return f"{self.base}@{self.digest[:12]}"
 
 
 class CheckpointStore:
@@ -190,6 +213,10 @@ class CheckpointStore:
             arts[name] = data
         return Checkpoint(step=int(manifest.get("step", -1)), artifacts=arts,
                           meta=manifest.get("meta", {}) or {}, base=base)
+
+    def load_step(self, step: int) -> Checkpoint:
+        """The checkpoint of ``step``, verified; raises CheckpointError."""
+        return self._load_base(self._base(int(step)))
 
     def load_latest(self) -> Optional[Checkpoint]:
         """Newest checkpoint that verifies, or None. A corrupt newest

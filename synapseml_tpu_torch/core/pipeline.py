@@ -29,6 +29,9 @@ class PipelineStage(Params, SynapseMLLogging):
     """Base of every stage. Subclasses are constructible from kwargs alone plus
     whatever artifacts they persist via ``_save_extra``/``_load_extra``."""
 
+    # the device ``load`` was asked for (None: each stage's saved param)
+    _load_device = None
+
     def __init__(self, **kwargs):
         Params.__init__(self, **kwargs)
         SynapseMLLogging.__init__(self)
@@ -52,7 +55,11 @@ class PipelineStage(Params, SynapseMLLogging):
         self._save_extra(path)
 
     @staticmethod
-    def load(path: str) -> "PipelineStage":
+    def load(path: str, device=None) -> "PipelineStage":
+        """The stage saved at ``path``. ``device`` (e.g. ``"cpu"``), when
+        given, replaces the saved ``device`` param of this stage and of
+        every stage nested in it before their models are loaded, so a model
+        saved on the card loads on the CPU and the other way round."""
         with open(os.path.join(path, _META_FILE)) as f:
             meta = json.load(f)
         mod_name, cls_name = meta["class"].rsplit(".", 1)
@@ -62,7 +69,10 @@ class PipelineStage(Params, SynapseMLLogging):
         for k, v in meta["params"].items():
             if stage.hasParam(k):
                 stage.set(k, v)
+        if device is not None and stage.hasParam("device"):
+            stage.set("device", str(device))
         stage.uid = meta.get("uid", stage.uid)
+        stage._load_device = device
         stage._load_complex_params(path)
         stage._load_extra(path)
         return stage
@@ -119,7 +129,9 @@ class PipelineStage(Params, SynapseMLLogging):
             saved = json.load(f)
         for name, kind in saved:
             if kind == "stage":
-                value = PipelineStage.load(os.path.join(path, "complexParams", name + ".stage"))
+                value = PipelineStage.load(
+                    os.path.join(path, "complexParams", name + ".stage"),
+                    self._load_device)
             else:
                 with open(os.path.join(path, "complexParams", name + ".pkl"), "rb") as f:
                     value = pickler.loads(f.read())
@@ -185,7 +197,7 @@ class Pipeline(Estimator):
         _save_stage_list(self.stages, path)
 
     def _load_extra(self, path: str) -> None:
-        self.stages = _load_stage_list(path)
+        self.stages = _load_stage_list(path, self._load_device)
 
 
 class PipelineModel(Model):
@@ -203,7 +215,7 @@ class PipelineModel(Model):
         _save_stage_list(self.stages, path)
 
     def _load_extra(self, path: str) -> None:
-        self.stages = _load_stage_list(path)
+        self.stages = _load_stage_list(path, self._load_device)
 
 
 # ---------------------------------------------------------------------------
@@ -218,10 +230,11 @@ def _save_stage_list(stages, path):
         json.dump(order, f)
 
 
-def _load_stage_list(path):
+def _load_stage_list(path, device=None):
     with open(os.path.join(path, "stages.json")) as f:
         order = json.load(f)
-    return [PipelineStage.load(os.path.join(path, name)) for name in order]
+    return [PipelineStage.load(os.path.join(path, name), device)
+            for name in order]
 
 
 def _as_table(df) -> Table:

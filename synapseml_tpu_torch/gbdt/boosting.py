@@ -35,8 +35,7 @@ contributions (``shap.py``) and dumps LightGBM's text and JSON formats.
 config carries across unchanged. ``train_booster`` rejects every setting and
 argument the slice does not port with ``NotImplementedError`` naming it:
 the voting and feature-parallel learners, the JAX grower's other engine
-knobs and meshes. ``Booster.serving_fn`` and ``Booster.to_onnx`` raise it
-too.
+knobs and meshes. ``Booster.to_onnx`` raises it too.
 """
 
 from __future__ import annotations
@@ -229,6 +228,9 @@ class Booster:
         self.device = resolve_device(device)
         self._forest_cache: Optional[Forest] = None
         self._depth_cache: Optional[int] = None
+        # predict(batch_size=...)'s bucketed serving callables, one per
+        # batch size
+        self._serving_cache: dict = {}
 
     # --- structure ------------------------------------------------------
     @property
@@ -332,18 +334,36 @@ class Booster:
             raise ValueError(f"X must be (N, F), got shape {tuple(X.shape)}")
         base = torch.as_tensor(self.base_score[:k].astype(np.float32),
                                device=self.device)
-        if not self.trees:
+        forest = self.forest() if self.trees else None
+        return self._raw_of(forest, X, base,
+                            self._window_start(start_iteration),
+                            num_iteration, nan_bins)
+
+    def _raw_of(self, forest: Optional[Forest], X: torch.Tensor,
+                base: torch.Tensor, start: int, num_iteration: int = -1,
+                nan_bins: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(N,) or (N, K) raw margin of the device rows ``X`` from an
+        already-stacked ``forest`` (None: no trees) and base tensor: the
+        window's trees of each class summed in iteration order, an RF
+        average rescaled to the window, then the base. No host round trip,
+        so the serving runner can capture it in a CUDA graph."""
+        k = self.models_per_iter
+        if forest is None:
             out = torch.zeros((X.shape[0], k), dtype=torch.float32,
-                              device=self.device)
+                              device=X.device)
         else:
-            # (N, K): each class's trees of the window summed in iteration
-            # order
-            out = forest_predict(self.forest(), X, self._depth_cache,
-                                 num_class=k,
-                                 start_iteration=self._window_start(
-                                     start_iteration),
+            out = forest_predict(forest, X, self._depth_cache, num_class=k,
+                                 start_iteration=start,
                                  num_iteration=num_iteration,
                                  nan_bins=nan_bins)
+            total = forest.num_trees // k
+            t0 = min(start, total)
+            t1 = total if not num_iteration or num_iteration <= 0 \
+                else min(total, t0 + int(num_iteration))
+            if self.average_output and t1 - t0 != total:
+                # rf leaves were pre-divided by the full tree count; rescale
+                # so the windowed average stays an average of its trees
+                out = out * (total / max(t1 - t0, 1))
         out = out + base
         return out[:, 0] if k == 1 else out
 
@@ -361,11 +381,16 @@ class Booster:
 
     def predict(self, X, binned: bool = False, num_iteration: int = -1,
                 batch_size: Optional[int] = None) -> np.ndarray:
-        """Probability / response-space prediction. ``batch_size`` scores
-        the rows ``batch_size`` at a time (the values are the unbatched
-        ones); it serves the full raw-value model, so ``binned`` rows and an
-        iteration window raise ``ValueError`` with it."""
-        obj = self._objective_for_transform()
+        """Probability / response-space prediction.
+
+        ``batch_size`` routes batch predict through the bucketed serving
+        runner (``core/inference.py``): rows go ``batch_size`` at a time
+        with a bucket-padded tail, each chunk one replay of a captured CUDA
+        graph on the card (one eager call per chunk on the CPU), with the
+        unbatched values. The runner is cached per ``batch_size`` (each
+        ``serving_fn`` call builds a runner of its own). It serves the full
+        raw-value model, so ``binned`` rows and an iteration window raise
+        ``ValueError`` with it."""
         if batch_size is not None:
             if binned or (num_iteration and num_iteration > 0):
                 raise ValueError(
@@ -375,20 +400,67 @@ class Booster:
             if int(batch_size) < 1:
                 raise ValueError(
                     f"batch_size must be >= 1, got {batch_size}")
-            X = _densify(X)
-            if len(X) == 0:
-                raise ValueError("cannot predict an empty batch")
-            return np.concatenate([obj.transform(self._raw_score_tensor(
-                X[s:s + int(batch_size)])).cpu().numpy()
-                for s in range(0, len(X), int(batch_size))])
+            serve = self._serving_cache.get(int(batch_size))
+            if serve is None:
+                serve = self.serving_fn(max_batch_size=int(batch_size))
+                self._serving_cache[int(batch_size)] = serve
+            return serve(X)
+        obj = self._objective_for_transform()
         return obj.transform(self._raw_score_tensor(
             X, num_iteration, binned=binned)).cpu().numpy()
 
     def serving_fn(self, max_batch_size: int = 64, bucketed: bool = True):
-        """Not ported: the JAX package's fused, shape-bucketed serving
-        program (``predict(batch_size=...)`` scores in batches)."""
-        raise NotImplementedError(
-            "Booster.serving_fn is not ported to the PyTorch package yet")
+        """Callable ``X (N, F) -> prediction`` for low-latency serving:
+        forest traversal with the base score, the config's
+        ``start_iteration`` window, the RF rescale and the objective's
+        output transform. The forest, the base tensor and the depth are
+        built on the booster's device once, here, so a call moves nothing
+        from the host but its rows.
+
+        By default the callable runs through a shape-bucketed runner
+        (``core/inference.py``): batches pad up to a geometric ladder of
+        bucket sizes, each bucket one captured CUDA graph on the card,
+        with padded rows sliced off the result. The returned callable takes
+        host rows, returns numpy, and carries ``.runner`` (per-bucket
+        capture/hit counters) and ``.warmup()`` (capture every bucket;
+        ``ServingServer.start()`` calls it before accepting traffic).
+        ``bucketed=False`` returns the plain function on device tensors
+        (array-likes are moved to the device), returning a tensor, for
+        callers that manage their own shapes."""
+        obj = self._objective_for_transform()
+        k = self.models_per_iter
+        base = torch.as_tensor(self.base_score[:k].astype(np.float32),
+                               device=self.device)
+        forest = self.forest() if self.trees else None
+        start = self._window_start(None)
+
+        def fn(X: torch.Tensor) -> torch.Tensor:
+            return obj.transform(self._raw_of(forest, X, base, start))
+
+        if not bucketed:
+            def plain(X) -> torch.Tensor:
+                if not isinstance(X, torch.Tensor):
+                    X = _densify(X)
+                return fn(torch.as_tensor(X, dtype=torch.float32,
+                                          device=self.device))
+
+            return plain
+
+        from ..core.inference import BucketedRunner
+
+        runner = BucketedRunner(fn, max_batch_size=max_batch_size,
+                                name="gbdt.serving_fn", device=self.device)
+        num_features = self.mapper.num_features
+
+        def serve(X) -> np.ndarray:
+            return runner(_densify(X))
+
+        def warmup(dtype=np.float32) -> dict:
+            return runner.warmup(np.zeros((1, num_features), dtype))
+
+        serve.runner = runner
+        serve.warmup = warmup
+        return serve
 
     def to_onnx(self, input_name: str = "input", num_iteration: int = -1):
         """Not ported: the ONNX TreeEnsemble export."""

@@ -511,8 +511,12 @@ class LightGBMClassificationModel(_LightGBMModelBase, HasProbabilityCol, HasRawP
 
     def _transform(self, df: Table) -> Table:
         X = self._predict_matrix(df)
-        raw = self.booster.raw_score(X)
-        prob = self.booster.predict(X)
+        # one traversal: the probabilities are the objective's transform of
+        # these raw scores, as predict() computes them
+        raw_t = self.booster._raw_score_tensor(X)
+        raw = raw_t.cpu().numpy()
+        prob = self.booster._objective_for_transform().transform(
+            raw_t).cpu().numpy()
         if raw.ndim == 1:
             raw2 = np.stack([-raw, raw], axis=1)
             prob2 = np.stack([1 - prob, prob], axis=1)

@@ -2,10 +2,11 @@
 defaults of ``TrainConfig`` and ``BoosterConfig``, the arguments of
 ``train_booster``, ``Dataset`` and every public ``Booster`` method, the
 public names of ``Booster`` and ``Dataset``, and the params of the GBDT and
-DL estimators. A name of the JAX package is either ported or declared here
-as unported, and every unported name raises ``NotImplementedError`` naming
-itself (never ``TypeError`` or ``AttributeError``), so the gap cannot
-reopen unseen. Then the scoring arguments ported by name: ``binned``,
+DL estimators, and the serving layer's classes (``BucketedRunner``,
+``ServingServer``, ``ModelRegistry``, ``QoSController``). A name of the JAX
+package is either ported or declared here as unported, and every unported
+name raises ``NotImplementedError`` naming itself (never ``TypeError`` or
+``AttributeError``), so the gap cannot reopen unseen. Then the scoring arguments ported by name: ``binned``,
 ``batch_size`` and ``Booster.unweighted``, against the JAX package on a
 booster carried across by ``convert`` (the same trees: exact, or 1e-6 for
 probabilities from another library's sigmoid).
@@ -19,19 +20,28 @@ import pytest
 
 import jax.numpy as jnp
 
+from synapseml_tpu.core import inference as jinference
+from synapseml_tpu.core import qos as jqos
 from synapseml_tpu.dl import text as jtext
 from synapseml_tpu.dl import trainer as jtrainer
 from synapseml_tpu.dl import vision as jvision
 from synapseml_tpu.gbdt import boosting as jboost
 from synapseml_tpu.gbdt import dataset as jdataset
+from synapseml_tpu.io import serving as jserving
+from synapseml_tpu.io import serving_main as jserving_main
 from synapseml_tpu.models import gbdt as jmodels
 
+from synapseml_tpu_torch import io as tio
 from synapseml_tpu_torch.convert import booster_arrays, booster_from_reference
+from synapseml_tpu_torch.core import inference as tinference
+from synapseml_tpu_torch.core import qos as tqos
 from synapseml_tpu_torch.dl import text as ttext
 from synapseml_tpu_torch.dl import trainer as ttrainer
 from synapseml_tpu_torch.dl import vision as tvision
 from synapseml_tpu_torch.gbdt import boosting as tboost
 from synapseml_tpu_torch.gbdt import dataset as tdataset
+from synapseml_tpu_torch.io import serving as tserving
+from synapseml_tpu_torch.io import serving_main as tserving_main
 from synapseml_tpu_torch.models import gbdt as tmodels
 from synapseml_tpu_torch.ops import quantize as tq
 from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)
@@ -39,7 +49,7 @@ from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse f
 CPU = "cpu"
 
 # names of the JAX package the port declares unported (each refused below)
-UNPORTED_BOOSTER = {"serving_fn", "to_onnx"}
+UNPORTED_BOOSTER = {"to_onnx"}
 UNPORTED_DATASET = {"from_batches"}
 UNPORTED_ESTIMATOR_PARAMS = {"topK", "parallelism"}
 # TrainConfig fields that take only their default (machinery not ported);
@@ -99,7 +109,14 @@ def test_functions_take_every_reference_argument(jfn, tfn):
 
 @pytest.mark.parametrize("jcls,tcls,unported", [
     (jboost.Booster, tboost.Booster, UNPORTED_BOOSTER),
-    (jdataset.Dataset, tdataset.Dataset, UNPORTED_DATASET)])
+    (jdataset.Dataset, tdataset.Dataset, UNPORTED_DATASET),
+    (jinference.BucketedRunner, tinference.BucketedRunner, set()),
+    (jinference.PendingBatch, tinference.PendingBatch, set()),
+    (jinference.RunnerFleet, tinference.RunnerFleet, set()),
+    (jserving.ServingServer, tserving.ServingServer, set()),
+    (jserving.ModelRegistry, tserving.ModelRegistry, set()),
+    (jqos.QoSController, tqos.QoSController, set()),
+    (jqos.WeightedFairQueue, tqos.WeightedFairQueue, set())])
 def test_public_methods_take_every_reference_argument(jcls, tcls, unported):
     assert _public(jcls) - _public(tcls) == set()
     for name in sorted(_public(jcls)):
@@ -128,7 +145,6 @@ def boosters():
 def test_unported_names_raise_naming_themselves(boosters):
     X, _, tb = boosters
     for name, call in (
-            ("serving_fn", lambda: tb.serving_fn(max_batch_size=8)),
             ("to_onnx", lambda: tb.to_onnx()),
             ("from_batches", lambda: tdataset.Dataset.from_batches(iter([X]))),
             ("mesh", lambda: tboost.train_booster(
@@ -213,3 +229,61 @@ def test_unweighted_matches_the_reference(boosters):
     np.testing.assert_array_equal(tu.raw_score(X),
                                   np.asarray(ju.raw_score(X)))
     assert tu.device == tb.device
+
+
+# ---------------------------------------------------------------------------
+# the serving layer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("jmod,tmod", [
+    (jinference, tinference), (jserving, tserving), (jqos, tqos),
+    (jserving_main, tserving_main)])
+def test_serving_modules_hold_every_reference_name(jmod, tmod):
+    """Every public function and class of the JAX serving modules is in the
+    port's, taking every reference argument."""
+    names = {n for n, v in vars(jmod).items() if not n.startswith("_")
+             and callable(v) and getattr(v, "__module__", "") ==
+             jmod.__name__}
+    assert names - set(vars(tmod)) == set()
+    for name in sorted(names):
+        jobj, tobj = getattr(jmod, name), getattr(tmod, name)
+        target = "__init__" if inspect.isclass(jobj) else None
+        jfn = getattr(jobj, target) if target else jobj
+        tfn = getattr(tobj, target) if target else tobj
+        if jfn is object.__init__ or name == "PendingBatch":
+            continue   # the runner builds a PendingBatch (JAX: a treedef)
+        assert _args(jfn) - _args(tfn) == set(), name
+
+
+def test_serving_main_takes_every_reference_flag():
+    def flags(mod):
+        import argparse
+
+        seen = {}
+
+        class Stop(Exception):
+            pass
+
+        def parse(self, argv=None, namespace=None):
+            seen.update({a.dest: a for a in self._actions})
+            raise Stop
+
+        orig = argparse.ArgumentParser.parse_args
+        argparse.ArgumentParser.parse_args = parse
+        try:
+            with pytest.raises(Stop):
+                mod.main([])
+        finally:
+            argparse.ArgumentParser.parse_args = orig
+        return set(seen) - {"help"}
+
+    assert flags(jserving_main) - flags(tserving_main) == set()
+
+
+def test_unported_distributed_serving_names_raise_naming_themselves():
+    from synapseml_tpu.io import distributed_serving as jdist
+
+    for name in tio.UNPORTED:
+        assert hasattr(jdist, name)
+        with pytest.raises(NotImplementedError, match=name):
+            getattr(tio, name)()

@@ -9,6 +9,7 @@ the histogram wrappers take their plain versions.
 import ctypes
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -675,3 +676,75 @@ def test_sync_check_holds_categorical_trees_to_the_numeric_count():
         booster.metadata["host_syncs"] = syncs
         with pytest.raises(AssertionError, match="host syncs"):
             cs.check_syncs(policy, booster, policy)
+
+
+@pytest.fixture(scope="module")
+def serving_models():
+    """Phase 15's inputs at a small size on the CPU: a HIGGS-shaped binary
+    classifier with validation rows, a 7-class model with two categorical
+    columns on the folded Covertype table, and a second binary model for
+    the hot swap."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.models import LightGBMClassifier
+
+    X, y = cs.higgs_like(3000)
+    first = LightGBMClassifier(numIterations=6, numLeaves=15,
+                               device="cpu").fit(cs.table_of(X[:2000],
+                                                             y[:2000]))
+    second = LightGBMClassifier(numIterations=3, numLeaves=7,
+                                device="cpu").fit(cs.table_of(X[:2000],
+                                                              y[:2000]))
+    Xc, yc = cs.covertype_like(2000)
+    Xc = cs.fold_one_hot(Xc)
+    cat = LightGBMClassifier(numIterations=2, numLeaves=7,
+                             categoricalSlotIndexes=cs.CAT_FEATURES,
+                             device="cpu").fit(Table({"features": Xc,
+                                                      "label": yc}))
+    return first.booster, X[2000:], cat, Xc, second.booster
+
+
+def _small_serving(monkeypatch):
+    for name, value in (("SERVE_SIZES", (1, 8, 64)), ("SERVE_CALLS", 3),
+                        ("SERVE_PREDICT_BATCH", 256), ("SERVE_CLIENTS", 6),
+                        ("SERVE_HIGGS_REQUESTS", 160),
+                        ("SERVE_COVTYPE_REQUESTS", 40), ("SERVE_BURST", 40)):
+        monkeypatch.setattr(cs, name, value)
+
+
+def test_serving_phase_runs_on_the_cpu(serving_models, monkeypatch):
+    """Phase 15 on the CPU at small sizes: every step and check passes (the
+    runner calls the model eagerly on each padded rung here)."""
+    _small_serving(monkeypatch)
+    out = cs.serving_path("cpu", *serving_models)
+    assert out["load"]["p99_ms"] >= out["load"]["p50_ms"] > 0
+    assert out["overload"]["shed"] > 0
+    assert out["predict"]["gap"] == 0.0
+    assert out["per_rung"] == {}      # nothing is captured on the CPU
+
+
+def test_serving_phase_refuses_a_wrong_reply(serving_models, monkeypatch):
+    """A handler whose replies are 1e-5 off ``predict`` fails the load
+    check."""
+    _small_serving(monkeypatch)
+    booster, Xv, cat, Xc, swap = serving_models
+    serve, _ = cs.serving_warmup(booster, "cpu")
+    real = cs._serve_handler
+
+    def off(serve):
+        inner = real(serve)
+
+        def handler(df):
+            out = inner(df)
+            return out.with_column("reply", out["reply"] + 1e-5)
+
+        handler.warmup, handler.runner = inner.warmup, inner.runner
+        return handler
+
+    monkeypatch.setattr(cs, "_serve_handler", off)
+    from synapseml_tpu_torch.core import PipelineStage
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cat.save(tmp)
+        stage = PipelineStage.load(tmp, device="cpu")
+    with pytest.raises(AssertionError, match="none of"):
+        cs.serving_load(serve, booster, swap, stage, Xv, Xc, "cpu")

@@ -395,7 +395,10 @@ def test_import_leaves_jax_out():
     code = ("import sys, synapseml_tpu_torch, synapseml_tpu_torch.models, "
             "synapseml_tpu_torch.convert, synapseml_tpu_torch.ops._build, "
             "synapseml_tpu_torch.parallel, synapseml_tpu_torch.dl, "
-            "synapseml_tpu_torch.ops.attention_kernel; "
+            "synapseml_tpu_torch.ops.attention_kernel, "
+            "synapseml_tpu_torch.core.inference, "
+            "synapseml_tpu_torch.io.serving, "
+            "synapseml_tpu_torch.io.serving_main; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'synapseml_tpu' or m.startswith("
             "'synapseml_tpu.')]; print(bad); sys.exit(1 if bad else 0)")
