@@ -239,6 +239,33 @@ Phases, each of which fails the run if it fails:
    1 s, and 200s within 1e-6 of ``predict``; ``X-Deadline-Ms: 1`` in front
    of a 50 ms handler must get a 504. No kernel of ours runs on this path
    (forest traversal is PyTorch operations, replayed from the graphs).
+16. dl_state, the DL training state, on phase 11's fit A configuration
+   (``Trainer`` over ResNet-50 at 224x224, batch 16, float32, adam 1e-3,
+   the last two blocks and the head trained, ``cifar_like`` images resized
+   on the host; cuDNN deterministic for the phase): one process first. A
+   3-epoch fit on 128 images with ``checkpoint_dir``, stopped by a
+   preemption hook at ``dl.epoch`` 2, then resumed: the restored
+   parameters, batch statistics, moments and counts bitwise the saved
+   ones (a restore-only fit), the resumed eval logits within
+   ``VISION_LOGIT_TOL`` of an uninterrupted fit's, history epochs [2];
+   ``state.msgpack`` bytes, save and restore seconds logged. A NaN batch
+   at step 3 under ``nonfinite_policy="skip"`` (counters 1 and 1, every
+   loss finite) and at step 10 under ``"rollback"`` (the restored state
+   bitwise the epoch-1 checkpoint, history epochs [0, 1, 2]).
+   ``DeepVisionClassifier`` save and ``PipelineStage.load`` through
+   ``params.msgpack`` (probabilities within 1e-6), and the JAX package's
+   committed TinyCNN model (``tests/resources/torch_port/tiny_cnn_jax``)
+   loaded through the JAX package's class name: its recorded logits
+   within 1e-5. Then two gloo ranks sharing the card on ``{"data": 2}``,
+   global batch 16 (8 rows each), 4 steps on 64 images, replicated and
+   ZeRO: losses within 1e-4 relative of one process's batch-16 fit from
+   the same weights (BatchNorm over the global batch), each step's
+   gather, forward, backward, all-reduce and update seconds, and the
+   parameters and optimizer state at rest per rank by the shard specs and
+   by ``torch.cuda.memory_allocated`` (ZeRO under 0.6 of replicated); the
+   ZeRO checkpoint of the two ranks restored in one process is bitwise
+   their gathered state (its msgpack bytes equal). No kernel of ours runs
+   on this path.
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 9's ring and
@@ -444,6 +471,14 @@ SERVE_BATCH_LATENCY, SERVE_TOL = 0.005, 1e-6
 SERVE_BURST, SERVE_BURST_QUEUE, SERVE_BURST_BATCH = 200, 8, 8
 SERVE_STALL_S = 2.0
 SERVE_CLIENT_TIMEOUT, SERVE_LOAD_TIMEOUT = 10.0, 300.0
+# phase 16: the DL training state on phase 11's fit A configuration
+STATE_IMAGES, STATE_EPOCHS, STATE_BATCH = 128, 3, 16
+STATE_SKIP_STEP, STATE_ROLLBACK_STEP = 3, 10
+STATE_RANKS, STATE_RANK_IMAGES, STATE_RANK_STEPS = 2, 64, 4
+STATE_SAVE_TOL = 1e-6          # save / load of the same weights
+STATE_FIXTURE_TOL = 1e-5       # the JAX package's logits of its fixture
+STATE_RANK_LOSS_TOL = 1e-4     # two ranks against one process, relative
+STATE_FIXTURE = REPO / "tests" / "resources" / "torch_port" / "tiny_cnn_jax"
 
 
 def log(msg: str) -> None:
@@ -4487,6 +4522,391 @@ def serving_path(dev: str, booster, Xv, cat_model, Xc, swap_booster
                 replay=replay, load=load, overload=overload)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: DL training state
+# ---------------------------------------------------------------------------
+
+def state_mismatches(a, b) -> list:
+    """Paths of the leaves where two training-state trees (``Trainer.
+    state_tree()``) differ in structure, dtype, shape or any bit."""
+    from synapseml_tpu_torch.core.checkpoint import tree_flatten_with_path
+
+    fa, fb = tree_flatten_with_path(a), tree_flatten_with_path(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        return ["<structure>"]
+    bad = []
+    for (path, x), (_, y) in zip(fa, fb):
+        x, y = torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.reshape(-1).view(torch.uint8) if x.numel() else x,
+                y.reshape(-1).view(torch.uint8) if y.numel() else y):
+            bad.append(path)
+    return bad
+
+
+def spec_state_bytes(shapes, dims, nshard: int, moments: int,
+                     counts: int, itemsize: int = 4) -> int:
+    """Bytes of parameters and optimizer state one rank holds at rest when
+    tensor i of ``shapes`` is cut into ``nshard`` blocks along ``dims[i]``
+    (None: held whole): each tensor plus ``moments`` moments of its size,
+    and ``counts`` int32 counts."""
+    total = 0
+    for shape, dim in zip(shapes, dims):
+        numel = int(np.prod(shape))
+        total += (numel // nshard if dim is not None else numel) * itemsize
+    return total * (1 + moments) + 4 * counts
+
+
+def state_images(n: int, seed: int = 0):
+    """``n`` ``cifar_like`` images resized on the host and normalised as
+    the vision estimator does, and their labels."""
+    from synapseml_tpu_torch.dl import vision as tv
+
+    imgs, y = cifar_like(n, seed)
+    return tv._normalize(tv._resolve_images(imgs, VISION_SIZE)), y
+
+
+def state_trainer(init: dict, dev: str, mesh=None, **kw):
+    """A ``Trainer`` of phase 11's fit A configuration (float32, adam 1e-3,
+    batch 16, the last two blocks and the head trained) from ``init``."""
+    from synapseml_tpu_torch.dl import make_backbone
+    from synapseml_tpu_torch.dl import vision as tv
+    from synapseml_tpu_torch.dl.trainer import TrainConfig, Trainer
+
+    model = make_backbone(VISION_BACKBONE, VISION_CLASSES)
+    model.load_state_dict(init)
+    regex = tv.DeepVisionClassifier(additionalLayersToTrain=2) \
+        ._freeze_regex(model)
+    cfg = dict(batch_size=STATE_BATCH, max_epochs=STATE_EPOCHS,
+               learning_rate=1e-3, optimizer="adam", freeze_regex=regex,
+               seed=0)
+    cfg.update(kw)
+    return Trainer(model, TrainConfig(**cfg), mesh=mesh, device=dev)
+
+
+@contextlib.contextmanager
+def preempt_at(phase: str, step: int):
+    """Raise ``PreemptionError`` at the given ``preemption_point``."""
+    from synapseml_tpu_torch.core import checkpoint as ck
+
+    def hook(p, s):
+        if p == phase and s == step:
+            raise ck.PreemptionError(f"preempted at {p}[{s}]")
+    ck._PREEMPT_HOOK = hook
+    try:
+        yield
+    finally:
+        ck._PREEMPT_HOOK = None
+
+
+@contextlib.contextmanager
+def nan_batch_at(step: int):
+    """Poison the host batch of training step ``step`` once (its first
+    image NaN), through the trainer's batch hook."""
+    from synapseml_tpu_torch.dl import trainer as tt
+
+    def hook(s, xb, yb):
+        if s != step or hook.fired:
+            return xb, yb
+        hook.fired = True
+        xb = np.array(xb, np.float32)
+        xb[0] = np.nan
+        return xb, yb
+    hook.fired = False
+    tt._CHAOS_BATCH_HOOK = hook
+    try:
+        yield
+    finally:
+        tt._CHAOS_BATCH_HOOK = None
+
+
+def state_kill_resume(init: dict, X, y, dev: str, workdir: str):
+    """Kill at ``dl.epoch`` 2 and resume against an uninterrupted fit."""
+    from synapseml_tpu_torch.core.checkpoint import (CheckpointStore,
+                                                     PreemptionError)
+
+    ref = state_trainer(init, dev).fit(X, y)
+    want = ref.predict_logits(X[:32])
+    ck = os.path.join(workdir, "kill")
+    killed = state_trainer(init, dev, checkpoint_dir=ck)
+    try:
+        with preempt_at("dl.epoch", 2):
+            killed.fit(X, y)
+        raise AssertionError("the preemption hook did not stop the fit")
+    except PreemptionError:
+        pass
+    saved = killed.state_tree()
+    t0 = time.perf_counter()
+    probe = state_trainer(init, dev, checkpoint_dir=ck, max_epochs=2)
+    probe.fit(X, y)                        # restore only: epoch 2 of 2
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    bad = state_mismatches(probe.state_tree(), saved)
+    store = CheckpointStore(os.path.join(workdir, "timed"))
+    t0 = time.perf_counter()
+    killed._save_checkpoint(store, 2)
+    save_s = time.perf_counter() - t0
+    blob = os.path.getsize(os.path.join(workdir, "timed",
+                                        "ckpt_00000002.state.msgpack"))
+    resumed = state_trainer(init, dev, checkpoint_dir=ck).fit(X, y)
+    gap = _gap(resumed.predict_logits(X[:32]), want)
+    epochs = [h["epoch"] for h in resumed.history]
+    log(f"  kill at dl.epoch 2 and resume: restored state bitwise the saved "
+        f"one ({len(saved['params'])} top-level modules, moments and "
+        f"counts): {'ok' if not bad else 'WRONG ' + str(bad[:4])}; resumed "
+        f"epochs {epochs}; eval logits max |diff| {gap:.3g} against the "
+        f"uninterrupted fit (tolerance {VISION_LOGIT_TOL})")
+    log(f"  state.msgpack {blob} bytes; save {save_s:.3f}s (encode, write, "
+        f"fsync, manifest), restore {restore_s:.3f}s (a restore-only fit: "
+        f"verify, decode, load)")
+    if bad or epochs != [2] or gap > VISION_LOGIT_TOL:
+        raise AssertionError("kill and resume went wrong")
+    return resumed
+
+
+def state_policies(init: dict, X, y, dev: str, workdir: str) -> None:
+    """The skip and rollback non-finite policies on poisoned batches."""
+    from synapseml_tpu_torch.core.logging import (failure_counts,
+                                                  reset_failure_counts)
+    from synapseml_tpu_torch.core.serialization import from_bytes
+
+    reset_failure_counts()
+    with nan_batch_at(STATE_SKIP_STEP):
+        skip = state_trainer(init, dev, max_epochs=1,
+                             nonfinite_policy="skip").fit(X, y)
+    fc = failure_counts()
+    losses = [st["loss"] for st in skip.step_stats]
+    counts = (fc.get("train.nonfinite_loss", 0),
+              fc.get("train.nonfinite_skipped", 0))
+    log(f"  skip: NaN batch at step {STATE_SKIP_STEP}: counters "
+        f"(nonfinite_loss, nonfinite_skipped) {counts}, {len(losses)} steps "
+        f"applied, every loss finite {bool(np.all(np.isfinite(losses)))}")
+    if counts != (1, 1) or not np.all(np.isfinite(losses)) or \
+            len(losses) != len(X) // STATE_BATCH - 1:
+        raise AssertionError("the skip policy went wrong")
+    reset_failure_counts()
+    ck = os.path.join(workdir, "rollback")
+    roll = state_trainer(init, dev, checkpoint_dir=ck,
+                         nonfinite_policy="rollback")
+    seen = []
+    restore = roll._restore_checkpoint
+
+    def spy(store):
+        epoch = restore(store)
+        if epoch is not None:             # not the resume at the fit's start
+            seen.append((epoch, roll.state_tree()))
+        return epoch
+    roll._restore_checkpoint = spy
+    with nan_batch_at(STATE_ROLLBACK_STEP):
+        roll.fit(X, y)
+    epochs = [h["epoch"] for h in roll.history]
+    with open(os.path.join(ck, "ckpt_00000001.state.msgpack"), "rb") as f:
+        ckpt = from_bytes({**seen[0][1], "epoch": 0}, f.read()) if seen \
+            else None
+    bad = ["<no rollback>"] if not seen else state_mismatches(
+        seen[0][1], {k: ckpt[k] for k in seen[0][1]})
+    n = failure_counts().get("train.nonfinite_rollback", 0)
+    log(f"  rollback: NaN batch at step {STATE_ROLLBACK_STEP}: rolled back "
+        f"to epoch {seen[0][0] if seen else None} ({n} rollback), restored "
+        f"state bitwise the epoch-1 checkpoint: "
+        f"{'ok' if not bad else 'WRONG ' + str(bad[:4])}; history epochs "
+        f"{epochs}")
+    if bad or n != 1 or epochs != list(range(STATE_EPOCHS)) or \
+            seen[0][0] != 1:
+        raise AssertionError("the rollback policy went wrong")
+
+
+def state_save_load(dev: str, workdir: str) -> None:
+    """``DeepVisionClassifier`` save and ``PipelineStage.load`` through
+    ``params.msgpack``, then the JAX package's fixture."""
+    from synapseml_tpu_torch.core import PipelineStage, Table
+    from synapseml_tpu_torch.dl import vision as tv
+
+    imgs, y = cifar_like(32, seed=3)
+    model = tv.DeepVisionClassifier(
+        backbone=VISION_BACKBONE, imageSize=VISION_SIZE, maxEpochs=1,
+        batchSize=STATE_BATCH, device=dev).fit(Table({"image": imgs,
+                                                      "label": y}))
+    table = Table({"image": imgs})
+    want = np.asarray(model.transform(table)["probability"])
+    path = os.path.join(workdir, "saved")
+    model.save(path)
+    loaded = PipelineStage.load(path)
+    gap = _gap(np.asarray(loaded.transform(table)["probability"]), want)
+    size = os.path.getsize(os.path.join(path, "params.msgpack"))
+    log(f"  DeepVisionClassifier save / PipelineStage.load through "
+        f"params.msgpack ({size} bytes): probabilities max |diff| {gap:.3g} "
+        f"(tolerance {STATE_SAVE_TOL})")
+    fx = np.load(STATE_FIXTURE / "inputs.npz")
+    jax_model = PipelineStage.load(str(STATE_FIXTURE / "model"), device=dev)
+    X = tv._normalize(tv._resolve_images(fx["images"],
+                                         jax_model.getImageSize() or None))
+    fgap = _gap(jax_model.trainer.predict_logits(X), fx["logits"])
+    log(f"  the JAX package's saved TinyCNN ({type(jax_model).__name__}, "
+        f"{len(fx['images'])} images): logits max |diff| {fgap:.3g} "
+        f"(tolerance {STATE_FIXTURE_TOL})")
+    if gap > STATE_SAVE_TOL or fgap > STATE_FIXTURE_TOL:
+        raise AssertionError("msgpack save / load went wrong")
+
+
+_STATE_SETTINGS = ("VISION_BACKBONE", "VISION_CLASSES", "VISION_SIDE",
+                   "VISION_SIZE", "STATE_BATCH", "STATE_RANKS",
+                   "STATE_RANK_IMAGES", "STATE_RANK_STEPS")
+
+
+def _state_settings() -> dict:
+    """The settings phase 16's ranks must share with this process (they
+    import this module afresh): the sizes, and the backbone when it is not
+    one of the package's own (a rehearsal's smaller one)."""
+    from synapseml_tpu_torch.dl import backbones as tb
+
+    out = {"globals": {k: globals()[k] for k in _STATE_SETTINGS},
+           "backbones": {}}
+    if VISION_BACKBONE not in ("resnet18", "resnet34", "resnet50",
+                               "resnet101", "tiny"):
+        out["backbones"][VISION_BACKBONE] = tb.BACKBONES[VISION_BACKBONE]
+    return out
+
+
+def _state_rank(rank: int, workdir: str, dev: str, settings: dict) -> None:
+    """One rank of phase 16 (b): the replicated and the ZeRO fit on the
+    mesh ``{"data": 2}``, resident bytes at rest, the step split, and the
+    ZeRO fit's gathered state for the one-process restore."""
+    sys.path.insert(0, str(REPO))
+    from synapseml_tpu_torch.core.serialization import to_bytes
+    from synapseml_tpu_torch.dl import backbones as tb
+    from synapseml_tpu_torch.parallel import init_distributed, make_mesh
+
+    globals().update(settings["globals"])
+    tb.BACKBONES.update(settings["backbones"])
+    init_distributed("gloo", os.path.join(workdir, "store"), rank,
+                     STATE_RANKS, timeout_s=300)
+    mesh = make_mesh({"data": STATE_RANKS}, device=dev)
+    init = torch.load(os.path.join(workdir, "init.pt"))
+    X, y = state_images(STATE_RANK_IMAGES, seed=2)
+    report = {}
+    for mode in ("replicated", "zero"):
+        tr = state_trainer(init, dev, mesh=mesh, max_epochs=1,
+                           steps_per_epoch=STATE_RANK_STEPS,
+                           param_sharding=mode,
+                           checkpoint_dir=os.path.join(workdir, mode)
+                           if mode == "zero" else None)
+        rest = []
+
+        def at_rest(ep):
+            _sync(dev)
+            rest.append(torch.cuda.memory_allocated()
+                        if _on_card(dev) else 0)
+        if _on_card(dev):
+            torch.cuda.empty_cache()
+        tr.fit(X, y, log_fn=at_rest)
+        opt = tr.optimizer
+        report[mode] = dict(
+            losses=[st["loss"] for st in tr.step_stats],
+            split={k: float(np.mean([st[k] for st in tr.step_stats[1:]]))
+                   for k in ("gather_s", "forward_s", "backward_s",
+                             "allreduce_s", "update_s")},
+            allocated=rest[-1], bytes=tr.stats["state_bytes_per_rank"],
+            spec_bytes=spec_state_bytes(
+                opt.whole_shapes,
+                [s.dim for s in tr.specs] if tr.specs else
+                [None] * len(opt.whole_shapes), STATE_RANKS, 2, 2))
+        if mode == "zero":
+            with open(os.path.join(workdir, f"zero_{rank}.msgpack"),
+                      "wb") as f:
+                f.write(to_bytes(tr.state_tree()))
+        del tr, opt
+    with open(os.path.join(workdir, f"rank_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def state_ranks(init: dict, dev: str, workdir: str) -> None:
+    """Phase 16 (b): two gloo ranks sharing the card, replicated and ZeRO,
+    against one process; the ZeRO checkpoint restored in one process."""
+    import torch.multiprocessing as tmp
+
+    from synapseml_tpu_torch.core.serialization import to_bytes
+
+    X, y = state_images(STATE_RANK_IMAGES, seed=2)
+    one = state_trainer(init, dev, max_epochs=1,
+                        steps_per_epoch=STATE_RANK_STEPS).fit(X, y)
+    ref = [st["loss"] for st in one.step_stats]
+    del one
+    torch.save(init, os.path.join(workdir, "init.pt"))
+    t0 = time.perf_counter()
+    tmp.spawn(_state_rank, args=(workdir, dev, _state_settings()),
+              nprocs=STATE_RANKS, join=True)
+    log(f"  {STATE_RANKS} ranks spawned, trained and joined in "
+        f"{time.perf_counter() - t0:.1f}s; one process, batch "
+        f"{STATE_BATCH}: losses {[round(v, 6) for v in ref]}")
+    reports = []
+    for r in range(STATE_RANKS):
+        with open(os.path.join(workdir, f"rank_{r}.json")) as f:
+            reports.append(json.load(f))
+    ok = True
+    for mode in ("replicated", "zero"):
+        for r, rep in enumerate(reports):
+            x = rep[mode]
+            gap = float(np.max(np.abs(np.subtract(x["losses"], ref))
+                               / np.abs(ref)))
+            ok &= gap <= STATE_RANK_LOSS_TOL and x["bytes"] == \
+                x["spec_bytes"] and x["losses"] == reports[0][mode]["losses"]
+            log(f"  {mode} rank {r}: losses max rel gap {gap:.3g} "
+                f"(tolerance {STATE_RANK_LOSS_TOL}); at rest "
+                f"{x['allocated'] / 2**20:.1f} MiB allocated, parameters "
+                f"and optimizer state {x['bytes'] / 2**20:.1f} MiB "
+                f"(shard specs: {x['spec_bytes'] / 2**20:.1f} MiB); step "
+                f"{json.dumps({k: round(v * 1e3, 2) for k, v in x['split'].items()})}"
+                f" ms")
+    rep, zer = reports[0]["replicated"], reports[0]["zero"]
+    log(f"  ZeRO at rest: {zer['bytes'] / rep['bytes']:.3f} of replicated "
+        f"by the shard specs, {zer['allocated'] / max(rep['allocated'], 1):.3f}"
+        f" by memory_allocated")
+    one = state_trainer(init, dev, max_epochs=1,
+                        steps_per_epoch=STATE_RANK_STEPS,
+                        checkpoint_dir=os.path.join(workdir, "zero"))
+    one.fit(X, y)                             # restore only
+    restored = to_bytes(one.state_tree())
+    same = []
+    for r in range(STATE_RANKS):
+        with open(os.path.join(workdir, f"zero_{r}.msgpack"), "rb") as f:
+            same.append(f.read() == restored)
+    log(f"  the two ranks' ZeRO checkpoint restored in one process: its "
+        f"state's msgpack ({len(restored)} bytes) equal to each rank's "
+        f"gathered state's: {same}")
+    if not ok or not all(same) or zer["bytes"] >= 0.6 * rep["bytes"]:
+        raise AssertionError("the two-rank fits went wrong")
+
+
+def state_path(dev: str) -> None:
+    """Phase 16: epoch checkpoints with resume, the skip and rollback
+    policies, msgpack save and load, the JAX fixture, and two ranks
+    replicated and ZeRO."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        init = vision_init_state()
+        X, y = state_images(STATE_IMAGES)
+        seconds = {"init_and_images": time.perf_counter() - t0}
+        with tempfile.TemporaryDirectory() as workdir:
+            for name, fn in (
+                    ("kill_resume", lambda: state_kill_resume(
+                        init, X, y, dev, workdir)),
+                    ("policies", lambda: state_policies(init, X, y, dev,
+                                                        workdir)),
+                    ("save_load", lambda: state_save_load(dev, workdir)),
+                    ("ranks", lambda: state_ranks(init, dev, workdir))):
+                t0 = time.perf_counter()
+                fn()
+                seconds[name] = time.perf_counter() - t0
+        log(f"  phase 16 seconds by part: "
+            f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -4581,6 +5001,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_path(dev, served["booster"], served["Xv"], categorical["model"],
                  categorical["Xc"], main["booster"])
+    log(f"[16] DL training state: {VISION_BACKBONE} at {VISION_SIZE}x"
+        f"{VISION_SIZE}, checkpoints, resume, non-finite policies, msgpack, "
+        f"{STATE_RANKS} ranks replicated and ZeRO")
+    del served, categorical
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state_path(dev)
+    log(f"  phase 16 took {time.perf_counter() - t0:.1f}s")
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},

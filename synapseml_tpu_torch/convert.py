@@ -35,8 +35,14 @@ names and layouts too (convolution kernels HWIO), with the BatchNorm
 running statistics as buffers: ``resnet_from_reference`` turns flax's
 ``{"params": ..., "batch_stats": ...}`` variables into the ``state_dict``,
 ``resnet_to_reference`` turns it back, nested or as one flat dict keyed by
-``"params/<path>"`` and ``"batch_stats/<path>"`` (the vision model's saved
-``params.npz``). The round trip is bitwise.
+``"params/<path>"`` and ``"batch_stats/<path>"`` (the vision model's
+``params.npz`` of earlier versions). The round trip is bitwise.
+
+``trainer_state_from_reference`` carries the JAX trainer's whole state
+across: the parameters and batch statistics as a ``state_dict`` and the
+optax optimizer state as its flax state dict of numpy arrays, which
+``dl.trainer.Trainer.load_params(..., opt_state=...)`` loads (the port's
+``Optimizer.state_dict`` keeps optax's layout).
 """
 
 from __future__ import annotations
@@ -193,3 +199,26 @@ def resnet_to_reference(state_dict, nested: bool = True) -> dict:
         coll = "batch_stats" if leaf in BATCH_STATS_LEAVES else "params"
         flat[f"{coll}/{name.replace('.', '/')}"] = _to_numpy(t)
     return _nest(flat) if nested else flat
+
+
+def _numpy_leaves(tree):
+    if isinstance(tree, Mapping):
+        return {k: _numpy_leaves(v) for k, v in tree.items()}
+    return np.array(tree)
+
+
+def trainer_state_from_reference(params, batch_stats=None, opt_state=None
+                                 ) -> Tuple[Dict[str, torch.Tensor],
+                                            Optional[dict]]:
+    """``(state_dict, opt_state)`` for ``Trainer.load_params`` from the JAX
+    trainer's ``params``, ``batch_stats`` and optax ``opt_state`` (leaves
+    anything ``np.array`` reads): the optimizer state becomes flax's state
+    dict of its tree (tuples and optax's namedtuples as dicts), numpy
+    leaves; None without one."""
+    from .core.serialization import to_state_dict
+
+    sd = resnet_from_reference({"params": params,
+                                "batch_stats": batch_stats or {}})
+    opt = None if opt_state is None else \
+        _numpy_leaves(to_state_dict(opt_state))
+    return sd, opt

@@ -62,8 +62,7 @@ class PipelineStage(Params, SynapseMLLogging):
         saved on the card loads on the CPU and the other way round."""
         with open(os.path.join(path, _META_FILE)) as f:
             meta = json.load(f)
-        mod_name, cls_name = meta["class"].rsplit(".", 1)
-        cls = getattr(importlib.import_module(mod_name), cls_name)
+        cls = _stage_class(meta["class"])
         stage = cls.__new__(cls)
         PipelineStage.__init__(stage)
         for k, v in meta["params"].items():
@@ -262,3 +261,28 @@ def _framework_version():
     from .. import __version__
 
     return __version__
+
+
+# this package's top-level name, and the JAX package's: the same without
+# the "_torch" suffix
+_PORT_PACKAGE = __name__.split(".")[0]
+_JAX_PACKAGE = _PORT_PACKAGE[: -len("_torch")]
+
+
+def _stage_class(name: str):
+    """The class a saved ``metadata.json`` names. A directory the JAX
+    package saved names its classes by that package's module paths; they
+    map to this package's counterparts (the same module path under this
+    package) without importing the JAX package, and a class with no
+    counterpart raises ``NotImplementedError`` naming it."""
+    mod_name, cls_name = name.rsplit(".", 1)
+    top, _, rest = mod_name.partition(".")
+    if top != _JAX_PACKAGE:
+        return getattr(importlib.import_module(mod_name), cls_name)
+    port = f"{_PORT_PACKAGE}.{rest}"
+    try:
+        return getattr(importlib.import_module(port), cls_name)
+    except (ImportError, AttributeError) as e:
+        raise NotImplementedError(
+            f"the saved stage {name} has no counterpart in the PyTorch "
+            f"package (looked for {port}.{cls_name})") from e

@@ -42,11 +42,18 @@ from a plain ``torch.nn`` translation:
   batch's statistics are taken in float32 and the normalisation runs in
   float32 whatever ``dtype`` (the output is ``dtype``). ``scale`` and
   ``bias`` are parameters, ``mean`` and ``var`` buffers (flax's
-  ``batch_stats``).
+  ``batch_stats``). Inside ``batch_stats_over(group)`` (the trainer's
+  data-parallel steps) the batch is the rows of every rank of ``group``:
+  the sum, the sum of squares and the count go through one differentiable
+  ``psum`` in float32, and the variance is flax's default
+  ``use_fast_variance`` form ``max(E[x²] - E[x]², 0)``; every rank then
+  holds the same running statistics, as the JAX package's global batch
+  gives.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -57,6 +64,18 @@ LAYER_NORM_EPS = 1e-6
 BATCH_NORM_EPS = 1e-5
 BATCH_NORM_MOMENTUM = 0.9
 _TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to +-2
+_STATS_GROUP: list = []
+
+
+@contextlib.contextmanager
+def batch_stats_over(group):
+    """Training forwards inside the scope take BatchNorm's moments over the
+    rows of every rank of the process ``group`` (None: this rank's)."""
+    _STATS_GROUP.append(group)
+    try:
+        yield
+    finally:
+        _STATS_GROUP.pop()
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int) -> None:
@@ -295,6 +314,8 @@ class BatchNorm(nn.Module):
             self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train and _STATS_GROUP and _STATS_GROUP[-1] is not None:
+            return self._global_batch(x, _STATS_GROUP[-1])
         xc = x.permute(0, 3, 1, 2)
         if train:
             with torch.no_grad():
@@ -309,6 +330,25 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(xc, self.mean, self.var, self.scale, self.bias,
                              training=False, eps=BATCH_NORM_EPS)
         return y.permute(0, 2, 3, 1).to(self.dtype)
+
+    def _global_batch(self, x: torch.Tensor, group) -> torch.Tensor:
+        from ..parallel.collectives import psum
+
+        xf = x.float()
+        flat = xf.reshape(-1, xf.shape[-1])
+        c = flat.shape[1]
+        count = torch.full((1,), float(flat.shape[0]), device=x.device)
+        moments = psum(torch.cat([flat.sum(0), (flat * flat).sum(0), count]),
+                       group)
+        mean = moments[:c] / moments[-1]
+        var = torch.clamp_min(moments[c:2 * c] / moments[-1] - mean * mean,
+                              0.0)
+        with torch.no_grad():
+            m = BATCH_NORM_MOMENTUM
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        y = (xf - mean) * (torch.rsqrt(var + BATCH_NORM_EPS) * self.scale)
+        return (y + self.bias).to(self.dtype)
 
 
 def max_pool(x: torch.Tensor, window: tuple, strides: tuple

@@ -277,17 +277,24 @@ class DeepTextModel(Model, HasPredictionCol):
         return out.with_column("probability", softmax_np(logits))
 
     def _save_extra(self, path: str) -> None:
-        """``classes.npy`` and ``params.npz``: the parameters keyed by their
-        flax paths (``attn_0/query/kernel``), float32."""
+        """``classes.npy`` and ``params.msgpack``: flax's msgpack of
+        ``{"params": tree}``, float32, keys sorted as a fitted flax tree's
+        (the JAX estimator's file, byte for byte, for the same weights)."""
         from ..convert import text_encoder_to_reference
+        from ..core.serialization import to_bytes
+        from .trainer import nest_sorted
 
         np.save(os.path.join(path, "classes.npy"), np.asarray(self.classes))
         flat = text_encoder_to_reference(self.trainer.model.state_dict(),
                                          nested=False)
-        np.savez(os.path.join(path, "params.npz"), **flat)
+        with open(os.path.join(path, "params.msgpack"), "wb") as f:
+            f.write(to_bytes({"params": nest_sorted(flat)}))
 
     def _load_extra(self, path: str) -> None:
+        """Reads ``params.msgpack`` (either package's), or the
+        ``params.npz`` of earlier versions of this package."""
         from ..convert import text_encoder_from_reference
+        from ..core.serialization import msgpack_restore
 
         self.classes = np.load(os.path.join(path, "classes.npy"),
                                allow_pickle=True)
@@ -297,8 +304,13 @@ class DeepTextModel(Model, HasPredictionCol):
             max_len=self.getMaxTokenLen(), num_classes=len(self.classes),
             dtype=_DTYPES[self.getPrecision()],
             mask_free=bool(self.getSeqParallel()))
-        with np.load(os.path.join(path, "params.npz")) as f:
-            flat = {k: f[k] for k in f.files}
+        blob = os.path.join(path, "params.msgpack")
+        if os.path.exists(blob):
+            with open(blob, "rb") as f:
+                flat = msgpack_restore(f.read())["params"]
+        else:
+            with np.load(os.path.join(path, "params.npz")) as f:
+                flat = {k: f[k] for k in f.files}
         trainer = Trainer(model, TrainConfig(batch_size=self.getBatchSize()),
                           device=self.getDevice())
         trainer.load_params(text_encoder_from_reference(flat))

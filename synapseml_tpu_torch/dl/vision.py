@@ -15,11 +15,14 @@ JAX package's ``jax.image.resize(..., "bilinear")``). As there, uint8
 images are scaled to [0, 1] only when no resize turned them into float32
 first; 3-channel images are then normalised with ImageNet's mean and std.
 
-Checkpoints: ``save`` writes ``params.npz`` (the flax variables keyed by
-``"params/<path>"`` and ``"batch_stats/<path>"``, float32),
-``classes.npy`` and ``arch.json``; ``pretrainedPath`` reads such an
-``.npz``. The JAX package's flax msgpack files are refused with
-``NotImplementedError``: reading them needs the ``msgpack`` package.
+Checkpoints: ``save`` writes ``params.msgpack`` as the JAX package does
+(flax's msgpack of ``{"params", "batch_stats"}``, float32, keys sorted as
+a fitted flax tree's: byte for byte the JAX estimator's file for the same
+weights, through ``core.serialization``), ``classes.npy`` and
+``arch.json``; ``load`` reads a directory either package saved, and the
+``params.npz`` (``"params/<path>"``, ``"batch_stats/<path>"``) of earlier
+versions of this package. ``pretrainedPath`` takes a flax ``.msgpack`` or
+such an ``.npz``.
 """
 
 from __future__ import annotations
@@ -93,23 +96,17 @@ def _check_precision(precision: str) -> torch.dtype:
     return _DTYPES[precision]
 
 
-def _unported_msgpack(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path!r} is not an .npz: flax msgpack checkpoints are not ported "
-        "to the PyTorch package (reading them needs the msgpack package); "
-        "save the variables as an .npz keyed by 'params/<path>' and "
-        "'batch_stats/<path>'")
-
-
 def _load_checkpoint(path: str) -> dict:
-    """The ``state_dict`` (parameters and batch statistics) of an ``.npz``
-    of flax variables."""
+    """The ``state_dict`` (parameters and batch statistics) of flax
+    variables in a msgpack file or an ``.npz``."""
     from ..convert import resnet_from_reference
+    from ..core.serialization import msgpack_restore
 
-    if not zipfile.is_zipfile(path):
-        raise _unported_msgpack(path)
-    with np.load(path) as f:
-        return resnet_from_reference({k: f[k] for k in f.files})
+    if zipfile.is_zipfile(path):
+        with np.load(path) as f:
+            return resnet_from_reference({k: f[k] for k in f.files})
+    with open(path, "rb") as f:
+        return resnet_from_reference(msgpack_restore(f.read()))
 
 
 class DeepVisionClassifier(Estimator, HasLabelCol, HasPredictionCol):
@@ -128,8 +125,8 @@ class DeepVisionClassifier(Estimator, HasLabelCol, HasPredictionCol):
     storePrefixPath = Param("storePrefixPath", "compat no-op (horovod store)", str)
     precision = Param("precision", "float32 or bfloat16 compute", str, "float32")
     seed = Param("seed", "Random seed", int, 0)
-    pretrainedPath = Param("pretrainedPath", "Local .npz checkpoint of flax "
-                           "variables (params/..., batch_stats/...)", str)
+    pretrainedPath = Param("pretrainedPath", "Local .msgpack/.npz checkpoint "
+                           "of flax variables (params, batch_stats)", str)
     validationFraction = Param("validationFraction", "Holdout fraction for val metrics", float, 0.0)
     smallImages = Param("smallImages", "CIFAR-style stem (3x3 conv, no max-pool)", bool, False)
     device = Param("device", "Device that trains and scores the model: "
@@ -240,19 +237,25 @@ class DeepVisionModel(Model, HasPredictionCol):
 
     def _save_extra(self, path: str) -> None:
         from ..convert import resnet_to_reference
+        from ..core.serialization import to_bytes
+        from .trainer import nest_sorted
 
         flat = resnet_to_reference(self.trainer.model.state_dict(),
                                    nested=False)
-        np.savez(os.path.join(path, "params.npz"), **flat)
+        variables = {c: nest_sorted({k.split("/", 1)[1]: v
+                                     for k, v in flat.items()
+                                     if k.startswith(c + "/")})
+                     for c in ("params", "batch_stats")}
+        with open(os.path.join(path, "params.msgpack"), "wb") as f:
+            f.write(to_bytes(variables))
         np.save(os.path.join(path, "classes.npy"), self.classes)
         with open(os.path.join(path, "arch.json"), "w") as f:
             json.dump({"input_shape": self._input_shape}, f)
 
     def _load_extra(self, path: str) -> None:
-        params = os.path.join(path, "params.npz")
-        if not os.path.exists(params) and os.path.exists(
-                os.path.join(path, "params.msgpack")):
-            raise _unported_msgpack(os.path.join(path, "params.msgpack"))
+        params = os.path.join(path, "params.msgpack")
+        if not os.path.exists(params):
+            params = os.path.join(path, "params.npz")
         self.classes = np.load(os.path.join(path, "classes.npy"),
                                allow_pickle=True)
         with open(os.path.join(path, "arch.json")) as f:

@@ -13,6 +13,9 @@ swapped; the rotation the other way round (the cotangent goes to the
 (``psum_scatter``): each rank receives every rank's cotangent of its own
 slice and sums them in group-rank order. ``all_reduce_sum`` sums a tensor
 over a group in place (the trainer's gradient sum); it has no gradient.
+``psum`` is the differentiable sum (``jax.lax.psum``, whose transpose is
+itself): BatchNorm's moments over a data axis go through it, so the
+backward pass sums their cotangents too.
 
 Transport. The backend the port runs the ``seq`` axis on is gloo: NCCL
 refuses two ranks on one card, and a one-card machine runs the axis as two
@@ -188,6 +191,25 @@ def all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return x
     return _AllGather.apply(x, group, axis)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x.detach().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.detach().clone(), ctx.group), None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, out of place, on every rank.
+    Differentiable: the backward sums the cotangents over the group."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _Psum.apply(x, group)
 
 
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -10,6 +10,10 @@ and 1 share data index 0 and form one ``seq`` group.
 
 Nothing is read from the environment: ``init_distributed`` takes the
 backend, the store, the rank and the world size from its caller.
+
+ZeRO placement (``zero_sharding``, ``tree_shardings``) is a ``ShardSpec``
+per tensor: the dimension the JAX package's ``zero_sharding`` picks, cut
+into one block per rank of the ``data`` axis.
 """
 
 from __future__ import annotations
@@ -41,15 +45,18 @@ def init_distributed(backend: str, store_path: str, rank: int,
 
 class Mesh:
     """This rank's view of a named-axis grid of ranks: the axis sizes
-    (``shape``, in axis order), its coordinate on each axis, the process
-    group of its line along each axis and the device it computes on."""
+    (``shape``, in axis order), its rank within the mesh and coordinate on
+    each axis, the process group of its line along each axis, the group of
+    the whole mesh (``world_group``, None when the mesh is the whole
+    world) and the device it computes on."""
 
     def __init__(self, shape: dict, rank: int, coords: dict, groups: dict,
-                 device: torch.device):
+                 device: torch.device, world_group=None):
         self.shape = dict(shape)
         self.rank = rank
         self.coords = dict(coords)
         self.device = device
+        self.world_group = world_group
         self._groups = groups
 
     def group(self, axis: str):
@@ -65,25 +72,29 @@ class Mesh:
                 f"device={self.device})")
 
 
-def make_mesh(shape: Optional[dict] = None,
-              device=DEFAULT_DEVICE) -> Mesh:
-    """A mesh over the initialised world. ``shape`` maps axis name → size,
-    e.g. ``{"data": 2, "seq": 2}``; the default puts every rank on the
-    ``data`` axis. The sizes must multiply to the world size. Every rank
-    must call this with the same ``shape``: each call creates one process
-    group per line of every axis, on every rank, in the same order."""
+def make_mesh(shape: Optional[dict] = None, device=DEFAULT_DEVICE,
+              ranks: Optional[list] = None) -> Optional[Mesh]:
+    """A mesh over the initialised world, or over its ``ranks`` (in that
+    order; default every rank). ``shape`` maps axis name → size, e.g.
+    ``{"data": 2, "seq": 2}``; the default puts every rank on the ``data``
+    axis. The sizes must multiply to the number of ranks. Every rank of
+    the world must call this with the same arguments: each call creates
+    the same process groups on every rank, in the same order. A rank
+    outside ``ranks`` gets None."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised torch.distributed "
                            "world: call init_distributed first")
     world, rank = dist.get_world_size(), dist.get_rank()
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
     if not shape:
-        shape = {DATA_AXIS: world}
+        shape = {DATA_AXIS: len(ranks)}
     names, sizes = list(shape), [int(s) for s in shape.values()]
-    if int(np.prod(sizes)) != world:
+    if int(np.prod(sizes)) != len(ranks):
         raise ValueError(f"mesh {dict(zip(names, sizes))} needs "
-                         f"{int(np.prod(sizes))} ranks, the world has {world}")
-    grid = np.arange(world).reshape(sizes)
-    coords = {n: int(c) for n, c in zip(names, np.argwhere(grid == rank)[0])}
+                         f"{int(np.prod(sizes))} ranks, it is given "
+                         f"{len(ranks)}")
+    whole = None if len(ranks) == world else dist.new_group(ranks)
+    grid = np.asarray(ranks).reshape(sizes)
     groups = {}
     for k, name in enumerate(names):
         for line in np.moveaxis(grid, k, -1).reshape(-1, sizes[k]):
@@ -91,8 +102,11 @@ def make_mesh(shape: Optional[dict] = None,
             g = dist.new_group(members)
             if rank in members:
                 groups[name] = g
-    return Mesh(dict(zip(names, sizes)), rank, coords, groups,
-                resolve_device(device))
+    if rank not in ranks:
+        return None
+    coords = {n: int(c) for n, c in zip(names, np.argwhere(grid == rank)[0])}
+    return Mesh(dict(zip(names, sizes)), ranks.index(rank), coords, groups,
+                resolve_device(device), whole)
 
 
 def data_seq_mesh(seq_size: int = 0, device=DEFAULT_DEVICE) -> Mesh:
@@ -111,3 +125,67 @@ def data_seq_mesh(seq_size: int = 0, device=DEFAULT_DEVICE) -> Mesh:
         raise ValueError(f"seq axis of {sp} ranks does not divide the world "
                          f"of {world}")
     return make_mesh({DATA_AXIS: world // sp, SEQ_AXIS: sp}, device)
+
+
+class ShardSpec:
+    """Where one tensor lives under ``param_sharding="zero"``: cut into
+    ``nshard`` equal blocks along ``dim`` over the mesh's ``axis`` (rank i
+    of the axis holds block i), or replicated when ``dim`` is None."""
+
+    def __init__(self, dim: Optional[int], nshard: int,
+                 axis: str = DATA_AXIS):
+        self.dim, self.nshard, self.axis = dim, int(nshard), axis
+
+    def window(self, shape, i: int) -> tuple:
+        """((start, stop), ...) per dim of block ``i`` of a ``shape``
+        tensor."""
+        out = [(0, int(d)) for d in shape]
+        if self.dim is not None:
+            b = int(shape[self.dim]) // self.nshard
+            out[self.dim] = (i * b, (i + 1) * b)
+        return tuple(out)
+
+    def take(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Block ``i`` of the full tensor ``x``, a contiguous copy (the
+        tensor itself when replicated)."""
+        if self.dim is None:
+            return x
+        b = x.shape[self.dim] // self.nshard
+        return x.narrow(self.dim, i * b, b).contiguous()
+
+    def shard_numel(self, shape) -> int:
+        return int(np.prod(shape)) // (1 if self.dim is None
+                                       else self.nshard)
+
+    def __repr__(self) -> str:
+        return f"ShardSpec(dim={self.dim}, nshard={self.nshard})"
+
+
+def zero_shard_dim(shape, nshard: int) -> Optional[int]:
+    """The JAX package's ZeRO choice: the largest dimension divisible by
+    ``nshard`` (the first of equal ones), None when no dimension divides
+    (biases smaller than the axis, scalars)."""
+    for i in sorted(range(len(shape)), key=lambda j: -shape[j]):
+        if shape[i] >= nshard and shape[i] % nshard == 0:
+            return i
+    return None
+
+
+def zero_sharding(mesh: Mesh, x, axis: str = DATA_AXIS) -> ShardSpec:
+    """ZeRO placement of one tensor over ``mesh``'s ``axis``
+    (``parallel/mesh.py:zero_sharding`` of the JAX package)."""
+    n = int(mesh.shape.get(axis, 1))
+    return ShardSpec(zero_shard_dim(tuple(x.shape), n), n, axis)
+
+
+def tree_shardings(mesh: Mesh, named, mode: str = "replicated",
+                   axis: str = DATA_AXIS) -> dict:
+    """{name: ShardSpec} over ``named`` ((name, tensor) pairs):
+    ``"zero"``/``"fsdp"`` gives each its :func:`zero_sharding`,
+    ``"replicated"`` replicates every one."""
+    n = int(mesh.shape.get(axis, 1))
+    if mode in ("zero", "fsdp"):
+        return {name: zero_sharding(mesh, t, axis) for name, t in named}
+    if mode != "replicated":
+        raise ValueError(f"unknown sharding mode {mode!r}")
+    return {name: ShardSpec(None, n, axis) for name, _ in named}

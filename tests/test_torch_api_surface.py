@@ -52,10 +52,8 @@ CPU = "cpu"
 UNPORTED_BOOSTER = {"to_onnx"}
 UNPORTED_DATASET = {"from_batches"}
 UNPORTED_ESTIMATOR_PARAMS = {"topK", "parallelism"}
-# TrainConfig fields that take only their default (machinery not ported);
-# ``resume`` is inert while ``checkpoint_dir`` is refused
-DEFAULT_ONLY = {"save_every_epochs": 2, "keep_checkpoints": 5,
-                "prefetch_batches": 4, "donate_buffers": False,
+# TrainConfig fields that take only their default (machinery not ported)
+DEFAULT_ONLY = {"prefetch_batches": 4, "donate_buffers": False,
                 "pipeline_microbatches": 4,
                 "pipeline_param_sharding": "zero",
                 "pipeline_schedule": "overlap"}
@@ -97,6 +95,27 @@ def test_default_only_train_config_fields_are_refused_by_name(field):
     trainer = ttrainer.Trainer(model, cfg, device=CPU)
     with pytest.raises(NotImplementedError, match=field):
         trainer.fit(np.zeros((4, 8), np.int64), np.zeros(4, np.int64))
+
+
+@pytest.mark.parametrize("field,value,want", [
+    ("keep_checkpoints", 2, [3, 4]),
+    ("save_every_epochs", 2, [2, 4])])
+def test_checkpoint_train_config_fields_take_effect(tmp_path, field, value,
+                                                    want):
+    """The two checkpoint fields once refused at their defaults: retention
+    keeps the newest ``keep_checkpoints`` epochs, and a save lands every
+    ``save_every_epochs`` epochs (at epoch e + 1)."""
+    from synapseml_tpu_torch.core.checkpoint import CheckpointStore
+    from synapseml_tpu_torch.dl import make_backbone
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(size=(32, 8, 8, 3)).astype(np.float32)
+    y = np.arange(32) % 2
+    cfg = ttrainer.TrainConfig(batch_size=16, max_epochs=4,
+                               checkpoint_dir=str(tmp_path / "ck"),
+                               **{field: value})
+    ttrainer.Trainer(make_backbone("tiny", 2), cfg, device=CPU).fit(X, y)
+    assert CheckpointStore(str(tmp_path / "ck")).steps() == want
 
 
 @pytest.mark.parametrize("jfn,tfn", [

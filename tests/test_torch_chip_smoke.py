@@ -748,3 +748,49 @@ def test_serving_phase_refuses_a_wrong_reply(serving_models, monkeypatch):
         stage = PipelineStage.load(tmp, device="cpu")
     with pytest.raises(AssertionError, match="none of"):
         cs.serving_load(serve, booster, swap, stage, Xv, Xc, "cpu")
+
+
+# --- phase 16's helpers ---------------------------------------------------------
+
+def test_spec_state_bytes_counts_blocks_moments_and_counts():
+    """A (4, 6) tensor cut in two, a (3,) one whole, two moments and two
+    int32 counts: (12 + 3) floats x 3 + 8 bytes."""
+    got = cs.spec_state_bytes([(4, 6), (3,)], [0, None], 2, moments=2,
+                              counts=2)
+    assert got == (12 + 3) * 4 * 3 + 8
+    assert cs.spec_state_bytes([(4, 6)], [None], 2, 0, 1) == 24 * 4 + 4
+
+
+def test_spec_state_bytes_is_the_trainers_count_under_zero():
+    """The helper from the shard specs and ``Trainer.state_bytes_per_rank``
+    agree for a ZeRO trainer's blocks (its optimizer set up without a
+    world: the specs of a two-rank data axis)."""
+    from synapseml_tpu_torch.dl import make_backbone
+    from synapseml_tpu_torch.dl.trainer import TrainConfig, Trainer
+    from synapseml_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh({"data": 2}, 0, {"data": 0}, {}, torch.device("cpu"))
+    tr = Trainer(make_backbone("tiny", 3), TrainConfig(
+        param_sharding="zero"), mesh=mesh, device="cpu")
+    tr._setup_state(4, zero=True)
+    opt = tr.optimizer
+    want = cs.spec_state_bytes(opt.whole_shapes, [s.dim for s in tr.specs],
+                               2, moments=2, counts=2)
+    assert tr.state_bytes_per_rank() == want
+    whole = cs.spec_state_bytes(opt.whole_shapes, [None] * len(tr.specs), 2,
+                                moments=2, counts=2)
+    assert want < 0.6 * whole
+
+
+def test_state_mismatches_sees_one_flipped_bit_and_structure():
+    a = {"params": {"w": torch.arange(6, dtype=torch.float32)},
+         "opt_state": (torch.tensor(3, dtype=torch.int32),)}
+    b = {"params": {"w": a["params"]["w"].clone()},
+         "opt_state": (a["opt_state"][0].clone(),)}
+    assert cs.state_mismatches(a, b) == []
+    b["params"]["w"].view(torch.int32)[2] ^= 1
+    assert cs.state_mismatches(a, b) == ["['params']['w']"]
+    assert cs.state_mismatches(a, {"params": a["params"]}) == ["<structure>"]
+    c = {"params": {"w": a["params"]["w"].double()},
+         "opt_state": a["opt_state"]}
+    assert cs.state_mismatches(a, c) == ["['params']['w']"]

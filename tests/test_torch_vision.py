@@ -456,9 +456,12 @@ def test_vision_model_save_load_round_trip(tmp_path):
     table = Table({"image": imgs})
     want = model.transform(table)
     model.save(str(tmp_path / "m"))
-    with np.load(tmp_path / "m" / "params.npz") as f:
-        assert "params/stem_conv/kernel" in f.files
-        assert "batch_stats/ResNetBlock_7/BatchNorm_1/var" in f.files
+    from synapseml_tpu_torch.core.serialization import msgpack_restore
+
+    saved = msgpack_restore((tmp_path / "m" / "params.msgpack").read_bytes())
+    assert list(saved) == ["params", "batch_stats"]
+    assert "kernel" in saved["params"]["stem_conv"]
+    assert "var" in saved["batch_stats"]["ResNetBlock_7"]["BatchNorm_1"]
     loaded = PipelineStage.load(str(tmp_path / "m"))
     got = loaded.transform(table)
     assert loaded.getDevice() == "cpu"
@@ -470,33 +473,67 @@ def test_vision_model_save_load_round_trip(tmp_path):
     again = tv.DeepVisionClassifier(
         backbone="resnet18", smallImages=True, batchSize=8, maxEpochs=0,
         device="cpu",
-        pretrainedPath=str(tmp_path / "m" / "params.npz")).fit(
+        pretrainedPath=str(tmp_path / "m" / "params.msgpack")).fit(
         Table({"image": imgs, "label": labels}))
     np.testing.assert_allclose(again.transform(table)["probability"],
                                want["probability"], rtol=0, atol=1e-6)
 
 
 def test_unported_checkpoints_and_mesh_are_refused(tmp_path):
-    from types import SimpleNamespace
+    """What this test once saw refused now loads or fits: a flax msgpack
+    ``pretrainedPath``, a model directory the JAX package saved
+    (``params.msgpack``, its class named under ``synapseml_tpu.``), the
+    ``params.npz`` of the port's earlier versions, and a ResNet with
+    BatchNorm fit on a data mesh (here one gloo rank; two ranks against
+    the JAX package's global batch are in ``tests/test_torch_trainer.py``'s
+    spawn)."""
+    import torch.distributed as dist
+    from flax.serialization import to_bytes
+
+    from synapseml_tpu.core import Table as JTable
+    from synapseml_tpu.dl import vision as jv
+    from synapseml_tpu_torch.parallel import init_distributed, make_mesh
 
     imgs, y = _vision_table(8)
     table = Table({"image": imgs, "label": y})
+    torch.manual_seed(4)
+    variables = resnet_to_reference(tb.TinyCNN(3).state_dict())
+    variables["batch_stats"] = {}
     blob = tmp_path / "w.msgpack"
-    blob.write_bytes(b"\x82\xa6params\x80")
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        tv.DeepVisionClassifier(backbone="tiny", device="cpu",
-                                pretrainedPath=str(blob)).fit(table)
-    saved = tmp_path / "jax_model"
-    tv.DeepVisionClassifier(backbone="tiny", batchSize=4,
-                            device="cpu").fit(table).save(str(saved))
-    os.rename(saved / "params.npz", saved / "params.msgpack")
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        PipelineStage.load(str(saved))
-    mesh = SimpleNamespace(shape={"data": 2})
-    tr = Trainer(_port_resnet(tb.ResNetBlock, small=True),
-                 TrainConfig(batch_size=4), mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        tr.fit(_images(4, 8), np.zeros(4, np.int32))
+    blob.write_bytes(to_bytes(variables))
+    est = tv.DeepVisionClassifier(backbone="tiny", device="cpu", maxEpochs=0,
+                                  pretrainedPath=str(blob)).fit(table)
+    for k, v in resnet_from_reference(variables).items():
+        assert torch.equal(est.trainer.model.state_dict()[k], v), k
+    jax_dir = tmp_path / "jax_model"
+    jmodel = jv.DeepVisionClassifier(backbone="tiny", batchSize=4).fit(
+        JTable({"image": imgs, "label": y}))
+    jmodel.save(str(jax_dir))
+    loaded = PipelineStage.load(str(jax_dir), device="cpu")
+    np.testing.assert_allclose(
+        loaded.transform(Table({"image": imgs}))["probability"],
+        jmodel.transform(JTable({"image": imgs}))["probability"],
+        rtol=0, atol=1e-5)
+    old = tmp_path / "npz_model"
+    est.save(str(old))
+    np.savez(old / "params.npz", **resnet_to_reference(
+        est.trainer.model.state_dict(), nested=False))
+    os.remove(old / "params.msgpack")
+    np.testing.assert_array_equal(
+        PipelineStage.load(str(old)).transform(table)["probability"],
+        est.transform(table)["probability"])
+    init_distributed("gloo", str(tmp_path / "store"), 0, 1)
+    try:
+        X = _images(4, 8)
+        fits = []
+        for mesh in (make_mesh({"data": 1}, device="cpu"), None):
+            tr = Trainer(_port_resnet(tb.ResNetBlock, small=True),
+                         TrainConfig(batch_size=4), mesh=mesh, device="cpu")
+            fits.append(tr.fit(X, np.zeros(4, np.int32)).step_stats[0]
+                        ["loss"])
+        assert np.isfinite(fits[0]) and fits[0] == fits[1]
+    finally:
+        dist.destroy_process_group()
 
 
 def test_default_device_is_the_card(monkeypatch):
