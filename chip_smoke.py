@@ -266,6 +266,27 @@ Phases, each of which fails the run if it fails:
    ZeRO checkpoint of the two ranks restored in one process is bitwise
    their gathered state (its msgpack bytes equal). No kernel of ours runs
    on this path.
+17. distributed GBDT: ``train_booster(X, y, cfg, mesh=make_mesh({"data":
+   2}))`` on two gloo ranks sharing the card (a ``FileStore`` in a
+   temporary directory), both given phase 3's ``--rows`` table, each
+   holding its 1M-row block; 10 iterations, 31 leaves, max_bin 255:
+   ``tree_learner="data"`` on the f32, bf16 and int8 wires, "feature",
+   "voting" (top_k 8), "auto" (the router's choice and predicted seconds
+   per tree logged) and depthwise "data". Checks: model strings equal
+   across ranks; every rank launches ``child_histogram`` and
+   ``range_histogram`` (``level_histograms`` depthwise); on 200k held-out
+   rows data/f32 probabilities within ``DIST_PROB_TOL`` of a one-process
+   fit, int8 AUC within ``DIST_AUC_TOL`` of f32 and every wire's within
+   it of the JAX package's on the same table (``DIST_REFERENCE_AUC``; its
+   bf16 wire loses 0.003 against f32 at 2M rows), voting AUC at least
+   data's less ``DIST_VOTING_AUC_GAP``; on the decisive fixture int8
+   trees equal f32's and feature probabilities within
+   ``DIST_IDENTITY_TOL`` of data's; ``allreduce_sum_quantized`` and
+   ``reduce_scatter_sum_quantized`` on card tensors bitwise across ranks
+   and within n scale / 2 of the float64 sums. Logged per rank and run:
+   per iteration the histogram kernels' ms (CUDA events), the collectives'
+   ms (wall, pinned staging included) and the rest, and per tree the
+   collectives and the bytes on the wire and staged.
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 9's ring and
@@ -479,6 +500,36 @@ STATE_SAVE_TOL = 1e-6          # save / load of the same weights
 STATE_FIXTURE_TOL = 1e-5       # the JAX package's logits of its fixture
 STATE_RANK_LOSS_TOL = 1e-4     # two ranks against one process, relative
 STATE_FIXTURE = REPO / "tests" / "resources" / "torch_port" / "tiny_cnn_jax"
+# phase 17: distributed GBDT, two gloo ranks sharing the card, each holding
+# its block of the --rows HIGGS-shaped table (1M rows of the default 2M)
+DIST_RANKS, DIST_ITERS, DIST_EVAL_ROWS = 2, 10, 200_000
+DIST_RUNS = (
+    ("data_f32", dict(tree_learner="data", hist_allreduce_dtype="f32")),
+    ("data_bf16", dict(tree_learner="data", hist_allreduce_dtype="bf16")),
+    ("data_int8", dict(tree_learner="data", hist_allreduce_dtype="int8")),
+    ("feature", dict(tree_learner="feature")),
+    # 28 features beat 2 top_k only below top_k = 14
+    ("voting", dict(tree_learner="voting", top_k=8)),
+    ("auto", dict(tree_learner="auto")),
+    ("depthwise", dict(tree_learner="data", growth_policy="depthwise")))
+DIST_PROB_TOL = 5e-3        # tests/test_distributed.py:126-129's bound
+DIST_AUC_TOL = 1e-3         # int8 wire AUC against f32; each wire's
+                            # against the JAX package's on the same table
+# the JAX package's held-out AUC of each wire on this phase's table (the
+# CPU, two virtual devices: tools/dist_gbdt_reference_auc.py), by --rows.
+# Its bf16 wire gives up 0.003045 against f32 at 2M rows, so the bf16 rung
+# is held to it rather than to f32 (the port's reproduces it)
+DIST_REFERENCE_AUC = {2_000_000: {"f32": 0.950174, "bf16": 0.947129,
+                                  "int8": 0.949794}}
+DIST_VOTING_AUC_GAP = 0.02  # tests/test_voting.py:42-54
+# the identity fixture: tests/test_distributed_gbdt_collectives.py's
+# decisive table and config
+DIST_DECISIVE_ROWS, DIST_DECISIVE_FEATURES = 4096, 16
+DIST_DECISIVE_CFG = dict(objective="binary", num_iterations=3, num_leaves=8,
+                         max_bin=256, seed=7)
+DIST_IDENTITY_TOL = 1e-6
+# the sizes phase 17's ranks take from this process (a rehearsal's smaller)
+_DIST_SETTINGS = ("DIST_ITERS", "DIST_EVAL_ROWS", "DIST_DECISIVE_ROWS")
 
 
 def log(msg: str) -> None:
@@ -4907,10 +4958,256 @@ def state_path(dev: str) -> None:
         torch.backends.cudnn.deterministic = deterministic
 
 
+# ---------------------------------------------------------------------------
+# phase 17: distributed GBDT
+# ---------------------------------------------------------------------------
+
+def decisive_table(rows: int = DIST_DECISIVE_ROWS,
+                   features: int = DIST_DECISIVE_FEATURES, seed: int = 0):
+    """The JAX package's decisive fixture: the label rides thresholds of
+    features 0-3 with margins far above the int8 grid's noise."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(rows, features)).astype(np.float32)
+    margin = (1.5 * (X[:, 0] > 0.3) + 1.2 * (X[:, 1] < -0.2)
+              + 1.0 * (X[:, 2] > 0.0) + 0.8 * (X[:, 3] > 0.7)
+              + rng.normal(scale=0.25, size=rows))
+    return X, (margin > 1.4).astype(np.float32)
+
+
+def quantized_inputs(rank: int, world: int) -> tuple:
+    """One rank's inputs of the quantized pair: (32, 256) for the
+    all-reduce, (2 world, 256) for the reduce-scatter."""
+    rng = np.random.default_rng(70 + rank)
+    shape = (32 + 2 * world, 256)
+    x = (rng.normal(size=shape) * 10.0 ** rng.integers(-2, 3, size=shape)
+         ).astype(np.float32)
+    return x[:32], x[32:]
+
+
+def quantized_bound(parts: list, block: int = 256) -> np.ndarray:
+    """Per element, n · scale / 2 of the quantized sum of ``parts`` (one
+    array per rank, rows of ``block`` values): each rank snaps once to the
+    shared grid of its block's max |x| over the ranks / 127."""
+    stack = np.stack(parts).reshape(len(parts), -1, block)
+    scale = np.abs(stack).max(axis=(0, 2)) / 127.0
+    return np.repeat(len(parts) * scale / 2, block).reshape(parts[0].shape)
+
+
+def _tree_shape(booster) -> list:
+    return [(np.asarray(t.split_feature)[:int(t.num_splits)].tolist(),
+             np.asarray(t.split_bin)[:int(t.num_splits)].tolist(),
+             np.asarray(t.left_child)[:int(t.num_splits)].tolist(),
+             np.asarray(t.right_child)[:int(t.num_splits)].tolist())
+            for t in booster.trees]
+
+
+def _dist_rank(rank: int, workdir: str, dev: str, rows: int,
+               settings: dict) -> None:
+    """One rank of phase 17: every run of ``DIST_RUNS`` on its block of the
+    table (kernel launches, kernel and collective time, wire bytes, model
+    digest), the identity fixture and the quantized pair on the card."""
+    import hashlib
+
+    sys.path.insert(0, str(REPO))
+    globals().update(settings)
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+    from synapseml_tpu_torch.gbdt import grower as tg
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+    from synapseml_tpu_torch.parallel import collectives as C
+    from synapseml_tpu_torch.parallel import init_distributed, make_mesh
+
+    init_distributed("gloo", os.path.join(workdir, "store"), rank,
+                     DIST_RANKS, timeout_s=600)
+    mesh = make_mesh({"data": DIST_RANKS}, device=dev)
+    X, y = higgs_like(rows)
+    Xe, _ = higgs_like(DIST_EVAL_ROWS, seed=1)
+    report = {"runs": {}, "identity": {}}
+    for name, kw in DIST_RUNS:
+        cfg = BoosterConfig(objective="binary", num_iterations=DIST_ITERS,
+                            num_leaves=31, max_bin=255, **kw)
+        hk.reset_launch_counts()
+        tg.reset_wire_counts()
+        C.reset_staging_counts()
+        _sync(dev)
+        with kernel_timer(dev) as events:
+            t0 = time.perf_counter()
+            b = train_booster(X, y, cfg, mesh=mesh, device=dev)
+            _sync(dev)
+            fit_s = time.perf_counter() - t0
+        prob = b.predict(Xe)
+        np.save(os.path.join(workdir, f"prob_{name}_{rank}.npy"), prob)
+        report["runs"][name] = dict(
+            model_sha=hashlib.sha256(b.model_string().encode()).hexdigest(),
+            launches=dict(hk.LAUNCHES), fit_s=fit_s,
+            kernel_ms=sum(timed_ms(events).values()),
+            wire=dict(tg.WIRE), staging_bytes=C.STAGING["bytes"],
+            trees=b.num_trees, learner=b.config.tree_learner,
+            splits=int(sum(int(t.num_splits) for t in b.trees)),
+            routing=b.metadata.get("routing"),
+            spans=b.metadata["measures"])
+    Xd, yd = decisive_table(DIST_DECISIVE_ROWS)
+    for name, kw in (("f32", dict(tree_learner="data")),
+                     ("int8", dict(tree_learner="data",
+                                   hist_allreduce_dtype="int8")),
+                     ("feature", dict(tree_learner="feature"))):
+        b = train_booster(Xd, yd, BoosterConfig(**DIST_DECISIVE_CFG, **kw),
+                          mesh=mesh, device=dev)
+        report["identity"][name] = dict(shape=_tree_shape(b),
+                                        prob=b.predict(Xd))
+    x, rs = quantized_inputs(rank, DIST_RANKS)
+    group = mesh.group("data")
+    report["quantized"] = dict(
+        allreduce=C.allreduce_sum_quantized(
+            torch.as_tensor(x, device=dev), group).cpu().numpy(),
+        reduce_scatter=C.reduce_scatter_sum_quantized(
+            torch.as_tensor(rs, device=dev), group).cpu().numpy())
+    with open(os.path.join(workdir, f"dist_{rank}.json"), "w") as f:
+        json.dump(report, f, default=lambda a: np.asarray(a).tolist())
+    torch.distributed.destroy_process_group()
+
+
+def dist_checks(reports: list, probs: dict, p_one, ye,
+                reference: dict = None) -> dict:
+    """Phase 17's checks on the ranks' reports and rank 0's evaluation
+    probabilities (``probs[name]``) beside the one-process fit's
+    (``p_one``) and, where known, the JAX package's AUC of each wire on
+    the same table (``reference``); raises AssertionError naming every
+    failure. Returns the AUCs."""
+    from synapseml_tpu_torch.gbdt.objectives import auc
+
+    bad = []
+    for name, _ in DIST_RUNS:
+        shas = {r["runs"][name]["model_sha"] for r in reports}
+        if len(shas) != 1:
+            bad.append(f"{name}: model strings differ across ranks")
+        kernels = (("level_histograms",) if name == "depthwise"
+                   else ("child_histogram", "range_histogram"))
+        for i, r in enumerate(reports):
+            missing = [k for k in kernels if r["runs"][name]["launches"][k]
+                       <= 0]
+            if missing:
+                bad.append(f"{name}: rank {i} never launched {missing}")
+    aucs = {name: float(auc(torch.as_tensor(ye), torch.as_tensor(p)))
+            for name, p in probs.items()}
+    gap = float(np.abs(probs["data_f32"] - p_one).max())
+    if gap > DIST_PROB_TOL:
+        bad.append(f"data_f32 probabilities {gap:.3g} from one process "
+                   f"(tolerance {DIST_PROB_TOL})")
+    if abs(aucs["data_int8"] - aucs["data_f32"]) > DIST_AUC_TOL:
+        bad.append(f"data_int8 AUC {aucs['data_int8']:.6f} against f32 "
+                   f"{aucs['data_f32']:.6f}")
+    for wire, want in (reference or {}).items():
+        if abs(aucs[f"data_{wire}"] - want) > DIST_AUC_TOL:
+            bad.append(f"data_{wire} AUC {aucs[f'data_{wire}']:.6f} against "
+                       f"the JAX package's {want:.6f}")
+    if aucs["voting"] < aucs["data_f32"] - DIST_VOTING_AUC_GAP:
+        bad.append(f"voting AUC {aucs['voting']:.6f} below data's less "
+                   f"{DIST_VOTING_AUC_GAP}")
+    ident = reports[0]["identity"]
+    if ident["int8"]["shape"] != ident["f32"]["shape"]:
+        bad.append("decisive fixture: int8 trees differ from f32's")
+    fgap = float(np.abs(np.asarray(ident["feature"]["prob"])
+                        - np.asarray(ident["f32"]["prob"])).max())
+    if fgap > DIST_IDENTITY_TOL:
+        bad.append(f"decisive fixture: feature against data {fgap:.3g}")
+    parts = [quantized_inputs(r, len(reports)) for r in range(len(reports))]
+    want = np.sum([p[0].astype(np.float64) for p in parts], axis=0)
+    bound = quantized_bound([p[0] for p in parts])
+    for i, r in enumerate(reports):
+        got = np.asarray(r["quantized"]["allreduce"])
+        if not np.array_equal(got, reports[0]["quantized"]["allreduce"]):
+            bad.append(f"allreduce_sum_quantized differs on rank {i}")
+        if (np.abs(got - want) > bound * (1 + 1e-6)).any():
+            bad.append(f"allreduce_sum_quantized on rank {i} beyond n scale/2")
+        rs_want = np.sum([p[1].astype(np.float64) for p in parts], axis=0)
+        rs_bound = quantized_bound([p[1] for p in parts])
+        chunk = rs_want.shape[0] // len(reports)
+        sl = slice(i * chunk, (i + 1) * chunk)
+        got = np.asarray(r["quantized"]["reduce_scatter"])
+        if (np.abs(got - rs_want[sl]) > rs_bound[sl] * (1 + 1e-6)).any():
+            bad.append(f"reduce_scatter_sum_quantized on rank {i} beyond "
+                       "n scale/2")
+    if bad:
+        raise AssertionError("phase 17: " + "; ".join(bad))
+    return dict(aucs=aucs, prob_gap=gap, feature_gap=fgap)
+
+
+def dist_path(rows: int, dev: str) -> dict:
+    """Phase 17: ``train_booster(mesh=...)`` on two gloo ranks sharing the
+    card, every learner and wire, against a one-process fit."""
+    import torch.multiprocessing as tmp
+
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+    from synapseml_tpu_torch.gbdt.voting import collective_bytes_per_split
+
+    X, y = higgs_like(rows)
+    Xe, ye = higgs_like(DIST_EVAL_ROWS, seed=1)
+    cfg = BoosterConfig(objective="binary", num_iterations=DIST_ITERS,
+                        num_leaves=31, max_bin=255, tree_learner="data")
+    t0 = time.perf_counter()
+    p_one = train_booster(X, y, cfg, device=dev).predict(Xe)
+    log(f"  one process: {rows} rows, {DIST_ITERS} iterations in "
+        f"{time.perf_counter() - t0:.2f}s")
+    del X, y
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        settings = {k: globals()[k] for k in _DIST_SETTINGS}
+        tmp.spawn(_dist_rank, args=(workdir, dev, rows, settings),
+                  nprocs=DIST_RANKS, join=True)
+        log(f"  {DIST_RANKS} ranks spawned, trained and joined in "
+            f"{time.perf_counter() - t0:.1f}s")
+        reports = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(workdir, f"dist_{r}.json")) as f:
+                reports.append(json.load(f))
+        probs = {name: np.load(os.path.join(workdir, f"prob_{name}_0.npy"))
+                 for name, _ in DIST_RUNS}
+    predicted = collective_bytes_per_split(FEATURES, 255)
+    for name, _ in DIST_RUNS:
+        for i, r in enumerate(reports):
+            x = r["runs"][name]
+            it = max(x["trees"], 1)
+            loop = x["spans"]["trainingIterations"] * 1e3 / it
+            kernel = x["kernel_ms"] / it
+            coll = x["wire"]["seconds"] * 1e3 / it
+            gather = x["spans"].get("nodeGather", 0.0) * 1e3 / it
+            log(f"  {name} rank {i} ({x['learner']}): fit {x['fit_s']:.3f}"
+                f" s, binning "
+                f"{x['spans'].get('referenceDataset', 0.0):.3f} + "
+                f"{x['spans'].get('dataPreparation', 0.0):.3f} s; per "
+                f"iteration {loop:.2f} ms = histogram kernels {kernel:.2f} "
+                f"+ histogram collectives {coll:.2f} + leaf gather "
+                f"{gather:.2f} + rest {loop - kernel - coll - gather:.2f}; "
+                "per tree "
+                f"{x['wire']['collectives'] / it:.1f} collectives, "
+                f"{x['wire']['bytes'] / it:.0f} B on the wire, "
+                f"{x['staging_bytes'] / it:.0f} B staged (predicted "
+                f"{predicted} B a split x {x['splits'] / it:.1f} splits + "
+                f"1 root); launches {json.dumps(x['launches'])}")
+    routing = reports[0]["runs"]["auto"]["routing"]
+    log(f"  router: {routing['tree_learner']} ({routing['router']}), "
+        f"predicted s/tree "
+        f"{json.dumps({k: round(v, 6) for k, v in routing['predicted_s_per_tree'].items()})}"
+        f", link {routing['inputs']['link_bytes_per_s']:.4g} B/s")
+    reference = DIST_REFERENCE_AUC.get(rows)
+    out = dist_checks(reports, probs, p_one, ye, reference)
+    log(f"  AUC on {DIST_EVAL_ROWS} held-out rows: "
+        f"{json.dumps({k: round(v, 6) for k, v in out['aucs'].items()})}; "
+        f"the JAX package's: {json.dumps(reference)}; "
+        f"data/f32 against one process max |dp| {out['prob_gap']:.3g}; "
+        f"decisive fixture: int8 trees = f32 trees, feature against data "
+        f"{out['feature_gap']:.3g}; model strings equal across ranks; "
+        "quantized pair bitwise across ranks within n scale/2")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="rows of the HIGGS-shaped table (HIGGS: 11,000,000)")
+    ap.add_argument("--phase", type=int, choices=(17,), default=None,
+                    help="build the kernels and run only this phase (no "
+                    "kernels or result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4935,6 +5232,12 @@ def main() -> int:
     libs = _build.build_all()
     log(f"    built {sorted(libs)} in {time.perf_counter() - t0:.2f}s "
         f"(nvcc seconds: {json.dumps(_build.BUILD_SECONDS)})")
+    if args.phase == 17:
+        log(f"[17] distributed GBDT alone, {args.rows} rows")
+        t0 = time.perf_counter()
+        dist_path(args.rows, dev)
+        log(f"  phase 17 took {time.perf_counter() - t0:.1f}s; {card}")
+        return 0
 
     log(f"[2] kernels against their plain versions, n={args.rows}")
     kernels = kernel_phase(args.rows, dev)
@@ -5009,6 +5312,12 @@ def main() -> int:
     t0 = time.perf_counter()
     state_path(dev)
     log(f"  phase 16 took {time.perf_counter() - t0:.1f}s")
+    log(f"[17] distributed GBDT: train_booster(mesh=...) on {DIST_RANKS} "
+        f"ranks sharing the card, {args.rows} rows, every learner and wire")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist_path(args.rows, dev)
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f}s")
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},

@@ -1,19 +1,33 @@
-"""The analytic prior behind ``seq_attention="auto"``.
+"""The analytic priors behind ``seq_attention="auto"`` and the distributed
+GBDT's ``hist_allreduce_dtype="auto"`` and ``tree_learner="auto"``.
 
 The port's copy of the part of the JAX package's ``core/perfmodel.py`` that
-the text trainer reads: ``suggest_seq_attention``'s wire-byte model of ring
-against Ulysses attention. The JAX package lets recorded ``seq_attention``
-rows of its measurement journal displace the prior; those rows were taken
-on TPUs or CPUs and say nothing of this card, so the port reads none of
-them and decides on the prior alone. It reads nothing from the environment
-either (the JAX package's ``SYNAPSEML_TPU_SEQ_ATTENTION`` override is not
-carried over): an explicit ``"ring"`` or ``"ulysses"`` is how a caller
-overrides it.
+the text trainer and the GBDT router read: ``suggest_seq_attention``'s
+wire-byte model of ring against Ulysses attention, the link probe
+(``link_bandwidth``), ``suggest_wire_dtype`` and ``choose_analytic``. The
+JAX package lets recorded rows of its measurement journal displace these
+priors; those rows were taken on TPUs or CPUs and say nothing of this card,
+so the port reads none of them and decides on the priors alone. Without a
+recorded row the JAX package trusts an analytic prior at
+``ANALYTIC_CONFIDENCE``, below the ``MIN_CONFIDENCE`` that may displace a
+hand-tuned default, so its decisions fall back exactly as the port's do:
+``hist_allreduce_dtype="auto"`` resolves to ``"f32"`` and the tree-learner
+router keeps its cost model's choice, each with fallback provenance. The
+port reads nothing from the environment either (the JAX package's
+``SYNAPSEML_TPU_SEQ_ATTENTION`` override and ``SYNAPSEML_TPU_PERFMODEL``
+switch are not carried over): an explicit value is how a caller overrides.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from . import tuned
+
+MIN_CONFIDENCE = 0.5       # below this a candidate cannot displace the fallback
+ANALYTIC_CONFIDENCE = 0.4  # trust in a pure analytic prior (< MIN_CONFIDENCE)
 
 
 def suggest_seq_attention(heads: int, seq_shards: int) -> Tuple[str, dict]:
@@ -39,3 +53,129 @@ def suggest_seq_attention(heads: int, seq_shards: int) -> Tuple[str, dict]:
     arm = min(cost, key=cost.get)
     return arm, {"arm": arm, "source": "analytic", "analytic_E": cost,
                  "fallback_used": False}
+
+
+# ---------------------------------------------------------------------------
+# Decisions with provenance (the JAX package's Candidate / Decision)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Candidate:
+    """One alternative of a decision: its family ``kind``, its ``arm``,
+    the workload ``features``, an analytic prior in seconds and the
+    ``config`` handed back when it wins."""
+
+    kind: str
+    arm: str
+    features: Dict[str, float] = field(default_factory=dict)
+    analytic_s: Optional[float] = None
+    config: Any = None
+
+
+@dataclass
+class Decision:
+    """The outcome of a decision, with the JAX package's provenance."""
+
+    kind: str
+    arm: str
+    config: Any
+    predicted_s: Optional[float]
+    confidence: float
+    used_fallback: bool
+    fallback_arm: str
+    source: str
+    candidates: List[Dict[str, Any]] = field(default_factory=list)
+    features: Dict[str, float] = field(default_factory=dict)
+
+    def provenance(self) -> Dict[str, Any]:
+        """JSON-safe audit record (the JAX package's keys)."""
+        return {
+            "kind": self.kind,
+            "arm": self.arm,
+            "predicted_s": self.predicted_s,
+            "confidence": round(float(self.confidence), 4),
+            "used_fallback": self.used_fallback,
+            "fallback_arm": self.fallback_arm,
+            "source": self.source,
+            "features": {k: float(v) for k, v in self.features.items()},
+            "candidates": self.candidates,
+        }
+
+
+def featurize(wire_dtype: Optional[str] = None, **extra: float
+              ) -> Dict[str, float]:
+    """The JAX package's flat numeric feature dict (the keys the GBDT
+    decisions use): the wire dtype as its effective bytes per histogram
+    element, every other value as a non-negative float."""
+    f: Dict[str, float] = {}
+    if wire_dtype is not None:
+        f["wire_bytes"] = {"f32": 4.0, "bf16": 8.0 / 3.0,
+                           "int8": 2.0}.get(str(wire_dtype), 4.0)
+    for k, v in extra.items():
+        if v is not None:
+            f[k] = float(v)
+    return {k: max(0.0, float(v)) for k, v in f.items()}
+
+
+def choose_analytic(candidates: Sequence[Candidate], fallback_arm: str
+                    ) -> Decision:
+    """The JAX package's ``choose`` with no recorded rows: every
+    candidate's prediction is its analytic prior (confidence
+    ``ANALYTIC_CONFIDENCE``) or none, none is confident enough to displace
+    the fallback, so the fallback arm wins, with every prior in the
+    provenance."""
+    if not candidates:
+        raise ValueError("choose_analytic() needs at least one candidate")
+    kind = candidates[0].kind
+    by_arm = {c.arm: c for c in candidates}
+    fb = by_arm.get(fallback_arm, candidates[0])
+    preds = {c.arm: ((float(c.analytic_s), ANALYTIC_CONFIDENCE, "analytic")
+                     if c.analytic_s is not None else (math.inf, 0.0, "none"))
+             for c in candidates}
+    prov = [{"arm": a, "predicted_s": (None if math.isinf(sec)
+                                       else round(sec, 9)),
+             "confidence": round(conf, 4), "source": src}
+            for a, (sec, conf, src) in preds.items()]
+    sec, conf, src = preds[fb.arm]
+    return Decision(kind, fb.arm, fb.config,
+                    None if math.isinf(sec) else float(sec), float(conf),
+                    True, fallback_arm,
+                    src if not math.isinf(sec) else "fallback", prov,
+                    dict(fb.features))
+
+
+def link_bandwidth(mesh) -> float:
+    """The mesh's all-reduce bandwidth (bytes/s), measured once per mesh
+    layout and process (``parallel.collectives.probe_link_bandwidth``,
+    every rank of the mesh gets the same value). Every rank must call it:
+    the probe runs collectives, and a failure raises on the rank it hit."""
+    from ..parallel.collectives import probe_link_bandwidth
+
+    fp = tuned.mesh_fingerprint(mesh)
+    return float(tuned.measured_or(("link_bytes_per_s", fp),
+                                   lambda: probe_link_bandwidth(mesh)))
+
+
+def suggest_wire_dtype(n_rows: float, nfeat: float, workers: float,
+                       max_bin: float, num_leaves: float,
+                       link_bps: Optional[float],
+                       fallback: str = "f32") -> Tuple[str, Decision]:
+    """``hist_allreduce_dtype`` for the histogram merges: each rung's
+    analytic per-tree seconds (splits x wire bytes of a full histogram /
+    link bandwidth) go into the provenance, and, with no recorded rows to
+    trust, the ``fallback`` (exact f32) is chosen, as in the JAX package
+    without a measured match (the lossy rungs trade accuracy, not only
+    time)."""
+    cands = []
+    for wd in ("f32", "bf16", "int8"):
+        feats = featurize(wire_dtype=wd, rows=n_rows, nfeat=nfeat,
+                          workers=workers, max_bin=max_bin,
+                          num_leaves=num_leaves)
+        analytic = None
+        if link_bps:
+            per_split = nfeat * max_bin * 3.0 * feats["wire_bytes"]
+            analytic = max(1, num_leaves - 1) * per_split / float(link_bps)
+        cands.append(Candidate("gbdt_wire_dtype", wd, feats,
+                               analytic_s=analytic, config=wd))
+    dec = choose_analytic(cands, fallback)
+    return dec.arm, dec

@@ -31,11 +31,37 @@ per-tree contributions with the current weights.
 ``start_iteration``), predicts leaf indices, computes TreeSHAP
 contributions (``shap.py``) and dumps LightGBM's text and JSON formats.
 
+Distributed (``mesh=``, a ``parallel.make_mesh`` of an initialised
+``torch.distributed`` world; every rank calls ``train_booster`` with the
+same whole ``X``, ``y`` and config). The JAX package's single-process mesh
+mapped onto ranks: the rows are padded to a multiple of the ``data`` axis
+as it pads them (the last row repeated, label, weight and valid mask 0),
+each rank bins and keeps its contiguous block of them on its device (the
+``(FP, N / k)`` bin matrix, the memory that matters) and grows every tree
+over its block, with a histogram reduction after each kernel
+(``grower``); the O(N) vectors (labels, weights, scores, gradients, the
+sampling masks) stay whole on every rank, so every global-row quantity
+(bagging and GOSS draws, lambdarank groups, the base score, validation)
+comes out as the JAX package's global arrays give it, and each tree's
+``node_of_row`` blocks are gathered to update the score. Every rank returns
+the same booster, with a model string bitwise the same. ``tree_learner``:
+"data" (and "serial", the same on a mesh), "feature" (the owned-feature
+reduce-scatter; it falls back to "data" when the padded features do not
+divide the axis), "voting" (``voting.py``; it runs only when the features
+outnumber ``2 top_k``) and "auto" (the measured router: one timed
+all-reduce and, where voting is a candidate, one timed election, cached per
+mesh and agreed by the ranks, then ``voting.route_parallelism``; the
+decision lands in ``Booster.metadata["routing"]``). Without a mesh every
+learner trains the serial trees, as in the JAX package.
+``hist_allreduce_dtype`` "f32", "bf16", "int8" picks the histogram wire,
+"auto" resolves to "f32" (``core.perfmodel``). With a checkpoint store on a
+mesh rank 0 commits the snapshot and every rank waits for it.
+
 ``BoosterConfig`` keeps every field name and default of the JAX config, so a
-config carries across unchanged. ``train_booster`` rejects every setting and
-argument the slice does not port with ``NotImplementedError`` naming it:
-the voting and feature-parallel learners, the JAX grower's other engine
-knobs and meshes. ``Booster.to_onnx`` raises it too.
+config carries across unchanged. ``train_booster`` rejects every setting the
+slice does not port with ``NotImplementedError`` naming it: the JAX grower's
+other engine knobs (``row_layout``, ``partition_impl``,
+``use_segmented=False``). ``Booster.to_onnx`` raises it too.
 """
 
 from __future__ import annotations
@@ -50,6 +76,7 @@ import torch
 
 from ..core import prng
 from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..parallel.collectives import allgather
 from ..ops.quantize import (BinMapper, apply_bins, bin_threshold_to_value,
                             compute_bin_mapper)
 from .dataset import Dataset, _is_sparse, sparse_bin_mapper
@@ -119,8 +146,8 @@ class BoosterConfig:
     feature_fraction_seed: int = 0
     extra_seed: int = 0
     start_iteration: int = 0              # prediction start (predict window)
-    # distributed tree learner; without a mesh every value but voting /
-    # feature is the single-device learner
+    # distributed tree learner; without a mesh every value trains the
+    # serial trees
     tree_learner: str = "auto"
     top_k: int = 20
     # engine knobs of the JAX grower; the port has one implementation of
@@ -166,16 +193,20 @@ class BoosterConfig:
 
         check("boosting_type",
               self.boosting_type in ("gbdt", "goss", "dart", "rf"))
-        check("tree_learner", self.tree_learner not in ("voting", "feature"))
         check("partition_impl", self.partition_impl == "sort")
         check("row_layout", self.row_layout == "partition")
         check("use_segmented", self.use_segmented in (None, True))
         return out
 
-    def grower(self, has_categorical: bool = False) -> GrowerConfig:
+    def grower(self, has_categorical: bool = False,
+               feature_shards: int = 1) -> GrowerConfig:
         # rf trees are averaged, not shrunk
         lr = 1.0 if self.boosting_type == "rf" else self.learning_rate
+        feature_mode = self.tree_learner == "feature" and feature_shards > 1
         return GrowerConfig(
+            hist_reduce="scatter" if feature_mode else "allreduce",
+            feature_shards=feature_shards if feature_mode else 1,
+            hist_allreduce_dtype=self.hist_allreduce_dtype,
             has_categorical=has_categorical,
             cat_smooth=self.cat_smooth,
             cat_l2=self.cat_l2,
@@ -564,6 +595,113 @@ def _ranking_objective(cfg: BoosterConfig, y: np.ndarray,
                                 cfg.label_gain)
 
 
+def _grow_one(binned, bT, g, h, in_bag, feature_active, grower_cfg,
+              cfg: BoosterConfig, block, mesh, voting: bool, **kw):
+    """One tree from the (n,) gradient rows ``g``/``h`` of one class:
+    (TreeArrays, the leaf of every row the grower read). On a mesh the
+    grower reads this rank's ``block`` of the rows (``binned``/``bT`` hold
+    only it); with ``voting`` the tree grows on the columns the ranks elect
+    (``voting.voting_select``) and its split features are mapped back."""
+    if block is not None:
+        g, h, bag = g[block], h[block], in_bag[block]
+    else:
+        bag = in_bag
+    if voting:
+        from .voting import remap_tree_features, voting_select
+
+        sel = voting_select(binned, g * bag, h * bag, bag, mesh, cfg.top_k,
+                            cfg.max_bin, cfg.lambda_l2,
+                            max(cfg.min_data_in_leaf, 1),
+                            feature_active=feature_active)
+        sel_d = torch.as_tensor(sel, device=binned.device)
+        pick = {name: np.asarray(kw[name])[sel]
+                for name in ("nan_bins", "monotone", "is_categorical",
+                             "cat_nbins")}
+        tree, node = grow_tree(binned[:, sel_d], g, h, bag,
+                               feature_active[sel_d], grower_cfg,
+                               stats=kw["stats"], node_key=kw["node_key"],
+                               mesh=mesh, **pick)
+        tree = remap_tree_features(tree, sel)
+    else:
+        tree, node = grow_tree(binned, g, h, bag, feature_active, grower_cfg,
+                               bT0=bT, mesh=mesh, **kw)
+    return tree, node
+
+
+def _perfmodel_route(cfg, n_rows, nfeat, n_workers, choice, info,
+                     feature_ok) -> str:
+    """The learned-model layer over ``route_parallelism``'s choice: each
+    arm's analytic prediction as its prior; with no recorded rows to trust
+    (``core.perfmodel``) the cost model's choice stands. The provenance
+    lands in ``info["perfmodel"]``."""
+    from ..core import perfmodel
+
+    feats = perfmodel.featurize(
+        wire_dtype=cfg.hist_allreduce_dtype, rows=n_rows, nfeat=nfeat,
+        workers=n_workers, max_bin=cfg.max_bin, top_k=cfg.top_k,
+        num_leaves=cfg.num_leaves)
+    pred = info.get("predicted_s_per_tree") or {}
+    arms = ["data", "voting"] + (["feature"] if feature_ok else [])
+    dec = perfmodel.choose_analytic(
+        [perfmodel.Candidate("gbdt_tree_learner", arm, feats,
+                             analytic_s=pred.get(arm), config=arm)
+         for arm in arms], fallback_arm=choice)
+    info["perfmodel"] = dec.provenance()
+    return choice
+
+
+def _auto_route(cfg: BoosterConfig, mesh, binned, nfeat: int, n_rows: int,
+                has_categorical: bool):
+    """``tree_learner="auto"`` → ``(learner, info)``. Without a mesh (or
+    on one rank) the static rule; on a mesh the measured router: the link
+    probe and, when voting is a candidate (F > 2k), a timed election on
+    this rank's block ``binned``, both cached per mesh (``core.tuned``) and
+    agreed by the ranks (the MAX of their seconds), so every rank takes the
+    same decision; then ``voting.route_parallelism``. ``info`` becomes
+    ``Booster.metadata["routing"]``."""
+    from .voting import recommend_tree_learner, route_parallelism
+
+    if mesh is None:
+        return "data", {"tree_learner": "data", "router": "static",
+                        "reason": "no mesh: serial == data-parallel-of-1"}
+    from ..core import tuned
+    from ..ops.hist_kernel import features_padded
+    from ..parallel.collectives import probe_link_bandwidth
+
+    n_workers = int(mesh.shape.get("data", 1))
+    if n_workers <= 1:
+        choice = recommend_tree_learner(
+            nfeat, cfg.max_bin, cfg.top_k, cfg.num_leaves, n_hosts=1,
+            rows_per_host=n_rows,
+            dtype_bytes=(8 / 3 if cfg.hist_allreduce_dtype == "bf16" else 4))
+        return choice, {"tree_learner": choice, "router": "static",
+                        "reason": "single worker"}
+    fp = tuned.mesh_fingerprint(mesh)
+    link = tuned.measured_or(("link_bytes_per_s", fp),
+                             lambda: probe_link_bandwidth(mesh))
+    sel_s, sel_frac = None, 1.0
+    if nfeat > 2 * cfg.top_k:
+        from .voting import time_selection
+
+        sel_s, sel_frac = tuned.measured_or(
+            ("selection_s_per_tree", fp, int(n_rows), nfeat, cfg.max_bin,
+             cfg.top_k),
+            lambda: time_selection(binned, mesh, cfg.top_k, cfg.max_bin,
+                                   lambda_l2=cfg.lambda_l2,
+                                   min_data=max(cfg.min_data_in_leaf, 1)))
+    feature_ok = (not has_categorical and cfg.growth_policy == "leafwise"
+                  and cfg.row_layout == "partition"
+                  and features_padded(nfeat) % n_workers == 0)
+    choice, info = route_parallelism(
+        nfeat, cfg.max_bin, cfg.top_k, cfg.num_leaves, n_workers=n_workers,
+        rows_per_worker=max(n_rows // n_workers, 1), link_bytes_per_s=link,
+        selection_s_per_tree=sel_s, selection_fraction_of_rows=sel_frac,
+        wire_dtype=cfg.hist_allreduce_dtype, feature_parallel_ok=feature_ok)
+    info["router"] = "measured"
+    return _perfmodel_route(cfg, n_rows, nfeat, n_workers, choice, info,
+                            feature_ok), info
+
+
 def _reject_unported(config: BoosterConfig, **args) -> None:
     """Raise naming every argument set away from its default and every
     config setting the port does not implement."""
@@ -573,8 +711,7 @@ def _reject_unported(config: BoosterConfig, **args) -> None:
     bad += config.unported()
     if bad:
         raise NotImplementedError(
-            "not ported to the PyTorch package yet: " + ", ".join(bad)
-            + " (the port trains with the serial learner)")
+            "not ported to the PyTorch package yet: " + ", ".join(bad))
 
 
 def _is_rank_metric(name: str) -> bool:
@@ -722,7 +859,7 @@ def _f32(x: float, dev) -> torch.Tensor:
 
 
 def _sample_rows_impl(cfg: BoosterConfig, n: int, key0, it: int, g, h,
-                      in_bag_cur, yj=None):
+                      in_bag_cur, yj=None, valid_mask=None):
     """(in_bag, g, h, in_bag_cur) of iteration ``it``; ``g``/``h`` are the
     (K, n) gradient rows, ``in_bag_cur`` the bag carried between bagging
     rounds. GOSS keeps the ``int(top_rate n)`` rows of largest sum over
@@ -730,7 +867,8 @@ def _sample_rows_impl(cfg: BoosterConfig, n: int, key0, it: int, g, h,
     ``other_rate n / (n - top_n)``, their g and h amplified by
     ``(1 - top_rate) / other_rate``; bagging draws a fresh bag (per label
     when stratified) every ``bagging_freq`` iterations and carries it
-    between."""
+    between. ``valid_mask`` (n,) zeroes the padding rows of a mesh out of
+    every draw (None: no padding)."""
     dev = g.device
     stratified = (cfg.pos_bagging_fraction < 1.0
                   or cfg.neg_bagging_fraction < 1.0)
@@ -752,6 +890,8 @@ def _sample_rows_impl(cfg: BoosterConfig, n: int, key0, it: int, g, h,
         wmask = torch.where(ranks < top_n, _f32(1.0, dev),
                             torch.where(pick, _f32(amp, dev),
                                         _f32(0.0, dev)))
+        if valid_mask is not None:
+            wmask = wmask * valid_mask
         return ((wmask > 0).to(torch.float32), g * wmask[None],
                 h * wmask[None], in_bag_cur)
     if do_bag:
@@ -766,6 +906,8 @@ def _sample_rows_impl(cfg: BoosterConfig, n: int, key0, it: int, g, h,
         else:
             frac = _f32(cfg.bagging_fraction, dev)
         bag = (u < frac).to(torch.float32)
+        if valid_mask is not None:
+            bag = bag * valid_mask
         return bag, g, h, bag
     return in_bag_cur, g, h, in_bag_cur
 
@@ -941,18 +1083,26 @@ def train_booster(
       ``monotone_constraints``): the JAX package's draws (module
       docstring); none adds a host sync.
 
-    ``mesh``, the one argument of the JAX signature that the port does not
-    implement, must stay None (``NotImplementedError`` otherwise).
+    * ``mesh``: a ``parallel.make_mesh`` mesh with a ``data`` axis; every
+      rank of the world calls with the same arguments and gets the same
+      booster (module docstring). ``device`` must be of the mesh's kind;
+      the fit runs on the mesh's device.
+
     ``Booster.metadata["host_syncs"]`` counts device→host reads of the
     growth loop (the grower modules state how many a tree costs, plus one
     per iteration for the validation metric)."""
     from ..core.logging import InstrumentationMeasures
 
     cfg = config
-    _reject_unported(cfg, mesh=mesh)
+    _reject_unported(cfg)
     if measures is None:
         measures = InstrumentationMeasures()
     dev = resolve_device(device)
+    if mesh is not None:
+        if mesh.device.type != dev.type:
+            raise ValueError(f"train_booster(device={device!r}) on a mesh of "
+                             f"{mesh.device}")
+        dev = mesh.device
     fit_t0 = _time.perf_counter()
     ckpt_store = checkpoint_store
     if isinstance(ckpt_store, str):
@@ -1031,9 +1181,40 @@ def train_booster(
             f"bin mapper has max_bin={mapper.max_bin} but config.max_bin="
             f"{cfg.max_bin}; rebuild the Dataset/mapper with the matching "
             "max_bin")
+    # a mesh: rows padded to a multiple of the data axis (the last row
+    # repeated, label / weight / valid mask 0), each rank's block of them
+    # binned and kept on its device
+    n, block, valid_mask = n_orig, None, None
+    if mesh is not None:
+        from ..parallel.mesh import DATA_AXIS, check_same_inputs, row_block
+
+        check_same_inputs(mesh, "data shape, config and labels",
+                          (n_orig, nfeat),
+                          sorted(dataclasses.asdict(cfg).items()), y)
+        rem = (-n_orig) % int(mesh.shape[DATA_AXIS])
+        if rem:
+            if binned is not None:
+                binned = torch.cat([binned,
+                                    binned[-1:].expand(rem, nfeat)])
+            if not isinstance(X, Dataset):
+                X = np.concatenate([X, np.repeat(X[-1:], rem, axis=0)])
+            y = np.concatenate([y, np.zeros(rem, np.float32)])
+            w = np.concatenate([w, np.zeros(rem, np.float32)])
+            if init_score is not None:
+                init_score = np.concatenate(
+                    [np.asarray(init_score, np.float32).reshape(n_orig, -1),
+                     np.zeros((rem, int(np.size(init_score)) // n_orig),
+                              np.float32)])
+            valid_mask = torch.cat([torch.ones(n_orig), torch.zeros(rem)]
+                                   ).to(dev)
+            n = n_orig + rem
+        block = slice(*row_block(n, mesh))
     with measures.span("dataPreparation"):
         if binned is None:
-            binned = apply_bins(mapper, X, dev)
+            binned = apply_bins(mapper, X if block is None else X[block],
+                                dev)
+        elif block is not None:
+            binned = binned[block].clone()
         bT = transpose_bins(binned)          # one per fit, read by every tree
 
     k = cfg.num_class if cfg.objective in MULTICLASS else 1
@@ -1064,10 +1245,10 @@ def train_booster(
     # (n, K): the base score of each class (and init_score), the margin
     # DART rebuilds its score from
     init_margin = torch.as_tensor(base[:k].astype(np.float32)).to(dev).repeat(
-        n_orig, 1)
+        n, 1)
     if init_score is not None:
         extra = torch.as_tensor(
-            np.asarray(init_score, np.float32).reshape(n_orig, -1)).to(dev)
+            np.asarray(init_score, np.float32).reshape(n, -1)).to(dev)
         init_margin = init_margin + extra
     if init_model is None:
         score = init_margin.clone()
@@ -1078,9 +1259,9 @@ def train_booster(
     n_init_trees = len(trees)
     # dart: every tree's training contribution (a warm start's too: they
     # are drop candidates)
-    tree_contribs = (_per_tree_contribs(init_model, X, n_orig, dev)
+    tree_contribs = (_per_tree_contribs(init_model, X, n, dev)
                      if dart_mode and init_model is not None
-                     else _Contribs(n_orig, dev))
+                     else _Contribs(n, dev))
 
     has_valid = valid is not None
     if has_valid:
@@ -1116,7 +1297,44 @@ def train_booster(
                           else _Contribs(nv, dev))
 
     is_cat = np.asarray(mapper.is_categorical, bool)
-    grower_cfg = cfg.grower(has_categorical=bool(is_cat.any()))
+    # the wire and the learner resolve before the grower config: the
+    # learner decides the grower's reduction (feature = owned-feature
+    # reduce-scatter); the resolved values land on cfg, as in the JAX
+    # package, and the decisions in Booster.metadata
+    autoconfig_info = {}
+    if cfg.hist_allreduce_dtype == "auto":
+        from .grower import resolve_wire_dtype
+
+        wd, wdec = resolve_wire_dtype(cfg, mesh, n, nfeat)
+        cfg.hist_allreduce_dtype = wd
+        autoconfig_info["wire_dtype"] = wdec.provenance()
+    routing_info = None
+    if cfg.tree_learner == "auto":
+        cfg.tree_learner, routing_info = _auto_route(
+            cfg, mesh, binned, nfeat, n, bool(is_cat.any()))
+    n_workers = 1 if mesh is None else int(mesh.shape.get("data", 1))
+    feature_shards = 1
+    if cfg.tree_learner == "feature" and n_workers > 1:
+        from ..ops.hist_kernel import features_padded
+
+        feature_shards = n_workers
+        if features_padded(nfeat) % feature_shards:
+            import warnings
+
+            warnings.warn(
+                f"tree_learner='feature': features_padded({nfeat})="
+                f"{features_padded(nfeat)} is not divisible by the "
+                f"{feature_shards}-way data axis of this mesh; falling back "
+                "to data-parallel histograms")
+            cfg.tree_learner, feature_shards = "data", 1
+            if routing_info is not None:
+                routing_info = dict(routing_info, tree_learner="data",
+                                    fallback="feature_shards_indivisible")
+    # as in the JAX package, a one-rank mesh elects its columns too
+    voting = (cfg.tree_learner == "voting" and mesh is not None
+              and nfeat > 2 * cfg.top_k)
+    grower_cfg = cfg.grower(has_categorical=bool(is_cat.any()),
+                            feature_shards=feature_shards)
     # each categorical feature's DISTINCT category count picks one-vs-rest
     # (a mapper without cat_counts falls back to its bin count)
     cc = (np.asarray(mapper.cat_counts, np.int32)
@@ -1130,7 +1348,8 @@ def train_booster(
         mono[: len(mc)] = mc
     key0 = prng.prng_key(cfg.seed)
     bynode = cfg.feature_fraction_bynode < 1.0
-    in_bag_cur = torch.ones(n_orig, dtype=torch.float32, device=dev)
+    in_bag_cur = (torch.ones(n, dtype=torch.float32, device=dev)
+                  if valid_mask is None else valid_mask.clone())
     # DART's drop decisions (host numpy, as in the JAX package)
     rng = np.random.default_rng(cfg.seed)
     stats = {"host_syncs": 0}
@@ -1139,7 +1358,7 @@ def train_booster(
     if ckpt_store is not None:
         from ..core.checkpoint import CheckpointError, preemption_point
 
-        fingerprint = _train_fingerprint(cfg, n_orig, nfeat, y, n_init_trees)
+        fingerprint = _train_fingerprint(cfg, n, nfeat, y, n_init_trees)
         state = _ckpt_load_gbdt(ckpt_store, fingerprint) if resume else None
         if state is not None:
             start_it = int(state["iteration"])
@@ -1148,7 +1367,7 @@ def train_booster(
             score = torch.as_tensor(state["score"]).to(dev)
             in_bag_cur = torch.as_tensor(state["in_bag_cur"]).to(dev)
             tree_contribs = _Contribs.from_host(state["tree_contribs"],
-                                                n_orig, dev)
+                                                n, dev)
             rng = state["rng"]
             if has_valid:
                 sv = np.asarray(state["score_v"], np.float32)
@@ -1187,15 +1406,15 @@ def train_booster(
             # every class's gradients once per iteration, as (K, n) rows so
             # that each tree reads a contiguous one
             if fobj is not None:
-                g, h = _custom_grad_hess(fobj, score_it, yj, wj, n_orig, k)
+                g, h = _custom_grad_hess(fobj, score_it, yj, wj, n, k)
             else:
                 g, h = obj.grad_hess(score_it[:, 0] if k == 1 else score_it,
                                      yj, wj)
-            g = g.reshape(n_orig, k).t().contiguous()
-            h = h.reshape(n_orig, k).t().contiguous()
+            g = g.reshape(n, k).t().contiguous()
+            h = h.reshape(n, k).t().contiguous()
             with measures.span("sampling"):
                 in_bag, g, h, in_bag_cur = _sample_rows_impl(
-                    cfg, n_orig, key0, it, g, h, in_bag_cur, yj)
+                    cfg, n, key0, it, g, h, in_bag_cur, yj, valid_mask)
                 feature_active = _sample_features_impl(cfg, nfeat, key0,
                                                        it, dev)
             new_weight = 1.0
@@ -1204,12 +1423,18 @@ def train_booster(
                               if cfg.xgboost_dart_mode
                               else 1.0 / (kdrop + 1.0))
             for c in range(k):
-                tree, node = grow_tree(
-                    binned, g[c], h[c], in_bag, feature_active, grower_cfg,
-                    nan_bins=nan_bins, bT0=bT, stats=stats, monotone=mono,
+                tree, node = _grow_one(
+                    binned, bT, g[c], h[c], in_bag, feature_active,
+                    grower_cfg, cfg, block, mesh, voting, stats=stats,
+                    nan_bins=nan_bins, monotone=mono, is_categorical=is_cat,
+                    cat_nbins=cat_nbins,
                     node_key=(_node_key_data(key0, it, c) if bynode
-                              else None),
-                    is_categorical=is_cat, cat_nbins=cat_nbins)
+                              else None))
+                if block is not None:
+                    # every rank's block of leaves, for the whole score
+                    with measures.span("nodeGather"):
+                        node = allgather(node, mesh.group("data"),
+                                         tiled=True)
                 contrib = tree.leaf_value[node]
                 if dart_mode:
                     tree_contribs.append(c, contrib)
@@ -1275,19 +1500,25 @@ def train_booster(
                     cb(it, trees)
             if ckpt_store is not None and (it + 1) % checkpoint_every == 0:
                 trees = trees_to_host(trees)
-                payload = {"iteration": it + 1, "trees": trees,
-                           "tree_weights": list(tree_weights),
-                           "score": score.cpu().numpy(),
-                           "in_bag_cur": in_bag_cur.cpu().numpy(),
-                           "tree_contribs": tree_contribs.to_host(),
-                           "rng": rng}
-                if has_valid:
-                    payload.update(score_v=score_v.cpu().numpy(),
-                                   valid_contribs=valid_contribs.to_host(),
-                                   best_metric=best_metric,
-                                   best_iter=best_iter, history=history)
-                _ckpt_save_gbdt(ckpt_store, it + 1, payload, fingerprint,
-                                measures)
+                # on a mesh rank 0 commits and every rank waits until it has
+                # (a rank that resumes must find the snapshot)
+                if mesh is None or mesh.rank == 0:
+                    payload = {"iteration": it + 1, "trees": trees,
+                               "tree_weights": list(tree_weights),
+                               "score": score.cpu().numpy(),
+                               "in_bag_cur": in_bag_cur.cpu().numpy(),
+                               "tree_contribs": tree_contribs.to_host(),
+                               "rng": rng}
+                    if has_valid:
+                        payload.update(
+                            score_v=score_v.cpu().numpy(),
+                            valid_contribs=valid_contribs.to_host(),
+                            best_metric=best_metric, best_iter=best_iter,
+                            history=history)
+                    _ckpt_save_gbdt(ckpt_store, it + 1, payload,
+                                    fingerprint, measures)
+                if mesh is not None:
+                    torch.distributed.barrier(group=mesh.world_group)
         # one batched device→host transfer of every tree's leaf fields; it
         # waits for the device, so the span ends with the work done
         trees = trees_to_host(trees)
@@ -1302,6 +1533,11 @@ def train_booster(
                 "measures": measures.report()}
     if has_valid:
         metadata["valid_metric"] = {"name": metric_name, "values": history}
+    if routing_info:
+        metadata["routing"] = routing_info
+    if autoconfig_info:
+        autoconfig_info["observed_fit_s"] = metadata["observed_fit_s"]
+        metadata["autoconfig"] = autoconfig_info
     # best_iter counts new iterations; best_iteration addresses the whole
     # returned forest, so warm-start iterations offset it
     return Booster(mapper, cfg, trees, tree_weights, base, feature_names,

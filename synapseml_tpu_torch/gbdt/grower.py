@@ -57,12 +57,29 @@ basic method also clamps them), so the raw score need not be monotone.
     tree costs no more host syncs than a numeric one. A row goes left when
     its bin is in the set.
 
-Not ported yet: the "masked"/"gather" layouts and the distributed (sharded)
-reductions.
+Distributed (``mesh=``): every rank grows the same tree from its own
+block of rows. After each histogram kernel (the root's ``child_histogram``,
+each smaller child's ``range_histogram``) the histogram is reduced over the
+mesh's ``data`` axis before any decision reads it (``_maybe_psum``, on the
+wire ``cfg.hist_allreduce_dtype`` picks), so every split decision, the
+smaller child included (it comes from the global count), and the leaf
+values are the same on every rank; only the partition and each leaf's row
+range are a rank's own. A rank whose child has no local rows still launches
+the kernel and joins the collective. With ``cfg.hist_reduce="scatter"``
+(the feature-parallel learner) the histogram is reduce-scattered over the
+features instead: each rank keeps and scores its ``FP / W`` owned
+features, the ranks exchange their best candidates (``_exchange_best``:
+the higher gain wins, the lower rank on a tie) and take the leaf totals of
+rank 0, whose owned slice starts with feature 0, as the JAX package's
+replicated output does.
+
+Not ported yet: the "masked"/"gather" layouts.
 """
 
 from __future__ import annotations
 
+import math
+import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -71,6 +88,7 @@ import torch
 from ..core import prng
 from ..ops.hist_kernel import (child_histogram, features_padded, pad_bins,
                                range_histogram)
+from ..parallel import collectives as coll
 
 BITS = 32  # bitset word width for categorical splits
 NO_NAN_BIN = 0x7FFF
@@ -98,6 +116,142 @@ class GrowerConfig(NamedTuple):
     max_cat_to_onehot: int = 4   # <= this many categories: one-vs-rest splits
     min_data_per_group: int = 100  # thin categorical groups excluded
     has_categorical: bool = False  # the split search scores categorical bins
+    # histogram reduction over a mesh's data axis: its wire ("f32", "bf16":
+    # grad/hess at half width, "int8": the blockwise-quantized all-reduce;
+    # counts always exact float32) and its shape ("allreduce": every rank
+    # gets the whole histogram; "scatter": each of ``feature_shards`` ranks
+    # keeps its FP / feature_shards owned features, the feature learner)
+    hist_allreduce_dtype: str = "f32"
+    hist_reduce: str = "allreduce"
+    feature_shards: int = 1
+
+
+# per-rank traffic of the histogram reductions since the last reset: calls
+# of a collective, the bytes this rank contributed to them and the wall
+# seconds of the reductions (host staging and waiting included)
+WIRE = {"collectives": 0, "bytes": 0, "seconds": 0.0}
+
+
+def reset_wire_counts() -> None:
+    WIRE.update(collectives=0, bytes=0, seconds=0.0)
+
+
+def _wire(calls: int, nbytes: int) -> None:
+    WIRE["collectives"] += calls
+    WIRE["bytes"] += int(nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _int8_wire_bytes(numel: int, block: int) -> int:
+    """Bytes of the quantized wire's two collectives: one float32 max per
+    block and one 2-byte grid value per element."""
+    nblk = -(-numel // block)
+    return 4 * nblk + 2 * nblk * block
+
+
+def resolve_wire_dtype(cfg, mesh, n_rows, nfeat):
+    """``(wire, perfmodel.Decision)`` for ``hist_allreduce_dtype="auto"``
+    (``cfg`` a ``BoosterConfig``): every rung's analytic per-tree seconds
+    from the mesh's measured link go into the provenance, and, with no
+    recorded rows to trust (``core.perfmodel``), the exact f32 wire is
+    chosen, as the JAX package chooses without a measured match."""
+    from ..core import perfmodel
+    from ..parallel.mesh import DATA_AXIS
+
+    if mesh is None:
+        return "f32", perfmodel.Decision(
+            "gbdt_wire_dtype", "f32", "f32", None, 0.0, True, "f32",
+            "fallback", [], {"workers": 1.0})
+    workers = int(dict(mesh.shape).get(DATA_AXIS, 1))
+    link = perfmodel.link_bandwidth(mesh) if workers > 1 else None
+    return perfmodel.suggest_wire_dtype(
+        n_rows=float(n_rows), nfeat=float(nfeat), workers=float(workers),
+        max_bin=float(cfg.max_bin), num_leaves=float(cfg.num_leaves),
+        link_bps=link)
+
+
+def _pin_totals(gh, tot):
+    """Pin each feature's row of a lossy-wire histogram ``gh`` (..., FP, B,
+    2) to its exactly reduced totals ``tot`` (..., FP, 2), spreading the
+    residual over the bins in proportion to |bin|: empty bins stay zero and
+    the leaf totals the grower reads carry no wire rounding."""
+    absg = gh.abs()
+    mass = absg.sum(dim=-2, keepdim=True)
+    err = (tot - gh.sum(dim=-2)).unsqueeze(-2)
+    return gh + err * absg / torch.where(mass > 0, mass, 1.0)
+
+
+def _maybe_psum(x, group, wire_dtype: str = "f32"):
+    """The histogram all-reduce over ``group`` (None: no mesh, ``x`` as
+    is) of (..., FP, B, 3) partials. ``"bf16"`` ships grad/hess at half
+    width and ``"int8"`` on the quantized wire (channel-major, so a block
+    never mixes grad with hess magnitudes); both pin each feature's totals
+    over an exact float32 side wire, and the count channel always rides an
+    exact float32 wire (it gates ``min_data_in_leaf``). The side wire and
+    the counts travel in one float32 collective (each element is summed on
+    its own, so one call gives the sums of two)."""
+    if group is None:
+        return x
+    t0 = time.perf_counter()
+    if wire_dtype in ("bf16", "int8"):
+        lead = x.shape[:-1]
+        tot = x[..., :2].sum(dim=-2)                     # (..., FP, 2)
+        exact = torch.cat([tot.reshape(-1), x[..., 2].reshape(-1)])
+        if wire_dtype == "bf16":
+            half = x[..., :2].to(torch.bfloat16)
+            gh = coll.allreduce_sum(half, group).to(x.dtype)
+            _wire(2, _nbytes(half) + _nbytes(exact))
+        else:
+            ghc = torch.movedim(x[..., :2], -1, 0).contiguous()
+            gh = torch.movedim(coll.allreduce_sum_quantized(ghc, group),
+                               0, -1).to(x.dtype)
+            _wire(3, _int8_wire_bytes(ghc.numel(), 256) + _nbytes(exact))
+        summed = coll.allreduce_sum(exact, group)
+        tot_r = summed[:tot.numel()].reshape(tot.shape)
+        cnt = summed[tot.numel():].reshape(*lead, 1)
+        out = torch.cat([_pin_totals(gh, tot_r), cnt], dim=-1)
+    else:
+        out = coll.allreduce_sum(x, group)
+        _wire(1, _nbytes(x))
+    WIRE["seconds"] += time.perf_counter() - t0
+    return out
+
+
+def _hist_reduce_scatter(x, group, wire_dtype: str = "f32"):
+    """Owned-feature reduction: (FP, B, 3) partials → this rank's fully
+    summed (FP / W, B, 3) slice (a reduce-scatter over the features, the
+    wire LightGBM's data-parallel learner actually runs, about half the
+    bytes of an all-reduce). The lossy wires pin the owned totals over an
+    exact float32 side wire, and the counts stay exact, as in
+    ``_maybe_psum``."""
+    if group is None:
+        return x
+    t0 = time.perf_counter()
+    FP, B, _ = x.shape
+    if wire_dtype in ("bf16", "int8"):
+        tot = x[..., :2].sum(dim=1)                      # (FP, 2)
+        exact = torch.cat([tot, x[..., 2]], dim=1)       # (FP, 2 + B)
+        if wire_dtype == "bf16":
+            half = x[..., :2].to(torch.bfloat16).contiguous()
+            gh = coll.reduce_scatter_sum(half, group).to(x.dtype)
+            _wire(2, _nbytes(half) + _nbytes(exact))
+        else:
+            ghT = x[..., :2].transpose(1, 2).contiguous()   # (FP, 2, B)
+            block = math.gcd(256, B)
+            gh = coll.reduce_scatter_sum_quantized(
+                ghT, group, block=block).transpose(1, 2)
+            _wire(3, _int8_wire_bytes(ghT.numel(), block) + _nbytes(exact))
+        summed = coll.reduce_scatter_sum(exact.contiguous(), group)
+        out = torch.cat([_pin_totals(gh.to(x.dtype), summed[:, :2]),
+                         summed[:, 2:, None]], dim=-1)
+    else:
+        out = coll.reduce_scatter_sum(x.contiguous(), group)
+        _wire(1, _nbytes(x))
+    WIRE["seconds"] += time.perf_counter() - t0
+    return out
 
 
 class TreeArrays(NamedTuple):
@@ -484,12 +638,14 @@ class _TreeBook:
         self.num_splits += 1
         return new_right
 
-    def tree(self, hist: torch.Tensor, cfg: GrowerConfig) -> TreeArrays:
+    def tree(self, hist: torch.Tensor, cfg: GrowerConfig,
+             leaf_tot: Optional[torch.Tensor] = None) -> TreeArrays:
         """The grown tree; leaf stats come from the per-leaf histograms
-        ``hist`` (L, FP, B, 3) (per-leaf float32 sums) and stay on the
-        device."""
+        ``hist`` (L, FP, B, 3) (per-leaf float32 sums), or from the (L, 3)
+        ``leaf_tot`` given, and stay on the device."""
         L = self.L
-        leaf_tot = hist[:, 0].sum(dim=1)               # (L, 3)
+        if leaf_tot is None:
+            leaf_tot = hist[:, 0].sum(dim=1)           # (L, 3)
         exists = torch.arange(L, device=hist.device) <= self.num_splits
         leaf_value = torch.where(
             exists, _leaf_output(leaf_tot[:, 0], leaf_tot[:, 1], cfg)
@@ -506,10 +662,60 @@ class _TreeBook:
             num_splits=np.int32(self.num_splits))
 
 
+def _mesh_group(mesh):
+    """(the process group of ``mesh``'s data axis, this rank's index on
+    it); (None, 0) without a mesh or on a one-rank axis."""
+    from ..parallel.mesh import DATA_AXIS
+
+    if mesh is None or int(dict(mesh.shape).get(DATA_AXIS, 1)) <= 1:
+        return None, 0
+    return mesh.group(DATA_AXIS), mesh.axis_index(DATA_AXIS)
+
+
+def _check_reduce(cfg: GrowerConfig, group) -> bool:
+    """Validate ``hist_reduce`` (the JAX grower's checks); True for the
+    feature-parallel scatter mode."""
+    if cfg.hist_reduce not in ("allreduce", "scatter"):
+        raise ValueError("hist_reduce must be 'allreduce' or 'scatter', "
+                         f"got {cfg.hist_reduce!r}")
+    if not (cfg.hist_reduce == "scatter" and cfg.feature_shards > 1):
+        return False
+    if cfg.growth_policy != "leafwise":
+        raise ValueError(
+            "hist_reduce='scatter' (feature-parallel) supports only "
+            "leafwise growth with the partition row layout")
+    if cfg.has_categorical:
+        raise ValueError("hist_reduce='scatter' does not support "
+                         "categorical features (the winning split's "
+                         "bitset needs the owner's histogram slice)")
+    if group is None:
+        raise ValueError("hist_reduce='scatter' requires a mesh axis")
+    return True
+
+
+def _exchange_best(rows: np.ndarray, group, off: int) -> np.ndarray:
+    """Feature-parallel candidate exchange: every rank's best owned
+    candidate per leaf ((K, 8) records, feature indices local to the owned
+    slice starting at ``off``) gathered, and per leaf the highest gain
+    taken (``np.argmax``: the lowest rank on a tie); the leaf totals
+    ``[G, H, C]`` are rank 0's, as the JAX package's replicated output
+    is. Every rank returns the same records."""
+    t0 = time.perf_counter()
+    rows = rows.copy()
+    rows[:, 1] += off
+    allr = coll.allgather(torch.from_numpy(rows), group).numpy()  # (W, K, 8)
+    win = np.argmax(allr[:, :, 0], axis=0)
+    out = allr[win, np.arange(rows.shape[0])]
+    out[:, 5:REC] = allr[0, :, 5:REC]
+    _wire(1, rows.nbytes)
+    WIRE["seconds"] += time.perf_counter() - t0
+    return out
+
+
 def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
               nan_bins=None, bT0=None, stats: Optional[dict] = None,
               monotone=None, node_key=None, is_categorical=None,
-              cat_nbins=None):
+              cat_nbins=None, mesh=None):
     """Grow one tree; returns (TreeArrays, node_of_row) where node_of_row is
     each row's final leaf index (used for the O(1) training-score update).
 
@@ -523,7 +729,12 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
     ``feature_fraction_bynode``. With ``cfg.has_categorical``,
     ``is_categorical`` (F,) bool marks the categorical features and
     ``cat_nbins`` (F,) holds their distinct category counts (host arrays).
+    ``mesh``: this rank's rows are its block of a tree grown over the
+    mesh's ``data`` axis (module docstring); every rank of the axis must
+    call with its block and the same other arguments.
     """
+    group, rank = _mesh_group(mesh)
+    scatter = _check_reduce(cfg, group)
     if cfg.growth_policy == "depthwise":
         from .grower_depthwise import grow_tree_depthwise
 
@@ -532,7 +743,7 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
                                    stats=stats, monotone=monotone,
                                    node_key=node_key,
                                    is_categorical=is_categorical,
-                                   cat_nbins=cat_nbins)
+                                   cat_nbins=cat_nbins, group=group)
     if cfg.growth_policy != "leafwise":
         raise ValueError("growth_policy must be 'leafwise' or 'depthwise', "
                          f"got {cfg.growth_policy!r}")
@@ -553,23 +764,41 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
     catp, catb, catp_host = _padded_categorical(cfg, is_categorical,
                                                 cat_nbins, FP, B, dev)
     masks = node_masks(cfg, featp, node_key, L)
+    # feature-parallel: this rank's histograms and split search cover its
+    # owned features [off, off + FPo) only
+    W = cfg.feature_shards if scatter else 1
+    if FP % W:
+        raise ValueError(f"hist_reduce='scatter' needs features_padded({f})="
+                         f"{FP} divisible by feature_shards={W}")
+    FPo, off = FP // W, rank * (FP // W) if scatter else 0
+    own = slice(off, off + FPo)
+    nanp_o = nanp[own]
+    monop_o = None if monop is None else monop[own]
 
     def mask_of(i: int, count: int = 1):
         """The masks of node ids ``i .. i + count - 1`` (the tree's mask
-        without per-node sampling)."""
-        return featp if masks is None else masks[i:i + count]
+        without per-node sampling), on the owned features."""
+        return (featp if masks is None else masks[i:i + count])[..., own]
 
-    hist = torch.zeros((L, FP, B, 3), dtype=torch.float32, device=dev)
-    hist[0] = child_histogram(bT, gs, hs, ms, B)
+    def reduce(h):
+        if scatter:
+            return _hist_reduce_scatter(h, group, cfg.hist_allreduce_dtype)
+        return _maybe_psum(h, group, cfg.hist_allreduce_dtype)
+
+    def best_rows(rows: np.ndarray) -> np.ndarray:
+        return _exchange_best(rows, group, off) if scatter else rows
+
+    hist = torch.zeros((L, FPo, B, 3), dtype=torch.float32, device=dev)
+    hist[0] = reduce(child_histogram(bT, gs, hs, ms, B))
     book = _TreeBook(L, B, catp_host)
-    root = _best_for_leaf(hist[:1], mask_of(2 * (L - 1)), nanp, cfg, monop,
-                          catp, catb)
+    root = _best_for_leaf(hist[:1], mask_of(2 * (L - 1)), nanp_o, cfg,
+                          monop_o, catp, catb)
     # each leaf's best bitset also stays on the device for the partition
     dbits = (torch.zeros((L, root.shape[1] - REC), dtype=torch.int64,
                          device=dev) if catp is not None else None)
     if dbits is not None:
         dbits[0] = root[0, REC:].to(torch.int64)
-    book.set_best([0], _to_host(root, stats))
+    book.set_best([0], best_rows(_to_host(root, stats)))
     leaf_start = np.zeros(L, np.int64)
     leaf_len = np.zeros(L, np.int64)
     leaf_len[0] = n
@@ -610,13 +839,14 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
         a = 0 if left_small else 1
         child_start = nl_loc * a + start
         child_len = nl_loc * (1 - 2 * a) + length * a
-        hist_small = range_histogram(bT, gs, hs, ms, child_start, child_len, B)
+        hist_small = reduce(range_histogram(bT, gs, hs, ms, child_start,
+                                            child_len, B))
         hist_parent = hist[l]
         hist_left = hist_small if left_small else hist_parent - hist_small
         hist_right = hist_parent - hist_left
         children = torch.stack([hist_left, hist_right])
         best2 = _best_for_leaf(children, mask_of(2 * book.num_splits, 2),
-                               nanp, cfg, monop, catp, catb)
+                               nanp_o, cfg, monop_o, catp, catb)
         rec = _to_host(torch.cat([nl_loc.reshape(1).double(),
                                   best2.reshape(-1)]), stats)
         new_right = book.split(l, cfg)
@@ -625,12 +855,18 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
         if dbits is not None:
             dbits[l] = best2[0, REC:].to(torch.int64)
             dbits[new_right] = best2[1, REC:].to(torch.int64)
-        book.set_best([l, new_right], rec[1:].reshape(2, -1))
+        book.set_best([l, new_right], best_rows(rec[1:].reshape(2, -1)))
         nl = int(rec[0])
         leaf_start[new_right] = start + nl
         leaf_len[l], leaf_len[new_right] = nl, length - nl
 
-    tree = book.tree(hist, cfg)
+    leaf_tot = None
+    if scatter:
+        t0 = time.perf_counter()
+        leaf_tot = coll.allgather(hist[:, 0].sum(dim=1), group)[0]
+        _wire(1, _nbytes(leaf_tot))
+        WIRE["seconds"] += time.perf_counter() - t0
+    tree = book.tree(hist, cfg, leaf_tot)
 
     # each row's leaf, in original row order, from the leaf ranges
     node_sorted = torch.empty(n, dtype=torch.int64, device=dev)

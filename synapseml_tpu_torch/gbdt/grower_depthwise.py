@@ -35,8 +35,17 @@ constraints mask candidates in ``_best_for_leaf`` as in the leaf-wise
 grower.
 
 A categorical split routes a row left when its bin is in the split's bitset
-(``grower._member``). Not ported: the cross-shard histogram reduction
-(``train_booster`` rejects its settings).
+(``grower._member``).
+
+On a mesh (``group``, the data axis's process group) each rank holds its
+block of rows, and every level's histograms, the root's too, are reduced
+over the group (``grower._maybe_psum``, on ``cfg.hist_allreduce_dtype``'s
+wire) before any decision reads them. They are masked first by ``exists``,
+the leaves of the tree, which every rank has alike, and never by a leaf's
+local row count: a leaf with no rows on one rank may hold rows on another.
+Nothing else the host decides reads a local count (the plan comes from the
+reduced histograms; the re-partition gives every existing leaf at least one
+chunk on every rank).
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ import torch
 
 from ..ops.hist_kernel import (CHUNK, features_padded, level_histograms,
                                pad_bins)
-from .grower import (GrowerConfig, _best_for_leaf, _member,
+from .grower import (GrowerConfig, _best_for_leaf, _maybe_psum, _member,
                      _padded_categorical, _padded_features, _to_host,
                      _TreeBook, node_masks, transpose_bins)
 
@@ -153,9 +162,11 @@ def _repartition(new_rleaf, is_pad, exists, chunk: int, CAP: int):
 def grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
                         cfg: GrowerConfig, nan_bins=None, bT0=None,
                         stats: Optional[dict] = None, monotone=None,
-                        node_key=None, is_categorical=None, cat_nbins=None):
+                        node_key=None, is_categorical=None, cat_nbins=None,
+                        group=None):
     """Grow one tree level by level; arguments and result as
-    ``grower.grow_tree`` (``bT0`` is read, never modified)."""
+    ``grower.grow_tree`` (``bT0`` is read, never modified); ``group``: the
+    mesh's data axis this rank's block of rows is reduced over."""
     n, f = binned.shape
     dev = binned.device
     L = cfg.num_leaves
@@ -182,7 +193,16 @@ def grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
     root_starts = torch.full((L,), CAP // chunk, dtype=torch.int32,
                              device=dev)
     root_starts[0] = 0
-    hist = level_histograms(bT, gs, hs, ms, root_starts, rleaf, B, L)
+
+    def level_pass(bT, gs, hs, ms, starts, rleaf, exists):
+        hist = level_histograms(bT, gs, hs, ms, starts, rleaf, B, L)
+        if group is None:
+            return hist
+        hist = torch.where(exists[:, None, None, None], hist, 0.0)
+        return _maybe_psum(hist, group, cfg.hist_allreduce_dtype)
+
+    hist = level_pass(bT, gs, hs, ms, root_starts, rleaf,
+                      torch.arange(L, device=dev) == 0)
 
     book = _TreeBook(L, B, catp_host)
     level = 0
@@ -209,7 +229,7 @@ def grow_tree_depthwise(binned, grad, hess, in_bag, feature_active,
         hs = torch.where(valid, hs[src], 0.0)
         ms = torch.where(valid, ms[src], 0.0)
         pos = torch.where(valid, pos[src], n)
-        hist = level_histograms(bT, gs, hs, ms, start_chunks, rleaf, B, L)
+        hist = level_pass(bT, gs, hs, ms, start_chunks, rleaf, exists)
         level += 1
         if growing():
             slot_masks = featp if masks is None else masks[plan.mask_id]

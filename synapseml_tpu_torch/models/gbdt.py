@@ -19,11 +19,13 @@ validation rows (``validationIndicatorCol``)
 with the metric and early stopping, warm starts (``modelString``, and
 ``numBatches`` sequential batches each warm-started from the last), custom
 objectives (``fobj``), the prediction window (``startIteration``) and the
-leaf-index and SHAP output columns. camelCase param names match the
-reference so code ports 1:1. A param of the JAX estimators that the slice
-does not implement (the distributed learners' ``topK`` and
-``parallelism``) is not declared here; passing one raises
-``NotImplementedError`` naming it.
+leaf-index and SHAP output columns, and the distributed learners' params
+(``parallelism``: ``data_parallel``, ``voting_parallel``,
+``feature_parallel`` or ``auto``, with ``topK``), mapped to
+``tree_learner`` and ``top_k`` as in the JAX package; the estimators pass no
+mesh, so, as there, every learner trains the serial trees (a mesh is
+``gbdt.train_booster``'s). camelCase param names match the reference so
+code ports 1:1; every param of the JAX estimators is declared.
 The JAX ranker takes ``modelString`` and
 ``numBatches`` but does not use them; the port's ranker refuses them
 instead. The Spark/JNI plumbing params stay accepted as no-ops, as in the
@@ -47,15 +49,8 @@ from ..core import (Estimator, HasFeaturesCol, HasGroupCol, HasInitScoreCol,
 from ..core.device import DEFAULT_DEVICE
 from ..gbdt.boosting import Booster, BoosterConfig, train_booster
 
-# params of the JAX estimator that the port does not implement yet
-UNPORTED_PARAMS = frozenset({"topK", "parallelism"})
-
-
-def _reject_unported(names) -> None:
-    bad = sorted(set(names) & UNPORTED_PARAMS)
-    if bad:
-        raise NotImplementedError(
-            f"params not ported to the PyTorch package yet: {bad}")
+# params of the JAX estimator that the port does not implement (none)
+UNPORTED_PARAMS = frozenset()
 
 
 class _DeviceParam:
@@ -146,6 +141,11 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
     timeout = Param("timeout", "no-op", float, 1200.0)
     maxStreamingOMPThreads = Param("maxStreamingOMPThreads", "no-op", int, 16)
     microBatchSize = Param("microBatchSize", "no-op", int, 100)
+    topK = Param("topK", "Voting-parallel top-K (distributed histogram "
+                 "vote)", int, 20)
+    parallelism = Param("parallelism", "data_parallel, voting_parallel, "
+                        "feature_parallel or auto (LightGBMParams.scala:"
+                        "25-29)", str, "data_parallel")
     isProvideTrainingMetric = Param("isProvideTrainingMetric", "Log training metrics", bool, False)
     deterministic = Param("deterministic", "Deterministic training", bool, False)
     isEnableSparse = Param("isEnableSparse", "Enable sparse optimization", bool, True)
@@ -168,10 +168,6 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
     fobj = Param("fobj", "Custom objective: fn(score, label, weight) -> "
                  "(grad, hess), torch tensors on the fit device (see "
                  "gbdt.train_booster)", is_complex=True)
-
-    def set(self, name: str, value) -> "_LightGBMParams":
-        _reject_unported([name])
-        return super().set(name, value)
 
     def _reference_mapper(self, X=None):
         """referenceDataset param → BinMapper (accepts a Dataset too); with
@@ -243,6 +239,10 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                               if self.isSet("dataRandomSeed") else None),
             zero_as_missing=(bool(self.get("zeroAsMissing"))
                              and bool(self.get("useMissing"))),
+            tree_learner={"voting_parallel": "voting",
+                          "feature_parallel": "feature",
+                          "auto": "auto"}.get(self.getParallelism(), "data"),
+            top_k=self.getTopK(),
         )
         for k, v in overrides.items():
             setattr(cfg, k, v)
@@ -459,10 +459,6 @@ class LightGBMClassifier(Estimator, _LightGBMParams, HasProbabilityCol, HasRawPr
     scalePosWeight = Param("scalePosWeight", "Positive-class weight multiplier", float, 1.0)
     thresholds = Param("thresholds", "Per-class prediction thresholds", list)
 
-    def __init__(self, **kwargs):
-        _reject_unported(kwargs)
-        super().__init__(**kwargs)
-
     def _fit(self, df: Table) -> "LightGBMClassificationModel":
         train_df, valid_df = self._split_validation(df)
         X, y, w, init = self._extract_training_arrays(train_df)
@@ -557,10 +553,6 @@ class LightGBMRegressor(Estimator, _LightGBMParams):
     alpha = Param("alpha", "Huber/quantile alpha", float, 0.9)
     tweedieVariancePower = Param("tweedieVariancePower", "Tweedie variance power", float, 1.5)
 
-    def __init__(self, **kwargs):
-        _reject_unported(kwargs)
-        super().__init__(**kwargs)
-
     def _fit(self, df: Table) -> "LightGBMRegressionModel":
         train_df, valid_df = self._split_validation(df)
         X, y, w, init = self._extract_training_arrays(train_df)
@@ -597,10 +589,6 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
     maxPosition = Param("maxPosition", "NDCG truncation for optimization", int, 20)
     labelGain = Param("labelGain", "Relevance gains per label value", list)
     evalAt = Param("evalAt", "NDCG@k eval positions", list, [1, 2, 3, 4, 5])
-
-    def __init__(self, **kwargs):
-        _reject_unported(kwargs)
-        super().__init__(**kwargs)
 
     def _fit(self, df: Table) -> "LightGBMRankerModel":
         if self.get("modelString") or self.getNumBatches() > 1:

@@ -189,3 +189,42 @@ def tree_shardings(mesh: Mesh, named, mode: str = "replicated",
     if mode != "replicated":
         raise ValueError(f"unknown sharding mode {mode!r}")
     return {name: ShardSpec(None, n, axis) for name, _ in named}
+
+
+def row_block(n_rows: int, mesh: Mesh, axis: str = DATA_AXIS) -> tuple:
+    """(start, stop) of this rank's contiguous block of ``n_rows`` rows
+    (a multiple of the axis size) cut into one equal block per rank of
+    ``axis``: the shard of ``PartitionSpec(axis)`` in the JAX package."""
+    k = int(mesh.shape[axis])
+    if n_rows % k:
+        raise ValueError(f"{n_rows} rows do not split into {k} blocks; pad "
+                         "them to a multiple of the axis first")
+    b = n_rows // k
+    i = mesh.axis_index(axis)
+    return i * b, (i + 1) * b
+
+
+def check_same_inputs(mesh: Mesh, what: str, *values) -> None:
+    """Raise ``ValueError`` on every rank of ``mesh`` unless every rank
+    passed equal ``values`` (compared by a sha256 digest of their reprs,
+    numpy arrays by their bytes): a cheap guard run before the first
+    collective, so that ranks given different inputs fail instead of
+    hanging in a collective whose shapes disagree."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in values:
+        if isinstance(v, np.ndarray):
+            h.update(repr((v.shape, str(v.dtype))).encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+        else:
+            h.update(repr(v).encode())
+    digest = np.frombuffer(h.digest()[:16], np.int64).copy()
+    mine = torch.as_tensor(digest)
+    n = dist.get_world_size(mesh.world_group)
+    got = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(got, mine, group=mesh.world_group)
+    if any(not torch.equal(g, got[0]) for g in got):
+        bad = [i for i, g in enumerate(got) if not torch.equal(g, got[0])]
+        raise ValueError(f"every rank of the mesh must pass the same {what}; "
+                         f"mesh ranks {bad} differ from rank 0")

@@ -51,7 +51,7 @@ CPU = "cpu"
 # names of the JAX package the port declares unported (each refused below)
 UNPORTED_BOOSTER = {"to_onnx"}
 UNPORTED_DATASET = {"from_batches"}
-UNPORTED_ESTIMATOR_PARAMS = {"topK", "parallelism"}
+UNPORTED_ESTIMATOR_PARAMS = set()
 # TrainConfig fields that take only their default (machinery not ported)
 DEFAULT_ONLY = {"prefetch_batches": 4, "donate_buffers": False,
                 "pipeline_microbatches": 4,
@@ -126,6 +126,33 @@ def test_functions_take_every_reference_argument(jfn, tfn):
     assert _args(jfn) - _args(tfn) == set()
 
 
+def test_distributed_surface_is_ported():
+    """The mesh argument, once refused by name, and the distributed GBDT's
+    surface: the JAX package's histogram collectives, its voting module's
+    functions and the grower config's reduction fields exist in the port
+    (``tests/test_torch_gbdt_distributed.py`` holds them to JAX)."""
+    import synapseml_tpu.gbdt.voting as jvoting
+    import synapseml_tpu.parallel as jparallel
+    import synapseml_tpu_torch.gbdt.voting as tvoting
+    import synapseml_tpu_torch.parallel as tparallel
+    from synapseml_tpu.gbdt.grower import GrowerConfig as JGrowerConfig
+    from synapseml_tpu_torch.gbdt.grower import GrowerConfig
+
+    assert "mesh" in _args(jboost.train_booster) & _args(tboost.train_booster)
+    for name in ("allreduce_sum", "allreduce_mean", "reduce_scatter_sum",
+                 "allgather", "axis_rank", "allreduce_sum_quantized",
+                 "reduce_scatter_sum_quantized", "probe_link_bandwidth"):
+        assert hasattr(jparallel, name) and hasattr(tparallel, name), name
+    public = {n for n in dir(jvoting) if not n.startswith("_")
+              and callable(getattr(jvoting, n))
+              and getattr(getattr(jvoting, n), "__module__", "")
+              == jvoting.__name__}
+    assert public <= set(dir(tvoting))
+    for name in ("hist_allreduce_dtype", "hist_reduce", "feature_shards"):
+        assert JGrowerConfig._field_defaults[name] \
+            == GrowerConfig._field_defaults[name]
+
+
 @pytest.mark.parametrize("jcls,tcls,unported", [
     (jboost.Booster, tboost.Booster, UNPORTED_BOOSTER),
     (jdataset.Dataset, tdataset.Dataset, UNPORTED_DATASET),
@@ -166,9 +193,9 @@ def test_unported_names_raise_naming_themselves(boosters):
     for name, call in (
             ("to_onnx", lambda: tb.to_onnx()),
             ("from_batches", lambda: tdataset.Dataset.from_batches(iter([X]))),
-            ("mesh", lambda: tboost.train_booster(
-                X, np.zeros(len(X)), tboost.BoosterConfig(), mesh="mesh",
-                device=CPU)),
+            ("row_layout", lambda: tboost.train_booster(
+                X, np.zeros(len(X)), tboost.BoosterConfig(
+                    row_layout="masked"), device=CPU)),
             ("hfModel", lambda: ttext.DeepTextModel(hfModel=object())),
             ("hfTokenizer", lambda: ttext.DeepTextModel(
                 hfTokenizer=object()))):

@@ -794,3 +794,94 @@ def test_state_mismatches_sees_one_flipped_bit_and_structure():
     c = {"params": {"w": a["params"]["w"].double()},
          "opt_state": a["opt_state"]}
     assert cs.state_mismatches(a, c) == ["['params']['w']"]
+
+
+# --- phase 17: distributed GBDT -------------------------------------------------
+
+def test_dist_phase_is_listed_and_runs_after_phase_16():
+    import inspect
+
+    assert "17. distributed GBDT" in cs.__doc__
+    src = inspect.getsource(cs.main)
+    assert src.index("state_path(dev)") \
+        < src.rindex("dist_path(args.rows, dev)")
+    assert "tmp.spawn(_dist_rank" in inspect.getsource(cs.dist_path)
+    assert [n for n, _ in cs.DIST_RUNS] == [
+        "data_f32", "data_bf16", "data_int8", "feature", "voting", "auto",
+        "depthwise"]
+
+
+def _passing_reports(world=2, rows=8):
+    """Two ranks' reports and evaluation probabilities that pass every
+    phase-17 check."""
+    parts = [cs.quantized_inputs(r, world) for r in range(world)]
+    total = np.sum([p[0].astype(np.float64) for p in parts], axis=0)
+    rs = np.sum([p[1].astype(np.float64) for p in parts], axis=0)
+    chunk = rs.shape[0] // world
+    prob = np.linspace(0.1, 0.9, rows)
+    reports = [dict(runs={name: dict(model_sha="abc", launches={
+        "child_histogram": 1, "range_histogram": 3, "level_histograms": 2})
+        for name, _ in cs.DIST_RUNS}, identity={
+        "f32": {"shape": [[[0], [3]]], "prob": prob.tolist()},
+        "int8": {"shape": [[[0], [3]]], "prob": prob.tolist()},
+        "feature": {"shape": [[[0], [3]]], "prob": prob.tolist()}},
+        quantized={"allreduce": total.tolist(),
+                   "reduce_scatter": rs[r * chunk:(r + 1) * chunk].tolist()})
+        for r in range(world)]
+    ye = (np.arange(rows) >= rows // 2).astype(np.float32)
+    probs = {name: prob.astype(np.float32) for name, _ in cs.DIST_RUNS}
+    return reports, probs, prob.astype(np.float32), ye
+
+
+@pytest.mark.parametrize("fault,message", [
+    ("sha", "model strings differ"), ("launch", "never launched"),
+    ("auc", "against the JAX package"), ("quantized", "differs on rank 1"),
+    ("identity", "int8 trees differ")])
+def test_dist_checks_refuse_each_failure(fault, message):
+    """A passing set of reports passes; each planted fault raises naming
+    itself (an uncaught AssertionError makes the script exit non-zero)."""
+    reports, probs, p_one, ye = _passing_reports()
+    ref = {"f32": 1.0, "bf16": 1.0, "int8": 1.0}
+    assert cs.dist_checks(reports, probs, p_one, ye, ref)["prob_gap"] == 0
+    import copy
+
+    reports = copy.deepcopy(reports)
+    if fault == "sha":
+        reports[1]["runs"]["feature"] = dict(reports[1]["runs"]["feature"],
+                                             model_sha="abd")
+    elif fault == "launch":
+        reports[0]["runs"]["depthwise"] = dict(
+            reports[0]["runs"]["depthwise"],
+            launches={"child_histogram": 1, "range_histogram": 1,
+                      "level_histograms": 0})
+    elif fault == "auc":
+        ref = dict(ref, bf16=0.99)
+    elif fault == "quantized":
+        reports[1]["quantized"]["allreduce"][0][0] += 1e-3
+    else:
+        reports[0]["identity"]["int8"]["shape"] = [[[1], [3]]]
+    with pytest.raises(AssertionError, match=message):
+        cs.dist_checks(reports, probs, p_one, ye, ref)
+
+
+def test_quantized_bound_is_n_half_shared_scales():
+    a = np.zeros((1, 256), np.float32)
+    b = np.zeros((1, 256), np.float32)
+    a[0, 3], b[0, 7] = 127.0, -254.0
+    np.testing.assert_allclose(cs.quantized_bound([a, b]),
+                               np.full((1, 256), 2 * 2.0 / 2))
+
+
+def test_dist_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 17 end to end on the CPU at a small size: the spawn, every
+    run and every check; the plain versions count no launches, so the
+    launch check, and only it and the size-bound AUC checks, refuses."""
+    monkeypatch.setattr(cs, "DIST_ITERS", 1)
+    monkeypatch.setattr(cs, "DIST_EVAL_ROWS", 300)
+    monkeypatch.setattr(cs, "DIST_DECISIVE_ROWS", 600)
+    with pytest.raises(AssertionError, match="never launched") as err:
+        cs.dist_path(2001, "cpu")
+    msg = str(err.value)
+    for ok in ("differ across ranks", "quantized", "one process",
+               "feature against data"):
+        assert ok not in msg, msg

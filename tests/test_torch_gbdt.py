@@ -271,8 +271,8 @@ def test_cuda_fit_matches_reference(data, tables, cuda):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value", [
-    ("tree_learner", "voting"), ("row_layout", "masked"),
-    ("partition_impl", "scan"), ("use_segmented", False),
+    ("row_layout", "masked"), ("partition_impl", "scan"),
+    ("use_segmented", False),
 ])
 def test_train_booster_rejects_unported_config(data, field, value):
     X, y = data
@@ -306,15 +306,45 @@ def test_train_booster_trains_the_sampling_it_once_refused(data, field,
     assert np.isfinite(booster.raw_score(X[:256])).all()
 
 
-@pytest.mark.parametrize("arg,value", [
-    ("mesh", "mesh"),
-])
-def test_train_booster_rejects_unported_arguments(data, arg, value):
+@pytest.mark.parametrize("field,value", [("tree_learner", "voting")])
+def test_train_booster_takes_the_learner_it_once_refused(data, field,
+                                                         value):
+    """Once refused by name: without a mesh the voting learner trains the
+    JAX package's serial trees (the JAX package's own choice without a
+    mesh), as the data learner does."""
     X, y = data
-    cfg = tboost.BoosterConfig(objective="binary", num_iterations=1)
-    with pytest.raises(NotImplementedError, match=arg):
-        tboost.train_booster(X[:256], y[:256], cfg, device=CPU,
-                             **{arg: value})
+    kw = dict(objective="binary", num_iterations=2, num_leaves=7, top_k=3)
+    got = tboost.train_booster(X[:512], y[:512], tboost.BoosterConfig(
+        **kw, **{field: value}), device=CPU)
+    want = jboost.train_booster(X[:512], y[:512], jboost.BoosterConfig(
+        **kw, **{field: value}))
+    assert [_tree_struct(t) for t in got.trees] \
+        == [_tree_struct(t) for t in want.trees]
+    assert got.config.tree_learner == value
+
+
+@pytest.mark.parametrize("arg", ["mesh"])
+def test_train_booster_takes_the_argument_it_once_refused(data, arg,
+                                                          tmp_path):
+    """A mesh once refused by name: on a world of one rank (gloo) its fit
+    is the serial fit, model string for model string."""
+    import torch.distributed as dist
+
+    from synapseml_tpu_torch.parallel import init_distributed, make_mesh
+
+    X, y = data
+    cfg = dict(objective="binary", num_iterations=2, num_leaves=7)
+    init_distributed("gloo", str(tmp_path / "store"), 0, 1)
+    try:
+        mesh = make_mesh({"data": 1}, device=CPU)
+        got = tboost.train_booster(X[:257], y[:257],
+                                   tboost.BoosterConfig(**cfg), device=CPU,
+                                   **{arg: mesh})
+    finally:
+        dist.destroy_process_group()
+    want = tboost.train_booster(X[:257], y[:257],
+                                tboost.BoosterConfig(**cfg), device=CPU)
+    assert got.model_string() == want.model_string()
 
 
 @pytest.mark.parametrize("arg", ["early_stopping_round", "valid", "fobj",
@@ -356,24 +386,32 @@ def test_train_booster_takes_what_it_once_refused(data, arg, tmp_path):
 
 
 def test_classifier_rejects_unported_params(data):
+    """Every param of the JAX estimator is ported (``topK`` and
+    ``parallelism`` once were refused: without a mesh they train the JAX
+    package's serial trees, as ``tree_learner=voting`` through
+    ``passThroughArgs`` does); ``row_layout=masked`` stays refused."""
     X, y = data
     jparams = set(JClassifier()._params)
     tparams = set(LightGBMClassifier(device=CPU)._params)
-    # every param of the JAX estimator is either ported or rejected
     from synapseml_tpu_torch.models.gbdt import UNPORTED_PARAMS
-    assert jparams - tparams == set(UNPORTED_PARAMS)
-    for name, value in (("topK", 10),
-                        ("parallelism", "voting_parallel")):
-        with pytest.raises(NotImplementedError, match=name):
-            LightGBMClassifier(**{name: value})
-        with pytest.raises(NotImplementedError, match=name):
-            LightGBMClassifier(device=CPU).set(name, value)
-    t = assemble_features(Table({"a": X[:256, 0], "b": X[:256, 1],
-                                 "label": y[:256]}), ["a", "b"])
-    for params in ({"passThroughArgs": "tree_learner=voting"},
-                   {"passThroughArgs": "row_layout=masked"}):
-        with pytest.raises(NotImplementedError):
-            LightGBMClassifier(device=CPU, numIterations=1, **params).fit(t)
+    assert jparams - tparams == set(UNPORTED_PARAMS) == set()
+    cols = {"a": X[:256, 0], "b": X[:256, 1], "c": X[:256, 2],
+            "label": y[:256]}
+    t = assemble_features(Table(cols), ["a", "b", "c"])
+    jt = j_assemble(JTable(cols), ["a", "b", "c"])
+    for params in ({"topK": 1}, {"parallelism": "voting_parallel",
+                                 "topK": 1},
+                   {"passThroughArgs": "tree_learner=voting"}):
+        kw = dict(numIterations=2, numLeaves=5, **params)
+        got = LightGBMClassifier(device=CPU, **kw).fit(t)
+        want = JClassifier(**kw).fit(jt)
+        assert [_tree_struct(b) for b in got.booster.trees] \
+            == [_tree_struct(b) for b in want.booster.trees], params
+        est = LightGBMClassifier(device=CPU).set("topK", 10)
+        assert est.getTopK() == 10
+    with pytest.raises(NotImplementedError):
+        LightGBMClassifier(device=CPU, numIterations=1,
+                           passThroughArgs="row_layout=masked").fit(t)
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

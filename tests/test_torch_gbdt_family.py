@@ -286,14 +286,19 @@ def test_ranker_matches_reference(tmp_path):
 @pytest.mark.parametrize("cls,jcls", [(LightGBMRegressor, JRegressor),
                                       (LightGBMRanker, JRanker)])
 def test_estimators_refuse_unported_params_by_name(cls, jcls):
+    """Every param of the JAX estimator is ported: ``topK`` and
+    ``parallelism``, once refused by name, map to the config's
+    ``top_k`` and ``tree_learner`` as the JAX estimator maps them (without
+    a mesh every learner trains the serial trees)."""
     from synapseml_tpu_torch.models.gbdt import UNPORTED_PARAMS
 
-    # every param of the JAX estimator is either ported or refused by name
     assert set(jcls()._params) - set(cls(device=CPU)._params) \
-        == set(UNPORTED_PARAMS)
-    for name, value in (("topK", 10),
-                        ("parallelism", "voting_parallel")):
-        with pytest.raises(NotImplementedError, match=name):
-            cls(**{name: value})
-        with pytest.raises(NotImplementedError, match=name):
-            cls(device=CPU).set(name, value)
+        == set(UNPORTED_PARAMS) == set()
+    for value in ("data_parallel", "voting_parallel", "feature_parallel",
+                  "auto"):
+        got = cls(device=CPU, topK=10, parallelism=value)._base_config()
+        want = jcls(topK=10, parallelism=value)._base_config()
+        assert (got.tree_learner, got.top_k) \
+            == (want.tree_learner, want.top_k) != (None, None)
+        assert cls(device=CPU).set("parallelism", value).getParallelism() \
+            == value
