@@ -287,6 +287,24 @@ Phases, each of which fails the run if it fails:
    per iteration the histogram kernels' ms (CUDA events), the collectives'
    ms (wall, pinned staging included) and the rest, and per tree the
    collectives and the bytes on the wire and staged.
+18. ONNX inference: ``ONNXModel.transform`` as a user calls it, on the
+   bucketed runner's captured CUDA graphs, at ``bench.py:311-372``'s
+   shapes: the generated ResNet-50 (1000 classes, 224x224, seeded weights)
+   at ``miniBatchSize`` 64 in float32 and bf16, and the 12-layer, 768-wide,
+   3072-FF encoder over 128 tokens at 32; each table 20 full batches and
+   a tail of 5 (the rung of 8), the wall the median of 5 transforms.
+   Logged: graph nodes and weights; generate,
+   encode, parse and import s; capture s per rung; steady wall images/s
+   or sequences/s, one batch's graph replay (CUDA events), its latency
+   through the runner and its eager ms; peak GiB. Checks: rungs captured
+   once each and none after; outputs finite; the card against the port's
+   CPU run of the same graph on 2 rows (1e-3 of max |y| in float32, 0.01 in
+   bf16, and bf16 nearer the CPU's bf16 run than the card's float32 output);
+   every committed fixture against torch's output (2e-3 / 2e-4);
+   phase 3's booster through ``Booster.to_onnx`` and ``ONNXModel``
+   against ``predict`` on 100k rows (2e-4 / 2e-5). No kernel of ours runs
+   here (the JAX package's ONNX ops are plain ``jnp``). ``--phase 18``
+   builds the kernels and runs it alone (a small booster trained first).
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 9's ring and
@@ -530,6 +548,33 @@ DIST_DECISIVE_CFG = dict(objective="binary", num_iterations=3, num_leaves=8,
 DIST_IDENTITY_TOL = 1e-6
 # the sizes phase 17's ranks take from this process (a rehearsal's smaller)
 _DIST_SETTINGS = ("DIST_ITERS", "DIST_EVAL_ROWS", "DIST_DECISIVE_ROWS")
+# phase 18: ONNX inference at bench.py:311-372's shapes: the modelgen
+# ResNet-50 (ImageNet head, 224x224) and the 12-layer, 768-wide, 3072-FF
+# encoder over 128 tokens (BERT-base's widths), seeded weights
+ONNX_MODELS = (
+    ("resnet50", "make_resnet", dict(depth=50, num_classes=1000,
+                                     image_size=224), 64,
+     ("float32", "bfloat16")),
+    ("bert_base", "make_transformer_encoder",
+     dict(num_layers=12, d_model=768, num_heads=12, seq_len=128, d_ff=3072,
+          num_classes=2), 32, ("float32",)))
+ONNX_FULL_BATCHES = 20      # each table: 20 full mini-batches ...
+ONNX_TAIL = 5               # ... and a tail padded to the rung of 8
+ONNX_TIMED = 5              # steady transforms timed after the first
+ONNX_REPLAYS = 5            # one full batch's replay, CUDA events
+ONNX_CROSS_ROWS = 2         # rows held to the port's CPU run
+# card against the port's CPU run of the same graph, of max |y|: float32
+# (no TF32; cuDNN's and oneDNN's algorithms sum in other orders), bf16
+# (each op rounds to bf16 after sums in another order). On an H100 the
+# bf16 ResNet-50 reads 0.00439 from the CPU's bf16 run and 0.019 from the
+# card's own float32 output on the same 2 rows (PERF.md, PR 15): the bound
+# sits between, so a card that kept float32 fails it
+ONNX_F32_REL = 1e-3
+ONNX_BF16_REL = 0.01
+ONNX_FIXTURE_TOL = (2e-3, 2e-4)    # tests/test_onnx_thirdparty.py:65
+ONNX_TREE_TOL = (2e-4, 2e-5)       # tests/test_onnx_treeensemble.py:48
+ONNX_TREE_ROWS = 100_000
+ONNX_TREE_BATCH = 4096
 
 
 def log(msg: str) -> None:
@@ -5201,11 +5246,283 @@ def dist_path(rows: int, dev: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: ONNX inference through ONNXModel on captured graphs
+# ---------------------------------------------------------------------------
+
+def onnx_rel_gap(label: str, got, want, rel: float) -> float:
+    """max |got - want| over max |want|; raises above ``rel`` or on a
+    shape or finiteness mismatch."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{label}: shape {got.shape} against "
+                             f"{want.shape}, finite {np.isfinite(got).all()}")
+    gap = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    if gap > rel:
+        raise AssertionError(f"{label}: max |gap| / max |y| {gap:.3g} above "
+                             f"{rel}")
+    return gap
+
+
+def onnx_stage(raw: bytes, in_name: str, out_name: str, batch: int,
+               precision: str, dev: str):
+    from synapseml_tpu_torch.onnx import ONNXModel
+
+    return (ONNXModel(device=dev, floatPrecision=precision)
+            .setModelPayload(raw).setMiniBatchSize(batch)
+            .setFeedDict({in_name: "x"}).setFetchDict({"y": out_name}))
+
+
+def onnx_model_run(label: str, raw: bytes, in_name: str, out_name: str,
+                   x: np.ndarray, batch: int, precision: str, dev: str,
+                   card: str) -> dict:
+    """One model at one precision: import, the first transform (its
+    captures), ``ONNX_TIMED`` steady transforms, one full batch's replay and
+    eager call timed with CUDA events, peak memory, and the card against
+    the port's CPU run of the same graph on ``ONNX_CROSS_ROWS`` rows."""
+    from synapseml_tpu_torch.core import Table
+
+    rows = x.shape[0]
+    stage = onnx_stage(raw, in_name, out_name, batch, precision, dev)
+    _sync(dev)
+    _peak_gib(dev, reset=True)
+    t0 = time.perf_counter()
+    fn = stage._onnx_fn()
+    _sync(dev)
+    import_s = time.perf_counter() - t0
+    table = Table({"x": x})
+    t0 = time.perf_counter()
+    y = stage.transform(table)["y"]
+    first_s = time.perf_counter() - t0
+    runner = next(iter(stage._runner_cache.values()))
+    stats = runner.stats()
+    want_rungs = {batch: 1, runner.bucket_for(rows % batch or batch): 1}
+    if stats["compiles"] != want_rungs:
+        raise AssertionError(f"{label}: captures {stats['compiles']}, "
+                             f"expected {want_rungs}")
+    per_rung = {b: round(s_, 4) for (b, _), s_ in
+                sorted(runner.capture_seconds.items())}
+    walls = []
+    for _ in range(ONNX_TIMED):
+        t0 = time.perf_counter()
+        y2 = stage.transform(table)["y"]
+        walls.append(time.perf_counter() - t0)
+    if not np.array_equal(y, y2):
+        raise AssertionError(f"{label}: a replay changed the output")
+    if runner.stats()["compiles"] != stats["compiles"]:
+        raise AssertionError(f"{label}: a steady transform captured again")
+    wall_s = float(np.median(walls))
+    out = dict(label=label, rows=rows, import_s=import_s, first_s=first_s,
+               per_rung=per_rung, wall_rows_per_s=rows / wall_s,
+               nodes=len(fn._plan))
+    if _on_card(dev):
+        full = x[:batch]
+        # one batch's latency through the runner (copy in, replay, copy
+        # out), then the captured graph's replay alone
+        replay, _ = _median_call_ms(
+            lambda: runner.dispatch(full).result(), dev, runner.stream,
+            ONNX_REPLAYS)
+        graph = runner._compiled[(batch, (runner._spec_of(full),))]
+
+        def replay_only():
+            with torch.cuda.stream(runner.stream):
+                graph.graph.replay()
+        _, replay_ev = _median_call_ms(replay_only, dev, runner.stream,
+                                       ONNX_REPLAYS)
+        f, _ = fn.as_torch([in_name])
+        xt = torch.from_numpy(full).to(dev)
+        with torch.no_grad():
+            eager_wall, eager_ev = _median_call_ms(
+                lambda: f(xt), dev, torch.cuda.current_stream(), 3)
+        out.update(replay_ms=replay_ev, replay_wall_ms=replay,
+                   eager_ms=eager_ev, eager_wall_ms=eager_wall,
+                   device_rows_per_s=batch / replay_ev * 1e3,
+                   peak_gib=_peak_gib(dev))
+    cpu = onnx_stage(raw, in_name, out_name, batch, precision, "cpu")
+    want = cpu.transform(Table({"x": x[:ONNX_CROSS_ROWS]}))["y"]
+    rel = ONNX_BF16_REL if precision == "bfloat16" else ONNX_F32_REL
+    out["cpu_gap"] = onnx_rel_gap(f"{label} against the CPU",
+                                  y[:ONNX_CROSS_ROWS], want, rel)
+    out["head"] = y[:ONNX_CROSS_ROWS]
+    if y.shape[0] != rows or not np.isfinite(y).all():
+        raise AssertionError(f"{label}: output {y.shape}, finite "
+                             f"{np.isfinite(y).all()}")
+    unit = "images" if "resnet" in label else "sequences"
+    dev_part = (f"; one batch of {batch}: graph replay "
+                f"{out['replay_ms']:.4f} ms (CUDA events), through the "
+                f"runner {out['replay_wall_ms']:.4f} ms wall (copies in and "
+                f"out), eager {out['eager_ms']:.4f} ms "
+                f"({out['eager_wall_ms']:.4f} wall), "
+                f"{out['device_rows_per_s']:.1f} {unit}/s on the device; "
+                f"peak {out['peak_gib']:.3f} GiB") if _on_card(dev) else ""
+    log(f"  {label}: {out['nodes']} nodes; import {import_s:.3f} s; first "
+        f"transform {first_s:.3f} s (captures by rung {json.dumps(per_rung)}"
+        f" s); steady transform of {rows} rows: "
+        f"{out['wall_rows_per_s']:.1f} {unit}/s wall{dev_part}; card against "
+        f"CPU on {ONNX_CROSS_ROWS} rows {out['cpu_gap']:.3g} of max |y| "
+        f"(bound {rel}); {card}")
+    return out
+
+
+def onnx_models(dev: str, card: str) -> list:
+    """ResNet-50 (float32, bf16) and the BERT-base-wide encoder: generated
+    with seeded weights, encoded, parsed and imported (each timed), then
+    ``onnx_model_run`` per precision."""
+    from synapseml_tpu_torch.onnx import Model, modelgen
+
+    results = []
+    for name, maker, kw, batch, precisions in ONNX_MODELS:
+        kw = dict(kw)
+        t0 = time.perf_counter()
+        if maker == "make_resnet":
+            model = modelgen.make_resnet(kw.pop("depth"), **kw)
+        else:
+            model = getattr(modelgen, maker)(**kw)
+        gen_s = time.perf_counter() - t0
+        in_vi, out_vi = model.graph.inputs[0], model.graph.outputs[0]
+        weights = sum(int(np.prod(t.dims)) for t in
+                      model.graph.initializers.values())
+        t0 = time.perf_counter()
+        raw = model.encode()
+        encode_s = time.perf_counter() - t0
+        del model
+        t0 = time.perf_counter()
+        parsed = Model.parse(raw)
+        parse_s = time.perf_counter() - t0
+        nodes = len(parsed.graph.nodes)
+        del parsed
+        log(f"  {name}: {nodes} nodes, {weights} weights "
+            f"({len(raw) / 2 ** 20:.1f} MiB); generate {gen_s:.3f} s, "
+            f"encode {encode_s:.3f} s, parse {parse_s:.3f} s; {card}")
+        rows = ONNX_FULL_BATCHES * batch + ONNX_TAIL
+        shape = tuple(d for d in in_vi.shape[1:])
+        x = np.random.default_rng(0).normal(size=(rows,) + shape).astype(
+            np.float32)
+        for precision in precisions:
+            r = onnx_model_run(f"{name} {precision}", raw, in_vi.name,
+                               out_vi.name, x, batch, precision, dev, card)
+            r.update(gen_s=gen_s, encode_s=encode_s, parse_s=parse_s,
+                     weights=weights)
+            results.append(r)
+            if _on_card(dev):
+                torch.cuda.empty_cache()
+        if len(precisions) == 2:
+            onnx_bf16_against_f32(name, *results[-2:], card)
+    return results
+
+
+def onnx_bf16_against_f32(name: str, f32: dict, bf16: dict, card: str
+                          ) -> None:
+    """The card's bf16 output against its float32 output on the same rows:
+    what the bf16 bound has to tell apart. A card that computed float32
+    where bf16 was asked would sit nearer its float32 output than the CPU's
+    bf16 run; that raises."""
+    f32_gap = float(np.abs(bf16["head"] - f32["head"]).max()
+                    / max(np.abs(f32["head"]).max(), 1e-30))
+    bf16["f32_gap"] = f32_gap
+    if not bf16["cpu_gap"] < f32_gap:
+        raise AssertionError(
+            f"{name} bfloat16: {bf16['cpu_gap']:.3g} of max |y| from the "
+            f"CPU's bf16 run, {f32_gap:.3g} from the card's float32 output")
+    log(f"  {name}: bf16 against float32 on the card, {ONNX_CROSS_ROWS} "
+        f"rows: {f32_gap:.3g} of max |y| (bf16 bound {ONNX_BF16_REL}); "
+        f"{card}")
+
+
+def onnx_fixtures(dev: str, card: str) -> dict:
+    """Every committed fixture through ``ONNXModel`` in one mini-batch
+    (the runtime If / Loop fixtures' conditions read the whole input),
+    against torch's own output."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.onnx import Model
+
+    res = REPO / "tests" / "resources" / "onnx"
+    gaps = {}
+    for path in sorted(res.glob("*.onnx")):
+        raw = path.read_bytes()
+        data = np.load(path.with_suffix(".npz"))
+        g = Model.parse(raw).graph
+        in_name = [vi.name for vi in g.inputs
+                   if vi.name not in g.initializers][0]
+        stage = onnx_stage(raw, in_name, g.outputs[0].name,
+                           len(data["x"]), "float32", dev)
+        got = stage.transform(Table({"x": data["x"]}))["y"]
+        rtol, atol = ONNX_FIXTURE_TOL
+        if got.shape != data["y"].shape or not np.allclose(
+                got, data["y"], rtol=rtol, atol=atol):
+            raise AssertionError(
+                f"fixture {path.stem}: max |gap| "
+                f"{np.abs(got - data['y']).max():.3g} over rtol {rtol} / "
+                f"atol {atol}")
+        gaps[path.stem] = float(np.abs(got - data["y"]).max())
+    log(f"  {len(gaps)} committed fixtures against torch's output (rtol "
+        f"{ONNX_FIXTURE_TOL[0]} / atol {ONNX_FIXTURE_TOL[1]}): max |gap| "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in gaps.items()})}; "
+        f"{card}")
+    if len(gaps) < 12:
+        raise AssertionError(f"only {len(gaps)} fixtures found in {res}")
+    return gaps
+
+
+def onnx_tree_ensemble(booster, dev: str, card: str) -> dict:
+    """``Booster.to_onnx`` of a binary booster through ``ONNXModel`` on the
+    card, against ``Booster.predict`` on ``ONNX_TREE_ROWS`` rows."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.onnx import ONNXModel
+
+    X, _ = higgs_like(ONNX_TREE_ROWS, seed=3)
+    t0 = time.perf_counter()
+    raw = booster.to_onnx().encode()
+    export_s = time.perf_counter() - t0
+    stage = (ONNXModel(device=dev).setModelPayload(raw)
+             .setMiniBatchSize(ONNX_TREE_BATCH)
+             .setFeedDict({"input": "x"})
+             .setFetchDict({"p": "probabilities"}))
+    table = Table({"x": X})
+    t0 = time.perf_counter()
+    stage.transform(table)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = stage.transform(table)["p"][:, 1]
+    steady_s = time.perf_counter() - t0
+    want = booster.predict(X)
+    rtol, atol = ONNX_TREE_TOL
+    gap = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"tree ensemble: max |gap| {gap:.3g} over "
+                             f"rtol {rtol} / atol {atol}")
+    log(f"  Booster.to_onnx ({booster.num_trees} trees, {len(raw)} bytes, "
+        f"exported in {export_s:.3f} s) through ONNXModel: "
+        f"{ONNX_TREE_ROWS} rows first {first_s:.3f} s, steady "
+        f"{ONNX_TREE_ROWS / steady_s:.0f} rows/s wall; against predict max "
+        f"|gap| {gap:.3g} (rtol {rtol} / atol {atol}); {card}")
+    return dict(gap=gap, rows_per_s=ONNX_TREE_ROWS / steady_s)
+
+
+def onnx_path(dev: str, booster=None, card: str = "") -> dict:
+    """Phase 18: ONNX inference as a user runs it, ``ONNXModel.transform``
+    on captured CUDA graphs; ``booster`` is phase 3's (a small one is
+    trained when the phase runs alone)."""
+    if booster is None:
+        from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+
+        X, y = higgs_like(200_000, seed=2)
+        booster = train_booster(X, y, BoosterConfig(
+            objective="binary", num_iterations=10, num_leaves=31),
+            device=dev)
+    t0 = time.perf_counter()
+    models = onnx_models(dev, card)
+    fixtures = onnx_fixtures(dev, card)
+    tree = onnx_tree_ensemble(booster, dev, card)
+    log(f"  phase 18 took {time.perf_counter() - t0:.1f}s; {card}")
+    return dict(models=models, fixtures=fixtures, tree=tree)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="rows of the HIGGS-shaped table (HIGGS: 11,000,000)")
-    ap.add_argument("--phase", type=int, choices=(17,), default=None,
+    ap.add_argument("--phase", type=int, choices=(17, 18), default=None,
                     help="build the kernels and run only this phase (no "
                     "kernels or result line)")
     args = ap.parse_args()
@@ -5237,6 +5554,10 @@ def main() -> int:
         t0 = time.perf_counter()
         dist_path(args.rows, dev)
         log(f"  phase 17 took {time.perf_counter() - t0:.1f}s; {card}")
+        return 0
+    if args.phase == 18:
+        log("[18] ONNX inference alone")
+        onnx_path(dev, card=card)
         return 0
 
     log(f"[2] kernels against their plain versions, n={args.rows}")
@@ -5318,6 +5639,11 @@ def main() -> int:
     t0 = time.perf_counter()
     dist_path(args.rows, dev)
     log(f"  phase 17 took {time.perf_counter() - t0:.1f}s")
+    log("[18] ONNX inference: ONNXModel.transform on captured graphs, "
+        "ResNet-50 (float32, bf16) and the BERT-base-wide encoder, every "
+        "committed fixture, phase 3's booster through to_onnx")
+    torch.cuda.empty_cache()
+    onnx_path(dev, main["booster"], card)
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},

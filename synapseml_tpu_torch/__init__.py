@@ -18,7 +18,8 @@ and vision estimators: ``DeepTextClassifier`` through those kernels,
 on cuDNN, outside any TPU kernel in the JAX package too). And the serving
 layer: ``Booster.serving_fn`` through the bucketed runner, one captured
 CUDA graph per batch bucket, behind the micro-batching HTTP server with hot
-swap, tenants and deadlines.
+swap, tenants and deadlines. And ONNX inference: ``ONNXModel`` scores an
+ONNX graph's ops as PyTorch calls inside those captured graphs.
 
 Every public entry point takes ``device`` (default ``"cuda"``). A CUDA
 tensor goes through the hand-written kernel or the call raises; the plain
@@ -36,6 +37,9 @@ PyTorch version of a kernel runs only for tensors on the CPU.
   io/       — the micro-batching HTTP server, its model registry and CLI
   dl/       — flax's layers, ResNets, transformer units, the text encoder,
               the trainer and the text and vision estimators
+  onnx/     — the ONNX protobuf reader, the 135-op executor, ONNXModel on
+              the runner's CUDA graphs, ImageFeaturizer, the hub, the
+              booster's TreeEnsemble export
   convert   — carry a JAX-trained booster or flax variables across
 """
 

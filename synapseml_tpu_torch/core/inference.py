@@ -92,17 +92,19 @@ def bucket_ladder(max_batch_size: int, growth: float = 2.0,
 
 def _pad_to(arr: np.ndarray, bucket: int, out: Optional[np.ndarray] = None
             ) -> np.ndarray:
-    """Pad the leading dim up to ``bucket`` by repeating the last real row —
-    one vectorized gather (into ``out`` when given, e.g. a pinned staging
-    buffer); repeated rows keep the padded lanes numerically benign (no
-    log(0) NaNs)."""
+    """Pad the leading dim up to ``bucket`` by repeating the last real row
+    (into ``out`` when given, e.g. a pinned staging buffer): a contiguous
+    copy of the real rows, then the last row broadcast over the rest;
+    repeated rows keep the padded lanes numerically benign (no log(0)
+    NaNs)."""
     n = arr.shape[0]
     if out is None and n == bucket:
         return np.ascontiguousarray(arr)
-    idx = np.minimum(np.arange(bucket), n - 1)
     if out is None:
-        return arr[idx]
-    np.take(arr, idx, axis=0, out=out)
+        out = np.empty((bucket,) + arr.shape[1:], arr.dtype)
+    np.copyto(out[:n], arr)
+    if n < bucket:
+        out[n:] = arr[n - 1]
     return out
 
 

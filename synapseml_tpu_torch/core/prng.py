@@ -17,6 +17,13 @@ the JAX package on any device:
 * ``random_bits(key, n)`` is the XOR of the two output words over the
   counters of ``range(n)``; ``uniform`` keeps its top 23 bits as the
   mantissa of a float32 in [1, 2) and subtracts 1;
+* ``uniform_range`` is ``uniform(key, shape, minval=lo, maxval=hi)``:
+  ``max(lo, u * (hi - lo) + lo)`` with one float32 rounding (XLA's fma);
+  ``normal`` is ``sqrt(2) * erfinv`` of a uniform draw on
+  ``(nextafter(-1, 0), 1)``
+  (torch's ``erfinv`` against XLA's polynomial: a few ulps apart);
+  ``categorical`` is the Gumbel-max draw ``argmax(logits - log(-log(u)))``
+  of ``jax.random.categorical`` (``u`` uniform on ``(tiny, 1)``);
 * ``permutation(key, n)`` sorts ``arange(n)`` stably by fresh 32-bit keys
   for ``ceil(3 ln n / ln(2^32 - 1))`` rounds, splitting the key each round.
 
@@ -33,6 +40,7 @@ from __future__ import annotations
 import math
 from typing import Tuple, Union
 
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -108,6 +116,39 @@ def uniform(key: Key, n: int, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, (n,))``: float32 in [0, 1), (..., n)."""
     bits = (random_bits(key, n, device) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform_range(key: Tuple[int, int], shape, minval: float,
+                  maxval: float, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    shape = tuple(int(s) for s in shape)
+    u = uniform(key, math.prod(shape), device).reshape(shape)
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo
+    # XLA fuses the scale and shift into one float32 fma: the float64
+    # product is exact and the sum rounds once more
+    out = (u.double() * float(span) + float(lo)).float()
+    return torch.clamp_min(out, float(lo))
+
+
+def normal(key: Tuple[int, int], shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform_range(key, shape, lo, 1.0, device)
+    return np.float32(np.sqrt(2.0)).item() * torch.erfinv(u)
+
+
+def categorical(key: Tuple[int, int], logits: torch.Tensor,
+                shape) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1, shape)`` for 2-D
+    float32 ``logits`` (batch, classes) and ``shape`` ending in batch: one
+    sample per leading index, int64."""
+    shape = tuple(int(s) for s in shape)
+    tiny = float(np.finfo(np.float32).tiny)
+    u = uniform_range(key, shape + (logits.shape[-1],), tiny, 1.0,
+                      logits.device)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(gumbel + logits, dim=-1)
 
 
 def permutation(key: Tuple[int, int], n: int, device=None) -> torch.Tensor:

@@ -61,7 +61,7 @@ mesh rank 0 commits the snapshot and every rank waits for it.
 config carries across unchanged. ``train_booster`` rejects every setting the
 slice does not port with ``NotImplementedError`` naming it: the JAX grower's
 other engine knobs (``row_layout``, ``partition_impl``,
-``use_segmented=False``). ``Booster.to_onnx`` raises it too.
+``use_segmented=False``).
 """
 
 from __future__ import annotations
@@ -494,9 +494,12 @@ class Booster:
         return serve
 
     def to_onnx(self, input_name: str = "input", num_iteration: int = -1):
-        """Not ported: the ONNX TreeEnsemble export."""
-        raise NotImplementedError(
-            "Booster.to_onnx is not ported to the PyTorch package yet")
+        """The booster as an ONNX TreeEnsemble model (``onnx.protoio.Model``;
+        ``.encode()`` gives its bytes), the JAX package's export: serve it
+        through ``onnx.ONNXModel``."""
+        from ..onnx.treeensemble import booster_to_onnx
+
+        return booster_to_onnx(self, input_name, num_iteration)
 
     def predict_leaf(self, X) -> np.ndarray:
         """(N, T) int32 leaf index of every row in every tree after the

@@ -2,8 +2,10 @@
 defaults of ``TrainConfig`` and ``BoosterConfig``, the arguments of
 ``train_booster``, ``Dataset`` and every public ``Booster`` method, the
 public names of ``Booster`` and ``Dataset``, and the params of the GBDT and
-DL estimators, and the serving layer's classes (``BucketedRunner``,
-``ServingServer``, ``ModelRegistry``, ``QoSController``). A name of the JAX
+DL estimators, the serving layer's classes (``BucketedRunner``,
+``ServingServer``, ``ModelRegistry``, ``QoSController``) and the ONNX
+package (``OnnxFunction``, ``ONNXModel``, ``ImageFeaturizer``, ``ONNXHub``
+and the op registry's 135 names). A name of the JAX
 package is either ported or declared here as unported, and every unported
 name raises ``NotImplementedError`` naming itself (never ``TypeError`` or
 ``AttributeError``), so the gap cannot reopen unseen. Then the scoring arguments ported by name: ``binned``,
@@ -49,7 +51,7 @@ from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse f
 CPU = "cpu"
 
 # names of the JAX package the port declares unported (each refused below)
-UNPORTED_BOOSTER = {"to_onnx"}
+UNPORTED_BOOSTER = set()
 UNPORTED_DATASET = {"from_batches"}
 UNPORTED_ESTIMATOR_PARAMS = set()
 # TrainConfig fields that take only their default (machinery not ported)
@@ -191,8 +193,7 @@ def boosters():
 def test_unported_names_raise_naming_themselves(boosters):
     X, _, tb = boosters
     for name, call in (
-            ("to_onnx", lambda: tb.to_onnx()),
-            ("from_batches", lambda: tdataset.Dataset.from_batches(iter([X]))),
+                ("from_batches", lambda: tdataset.Dataset.from_batches(iter([X]))),
             ("row_layout", lambda: tboost.train_booster(
                 X, np.zeros(len(X)), tboost.BoosterConfig(
                     row_layout="masked"), device=CPU)),
@@ -333,3 +334,70 @@ def test_unported_distributed_serving_names_raise_naming_themselves():
         assert hasattr(jdist, name)
         with pytest.raises(NotImplementedError, match=name):
             getattr(tio, name)()
+
+
+# ---------------------------------------------------------------------------
+# the ONNX package
+# ---------------------------------------------------------------------------
+
+# ONNX ops of the JAX registry the port refuses by name (each raises
+# NotImplementedError naming itself): none
+UNPORTED_ONNX_OPS = set()
+# JAX method name -> the port's name for the same contract
+ONNX_RENAMED = {"as_jax": "as_torch"}
+
+
+def test_onnx_registry_holds_every_reference_op():
+    from synapseml_tpu.onnx.ops import REGISTRY as JREG
+    from synapseml_tpu_torch.onnx.ops import REGISTRY as TREG
+
+    assert len(JREG) == 135
+    assert set(TREG) == set(JREG)
+    for name in UNPORTED_ONNX_OPS:
+        with pytest.raises(NotImplementedError, match=name):
+            TREG[name](None)
+
+
+@pytest.mark.parametrize("name", ["OnnxFunction", "ONNXModel",
+                                  "ImageFeaturizer", "ONNXHub",
+                                  "ONNXModelInfo", "import_model",
+                                  "fold_constants", "booster_to_onnx"])
+def test_onnx_names_take_every_reference_argument(name):
+    import synapseml_tpu.onnx as jonnx
+    import synapseml_tpu_torch.onnx as tonnx
+
+    assert set(jonnx.__all__) <= set(tonnx.__all__)
+    jobj, tobj = getattr(jonnx, name), getattr(tonnx, name)
+    if not inspect.isclass(jobj):
+        assert _args(jobj) - _args(tobj) == set()
+        return
+    if jobj.__init__ is not object.__init__:
+        assert _args(jobj.__init__) - _args(tobj.__init__) == set()
+    for meth in sorted(_public(jobj)):
+        port_name = ONNX_RENAMED.get(meth, meth)
+        assert hasattr(tobj, port_name), meth
+        jattr = inspect.getattr_static(jobj, meth)
+        if isinstance(jattr, property) or not callable(getattr(jobj, meth)):
+            continue
+        assert _args(getattr(jobj, meth)) \
+            - _args(getattr(tobj, port_name)) == set(), meth
+    if hasattr(jobj, "_params"):
+        assert set(jobj()._params) - set(tobj()._params) == set()
+        for p, param in jobj()._params.items():
+            assert tobj()._params[p].default == param.default, p
+
+
+def test_booster_to_onnx_matches_the_reference(boosters):
+    """``to_onnx``, once refused by name: the same bytes as the JAX
+    package's export of the same trees, and the port's graph scores as
+    ``predict`` does (``tests/test_torch_onnx.py`` covers the rest)."""
+    from synapseml_tpu_torch.onnx import OnnxFunction
+
+    X, jb, tb = boosters
+    model = tb.to_onnx(input_name="rows", num_iteration=2)
+    assert model.encode() == jb.to_onnx(input_name="rows",
+                                        num_iteration=2).encode()
+    fn = OnnxFunction(tb.to_onnx(), device=CPU)
+    np.testing.assert_allclose(
+        fn({"input": X})["probabilities"].numpy()[:, 1], tb.predict(X),
+        rtol=2e-4, atol=2e-5)

@@ -885,3 +885,55 @@ def test_dist_phase_rehearses_on_the_cpu(monkeypatch):
     for ok in ("differ across ranks", "quantized", "one process",
                "feature against data"):
         assert ok not in msg, msg
+
+
+# --- phase 18: ONNX inference ----------------------------------------------------
+
+def test_onnx_phase_is_listed_and_runs_after_phase_17():
+    import inspect
+
+    assert "18. ONNX inference" in cs.__doc__
+    src = inspect.getsource(cs.main)
+    assert src.rindex("dist_path(args.rows, dev)") \
+        < src.rindex('onnx_path(dev, main["booster"], card)')
+    assert [(n, b, p) for n, _, _, b, p in cs.ONNX_MODELS] == [
+        ("resnet50", 64, ("float32", "bfloat16")),
+        ("bert_base", 32, ("float32",))]
+
+
+def test_onnx_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 18 end to end on the CPU at tiny widths: generation, the
+    transforms on the runner's rungs, the CPU cross-check, every committed
+    fixture and a small booster through ``to_onnx``; and the relative-gap
+    check refuses an output off its bound, the bf16 check a bf16 output
+    that is the float32 one."""
+    from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+
+    monkeypatch.setattr(cs, "ONNX_MODELS", (
+        ("resnet18", "make_resnet", dict(depth=18, num_classes=10,
+                                         image_size=16), 4,
+         ("float32", "bfloat16")),
+        ("encoder", "make_transformer_encoder",
+         dict(num_layers=1, d_model=16, num_heads=2, seq_len=4, d_ff=32,
+              num_classes=2), 4, ("float32",))))
+    monkeypatch.setattr(cs, "ONNX_TIMED", 1)
+    monkeypatch.setattr(cs, "ONNX_FULL_BATCHES", 3)
+    monkeypatch.setattr(cs, "ONNX_TREE_ROWS", 1000)
+    monkeypatch.setattr(cs, "ONNX_TREE_BATCH", 256)
+    X, y = cs.higgs_like(2000, seed=4)
+    booster = train_booster(X, y, BoosterConfig(
+        objective="binary", num_iterations=3, num_leaves=7), device="cpu")
+    out = cs.onnx_path("cpu", booster)
+    assert [m["label"] for m in out["models"]] == [
+        "resnet18 float32", "resnet18 bfloat16", "encoder float32"]
+    assert all(m["rows"] == 3 * 4 + 5 for m in out["models"])
+    assert out["models"][0]["cpu_gap"] == 0.0     # the same CPU run twice
+    assert out["models"][1]["f32_gap"] > out["models"][1]["cpu_gap"]
+    head = np.ones((2, 3))
+    with pytest.raises(AssertionError, match="from the card's float32"):
+        cs.onnx_bf16_against_f32("planted", dict(head=head),
+                                 dict(head=head, cpu_gap=0.004), "")
+    assert len(out["fixtures"]) == 12
+    assert out["tree"]["gap"] <= 1e-5
+    with pytest.raises(AssertionError, match="above 0.001"):
+        cs.onnx_rel_gap("planted", np.ones(3) * 1.01, np.ones(3), 1e-3)

@@ -179,6 +179,19 @@ def test_padded_rows_never_leak_bitwise(name):
             np.testing.assert_array_equal(got, want.numpy())
 
 
+@pytest.mark.parametrize("n,bucket", [(1, 1), (3, 8), (8, 8), (5, 64)])
+def test_staging_into_a_buffer_is_the_gather(n, bucket):
+    """``_pad_to``, into a staging buffer or into a new array, gives row
+    ``min(i, n - 1)`` at every padded index i."""
+    arr = np.random.default_rng(n).normal(size=(n, 3, 4)).astype(np.float32)
+    out = np.full((bucket, 3, 4), np.nan, np.float32)
+    got = tinf._pad_to(arr, bucket, out=out)
+    assert got is out
+    np.testing.assert_array_equal(
+        got, arr[np.minimum(np.arange(bucket), n - 1)])
+    np.testing.assert_array_equal(tinf._pad_to(arr, bucket), got)
+
+
 def test_pass_mask_marks_the_padded_rows():
     seen = []
 
