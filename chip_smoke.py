@@ -305,6 +305,29 @@ Phases, each of which fails the run if it fails:
    against ``predict`` on 100k rows (2e-4 / 2e-5). No kernel of ours runs
    here (the JAX package's ONNX ops are plain ``jnp``). ``--phase 18``
    builds the kernels and runs it alone (a small booster trained first).
+19. out-of-core GBDT at HIGGS's size: a seeded generator of HIGGS-shaped
+   chunks (``higgs_like`` per 1M-row chunk; 11,000,000 rows, the raw
+   floats never whole) into ``StreamedDataset``: the sketch over a
+   150k-row prefix byte for byte ``compute_bin_mapper``'s, then the
+   sketch pass and the bin-and-cache pass (seconds, host cache bytes, the
+   chunk rows and their decision logged). ``train_booster_streamed``
+   leaf-wise, then depthwise, then leaf-wise with ``resident=True`` (10
+   iterations, 31 leaves, 255 bins); counts zeroed just before each fit and
+   read just after (``child_histogram``, or ``level_histograms``
+   depthwise, above 0); fit s, rows x iterations / s, passes per tree,
+   each pumped pass's H2D copy ms (CUDA events on the side stream) against
+   its wall, the exposed transfer (the compute stream waiting on copy
+   events) and the host's wait on the producer thread as shares of the
+   fit, histogram kernel ms per iteration and peak memory logged. Checks on a 500k-row held-out stream from a second
+   seed: resident mode's AUC within 1e-3 of the streamed fit's and its
+   peak memory above the streamed peak; the resident ``train_booster`` on
+   the same 11M rows and the sketch's boundaries within 1e-3 of the
+   streamed AUC (the classic ``LightGBMClassifier`` on its own 200k-row bin
+   sample is fitted and logged beside it, fit s and AUC: two bin samples
+   alone move the AUC by more than 1e-3); the streamed fit at 100k rows, 3
+   iterations on the card and on the CPU within 1e-3; ``predict_streamed``
+   within 1e-5 of ``predict``.
+   ``--phase 19`` builds the kernels and runs it alone.
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 9's ring and
@@ -575,6 +598,19 @@ ONNX_FIXTURE_TOL = (2e-3, 2e-4)    # tests/test_onnx_thirdparty.py:65
 ONNX_TREE_TOL = (2e-4, 2e-5)       # tests/test_onnx_treeensemble.py:48
 ONNX_TREE_ROWS = 100_000
 ONNX_TREE_BATCH = 4096
+# phase 19: the streamed GBDT over HIGGS's 11,000,000 rows (its published
+# train split; the last 500,000 of its rows are its test set, drawn here
+# from a second seed)
+STREAM_ROWS = 11_000_000
+STREAM_VALID_ROWS = 500_000
+STREAM_SOURCE_ROWS = 1_000_000   # rows per generated source chunk
+STREAM_SEED, STREAM_VALID_SEED, STREAM_CROSS_SEED = 19, 20, 21
+STREAM_ITERS = 10
+STREAM_PREFIX_ROWS = 150_000     # the sketch's exact regime, byte for byte
+STREAM_CROSS_ROWS = 100_000
+STREAM_CROSS_ITERS = 3
+STREAM_AUC_TOL = 1e-3            # tests/test_oocore.py:233's bound
+STREAM_PREDICT_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -5518,11 +5554,253 @@ def onnx_path(dev: str, booster=None, card: str = "") -> dict:
     return dict(models=models, fixtures=fixtures, tree=tree)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the streamed (out-of-core) GBDT at HIGGS's 11M rows
+# ---------------------------------------------------------------------------
+
+def stream_source(rows: int, seed: int, chunk_rows: int = None):
+    """A re-iterable HIGGS-shaped chunk source (``higgs_like`` of seed
+    ``(seed, k)`` for chunk k): the raw floats exist one chunk at a time."""
+    step = chunk_rows or STREAM_SOURCE_ROWS
+
+    def batches():
+        for k, a in enumerate(range(0, rows, step)):
+            yield higgs_like(min(step, rows - a), seed=(seed, k))
+
+    return batches
+
+
+def _whole(source):
+    """Every chunk of ``source`` concatenated: (X, y)."""
+    parts = list(source())
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]))
+
+
+def sketch_prefix_check(cfg) -> None:
+    """The streaming sketch over a 150k-row prefix of the stream, in ragged
+    chunks (its exact regime) against ``compute_bin_mapper`` of the same
+    rows: boundaries byte for byte."""
+    from synapseml_tpu_torch.ops.quantize import (StreamingQuantileSketch,
+                                                  compute_bin_mapper)
+
+    X = higgs_like(STREAM_PREFIX_ROWS, seed=(STREAM_SEED, 0))[0]
+    sk = StreamingQuantileSketch(FEATURES, cfg.max_bin, cfg.bin_sample_count,
+                                 seed=cfg.seed)
+    for a in range(0, STREAM_PREFIX_ROWS, 40_000):
+        sk.update(X[a:a + 40_000])
+    got = sk.finalize()
+    want = compute_bin_mapper(X, cfg.max_bin, cfg.bin_sample_count,
+                              seed=cfg.seed)
+    same = (sk.exact and got.boundaries.tobytes() == want.boundaries.tobytes()
+            and np.array_equal(got.num_bins, want.num_bins)
+            and np.array_equal(got.nan_bins, want.nan_bins))
+    log(f"  sketch over a {STREAM_PREFIX_ROWS}-row prefix: exact="
+        f"{sk.exact}, boundaries byte-identical to compute_bin_mapper: "
+        f"{same}")
+    if not same:
+        raise AssertionError("the streaming sketch's exact regime differs "
+                             "from compute_bin_mapper")
+
+
+def streamed_fit(label: str, ds, cfg, dev: str, kernels,
+                 resident: bool = False) -> dict:
+    """One ``train_booster_streamed`` fit with its readings: counts zeroed
+    just before and read just after, each histogram launch timed (CUDA
+    events), peak device memory, and the pump's per-pass copy and exposed
+    wait times."""
+    from synapseml_tpu_torch.gbdt import train_booster_streamed
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    if _on_card(dev):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with kernel_timer(dev) as events:
+        hk.reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        booster = train_booster_streamed(ds, cfg, resident=resident,
+                                         device=dev)
+        _sync(dev)
+        fit_s = time.perf_counter() - t0
+        launches = dict(hk.LAUNCHES)
+    kernel_ms = sum(timed_ms(events).values())
+    peak = _peak_gib(dev)
+    md = booster.metadata["streamed"]
+    ntrees = booster.num_trees
+    bin_passes = md["passes"] - ntrees          # less the score updates
+    passes = md.get("transfer", [])
+    h2d = sum(p["h2d_ms"] for p in passes)
+    wall = sum(p["wall_ms"] for p in passes)
+    exposed = sum(p["exposed_ms"] for p in passes)
+    waited = sum(p["producer_wait_ms"] for p in passes)
+    log(f"  {label}: fit_s={fit_s:.3f} row_iterations/s="
+        f"{md['rows'] * ntrees / fit_s:.0f} trees={ntrees} splits/tree="
+        f"{np.mean([int(t.num_splits) for t in booster.trees]):.1f} "
+        f"passes/tree={md['passes'] / ntrees:.2f} (bins "
+        f"{bin_passes / ntrees:.2f} + 1 score update) chunks={md['num_chunks']}"
+        f" x {md['chunk_rows']} rows host_syncs/tree="
+        f"{booster.metadata['host_syncs'] / ntrees:.1f}")
+    log(f"    launches {json.dumps(launches)}; histogram kernels "
+        f"{kernel_ms / ntrees:.3f} ms/iteration; peak device memory "
+        f"{peak:.3f} GiB")
+    if passes:
+        log(f"    {len(passes)} pumped passes: H2D copy {h2d / len(passes):.3f}"
+            f" ms/pass (CUDA events, side stream) against a pass wall of "
+            f"{wall / len(passes):.3f} ms; exposed transfer (compute stream "
+            f"waiting on copy events) {exposed:.3f} ms in all = "
+            f"{exposed / (fit_s * 1e3):.2%} of the fit, "
+            f"{exposed / ntrees:.3f} ms/iteration; the host waiting for "
+            f"the producer thread (pinned fill) {waited / len(passes):.3f} "
+            f"ms/pass = {waited / (fit_s * 1e3):.2%} of the fit; first passes "
+            f"{json.dumps([{k: round(v, 3) if isinstance(v, float) else v for k, v in p.items()} for p in passes[:3]])}")
+    _check_launches(launches, kernels)
+    return dict(booster=booster, fit_s=fit_s, launches=launches, peak=peak,
+                kernel_ms=kernel_ms, exposed_ms=exposed, h2d_ms=h2d,
+                producer_wait_ms=waited)
+
+
+def _heldout_auc(booster, Xv, yv, dev: str) -> float:
+    from synapseml_tpu_torch.gbdt.objectives import auc
+
+    return float(auc(torch.as_tensor(yv), torch.as_tensor(
+        booster.predict(Xv))))
+
+
+def stream_cross_check(dev: str) -> None:
+    """The streamed leaf-wise fit at 100k rows, 3 iterations, on the card and
+    on the CPU (plain versions): held-out AUCs within 1e-3."""
+    import dataclasses
+
+    from synapseml_tpu_torch.gbdt import BoosterConfig, StreamedDataset
+    from synapseml_tpu_torch.gbdt import train_booster_streamed
+
+    cfg = BoosterConfig(objective="binary", num_iterations=STREAM_CROSS_ITERS,
+                        num_leaves=31, max_bin=255)
+    ds = StreamedDataset(stream_source(STREAM_CROSS_ROWS, STREAM_CROSS_SEED,
+                                       STREAM_CROSS_ROWS // 4),
+                         num_features=FEATURES)
+    Xv, yv = higgs_like(STREAM_CROSS_ROWS // 2, seed=(STREAM_CROSS_SEED, 99))
+    aucs = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        b = train_booster_streamed(ds, dataclasses.replace(cfg), device=d)
+        aucs[d] = _heldout_auc(b, Xv, yv, d)
+        log(f"  streamed {d}: held-out AUC={aucs[d]:.6f} fit+predict "
+            f"{time.perf_counter() - t0:.3f}s")
+    gap = abs(aucs[dev] - aucs["cpu"])
+    log(f"  streamed card against CPU: |AUC diff|={gap:.3g}")
+    if gap > STREAM_AUC_TOL:
+        raise AssertionError("streamed fits on the card and the CPU disagree")
+
+
+def stream_path(dev: str, rows: int = None) -> dict:
+    """Phase 19 (module docstring)."""
+    import dataclasses
+
+    from synapseml_tpu_torch.gbdt import (BoosterConfig, StreamedDataset,
+                                          predict_streamed, train_booster)
+    from synapseml_tpu_torch.models import LightGBMClassifier
+
+    t_phase = time.perf_counter()
+    rows = rows or STREAM_ROWS
+    cfg = BoosterConfig(objective="binary", num_iterations=STREAM_ITERS,
+                        num_leaves=31, max_bin=255)
+    sketch_prefix_check(cfg)
+    source = stream_source(rows, STREAM_SEED)
+    ds = StreamedDataset(source, num_features=FEATURES)
+    t0 = time.perf_counter()
+    ds.prepare(cfg, device=dev)
+    secs = {k: round(v, 3) for k, v in ds.ingest_seconds.items()}
+    log(f"  StreamedDataset over {ds.n_rows} rows in {len(ds.chunks)} chunks"
+        f" of {ds.chunk_rows} rows: prepare {time.perf_counter() - t0:.3f}s "
+        f"({json.dumps(secs)}; sketch pass, bin-and-cache pass), sketch "
+        f"exact={ds.sketch_exact}, host cache {ds.cache_bytes() / 2**20:.1f}"
+        f" MiB, chunk rows decision {json.dumps(ds.chunk_decision)}, second"
+        f" pass {json.dumps(ds.second_pass_decision)}")
+    Xv, yv = _whole(stream_source(STREAM_VALID_ROWS, STREAM_VALID_SEED))
+
+    lw = streamed_fit("leaf-wise streamed", ds, cfg, dev, MAIN_KERNELS[:1])
+    a_lw = _heldout_auc(lw["booster"], Xv, yv, dev)
+    dw = streamed_fit("depthwise streamed", ds,
+                      dataclasses.replace(cfg, growth_policy="depthwise"),
+                      dev, DEPTHWISE_KERNELS)
+    a_dw = _heldout_auc(dw["booster"], Xv, yv, dev)
+    rs = streamed_fit("leaf-wise resident mode", ds, cfg, dev,
+                      MAIN_KERNELS[:1], resident=True)
+    a_rs = _heldout_auc(rs["booster"], Xv, yv, dev)
+    log(f"  held-out AUC ({STREAM_VALID_ROWS} rows): leaf-wise streamed "
+        f"{a_lw:.6f}, depthwise streamed {a_dw:.6f}, resident mode "
+        f"{a_rs:.6f}; peak GiB streamed {lw['peak']:.3f} against resident "
+        f"mode {rs['peak']:.3f}")
+    if abs(a_rs - a_lw) > STREAM_AUC_TOL:
+        raise AssertionError("resident mode and streamed AUCs disagree")
+    if _on_card(dev) and not lw["peak"] < rs["peak"]:
+        raise AssertionError("the streamed fit's peak memory is not below "
+                             "the resident mode's")
+
+    # the classic resident path on the same rows: the classifier (its own
+    # 200k-row bin sample), and train_booster on the streamed dataset's
+    # boundaries, which the cross-path bound holds (two bin samples alone
+    # move the AUC past it)
+    t0 = time.perf_counter()
+    X, y = _whole(source)
+    table = table_of(X, y)
+    made_s = time.perf_counter() - t0
+    _sync(dev)
+    t0 = time.perf_counter()
+    same_bins = train_booster(X, y, dataclasses.replace(cfg), mapper=ds.mapper,
+                              device=dev)
+    _sync(dev)
+    same_bins_s = time.perf_counter() - t0
+    del X, y
+    a_sb = _heldout_auc(same_bins, Xv, yv, dev)
+    log(f"  resident train_booster on the sketch's boundaries: fit_s="
+        f"{same_bins_s:.3f} held-out AUC {a_sb:.6f}, streamed {a_lw:.6f}, "
+        f"|diff|={abs(a_sb - a_lw):.3g}")
+    if abs(a_sb - a_lw) > STREAM_AUC_TOL:
+        raise AssertionError("the streamed and the resident fits on the "
+                             "same boundaries differ past the cross-path "
+                             "bound")
+    if _on_card(dev):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    t0 = time.perf_counter()
+    model = LightGBMClassifier(numIterations=STREAM_ITERS, numLeaves=31,
+                               maxBin=255, device=dev).fit(table)
+    _sync(dev)
+    classic_s = time.perf_counter() - t0
+    del table
+    a_cl = _heldout_auc(model.booster, Xv, yv, dev)
+    spans = {k: round(v, 3)
+             for k, v in model.booster.metadata["measures"].items()}
+    log(f"  classic LightGBMClassifier on the same {rows} rows: fit_s="
+        f"{classic_s:.3f} row_iterations/s={rows * STREAM_ITERS / classic_s:.0f}"
+        f" (table made in {made_s:.1f}s) spans {json.dumps(spans)} peak "
+        f"{_peak_gib(dev):.3f} GiB; held-out AUC {a_cl:.6f} on its own bin "
+        f"sample, streamed {a_lw:.6f}, |diff|={abs(a_cl - a_lw):.3g}")
+
+    stream_cross_check(dev)
+    t0 = time.perf_counter()
+    got = np.concatenate(list(predict_streamed(
+        lw["booster"], (Xv[a:a + 100_000] for a in range(0, len(Xv),
+                                                         100_000)))))
+    want = lw["booster"].predict(Xv)
+    gap = float(np.abs(got - want).max())
+    log(f"  predict_streamed over {len(Xv)} held-out rows: "
+        f"{time.perf_counter() - t0:.3f}s, max |diff| to predict={gap:.3g}")
+    if got.shape != want.shape or gap > STREAM_PREDICT_TOL:
+        raise AssertionError("predict_streamed differs from predict")
+    log(f"  phase 19 took {time.perf_counter() - t_phase:.1f}s")
+    return dict(leafwise=lw["launches"], depthwise=dw["launches"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="rows of the HIGGS-shaped table (HIGGS: 11,000,000)")
-    ap.add_argument("--phase", type=int, choices=(17, 18), default=None,
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19), default=None,
                     help="build the kernels and run only this phase (no "
                     "kernels or result line)")
     args = ap.parse_args()
@@ -5558,6 +5836,11 @@ def main() -> int:
     if args.phase == 18:
         log("[18] ONNX inference alone")
         onnx_path(dev, card=card)
+        return 0
+    if args.phase == 19:
+        log(f"[19] streamed GBDT alone, {STREAM_ROWS} rows")
+        stream_path(dev)
+        log(card)
         return 0
 
     log(f"[2] kernels against their plain versions, n={args.rows}")
@@ -5644,6 +5927,11 @@ def main() -> int:
         "committed fixture, phase 3's booster through to_onnx")
     torch.cuda.empty_cache()
     onnx_path(dev, main["booster"], card)
+    log(f"[19] streamed GBDT: StreamedDataset and train_booster_streamed "
+        f"over {STREAM_ROWS} HIGGS-shaped rows, both policies, resident "
+        "mode, the classic classifier, card against CPU, predict_streamed")
+    torch.cuda.empty_cache()
+    stream_path(dev)
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},

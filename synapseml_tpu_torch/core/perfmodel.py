@@ -1,5 +1,6 @@
-"""The analytic priors behind ``seq_attention="auto"`` and the distributed
-GBDT's ``hist_allreduce_dtype="auto"`` and ``tree_learner="auto"``.
+"""The analytic priors behind ``seq_attention="auto"``, the distributed
+GBDT's ``hist_allreduce_dtype="auto"`` and ``tree_learner="auto"``, and the
+streamed GBDT's chunk geometry and exact second sketch pass.
 
 The port's copy of the part of the JAX package's ``core/perfmodel.py`` that
 the text trainer and the GBDT router read: ``suggest_seq_attention``'s
@@ -179,3 +180,60 @@ def suggest_wire_dtype(n_rows: float, nfeat: float, workers: float,
                                analytic_s=analytic, config=wd))
     dec = choose_analytic(cands, fallback)
     return dec.arm, dec
+
+
+def suggest_chunk_rows(row_bytes: float, depth: int, fallback_rows: int,
+                       h2d_bps: Optional[float] = None
+                       ) -> Tuple[int, Decision]:
+    """Rows per streamed chunk (``io.ingest.stream_chunk_rows``): a
+    power-of-two ladder around the probe-derived ``fallback_rows``, each
+    rung priced per row at ``row_bytes / h2d_bps + dispatch / rows``. Only
+    a measured row may displace the probe formula, which is itself the
+    prior's optimum; the port records none, so the fallback holds."""
+    ladder = sorted({int(fallback_rows)} |
+                    {1 << p for p in range(13, 21)
+                     if (1 << p) <= 4 * fallback_rows
+                     and (1 << p) >= max(1024, fallback_rows // 4)})
+    dispatch_s = 2e-4   # per-chunk dispatch and pump hand-off
+    cands = []
+    for cr in ladder:
+        analytic = None
+        if h2d_bps:
+            analytic = row_bytes / float(h2d_bps) + dispatch_s / float(cr)
+        cands.append(Candidate(
+            "io_chunk_rows", f"c{cr}",
+            featurize(row_bytes=row_bytes, depth=depth, chunk_rows=cr),
+            analytic_s=analytic, config=int(cr)))
+    dec = choose_analytic(cands, f"c{int(fallback_rows)}")
+    dec.source = "fallback"
+    return int(dec.config), dec
+
+
+SECOND_PASS_BUDGET = 0.10  # an exact re-sketch may cost this share of training
+
+
+def suggest_sketch_second_pass(n_rows: float, nfeat: float,
+                               rows_per_s: Optional[float],
+                               train_s_estimate: Optional[float]
+                               ) -> Tuple[bool, Decision]:
+    """Whether a streamed dataset whose sketch overflowed its reservoir
+    takes an exact second sketch pass. The pass's analytic cost
+    (``rows / rows_per_s``, this stream's measured sketch rate) and the
+    budget (``SECOND_PASS_BUDGET`` of ``train_s_estimate``) go into the
+    provenance; the decision is the fallback, skip: the JAX package takes
+    the pass on this prior alone, but the port trusts a prior only to
+    displace a default when a measurement backs it, and it records none
+    (``StreamedDataset(exact_second_pass=True)`` asks for the pass)."""
+    analytic = n_rows / float(rows_per_s) if rows_per_s else None
+    feats = featurize(rows=n_rows, nfeat=nfeat)
+    budget = (SECOND_PASS_BUDGET * float(train_s_estimate)
+              if train_s_estimate else None)
+    dec = Decision(
+        "gbdt_sketch_pass", "skip", False, analytic,
+        ANALYTIC_CONFIDENCE if analytic is not None else 0.0, True, "skip",
+        "fallback",
+        [{"arm": "exact", "predicted_s": analytic,
+          "confidence": ANALYTIC_CONFIDENCE if analytic is not None else 0.0,
+          "source": "analytic" if analytic is not None else "none",
+          "budget_s": budget}], feats)
+    return False, dec

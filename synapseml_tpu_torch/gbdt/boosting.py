@@ -1050,7 +1050,10 @@ def train_booster(
     device=DEFAULT_DEVICE,
 ) -> Booster:
     """Fit a forest on ``X`` (dense (N, F) floats, a scipy sparse matrix or
-    a :class:`Dataset`) and labels ``y`` on ``device``.
+    a :class:`Dataset`) and labels ``y`` on ``device``. A
+    :class:`~synapseml_tpu_torch.gbdt.stream.StreamedDataset` trains out of
+    core through ``train_booster_streamed`` (its labels and weights come
+    with the stream).
 
     * ``categorical_features``: column indices binned as categories (their
       integer values; see ``ops.quantize``) and split by category sets
@@ -1097,6 +1100,32 @@ def train_booster(
     from ..core.logging import InstrumentationMeasures
 
     cfg = config
+    # a StreamedDataset carries its own labels and weights and trains
+    # through the streamed grower (local import: stream imports this module)
+    from .stream import StreamedDataset, train_booster_streamed
+
+    if isinstance(X, StreamedDataset):
+        unsupported = [name for name, v in [
+            ("y", y), ("sample_weight", sample_weight),
+            ("init_score", init_score), ("group_sizes", group_sizes),
+            ("fobj", fobj), ("init_model", init_model),
+            ("callbacks", callbacks or None)]
+            if v is not None]
+        if unsupported:
+            raise NotImplementedError(
+                f"train_booster(StreamedDataset) does not take {unsupported}"
+                ": labels and weights ride the stream; the others are the "
+                "resident path's (see gbdt/stream.py)")
+        if mapper is not None and X.mapper is None:
+            X.mapper = mapper
+            X._user_mapper = True
+        if categorical_features is not None and X.categorical_features is None:
+            X.categorical_features = list(categorical_features)
+        return train_booster_streamed(
+            X, config, mesh=mesh, valid_data=valid, measures=measures,
+            checkpoint_store=checkpoint_store,
+            checkpoint_every=checkpoint_every, resume=resume,
+            feature_names=feature_names, device=device)
     _reject_unported(cfg)
     if measures is None:
         measures = InstrumentationMeasures()

@@ -6,8 +6,8 @@ from training; ``Dataset`` bins once on ``device`` at construction and keeps
 the quantized (N, F) matrix resident there, so every
 ``train_booster(dataset, ...)`` call skips binning and the host→device copy
 of the raw floats. Dense and scipy sparse (CSR) input, numeric and
-categorical features; ``from_batches`` (streamed chunks) raises
-``NotImplementedError``.
+categorical features; ``from_batches`` builds one from a stream of chunks,
+binned as they arrive.
 """
 
 from __future__ import annotations
@@ -152,11 +152,103 @@ class Dataset:
     def from_batches(cls, batches, categorical_features=None,
                      max_bin: int = 255, bin_sample_count: int = 200_000,
                      seed: int = 0, mapper: Optional[BinMapper] = None,
-                     min_data_in_bin: int = 3, max_bin_by_feature=None):
-        """Not ported: bounded-memory construction from an iterator of
-        chunks (the JAX package's streaming ingest)."""
-        raise NotImplementedError(
-            "Dataset.from_batches is not ported to the PyTorch package yet")
+                     min_data_in_bin: int = 3, max_bin_by_feature=None,
+                     device=DEFAULT_DEVICE) -> "Dataset":
+        """Bounded-memory construction from an iterator of chunks, each
+        ``X``, ``(X, y)`` or ``(X, y, w)``: every chunk is binned on
+        ``device`` as it arrives and only its bins are kept (on the host
+        until the end, then moved to ``device`` once), so the raw floats
+        never sit whole in memory.
+
+        Without ``mapper`` the boundaries come from the first
+        ``bin_sample_count`` rows (a prefix sample: right for a shuffled
+        stream; pass a mapper for an ordered one), and the rows before that
+        point wait raw until the mapper exists. A NaN in a feature that the
+        mapper gave no missing bin raises instead of falling into a value
+        bin. Ranking groups and init scores are not streamed: build those
+        datasets whole."""
+        dev = resolve_device(device)
+        user_mapper = mapper is not None
+        binned_parts: list = []
+        y_parts: list = []
+        w_parts: list = []
+        raw_buf: list = []                  # raw chunks before the mapper
+        buffered = 0
+        nan_seen = None                     # per feature, over every chunk
+
+        def _bin(Xb):
+            binned_parts.append(apply_bins(mapper, Xb, dev).cpu().numpy())
+
+        def _flush_raw():
+            nonlocal buffered
+            for Xb in raw_buf:
+                _bin(Xb)
+            raw_buf.clear()
+            buffered = 0
+
+        for batch in batches:
+            if isinstance(batch, tuple):
+                Xc, yc, wc = (batch + (None, None))[:3]
+            else:
+                Xc, yc, wc = batch, None, None
+            Xc = np.asarray(Xc, np.float32)
+            if Xc.ndim != 2:
+                raise ValueError(f"chunk must be 2-D, got {Xc.shape}")
+            chunk_nan = np.isnan(Xc).any(axis=0)
+            nan_seen = (chunk_nan if nan_seen is None
+                        else (nan_seen | chunk_nan))
+            if yc is not None:
+                y_parts.append(np.asarray(yc, np.float32))
+            if wc is not None:
+                w_parts.append(np.asarray(wc, np.float32))
+            if mapper is None:
+                raw_buf.append(Xc)
+                buffered += len(Xc)
+                if buffered >= bin_sample_count:
+                    sample = np.concatenate(raw_buf)[:bin_sample_count]
+                    mapper = compute_bin_mapper(
+                        sample, max_bin, bin_sample_count,
+                        categorical_features, seed,
+                        min_data_in_bin=min_data_in_bin,
+                        max_bin_by_feature=max_bin_by_feature)
+                    _flush_raw()
+            else:
+                _bin(Xc)
+        if mapper is None:
+            if not raw_buf:
+                raise ValueError("from_batches got an empty batch iterator")
+            mapper = compute_bin_mapper(
+                np.concatenate(raw_buf), max_bin, bin_sample_count,
+                categorical_features, seed, min_data_in_bin=min_data_in_bin,
+                max_bin_by_feature=max_bin_by_feature)
+            _flush_raw()
+        if not binned_parts:
+            raise ValueError("from_batches got an empty batch iterator")
+        # a NaN the mapper has no missing bin for would land in the last
+        # value bin: another model than Dataset(X) on the same rows
+        late_nan = nan_seen & ~mapper.nan_mask & ~mapper.is_categorical
+        if late_nan.any():
+            raise ValueError(
+                f"features {np.flatnonzero(late_nan).tolist()} contain NaN "
+                "but the streamed sample that fixed the bin boundaries had "
+                "none: sample the whole stream or pass a mapper with "
+                "has_nan set")
+        binned = np.concatenate(binned_parts)
+        del binned_parts[:]
+        ds = cls.__new__(cls)
+        ds.device = dev
+        ds._user_mapper = user_mapper
+        ds._sparse = None
+        ds.X = None                          # the raw floats were not kept
+        ds.num_rows, ds.num_features = binned.shape
+        ds.mapper = mapper
+        ds.binned = torch.from_numpy(binned).to(dev)
+        ds.label = np.concatenate(y_parts) if y_parts else None
+        ds.weight = np.concatenate(w_parts) if w_parts else None
+        ds.init_score = None
+        ds.group_sizes = None
+        ds.categorical_features = categorical_features
+        return ds
 
     @property
     def shape(self):

@@ -173,14 +173,81 @@ def resolve_wire_dtype(cfg, mesh, n_rows, nfeat):
         link_bps=link)
 
 
+# Float32 sums over a histogram's bins in the order of XLA's CPU backend,
+# measured bitwise against jnp on float32 arrays of the grower's shapes (B a
+# power of two of at least 32, as every pad_bins size is): jnp.sum(x,
+# axis=-2) folds each block of 32 consecutive bins in bin order, then sums
+# the block sums the same way (in one fold once 32 or fewer are left);
+# jnp.cumsum(x, axis=-2) (a reduce_window) scans each block of 16 bins in
+# order, scans the block totals the same way, and adds each block's
+# exclusive carry. On the CPU the port sums in those orders, so split gains,
+# leaf totals and a lossy wire's pinned totals are the JAX package's to the
+# bit. On the card each stays one sum / cumsum call: the card is held by
+# tolerance, and the folds would cost some 30 launches per call, about
+# 31 x B a tree.
+XLA_SUM_BLOCK = 32
+XLA_SCAN_BLOCK = 16
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """Sequential float32 sum over dim -2."""
+    out = x[..., 0, :]
+    for i in range(1, x.shape[-2]):
+        out = out + x[..., i, :]
+    return out
+
+
+def _xla_sum(x: torch.Tensor) -> torch.Tensor:
+    B = x.shape[-2]
+    if B <= XLA_SUM_BLOCK:
+        return _fold(x)
+    return _xla_sum(_fold(x.unflatten(-2, (B // XLA_SUM_BLOCK,
+                                           XLA_SUM_BLOCK))))
+
+
+def _pow2(n: int) -> bool:
+    return n >= XLA_SUM_BLOCK and n & (n - 1) == 0
+
+
+def _bin_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., B, C) summed over its bins (dim -2), in XLA's order on
+    the CPU (see above)."""
+    if x.is_cuda or not _pow2(x.shape[-2]):
+        return x.sum(dim=-2)
+    return _xla_sum(x)
+
+
+def _scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over dim -2 in XLA's reduce_window order."""
+    B, k = x.shape[-2], XLA_SCAN_BLOCK
+    if B <= k:
+        out = [x[..., 0, :]]
+        for i in range(1, B):
+            out.append(out[-1] + x[..., i, :])
+        return torch.stack(out, dim=-2)
+    w = _scan(x.unflatten(-2, (B // k, k)))             # (..., B / k, k, C)
+    tot = _scan(w[..., -1, :])                          # (..., B / k, C)
+    carry = torch.cat([torch.zeros_like(tot[..., :1, :]), tot[..., :-1, :]],
+                      dim=-2)
+    return (w + carry.unsqueeze(-2)).flatten(-3, -2)
+
+
+def _bin_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of ``x`` (..., B, C) over its bins, in XLA's
+    order on the CPU (see above)."""
+    if x.is_cuda or not _pow2(x.shape[-2]):
+        return torch.cumsum(x, dim=-2)
+    return _scan(x)
+
+
 def _pin_totals(gh, tot):
     """Pin each feature's row of a lossy-wire histogram ``gh`` (..., FP, B,
     2) to its exactly reduced totals ``tot`` (..., FP, 2), spreading the
     residual over the bins in proportion to |bin|: empty bins stay zero and
     the leaf totals the grower reads carry no wire rounding."""
     absg = gh.abs()
-    mass = absg.sum(dim=-2, keepdim=True)
-    err = (tot - gh.sum(dim=-2)).unsqueeze(-2)
+    mass = _bin_sum(absg).unsqueeze(-2)
+    err = (tot - _bin_sum(gh)).unsqueeze(-2)
     return gh + err * absg / torch.where(mass > 0, mass, 1.0)
 
 
@@ -198,7 +265,7 @@ def _maybe_psum(x, group, wire_dtype: str = "f32"):
     t0 = time.perf_counter()
     if wire_dtype in ("bf16", "int8"):
         lead = x.shape[:-1]
-        tot = x[..., :2].sum(dim=-2)                     # (..., FP, 2)
+        tot = _bin_sum(x[..., :2])                       # (..., FP, 2)
         exact = torch.cat([tot.reshape(-1), x[..., 2].reshape(-1)])
         if wire_dtype == "bf16":
             half = x[..., :2].to(torch.bfloat16)
@@ -232,7 +299,7 @@ def _hist_reduce_scatter(x, group, wire_dtype: str = "f32"):
     t0 = time.perf_counter()
     FP, B, _ = x.shape
     if wire_dtype in ("bf16", "int8"):
-        tot = x[..., :2].sum(dim=1)                      # (FP, 2)
+        tot = _bin_sum(x[..., :2])                       # (FP, 2)
         exact = torch.cat([tot, x[..., 2]], dim=1)       # (FP, 2 + B)
         if wire_dtype == "bf16":
             half = x[..., :2].to(torch.bfloat16).contiguous()
@@ -364,11 +431,11 @@ def _best_for_leaf(hist, feature_mask, nan_bins, cfg: GrowerConfig,
     position in the feature's bin order."""
     K, FP, B, _ = hist.shape
     l1, l2 = cfg.lambda_l1, cfg.lambda_l2
-    totals = hist[:, 0].sum(dim=1)                     # (K, 3) — feature 0 spans the leaf
+    totals = _bin_sum(hist[:, 0])                      # (K, 3) — feature 0 spans the leaf
     G = totals[:, 0, None, None]
     H = totals[:, 1, None, None]
     C = totals[:, 2, None, None]
-    cum = torch.cumsum(hist, dim=2)                    # (K, FP, B, 3)
+    cum = _bin_cumsum(hist)                            # (K, FP, B, 3)
     l2s, order = l2, None
     if cfg.has_categorical:
         # a categorical feature scans its bins in their order: prefixes
@@ -384,7 +451,7 @@ def _best_for_leaf(hist, feature_mask, nan_bins, cfg: GrowerConfig,
         is_cat = catp[None, :, None]
         cum = torch.where(is_cat[..., None], torch.where(
             onehot[..., None], hist_sorted,
-            torch.cumsum(hist_sorted, dim=2)), cum)
+            _bin_cumsum(hist_sorted)), cum)
         l2c = float(np.float32(l2) + np.float32(cfg.cat_l2))
         l2s = torch.where(is_cat, l2c, l2)            # (1, FP, 1) float32
     parent = _leaf_objective(G, H, l1, l2s)
@@ -645,7 +712,7 @@ class _TreeBook:
         ``leaf_tot`` given, and stay on the device."""
         L = self.L
         if leaf_tot is None:
-            leaf_tot = hist[:, 0].sum(dim=1)           # (L, 3)
+            leaf_tot = _bin_sum(hist[:, 0])            # (L, 3)
         exists = torch.arange(L, device=hist.device) <= self.num_splits
         leaf_value = torch.where(
             exists, _leaf_output(leaf_tot[:, 0], leaf_tot[:, 1], cfg)
@@ -863,7 +930,7 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
     leaf_tot = None
     if scatter:
         t0 = time.perf_counter()
-        leaf_tot = coll.allgather(hist[:, 0].sum(dim=1), group)[0]
+        leaf_tot = coll.allgather(_bin_sum(hist[:, 0]), group)[0]
         _wire(1, _nbytes(leaf_tot))
         WIRE["seconds"] += time.perf_counter() - t0
     tree = book.tree(hist, cfg, leaf_tot)

@@ -1,6 +1,8 @@
 """IO — the serving layer: an embedded threaded HTTP server feeding
 micro-batches through a fitted stage (``serving.py``), with hot swap,
-tenants, deadlines and its CLI (``serving_main.py``).
+tenants, deadlines and its CLI (``serving_main.py``); and the ingestion
+layer of the streamed GBDT (``ingest.py``): the chunk pump, the pinned
+host → card stager, the chunk geometry and the disk chunk source.
 
 The JAX package's distributed serving (``io/distributed_serving.py``: the
 forwarding gateway, worker agents, the fabric supervisor and the promotion
@@ -10,6 +12,10 @@ binary and image datasources and the Power BI writer are not ported
 either.
 """
 
+from .ingest import (ChunkPump, ChunkStreamError,  # noqa: F401
+                     DiskChunkSource, PinnedStager, last_chunk_decision,
+                     mem_budget_bytes, pump_polling, read_chunk_file,
+                     stream_chunk_rows, stream_depth)
 from .serving import (ModelRegistry, ServingServer, SwapError,  # noqa: F401
                       request_to_table, respond_with)
 

@@ -20,8 +20,11 @@ Bin semantics (matching LightGBM's BinMapper):
 Sparse (scipy CSR) rows bin through ``CsrBinner``: each chunk starts as a
 broadcast of the bins of an all-zero row and only the explicit entries'
 bins are scattered in, so the implicit zeros never materialise as floats.
-The JAX package's ``StreamingQuantileSketch`` (out-of-core ingest) is not
-ported.
+
+Streamed rows (``gbdt/stream.py``) learn their boundaries through
+``StreamingQuantileSketch``: one pass of chunks, exact while the stream
+fits its sample buffer (then ``finalize`` is ``compute_bin_mapper`` over
+every row, boundaries byte for byte), a seeded reservoir past it.
 """
 
 from __future__ import annotations
@@ -285,6 +288,127 @@ def bin_csr_chunk(mapper: BinMapper, data, rows, cols, n_rows,
                   device="cuda") -> torch.Tensor:
     """One-shot convenience wrapper; loops should hold a :class:`CsrBinner`."""
     return CsrBinner(mapper, device)(data, rows, cols, n_rows)
+
+
+class StreamingQuantileSketch:
+    """One-pass bin boundaries for out-of-core ingest (``gbdt/stream.py``):
+    feed row chunks through :meth:`update` / :meth:`update_csr`, then
+    :meth:`finalize` into a :class:`BinMapper`.
+
+    * **Exact regime**: while the stream holds at most ``sample_count``
+      rows, every row is buffered and ``finalize()`` runs
+      :func:`compute_bin_mapper` over all of them, so the boundaries are
+      the resident path's byte for byte.
+    * **Reservoir regime**: past ``sample_count`` rows the buffer is a
+      seeded uniform row reservoir (algorithm R, vectorised per chunk; the
+      ``numpy`` generator of ``seed``, so the draws are the JAX package's).
+      A reservoir of m rows keeps every empirical quantile within
+      sqrt(ln(2 / delta) / (2 m)) of the stream's with probability
+      1 - delta (DKW): about 0.6 % of rank at m = 200k, delta = 1e-3.
+
+    Missing values and categorical bin occupancy are tracked exactly over
+    the whole stream and handed to :func:`compute_bin_mapper`, so neither
+    the NaN bins nor the one-vs-rest decision depend on the reservoir."""
+
+    def __init__(self, num_features: int, max_bin: int = 255,
+                 sample_count: int = 200_000,
+                 categorical_features: Optional[Sequence[int]] = None,
+                 seed: int = 0, min_data_in_bin: int = 3,
+                 max_bin_by_feature: Optional[Sequence[int]] = None):
+        self.num_features = int(num_features)
+        self.max_bin = int(max_bin)
+        self.sample_count = int(sample_count)
+        self.categorical_features = (list(categorical_features)
+                                     if categorical_features else [])
+        self.seed = int(seed)
+        self.min_data_in_bin = int(min_data_in_bin)
+        self.max_bin_by_feature = max_bin_by_feature
+        self.rows_seen = 0
+        self._buf = np.empty((min(self.sample_count, 4096), num_features),
+                             np.float32)
+        self._filled = 0
+        self._overflowed = False
+        self._rng = np.random.default_rng(self.seed)
+        self._has_nan = np.zeros(num_features, bool)
+        self._cat_pres = (np.zeros((num_features, self.max_bin), bool)
+                          if self.categorical_features else None)
+
+    def _reserve(self, extra: int) -> None:
+        need = min(self._filled + extra, self.sample_count)
+        if need > self._buf.shape[0]:
+            cap = self._buf.shape[0]
+            while cap < need:
+                cap *= 2
+            cap = min(cap, self.sample_count)
+            self._buf = np.concatenate(
+                [self._buf, np.empty((cap - self._buf.shape[0],
+                                      self.num_features), np.float32)])
+
+    def update(self, X: np.ndarray) -> "StreamingQuantileSketch":
+        X = np.atleast_2d(np.asarray(X, np.float32))
+        if X.shape[1] != self.num_features:
+            raise ValueError(f"chunk has {X.shape[1]} features, sketch was "
+                             f"built for {self.num_features}")
+        c = X.shape[0]
+        if c == 0:
+            return self
+        # exact whole-stream statistics, whatever the regime
+        self._has_nan |= np.isnan(X).any(axis=0)
+        if self._cat_pres is not None:
+            for j in self.categorical_features:
+                self._cat_pres[j] |= cat_presence_bitmap(X[:, j], self.max_bin)
+        t0 = self.rows_seen
+        self.rows_seen += c
+        take_direct = min(c, self.sample_count - self._filled)
+        if take_direct > 0:
+            self._reserve(take_direct)
+            self._buf[self._filled:self._filled + take_direct] = \
+                X[:take_direct]
+            self._filled += take_direct
+        if take_direct < c:
+            # algorithm R: the row at global index t replaces a uniform
+            # slot with probability m / (t + 1)
+            self._overflowed = True
+            m = self.sample_count
+            rest = X[take_direct:]
+            t = t0 + take_direct + np.arange(rest.shape[0], dtype=np.int64)
+            slot = (self._rng.random(rest.shape[0]) * (t + 1)).astype(
+                np.int64)
+            hit = np.flatnonzero(slot < m)
+            # in row order, so a later row drawing the same slot wins
+            for i in hit:
+                self._buf[slot[i]] = rest[i]
+        return self
+
+    def update_csr(self, data, rows, cols, n_rows: int
+                   ) -> "StreamingQuantileSketch":
+        """A sparse chunk: densified on the host (implicit zeros are zeros,
+        as :class:`CsrBinner` bins them) and fed to :meth:`update`; one
+        chunk's rows, never the dataset's."""
+        X = np.zeros((int(n_rows), self.num_features), np.float32)
+        X[np.asarray(rows, np.int64), np.asarray(cols, np.int64)] = \
+            np.asarray(data, np.float32)
+        return self.update(X)
+
+    @property
+    def exact(self) -> bool:
+        """True while ``finalize()`` equals ``compute_bin_mapper`` over the
+        whole stream."""
+        return not self._overflowed
+
+    def finalize(self) -> BinMapper:
+        if self.rows_seen == 0:
+            raise ValueError("finalize() on an empty sketch: no rows seen")
+        sample = self._buf[:self._filled]
+        return compute_bin_mapper(
+            sample, self.max_bin,
+            # the buffer is the sample: never subsample it again
+            sample_count=max(self._filled, 1),
+            categorical_features=self.categorical_features or None,
+            seed=self.seed, has_nan=self._has_nan,
+            min_data_in_bin=self.min_data_in_bin,
+            max_bin_by_feature=self.max_bin_by_feature,
+            cat_presence=self._cat_pres)
 
 
 def bin_threshold_to_value(mapper: BinMapper, feature: int, bin_id: int) -> float:

@@ -29,6 +29,9 @@ from synapseml_tpu.dl import trainer as jtrainer
 from synapseml_tpu.dl import vision as jvision
 from synapseml_tpu.gbdt import boosting as jboost
 from synapseml_tpu.gbdt import dataset as jdataset
+from synapseml_tpu.gbdt import stream as jstream
+from synapseml_tpu.io import ingest as jingest
+from synapseml_tpu.ops import quantize as jquantize
 from synapseml_tpu.io import serving as jserving
 from synapseml_tpu.io import serving_main as jserving_main
 from synapseml_tpu.models import gbdt as jmodels
@@ -42,6 +45,8 @@ from synapseml_tpu_torch.dl import trainer as ttrainer
 from synapseml_tpu_torch.dl import vision as tvision
 from synapseml_tpu_torch.gbdt import boosting as tboost
 from synapseml_tpu_torch.gbdt import dataset as tdataset
+from synapseml_tpu_torch.gbdt import stream as tstream
+from synapseml_tpu_torch.io import ingest as tingest
 from synapseml_tpu_torch.io import serving as tserving
 from synapseml_tpu_torch.io import serving_main as tserving_main
 from synapseml_tpu_torch.models import gbdt as tmodels
@@ -52,7 +57,7 @@ CPU = "cpu"
 
 # names of the JAX package the port declares unported (each refused below)
 UNPORTED_BOOSTER = set()
-UNPORTED_DATASET = {"from_batches"}
+UNPORTED_DATASET = set()
 UNPORTED_ESTIMATOR_PARAMS = set()
 # TrainConfig fields that take only their default (machinery not ported)
 DEFAULT_ONLY = {"prefetch_batches": 4, "donate_buffers": False,
@@ -123,9 +128,37 @@ def test_checkpoint_train_config_fields_take_effect(tmp_path, field, value,
 @pytest.mark.parametrize("jfn,tfn", [
     (jboost.train_booster, tboost.train_booster),
     (jdataset.Dataset.__init__, tdataset.Dataset.__init__),
-    (jdataset.bin_sparse, tdataset.bin_sparse)])
+    (jdataset.bin_sparse, tdataset.bin_sparse),
+    (jdataset.Dataset.from_batches, tdataset.Dataset.from_batches),
+    (jstream.train_booster_streamed, tstream.train_booster_streamed),
+    (jstream.predict_streamed, tstream.predict_streamed),
+    (jingest.stream_chunk_rows, tingest.stream_chunk_rows),
+    (jingest.stream_depth, tingest.stream_depth),
+    (jingest.read_chunk_file, tingest.read_chunk_file),
+    (jingest.pump_polling, tingest.pump_polling)])
 def test_functions_take_every_reference_argument(jfn, tfn):
     assert _args(jfn) - _args(tfn) == set()
+
+
+@pytest.mark.parametrize("jmod,tmod", [(jstream, tstream),
+                                       (jingest, tingest)])
+def test_streaming_modules_hold_every_reference_name(jmod, tmod):
+    """Every public function and class the JAX package's streamed GBDT and
+    ingestion modules define is in the port's, with the same parameters
+    (the port's entry points add ``device``)."""
+    public = {n for n in dir(jmod) if not n.startswith("_")
+              and callable(getattr(jmod, n))
+              and getattr(getattr(jmod, n), "__module__", "") == jmod.__name__}
+    assert public - set(dir(tmod)) == set()
+    for name in sorted(public):
+        jobj, tobj = getattr(jmod, name), getattr(tmod, name)
+        if inspect.isclass(jobj):
+            if issubclass(jobj, BaseException):
+                continue
+            assert _args(jobj.__init__) - _args(tobj.__init__) == set(), name
+        else:
+            assert _args(jobj) - _args(tobj) == set(), name
+    assert "device" in _args(tstream.train_booster_streamed)
 
 
 def test_distributed_surface_is_ported():
@@ -158,6 +191,10 @@ def test_distributed_surface_is_ported():
 @pytest.mark.parametrize("jcls,tcls,unported", [
     (jboost.Booster, tboost.Booster, UNPORTED_BOOSTER),
     (jdataset.Dataset, tdataset.Dataset, UNPORTED_DATASET),
+    (jstream.StreamedDataset, tstream.StreamedDataset, set()),
+    (jingest.ChunkPump, tingest.ChunkPump, set()),
+    (jingest.DiskChunkSource, tingest.DiskChunkSource, set()),
+    (jquantize.StreamingQuantileSketch, tq.StreamingQuantileSketch, set()),
     (jinference.BucketedRunner, tinference.BucketedRunner, set()),
     (jinference.PendingBatch, tinference.PendingBatch, set()),
     (jinference.RunnerFleet, tinference.RunnerFleet, set()),
@@ -193,7 +230,6 @@ def boosters():
 def test_unported_names_raise_naming_themselves(boosters):
     X, _, tb = boosters
     for name, call in (
-                ("from_batches", lambda: tdataset.Dataset.from_batches(iter([X]))),
             ("row_layout", lambda: tboost.train_booster(
                 X, np.zeros(len(X)), tboost.BoosterConfig(
                     row_layout="masked"), device=CPU)),

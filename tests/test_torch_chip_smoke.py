@@ -937,3 +937,32 @@ def test_onnx_phase_rehearses_on_the_cpu(monkeypatch):
     assert out["tree"]["gap"] <= 1e-5
     with pytest.raises(AssertionError, match="above 0.001"):
         cs.onnx_rel_gap("planted", np.ones(3) * 1.01, np.ones(3), 1e-3)
+
+
+def test_stream_phase_runs_on_the_plain_versions(monkeypatch):
+    """Phase 19 on the CPU at small sizes: the plain versions launch no
+    kernel, so the first streamed fit's launch check refuses the run; with
+    counting stand-ins for the streamed grower's kernel names every check
+    passes (the card-against-CPU check is CPU against CPU here), and a
+    sketch that left its exact regime is refused."""
+    from synapseml_tpu_torch.gbdt import stream
+
+    monkeypatch.setattr(cs, "STREAM_VALID_ROWS", 4000)
+    monkeypatch.setattr(cs, "STREAM_SOURCE_ROWS", 6000)
+    monkeypatch.setattr(cs, "STREAM_PREFIX_ROWS", 5000)
+    monkeypatch.setattr(cs, "STREAM_CROSS_ROWS", 4000)
+    monkeypatch.setattr(cs, "STREAM_ITERS", 3)
+    monkeypatch.setattr(cs, "STREAM_CROSS_ITERS", 1)
+    with pytest.raises(AssertionError, match="never launched"):
+        cs.stream_path("cpu", rows=20_000)
+    for name in ("child_histogram", "level_histograms"):
+        def counted(*a, _f=getattr(stream, name), _n=name, **k):
+            hk.LAUNCHES[_n] += 1
+            return _f(*a, **k)
+        monkeypatch.setattr(stream, name, counted)
+    out = cs.stream_path("cpu", rows=20_000)
+    assert out["leafwise"]["child_histogram"] > 0
+    assert out["depthwise"]["level_histograms"] > 0
+    cfg = SimpleNamespace(max_bin=255, bin_sample_count=1000, seed=0)
+    with pytest.raises(AssertionError, match="exact regime"):
+        cs.sketch_prefix_check(cfg)

@@ -437,6 +437,7 @@ def test_import_leaves_jax_out():
             "synapseml_tpu_torch.core.inference, "
             "synapseml_tpu_torch.io.serving, "
             "synapseml_tpu_torch.io.serving_main, "
+            "synapseml_tpu_torch.io.ingest, synapseml_tpu_torch.gbdt.stream, "
             "synapseml_tpu_torch.onnx, synapseml_tpu_torch.onnx.treeensemble; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'synapseml_tpu' or m.startswith("

@@ -11,10 +11,13 @@ module imports it only inside parent-side functions, so a rank can import
 the module to find its entry point).
 
 Tolerances. Trees: split features, bins and the tree structure identical,
-leaf values within 1e-5 (``LEAF_ATOL``: the reductions over the ranks fold
-in rank order, as XLA's CPU collectives do, so the float32 wire is bitwise
-the JAX package's; the lossy wires' pinned totals sum over the bins in
-another order than XLA's, a few float32 ulps). The fixture
+at every growth policy and wire with no floor on the split gain, leaf
+values within 1e-5 (``LEAF_ATOL``: the reductions over the ranks fold in
+rank order, as XLA's CPU collectives do, so the float32 wire is bitwise the
+JAX package's; on the CPU the grower sums and scans over the bins in XLA's
+orders, ``grower._bin_sum`` / ``_bin_cumsum``, held bitwise to ``jnp`` by
+``test_bin_sums_are_xla_order``, so a lossy wire's pinned totals and the
+split gains at float32 noise agree too). The fixture
 is the JAX package's decisive one (``tests/test_distributed_gbdt_
 collectives.py``): margins far above the int8 grid's noise, at 2001 rows,
 so every k pads its rows. Collectives on the same per-rank inputs: the
@@ -37,20 +40,13 @@ LEAF_ATOL = 1e-5
 WIRE_RTOL = 1e-6
 ITERS, LEAVES, BINS = 3, 8, 63
 HIST_SHAPE = (16, 256, 3)          # (FP, B, 3) per-rank partial histograms
-# depthwise splits every leaf of a level, so the budget's last splits can
-# take gains at the float32 noise of the parent terms (9e-5 against parent
-# gains near 1e3 at these sizes), where the lossy wires' pinned totals,
-# summed over the bins in another order than XLA's, pick another bin; a
-# floor on the gain keeps every depthwise split decisive
-DEPTHWISE = dict(min_gain_to_split=1e-2)
 
 # (name, k, data, config overrides, fit extras)
 CASES = [
     (f"{learner}_{wire}_{policy}", 2, "decisive",
      dict(tree_learner=learner, hist_allreduce_dtype=wire,
           growth_policy=policy, **({"top_k": 3} if learner == "voting"
-                                   else {}),
-          **(DEPTHWISE if policy == "depthwise" else {})), {})
+                                   else {})), {})
     for learner, wires, policies in (
         ("data", ("f32", "bf16", "int8"), ("leafwise", "depthwise")),
         ("feature", ("f32", "bf16", "int8"), ("leafwise",)),
@@ -80,7 +76,7 @@ CASES += [
     ("voting_bf16_k4", 4, "decisive", dict(tree_learner="voting", top_k=3,
                                            hist_allreduce_dtype="bf16"), {}),
     ("data_depthwise_k4", 4, "decisive",
-     dict(tree_learner="data", growth_policy="depthwise", **DEPTHWISE), {}),
+     dict(tree_learner="data", growth_policy="depthwise"), {}),
 ]
 RESUME_AT = 2                      # the resume case stops in iteration 2
 
@@ -434,6 +430,37 @@ def test_auto_routing_metadata_has_jax_keys(spawned):
 
 GRID = [(f, b, k, L) for f in (8, 28, 40, 128) for b in (63, 255)
         for k in (4, 14, 20) for L in (8, 31)]
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 2), (16, 256, 3),
+                                   (8, 16, 256, 2), (4, 16, 512, 3),
+                                   (2, 8, 2048, 3), (8, 4096, 3)])
+def test_bin_sums_are_xla_order(shape):
+    """The grower's CPU sums over the bins (lossy-wire totals, leaf totals)
+    and its prefix scans (split gains) against ``jnp.sum`` /
+    ``jnp.cumsum`` on the same float32 arrays, bitwise, at the wires'
+    and the grower's shapes."""
+    import jax
+    import jax.numpy as jnp
+
+    from synapseml_tpu_torch.gbdt import grower as tgrower
+
+    rng = np.random.default_rng(sum(shape))
+    x = (rng.normal(size=shape) * np.exp(2 * rng.normal(size=shape))
+         ).astype(np.float32)
+    t = torch.from_numpy(x)
+    want_sum = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=-2))(x))
+    want_cum = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=-2))(x))
+    np.testing.assert_array_equal(tgrower._bin_sum(t).numpy(), want_sum)
+    np.testing.assert_array_equal(tgrower._bin_cumsum(t).numpy(), want_cum)
+    # and the pinning the lossy wires run, on totals a wire would bring
+    tot = (want_sum[..., :2] * (1 + 1e-3 * rng.normal(
+        size=want_sum[..., :2].shape))).astype(np.float32)
+    from synapseml_tpu.gbdt import grower as jgrower
+
+    np.testing.assert_array_equal(
+        tgrower._pin_totals(t[..., :2], torch.from_numpy(tot)).numpy(),
+        np.asarray(jax.jit(jgrower._pin_totals)(x[..., :2], tot)))
 
 
 def test_cost_model_matches_jax(monkeypatch):
