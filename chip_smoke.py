@@ -108,7 +108,9 @@ Phases, each of which fails the run if it fails:
    timed alone with their peak memory. Then every objective (regression,
    l1, huber, fair, poisson, quantile, mape, gamma, tweedie and
    cross_entropy regressors, multiclass and multiclassova classifiers, the
-   ranker) at 100,000 rows for 3 iterations on the card and on the CPU:
+   ranker) at 50,000 rows for 3 iterations on the card and on the CPU
+   (the CPU fits in 4 spawned processes, started beside the full-width
+   fits):
    mean absolute prediction gap at most 1e-3 of the CPU's mean absolute
    prediction, class predictions equal on 99.9% of rows.
 11. vision: ``DeepVisionClassifier(backbone="resnet50")`` at 224x224
@@ -163,7 +165,7 @@ Phases, each of which fails the run if it fails:
    ``--rows`` rows, the bag under ``baggingFreq=5``, GOSS's rows, the
    feature permutation and mask at iterations 0, 1, 5 and 7, every node
    mask of one tree) made on the card and on the CPU, bitwise equal; then
-   ``LightGBMClassifier(numIterations=50, learningRate=0.1,
+   ``LightGBMClassifier(numIterations=20, learningRate=0.1,
    numLeaves=31, maxBin=255, metric="auc")`` leaf-wise with the
    validation column for each mode: bagging 0.8 every 5 iterations with
    feature fraction 0.9 (LightGBM's ``simple_example.py``), GOSS and DART
@@ -184,7 +186,7 @@ Phases, each of which fails the run if it fails:
    weights equal a host replay of its drops; the RF model string carries
    ``average_output`` and reloads within 1e-5. CUDA events time the
    sampling work of one iteration alone. Then every mode (and
-   the depthwise GOSS and DART fits) at 100,000 rows for 10 iterations on
+   the depthwise GOSS and DART fits) at 50,000 rows for 10 iterations on
    the card and on the CPU (the CPU fits in spawned worker processes):
    per-iteration validation AUC within 1e-3.
 14. categorical and sparse data on phase 10's Covertype-shaped table:
@@ -328,6 +330,43 @@ Phases, each of which fails the run if it fails:
    iterations on the card and on the CPU within 1e-3; ``predict_streamed``
    within 1e-5 of ``predict``.
    ``--phase 19`` builds the kernels and runs it alone.
+20. GBDT across ranks and layouts. (a) On one process, phase 3's table
+   (binned once, held-out rows phase 17's 200k): each stable-partition
+   primitive (``sort``, ``sort32``, ``scan``, ``scatter``) exactly
+   ``torch.argsort(stable=True)``'s source indices on 2M random keys in
+   {-1, 0, 1, 2} (ms each logged); then ``train_booster`` leaf-wise (10
+   iterations, 31 leaves, 255 bins) with ``row_layout`` partition, gather
+   and masked, ``partition_impl`` sort32, scan and scatter, and partition
+   with ``use_segmented=False``: fit s, histogram kernel ms per iteration
+   (CUDA events), launches (counts zeroed just before each fit and read
+   just after) and host syncs per tree logged; each run's held-out AUC
+   within 1e-3 of the partition fit's, its split features and bins the
+   partition fit's (a near tie broken by the card's float32 sums is
+   logged, and that run held to the AUC bound alone). (b) The
+   multi-process contract: two processes join through
+   ``initialize_distributed`` (a ``TCPStore`` on localhost) and share the
+   card, each passing only its own half of the table to
+   ``train_booster(mesh=...)``, leaf-wise and depthwise, 10 iterations,
+   the f32 wire: model strings equal across the ranks, each rank's mapper
+   the gathered sample's, held-out probabilities within 5e-3 of the
+   one-process fit on that mapper; each rank's ``referenceDataset`` span
+   and per iteration its kernels, collectives, leaf gather and the rest
+   logged. (c) Phase 19's stream over a mesh of two gloo ranks sharing the
+   card (each rank sketches the whole stream, bins, caches and streams its
+   half of every 1M-row chunk): ``train_booster_streamed(mesh=...)``
+   leaf-wise and depthwise at 11,000,000 rows, leaf-wise with
+   ``resident=True``, and the f32, bf16 and int8 wires on the stream's
+   first 2,000,000 rows: model strings equal across the ranks; on phase
+   19's 500k held-out stream the leaf-wise AUC within 1e-3 of phase 19's
+   one-process streamed fit (its recorded reading when phase 20 runs
+   alone) and of resident mode's, each lossy wire's within 1e-3 of f32's
+   on the same rows. Per rank: sketch and bin-and-cache s, host cache
+   bytes, fit s, rows x iterations / s, per pass the wall, the H2D copy,
+   the host's wait on the producer, the collectives and the kernels, and
+   peak memory. Every failure of (a)-(c) is collected and raised at the
+   end; the three histogram kernels must each have launched on phase
+   20's paths. ``--phase 20`` builds the kernels and runs it alone. Every
+   phase's seconds are logged as it ends.
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 9's ring and
@@ -424,7 +463,8 @@ COVTYPE_ROWS, COVTYPE_NUMERIC, COVTYPE_CLASSES = 581_012, 10, 7
 COVTYPE_WILD, COVTYPE_SOIL = 4, 40
 MSLR_QUERIES, MSLR_FEATURES, MSLR_MAX_GROUP = 10_000, 136, 908
 FAMILY_ITERS = 10
-FAMILY_CROSS_ROWS, FAMILY_CROSS_ITERS = 100_000, 3
+# the cross-check at 50,000 rows (100,000 before phase 20 was added)
+FAMILY_CROSS_ROWS, FAMILY_CROSS_ITERS = 50_000, 3
 # card against CPU: atomics can flip near-tie splits, so the mean absolute
 # prediction gap is held to 1e-3 of the CPU's mean absolute prediction, and
 # class predictions to 99.9% agreement
@@ -481,7 +521,7 @@ SURFACE_DUMP_RTOL, SURFACE_CURVE_TOL = 1e-6, 1e-3
 # fields): bagging as LightGBM's examples/python-guide/simple_example.py
 # sets it, GOSS and DART at their defaults, RF, per-node feature sampling,
 # and X2 (which the label rises with by construction) constrained upward
-SAMPLING_ITERS = 50
+SAMPLING_ITERS = 20
 SAMPLING_MODES = [
     ("bagging", dict(baggingFraction=0.8, baggingFreq=5,
                      featureFraction=0.9),
@@ -508,14 +548,15 @@ MONOTONE_FEATURE, MONOTONE_ROWS, MONOTONE_GRID = 2, 1000, 64
 # the split search's prefix sums, so the order is held within 1e-5 of the
 # tree's largest |value|
 MONOTONE_TOL = 1e-5
-SAMPLING_CROSS_ROWS, SAMPLING_CROSS_ITERS = 100_000, 10
+# the cross-check at 50,000 rows (100,000 before phase 20 was added)
+SAMPLING_CROSS_ROWS, SAMPLING_CROSS_ITERS = 50_000, 10
 SAMPLING_RELOAD_TOL = 1e-5
 # phase 14: categorical and sparse data on phase 10's Covertype-shaped
 # table. UCI's raw covtype.data stores wilderness and soil as one id each
 # (12 columns: the last two categorical, 4 and 40 categories); LIBSVM's
 # covtype is the 54-column one-hot table, 12 non-zeros per row, as CSR.
 CAT_FEATURES = [COVTYPE_NUMERIC, COVTYPE_NUMERIC + 1]
-CAT_CROSS_ROWS = 50_000     # phase 10's 100,000, halved for the time limit
+CAT_CROSS_ROWS = 50_000     # halved for the time limit, as phase 10's
 CAT_RELOAD_TOL = 1e-5
 
 # phase 15: serving on the card. The bucketed runner at the JAX package's
@@ -611,6 +652,47 @@ STREAM_CROSS_ROWS = 100_000
 STREAM_CROSS_ITERS = 3
 STREAM_AUC_TOL = 1e-3            # tests/test_oocore.py:233's bound
 STREAM_PREDICT_TOL = 1e-5
+# phase 20: GBDT across ranks and layouts. (a) every leaf-wise hot-loop
+# design on phase 3's table; (b) the multi-process contract, two ranks each
+# passing its half of it; (c) phase 19's stream over a mesh of two ranks
+LAYOUT_ITERS = 10
+LAYOUT_RUNS = (
+    ("partition", {}),
+    ("gather", dict(row_layout="gather")),
+    ("masked", dict(row_layout="masked")),
+    ("sort32", dict(partition_impl="sort32")),
+    ("scan", dict(partition_impl="scan")),
+    ("scatter", dict(partition_impl="scatter")),
+    ("unsegmented", dict(use_segmented=False)))
+LAYOUT_AUC_TOL = 1e-3
+PARTITION_KEYS = 2_000_000
+MP_RANKS, MP_ITERS = 2, 10
+MESH_RANKS = 2
+MESH_LOSSY_ROWS = 2_000_000      # the lossy wires' prefix of the stream
+# the prefix's chunk rows, fixed (the probe picks the same on the card) so
+# that tools/stream_mesh_reference_auc.py sums in the same order
+MESH_CHUNK_ROWS = 1 << 20
+# phase 19's leaf-wise streamed AUC on its held-out stream as phase 19
+# reads it on an H100 80GB HBM3 (700 W); the reference when phase 20 runs
+# alone
+STREAM_REFERENCE_AUC = 0.941957
+# the JAX package's held-out AUC of each wire, mesh-streamed on the
+# prefix (the CPU, two virtual devices: tools/stream_mesh_reference_auc.py),
+# by MESH_LOSSY_ROWS, logged beside the card's. The table's first split is
+# a near tie (its margin X0 * X1 is symmetric in the two features), and
+# which side of it ten trees land on moves the AUC by several 1e-3: the
+# reference's bf16 and int8 wires read -0.005778 and +0.002434 from its
+# f32. So a lossy wire is held to the f32 fit on the prefix only within
+# MESH_WIRE_AUC_GAP, and to its f32 trees on phase 17's decisive fixture,
+# streamed over the same ranks (bf16 exactly, int8 within a bin: see
+# same_splits_within_a_bin)
+MESH_REFERENCE_AUC = {2_000_000: {"f32": 0.945501, "bf16": 0.939723,
+                                  "int8": 0.947935}}
+MESH_WIRE_AUC_GAP = 0.01
+# the sizes phase 20's ranks take from this process (a rehearsal's smaller)
+_MESH_SETTINGS = ("STREAM_ROWS", "STREAM_VALID_ROWS", "STREAM_SOURCE_ROWS",
+                  "STREAM_ITERS", "MESH_LOSSY_ROWS", "MESH_CHUNK_ROWS",
+                  "MP_ITERS", "DIST_EVAL_ROWS", "DIST_DECISIVE_ROWS")
 
 
 def log(msg: str) -> None:
@@ -2428,43 +2510,99 @@ def family_full_width(rows: int, dev: str) -> dict:
     return baselines
 
 
-def family_cross_check(dev: str) -> None:
-    """Every objective at ``FAMILY_CROSS_ROWS`` rows for
-    ``FAMILY_CROSS_ITERS`` iterations on the card and on the CPU."""
+FAMILY_CROSS_WORKERS = 4
+
+
+def family_case(index: int, rows: int) -> tuple:
+    """(label, estimator class, params, table) of the cross-check's case
+    ``index``: the regression objectives, the two multiclass ones, the
+    ranker, each on its own seeded table of ``rows`` rows."""
     from synapseml_tpu_torch.models import (LightGBMClassifier,
                                             LightGBMRanker, LightGBMRegressor)
 
-    rows, it = FAMILY_CROSS_ROWS, FAMILY_CROSS_ITERS
-    X, margin = higgs_margin(rows, seed=3)
-    cases = [(f"regressor {o}", LightGBMRegressor, dict(objective=o),
-              table_of(X, regression_label(o, margin)))
-             for o in REGRESSION_OBJECTIVES]
-    Xc, yc = covertype_like(rows, seed=3)
-    cases += [(f"classifier {o}", LightGBMClassifier, dict(objective=o),
-               table_of(Xc, yc)) for o in ("multiclass", "multiclassova")]
+    nreg = len(REGRESSION_OBJECTIVES)
+    if index < nreg:
+        o = REGRESSION_OBJECTIVES[index]
+        X, margin = higgs_margin(rows, seed=3)
+        return (f"regressor {o}", LightGBMRegressor, dict(objective=o),
+                table_of(X, regression_label(o, margin)))
+    if index < nreg + 2:
+        o = ("multiclass", "multiclassova")[index - nreg]
+        Xc, yc = covertype_like(rows, seed=3)
+        return (f"classifier {o}", LightGBMClassifier, dict(objective=o),
+                table_of(Xc, yc))
     Xr, yr, query, _ = mslr_like(rows // 120, seed=3)
-    cases.append(("ranker lambdarank", LightGBMRanker,
-                  dict(maxPosition=20, groupCol="query"),
-                  table_of(Xr, yr).with_column("query", query)))
-    for label, cls, params, table in cases:
-        preds, classes = {}, {}
-        for d in (dev, "cpu"):
-            t0 = time.perf_counter()
-            out = cls(numIterations=it, numLeaves=31, maxBin=255, device=d,
-                      **params).fit(table).transform(table)
-            key = "probability" if "probability" in out else "prediction"
-            preds[d] = np.asarray(out[key], np.float64)
-            classes[d] = np.asarray(out["prediction"])
-            log(f"  {label} {d}: fit+transform "
-                f"{time.perf_counter() - t0:.2f}s")
-        gap = float(np.abs(preds[dev] - preds["cpu"]).mean())
-        scale = float(np.abs(preds["cpu"]).mean())
-        agree = (float((classes[dev] == classes["cpu"]).mean())
-                 if cls is LightGBMClassifier else 1.0)
+    return ("ranker lambdarank", LightGBMRanker,
+            dict(maxPosition=20, groupCol="query"),
+            table_of(Xr, yr).with_column("query", query))
+
+
+FAMILY_CASES = len(REGRESSION_OBJECTIVES) + 3
+
+
+def family_fits(indices, rows: int, it: int, dev: str,
+                threads: int = 0) -> list:
+    """(label, predictions, classes or None, seconds) of each case of
+    ``indices`` fitted and transformed on ``dev`` (``threads``: intra-op
+    threads, 0 keeps them); classes for the classifiers only."""
+    from synapseml_tpu_torch.models import LightGBMClassifier
+
+    if threads:
+        torch.set_num_threads(threads)
+    out = []
+    for index in indices:
+        label, cls, params, table = family_case(index, rows)
+        t0 = time.perf_counter()
+        res = cls(numIterations=it, numLeaves=31, maxBin=255, device=dev,
+                  **params).fit(table).transform(table)
+        key = "probability" if "probability" in res else "prediction"
+        out.append((label, np.asarray(res[key], np.float64),
+                    np.asarray(res["prediction"])
+                    if cls is LightGBMClassifier else None,
+                    time.perf_counter() - t0))
+    return out
+
+
+def start_family_cpu():
+    """The cross-check's CPU fits, started in ``FAMILY_CROSS_WORKERS``
+    spawned processes (cases dealt round-robin, one intra-op thread each)
+    so that they run beside the card's work: (pool, futures)."""
+    from concurrent.futures import ProcessPoolExecutor
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    pool = ProcessPoolExecutor(max_workers=FAMILY_CROSS_WORKERS,
+                               mp_context=ctx)
+    futures = [pool.submit(family_fits, range(w, FAMILY_CASES,
+                                              FAMILY_CROSS_WORKERS),
+                           FAMILY_CROSS_ROWS, FAMILY_CROSS_ITERS, "cpu", 1)
+               for w in range(FAMILY_CROSS_WORKERS)]
+    return pool, futures
+
+
+def family_cross_check(dev: str, cpu=None) -> None:
+    """Every objective at ``FAMILY_CROSS_ROWS`` rows for
+    ``FAMILY_CROSS_ITERS`` iterations on the card and on the CPU; ``cpu``
+    is ``start_family_cpu()``'s, started earlier (else started here). The
+    pool is shut down before the phase goes on."""
+    pool, futures = cpu or start_family_cpu()
+    try:
+        card = family_fits(range(FAMILY_CASES), FAMILY_CROSS_ROWS,
+                           FAMILY_CROSS_ITERS, dev)
+        cpu_fits = [None] * FAMILY_CASES
+        for w, f in enumerate(futures):
+            for index, fit in zip(range(w, FAMILY_CASES,
+                                        FAMILY_CROSS_WORKERS), f.result()):
+                cpu_fits[index] = fit
+    finally:
+        pool.shutdown()
+    for (label, pd, cd, td), (_, pc, cc, tc) in zip(card, cpu_fits):
+        gap = float(np.abs(pd - pc).mean())
+        scale = float(np.abs(pc).mean())
+        agree = float((cd == cc).mean()) if cc is not None else 1.0
         ok = gap <= FAMILY_REL_TOL * scale and agree >= CLASS_AGREEMENT
-        log(f"  {label}: mean |pred diff|={gap:.3g} (bound "
-            f"{FAMILY_REL_TOL * scale:.3g}), classes agree {agree:.4%} -> "
-            f"{'ok' if ok else 'MISMATCH'}")
+        log(f"  {label}: fit+transform {td:.2f}s {dev}, {tc:.2f}s cpu; mean"
+            f" |pred diff|={gap:.3g} (bound {FAMILY_REL_TOL * scale:.3g}), "
+            f"classes agree {agree:.4%} -> {'ok' if ok else 'MISMATCH'}")
         if not ok:
             raise AssertionError(f"{label}: card and CPU fits disagree")
 
@@ -3673,7 +3811,6 @@ def sampling_path(rows: int, dev: str, plain_launches: dict) -> dict:
     lap("sampling alone")
     del X, y
     sampling_cross_check(dev)
-    log(f"  phase 13 took {time.perf_counter() - t_start:.1f}s")
     return fits
 
 
@@ -4069,7 +4206,6 @@ def categorical_path(dev: str, numeric: dict) -> dict:
     log(f"  categorical leaf-wise fit {cat_s['leafwise']:.3f} s against "
         f"the one-hot CSR fit's {sparse_s:.3f} s in this phase "
         f"({cat_s['leafwise'] / sparse_s:.2f}x)")
-    log(f"  phase 14 took {time.perf_counter() - t_start:.1f}s")
     return served
 
 
@@ -4649,7 +4785,6 @@ def serving_path(dev: str, booster, Xv, cat_model, Xc, swap_booster
     load = serving_load(serve, booster, swap_booster, cat_stage, Xv, Xc,
                         dev)
     overload = serving_overload(serve, booster, Xv, dev)
-    log(f"  phase 15 took {time.perf_counter() - t_start:.1f}s")
     return dict(per_rung=per_rung, predict=predict, timed=timed,
                 replay=replay, load=load, overload=overload)
 
@@ -5550,7 +5685,6 @@ def onnx_path(dev: str, booster=None, card: str = "") -> dict:
     models = onnx_models(dev, card)
     fixtures = onnx_fixtures(dev, card)
     tree = onnx_tree_ensemble(booster, dev, card)
-    log(f"  phase 18 took {time.perf_counter() - t0:.1f}s; {card}")
     return dict(models=models, fixtures=fixtures, tree=tree)
 
 
@@ -5792,15 +5926,531 @@ def stream_path(dev: str, rows: int = None) -> dict:
         f"{time.perf_counter() - t0:.3f}s, max |diff| to predict={gap:.3g}")
     if got.shape != want.shape or gap > STREAM_PREDICT_TOL:
         raise AssertionError("predict_streamed differs from predict")
-    log(f"  phase 19 took {time.perf_counter() - t_phase:.1f}s")
-    return dict(leafwise=lw["launches"], depthwise=dw["launches"])
+    return dict(leafwise=lw["launches"], depthwise=dw["launches"], auc=a_lw)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: GBDT across ranks and layouts
+# ---------------------------------------------------------------------------
+
+def partition_primitive_check(dev: str) -> dict:
+    """Each stable-partition primitive's source indices against
+    ``torch.argsort(stable=True)``'s on ``PARTITION_KEYS`` random keys in
+    {-1, 0, 1, 2} on ``dev``, exactly; ms per call on the card."""
+    from synapseml_tpu_torch.gbdt.grower import (PARTITION_IMPLS,
+                                                 stable_partition_src)
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    key = torch.randint(-1, 3, (PARTITION_KEYS,), generator=gen, device=dev)
+    want = torch.argsort(key, stable=True)
+    out = {}
+    for impl in PARTITION_IMPLS:
+        got = stable_partition_src(key, impl)
+        if not torch.equal(got, want):
+            raise AssertionError(f"partition_impl={impl!r}: source indices "
+                                 "differ from argsort(stable=True)'s")
+        out[impl] = (time_ms(lambda i=impl: stable_partition_src(key, i), 5)
+                     if _on_card(dev) else 0.0)
+    log(f"  partition primitives on {PARTITION_KEYS} keys: each exactly "
+        f"argsort(stable=True)'s source indices; ms per call "
+        f"{json.dumps({k: round(v, 4) for k, v in out.items()})}")
+    return out
+
+
+def layout_fits(X, y, Xe, ye, dev: str) -> dict:
+    """Phase 20 (a): one ``train_booster`` fit per run of ``LAYOUT_RUNS`` on
+    the rows ``X`` binned once, with its readings: fit s, histogram kernel
+    ms per iteration (CUDA events), launches (counts zeroed just before the
+    fit, read just after), host syncs per tree, held-out AUC."""
+    from synapseml_tpu_torch.gbdt import BoosterConfig, Dataset, train_booster
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    ds = Dataset(X, y, device=dev)
+    fits = {}
+    for name, kw in LAYOUT_RUNS:
+        cfg = BoosterConfig(objective="binary", num_iterations=LAYOUT_ITERS,
+                            num_leaves=31, max_bin=255, **kw)
+        with kernel_timer(dev) as events:
+            hk.reset_launch_counts()
+            _sync(dev)
+            t0 = time.perf_counter()
+            b = train_booster(ds, None, cfg, device=dev)
+            _sync(dev)
+            fit_s = time.perf_counter() - t0
+            launches = dict(hk.LAUNCHES)
+        trees = b.num_trees
+        fits[name] = dict(
+            fit_s=fit_s, launches=launches,
+            kernel_ms=sum(timed_ms(events).values()) / trees,
+            syncs=b.metadata["host_syncs"] / trees,
+            auc=_heldout_auc(b, Xe, ye, dev), shape=_tree_shape(b))
+        log(f"  {name}: fit_s={fit_s:.3f} histogram kernels "
+            f"{fits[name]['kernel_ms']:.3f} ms/iteration host_syncs/tree="
+            f"{fits[name]['syncs']:.1f} held-out AUC {fits[name]['auc']:.6f}"
+            f" launches {json.dumps(launches)}")
+    return fits
+
+
+def layout_checks(fits: dict) -> list:
+    """Phase 20 (a)'s checks; the failures as strings. Every run launched
+    ``child_histogram`` (the segmented partition runs ``range_histogram``
+    too) and holds the partition fit's held-out AUC within
+    ``LAYOUT_AUC_TOL``; its split features and bins equal the partition
+    fit's, or, where the card's float32 sums broke a near tie, the break is
+    logged and the AUC bound alone holds."""
+    bad = []
+    base = fits["partition"]
+    for name, kw in LAYOUT_RUNS:
+        f = fits[name]
+        want = (MAIN_KERNELS if kw.get("row_layout", "partition")
+                == "partition" and kw.get("use_segmented", True)
+                else MAIN_KERNELS[:1])
+        missing = [k for k in want if f["launches"][k] <= 0]
+        if missing:
+            bad.append(f"{name}: the path never launched {missing}")
+        if abs(f["auc"] - base["auc"]) > LAYOUT_AUC_TOL:
+            bad.append(f"{name}: held-out AUC {f['auc']:.6f} against "
+                       f"partition's {base['auc']:.6f}")
+        if f["shape"] != base["shape"]:
+            tree = next(i for i, (a, b) in enumerate(zip(f["shape"],
+                                                         base["shape"]))
+                        if a != b)
+            log(f"  {name}: splits differ from partition's from tree {tree}"
+                " (a near tie broken by the card's float32 sums); held to "
+                "the AUC bound alone")
+    return bad
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def gathered_mapper(X, cfg, nproc: int):
+    """The bin mapper of ``nproc`` processes each holding an equal block of
+    ``X``: ``compute_bin_mapper`` of each block's ``default_rng(seed)``
+    sample, gathered in rank order, with the NaN bins of the whole table."""
+    from synapseml_tpu_torch.ops.quantize import compute_bin_mapper
+
+    blk = X.shape[0] // nproc
+    per = max(1, min(blk, -(-cfg.bin_sample_count // nproc)))
+    parts = []
+    for r in range(nproc):
+        sub = np.random.default_rng(cfg.seed).choice(blk, size=per,
+                                                     replace=False)
+        parts.append(X[r * blk:(r + 1) * blk][np.sort(sub)])
+    return compute_bin_mapper(np.concatenate(parts), cfg.max_bin,
+                              cfg.bin_sample_count, None, cfg.seed,
+                              has_nan=np.isnan(X).any(axis=0),
+                              min_data_in_bin=cfg.min_data_in_bin)
+
+
+def _mapper_sha(mapper) -> str:
+    import hashlib
+
+    h = hashlib.sha256(np.asarray(mapper.boundaries).tobytes())
+    h.update(np.asarray(mapper.num_bins).tobytes())
+    h.update(np.asarray(mapper.nan_mask).tobytes())
+    return h.hexdigest()
+
+
+def _mp_cfg(policy: str):
+    from synapseml_tpu_torch.gbdt import BoosterConfig
+
+    return BoosterConfig(objective="binary", num_iterations=MP_ITERS,
+                         num_leaves=31, max_bin=255, tree_learner="data",
+                         growth_policy=policy)
+
+
+def _mp_rank(rank: int, workdir: str, dev: str, port: int, rows: int,
+             settings: dict) -> None:
+    """One process of phase 20 (b): it joins the world through
+    ``initialize_distributed`` and passes only its own rows of the
+    ``rows`` table to each policy's fit."""
+    import hashlib
+
+    sys.path.insert(0, str(REPO))
+    globals().update(settings)
+    from synapseml_tpu_torch.gbdt import boosting as tb
+    from synapseml_tpu_torch.gbdt import grower as tg
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+    from synapseml_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed(f"127.0.0.1:{port}", MP_RANKS, rank,
+                           timeout_s=600)
+    mesh = make_mesh({"data": MP_RANKS}, device=dev)
+    X, y = higgs_like(rows)
+    blk = rows // MP_RANKS
+    Xl, yl = X[rank * blk:(rank + 1) * blk], y[rank * blk:(rank + 1) * blk]
+    del X, y
+    Xe, _ = higgs_like(DIST_EVAL_ROWS, seed=1)
+    report = {"runs": {}}
+    for policy in ("leafwise", "depthwise"):
+        hk.reset_launch_counts()
+        tg.reset_wire_counts()
+        _sync(dev)
+        with kernel_timer(dev) as events:
+            t0 = time.perf_counter()
+            b = tb.train_booster(Xl, yl, _mp_cfg(policy), mesh=mesh,
+                                 device=dev)
+            _sync(dev)
+            fit_s = time.perf_counter() - t0
+            launches = dict(hk.LAUNCHES)
+        np.save(os.path.join(workdir, f"mp_{policy}_{rank}.npy"),
+                b.predict(Xe))
+        report["runs"][policy] = dict(
+            model_sha=hashlib.sha256(b.model_string().encode()).hexdigest(),
+            mapper_sha=_mapper_sha(b.mapper), launches=launches,
+            fit_s=fit_s, kernel_ms=sum(timed_ms(events).values()),
+            wire=dict(tg.WIRE), trees=b.num_trees,
+            spans=b.metadata["measures"], routing=b.metadata.get("routing"))
+    with open(os.path.join(workdir, f"mp_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def mp_checks(reports: list, probs: dict, p_one: dict,
+              mapper_sha: str) -> list:
+    """Phase 20 (b)'s checks; the failures as strings: per policy the
+    model strings equal across the processes, each process's mapper the
+    gathered-sample one, its kernels launched, and rank 0's held-out
+    probabilities within ``DIST_PROB_TOL`` of the one-process fit on that
+    mapper."""
+    bad = []
+    for policy, kernels in (("leafwise", MAIN_KERNELS),
+                            ("depthwise", DEPTHWISE_KERNELS)):
+        runs = [r["runs"][policy] for r in reports]
+        if len({x["model_sha"] for x in runs}) != 1:
+            bad.append(f"multi-process {policy}: model strings differ "
+                       "across ranks")
+        for i, x in enumerate(runs):
+            if x["mapper_sha"] != mapper_sha:
+                bad.append(f"multi-process {policy}: rank {i}'s mapper is "
+                           "not the gathered sample's")
+            missing = [k for k in kernels if x["launches"][k] <= 0]
+            if missing:
+                bad.append(f"multi-process {policy}: rank {i} never "
+                           f"launched {missing}")
+        gap = float(np.abs(probs[policy] - p_one[policy]).max())
+        if gap > DIST_PROB_TOL:
+            bad.append(f"multi-process {policy}: probabilities {gap:.3g} "
+                       f"from one process (tolerance {DIST_PROB_TOL})")
+    return bad
+
+
+def mp_path(rows: int, dev: str, Xe) -> tuple:
+    """Phase 20 (b): ``MP_RANKS`` processes share the card through
+    ``initialize_distributed``, each passing its block of the ``rows``
+    table; one-process fits on the gathered-sample mapper beside them.
+    Returns (failures, launches summed over ranks and policies)."""
+    import torch.multiprocessing as tmp
+
+    from synapseml_tpu_torch.gbdt import train_booster
+
+    X, y = higgs_like(rows)
+    mapper = gathered_mapper(X, _mp_cfg("leafwise"), MP_RANKS)
+    p_one = {}
+    for policy in ("leafwise", "depthwise"):
+        t0 = time.perf_counter()
+        p_one[policy] = train_booster(X, y, _mp_cfg(policy), mapper=mapper,
+                                      device=dev).predict(Xe)
+        log(f"  one process on the gathered-sample mapper, {policy}: "
+            f"{time.perf_counter() - t0:.2f}s")
+    del X, y
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        settings = {k: globals()[k] for k in _MESH_SETTINGS}
+        tmp.spawn(_mp_rank, args=(workdir, dev, _free_port(), rows,
+                                  settings), nprocs=MP_RANKS, join=True)
+        log(f"  {MP_RANKS} processes spawned, trained and joined in "
+            f"{time.perf_counter() - t0:.1f}s")
+        reports = []
+        for r in range(MP_RANKS):
+            with open(os.path.join(workdir, f"mp_{r}.json")) as f:
+                reports.append(json.load(f))
+        probs = {p: np.load(os.path.join(workdir, f"mp_{p}_0.npy"))
+                 for p in ("leafwise", "depthwise")}
+    launches = {k: 0 for k in MAIN_KERNELS + DEPTHWISE_KERNELS}
+    for policy in ("leafwise", "depthwise"):
+        for i, r in enumerate(reports):
+            x = r["runs"][policy]
+            for k in launches:
+                launches[k] += x["launches"][k]
+            it = max(x["trees"], 1)
+            loop = x["spans"]["trainingIterations"] * 1e3 / it
+            kernel = x["kernel_ms"] / it
+            coll = x["wire"]["seconds"] * 1e3 / it
+            gather = x["spans"].get("nodeGather", 0.0) * 1e3 / it
+            log(f"  multi-process {policy} rank {i}: fit {x['fit_s']:.3f} s,"
+                f" referenceDataset "
+                f"{x['spans'].get('referenceDataset', 0.0):.3f} s (the "
+                f"gathered sample), dataPreparation "
+                f"{x['spans'].get('dataPreparation', 0.0):.3f} s; per "
+                f"iteration {loop:.2f} ms = histogram kernels {kernel:.2f} "
+                f"+ histogram collectives {coll:.2f} + leaf gather "
+                f"{gather:.2f} + rest {loop - kernel - coll - gather:.2f}; "
+                f"{x['wire']['collectives'] / it:.1f} collectives a tree; "
+                f"launches {json.dumps(x['launches'])}; routing "
+                f"{json.dumps(x['routing'])}")
+    bad = mp_checks(reports, probs, p_one, _mapper_sha(mapper))
+    for policy in ("leafwise", "depthwise"):
+        log(f"  multi-process {policy} against one process: max |dp| "
+            f"{float(np.abs(probs[policy] - p_one[policy]).max()):.3g}")
+    return bad, launches
+
+
+def _mesh_runs(cfg):
+    """(name, dataset key, config, resident) of phase 20 (c)'s fits."""
+    import dataclasses
+
+    # the depthwise run streams the prefix, to keep the script inside its
+    # time budget
+    return [("leafwise", "all", cfg, False),
+            ("resident", "all", cfg, True),
+            ("depthwise", "prefix",
+             dataclasses.replace(cfg, growth_policy="depthwise"), False)] + [
+        (f"{w}_prefix", "prefix",
+         dataclasses.replace(cfg, hist_allreduce_dtype=w), False)
+        for w in ("f32", "bf16", "int8")]
+
+
+def _mesh_stream_rank(rank: int, workdir: str, dev: str,
+                      settings: dict) -> None:
+    """One rank of phase 20 (c): phase 19's stream (and its
+    ``MESH_LOSSY_ROWS`` prefix) over the mesh; every rank gets the same
+    source and streams its block of every chunk."""
+    import dataclasses
+    import hashlib
+
+    sys.path.insert(0, str(REPO))
+    globals().update(settings)
+    from synapseml_tpu_torch.gbdt import (BoosterConfig, StreamedDataset,
+                                          train_booster_streamed)
+    from synapseml_tpu_torch.gbdt import grower as tg
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+    from synapseml_tpu_torch.parallel import init_distributed, make_mesh
+
+    init_distributed("gloo", os.path.join(workdir, "store"), rank,
+                     MESH_RANKS, timeout_s=900)
+    mesh = make_mesh({"data": MESH_RANKS}, device=dev)
+    cfg = BoosterConfig(objective="binary", num_iterations=STREAM_ITERS,
+                        num_leaves=31, max_bin=255)
+    Xv, yv = _whole(stream_source(STREAM_VALID_ROWS, STREAM_VALID_SEED))
+    data = {"all": StreamedDataset(stream_source(STREAM_ROWS, STREAM_SEED),
+                                   num_features=FEATURES),
+            "prefix": StreamedDataset(stream_source(MESH_LOSSY_ROWS,
+                                                    STREAM_SEED),
+                                      num_features=FEATURES,
+                                      chunk_rows=MESH_CHUNK_ROWS)}
+    report = {"ingest": {}, "runs": {}}
+    for key, ds in data.items():
+        t0 = time.perf_counter()
+        ds.prepare(cfg, row_multiple=MESH_RANKS,
+                   row_block=(rank, MESH_RANKS), device=dev)
+        report["ingest"][key] = dict(
+            prepare_s=time.perf_counter() - t0,
+            seconds=dict(ds.ingest_seconds), cache_bytes=ds.cache_bytes(),
+            rows=ds.n_rows, chunks=len(ds.chunks),
+            chunk_rows=ds.chunk_rows, block_rows=ds.block_rows)
+    for name, key, c, resident in _mesh_runs(cfg):
+        if _on_card(dev):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        hk.reset_launch_counts()
+        tg.reset_wire_counts()
+        _sync(dev)
+        with kernel_timer(dev) as events:
+            t0 = time.perf_counter()
+            b = train_booster_streamed(data[key], dataclasses.replace(c),
+                                       mesh=mesh, resident=resident,
+                                       device=dev)
+            _sync(dev)
+            fit_s = time.perf_counter() - t0
+            launches = dict(hk.LAUNCHES)
+        md = b.metadata["streamed"]
+        report["runs"][name] = dict(
+            model_sha=hashlib.sha256(b.model_string().encode()).hexdigest(),
+            launches=launches, fit_s=fit_s,
+            kernel_ms=sum(timed_ms(events).values()), wire=dict(tg.WIRE),
+            trees=b.num_trees, rows=md["rows"], passes=md["passes"],
+            transfer=md.get("transfer", []), peak=_peak_gib(dev),
+            auc=_heldout_auc(b, Xv, yv, dev))
+    # the decisive fixture streamed in four chunks: each wire's trees
+    Xd, yd = decisive_table(DIST_DECISIVE_ROWS)
+    report["identity"] = {wire: _tree_shape(train_booster_streamed(
+        StreamedDataset.from_arrays(Xd, yd, chunk_rows=DIST_DECISIVE_ROWS // 4),
+        BoosterConfig(**DIST_DECISIVE_CFG, hist_allreduce_dtype=wire),
+        mesh=mesh, device=dev)) for wire in ("f32", "bf16", "int8")}
+    with open(os.path.join(workdir, f"mesh_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_stream_checks(reports: list, stream_auc: float) -> list:
+    """Phase 20 (c)'s checks; the failures as strings: every fit's model
+    strings equal across the ranks and its kernels launched on each; the
+    leaf-wise held-out AUC within ``STREAM_AUC_TOL`` of the one-process
+    streamed fit's (``stream_auc``) and of resident mode's on the ranks;
+    on the prefix each lossy wire's within ``MESH_WIRE_AUC_GAP`` of the
+    f32 fit's, and on the decisive fixture its trees the f32 trees."""
+    bad = []
+    for name in reports[0]["runs"]:
+        kernels = (DEPTHWISE_KERNELS if name == "depthwise"
+                   else MAIN_KERNELS[:1])
+        runs = [r["runs"][name] for r in reports]
+        if len({x["model_sha"] for x in runs}) != 1:
+            bad.append(f"mesh-streamed {name}: model strings differ across "
+                       "ranks")
+        for i, x in enumerate(runs):
+            missing = [k for k in kernels if x["launches"][k] <= 0]
+            if missing:
+                bad.append(f"mesh-streamed {name}: rank {i} never launched "
+                           f"{missing}")
+    auc = {name: x["auc"] for name, x in reports[0]["runs"].items()}
+    for name, want, what, tol in (
+            ("leafwise", stream_auc, "the one-process streamed fit's",
+             STREAM_AUC_TOL),
+            ("leafwise", auc["resident"], "resident mode's on the ranks",
+             STREAM_AUC_TOL),
+            ("bf16_prefix", auc["f32_prefix"], "f32's on the same rows",
+             MESH_WIRE_AUC_GAP),
+            ("int8_prefix", auc["f32_prefix"], "f32's on the same rows",
+             MESH_WIRE_AUC_GAP)):
+        if abs(auc[name] - want) > tol:
+            bad.append(f"mesh-streamed {name}: held-out AUC "
+                       f"{auc[name]:.6f} against {what} {want:.6f}")
+    ident = reports[0]["identity"]
+    if ident["bf16"] != ident["f32"]:
+        bad.append("mesh-streamed decisive fixture: bf16 trees differ from "
+                   "f32's")
+    if not same_splits_within_a_bin(ident["int8"], ident["f32"]):
+        bad.append("mesh-streamed decisive fixture: int8 trees differ from "
+                   "f32's by more than a bin")
+    return bad
+
+
+def same_splits_within_a_bin(got: list, want: list) -> bool:
+    """``_tree_shape`` lists with the same split features and structure,
+    each split's bin within one of ``want``'s: on the decisive fixture
+    streamed over two ranks the JAX package's own int8 wire moves a
+    threshold by one bin in trees 1 and 2 against its f32 wire."""
+    if len(got) != len(want):
+        return False
+    for (f, b, lc, rc), (f2, b2, lc2, rc2) in zip(got, want):
+        if (f, lc, rc) != (f2, lc2, rc2) or len(b) != len(b2) or any(
+                abs(x - y) > 1 for x, y in zip(b, b2)):
+            return False
+    return True
+
+
+def mesh_stream_path(dev: str, stream_auc: float) -> tuple:
+    """Phase 20 (c): ``train_booster_streamed(mesh=...)`` on
+    ``MESH_RANKS`` gloo ranks sharing the card. Returns (failures,
+    launches summed over ranks and fits)."""
+    import torch.multiprocessing as tmp
+
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        settings = {k: globals()[k] for k in _MESH_SETTINGS}
+        tmp.spawn(_mesh_stream_rank, args=(workdir, dev, settings),
+                  nprocs=MESH_RANKS, join=True)
+        log(f"  {MESH_RANKS} ranks spawned, streamed and joined in "
+            f"{time.perf_counter() - t0:.1f}s")
+        reports = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(workdir, f"mesh_{r}.json")) as f:
+                reports.append(json.load(f))
+    launches = {k: 0 for k in MAIN_KERNELS + DEPTHWISE_KERNELS}
+    for i, r in enumerate(reports):
+        for key, ing in r["ingest"].items():
+            log(f"  rank {i} {key}: {ing['rows']} rows in {ing['chunks']} "
+                f"chunks of {ing['chunk_rows']}, its block {ing['block_rows']}"
+                f" rows a chunk; prepare {ing['prepare_s']:.3f}s "
+                f"({json.dumps({k: round(v, 3) for k, v in ing['seconds'].items()})};"
+                f" sketch pass, bin-and-cache pass); host cache "
+                f"{ing['cache_bytes'] / 2**20:.1f} MiB")
+        for name, x in r["runs"].items():
+            for k in launches:
+                launches[k] += x["launches"][k]
+            trees = max(x["trees"], 1)
+            bin_passes = max(x["passes"] - trees, 1)
+            passes = x["transfer"]
+            per = (lambda key: sum(p[key] for p in passes) / len(passes)
+                   if passes else 0.0)
+            log(f"  rank {i} {name}: fit_s={x['fit_s']:.3f} "
+                f"row_iterations/s={x['rows'] * trees / x['fit_s']:.0f} "
+                f"held-out AUC {x['auc']:.6f}; per pass wall "
+                f"{per('wall_ms'):.3f} ms, H2D copy {per('h2d_ms'):.3f} ms, "
+                f"host waiting on the producer {per('producer_wait_ms'):.3f}"
+                f" ms, collectives "
+                f"{x['wire']['seconds'] * 1e3 / bin_passes:.3f} ms "
+                f"({x['wire']['collectives'] / trees:.1f} a tree), kernels "
+                f"{x['kernel_ms'] / bin_passes:.3f} ms; peak "
+                f"{x['peak']:.3f} GiB; launches {json.dumps(x['launches'])}")
+    reference = MESH_REFERENCE_AUC.get(MESH_LOSSY_ROWS)
+    bad = mesh_stream_checks(reports, stream_auc)
+    auc = {name: round(x["auc"], 6) for name, x in reports[0]["runs"].items()}
+    log(f"  held-out AUC on the ranks {json.dumps(auc)}; the one-process "
+        f"streamed fit's {stream_auc:.6f}; the JAX package's on the prefix "
+        f"{json.dumps(reference)}; lossy wires against f32 on the prefix "
+        + ", ".join(f"{w} {auc[w + '_prefix'] - auc['f32_prefix']:+.6f}"
+                    for w in ("bf16", "int8"))
+        + "; decisive fixture: bf16 trees = f32 trees, int8's within a "
+        "bin of them")
+    return bad, launches
+
+
+def ranks_layouts_path(rows: int, dev: str, stream_auc: float = None) -> dict:
+    """Phase 20 (module docstring): (a), (b) and (c), every failure of
+    the three collected and raised at the end."""
+    t_phase = time.perf_counter()
+    log("  (a) the leaf-wise hot-loop designs on one process")
+    partition_primitive_check(dev)
+    X, y = higgs_like(rows)
+    Xe, ye = higgs_like(DIST_EVAL_ROWS, seed=1)
+    fits = layout_fits(X, y, Xe, ye, dev)
+    del X, y
+    bad = layout_checks(fits)
+    base = fits["partition"]["kernel_ms"]
+    if base:
+        log("  histogram kernel ms per iteration against partition's "
+            f"{base:.3f}: " + ", ".join(
+                f"{k} {f['kernel_ms'] / base:.2f}x" for k, f in fits.items()))
+    launches = {k: sum(f["launches"][k] for f in fits.values())
+                for k in MAIN_KERNELS + DEPTHWISE_KERNELS}
+    log(f"  [{time.perf_counter() - t_phase:.1f}s] (b) the multi-process "
+        f"contract: {MP_RANKS} processes, each its own {rows // MP_RANKS} "
+        "rows")
+    if _on_card(dev):
+        torch.cuda.empty_cache()
+    mp_bad, mp_launches = mp_path(rows, dev, Xe)
+    log(f"  [{time.perf_counter() - t_phase:.1f}s] (c) phase 19's stream "
+        f"over a mesh of {MESH_RANKS} ranks")
+    if _on_card(dev):
+        torch.cuda.empty_cache()
+    ms_bad, ms_launches = mesh_stream_path(
+        dev, STREAM_REFERENCE_AUC if stream_auc is None else stream_auc)
+    for k in launches:
+        launches[k] += mp_launches[k] + ms_launches[k]
+    log(f"  launches on phase 20's paths, every rank: {json.dumps(launches)}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        bad.append(f"phase 20's paths never launched {missing}")
+    bad += mp_bad + ms_bad
+    if bad:
+        raise AssertionError("phase 20: " + "; ".join(bad))
+    return dict(launches=launches, layouts=fits)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="rows of the HIGGS-shaped table (HIGGS: 11,000,000)")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19), default=None,
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20),
+                    default=None,
                     help="build the kernels and run only this phase (no "
                     "kernels or result line)")
     args = ap.parse_args()
@@ -5818,8 +6468,22 @@ def main() -> int:
 
     dev = "cuda"
     t_start = time.perf_counter()
+    marks, seconds = [], {}
+
+    def phase(n: int, msg: str = None) -> None:
+        """End the running phase (its seconds logged), then start phase
+        ``n`` (none without ``msg``)."""
+        now = time.perf_counter()
+        if marks:
+            seconds[marks[-1][0]] = round(now - marks[-1][1], 1)
+            log(f"  phase {marks[-1][0]} took {seconds[marks[-1][0]]:.1f}s; "
+                f"{card}")
+        marks.append((n, now))
+        if msg is not None:
+            log(f"[{n}] {msg}")
+
     card = card_line()
-    log(f"[1] card: {card}")
+    phase(1, f"card: {card}")
     log(f"    torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}; {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
@@ -5828,37 +6492,43 @@ def main() -> int:
     log(f"    built {sorted(libs)} in {time.perf_counter() - t0:.2f}s "
         f"(nvcc seconds: {json.dumps(_build.BUILD_SECONDS)})")
     if args.phase == 17:
-        log(f"[17] distributed GBDT alone, {args.rows} rows")
-        t0 = time.perf_counter()
+        phase(17, f"distributed GBDT alone, {args.rows} rows")
         dist_path(args.rows, dev)
-        log(f"  phase 17 took {time.perf_counter() - t0:.1f}s; {card}")
+        phase(0)
         return 0
     if args.phase == 18:
-        log("[18] ONNX inference alone")
+        phase(18, "ONNX inference alone")
         onnx_path(dev, card=card)
+        phase(0)
         return 0
     if args.phase == 19:
-        log(f"[19] streamed GBDT alone, {STREAM_ROWS} rows")
+        phase(19, f"streamed GBDT alone, {STREAM_ROWS} rows")
         stream_path(dev)
-        log(card)
+        phase(0)
+        return 0
+    if args.phase == 20:
+        phase(20, f"GBDT across ranks and layouts alone, {args.rows} rows "
+              f"and {STREAM_ROWS} streamed")
+        ranks_layouts_path(args.rows, dev)
+        phase(0)
         return 0
 
-    log(f"[2] kernels against their plain versions, n={args.rows}")
+    phase(2, f"kernels against their plain versions, n={args.rows}")
     kernels = kernel_phase(args.rows, dev)
     t0 = time.perf_counter()
     X, y = higgs_like(args.rows)
     log(f"  table: {args.rows} rows x {FEATURES} features, made in "
         f"{time.perf_counter() - t0:.3f}s")
-    log(f"[3] main path: LightGBMClassifier fit/transform/save, "
+    phase(3, f"main path: LightGBMClassifier fit/transform/save, "
         f"{args.rows} rows")
     main = main_path(X, y, dev)
-    log(f"[4] depthwise path: train_booster(growth_policy='depthwise'), "
+    phase(4, f"depthwise path: train_booster(growth_policy='depthwise'), "
         f"{args.rows} rows")
     depthwise = depthwise_path(X, y, dev)
-    log("[5] cross-check: card against CPU, 100000 rows, 3 iterations")
+    phase(5, "cross-check: card against CPU, 100000 rows, 3 iterations")
     for policy in ("leafwise", "depthwise"):
         cross_check(dev, policy)
-    log("[6] profile: 2-iteration training loops")
+    phase(6, "profile: 2-iteration training loops")
     from synapseml_tpu_torch.gbdt import Dataset
 
     ds = Dataset(X, y, device=dev)
@@ -5866,72 +6536,78 @@ def main() -> int:
     for policy in ("leafwise", "depthwise"):
         profile_phase(ds, dev, policy)
 
-    log("[7] flash kernels against their plain versions")
+    phase(7, "flash kernels against their plain versions")
     del ds
     torch.cuda.empty_cache()
     flash = flash_kernel_phase(dev)
-    log(f"[8] seq path: TransformerEncoder(mask_free=True) on {SEQ_RANKS} "
+    phase(8, f"seq path: TransformerEncoder(mask_free=True) on {SEQ_RANKS} "
         f"ranks sharing the card, batch {SEQ_BATCH} x {ENCODER['max_len']}")
     seq_path(dev)
-    log(f"[9] training: DeepTextClassifier(seqParallel=True) on {SEQ_RANKS} "
+    phase(9, f"training: DeepTextClassifier(seqParallel=True) on {SEQ_RANKS} "
         f"ranks sharing the card, batch {SEQ_BATCH} x "
         f"{TRAIN_EST['maxTokenLen']}")
     train_launches = train_path(dev)
-    log("[10] objective family: regressor, 7-class classifier and ranker at "
+    phase(10, "objective family: regressor, 7-class classifier and ranker at "
         "full width")
+    family_cpu = start_family_cpu()      # beside the full-width fits
     numeric = family_full_width(args.rows, dev)
     log(f"    cross-check: card against CPU, {FAMILY_CROSS_ROWS} rows, "
         f"{FAMILY_CROSS_ITERS} iterations, every objective")
-    family_cross_check(dev)
-    log(f"[11] vision: DeepVisionClassifier({VISION_BACKBONE}) fine-tunes at "
+    family_cross_check(dev, family_cpu)
+    phase(11, f"vision: DeepVisionClassifier({VISION_BACKBONE}) fine-tunes at "
         f"{VISION_SIZE}x{VISION_SIZE} on CIFAR-10-shaped images")
     vision_path(dev)
-    log(f"[12] estimator surface: validation and early stopping on "
+    phase(12, f"estimator surface: validation and early stopping on "
         f"{args.rows} rows, leaf indices, SHAP, dumpModel, warm start, "
         "fobj, resume")
     torch.cuda.empty_cache()
     surface = surface_path(args.rows, dev)
     served = dict(booster=surface["leafwise"]["booster"], Xv=surface["Xv"])
     del surface
-    log(f"[13] sampling: bagging, GOSS, DART, RF, per-node feature "
+    phase(13, f"sampling: bagging, GOSS, DART, RF, per-node feature "
         f"fractions and monotone constraints, {SAMPLING_ITERS} iterations "
         f"each on {args.rows} rows")
     torch.cuda.empty_cache()
     sampling_path(args.rows, dev, main["launches"])
-    log("[14] categorical and sparse data: Covertype's raw 12 columns (2 "
+    phase(14, "categorical and sparse data: Covertype's raw 12 columns (2 "
         "categorical), both policies, and its one-hot table as CSR")
     torch.cuda.empty_cache()
     categorical = categorical_path(dev, numeric)
-    log(f"[15] serving: phase 12's classifier through captured graphs and "
+    phase(15, f"serving: phase 12's classifier through captured graphs and "
         f"behind the HTTP server with phase 14's model, {SERVE_CLIENTS} "
         f"clients, a hot swap to phase 3's model")
     torch.cuda.empty_cache()
     serving_path(dev, served["booster"], served["Xv"], categorical["model"],
                  categorical["Xc"], main["booster"])
-    log(f"[16] DL training state: {VISION_BACKBONE} at {VISION_SIZE}x"
+    phase(16, f"DL training state: {VISION_BACKBONE} at {VISION_SIZE}x"
         f"{VISION_SIZE}, checkpoints, resume, non-finite policies, msgpack, "
         f"{STATE_RANKS} ranks replicated and ZeRO")
     del served, categorical
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     state_path(dev)
-    log(f"  phase 16 took {time.perf_counter() - t0:.1f}s")
-    log(f"[17] distributed GBDT: train_booster(mesh=...) on {DIST_RANKS} "
+    phase(17, f"distributed GBDT: train_booster(mesh=...) on {DIST_RANKS} "
         f"ranks sharing the card, {args.rows} rows, every learner and wire")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     dist_path(args.rows, dev)
-    log(f"  phase 17 took {time.perf_counter() - t0:.1f}s")
-    log("[18] ONNX inference: ONNXModel.transform on captured graphs, "
+    phase(18, "ONNX inference: ONNXModel.transform on captured graphs, "
         "ResNet-50 (float32, bf16) and the BERT-base-wide encoder, every "
         "committed fixture, phase 3's booster through to_onnx")
     torch.cuda.empty_cache()
     onnx_path(dev, main["booster"], card)
-    log(f"[19] streamed GBDT: StreamedDataset and train_booster_streamed "
+    phase(19, f"streamed GBDT: StreamedDataset and train_booster_streamed "
         f"over {STREAM_ROWS} HIGGS-shaped rows, both policies, resident "
         "mode, the classic classifier, card against CPU, predict_streamed")
     torch.cuda.empty_cache()
-    stream_path(dev)
+    streamed = stream_path(dev)
+    phase(20, f"GBDT across ranks and layouts: every row layout and "
+          f"partition primitive on {args.rows} rows, {MP_RANKS} processes "
+          f"each passing its own rows, phase 19's stream over {MESH_RANKS} "
+          "ranks")
+    torch.cuda.empty_cache()
+    across = ranks_layouts_path(args.rows, dev, streamed["auc"])
+    phase(0)
+    log(f"  seconds by phase {json.dumps(seconds)}")
+    log(f"  launches on phase 20's paths: {json.dumps(across['launches'])}")
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},

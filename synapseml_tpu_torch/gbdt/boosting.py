@@ -55,13 +55,25 @@ decision lands in ``Booster.metadata["routing"]``). Without a mesh every
 learner trains the serial trees, as in the JAX package.
 ``hist_allreduce_dtype`` "f32", "bf16", "int8" picks the histogram wire,
 "auto" resolves to "f32" (``core.perfmodel``). With a checkpoint store on a
-mesh rank 0 commits the snapshot and every rank waits for it.
+mesh rank 0 commits the snapshot and every rank waits for it; a snapshot
+holds the original rows alone, in global row order, so it resumes on any
+mesh or in one process.
+
+Multi-process (``parallel.initialize_distributed``, the JAX package's
+multi-controller world): each process passes only its own rows. The bin
+mapper comes from a sample gathered in rank order (``ceil(
+bin_sample_count / nproc)`` rows drawn by each process), NaN bins and
+categorical presence elected over every process's rows, or from rank 0's
+explicit ``mapper``; each process's rows are its block of the mesh, ``n``
+and the labels and weights become the global ones (gathered), and the fit
+is then the mesh fit of every process's rows in rank order. The JAX
+package's refusals stand (``fobj``, ``callbacks``, ``init_model``,
+``valid``, ``init_score``, ``group_sizes``, dart, the voting and feature
+learners), and ``tree_learner="auto"`` takes the static model.
 
 ``BoosterConfig`` keeps every field name and default of the JAX config, so a
-config carries across unchanged. ``train_booster`` rejects every setting the
-slice does not port with ``NotImplementedError`` naming it: the JAX grower's
-other engine knobs (``row_layout``, ``partition_impl``,
-``use_segmented=False``).
+config carries across unchanged, the grower's engine knobs (``row_layout``,
+``partition_impl``, ``use_segmented``) included.
 """
 
 from __future__ import annotations
@@ -150,9 +162,9 @@ class BoosterConfig:
     # serial trees
     tree_learner: str = "auto"
     top_k: int = 20
-    # engine knobs of the JAX grower; the port has one implementation of
-    # each (a stable argsort partition of the leaf's exact range) and both
-    # growth policies
+    # engine knobs of the JAX grower (gbdt/grower.py): the stable
+    # partition's primitive, the leaf-wise row layout, the segmented range
+    # kernel, the growth policy
     partition_impl: str = "sort"
     row_layout: str = "partition"
     use_segmented: Optional[bool] = None
@@ -193,9 +205,6 @@ class BoosterConfig:
 
         check("boosting_type",
               self.boosting_type in ("gbdt", "goss", "dart", "rf"))
-        check("partition_impl", self.partition_impl == "sort")
-        check("row_layout", self.row_layout == "partition")
-        check("use_segmented", self.use_segmented in (None, True))
         return out
 
     def grower(self, has_categorical: bool = False,
@@ -225,6 +234,9 @@ class BoosterConfig:
             max_delta_step=self.max_delta_step,
             growth_policy=self.growth_policy,
             feature_fraction_bynode=self.feature_fraction_bynode,
+            partition_impl=self.partition_impl,
+            row_layout=self.row_layout,
+            use_segmented=self.use_segmented,
         )
 
 
@@ -654,7 +666,7 @@ def _perfmodel_route(cfg, n_rows, nfeat, n_workers, choice, info,
 
 
 def _auto_route(cfg: BoosterConfig, mesh, binned, nfeat: int, n_rows: int,
-                has_categorical: bool):
+                has_categorical: bool, multiproc: bool = False):
     """``tree_learner="auto"`` → ``(learner, info)``. Without a mesh (or
     on one rank) the static rule; on a mesh the measured router: the link
     probe and, when voting is a candidate (F > 2k), a timed election on
@@ -672,13 +684,29 @@ def _auto_route(cfg: BoosterConfig, mesh, binned, nfeat: int, n_rows: int,
     from ..parallel.collectives import probe_link_bandwidth
 
     n_workers = int(mesh.shape.get("data", 1))
-    if n_workers <= 1:
+    if multiproc or n_workers <= 1:
+        from ..parallel.mesh import process_count
+
+        # multi-process: the static model, no probes (the JAX package's
+        # choice: a timed collective would need the processes in lockstep)
         choice = recommend_tree_learner(
-            nfeat, cfg.max_bin, cfg.top_k, cfg.num_leaves, n_hosts=1,
-            rows_per_host=n_rows,
+            nfeat, cfg.max_bin, cfg.top_k, cfg.num_leaves,
+            n_hosts=process_count(), rows_per_host=n_rows,
             dtype_bytes=(8 / 3 if cfg.hist_allreduce_dtype == "bf16" else 4))
+        if choice == "voting" and multiproc:
+            import warnings
+
+            warnings.warn(
+                "tree_learner='auto': the collective cost model prefers "
+                "voting-parallel at this shape, but multi-process training "
+                "does not support the voting learner yet — falling back to "
+                "data-parallel. Set tree_learner='voting' on a "
+                "single-process mesh to use it.")
+            choice = "data"
+        reason = ("multi-process: static model (no probes)" if multiproc
+                  else "single worker")
         return choice, {"tree_learner": choice, "router": "static",
-                        "reason": "single worker"}
+                        "reason": reason}
     fp = tuned.mesh_fingerprint(mesh)
     link = tuned.measured_or(("link_bytes_per_s", fp),
                              lambda: probe_link_bandwidth(mesh))
@@ -1028,6 +1056,92 @@ def _per_tree_contribs(booster: Booster, X, n: int, dev) -> _Contribs:
     return out
 
 
+def _multiprocess_refusals(cfg: BoosterConfig, **args) -> None:
+    """The JAX package's refusals of multi-process training."""
+    unsupported = [name for name, v in args.items() if v is not None]
+    if unsupported or cfg.boosting_type == "dart" \
+            or cfg.tree_learner in ("voting", "feature"):
+        raise NotImplementedError(
+            "multi-process training currently supports the fused path "
+            f"only (gbdt/goss/rf, serial learner); got {unsupported or cfg}")
+
+
+def _multiprocess_mapper(X: np.ndarray, cfg: BoosterConfig,
+                         mapper: Optional[BinMapper], categorical_features,
+                         mesh) -> BinMapper:
+    """The bin mapper of a multi-process fit, the same on every process:
+    without ``mapper`` boundaries from a sample gathered in rank order
+    (``ceil(bin_sample_count / nproc)`` rows drawn by each process with
+    ``default_rng(cfg.seed)``), NaN bins elected over every process's full
+    rows and categorical presence OR-ed over them; an explicit ``mapper``
+    is rank 0's, refused when another process has NaNs it has no bin for."""
+    from ..parallel.mesh import host_copy, local_mesh_devices, process_count
+
+    local_mesh_devices(mesh)        # the mesh spans every process evenly
+    nproc = process_count()
+    nfeat = X.shape[1]
+    has_nan_g = host_copy(np.isnan(X).any(axis=0)[None]).any(axis=0)
+    if mapper is None:
+        per = max(1, min(X.shape[0], -(-cfg.bin_sample_count // nproc)))
+        sub = np.random.default_rng(cfg.seed).choice(X.shape[0], size=per,
+                                                     replace=False)
+        X_samp = host_copy(np.ascontiguousarray(X[np.sort(sub)]))
+        cat_presence_g = None
+        if categorical_features:
+            from ..ops.quantize import cat_presence_bitmap
+
+            pres_l = np.zeros((nfeat, cfg.max_bin), np.uint8)
+            for cj in categorical_features:
+                pres_l[cj] = cat_presence_bitmap(X[:, cj], cfg.max_bin)
+            cat_presence_g = host_copy(pres_l[None]).any(0)
+        return compute_bin_mapper(
+            X_samp, cfg.max_bin, cfg.bin_sample_count, categorical_features,
+            cfg.seed, has_nan=has_nan_g, min_data_in_bin=cfg.min_data_in_bin,
+            max_bin_by_feature=cfg.max_bin_by_feature,
+            cat_presence=cat_presence_g)
+    # rank 0's mapper, broadcast
+    import torch.distributed as dist
+
+    obj = [(np.asarray(mapper.boundaries), np.asarray(mapper.num_bins),
+            np.asarray(mapper.is_categorical), np.asarray(mapper.nan_mask))]
+    dist.broadcast_object_list(obj, src=0)
+    bnd, nb_, cat_, hn_ = obj[0]
+    if (has_nan_g & ~np.asarray(hn_)).any():
+        raise ValueError(
+            "explicit mapper lacks NaN bins for features with missing "
+            "values on some process; pass mapper=None so boundaries "
+            "are sampled across all processes")
+    return BinMapper(boundaries=np.asarray(bnd), num_bins=np.asarray(nb_),
+                     is_categorical=np.asarray(cat_), max_bin=mapper.max_bin,
+                     has_nan=np.asarray(hn_))
+
+
+def _original_rows(n: int, n_orig: int, nproc: int) -> np.ndarray:
+    """Global indices of the original (unpadded) rows among ``n`` padded
+    rows laid out as ``nproc`` equal process blocks of ``n_orig`` original
+    rows each (one block when ``nproc`` is 1)."""
+    blk = n // nproc
+    return np.concatenate([np.arange(p * blk, p * blk + n_orig)
+                           for p in range(nproc)])
+
+
+def _repad(a, keep: np.ndarray, n: int) -> np.ndarray:
+    """Rows ``a`` of the original rows back at ``keep`` among ``n`` rows,
+    zero elsewhere: padding rows carry no bag and no weight, so their
+    values never reach a histogram or a leaf."""
+    from ..core.checkpoint import CheckpointError
+
+    a = np.asarray(a, np.float32)
+    if a.shape[0] != keep.shape[0]:
+        raise CheckpointError(
+            f"snapshot has {a.shape[0]} rows but this run has "
+            f"{keep.shape[0]} original rows; the snapshot belongs to "
+            "different data")
+    out = np.zeros((n,) + a.shape[1:], np.float32)
+    out[keep] = a
+    return out
+
+
 def train_booster(
     X,
     y: Optional[np.ndarray],
@@ -1091,8 +1205,9 @@ def train_booster(
 
     * ``mesh``: a ``parallel.make_mesh`` mesh with a ``data`` axis; every
       rank of the world calls with the same arguments and gets the same
-      booster (module docstring). ``device`` must be of the mesh's kind;
-      the fit runs on the mesh's device.
+      booster (module docstring); in a multi-process world each passes
+      its own rows instead. ``device`` must be of the mesh's kind; the fit
+      runs on the mesh's device.
 
     ``Booster.metadata["host_syncs"]`` counts device→host reads of the
     growth loop (the grower modules state how many a tree costs, plus one
@@ -1127,6 +1242,16 @@ def train_booster(
             checkpoint_every=checkpoint_every, resume=resume,
             feature_names=feature_names, device=device)
     _reject_unported(cfg)
+    from ..parallel.mesh import process_count
+
+    # multi-controller (parallel.initialize_distributed): X and y are this
+    # process's own rows; the fit is the mesh fit of the rows of every
+    # process in rank order
+    multiproc = mesh is not None and process_count() > 1
+    if multiproc:
+        _multiprocess_refusals(cfg, fobj=fobj, callbacks=callbacks or None,
+                               init_model=init_model, valid=valid,
+                               init_score=init_score, group_sizes=group_sizes)
     if measures is None:
         measures = InstrumentationMeasures()
     dev = resolve_device(device)
@@ -1145,6 +1270,8 @@ def train_booster(
         checkpoint_every = 10
 
     binned = None
+    if _is_sparse(X) and multiproc:
+        X = _densify(X)
     if _is_sparse(X):
         if init_model is not None:
             # the warm start's model scores raw rows
@@ -1174,7 +1301,8 @@ def train_booster(
             group_sizes = X.group_sizes
         if categorical_features is None:
             categorical_features = X.categorical_features
-        if (mapper is None or mapper is X.mapper) and init_model is None:
+        if ((mapper is None or mapper is X.mapper) and init_model is None
+                and not multiproc):
             mapper = X.mapper
             binned = X.binned.to(dev)
         else:
@@ -1200,7 +1328,11 @@ def train_booster(
     w = (np.ones(n_orig, np.float32) if sample_weight is None
          else np.asarray(sample_weight, np.float32))
 
-    if mapper is None:
+    if multiproc:
+        with measures.span("referenceDataset"):
+            mapper = _multiprocess_mapper(X, cfg, mapper,
+                                          categorical_features, mesh)
+    elif mapper is None:
         with measures.span("referenceDataset"):
             mapper = compute_bin_mapper(
                 X, cfg.max_bin, cfg.bin_sample_count, categorical_features,
@@ -1217,13 +1349,29 @@ def train_booster(
     # repeated, label / weight / valid mask 0), each rank's block of them
     # binned and kept on its device
     n, block, valid_mask = n_orig, None, None
+    nproc = 1
     if mesh is not None:
-        from ..parallel.mesh import DATA_AXIS, check_same_inputs, row_block
+        from ..parallel.mesh import (DATA_AXIS, assert_equal_across_processes,
+                                     check_same_inputs, row_block)
 
-        check_same_inputs(mesh, "data shape, config and labels",
-                          (n_orig, nfeat),
-                          sorted(dataclasses.asdict(cfg).items()), y)
-        rem = (-n_orig) % int(mesh.shape[DATA_AXIS])
+        ndata = int(mesh.shape[DATA_AXIS])
+        if multiproc:
+            # each process pads its own rows to its share of the data axis
+            nproc = process_count()
+            assert_equal_across_processes((n_orig, nfeat),
+                                          "local row count / feature count")
+            check_same_inputs(mesh, "config",
+                              sorted(dataclasses.asdict(cfg).items()))
+            if ndata % nproc:
+                raise ValueError(f"data axis ({ndata}) must divide evenly "
+                                 f"across {nproc} processes")
+            ndata //= nproc
+        else:
+            check_same_inputs(mesh, "data shape, config and labels",
+                              (n_orig, nfeat),
+                              sorted(dataclasses.asdict(cfg).items()), y)
+        rem = (-n_orig) % ndata
+        valid_mask = torch.ones(n_orig)
         if rem:
             if binned is not None:
                 binned = torch.cat([binned,
@@ -1237,14 +1385,24 @@ def train_booster(
                     [np.asarray(init_score, np.float32).reshape(n_orig, -1),
                      np.zeros((rem, int(np.size(init_score)) // n_orig),
                               np.float32)])
-            valid_mask = torch.cat([torch.ones(n_orig), torch.zeros(rem)]
-                                   ).to(dev)
+            valid_mask = torch.cat([valid_mask, torch.zeros(rem)])
             n = n_orig + rem
+        if multiproc:
+            # n is global from here on: every process's rows in rank order
+            # (its block of the mesh); the O(N) vectors are gathered whole
+            from ..parallel.mesh import host_copy
+
+            local_rows = X
+            y, w, valid_mask = host_copy((y, w, valid_mask))
+            valid_mask = torch.as_tensor(valid_mask)
+            n = n * nproc
+        valid_mask = (valid_mask.to(dev) if bool((valid_mask == 0).any())
+                      else None)
         block = slice(*row_block(n, mesh))
     with measures.span("dataPreparation"):
         if binned is None:
-            binned = apply_bins(mapper, X if block is None else X[block],
-                                dev)
+            binned = apply_bins(mapper, local_rows if multiproc
+                                else X if block is None else X[block], dev)
         elif block is not None:
             binned = binned[block].clone()
         bT = transpose_bins(binned)          # one per fit, read by every tree
@@ -1343,7 +1501,7 @@ def train_booster(
     routing_info = None
     if cfg.tree_learner == "auto":
         cfg.tree_learner, routing_info = _auto_route(
-            cfg, mesh, binned, nfeat, n, bool(is_cat.any()))
+            cfg, mesh, binned, nfeat, n, bool(is_cat.any()), multiproc)
     n_workers = 1 if mesh is None else int(mesh.shape.get("data", 1))
     feature_shards = 1
     if cfg.tree_learner == "feature" and n_workers > 1:
@@ -1390,16 +1548,23 @@ def train_booster(
     if ckpt_store is not None:
         from ..core.checkpoint import CheckpointError, preemption_point
 
-        fingerprint = _train_fingerprint(cfg, n, nfeat, y, n_init_trees)
+        # the original rows identify the run (snapshots hold them alone, in
+        # global row order), so a snapshot resumes on any mesh or process
+        # count: the padding depends on the mesh
+        keep = _original_rows(n, n_orig, nproc)
+        fingerprint = _train_fingerprint(cfg, len(keep), nfeat, y[keep],
+                                         n_init_trees)
         state = _ckpt_load_gbdt(ckpt_store, fingerprint) if resume else None
         if state is not None:
             start_it = int(state["iteration"])
             trees = list(state["trees"])
             tree_weights = list(state["tree_weights"])
-            score = torch.as_tensor(state["score"]).to(dev)
-            in_bag_cur = torch.as_tensor(state["in_bag_cur"]).to(dev)
-            tree_contribs = _Contribs.from_host(state["tree_contribs"],
-                                                n, dev)
+            score = torch.as_tensor(_repad(state["score"], keep, n)).to(dev)
+            in_bag_cur = torch.as_tensor(
+                _repad(state["in_bag_cur"], keep, n)).to(dev)
+            tree_contribs = _Contribs.from_host(
+                [(c, _repad(v, keep, n)) for c, v in state["tree_contribs"]],
+                n, dev)
             rng = state["rng"]
             if has_valid:
                 sv = np.asarray(state["score_v"], np.float32)
@@ -1537,9 +1702,11 @@ def train_booster(
                 if mesh is None or mesh.rank == 0:
                     payload = {"iteration": it + 1, "trees": trees,
                                "tree_weights": list(tree_weights),
-                               "score": score.cpu().numpy(),
-                               "in_bag_cur": in_bag_cur.cpu().numpy(),
-                               "tree_contribs": tree_contribs.to_host(),
+                               "score": score.cpu().numpy()[keep],
+                               "in_bag_cur": in_bag_cur.cpu().numpy()[keep],
+                               "tree_contribs": [
+                                   (c, v[keep]) for c, v
+                                   in tree_contribs.to_host()],
                                "rng": rng}
                     if has_valid:
                         payload.update(

@@ -73,7 +73,27 @@ the higher gain wins, the lower rank on a tie) and take the leaf totals of
 rank 0, whose owned slice starts with feature 0, as the JAX package's
 replicated output does.
 
-Not ported yet: the "masked"/"gather" layouts.
+Hot-loop designs (``cfg.row_layout``; every one grows the partition
+layout's trees, the JAX grower's three):
+
+  * ``"partition"`` (above). ``cfg.partition_impl`` picks the primitive of
+    the stable partition (``stable_partition_src``: ``"sort"``, the
+    ``"sort32"`` composite-key sort, the ``"scan"`` rank search or the
+    ``"scatter"`` inversion, each exactly ``argsort(stable=True)``'s
+    source indices). ``cfg.use_segmented=False`` builds the smaller child
+    with ``child_histogram`` on a window of the sorted rows aligned down to
+    ``CHUNK``, the child's range mask multiplied into g, h and m, instead
+    of ``range_histogram``.
+  * ``"gather"``: rows stay in their original order; only the ``pos``
+    permutation is kept sorted by leaf, and the smaller child's rows are
+    gathered through it for ``child_histogram``. The gather needs the
+    child's row count on the host: one more host read per split.
+  * ``"masked"``: rows never move. A per-row ``node`` vector routes them,
+    and every split runs ``child_histogram`` over all rows with the smaller
+    child's membership multiplied into g, h and m.
+
+Within a leaf every layout keeps the rows in original row order, so the
+histogram sums, and the trees, are the same.
 """
 
 from __future__ import annotations
@@ -86,8 +106,8 @@ import numpy as np
 import torch
 
 from ..core import prng
-from ..ops.hist_kernel import (child_histogram, features_padded, pad_bins,
-                               range_histogram)
+from ..ops.hist_kernel import (CHUNK, child_histogram, features_padded,
+                               pad_bins, range_histogram)
 from ..parallel import collectives as coll
 
 BITS = 32  # bitset word width for categorical splits
@@ -124,6 +144,12 @@ class GrowerConfig(NamedTuple):
     hist_allreduce_dtype: str = "f32"
     hist_reduce: str = "allreduce"
     feature_shards: int = 1
+    # the leaf-wise hot loop (module docstring): the stable partition's
+    # primitive, the row layout, and range_histogram (None / True) or a
+    # masked child_histogram window (False) for the partition layout
+    partition_impl: str = "sort"
+    row_layout: str = "partition"
+    use_segmented: Optional[bool] = None
 
 
 # per-rank traffic of the histogram reductions since the last reset: calls
@@ -398,6 +424,65 @@ def _leaf_output_host(g, h, cfg: GrowerConfig) -> np.float32:
     if cfg.max_delta_step > 0:
         out = np.clip(out, -f32(cfg.max_delta_step), f32(cfg.max_delta_step))
     return f32(out) * f32(cfg.learning_rate)
+
+
+# ---------------------------------------------------------------------------
+# Stable partition primitives
+# ---------------------------------------------------------------------------
+
+PARTITION_IMPLS = ("sort", "sort32", "scan", "scatter")
+
+
+def stable_partition_src(key: torch.Tensor, impl: str = "sort"
+                         ) -> torch.Tensor:
+    """(n,) int64 source indices of the stable partition of ``key`` (n,)
+    (integer values in {-1, 0, 1, 2}): exactly ``torch.argsort(key,
+    stable=True)``, by one of the JAX grower's four primitives.
+
+    ``"sort32"`` sorts one int32 composite key, ``(key + 1)`` above the
+    row's position, whose ascending order is the stable partition (above
+    2^29 rows the composite no longer fits and it sorts by ``argsort``);
+    ``"scatter"`` computes each element's destination from per-value
+    running counts and inverts that permutation with one scatter;
+    ``"scan"`` finds the source of each output slot by a binary search of
+    its rank in its value's running count. None reads the device."""
+    if impl not in PARTITION_IMPLS:
+        raise ValueError("partition_impl must be 'sort', 'sort32', 'scan' "
+                         f"or 'scatter', got {impl!r}")
+    n = key.shape[0]
+    dev = key.device
+    if impl == "sort" or n == 0:
+        return torch.argsort(key, stable=True)
+    if impl == "sort32":
+        if n > (1 << 29):
+            return torch.argsort(key, stable=True)
+        shift = max(n - 1, 1).bit_length()
+        comp = (((key.to(torch.int32) + 1) << shift)
+                | torch.arange(n, dtype=torch.int32, device=dev))
+        return (torch.sort(comp).values & ((1 << shift) - 1)).to(torch.int64)
+    if impl == "scatter":
+        dst = torch.zeros(n, dtype=torch.int64, device=dev)
+        off = torch.zeros((), dtype=torch.int64, device=dev)
+        for v in (-1, 0, 1, 2):
+            isv = key == v
+            rank = torch.cumsum(isv, 0) - 1
+            dst = torch.where(isv, off + rank, dst)
+            off = off + rank[-1] + 1
+        return torch.empty(n, dtype=torch.int64, device=dev).scatter_(
+            0, dst, torch.arange(n, dtype=torch.int64, device=dev))
+    j = torch.arange(n, dtype=torch.int64, device=dev)
+    cums = [torch.cumsum(key == v, 0) for v in (-1, 0, 1, 2)]
+    offs = torch.cumsum(torch.stack(
+        [torch.zeros((), dtype=torch.int64, device=dev)]
+        + [c[-1] for c in cums[:3]]), 0)
+    pick = torch.full((n,), 3, dtype=torch.int64, device=dev)
+    for ci in (2, 1, 0):
+        pick = torch.where(j < offs[ci + 1], ci, pick)
+    src = torch.zeros(n, dtype=torch.int64, device=dev)
+    for ci, c in enumerate(cums):
+        s = torch.searchsorted(c, j - offs[ci] + 1, side="left")
+        src = torch.where(pick == ci, s, src)
+    return src
 
 
 # ---------------------------------------------------------------------------
@@ -747,7 +832,7 @@ def _check_reduce(cfg: GrowerConfig, group) -> bool:
                          f"got {cfg.hist_reduce!r}")
     if not (cfg.hist_reduce == "scatter" and cfg.feature_shards > 1):
         return False
-    if cfg.growth_policy != "leafwise":
+    if cfg.growth_policy != "leafwise" or cfg.row_layout != "partition":
         raise ValueError(
             "hist_reduce='scatter' (feature-parallel) supports only "
             "leafwise growth with the partition row layout")
@@ -814,18 +899,30 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
     if cfg.growth_policy != "leafwise":
         raise ValueError("growth_policy must be 'leafwise' or 'depthwise', "
                          f"got {cfg.growth_policy!r}")
+    layout = cfg.row_layout
+    if layout not in ("partition", "masked", "gather"):
+        raise ValueError(
+            "row_layout must be 'partition', 'masked' or 'gather', "
+            f"got {layout!r}")
     n, f = binned.shape
     dev = binned.device
     L = cfg.num_leaves
     B = pad_bins(cfg.num_bins)
     FP = features_padded(f)
 
-    bT = (transpose_bins(binned) if bT0 is None else bT0.clone())
+    # the partition layout moves the bins with its rows; the others only
+    # read them
+    bT = transpose_bins(binned) if bT0 is None else bT0
+    if layout == "partition" and bT0 is not None:
+        bT = bT.clone()
     in_bag = in_bag.to(torch.float32)
     gs = grad.to(torch.float32) * in_bag
     hs = hess.to(torch.float32) * in_bag
     ms = in_bag.clone()
     pos = torch.arange(n, dtype=torch.int64, device=dev)
+    node = (torch.zeros(n, dtype=torch.int64, device=dev)
+            if layout == "masked" else None)
+    segmented = cfg.use_segmented is None or bool(cfg.use_segmented)
     featp, nanp, nanp_host, monop = _padded_features(
         feature_active, nan_bins, FP, dev, monotone)
     catp, catb, catp_host = _padded_categorical(cfg, is_categorical,
@@ -870,6 +967,7 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
     leaf_len = np.zeros(L, np.int64)
     leaf_len[0] = n
     min_gain = np.float32(cfg.min_gain_to_split)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
 
     for _ in range(L - 1):
         active = np.arange(L) <= book.num_splits
@@ -883,31 +981,69 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
         start, length = int(leaf_start[l]), int(leaf_len[l])
         end = start + length
 
-        # stable partition of the leaf's range: left-going rows first
-        binrow = bT[fsel, start:end]
-        if catp_host is not None and catp_host[fsel]:
-            gr = ~_member(dbits[l].expand(length, -1), binrow.to(torch.int64))
-        else:
+        def go_right(binrow):
+            """Whether each row of ``binrow`` (its bins of feature fsel)
+            goes to the right child."""
+            if catp_host is not None and catp_host[fsel]:
+                return ~_member(dbits[l].expand(binrow.shape[0], -1),
+                                binrow.to(torch.int64))
             gr = binrow > bsel
             if nanp_host[fsel] < B:
                 is_nan = binrow == int(nanp_host[fsel])
                 gr = (gr & ~is_nan) if dl else (gr | is_nan)
-        src = torch.argsort(gr.to(torch.uint8), stable=True)
-        nl_loc = length - gr.sum()
-        pos[start:end] = pos[start:end][src]
-        gs[start:end] = gs[start:end][src]
-        hs[start:end] = hs[start:end][src]
-        ms[start:end] = ms[start:end][src]
-        bT[:, start:end] = bT[:, start:end][:, src]
+            return gr
 
         # build the smaller child (decided from the best split's global
         # count-left), the sibling is parent - child
         left_small = book.bcl[l] * np.float32(2.0) <= book.tot[l, 2]
         a = 0 if left_small else 1
-        child_start = nl_loc * a + start
-        child_len = nl_loc * (1 - 2 * a) + length * a
-        hist_small = reduce(range_histogram(bT, gs, hs, ms, child_start,
-                                            child_len, B))
+        if layout == "masked":
+            # route leaf l's rows: the right-goers become leaf num_splits + 1
+            new_id = book.num_splits + 1
+            node = torch.where((node == l) & go_right(bT[fsel]), new_id, node)
+            sel = (node == (new_id if a else l)).to(torch.float32)
+            hist_small = child_histogram(bT, gs * sel, hs * sel, ms * sel, B)
+            nl_loc = zero
+        else:
+            # stable partition of the leaf's range: left-going rows first
+            posl = pos[start:end]
+            binrow = (bT[fsel, start:end] if layout == "partition"
+                      else bT[fsel][posl])
+            gr = go_right(binrow)
+            src = stable_partition_src(gr.to(torch.int64),
+                                       cfg.partition_impl)
+            nl_loc = length - gr.sum()
+            pos[start:end] = posl[src]
+            if layout == "partition":
+                gs[start:end] = gs[start:end][src]
+                hs[start:end] = hs[start:end][src]
+                ms[start:end] = ms[start:end][src]
+                bT[:, start:end] = bT[:, start:end][:, src]
+                child_start = nl_loc * a + start
+                child_len = nl_loc * (1 - 2 * a) + length * a
+                if segmented:
+                    hist_small = range_histogram(bT, gs, hs, ms, child_start,
+                                                 child_len, B)
+                else:
+                    # a window of the sorted rows aligned down to CHUNK,
+                    # holding the child, with its range mask
+                    cs = start // CHUNK * CHUNK
+                    idx = torch.arange(cs, end, device=dev)
+                    win = ((idx >= child_start)
+                           & (idx < child_start + child_len)).to(torch.float32)
+                    hist_small = child_histogram(
+                        bT[:, cs:end].contiguous(), gs[cs:end] * win,
+                        hs[cs:end] * win, ms[cs:end] * win, B)
+            else:
+                # gather: the child's rows through pos, in original order
+                # within the leaf; its row count is read first
+                nl = int(_to_host(nl_loc, stats))
+                c0, c1 = ((start, start + nl) if left_small
+                          else (start + nl, end))
+                rows = pos[c0:c1]
+                hist_small = child_histogram(
+                    bT.index_select(1, rows), gs[rows], hs[rows], ms[rows], B)
+        hist_small = reduce(hist_small)
         hist_parent = hist[l]
         hist_left = hist_small if left_small else hist_parent - hist_small
         hist_right = hist_parent - hist_left
@@ -934,6 +1070,8 @@ def grow_tree(binned, grad, hess, in_bag, feature_active, cfg: GrowerConfig,
         _wire(1, _nbytes(leaf_tot))
         WIRE["seconds"] += time.perf_counter() - t0
     tree = book.tree(hist, cfg, leaf_tot)
+    if node is not None:
+        return tree, node
 
     # each row's leaf, in original row order, from the leaf ranges
     node_sorted = torch.empty(n, dtype=torch.int64, device=dev)

@@ -46,9 +46,23 @@ Counterpart of the JAX package's ``gbdt/stream.py``.
 * :func:`predict_streamed`: raw chunks in, one prediction array per chunk
   out, through the same pump.
 
+* ``mesh=`` (single controller: every rank gets the same chunk source):
+  the chunk rows round up to a multiple of the W ranks, and every rank
+  sketches the whole stream (so the mapper is byte for byte the one
+  process's) but bins, caches and streams only its block of every chunk
+  (``prepare(row_block=...)``): its host cache, stager and per-row vectors
+  hold about 1/W of the rows. It sums its chunks' partial histograms in
+  chunk order and crosses the fabric once per growth step
+  (``grower._maybe_psum`` on the f32, bf16 or int8 wire), so a leaf-wise
+  tree makes the resident path's 31 gloo calls and the f32 wire is the
+  JAX package's bit for bit on the CPU. Sampling draws over the global
+  rows (GOSS gathers the gradients), and rank 0 commits the snapshots
+  (scores gathered in stream order).
+
 Limits (raised by name): gbdt and goss boosting only, objectives with one
-model per iteration, no ranking validation metrics, and no ``mesh`` yet
-(streaming over the port's gloo ranks is a later step).
+model per iteration, no ranking validation metrics; on a mesh the data
+learner only, and no streaming in a multi-process world (JAX's
+single-controller rule).
 """
 
 from __future__ import annotations
@@ -73,9 +87,11 @@ from .boosting import (Booster, BoosterConfig, _ckpt_load_gbdt,
                        _ckpt_save_gbdt, _eval_metric, _f32, _is_rank_metric,
                        _metric_name, _node_key_data, _objective,
                        _sample_features_impl)
-from .grower import (TreeArrays, _best_for_leaf, _padded_categorical,
-                     _padded_features, _to_host, _TreeBook, node_masks,
-                     tree_leaves_binned, trees_to_host)
+from ..parallel import collectives as coll
+from .grower import (TreeArrays, _best_for_leaf, _maybe_psum, _mesh_group,
+                     _padded_categorical, _padded_features, _to_host,
+                     _TreeBook, node_masks, tree_leaves_binned,
+                     trees_to_host)
 from .grower_depthwise import (_apply_level_splits, _level_candidates,
                                _repartition, _route_level)
 from .objectives import HIGHER_IS_BETTER
@@ -134,12 +150,19 @@ class StreamedDataset:
         self.chunk_rows: Optional[int] = None     # C, after prepare()
         self.depth: Optional[int] = None
         self.chunk_decision = None
-        self.chunks: List[dict] = []              # bT (FP, C), y/w/m (C,)
+        # this process's block of every chunk's rows, [lo, hi) of C (the
+        # whole chunk without a row block)
+        self.row_block: Optional[tuple] = None
+        self.block_rows: Optional[int] = None     # hi - lo
+        self.chunks: List[dict] = []              # bT (FP, hi - lo), y/w/m
         self.chunk_real: List[int] = []           # real (unpadded) rows
+        self.block_real: List[int] = []           # real rows of the block
+        self._yw: Optional[tuple] = None          # every row's labels, weights
         self.n_rows = 0
         self.sketch_exact: Optional[bool] = None  # None: mapper was given
         self.ingest_seconds: dict = {}
         self._prepared_for = None
+        self._block_of = None
 
     @classmethod
     def from_arrays(cls, X, y=None, w=None, source_chunk: int = 65536,
@@ -232,22 +255,41 @@ class StreamedDataset:
         return apply_bins(self.mapper, np.asarray(X, np.float32),
                           dev).cpu().numpy()
 
+    def _count_rows(self) -> int:
+        """Rows of the stream: the sketch's count, else one pass counting
+        them."""
+        if self._rows_sketched:
+            return self._rows_sketched
+        return sum(int(self._norm_chunk(c)[0].shape[0])
+                   for c in self._batches())
+
     def prepare(self, config: BoosterConfig, row_multiple: int = 1,
-                device=DEFAULT_DEVICE) -> "StreamedDataset":
+                device=DEFAULT_DEVICE,
+                row_block: Optional[tuple] = None) -> "StreamedDataset":
         """Sketch (unless a mapper was given), resolve the chunk geometry,
         bin (on ``device``) and cache the stream; idempotent for one binning
         config. ``row_multiple`` rounds the chunk rows up to a multiple; a
         dataset prepared under the same binning re-chunks without
-        re-sketching when the multiple changes."""
+        re-sketching when the multiple changes. ``row_block=(r, W)`` (W
+        dividing ``row_multiple``) keeps only block ``r`` of W equal row
+        blocks of every chunk, as the mesh's rank ``r`` holds it: only those
+        rows are binned and cached (the labels and weights of every row stay
+        in host memory)."""
         dev = resolve_device(device)
         mult = max(int(row_multiple), 1)
+        r_blk, W = (0, 1) if row_block is None else (int(row_block[0]),
+                                                     int(row_block[1]))
+        if mult % W:
+            raise ValueError(f"row_block of {W} blocks needs row_multiple "
+                             f"a multiple of {W}, got {mult}")
         key = (config.max_bin, config.bin_sample_count,
                config.min_data_in_bin,
                tuple(config.max_bin_by_feature or ()),
                config.seed if config.data_random_seed is None
                else int(config.data_random_seed))
         if (self._prepared_for == key and self.chunk_rows
-                and self.chunk_rows % mult == 0):
+                and self.chunk_rows % mult == 0
+                and self._block_of == (r_blk, W)):
             return self
         if (self._prepared_for is not None and self._prepared_for != key
                 and self._user_mapper is False):
@@ -284,6 +326,13 @@ class StreamedDataset:
                               depth=self.depth, read_bps=read_bps)
         if C % mult:
             C += mult - C % mult
+        if W > 1:
+            # the whole stream in one partial chunk shrinks the chunk to
+            # its real rows (a multiple of row_multiple); the blocks need
+            # the final C before the first row is placed
+            total = self._count_rows()
+            if total < C:
+                C = max(-(-total // mult) * mult, mult)
         self.chunk_rows = C
         from ..io import ingest as _ingest
 
@@ -292,27 +341,36 @@ class StreamedDataset:
         if self._cache_dir is not None:
             os.makedirs(self._cache_dir, exist_ok=True)
 
-        self.chunks, self.chunk_real, self.n_rows = [], [], 0
+        self.chunks, self.chunk_real, self.block_real = [], [], []
+        self.n_rows = 0
         binner = CsrBinner(self.mapper, dev)
+        lo, hi = r_blk * C // W, (r_blk + 1) * C // W
         buf_b = np.zeros((C, F), bin_dtype)
         buf_y = np.zeros(C, np.float32)
         buf_w = np.zeros(C, np.float32)
+        all_y, all_w = [], []
         fill = 0
 
         def flush():
-            nonlocal fill, C
+            nonlocal fill, C, lo, hi
             if fill == 0:
                 return
-            if not self.chunks and fill < C:
+            if not self.chunks and fill < C and W == 1:
                 # the whole stream fits one partial chunk: shrink the chunk
                 # to the real rows (still a multiple of row_multiple)
                 C = max(-(-fill // mult) * mult, mult)
                 self.chunk_rows = C
-            bT = np.zeros((FP, C), bin_dtype)
-            bT[:F, :fill] = buf_b[:fill].T
-            m = np.zeros(C, np.float32)
-            m[:fill] = 1.0
-            entry = {"y": buf_y[:C].copy(), "w": buf_w[:C].copy(), "m": m}
+                lo, hi = 0, C
+            real = min(max(fill - lo, 0), hi - lo)
+            bT = np.zeros((FP, hi - lo), bin_dtype)
+            bT[:F, :real] = buf_b[lo:lo + real].T
+            m = np.zeros(hi - lo, np.float32)
+            m[:real] = 1.0
+            entry = {"y": buf_y[lo:hi].copy(), "w": buf_w[lo:hi].copy(),
+                     "m": m}
+            if W > 1:
+                all_y.append(buf_y[:fill].copy())
+                all_w.append(buf_w[:fill].copy())
             if self._cache_dir is not None:
                 path = os.path.join(self._cache_dir,
                                     f"chunk{len(self.chunks):05d}.npy")
@@ -322,16 +380,28 @@ class StreamedDataset:
                 entry["bT"] = bT
             self.chunks.append(entry)
             self.chunk_real.append(fill)
+            self.block_real.append(real)
             buf_y[:] = 0.0
             buf_w[:] = 0.0
             fill = 0
 
+        seen = 0
         for chunk in self._batches():
             X, y, w = self._norm_chunk(chunk)
             c = int(X.shape[0])
             if c == 0:
                 continue
-            binned = self._bin_chunk(X, binner, dev)
+            # bin only the rows that land in this block of their chunk
+            q = (seen + np.arange(c)) % C
+            keep = (q >= lo) & (q < hi)
+            seen += c
+            if keep.all():
+                binned = self._bin_chunk(X, binner, dev)
+            else:
+                binned = np.zeros((c, F), bin_dtype)
+                if keep.any():
+                    binned[keep] = self._bin_chunk(X[np.nonzero(keep)[0]],
+                                                   binner, dev)
             y = (np.zeros(c, np.float32) if y is None
                  else np.asarray(y, np.float32))
             w = (np.ones(c, np.float32) if w is None
@@ -350,15 +420,20 @@ class StreamedDataset:
         self.n_rows = int(sum(self.chunk_real))
         if self.n_rows == 0:
             raise ValueError("StreamedDataset source yielded no rows")
+        self.row_block = (lo, hi)
+        self.block_rows = hi - lo
+        self._yw = ((np.concatenate(all_y), np.concatenate(all_w))
+                    if W > 1 else None)
         self.ingest_seconds["bin_and_cache"] = _time.perf_counter() - t0
         self._prepared_for = key
+        self._block_of = (r_blk, W)
         return self
 
     def cache_bytes(self) -> int:
         """Bytes of the quantized chunk cache (in host memory or spilled)."""
         FP = features_padded(self.num_features)
         unit = 1 if self.mapper.max_bin <= 256 else 2
-        return len(self.chunks) * FP * int(self.chunk_rows) * unit
+        return len(self.chunks) * FP * int(self.block_rows) * unit
 
     def chunk_bT(self, i: int) -> np.ndarray:
         """Quantized (FP, C) bins of chunk ``i``: in host memory, or re-read
@@ -369,7 +444,7 @@ class StreamedDataset:
         if bT is not None:
             return bT
         arr = read_chunk_file(ch["bT_path"], i)
-        want = (features_padded(self.num_features), int(self.chunk_rows))
+        want = (features_padded(self.num_features), int(self.block_rows))
         if tuple(arr.shape) != want:
             raise OSError(
                 f"torn read of spilled chunk {ch['bT_path']!r}: got shape "
@@ -377,10 +452,15 @@ class StreamedDataset:
         return arr
 
     def labels(self) -> np.ndarray:
+        """Every row's label, in stream order (with a row block too)."""
+        if self._yw is not None:
+            return self._yw[0]
         return np.concatenate([ch["y"][:r] for ch, r in
                                zip(self.chunks, self.chunk_real)])
 
     def weights(self) -> np.ndarray:
+        if self._yw is not None:
+            return self._yw[1]
         return np.concatenate([ch["w"][:r] for ch, r in
                                zip(self.chunks, self.chunk_real)])
 
@@ -490,7 +570,7 @@ class _Passes:
         elif self.cuda:
             FP = features_padded(data.num_features)
             unit = 1 if data.mapper.max_bin <= 256 else 2
-            self.stager = PinnedStager(FP * int(data.chunk_rows) * unit,
+            self.stager = PinnedStager(FP * int(data.block_rows) * unit,
                                        data.depth + 1, dev)
 
     def _host(self, i: int) -> np.ndarray:
@@ -602,47 +682,117 @@ def train_booster_streamed(
     (every ``checkpoint_every`` trees, default 1); with ``resume`` a rerun
     continues from the newest snapshot of the same run, bit for bit.
     ``resident=True`` stages every chunk on the device once and runs the
-    same per-chunk code. ``mesh`` is not ported yet and raises."""
-    from ..core.logging import InstrumentationMeasures
+    same per-chunk code.
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_booster_streamed(mesh=...) is not ported to the PyTorch "
-            "package yet: streamed GBDT runs in one process; the resident "
-            "train_booster takes mesh")
+    ``mesh`` (single controller: every rank of the mesh calls with the same
+    ``data`` source and arguments) shards every chunk's rows over the
+    ``data`` axis: the chunk rows are rounded to a multiple of the W ranks,
+    each rank bins, caches and streams only its block of every chunk
+    (``prepare(row_block=...)``), sums its chunks' partial histograms in
+    chunk order and crosses the fabric once per growth step
+    (``grower._maybe_psum`` on ``hist_allreduce_dtype``'s wire)."""
+    from ..core.logging import InstrumentationMeasures
+    from ..parallel.mesh import process_count
+
     if measures is None:
         measures = InstrumentationMeasures()
     cfg = config
     has_valid = valid_data is not None
     _check_supported(cfg, has_valid)
+    W, group, rank = 1, None, 0
+    if mesh is not None:
+        if process_count() > 1:
+            raise NotImplementedError(
+                "mesh-streamed GBDT is single-controller: "
+                "process_count() must be 1 (multi-process stage groups "
+                "route through the resident train_booster path)")
+        from ..parallel.mesh import DATA_AXIS
+
+        if cfg.tree_learner in ("voting", "feature"):
+            raise NotImplementedError(
+                f"mesh-streamed GBDT shards over the data axis only "
+                f"(tree_learner='data'); got {cfg.tree_learner!r}")
+        W = int(dict(mesh.shape).get(DATA_AXIS, 1))
+        group, rank = _mesh_group(mesh)
     dev = resolve_device(device)
+    if mesh is not None:
+        if mesh.device.type != dev.type:
+            raise ValueError(f"train_booster_streamed(device={device!r}) on "
+                             f"a mesh of {mesh.device}")
+        dev = mesh.device
     cuda = dev.type == "cuda"
 
     fit_t0 = _time.perf_counter()
     with measures.span("streamIngest"):
-        data.prepare(cfg, device=dev)
+        data.prepare(cfg, row_multiple=W, device=dev,
+                     row_block=(rank, W) if W > 1 else None)
     mapper = data.mapper
     F = data.num_features
-    C = int(data.chunk_rows)
+    C = int(data.block_rows)              # this rank's rows of a chunk
     FP = features_padded(F)
     B = pad_bins(cfg.max_bin)
     L = cfg.num_leaves
     n = int(data.n_rows)
     nchunks = len(data.chunks)
     npad = nchunks * C
+    if group is not None:
+        from ..parallel.mesh import check_same_inputs
+
+        # every rank must bin on the same boundaries and stream the same
+        # geometry before the first collective
+        check_same_inputs(
+            mesh, "stream (bin boundaries, rows, chunk rows, config)",
+            np.asarray(mapper.boundaries), np.asarray(mapper.num_bins),
+            np.asarray(mapper.is_categorical), np.asarray(mapper.nan_mask),
+            (n, F, int(data.chunk_rows), nchunks),
+            sorted(dataclasses.asdict(cfg).items()))
 
     autoconfig_info = {}
     if cfg.hist_allreduce_dtype == "auto":
         from .grower import resolve_wire_dtype
 
-        wd, wdec = resolve_wire_dtype(cfg, None, n, F)
+        wd, wdec = resolve_wire_dtype(cfg, mesh if W > 1 else None, n, F)
         cfg.hist_allreduce_dtype = wd
         autoconfig_info["wire_dtype"] = wdec.provenance()
     routing_info = None
     if cfg.tree_learner == "auto":
-        cfg.tree_learner = "serial"
-        routing_info = {"tree_learner": "serial",
-                        "router": "streamed_data_plane", "workers": 1}
+        choice = "data" if W > 1 else "serial"
+        cfg.tree_learner = choice
+        routing_info = {"tree_learner": choice,
+                        "router": "streamed_data_plane", "workers": W}
+    wire = cfg.hist_allreduce_dtype
+
+    def reduce(h):
+        """One growth step's histogram over the ranks (identity alone)."""
+        return _maybe_psum(h, group, wire)
+
+    # this rank's padded rows in the stream's padded order: chunk i's
+    # block holds rows i * C_all + lo .. of the whole chunk-padded layout
+    C_all = int(data.chunk_rows)
+    lo = data.row_block[0]
+    gidx = None
+    if W > 1:
+        gidx = (torch.arange(nchunks, device=dev)[:, None] * C_all + lo
+                + torch.arange(C, device=dev)[None, :]).reshape(-1)
+
+    def global_rows(v: torch.Tensor) -> torch.Tensor:
+        """Every rank's (npad,) ``v`` assembled in stream order, the real
+        rows (n,): an all-gather of the blocks."""
+        if group is None:
+            return v[:n]
+        parts = coll.allgather(v, group).reshape(W, nchunks, C)
+        return parts.permute(1, 0, 2).reshape(-1)[:n]
+
+    def local_rows(v: torch.Tensor, fill: float) -> torch.Tensor:
+        """This rank's (npad,) rows of a stream-order (n,) vector, ``fill``
+        for the padding."""
+        if group is None:
+            return torch.cat([v, torch.full((npad - n,), fill,
+                                            dtype=v.dtype, device=dev)])
+        whole = torch.full((nchunks * C_all,), fill, dtype=v.dtype,
+                           device=dev)
+        whole[:n] = v
+        return whole[gidx]
 
     is_cat = np.asarray(mapper.is_categorical, bool)
     gcfg = cfg.grower(has_categorical=bool(is_cat.any()))
@@ -732,7 +882,7 @@ def train_booster_streamed(
     if ckpt_store is not None and checkpoint_every <= 0:
         checkpoint_every = 1
     fingerprint = (None if ckpt_store is None
-                   else _stream_fingerprint(cfg, data))
+                   else _stream_fingerprint(cfg, data, mesh))
 
     trees: List[TreeArrays] = []
     start_iter = 0
@@ -742,8 +892,9 @@ def train_booster_streamed(
             start_iter = int(saved["iteration"])
             trees = [TreeArrays(*[np.asarray(a) for a in t])
                      for t in saved["trees"]]
-            score[:n] = torch.as_tensor(
-                np.asarray(saved["score"], np.float32)).to(dev)
+            score = local_rows(torch.as_tensor(
+                np.asarray(saved["score"], np.float32)).to(dev),
+                float(np.float32(base[0])))
             in_bag = torch.as_tensor(
                 np.asarray(saved["in_bag"], np.float32)).to(dev)
             if has_valid and saved.get("score_v") is not None:
@@ -756,7 +907,6 @@ def train_booster_streamed(
 
     passes = _Passes(data, dev, resident)
     stats = {"host_syncs": 0, "passes": 0}
-    pad_zeros = torch.zeros(npad - n, dtype=torch.float32, device=dev)
 
     def chunk(t: torch.Tensor, i: int) -> torch.Tensor:
         return t[i * C:(i + 1) * C]
@@ -770,11 +920,11 @@ def train_booster_streamed(
             g, h = g * m_all, h * m_all
             m2 = m_all
             if sampling:
-                gnorm = g[:n].abs() if goss_mode else None
+                gnorm = global_rows(g).abs() if goss_mode else None
                 sw, in_bag = _stream_sample_weights(
                     cfg, n, key0, t, gnorm, in_bag,
                     yj if (do_bag and stratified) else None)
-                sw = torch.cat([sw, pad_zeros])
+                sw = local_rows(sw, 0.0)
                 g, h = g * sw, h * sw
                 m2 = m_all * (sw > 0)
             feature_active = _sample_features_impl(cfg, F, key0, t, dev)
@@ -796,7 +946,7 @@ def train_booster_streamed(
                 root = hc if root is None else root + hc
             stats["passes"] += 1
             node.zero_()
-            hist[0] = root
+            hist[0] = reduce(root)
             book = _TreeBook(L, B, catp_host)
             book.set_best([0], _to_host(_best_for_leaf(
                 hist[:1], mask_of(2 * (L - 1)), nanp, gcfg, monop, catp,
@@ -827,6 +977,7 @@ def train_booster_streamed(
                             chunk(m2, i) * rsel, B)
                         child = hc if child is None else child + hc
                     stats["passes"] += 1
+                    child = reduce(child)
                     hist_l = hist[l] - child         # parent minus right
                     hist[l] = hist_l
                     hist[nr] = child
@@ -857,6 +1008,7 @@ def train_booster_streamed(
                             n_leaves, B, L, cuda)
                         hist = hc if hist is None else hist + hc
                     stats["passes"] += 1
+                    hist = reduce(hist)
                     level += 1
                     if growing():
                         rows = _to_host(_best_for_leaf(
@@ -898,19 +1050,25 @@ def train_booster_streamed(
 
             if (ckpt_store is not None
                     and (t + 1) % max(checkpoint_every, 1) == 0):
-                payload = {
-                    "iteration": t + 1,
-                    "trees": [tuple(np.asarray(a) for a in tr)
-                              for tr in trees],
-                    "score": score[:n].cpu().numpy(),
-                    "in_bag": in_bag.cpu().numpy()}
-                if has_valid:
-                    payload["score_v"] = score_v.copy()
-                    payload["best_metric"] = np.float64(
-                        np.nan if best_metric is None else best_metric)
-                    payload["best_iter"] = int(best_iter)
-                _ckpt_save_gbdt(ckpt_store, t + 1, payload, fingerprint,
-                                measures)
+                # every rank gathers the scores; rank 0 commits and every
+                # rank waits until it has
+                flat = global_rows(score).cpu().numpy()
+                if rank == 0:
+                    payload = {
+                        "iteration": t + 1,
+                        "trees": [tuple(np.asarray(a) for a in tr)
+                                  for tr in trees],
+                        "score": flat,
+                        "in_bag": in_bag.cpu().numpy()}
+                    if has_valid:
+                        payload["score_v"] = score_v.copy()
+                        payload["best_metric"] = np.float64(
+                            np.nan if best_metric is None else best_metric)
+                        payload["best_iter"] = int(best_iter)
+                    _ckpt_save_gbdt(ckpt_store, t + 1, payload, fingerprint,
+                                    measures)
+                if group is not None:
+                    torch.distributed.barrier(group=mesh.world_group)
 
     meta = {"host_syncs": stats["host_syncs"], "device": str(dev),
             "observed_fit_s": round(_time.perf_counter() - fit_t0, 6),
@@ -920,12 +1078,14 @@ def train_booster_streamed(
     if autoconfig_info:
         meta["autoconfig"] = autoconfig_info
     meta["streamed"] = {
-        "chunk_rows": C, "num_chunks": nchunks,
+        "chunk_rows": C_all, "num_chunks": nchunks,
         "rows": n, "resident": bool(resident),
         "sketch_exact": data.sketch_exact,
         "chunk_boundaries_visited": int(passes.step_base),
         "growth_policy": cfg.growth_policy,
-        "workers": 1,
+        "workers": W,
+        "block_rows": C,
+        "cache_bytes": int(data.cache_bytes()),
         "passes": stats["passes"],
         **({"transfer": passes.log} if passes.log else {}),
         **({"sketch_second_pass": data.second_pass_decision}

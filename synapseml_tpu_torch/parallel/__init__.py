@@ -1,7 +1,10 @@
 from .mesh import (DATA_AXIS, SEQ_AXIS, Mesh, ShardSpec,  # noqa: F401
-                   check_same_inputs, data_seq_mesh, init_distributed,
-                   make_mesh, row_block, tree_shardings, zero_shard_dim,
-                   zero_sharding)
+                   assert_equal_across_processes, check_same_inputs,
+                   data_seq_mesh, host_copy, init_distributed,
+                   initialize_distributed, local_mesh_devices, make_mesh,
+                   mesh_process_indices, process_count, process_index,
+                   process_topology, row_block, shard_rows, to_global_rows,
+                   tree_shardings, zero_shard_dim, zero_sharding)
 from .collectives import (  # noqa: F401
     all_gather,
     all_reduce_sum,

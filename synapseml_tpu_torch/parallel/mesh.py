@@ -11,6 +11,18 @@ and 1 share data index 0 and form one ``seq`` group.
 Nothing is read from the environment: ``init_distributed`` takes the
 backend, the store, the rank and the world size from its caller.
 
+Two contracts, as in the JAX package:
+
+* **single controller** (``init_distributed``): the JAX package's one
+  process driving a mesh of devices. Every rank is handed the same whole
+  inputs and keeps its block of them; ``process_count()`` is 1.
+* **multi-controller** (``initialize_distributed``, the JAX name): one
+  process per rank, each passing only its own rows. The world meets over a
+  ``TCPStore`` at the coordinator address; ``process_count()`` is the world
+  size, ``process_index()`` the rank, and ``to_global_rows`` /
+  ``host_copy`` / ``assert_equal_across_processes`` are the JAX package's
+  multi-host helpers on the gloo world.
+
 ZeRO placement (``zero_sharding``, ``tree_shardings``) is a ``ShardSpec``
 per tensor: the dimension the JAX package's ``zero_sharding`` picks, cut
 into one block per rank of the ``data`` axis.
@@ -29,6 +41,152 @@ from ..core.device import DEFAULT_DEVICE, resolve_device
 
 DATA_AXIS = "data"
 SEQ_AXIS = "seq"
+
+
+# set by initialize_distributed: the world is one process per rank, each
+# with its own rows
+_MULTI_CONTROLLER = {"on": False}
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None,
+                           backend: str = "gloo",
+                           timeout_s: float = 300.0) -> None:
+    """Join a multi-controller world (the JAX package's multi-host
+    bootstrap): ``num_processes`` processes meet over a ``TCPStore`` at
+    ``coordinator_address`` (``"host:port"``, hosted by process 0), and
+    this one joins as ``process_id``. Afterwards ``process_count()`` is
+    ``num_processes`` and each process passes its own rows to
+    ``train_booster(mesh=...)``. With neither an address nor a process
+    count it does nothing (one process)."""
+    if coordinator_address is None and num_processes is None:
+        return
+    if coordinator_address is None or num_processes is None \
+            or process_id is None:
+        raise ValueError("initialize_distributed needs coordinator_address, "
+                         "num_processes and process_id")
+    host, port = str(coordinator_address).rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), int(num_processes),
+                          is_master=int(process_id) == 0,
+                          timeout=timedelta(seconds=timeout_s))
+    dist.init_process_group(backend, store=store, rank=int(process_id),
+                            world_size=int(num_processes),
+                            timeout=timedelta(seconds=timeout_s))
+    _MULTI_CONTROLLER["on"] = True
+
+
+def process_count() -> int:
+    """Processes of a multi-controller world (``initialize_distributed``);
+    1 otherwise, a single-controller world included."""
+    if _MULTI_CONTROLLER["on"] and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def process_index() -> int:
+    """This process's index in a multi-controller world; 0 otherwise."""
+    if _MULTI_CONTROLLER["on"] and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def process_topology() -> dict:
+    """The JAX package's topology keys: process index and count, devices
+    this process drives and devices of the world (one per rank), and the
+    platform (``"gpu"`` when a card is present, else ``"cpu"``)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    nproc = process_count()
+    return {"process_index": process_index(), "process_count": nproc,
+            "local_devices": world // nproc, "global_devices": world,
+            "platform": "gpu" if torch.cuda.is_available() else "cpu"}
+
+
+def _gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every process's ``x`` stacked in rank order (a CPU all-gather over
+    the world)."""
+    x = x.detach().cpu().contiguous()
+    got = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(got, x)
+    return torch.stack(got)
+
+
+def assert_equal_across_processes(values, what="local shape") -> None:
+    """Raise (rather than hang a collective) when the processes of a
+    multi-controller world pass different ``values`` (ints)."""
+    if process_count() == 1:
+        return
+    g = _gather_rows(torch.as_tensor(np.asarray(list(values), np.int64))
+                     ).numpy()
+    if not (g == g[0]).all():
+        raise ValueError(
+            f"every process must supply the same {what}; got {g.tolist()}")
+
+
+def local_mesh_devices(mesh: "Mesh") -> int:
+    """Devices (ranks) of ``mesh`` per process; the mesh must take the same
+    number from every process (in a multi-controller world: one from
+    each)."""
+    nproc = process_count()
+    ndev = int(np.prod(list(mesh.shape.values())))
+    if ndev % nproc:
+        raise ValueError(f"mesh has {ndev} devices across {nproc} processes; "
+                         "device count must divide evenly")
+    if nproc > 1 and sorted(mesh.ranks) != list(range(nproc)):
+        raise ValueError(
+            f"mesh must take exactly 1 device from each of the {nproc} "
+            f"processes; it holds ranks {sorted(mesh.ranks)}")
+    return ndev // nproc
+
+
+def mesh_process_indices(mesh: "Mesh") -> tuple:
+    """Sorted indices of the processes owning the mesh's ranks."""
+    if process_count() == 1:
+        return (0,)
+    return tuple(sorted(int(r) for r in mesh.ranks))
+
+
+def shard_rows(mesh: "Mesh", *arrays):
+    """This rank's block of each host array's rows, on the mesh's device:
+    the rows padded to a multiple of the ``data`` axis (the last row
+    repeated; callers mask the padding) and cut into one block per rank of
+    the axis, as ``PartitionSpec("data")`` shards them."""
+    ndata = int(mesh.shape[DATA_AXIS])
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        rem = (-a.shape[0]) % ndata
+        if rem:
+            a = np.concatenate([a, np.repeat(a[-1:], rem, axis=0)])
+        lo, hi = row_block(a.shape[0], mesh)
+        out.append(torch.as_tensor(np.ascontiguousarray(a[lo:hi])
+                                   ).to(mesh.device))
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def to_global_rows(mesh: "Mesh", spec, local_np) -> torch.Tensor:
+    """This process's equal row shard as its block of a global row-sharded
+    array (the JAX package's multi-host ingestion): the block on the mesh's
+    device. The global array is the processes' blocks in rank order, so
+    its row count is ``process_count()`` times the block's. ``spec`` names
+    the sharding, rows over ``data``, for the JAX signature."""
+    return torch.as_tensor(np.ascontiguousarray(local_np)).to(mesh.device)
+
+
+def host_copy(tree):
+    """Host (numpy) copy of a tree (dict, list, tuple or leaf) of row
+    blocks: in a multi-controller world each leaf is gathered from every
+    process and concatenated in rank order along its rows, so every process
+    gets the whole arrays; otherwise each leaf as it is."""
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    x = torch.as_tensor(np.asarray(tree) if not isinstance(
+        tree, torch.Tensor) else tree)
+    if process_count() == 1:
+        return x.detach().cpu().numpy()
+    return _gather_rows(x).reshape(-1, *x.shape[1:]).numpy()
 
 
 def init_distributed(backend: str, store_path: str, rank: int,
@@ -51,8 +209,11 @@ class Mesh:
     world) and the device it computes on."""
 
     def __init__(self, shape: dict, rank: int, coords: dict, groups: dict,
-                 device: torch.device, world_group=None):
+                 device: torch.device, world_group=None, ranks=None):
         self.shape = dict(shape)
+        # the world ranks of the mesh, in mesh order
+        self.ranks = (list(ranks) if ranks is not None
+                      else list(range(int(np.prod(list(shape.values()))))))
         self.rank = rank
         self.coords = dict(coords)
         self.device = device
@@ -106,7 +267,7 @@ def make_mesh(shape: Optional[dict] = None, device=DEFAULT_DEVICE,
         return None
     coords = {n: int(c) for n, c in zip(names, np.argwhere(grid == rank)[0])}
     return Mesh(dict(zip(names, sizes)), ranks.index(rank), coords, groups,
-                resolve_device(device), whole)
+                resolve_device(device), whole, ranks)
 
 
 def data_seq_mesh(seq_size: int = 0, device=DEFAULT_DEVICE) -> Mesh:

@@ -183,9 +183,25 @@ def test_distributed_surface_is_ported():
               and getattr(getattr(jvoting, n), "__module__", "")
               == jvoting.__name__}
     assert public <= set(dir(tvoting))
-    for name in ("hist_allreduce_dtype", "hist_reduce", "feature_shards"):
+    for name in ("hist_allreduce_dtype", "hist_reduce", "feature_shards",
+                 "partition_impl", "row_layout", "use_segmented"):
         assert JGrowerConfig._field_defaults[name] \
             == GrowerConfig._field_defaults[name]
+    # the multi-process contract: every mesh helper of the JAX package
+    # that the port maps onto its ranks
+    import synapseml_tpu.parallel.mesh as jmesh
+    import synapseml_tpu_torch.parallel.mesh as tmesh
+    for name in ("initialize_distributed", "process_topology",
+                 "assert_equal_across_processes", "local_mesh_devices",
+                 "mesh_process_indices", "shard_rows", "to_global_rows",
+                 "host_copy"):
+        assert hasattr(jmesh, name) and hasattr(tmesh, name), name
+        assert hasattr(tparallel, name), name
+    for name in ("initialize_distributed", "shard_rows", "process_topology",
+                 "host_copy"):
+        assert hasattr(jparallel, name), name
+    assert "mesh" in _args(jstream.train_booster_streamed) \
+        & _args(tstream.train_booster_streamed)
 
 
 @pytest.mark.parametrize("jcls,tcls,unported", [
@@ -230,9 +246,7 @@ def boosters():
 def test_unported_names_raise_naming_themselves(boosters):
     X, _, tb = boosters
     for name, call in (
-            ("row_layout", lambda: tboost.train_booster(
-                X, np.zeros(len(X)), tboost.BoosterConfig(
-                    row_layout="masked"), device=CPU)),
+            ("ServingGateway", lambda: tio.ServingGateway()),
             ("hfModel", lambda: ttext.DeepTextModel(hfModel=object())),
             ("hfTokenizer", lambda: ttext.DeepTextModel(
                 hfTokenizer=object()))):

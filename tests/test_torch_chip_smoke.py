@@ -966,3 +966,135 @@ def test_stream_phase_runs_on_the_plain_versions(monkeypatch):
     cfg = SimpleNamespace(max_bin=255, bin_sample_count=1000, seed=0)
     with pytest.raises(AssertionError, match="exact regime"):
         cs.sketch_prefix_check(cfg)
+
+
+# --- phase 20: GBDT across ranks and layouts -------------------------------------
+
+def test_ranks_layouts_phase_is_listed_and_runs_after_phase_19():
+    import inspect
+
+    assert "20. GBDT across ranks and layouts" in cs.__doc__
+    src = inspect.getsource(cs.main)
+    assert src.index("streamed = stream_path(dev)") \
+        < src.rindex('ranks_layouts_path(args.rows, dev, streamed["auc"])')
+    assert "tmp.spawn(_mp_rank" in inspect.getsource(cs.mp_path)
+    assert "tmp.spawn(_mesh_stream_rank" in inspect.getsource(
+        cs.mesh_stream_path)
+    assert [n for n, _ in cs.LAYOUT_RUNS] == [
+        "partition", "gather", "masked", "sort32", "scan", "scatter",
+        "unsegmented"]
+    # phase 13 was cut from 50 iterations a sampling mode to make room
+    assert cs.SAMPLING_ITERS == 20
+    assert "numIterations=20" in cs.__doc__
+
+
+def _layout_fits():
+    launch = {"child_histogram": 10, "range_histogram": 300,
+              "level_histograms": 0}
+    return {name: dict(launches=dict(launch), auc=0.9, shape=[[[0], [3]]])
+            for name, _ in cs.LAYOUT_RUNS}
+
+
+def _mesh_reports(world=2):
+    runs = {name: dict(model_sha="abc", auc=0.9, launches={
+        "child_histogram": 1, "range_histogram": 0, "level_histograms": 1})
+        for name in ("leafwise", "depthwise", "resident", "f32_prefix",
+                     "bf16_prefix", "int8_prefix")}
+    import copy
+
+    shape = [[[0], [3], [-1], [-2]]]
+    return [dict(runs=copy.deepcopy(runs), identity={
+        "f32": shape, "bf16": shape, "int8": shape}) for _ in range(world)]
+
+
+def _mp_reports(world=2):
+    runs = {policy: dict(model_sha="abc", mapper_sha="m", launches={
+        "child_histogram": 1, "range_histogram": 1, "level_histograms": 1})
+        for policy in ("leafwise", "depthwise")}
+    import copy
+
+    return [dict(runs=copy.deepcopy(runs)) for _ in range(world)]
+
+
+@pytest.mark.parametrize("fault,message", [
+    ("layout_auc", "against partition's"),
+    ("layout_launch", "never launched"),
+    ("mp_sha", "model strings differ"),
+    ("mp_mapper", "not the gathered sample's"),
+    ("mp_prob", "from one process"),
+    ("mesh_sha", "model strings differ"),
+    ("mesh_auc", "the one-process streamed fit's"),
+    ("mesh_lossy", "f32's on the same rows"),
+    ("mesh_identity", "int8 trees differ from f32's by more than a bin")])
+def test_phase_20_checks_refuse_each_failure(fault, message):
+    """Passing readings pass; each planted fault is reported naming itself
+    (phase 20 raises them all at its end: the script exits non-zero)."""
+    fits, mesh, mpr = _layout_fits(), _mesh_reports(), _mp_reports()
+    probs = {p: np.linspace(0.1, 0.9, 8) for p in ("leafwise", "depthwise")}
+    p_one = {p: v.copy() for p, v in probs.items()}
+    ref = 0.9
+    assert cs.layout_checks(fits) == []
+    assert cs.mp_checks(mpr, probs, p_one, "m") == []
+    assert cs.mesh_stream_checks(mesh, ref) == []
+    fits["gather"]["shape"] = [[[1], [3]]]        # a tie: logged, not failed
+    assert cs.layout_checks(fits) == []
+    if fault == "layout_auc":
+        fits["masked"]["auc"] = 0.9 + 2e-3
+    elif fault == "layout_launch":
+        fits["partition"]["launches"]["range_histogram"] = 0
+    elif fault == "mp_sha":
+        mpr[1]["runs"]["depthwise"]["model_sha"] = "abd"
+    elif fault == "mp_mapper":
+        mpr[0]["runs"]["leafwise"]["mapper_sha"] = "n"
+    elif fault == "mp_prob":
+        probs["leafwise"] = probs["leafwise"] + 6e-3
+    elif fault == "mesh_sha":
+        mesh[1]["runs"]["resident"]["model_sha"] = "abd"
+    elif fault == "mesh_auc":
+        ref = 0.9 - 2e-3
+    elif fault == "mesh_lossy":
+        # a lossy wire may land on the other side of the table's near tie
+        mesh[0]["runs"]["int8_prefix"]["auc"] = 0.9 - 0.009
+        assert cs.mesh_stream_checks(mesh, ref) == []
+        mesh[0]["runs"]["int8_prefix"]["auc"] = 0.9 - 0.011
+    else:
+        # one bin off is the reference's own int8 noise; two is not
+        mesh[0]["identity"]["int8"] = [[[0], [4], [-1], [-2]]]
+        assert cs.mesh_stream_checks(mesh, ref) == []
+        mesh[0]["identity"]["int8"] = [[[0], [5], [-1], [-2]]]
+    bad = (cs.layout_checks(fits) + cs.mp_checks(mpr, probs, p_one, "m")
+           + cs.mesh_stream_checks(mesh, ref))
+    assert len(bad) == 1 and message in bad[0], bad
+
+
+def test_ranks_layouts_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 20 end to end on the CPU at small sizes: the primitives, every
+    layout fit, both spawns and every check; the plain versions count no
+    launches, so the launch checks, and only they, refuse the run."""
+    import dataclasses
+
+    from synapseml_tpu_torch.gbdt import (BoosterConfig, StreamedDataset,
+                                          train_booster_streamed)
+
+    for name, value in dict(
+            LAYOUT_ITERS=2, DIST_EVAL_ROWS=2000, PARTITION_KEYS=10_000,
+            STREAM_ROWS=40_000, STREAM_SOURCE_ROWS=10_000,
+            STREAM_VALID_ROWS=4000, STREAM_ITERS=2, MESH_LOSSY_ROWS=20_000,
+            MP_ITERS=2).items():
+        monkeypatch.setattr(cs, name, value)
+    # the one-process streamed fit phase 19 would have made of the stream
+    cfg = BoosterConfig(objective="binary", num_iterations=cs.STREAM_ITERS,
+                        num_leaves=31, max_bin=255)
+    one = train_booster_streamed(
+        StreamedDataset(cs.stream_source(cs.STREAM_ROWS, cs.STREAM_SEED),
+                        num_features=cs.FEATURES), dataclasses.replace(cfg),
+        device="cpu")
+    Xv, yv = cs._whole(cs.stream_source(cs.STREAM_VALID_ROWS,
+                                        cs.STREAM_VALID_SEED))
+    with pytest.raises(AssertionError, match="never launched") as err:
+        cs.ranks_layouts_path(20_000, "cpu",
+                              cs._heldout_auc(one, Xv, yv, "cpu"))
+    msg = str(err.value)
+    for ok in ("differ across ranks", "AUC", "from one process",
+               "gathered sample", "decisive fixture"):
+        assert ok not in msg, msg

@@ -275,11 +275,22 @@ def test_cuda_fit_matches_reference(data, tables, cuda):
     ("use_segmented", False),
 ])
 def test_train_booster_rejects_unported_config(data, field, value):
+    """The engine knobs the port once refused by name now train, each the
+    same trees as ``partition_impl="sort"`` with the partition layout
+    (``tests/test_torch_gbdt_layouts.py`` holds every combination to the
+    JAX package's trees)."""
     X, y = data
-    cfg = tboost.BoosterConfig(objective="binary", num_iterations=1)
+    base = tboost.BoosterConfig(objective="binary", num_iterations=2,
+                                num_leaves=15)
+    cfg = tboost.BoosterConfig(objective="binary", num_iterations=2,
+                               num_leaves=15)
     setattr(cfg, field, value)
-    with pytest.raises(NotImplementedError, match=field):
-        tboost.train_booster(X[:256], y[:256], cfg, device=CPU)
+    want = tboost.train_booster(X[:1024], y[:1024], base, device=CPU)
+    got = tboost.train_booster(X[:1024], y[:1024], cfg, device=CPU)
+    assert [_tree_struct(t) for t in got.trees] \
+        == [_tree_struct(t) for t in want.trees]
+    for a, b in zip(got.trees, want.trees):
+        np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
 
 
 @pytest.mark.parametrize("field,value", [
@@ -389,7 +400,9 @@ def test_classifier_rejects_unported_params(data):
     """Every param of the JAX estimator is ported (``topK`` and
     ``parallelism`` once were refused: without a mesh they train the JAX
     package's serial trees, as ``tree_learner=voting`` through
-    ``passThroughArgs`` does); ``row_layout=masked`` stays refused."""
+    ``passThroughArgs`` does); ``row_layout=masked`` through
+    ``passThroughArgs`` takes effect and grows the partition layout's
+    trees."""
     X, y = data
     jparams = set(JClassifier()._params)
     tparams = set(LightGBMClassifier(device=CPU)._params)
@@ -409,9 +422,13 @@ def test_classifier_rejects_unported_params(data):
             == [_tree_struct(b) for b in want.booster.trees], params
         est = LightGBMClassifier(device=CPU).set("topK", 10)
         assert est.getTopK() == 10
-    with pytest.raises(NotImplementedError):
-        LightGBMClassifier(device=CPU, numIterations=1,
-                           passThroughArgs="row_layout=masked").fit(t)
+    kw = dict(numIterations=2, numLeaves=5)
+    masked = LightGBMClassifier(device=CPU, passThroughArgs="row_layout=masked",
+                                **kw).fit(t)
+    assert masked.booster.config.row_layout == "masked"
+    plain = LightGBMClassifier(device=CPU, **kw).fit(t)
+    assert [_tree_struct(b) for b in masked.booster.trees] \
+        == [_tree_struct(b) for b in plain.booster.trees]
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

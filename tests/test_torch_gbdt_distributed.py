@@ -77,6 +77,15 @@ CASES += [
                                            hist_allreduce_dtype="bf16"), {}),
     ("data_depthwise_k4", 4, "decisive",
      dict(tree_learner="data", growth_policy="depthwise"), {}),
+    # the leaf-wise row layouts over the mesh
+    ("gather_f32", 2, "decisive", dict(tree_learner="data",
+                                       row_layout="gather"), {}),
+    ("masked_bf16", 2, "decisive", dict(tree_learner="data",
+                                        row_layout="masked",
+                                        hist_allreduce_dtype="bf16"), {}),
+    ("masked_int8_k4", 4, "decisive", dict(tree_learner="data",
+                                           row_layout="masked",
+                                           hist_allreduce_dtype="int8"), {}),
 ]
 RESUME_AT = 2                      # the resume case stops in iteration 2
 

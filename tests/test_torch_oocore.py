@@ -20,9 +20,8 @@ own run of it:
 * sampling (bagging, GOSS, feature fractions), early stopping on a
   held-out stream, the disk source and the ``cache_dir`` spill.
 
-Left out, each for its reason: ``TestMeshStreamed`` (the port refuses
-``mesh=`` by name, asserted below: streaming over gloo ranks is a later
-step); ``TestDlSharedLayer`` (the DL trainer's prefetch stays refused, PR
+Left out, each for its reason: ``TestMeshStreamed`` (its ranks need a
+spawn: ``tests/test_torch_oocore_mesh.py``); ``TestDlSharedLayer`` (the DL trainer's prefetch stays refused, PR
 13's scope: the port's trainer does not run on the pump); the steady-state
 recompile test (the port compiles no programs: it runs eagerly).
 
@@ -443,13 +442,39 @@ class TestStreamedParity:
                 msgs.append(str(e.value))
             assert msgs[0] == msgs[1]
 
-    def test_mesh_is_refused_by_name(self, binary_data):
-        """Streaming over the port's gloo ranks is not ported yet: ``mesh``
-        is refused by name before any work."""
+    def test_mesh_is_refused_by_name(self, binary_data, monkeypatch):
+        """What a streamed mesh still refuses, before any work, with the
+        JAX package's messages: streaming in a multi-controller world
+        (``initialize_distributed``: every process its own rows) and the
+        voting and feature learners (``tests/test_torch_oocore_mesh.py``
+        holds the data-parallel mesh to the JAX package)."""
+        from synapseml_tpu.gbdt import BoosterConfig as JConfig
+        from synapseml_tpu.gbdt import StreamedDataset as JStreamed
+        from synapseml_tpu.gbdt import train_booster_streamed as jstreamed
+        from synapseml_tpu.parallel import make_mesh as jmesh
+        from synapseml_tpu_torch.parallel import mesh as tmesh
+
         Xtr, _, ytr, _ = binary_data
+        mesh = tmesh.Mesh({"data": 1}, 0, {"data": 0}, {},
+                          torch.device("cpu"))
         ds = StreamedDataset.from_arrays(Xtr, ytr, chunk_rows=128)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            train_booster_streamed(ds, _mk_cfg(), mesh=object(), device=CPU)
+        for learner in ("voting", "feature"):
+            msgs = []
+            with pytest.raises(NotImplementedError) as e:
+                train_booster_streamed(ds, _mk_cfg(tree_learner=learner),
+                                       mesh=mesh, device=CPU)
+            msgs.append(str(e.value))
+            with pytest.raises(NotImplementedError) as e:
+                jstreamed(JStreamed.from_arrays(Xtr, ytr, chunk_rows=128),
+                          JConfig(objective="binary", num_iterations=1,
+                                  tree_learner=learner), mesh=jmesh(
+                                      {"data": 1}))
+            msgs.append(str(e.value))
+            assert msgs[0] == msgs[1]
+        monkeypatch.setattr(tmesh, "process_count", lambda: 2)
+        with pytest.raises(NotImplementedError,
+                           match="mesh-streamed GBDT is single-controller"):
+            train_booster_streamed(ds, _mk_cfg(), mesh=mesh, device=CPU)
         assert ds.chunk_rows is None               # nothing was prepared
 
     def test_no_card_is_refused(self, binary_data):
