@@ -137,7 +137,7 @@ Phases, each of which fails the run if it fails:
 12. the rest of the GBDT estimator surface, on the HIGGS-shaped ``--rows``
    table with its last min(500,000, rows / 4) rows flagged in an ``isVal``
    column (HIGGS's published split keeps its last 500,000 of 11,000,000
-   rows as the test set): ``LightGBMClassifier(numIterations=150,
+   rows as the test set): ``LightGBMClassifier(numIterations=100,
    learningRate=0.1, numLeaves=31, maxBin=255, earlyStoppingRound=20,
    metric="auc", validationIndicatorCol="isVal")``, then the same fit
    depthwise through ``train_booster(valid=...)``; counts zeroed just
@@ -165,7 +165,7 @@ Phases, each of which fails the run if it fails:
    ``--rows`` rows, the bag under ``baggingFreq=5``, GOSS's rows, the
    feature permutation and mask at iterations 0, 1, 5 and 7, every node
    mask of one tree) made on the card and on the CPU, bitwise equal; then
-   ``LightGBMClassifier(numIterations=20, learningRate=0.1,
+   ``LightGBMClassifier(numIterations=10, learningRate=0.1,
    numLeaves=31, maxBin=255, metric="auc")`` leaf-wise with the
    validation column for each mode: bagging 0.8 every 5 iterations with
    feature fraction 0.9 (LightGBM's ``simple_example.py``), GOSS and DART
@@ -245,14 +245,14 @@ Phases, each of which fails the run if it fails:
    (``Trainer`` over ResNet-50 at 224x224, batch 16, float32, adam 1e-3,
    the last two blocks and the head trained, ``cifar_like`` images resized
    on the host; cuDNN deterministic for the phase): one process first. A
-   3-epoch fit on 128 images with ``checkpoint_dir``, stopped by a
+   3-epoch fit on 64 images with ``checkpoint_dir``, stopped by a
    preemption hook at ``dl.epoch`` 2, then resumed: the restored
    parameters, batch statistics, moments and counts bitwise the saved
    ones (a restore-only fit), the resumed eval logits within
    ``VISION_LOGIT_TOL`` of an uninterrupted fit's, history epochs [2];
    ``state.msgpack`` bytes, save and restore seconds logged. A NaN batch
    at step 3 under ``nonfinite_policy="skip"`` (counters 1 and 1, every
-   loss finite) and at step 10 under ``"rollback"`` (the restored state
+   loss finite) and at step 6 under ``"rollback"`` (the restored state
    bitwise the epoch-1 checkpoint, history epochs [0, 1, 2]).
    ``DeepVisionClassifier`` save and ``PipelineStage.load`` through
    ``params.msgpack`` (probabilities within 1e-6), and the JAX package's
@@ -368,10 +368,41 @@ Phases, each of which fails the run if it fails:
    20's paths. ``--phase 20`` builds the kernels and runs it alone. Every
    phase's seconds are logged as it ends.
 
+21. pipeline-parallel DL and elastic training (``--phase 21`` alone).
+   (a) ``make_staged_backbone("resnet50", num_stages=2)`` at 224x224 on
+   CIFAR-10-shaped images, float32, on ``{"stage": 2}`` (two ranks, one
+   stage each): a fit with one microbatch under fill-drain, whose
+   losses must be within 1e-4 of the same model's replicated ``Trainer``
+   in one process from the same seeded weights (its BatchNorm statistics
+   are the whole batch's, so the maths is the same); then batch 32 in 4
+   microbatches under ``fill_drain``, ``overlap`` and ``overlap`` with
+   ZeRO stages, 3 steps each, logging per rank and step the forward,
+   backward, hop and update ms (CUDA events), hop bytes, the idle share
+   between the rank's stage programs (against the analytic bubble
+   (S-1)/(M+S-1)), images/s and peak memory. (b) the staged encoder at
+   ``DeepTextClassifier``'s default widths and 8192 tokens, batch 4 in 2
+   microbatches, on ``{"stage": 2, "seq": 2}`` (four ranks): ring and
+   Ulysses, each under both schedules, every loss within 2e-4 of the same
+   model fit with the same variant on ``{"seq": 2}`` without a pipeline
+   from the same weights (the two such fits run at once on ranks 0-1 and
+   2-3);
+   ``flash_attention_block`` must launch in every ring fit's stages and
+   ``flash_attention`` in every Ulysses fit's (the counts zeroed just
+   before each fit and read just after), with the collectives' ms inside
+   the stages. (c) elastic: (a)'s fill-drain fit under
+   ``elastic_watchdog`` bitwise the plain one; a hang planted in a
+   ``transfer.hop`` surfaces as ``PeerLostError`` naming the op within
+   twice its 1 s budget; the text pipeline killed at epoch 2 resumes
+   bitwise on the same mesh; a two-rank GBDT fit (phase 17's table, its
+   first 500,000 rows, 6 iterations) killed at iteration 3 resumes in one
+   process within 1e-4 of the uninterrupted fit's raw scores. Every
+   failure is collected and raised at the end.
+
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
-launches counted on its own path; the flash kernels' in phase 9's ring and
-Ulysses fits, summed over both ranks) and ``{"ok": true, "device":
-{...}}``.
+launches counted on its own path; the flash kernels' in phase 21's
+pipeline stages, ring fits for ``flash_attention_block`` and Ulysses fits
+for ``flash_attention``, summed over the four ranks; phase 9's counts are
+logged) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -501,9 +532,10 @@ VISION_LOGIT_TOL, VISION_LOSS_RTOL, VISION_STAT_TOL = 1e-4, 1e-4, 1e-4
 # min(SURFACE_VALID_ROWS, rows // 4) rows flagged, as HIGGS keeps its last
 # 500,000 rows for testing), then leaf indices, SHAP, the JSON dump, a
 # warm start, fobj, resume and a card-against-CPU curve on smaller tables.
-# 150 iterations (300 before phase 13 was added: both fits stopped after
-# 189-239 of them, so a fit now may run to the end unstopped)
-SURFACE_VALID_ROWS, SURFACE_ITERS, SURFACE_ESR = 500_000, 150, 20
+# 100 iterations (300 before phase 13 was added: both fits stopped after
+# 189-239 of them, so a fit now may run to the end unstopped; 150 before
+# phase 21 was added)
+SURFACE_VALID_ROWS, SURFACE_ITERS, SURFACE_ESR = 500_000, 100, 20
 SURFACE_SHAP_ROWS = 64
 SURFACE_WARM_ITERS, SURFACE_WARM_BATCHES = 10, 2
 SURFACE_SMALL_ROWS, SURFACE_SMALL_ITERS, SURFACE_RESUME_AT = 100_000, 10, 6
@@ -520,8 +552,9 @@ SURFACE_DUMP_RTOL, SURFACE_CURVE_TOL = 1e-6, 1e-3
 # split. (label, LightGBMClassifier params, the same as BoosterConfig
 # fields): bagging as LightGBM's examples/python-guide/simple_example.py
 # sets it, GOSS and DART at their defaults, RF, per-node feature sampling,
-# and X2 (which the label rises with by construction) constrained upward
-SAMPLING_ITERS = 20
+# and X2 (which the label rises with by construction) constrained upward;
+# 10 iterations a mode (50 before phase 20 was added, 20 before phase 21)
+SAMPLING_ITERS = 10
 SAMPLING_MODES = [
     ("bagging", dict(baggingFraction=0.8, baggingFreq=5,
                      featureFraction=0.9),
@@ -574,9 +607,11 @@ SERVE_BATCH_LATENCY, SERVE_TOL = 0.005, 1e-6
 SERVE_BURST, SERVE_BURST_QUEUE, SERVE_BURST_BATCH = 200, 8, 8
 SERVE_STALL_S = 2.0
 SERVE_CLIENT_TIMEOUT, SERVE_LOAD_TIMEOUT = 10.0, 300.0
-# phase 16: the DL training state on phase 11's fit A configuration
-STATE_IMAGES, STATE_EPOCHS, STATE_BATCH = 128, 3, 16
-STATE_SKIP_STEP, STATE_ROLLBACK_STEP = 3, 10
+# phase 16: the DL training state on phase 11's fit A configuration; 64
+# images, 4 steps an epoch (128 and a rollback at step 10 before phase 21
+# was added: the rollback step stays in epoch 1)
+STATE_IMAGES, STATE_EPOCHS, STATE_BATCH = 64, 3, 16
+STATE_SKIP_STEP, STATE_ROLLBACK_STEP = 3, 6
 STATE_RANKS, STATE_RANK_IMAGES, STATE_RANK_STEPS = 2, 64, 4
 STATE_SAVE_TOL = 1e-6          # save / load of the same weights
 STATE_FIXTURE_TOL = 1e-5       # the JAX package's logits of its fixture
@@ -693,6 +728,36 @@ MESH_WIRE_AUC_GAP = 0.01
 _MESH_SETTINGS = ("STREAM_ROWS", "STREAM_VALID_ROWS", "STREAM_SOURCE_ROWS",
                   "STREAM_ITERS", "MESH_LOSSY_ROWS", "MESH_CHUNK_ROWS",
                   "MP_ITERS", "DIST_EVAL_ROWS", "DIST_DECISIVE_ROWS")
+# phase 21: pipeline-parallel DL and elastic training. (a) the staged
+# ResNet-50 at phase 11's 224x224 on {"stage": 2} (two ranks, one stage
+# each): the parity fit (M = 1, fill-drain, its BatchNorm statistics the
+# whole batch's) against the same model's replicated Trainer, then timed
+# fits at M = 4 under each schedule
+PIPE_RANKS, PIPE_BATCH, PIPE_MICRO, PIPE_STEPS = 2, 32, 4, 3
+PIPE_PARITY_STEPS, PIPE_PARITY_TOL = 2, 1e-4
+PIPE_RUNS = (("fill_drain", {}),
+             ("overlap", dict(pipeline_schedule="overlap")),
+             ("overlap+zero", dict(pipeline_schedule="overlap",
+                                   pipeline_param_sharding="zero")))
+# (b) the staged text encoder at DeepTextClassifier's default widths and
+# phase 8/9's 8192 tokens on {"stage": 2, "seq": 2} (four ranks), ring and
+# Ulysses under both schedules, held to the same model fit on {"seq": 2}
+PIPE_TEXT = dict(vocab_size=32768, num_classes=2, num_stages=2, num_layers=4,
+                 hidden=256, heads=8, max_len=8192)
+PIPE_TEXT_RANKS, PIPE_TEXT_BATCH, PIPE_TEXT_MICRO = 4, 4, 2
+PIPE_TEXT_STEPS, PIPE_TEXT_TOL = 2, 2e-4
+# (c) elastic: the hang's watchdog budget, and the GBDT killed on two ranks
+# at an iteration and resumed in one process (phase 17's table, cut)
+PIPE_HANG_BUDGET_S = 1.0
+PIPE_GBDT_ROWS, PIPE_GBDT_ITERS, PIPE_GBDT_KILL = 500_000, 6, 3
+PIPE_GBDT_TOL = 1e-4
+_PIPE_SETTINGS = ("VISION_SIZE", "VISION_CLASSES", "VISION_SIDE",
+                  "PIPE_BATCH", "PIPE_MICRO", "PIPE_STEPS",
+                  "PIPE_PARITY_STEPS", "PIPE_TEXT", "PIPE_TEXT_BATCH",
+                  "PIPE_TEXT_MICRO", "PIPE_TEXT_STEPS", "PIPE_HANG_BUDGET_S",
+                  "PIPE_GBDT_ROWS", "PIPE_GBDT_ITERS", "PIPE_GBDT_KILL",
+                  "PIPE_BACKBONE", "PIPE_WIDTH")
+PIPE_BACKBONE, PIPE_WIDTH = "resnet50", 64
 
 
 def log(msg: str) -> None:
@@ -724,10 +789,14 @@ def higgs_like(rows: int, seed: int = 0):
 
 
 def table_of(X, y):
-    from synapseml_tpu_torch.core import Table, assemble_features
+    """A ``Table`` of ``X``'s columns ``f0..``, ``label`` and their
+    ``assemble_features`` column ``features`` (``X`` itself in float32,
+    which is what the assembler would concatenate)."""
+    from synapseml_tpu_torch.core import Table
 
     cols = {f"f{i}": X[:, i] for i in range(X.shape[1])}
-    return assemble_features(Table({**cols, "label": y}), list(cols))
+    return Table({**cols, "label": y}).with_column(
+        "features", np.ascontiguousarray(X, np.float32))
 
 
 def time_ms(fn, iters: int) -> float:
@@ -6445,11 +6514,501 @@ def ranks_layouts_path(rows: int, dev: str, stream_auc: float = None) -> dict:
     return dict(launches=launches, layouts=fits)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: pipeline-parallel DL and elastic training
+# ---------------------------------------------------------------------------
+
+class _Hang:
+    """A hang planted through ``parallel.collectives._CHAOS_HOOK``: the
+    ``at_call``-th call whose op starts with ``op`` blocks until released
+    (leaving the context releases it), then raises, so the abandoned
+    worker thread moves no data."""
+
+    def __init__(self, op: str, at_call: int = 1, hang_s: float = 60.0):
+        self.op, self.at_call, self.hang_s = op, at_call, hang_s
+        self.calls, self.hung = 0, []
+        self._release = threading.Event()
+
+    def _hook(self, name: str) -> None:
+        if not name.startswith(self.op):
+            return
+        self.calls += 1
+        if self.calls == self.at_call:
+            self.hung.append(name)
+            self._release.wait(self.hang_s)
+            raise RuntimeError(f"hung {name} released")
+
+    def __enter__(self):
+        from synapseml_tpu_torch.parallel import collectives as c
+
+        c._CHAOS_HOOK = self._hook
+        return self
+
+    def __exit__(self, *exc):
+        from synapseml_tpu_torch.parallel import collectives as c
+
+        c._CHAOS_HOOK = None
+        self._release.set()
+
+
+def _pipe_settings() -> dict:
+    """The settings phase 21's ranks share with this process (they import
+    this module afresh; a rehearsal's are smaller)."""
+    return {k: globals()[k] for k in _PIPE_SETTINGS}
+
+
+def pipe_vision_model():
+    from synapseml_tpu_torch.dl import make_staged_backbone
+
+    return make_staged_backbone(PIPE_BACKBONE, VISION_CLASSES, 2,
+                                width=PIPE_WIDTH)
+
+
+def pipe_trainer(init: dict, dev: str, mesh=None, **kw):
+    """A ``Trainer`` of the staged vision model from ``init`` (float32, adam
+    1e-3, batch ``PIPE_BATCH``, everything trained)."""
+    from synapseml_tpu_torch.dl.trainer import TrainConfig, Trainer
+
+    model = pipe_vision_model()
+    model.load_state_dict(init)
+    cfg = dict(batch_size=PIPE_BATCH, max_epochs=1, learning_rate=1e-3,
+               optimizer="adam", seed=0)
+    cfg.update(kw)
+    return Trainer(model, TrainConfig(**cfg), mesh=mesh, device=dev)
+
+
+def _step_log(tag: str, rank: int, steps: list, batch: int) -> list:
+    """Log a pipeline fit's steps on one rank; returns its lines' numbers
+    (ms, share, bytes, images/s) per step."""
+    out = []
+    for st in steps:
+        row = dict(step=st["step"], loss=st["loss"],
+                   forward_ms=st["forward_s"] * 1e3,
+                   backward_ms=st["backward_s"] * 1e3,
+                   hop_ms=st["hop_s"] * 1e3,
+                   hop_wait_ms=st["hop_wait_s"] * 1e3,
+                   update_ms=st["update_s"] * 1e3,
+                   wall_ms=st["wall_s"] * 1e3, idle=st["idle_share"],
+                   collective_ms=st["collective_s"] * 1e3,
+                   hops=st["hops"], hop_bytes=st["hop_bytes"],
+                   per_s=batch / st["wall_s"])
+        log(f"  {tag} rank {rank} step {row['step']}: loss "
+            f"{row['loss']:.7f} wall {row['wall_ms']:.2f} ms = forward "
+            f"{row['forward_ms']:.2f} + backward {row['backward_ms']:.2f} + "
+            f"hop {row['hop_ms']:.2f} + update {row['update_ms']:.2f} (CUDA "
+            f"events) + idle; idle share {row['idle']:.3f}; collectives "
+            f"{row['collective_ms']:.2f} ms; host in hops "
+            f"{row['hop_wait_ms']:.2f} ms; {row['hops']} hops "
+            f"{row['hop_bytes'] / 2**20:.2f} MiB; {row['per_s']:.1f} per s")
+        out.append(row)
+    return out
+
+
+def _pipe_vision_rank(rank: int, workdir: str, dev: str,
+                      settings: dict) -> None:
+    """One rank of phase 21 (a) and (c): the staged vision model on
+    ``{"stage": 2}``, the watchdog's parity and hang, and the two-rank
+    GBDT killed at an iteration."""
+    sys.path.insert(0, str(REPO))
+    from synapseml_tpu_torch.core.checkpoint import PreemptionError
+    from synapseml_tpu_torch.gbdt.boosting import BoosterConfig, train_booster
+    from synapseml_tpu_torch.parallel import (CollectiveWatchdog,
+                                              HeartbeatMonitor,
+                                              HeartbeatWriter, PeerLostError,
+                                              elastic_watchdog,
+                                              init_distributed, make_mesh)
+
+    globals().update(settings)
+    if not _on_card(dev):
+        torch.set_num_threads(1)     # a CPU rehearsal: ranks share cores
+    torch.backends.cudnn.deterministic = True
+    init_distributed("gloo", os.path.join(workdir, "store"), rank,
+                     PIPE_RANKS, timeout_s=300)
+    mesh = make_mesh({"stage": 2}, device=dev)
+    init = torch.load(os.path.join(workdir, "init.pt"))
+    X = np.load(os.path.join(workdir, "images.npy"))
+    y = np.load(os.path.join(workdir, "labels.npy"))
+    report = {}
+    tr = pipe_trainer(init, dev, mesh, steps_per_epoch=PIPE_PARITY_STEPS,
+                      param_sharding="pipeline", pipeline_microbatches=1)
+    tr.fit(X, y)
+    report["parity"] = [st["loss"] for st in tr.step_stats]
+    for name, kw in PIPE_RUNS:
+        if _on_card(dev):
+            torch.cuda.empty_cache()
+        _peak_gib(dev, reset=True)
+        tr = pipe_trainer(init, dev, mesh, steps_per_epoch=PIPE_STEPS,
+                          param_sharding="pipeline",
+                          pipeline_microbatches=PIPE_MICRO, **kw)
+        tr.fit(X, y)
+        report[name] = dict(steps=tr.step_stats, peak_gib=_peak_gib(dev),
+                            bytes=tr.stats["state_bytes_per_rank"],
+                            schedule=tr.stats["schedule"])
+    # (c) the same fill-drain fit under the watchdog, bitwise
+    digests = []
+    for wrapped in (False, True):
+        tr = pipe_trainer(init, dev, mesh, steps_per_epoch=2,
+                          param_sharding="pipeline",
+                          pipeline_microbatches=PIPE_MICRO)
+        if wrapped:
+            wd = CollectiveWatchdog(timeout=120.0, writer=HeartbeatWriter(
+                os.path.join(workdir, f"hb_ok_{rank}"), rank=rank))
+            with elastic_watchdog(wd):
+                tr.fit(X, y)
+            report["wd_guarded"] = wd.ops_guarded
+        else:
+            tr.fit(X, y)
+        digests.append(_digest(tr.model))
+    report["wd_equal"] = digests[0] == digests[1]
+    # (c) a hang planted in a hop, a stale peer on record
+    hb = os.path.join(workdir, f"hb_hang_{rank}")
+    peer = 1000 + rank
+    HeartbeatWriter(hb, rank=peer).beat("transfer.hop")
+    past = time.time() - 60
+    os.utime(os.path.join(hb, f"hb_p{peer}.json"), (past, past))
+    wd = CollectiveWatchdog(
+        timeout=PIPE_HANG_BUDGET_S, writer=HeartbeatWriter(hb, rank=rank),
+        monitor=HeartbeatMonitor(hb, timeout=2 * PIPE_HANG_BUDGET_S,
+                                 expected=[rank, peer], self_rank=rank))
+    tr = pipe_trainer(init, dev, mesh, steps_per_epoch=1,
+                      param_sharding="pipeline",
+                      pipeline_microbatches=PIPE_MICRO)
+    t0 = time.perf_counter()
+    try:
+        with _Hang("transfer.hop") as hang, elastic_watchdog(wd):
+            tr.fit(X, y)
+        report["hang"] = None
+    except PeerLostError as e:
+        report["hang"] = dict(op=e.op, lost=e.lost, last=e.last_ops,
+                              hung=hang.hung, peer=peer,
+                              detect_s=time.perf_counter() - t0,
+                              waited_s=e.waited_s)
+    del tr
+    torch.distributed.barrier()
+    # (c) GBDT on two ranks, killed at an iteration
+    Xg, yg = higgs_like(PIPE_GBDT_ROWS, seed=3)
+    cfg = dict(objective="binary", num_iterations=PIPE_GBDT_ITERS,
+               num_leaves=31, max_bin=255)
+    gmesh = make_mesh({"data": PIPE_RANKS}, device=dev)
+    ref = train_booster(Xg, yg, BoosterConfig(**cfg), mesh=gmesh,
+                        device=dev)
+    if rank == 0:
+        np.save(os.path.join(workdir, "gbdt_ref.npy"), ref.raw_score(Xg))
+    t0 = time.perf_counter()
+    try:
+        with preempt_at("gbdt.iteration", PIPE_GBDT_KILL):
+            train_booster(Xg, yg, BoosterConfig(**cfg), mesh=gmesh,
+                          device=dev, checkpoint_every=PIPE_GBDT_KILL,
+                          checkpoint_store=os.path.join(workdir, "gbdt"))
+        report["gbdt_killed"] = False
+    except PreemptionError:
+        report["gbdt_killed"] = True
+    report["gbdt_killed_s"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"vision_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def pipe_vision(dev: str, workdir: str, failures: list) -> None:
+    """Phase 21 (a) and (c) with the two vision ranks, checked here."""
+    import torch.multiprocessing as tmp
+
+    from synapseml_tpu_torch.dl.trainer import Trainer, TrainConfig
+    from synapseml_tpu_torch.gbdt.boosting import BoosterConfig, train_booster
+
+    t0 = time.perf_counter()
+    model = pipe_vision_model()
+    Trainer(model, TrainConfig(seed=0), device="cpu").init()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    X, y = state_images(PIPE_BATCH * PIPE_STEPS, seed=5)
+    torch.save(init, os.path.join(workdir, "init.pt"))
+    np.save(os.path.join(workdir, "images.npy"), X)
+    np.save(os.path.join(workdir, "labels.npy"), y)
+    log(f"  seeded {PIPE_BACKBONE} staged in 2 and {len(X)} images at "
+        f"{VISION_SIZE}x{VISION_SIZE} in {time.perf_counter() - t0:.1f}s")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = pipe_trainer(init, dev, steps_per_epoch=PIPE_PARITY_STEPS)
+        one.fit(X, y)
+        ref = [st["loss"] for st in one.step_stats]
+        del one
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if _on_card(dev):
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp.spawn(_pipe_vision_rank, args=(workdir, dev, _pipe_settings()),
+              nprocs=PIPE_RANKS, join=True)
+    log(f"  {PIPE_RANKS} ranks spawned, trained and joined in "
+        f"{time.perf_counter() - t0:.1f}s")
+    reports = []
+    for r in range(PIPE_RANKS):
+        with open(os.path.join(workdir, f"vision_{r}.json")) as f:
+            reports.append(json.load(f))
+    for r, rep in enumerate(reports):
+        gap = float(np.max(np.abs(np.subtract(rep["parity"], ref))))
+        log(f"  (a) rank {r}: parity fit (M = 1, fill-drain) losses "
+            f"{[round(v, 7) for v in rep['parity']]} against the replicated "
+            f"Trainer's {[round(v, 7) for v in ref]}: max gap {gap:.3g} "
+            f"(tolerance {PIPE_PARITY_TOL})")
+        if not gap <= PIPE_PARITY_TOL:
+            failures.append(f"(a) rank {r}: parity gap {gap}")
+        for name, _ in PIPE_RUNS:
+            x = rep[name]
+            rows = _step_log(f"(a) {name}", r, x["steps"], PIPE_BATCH)
+            warm = rows[1:] or rows
+            log(f"  (a) {name} rank {r}: schedule {x['schedule']}, steps "
+                f"after the first: wall {np.mean([w['wall_ms'] for w in warm]):.2f}"
+                f" ms, idle share {np.mean([w['idle'] for w in warm]):.3f} "
+                f"(analytic bubble (S-1)/(M+S-1) = "
+                f"{1 / (PIPE_MICRO + 1):.3f}), "
+                f"{np.mean([w['per_s'] for w in warm]):.1f} images/s, hop "
+                f"{np.mean([w['hop_ms'] for w in warm]) / max(warm[0]['hops'], 1):.3f}"
+                f" ms a hop; state at rest {x['bytes'] / 2**20:.1f} MiB; "
+                f"peak {x['peak_gib']:.2f} GiB")
+            if len(rows) != PIPE_STEPS or not all(
+                    np.isfinite(w["loss"]) for w in rows):
+                failures.append(f"(a) {name} rank {r}: steps {rows}")
+        log(f"  (c) rank {r}: the fill-drain fit under elastic_watchdog "
+            f"({rep.get('wd_guarded')} steps guarded) bitwise the plain "
+            f"one: {rep['wd_equal']}")
+        if not rep["wd_equal"]:
+            failures.append(f"(c) rank {r}: the watchdog changed the fit")
+        h = rep["hang"]
+        if h is None:
+            failures.append(f"(c) rank {r}: the hung hop was not detected")
+        else:
+            log(f"  (c) rank {r}: hang in {h['hung']} surfaced as "
+                f"PeerLostError op {h['op']!r}, lost {h['lost']} (last op "
+                f"{h['last']}), detected {h['detect_s']:.3f}s after the fit "
+                f"began ({h['waited_s']:.3f}s after the step began; budget "
+                f"{PIPE_HANG_BUDGET_S}s)")
+            if (h["op"] != "dl.pipeline.step" or h["lost"] != [h["peer"]]
+                    or h["hung"] != ["transfer.hop"]
+                    or h["last"].get(str(h["peer"])) != "transfer.hop"
+                    or h["waited_s"] > 2 * PIPE_HANG_BUDGET_S):
+                failures.append(f"(c) rank {r}: hang report {h}")
+        if not rep["gbdt_killed"]:
+            failures.append(f"(c) rank {r}: the GBDT fit was not killed")
+    want = np.load(os.path.join(workdir, "gbdt_ref.npy"))
+    Xg, yg = higgs_like(PIPE_GBDT_ROWS, seed=3)
+    t0 = time.perf_counter()
+    got = train_booster(Xg, yg, BoosterConfig(
+        objective="binary", num_iterations=PIPE_GBDT_ITERS, num_leaves=31,
+        max_bin=255), device=dev, checkpoint_every=PIPE_GBDT_KILL,
+        checkpoint_store=os.path.join(workdir, "gbdt")).raw_score(Xg)
+    gap = float(np.max(np.abs(got - want)))
+    log(f"  (c) GBDT killed on {PIPE_RANKS} ranks at iteration "
+        f"{PIPE_GBDT_KILL} ({reports[0]['gbdt_killed_s']:.2f}s), resumed in "
+        f"one process in {time.perf_counter() - t0:.2f}s: max |raw score "
+        f"gap| against the uninterrupted two-rank fit {gap:.3g} (tolerance "
+        f"{PIPE_GBDT_TOL})")
+    if not gap <= PIPE_GBDT_TOL:
+        failures.append(f"(c) GBDT resumed on one rank: gap {gap}")
+
+
+def pipe_text_tokens(rows: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    X = rng.integers(0, PIPE_TEXT["vocab_size"],
+                     size=(rows, PIPE_TEXT["max_len"])).astype(np.int32)
+    return X, np.arange(rows) % 2
+
+
+def pipe_text_trainer(init: dict, dev: str, mesh, **kw):
+    from synapseml_tpu_torch.dl import staged_text_encoder
+    from synapseml_tpu_torch.dl.trainer import TrainConfig, Trainer
+
+    model = staged_text_encoder(**PIPE_TEXT)
+    model.load_state_dict(init)
+    cfg = dict(batch_size=PIPE_TEXT_BATCH, max_epochs=1, learning_rate=1e-4,
+               optimizer="adamw", seed=0)
+    cfg.update(kw)
+    return Trainer(model, TrainConfig(**cfg), mesh=mesh, device=dev)
+
+
+def _pipe_text_rank(rank: int, workdir: str, dev: str,
+                    settings: dict) -> None:
+    """One rank of phase 21 (b) and (c): the staged encoder on
+    ``{"stage": 2, "seq": 2}``, ring and Ulysses under both schedules (the
+    launch counts zeroed just before each fit and read just after), the
+    same model on ``{"seq": 2}`` without a pipeline (ring on ranks 0 and 1
+    while Ulysses runs on ranks 2 and 3), and a kill at epoch 2 and its
+    resume."""
+    sys.path.insert(0, str(REPO))
+    from synapseml_tpu_torch.core.checkpoint import PreemptionError
+    from synapseml_tpu_torch.ops import attention_kernel as ak
+    from synapseml_tpu_torch.parallel import (collectives, init_distributed,
+                                              make_mesh)
+
+    globals().update(settings)
+    if not _on_card(dev):
+        torch.set_num_threads(1)     # a CPU rehearsal: ranks share cores
+    init_distributed("gloo", os.path.join(workdir, "store_text"), rank,
+                     PIPE_TEXT_RANKS, timeout_s=600)
+    pipe = make_mesh({"stage": 2, "seq": 2}, device=dev)
+    # the references without a pipeline, at once on the card: ring on
+    # ranks 0 and 1, Ulysses on ranks 2 and 3
+    seq = (make_mesh({"seq": 2}, device=dev, ranks=[0, 1])
+           or make_mesh({"seq": 2}, device=dev, ranks=[2, 3]))
+    init = torch.load(os.path.join(workdir, "text_init.pt"))
+    X, y = pipe_text_tokens(PIPE_TEXT_BATCH * PIPE_TEXT_STEPS)
+    variant = "ring" if rank < 2 else "ulysses"
+    tr = pipe_text_trainer(init, dev, seq, seq_attention=variant)
+    tr.fit(X, y)
+    report = {"ref": [st["loss"] for st in tr.step_stats]}
+    del tr
+    torch.distributed.barrier()
+    for variant in ("ring", "ulysses"):
+        for sched in ("fill_drain", "overlap"):
+            if _on_card(dev):
+                torch.cuda.empty_cache()
+            _peak_gib(dev, reset=True)
+            tr = pipe_text_trainer(init, dev, pipe, seq_attention=variant,
+                                   param_sharding="pipeline",
+                                   pipeline_microbatches=PIPE_TEXT_MICRO,
+                                   pipeline_schedule=sched)
+            collectives.reset_staging_counts()
+            ak.reset_launch_counts()
+            _sync(dev)
+            tr.fit(X, y)
+            _sync(dev)
+            report[f"{variant}/{sched}"] = dict(
+                steps=tr.step_stats, launches=dict(ak.LAUNCHES),
+                comm_s=dict(collectives.COMM_SECONDS),
+                variant=tr.stats.get("seq_attention"),
+                peak_gib=_peak_gib(dev))
+            del tr
+    # (c) killed at epoch 2, resumed on the same mesh
+    ck = os.path.join(workdir, "text_ck")
+    kw = dict(seq_attention="ring", param_sharding="pipeline",
+              pipeline_microbatches=PIPE_TEXT_MICRO, max_epochs=3,
+              steps_per_epoch=1)
+    ref = pipe_text_trainer(init, dev, pipe, **kw).fit(X, y)
+    want = _digest(ref.model)
+    del ref
+    t0 = time.perf_counter()
+    try:
+        with preempt_at("dl.epoch", 2):
+            pipe_text_trainer(init, dev, pipe, checkpoint_dir=ck, **kw) \
+                .fit(X, y)
+        report["killed"] = False
+    except PreemptionError:
+        report["killed"] = True
+    report["killed_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = pipe_text_trainer(init, dev, pipe, checkpoint_dir=ck, **kw)
+    got.fit(X, y)
+    report["resumed_s"] = time.perf_counter() - t0
+    report["resumed_epochs"] = [h["epoch"] for h in got.history]
+    report["resume_equal"] = _digest(got.model) == want
+    with open(os.path.join(workdir, f"text_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def pipe_text(dev: str, workdir: str, failures: list) -> dict:
+    """Phase 21 (b) and (c) with the four text ranks, checked here;
+    returns the flash launches of the pipelines' ring fits
+    (``flash_attention_block``) and Ulysses fits (``flash_attention``),
+    summed over the ranks."""
+    import torch.multiprocessing as tmp
+
+    from synapseml_tpu_torch.dl import staged_text_encoder
+    from synapseml_tpu_torch.dl.trainer import Trainer, TrainConfig
+
+    t0 = time.perf_counter()
+    model = staged_text_encoder(**PIPE_TEXT)
+    Trainer(model, TrainConfig(seed=0), device="cpu").init()
+    torch.save({k: v.clone() for k, v in model.state_dict().items()},
+               os.path.join(workdir, "text_init.pt"))
+    del model
+    log(f"  seeded staged encoder {json.dumps(PIPE_TEXT)} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    tmp.spawn(_pipe_text_rank, args=(workdir, dev, _pipe_settings()),
+              nprocs=PIPE_TEXT_RANKS, join=True)
+    log(f"  {PIPE_TEXT_RANKS} ranks spawned, trained and joined in "
+        f"{time.perf_counter() - t0:.1f}s")
+    reports = []
+    for r in range(PIPE_TEXT_RANKS):
+        with open(os.path.join(workdir, f"text_{r}.json")) as f:
+            reports.append(json.load(f))
+    launches = {"flash_attention_block": 0, "flash_attention": 0}
+    kernel = {"ring": "flash_attention_block", "ulysses": "flash_attention"}
+    for variant in ("ring", "ulysses"):
+        ref = reports[0 if variant == "ring" else 2]["ref"]
+        log(f"  (b) {variant} on {{'seq': 2}} without a pipeline: losses "
+            f"{[round(v, 7) for v in ref]}")
+        for sched in ("fill_drain", "overlap"):
+            for r, rep in enumerate(reports):
+                x = rep[f"{variant}/{sched}"]
+                tag = f"(b) {variant} {sched}"
+                _step_log(tag, r, x["steps"], PIPE_TEXT_BATCH)
+                comm = {k: round(v * 1e3, 2) for k, v in x["comm_s"].items()}
+                log(f"  {tag} rank {r}: collectives inside the stages "
+                    f"{json.dumps(comm)} ms, launches "
+                    f"{json.dumps(x['launches'])}, peak "
+                    f"{x['peak_gib']:.2f} GiB")
+                losses = [st["loss"] for st in x["steps"]]
+                gap = float(np.max(np.abs(np.subtract(losses, ref))))
+                other = kernel["ulysses" if variant == "ring" else "ring"]
+                if x["variant"] != variant:
+                    failures.append(f"{tag} rank {r}: ran {x['variant']}")
+                if not gap <= PIPE_TEXT_TOL:
+                    failures.append(f"{tag} rank {r}: loss gap {gap}")
+                if x["launches"][kernel[variant]] <= 0 \
+                        or x["launches"][other] != 0:
+                    failures.append(f"{tag} rank {r}: flash launches "
+                                    f"{x['launches']}")
+                launches[kernel[variant]] += x["launches"][kernel[variant]]
+            log(f"  {tag}: losses within {PIPE_TEXT_TOL} of the fit "
+                f"without a pipeline: max gap "
+                f"{max(float(np.max(np.abs(np.subtract([st['loss'] for st in rep[f'{variant}/{sched}']['steps']], ref)))) for rep in reports):.3g}")
+    for r, rep in enumerate(reports):
+        log(f"  (c) rank {r}: text pipeline killed at epoch 2 "
+            f"({rep['killed_s']:.1f}s), resumed epochs "
+            f"{rep['resumed_epochs']} in {rep['resumed_s']:.1f}s, bitwise "
+            f"the uninterrupted fit: {rep['resume_equal']}")
+        if not (rep["killed"] and rep["resume_equal"]
+                and rep["resumed_epochs"] == [2]):
+            failures.append(f"(c) text rank {r}: kill/resume {rep}")
+    return launches
+
+
+def pipeline_path(dev: str) -> dict:
+    """Phase 21: (a) the staged ResNet-50 on two ranks, (b) the staged
+    encoder on four with both flash kernels inside the stages, (c) the
+    elastic checks. Every failure is collected and raised at the end;
+    returns the flash launches of (b)."""
+    failures, seconds = [], {}
+    launches = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        for name, fn in (("vision", lambda: pipe_vision(dev, workdir,
+                                                        failures)),
+                         ("text", lambda: launches.update(pipe_text(
+                             dev, workdir, failures)))):
+            t0 = time.perf_counter()
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 - collected, raised below
+                failures.append(f"{name}: {type(e).__name__}: {e}")
+            seconds[name] = round(time.perf_counter() - t0, 1)
+            if _on_card(dev):
+                torch.cuda.empty_cache()
+    log(f"  phase 21 seconds by part: {json.dumps(seconds)}; flash launches "
+        f"in the pipelines' stages {json.dumps(launches)}")
+    if failures:
+        raise AssertionError("phase 21 failed:\n  " + "\n  ".join(failures))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="rows of the HIGGS-shaped table (HIGGS: 11,000,000)")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20),
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21),
                     default=None,
                     help="build the kernels and run only this phase (no "
                     "kernels or result line)")
@@ -6510,6 +7069,11 @@ def main() -> int:
         phase(20, f"GBDT across ranks and layouts alone, {args.rows} rows "
               f"and {STREAM_ROWS} streamed")
         ranks_layouts_path(args.rows, dev)
+        phase(0)
+        return 0
+    if args.phase == 21:
+        phase(21, "pipeline-parallel DL and elastic training alone")
+        pipeline_path(dev)
         phase(0)
         return 0
 
@@ -6605,13 +7169,22 @@ def main() -> int:
           "ranks")
     torch.cuda.empty_cache()
     across = ranks_layouts_path(args.rows, dev, streamed["auc"])
+    phase(21, f"pipeline-parallel DL and elastic training: staged "
+          f"{PIPE_BACKBONE} on {PIPE_RANKS} ranks ({{'stage': 2}}), the "
+          f"staged encoder on {PIPE_TEXT_RANKS} ({{'stage': 2, 'seq': 2}}) "
+          "with both flash kernels in its stages, the watchdog, a hung hop, "
+          "kills and resumes")
+    torch.cuda.empty_cache()
+    pipe_launches = pipeline_path(dev)
     phase(0)
     log(f"  seconds by phase {json.dumps(seconds)}")
     log(f"  launches on phase 20's paths: {json.dumps(across['launches'])}")
+    log(f"  flash launches in phase 9's fits {json.dumps(train_launches)}, "
+        f"in phase 21's pipeline stages {json.dumps(pipe_launches)}")
 
     launches = {**{k: main["launches"][k] for k in MAIN_KERNELS},
                 **{k: depthwise["launches"][k] for k in DEPTHWISE_KERNELS},
-                **train_launches}
+                **pipe_launches}
     sources = {**{k: "synapseml_tpu_torch/csrc/hist_kernel.cu"
                   for k in kernels},
                **{k: "synapseml_tpu_torch/csrc/attention_kernel.cu"

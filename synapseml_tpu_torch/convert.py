@@ -37,6 +37,9 @@ running statistics as buffers: ``resnet_from_reference`` turns flax's
 ``resnet_to_reference`` turns it back, nested or as one flat dict keyed by
 ``"params/<path>"`` and ``"batch_stats/<path>"`` (the vision model's
 ``params.npz`` of earlier versions). The round trip is bitwise.
+``staged_from_reference`` and ``staged_to_reference`` do the same for a
+staged model (``dl.StageSequential``: ``stages_k/units_j/...``, batch
+statistics included).
 
 ``trainer_state_from_reference`` carries the JAX trainer's whole state
 across: the parameters and batch statistics as a ``state_dict`` and the
@@ -199,6 +202,31 @@ def resnet_to_reference(state_dict, nested: bool = True) -> dict:
         coll = "batch_stats" if leaf in BATCH_STATS_LEAVES else "params"
         flat[f"{coll}/{name.replace('.', '/')}"] = _to_numpy(t)
     return _nest(flat) if nested else flat
+
+
+def staged_from_reference(variables) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of this package's ``dl.StageSequential`` from the
+    JAX package's flax variables of the same staging
+    (``make_staged_backbone``, ``staged_text_encoder``): ``{"params":
+    {"stages_k": {"units_j": ...}}, "batch_stats": ...}`` (``batch_stats``
+    absent without BatchNorm), or the flat ``"params/..."`` dict. Load it
+    with ``model.load_state_dict(sd)``."""
+    sd = resnet_from_reference(variables)
+    bad = sorted({k.split(".", 1)[0] for k in sd
+                  if not k.startswith("stages_")})
+    if bad:
+        raise ValueError(f"staged variables hold {bad} beside stages_k")
+    return sd
+
+
+def staged_to_reference(state_dict, nested: bool = True) -> dict:
+    """The reverse of ``staged_from_reference``: flax's ``{"params": ...,
+    "batch_stats": ...}`` of a ``StageSequential``'s ``state_dict`` (no
+    ``batch_stats`` level without BatchNorm buffers), nested or flat."""
+    out = resnet_to_reference(state_dict, nested)
+    if nested:
+        out.setdefault("params", {})
+    return out
 
 
 def _numpy_leaves(tree):

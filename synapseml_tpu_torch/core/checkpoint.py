@@ -628,7 +628,8 @@ def load_sharded_from_checkpoint(store: CheckpointStore, ckpt: Checkpoint,
     from an already located checkpoint (``ckpt`` needs only the manifest).
     ``template`` fixes the structure and each leaf's global shape and
     dtype (a mismatch raises :class:`CheckpointError` naming the leaf); a
-    :class:`LocalBlock` leaf asks for its window only, any other leaf for
+    :class:`LocalBlock` leaf asks for its window only (an empty window,
+    nothing: a pipeline stage this rank does not hold), any other leaf for
     the whole array. Only the shard artifacts that overlap a wanted window
     are read. Leaves come back as CPU tensors."""
     import io
@@ -663,8 +664,9 @@ def load_sharded_from_checkpoint(store: CheckpointStore, ckpt: Checkpoint,
                 for (s1, e1), (s2, e2) in zip(win, bidx)]
 
     def hits(win, bidx):
-        return all(s < e or (s1 == e1) for (s, e), (s1, e1) in
-                   zip(overlap(win, bidx), win))
+        if any(s1 == e1 for s1, e1 in win):
+            return False        # an empty window needs no block
+        return all(s < e for s, e in overlap(win, bidx))
 
     needed = {blk["artifact"] for entry, win in zip(entries, wins)
               for blk in entry["blocks"] if hits(win, blk["index"])}
@@ -676,11 +678,17 @@ def load_sharded_from_checkpoint(store: CheckpointStore, ckpt: Checkpoint,
         dt = _storage_dtype(entry["dtype"])
         wshape = tuple(e - s for s, e in win)
         arr = np.zeros(wshape, dt)
+        if arr.size == 0:
+            # a window this rank does not hold (a stage group it is not in)
+            out.append(torch.from_numpy(arr).view(torch.bfloat16)
+                       if entry["dtype"] == "bfloat16"
+                       else torch.from_numpy(arr))
+            continue
         covered = 0
         for blk in entry["blocks"]:
             bidx = [tuple(b) for b in blk["index"]]
             inter = overlap(win, bidx)
-            if any(s >= e for s, e in inter) and arr.size:
+            if any(s >= e for s, e in inter):
                 continue
             if blk["artifact"] not in npzs:
                 raise CheckpointError(

@@ -36,3 +36,18 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return dev
+
+
+def on_device_thread(device, fn):
+    """``fn`` for a worker thread (the elastic watchdog's), computing on
+    ``device``'s card: the current card is set per thread."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        # set_device refuses a card without an index: the caller's own
+        device = torch.device("cuda", torch.cuda.current_device())
+
+    def run(*args, **kwargs):
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        return fn(*args, **kwargs)
+    return run

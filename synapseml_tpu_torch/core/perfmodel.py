@@ -1,6 +1,7 @@
 """The analytic priors behind ``seq_attention="auto"``, the distributed
-GBDT's ``hist_allreduce_dtype="auto"`` and ``tree_learner="auto"``, and the
-streamed GBDT's chunk geometry and exact second sketch pass.
+GBDT's ``hist_allreduce_dtype="auto"`` and ``tree_learner="auto"``, the
+streamed GBDT's chunk geometry and exact second sketch pass, and the
+pipeline's ``pipeline_schedule="auto"`` and cost-balanced stage cuts.
 
 The port's copy of the part of the JAX package's ``core/perfmodel.py`` that
 the text trainer and the GBDT router read: ``suggest_seq_attention``'s
@@ -237,3 +238,73 @@ def suggest_sketch_second_pass(n_rows: float, nfeat: float,
           "source": "analytic" if analytic is not None else "none",
           "budget_s": budget}], feats)
     return False, dec
+
+
+def suggest_pipeline_schedule(stages: float, microbatches: float,
+                              fallback: str = "fill_drain"
+                              ) -> Tuple[str, Decision]:
+    """``pipeline_schedule="auto"``: fill_drain against overlap. The
+    analytic prior prices the bubble: fill_drain idles ``(S - 1) / (M + S
+    - 1)`` of the schedule, overlap hides about half of it at some dispatch
+    overhead. Only a recorded row may displace the fallback; the port
+    records none, so ``fallback`` wins with both priors in the provenance
+    (the JAX package decides the same without a recorded row)."""
+    S, M = max(1.0, stages), max(1.0, microbatches)
+    feats = featurize(stages=S, microbatches=M)
+    cands = [
+        Candidate("dl_pipeline_schedule", "fill_drain", feats,
+                  analytic_s=(M + S - 1.0) / M, config="fill_drain"),
+        Candidate("dl_pipeline_schedule", "overlap", feats,
+                  analytic_s=(M + 0.5 * (S - 1.0)) / M * 1.02,
+                  config="overlap"),
+    ]
+    dec = choose_analytic(cands, fallback)
+    return dec.arm, dec
+
+
+def suggest_stage_cuts(unit_costs: Sequence[float], num_stages: int
+                       ) -> Tuple[List[int], Decision]:
+    """Cost-balanced contiguous pipeline cuts: the stage sizes (summing to
+    ``len(unit_costs)``) that minimise the largest stage's summed cost, by
+    dynamic programming over the prefix sums; the count-balanced sizes when
+    the costs are degenerate (no positive cost, fewer units than
+    stages)."""
+    n, S = len(unit_costs), int(num_stages)
+    base, rem = divmod(n, S) if S >= 1 else (0, 0)
+    fallback_sizes = [base + (1 if s < rem else 0) for s in range(S)]
+    costs = [max(0.0, float(c)) for c in unit_costs]
+    if n < S or S < 1 or sum(costs) <= 0:
+        dec = Decision("dl_stage_cuts", "count_balanced", fallback_sizes,
+                       None, 0.0, True, "count_balanced", "fallback",
+                       [], {"units": float(n), "stages": float(S)})
+        return fallback_sizes, dec
+    prefix = [0.0]
+    for c in costs:
+        prefix.append(prefix[-1] + c)
+    inf = math.inf
+    # dp[s][i]: the least largest stage cost of units[:i] in s stages
+    dp = [[inf] * (n + 1) for _ in range(S + 1)]
+    cut = [[0] * (n + 1) for _ in range(S + 1)]
+    dp[0][0] = 0.0
+    for s in range(1, S + 1):
+        for i in range(s, n + 1):
+            for j in range(s - 1, i):
+                cost = max(dp[s - 1][j], prefix[i] - prefix[j])
+                if cost < dp[s][i]:
+                    dp[s][i], cut[s][i] = cost, j
+    sizes: List[int] = []
+    i = n
+    for s in range(S, 0, -1):
+        j = cut[s][i]
+        sizes.append(i - j)
+        i = j
+    sizes.reverse()
+    if min(sizes) < 1:
+        sizes = fallback_sizes
+    dec = Decision("dl_stage_cuts", "cost_balanced", sizes,
+                   float(dp[S][n]), 0.9, sizes == fallback_sizes,
+                   "count_balanced", "analytic",
+                   [{"arm": "cost_balanced",
+                     "max_stage_cost": float(dp[S][n])}],
+                   {"units": float(n), "stages": float(S)})
+    return sizes, dec

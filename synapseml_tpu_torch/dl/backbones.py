@@ -4,8 +4,19 @@ routing.
 Counterpart of the JAX package's ``dl/backbones.py``: the ResNets and
 ``TinyCNN`` with ``BACKBONES``/``make_backbone``, and the text part
 (``TextEmbedUnit``, ``TransformerLayerUnit``, ``TextClsHead`` and the
-``seq`` routing). The staged vision units (``StageGroup``, ``stage_units``,
-``partition_stages``) wait for pipeline parallelism.
+``seq`` routing), and the pipeline staging: ``StageGroup`` and
+``StageSequential``, the units ``ResNetStem``, ``ConvReluUnit`` and
+``PoolDenseHead``, ``stage_units``, ``partition_stages``,
+``make_staged_backbone`` and ``staged_text_encoder``.
+
+Staging. ``StageSequential`` holds its stages as ``stages_{k}`` and each
+``StageGroup`` its units as ``units_{j}``, the names flax gives a tuple
+field of modules, so ``named_parameters`` is the JAX package's staged
+parameter tree flattened with ``.`` (``stages_0.units_1.Conv_0.kernel``).
+Applied whole, a ``StageSequential`` is exactly the unsplit model (the
+replicated and ZeRO trainer run it unchanged); ``model.stages[k]`` runs
+alone on its own subtree (``dl.pipeline``). Every unit is called as
+``unit(x, train=..., generator=...)``.
 
 The vision backbones take NHWC images and keep flax's module names
 (``stem_conv``, ``stem_bn``, ``BottleneckBlock_3.Conv_1``, ``head``), so
@@ -54,9 +65,10 @@ class TextEmbedUnit(nn.Module):
     """Token + learned positional embedding (first stage of the staged text
     encoder)."""
 
-    def __init__(self, vocab_size: int, hidden: int, max_len: int):
+    def __init__(self, vocab_size: int, hidden: int, max_len: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Embed_0 = Embed(vocab_size, hidden)
+        self.Embed_0 = Embed(vocab_size, hidden, dtype)
         self.pos_embed = nn.Parameter(torch.randn(max_len, hidden) * 0.02)
 
     def reset_parameters(self) -> None:
@@ -65,7 +77,8 @@ class TextEmbedUnit(nn.Module):
         with torch.no_grad():
             self.pos_embed.normal_(0.0, 0.02)
 
-    def forward(self, ids: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.Embed_0(ids)
         return x + self.pos_embed[None, : x.shape[1]].to(x.dtype)
 
@@ -204,15 +217,15 @@ class TransformerLayerUnit(nn.Module):
     parallelism dropout is refused."""
 
     def __init__(self, hidden: int, heads: int, mlp_dim: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.LayerNorm_0 = LayerNorm(hidden)
+        self.LayerNorm_0 = LayerNorm(hidden, dtype)
         self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
-            hidden, heads, dropout_rate=dropout)
-        self.LayerNorm_1 = LayerNorm(hidden)
-        self.Dense_0 = Dense(hidden, mlp_dim)
-        self.Dense_1 = Dense(mlp_dim, hidden)
+            hidden, heads, dropout_rate=dropout, dtype=dtype)
+        self.LayerNorm_1 = LayerNorm(hidden, dtype)
+        self.Dense_0 = Dense(hidden, mlp_dim, dtype)
+        self.Dense_1 = Dense(mlp_dim, hidden, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -238,12 +251,14 @@ class TransformerLayerUnit(nn.Module):
 class TextClsHead(nn.Module):
     """LayerNorm + first-token (CLS) classifier head unit."""
 
-    def __init__(self, hidden: int, num_classes: int):
+    def __init__(self, hidden: int, num_classes: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.LayerNorm_0 = LayerNorm(hidden)
+        self.LayerNorm_0 = LayerNorm(hidden, dtype)
         self.head = Dense(hidden, num_classes)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.head(self.LayerNorm_0(x)[:, 0])
 
 
@@ -268,7 +283,8 @@ class ResNetBlock(nn.Module):
                                use_bias=False, dtype=dtype)
             self.BatchNorm_2 = BatchNorm(filters, dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = F.relu(self.BatchNorm_0(self.Conv_0(x), train))
         y = self.BatchNorm_1(self.Conv_1(y), train)
         if hasattr(self, "Conv_2"):
@@ -300,7 +316,8 @@ class BottleneckBlock(nn.Module):
                                use_bias=False, dtype=dtype)
             self.BatchNorm_3 = BatchNorm(out, dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = F.relu(self.BatchNorm_0(self.Conv_0(x), train))
         y = F.relu(self.BatchNorm_1(self.Conv_1(y), train))
         y = self.BatchNorm_2(self.Conv_2(y), train)
@@ -382,6 +399,188 @@ class TinyCNN(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = F.relu(self.Conv_1(F.relu(self.Conv_0(x))))
         return self.head(x.mean(dim=(1, 2)))
+
+
+# --- pipeline staging --------------------------------------------------------
+# MPMD pipeline parallelism (dl/pipeline.py) needs the backbone as a
+# SEQUENCE of units a partitioner cuts into stages.
+
+
+class StageGroup(nn.Module):
+    """One pipeline stage: a sequential run of units, held as
+    ``units_{j}``."""
+
+    def __init__(self, units):
+        super().__init__()
+        self.num_units = len(units)
+        for j, u in enumerate(units):
+            self.add_module(f"units_{j}", u)
+
+    @property
+    def units(self) -> list:
+        return [self._modules[f"units_{j}"] for j in range(self.num_units)]
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for u in self.units:
+            x = u(x, train=train, generator=generator)
+        return x
+
+
+class StageSequential(nn.Module):
+    """A backbone split into pipeline stages, held as ``stages_{k}``.
+    Applying the whole module is exactly the unsplit model; the pipeline
+    instead runs each ``stages[k]`` on its own stage group."""
+
+    def __init__(self, stages):
+        super().__init__()
+        self.num_stages = len(stages)
+        for k, st in enumerate(stages):
+            self.add_module(f"stages_{k}", st)
+
+    @property
+    def stages(self) -> list:
+        return [self._modules[f"stages_{k}"] for k in range(self.num_stages)]
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for st in self.stages:
+            x = st(x, train=train, generator=generator)
+        return x
+
+
+class ResNetStem(nn.Module):
+    """The ResNet stem as a unit: convolution, BatchNorm and relu, then
+    (ImageNet stem) the 3x3 stride-2 max-pool."""
+
+    def __init__(self, width: int = 64, dtype: torch.dtype = torch.float32,
+                 small_images: bool = False, in_channels: int = 3):
+        super().__init__()
+        self.small_images = small_images
+        if small_images:
+            self.stem_conv = Conv(in_channels, width, (3, 3), use_bias=False,
+                                  dtype=dtype)
+        else:
+            self.stem_conv = Conv(in_channels, width, (7, 7), 2,
+                                  [(3, 3), (3, 3)], use_bias=False,
+                                  dtype=dtype)
+        self.stem_bn = BatchNorm(width, dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = F.relu(self.stem_bn(self.stem_conv(x), train))
+        return x if self.small_images else max_pool(x, (3, 3), (2, 2))
+
+
+class ConvReluUnit(nn.Module):
+    """``TinyCNN``'s convolution and relu as a unit (no BatchNorm or
+    dropout)."""
+
+    def __init__(self, in_features: int, features: int, strides: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, features, (3, 3), strides,
+                           dtype=dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return F.relu(self.Conv_0(x))
+
+
+class PoolDenseHead(nn.Module):
+    """The global average pool and the float32 classifier head as a
+    unit."""
+
+    def __init__(self, in_features: int, num_classes: int):
+        super().__init__()
+        self.head = Dense(in_features, num_classes)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.head(x.mean(dim=(1, 2)))
+
+
+def stage_units(name: str, num_classes: int,
+                dtype: torch.dtype = torch.float32,
+                small_images: bool = False, width: int = 64,
+                in_channels: int = 3) -> list:
+    """The sequential unit list of a vision backbone, which
+    ``partition_stages`` groups into pipeline stages."""
+    if name == "tiny":
+        return [ConvReluUnit(in_channels, 16, 2), ConvReluUnit(16, 32, 2),
+                PoolDenseHead(32, num_classes)]
+    specs = {"resnet18": ([2, 2, 2, 2], ResNetBlock),
+             "resnet34": ([3, 4, 6, 3], ResNetBlock),
+             "resnet50": ([3, 4, 6, 3], BottleneckBlock),
+             "resnet101": ([3, 4, 23, 3], BottleneckBlock)}
+    if name not in specs:
+        raise ValueError(
+            f"no staged form for backbone {name!r}; available: "
+            f"{sorted(specs) + ['tiny']}")
+    stage_sizes, block = specs[name]
+    units: list = [ResNetStem(width, dtype, small_images, in_channels)]
+    features = width
+    for i, size in enumerate(stage_sizes):
+        for j in range(size):
+            strides = 2 if i > 0 and j == 0 else 1
+            units.append(block(features, width * 2 ** i, strides, dtype))
+            features = width * 2 ** i * block.expansion
+    units.append(PoolDenseHead(features, num_classes))
+    return units
+
+
+def partition_stages(units, num_stages: int,
+                     unit_costs=None) -> StageSequential:
+    """Cut a unit list into ``num_stages`` contiguous stages: by default
+    size-balanced (the remainder units go to the earliest stages); with
+    ``unit_costs`` (one non-negative cost per unit) cost-balanced through
+    ``core.perfmodel.suggest_stage_cuts`` (min-max contiguous partition)."""
+    if not 1 <= num_stages <= len(units):
+        raise ValueError(
+            f"num_stages={num_stages} must be in [1, {len(units)}] for a "
+            f"{len(units)}-unit backbone")
+    if unit_costs is not None:
+        if len(unit_costs) != len(units):
+            raise ValueError(
+                f"unit_costs has {len(unit_costs)} entries for "
+                f"{len(units)} units")
+        from ..core.perfmodel import suggest_stage_cuts
+
+        sizes, _dec = suggest_stage_cuts(unit_costs, num_stages)
+    else:
+        k, m = divmod(len(units), num_stages)
+        sizes = [k + (1 if i < m else 0) for i in range(num_stages)]
+    groups, at = [], 0
+    for sz in sizes:
+        groups.append(StageGroup(list(units[at: at + sz])))
+        at += sz
+    return StageSequential(groups)
+
+
+def make_staged_backbone(name: str, num_classes: int, num_stages: int,
+                         dtype: torch.dtype = torch.float32,
+                         small_images: bool = False, width: int = 64,
+                         in_channels: int = 3) -> StageSequential:
+    """A vision backbone pre-cut into ``num_stages`` pipeline stages."""
+    return partition_stages(
+        stage_units(name, num_classes, dtype=dtype, small_images=small_images,
+                    width=width, in_channels=in_channels), num_stages)
+
+
+def staged_text_encoder(vocab_size: int, num_classes: int, num_stages: int,
+                        num_layers: int = 4, hidden: int = 128, heads: int = 4,
+                        mlp_dim: int = 0, max_len: int = 128,
+                        dropout: float = 0.0,
+                        dtype: torch.dtype = torch.float32
+                        ) -> StageSequential:
+    """A BERT-style encoder pre-cut into pipeline stages: the embedding
+    unit, ``num_layers`` mask-free transformer layers and the [CLS] head."""
+    units = [TextEmbedUnit(vocab_size, hidden, max_len, dtype)]
+    units += [TransformerLayerUnit(hidden, heads, mlp_dim or hidden * 4,
+                                   dropout, dtype)
+              for _ in range(num_layers)]
+    units.append(TextClsHead(hidden, num_classes, dtype))
+    return partition_stages(units, num_stages)
 
 
 BACKBONES: dict = {

@@ -76,9 +76,16 @@ run replays the same batches and masks (the masks differ from flax's).
 ``_CHAOS_BATCH_HOOK``, when set, is called as ``hook(step, xb, yb)`` on each
 host batch and returns the batch to train on.
 
+``param_sharding="pipeline"`` runs ``dl.pipeline.fit_pipeline`` (a
+``StageSequential`` model on a mesh with a ``stage`` axis; the
+``pipeline_*`` fields set its microbatches, stage placement and schedule).
+
+Elastic training: with a ``parallel.elastic_watchdog`` installed, each
+step and its device sync run under the watchdog (``op="dl.step"``), and
+each step beats ``"dl.step"``.
+
 Not ported, and refused with ``NotImplementedError`` naming the setting:
-``param_sharding="pipeline"`` and any value but the default of
-``prefetch_batches``, ``donate_buffers`` and the ``pipeline_*`` fields.
+any value but the default of ``prefetch_batches`` and ``donate_buffers``.
 """
 
 from __future__ import annotations
@@ -100,10 +107,11 @@ from ..core.checkpoint import (CheckpointError, CheckpointStore,
                                LocalBlock, NonFiniteGuard,
                                NonFiniteLossError, load_sharded_from_checkpoint,
                                preemption_point, save_sharded_tree)
-from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..core.device import DEFAULT_DEVICE, on_device_thread, resolve_device
 from ..core.logging import record_failure
 from ..core.serialization import from_bytes, to_bytes, to_state_dict
 from ..parallel.collectives import all_gather, all_reduce_sum
+from ..parallel.elastic import current_watchdog
 from ..parallel.mesh import DATA_AXIS
 from .layers import batch_stats_over
 
@@ -128,9 +136,8 @@ MaskedState = collections.namedtuple("MaskedState", "inner_state")
 @dataclasses.dataclass
 class TrainConfig:
     """The JAX package's ``TrainConfig`` fields and defaults. The port has
-    no input pipeline, buffer donation or pipeline parallelism: the fields
-    of those are kept so that ``Trainer.unported`` refuses any value but
-    the default by name."""
+    no input pipeline or buffer donation: the fields of those are kept so
+    that ``Trainer.unported`` refuses any value but the default by name."""
     batch_size: int = 64
     max_epochs: int = 1
     learning_rate: float = 1e-3
@@ -163,9 +170,7 @@ class TrainConfig:
 # fields whose machinery the port does not have: only the default is taken
 _UNPORTED_AT_DEFAULT = tuple(
     f for f in dataclasses.fields(TrainConfig)
-    if f.name in ("prefetch_batches", "donate_buffers",
-                  "pipeline_microbatches", "pipeline_param_sharding",
-                  "pipeline_schedule"))
+    if f.name in ("prefetch_batches", "donate_buffers"))
 _SHARDINGS = ("replicated", "zero", "fsdp", "pipeline", "auto")
 
 
@@ -461,8 +466,6 @@ class Trainer:
     def unported(cfg: TrainConfig) -> List[str]:
         """``name=value`` of every setting the port does not implement."""
         out = []
-        if cfg.param_sharding == "pipeline":
-            out.append(f"param_sharding={cfg.param_sharding!r}")
         for f in _UNPORTED_AT_DEFAULT:
             v = getattr(cfg, f.name)
             if v != f.default:
@@ -505,8 +508,13 @@ class Trainer:
 
         cfg = self.cfg
         if cfg.seq_attention not in ("auto", "ring", "ulysses"):
-            raise ValueError(f"seq attention variant {cfg.seq_attention!r}: "
-                             "expected auto | ring | ulysses")
+            from ..parallel.elastic import ElasticUnsupportedError
+            from .pipeline import SUPPORTED_MATRIX
+
+            raise ElasticUnsupportedError(
+                f"seq attention variant {cfg.seq_attention!r}",
+                matrix=SUPPORTED_MATRIX,
+                hint="seq_attention must be one of: auto | ring | ulysses")
         self._seq_variant = None
         sp = int(self.mesh.shape.get(SEQ_AXIS, 1)) if self.mesh else 1
         if not cfg.seq_parallel or sp < 2:
@@ -762,6 +770,11 @@ class Trainer:
         if bad:
             raise NotImplementedError(
                 "not ported to the PyTorch package yet: " + ", ".join(bad))
+        if cfg.param_sharding == "pipeline":
+            from .pipeline import fit_pipeline
+
+            _scope, self._seq_autoconfig = self._resolve_seq_attention(X)
+            return fit_pipeline(self, X, y, valid=valid, log_fn=log_fn)
         autoconfig: dict = {}
         zero = self._resolve_sharding(autoconfig)
         accum = max(int(cfg.accum_steps), 1)
@@ -803,7 +816,17 @@ class Trainer:
                     hook = _CHAOS_BATCH_HOOK
                     if hook is not None:
                         xb, yb = hook(epoch * steps_per_epoch + i, xb, yb)
-                    loss, action = self._step(xb, yb, step_idx, accum, guard)
+                    wd = current_watchdog()
+                    if wd is not None:
+                        # the step and its device sync under the stall
+                        # guard: a lost peer surfaces as PeerLostError
+                        loss, action = wd.run(
+                            on_device_thread(self.device, self._step), xb,
+                            yb, step_idx, accum, guard, op="dl.step")
+                        wd.beat("dl.step", step_idx)
+                    else:
+                        loss, action = self._step(xb, yb, step_idx, accum,
+                                                  guard)
                     if action == "rollback":
                         restored = (self._restore_checkpoint(store)
                                     if store is not None else None)

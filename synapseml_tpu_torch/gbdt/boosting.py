@@ -1581,10 +1581,15 @@ def train_booster(
                 history = list(state["history"])
 
     done = start_it
+    from ..parallel.elastic import current_watchdog
+
+    wd = current_watchdog()
     with measures.span("trainingIterations"):
         for it in range(start_it, cfg.num_iterations):
             if ckpt_store is not None:
                 preemption_point("gbdt.iteration", it)
+            if wd is not None:
+                wd.beat("gbdt.iteration", it)
             # dart: drop trees and take their weighted contributions out of
             # the score the gradients see
             drop, score_it = (), score
@@ -1620,18 +1625,30 @@ def train_booster(
                               if cfg.xgboost_dart_mode
                               else 1.0 / (kdrop + 1.0))
             for c in range(k):
-                tree, node = _grow_one(
-                    binned, bT, g[c], h[c], in_bag, feature_active,
-                    grower_cfg, cfg, block, mesh, voting, stats=stats,
-                    nan_bins=nan_bins, monotone=mono, is_categorical=is_cat,
-                    cat_nbins=cat_nbins,
-                    node_key=(_node_key_data(key0, it, c) if bynode
-                              else None))
-                if block is not None:
-                    # every rank's block of leaves, for the whole score
-                    with measures.span("nodeGather"):
-                        node = allgather(node, mesh.group("data"),
-                                         tiled=True)
+                def grow(c=c):
+                    tree, node = _grow_one(
+                        binned, bT, g[c], h[c], in_bag, feature_active,
+                        grower_cfg, cfg, block, mesh, voting, stats=stats,
+                        nan_bins=nan_bins, monotone=mono,
+                        is_categorical=is_cat, cat_nbins=cat_nbins,
+                        node_key=(_node_key_data(key0, it, c) if bynode
+                                  else None))
+                    if block is not None:
+                        # every rank's block of leaves, for the whole score
+                        with measures.span("nodeGather"):
+                            node = allgather(node, mesh.group("data"),
+                                             tiled=True)
+                    return tree, node
+
+                if wd is not None:
+                    # the tree's collectives and host syncs under the stall
+                    # guard: a hung peer surfaces as PeerLostError
+                    from ..core.device import on_device_thread
+
+                    tree, node = wd.run(on_device_thread(dev, grow),
+                                        op="gbdt.chunk")
+                else:
+                    tree, node = grow()
                 contrib = tree.leaf_value[node]
                 if dart_mode:
                     tree_contribs.append(c, contrib)

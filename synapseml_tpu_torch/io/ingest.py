@@ -16,8 +16,9 @@ Counterpart of the JAX package's ``io/ingest.py``.
 
     Every chunk boundary is a :func:`core.checkpoint.preemption_point`
     (``phase``, ``step_base + k``), so a kill lands between chunks and the
-    consumer's snapshot/resume contract applies. The JAX package's pump also
-    beats its elastic watchdog there; the watchdog is not ported.
+    consumer's snapshot/resume contract applies; with an elastic watchdog
+    installed (``parallel.elastic_watchdog``) it also beats there, with the
+    phase (or the pump's name) as its op.
 
 :class:`PinnedStager`
     How a chunk reaches the card: it is copied from the host cache into one
@@ -178,10 +179,17 @@ class ChunkPump:
 
     # -- consumer side ----------------------------------------------------
     def _boundary(self) -> None:
+        """Chunk boundary: preemption point and watchdog heartbeat."""
+        step = self.step_base + self.chunks_consumed
         if self.phase is not None:
             from ..core.checkpoint import preemption_point
 
-            preemption_point(self.phase, self.step_base + self.chunks_consumed)
+            preemption_point(self.phase, step)
+        from ..parallel.elastic import current_watchdog
+
+        wd = current_watchdog()
+        if wd is not None:
+            wd.beat(self.phase or self.name, step)
 
     def __iter__(self):
         try:

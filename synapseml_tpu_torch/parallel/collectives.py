@@ -34,6 +34,10 @@ copying (not waiting on the collective); ``COMM_SECONDS`` the seconds of
 the whole collective calls, staging included, by the primitive that ran
 (the psum family's time lands on its gather or all-to-all). Both count the forward and
 the backward calls alike.
+
+Hooks. Every public helper first calls ``_chaos(op)``: the elastic
+watchdog's heartbeat (``_WATCHDOG_HOOK``), then the fault-injection hook
+(``_CHAOS_HOOK``), before it moves data.
 """
 
 from __future__ import annotations
@@ -44,6 +48,27 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+
+# Fault-injection hook: when set, every collective helper (and every
+# pipeline hop of ``parallel.transfer``) calls it with its op name before it
+# moves data, so a test can stall or fail one deterministically. None in
+# production; the branch costs one global read.
+_CHAOS_HOOK = None
+
+# Elastic-training heartbeat hook (``parallel.elastic.elastic_watchdog``):
+# beats this process's heartbeat file with the op name before every
+# collective, so a rank that dies inside one leaves its last op on record
+# for the peers' ``PeerLostError``.
+_WATCHDOG_HOOK = None
+
+
+def _chaos(name: str) -> None:
+    hook = _WATCHDOG_HOOK
+    if hook is not None:
+        hook(name)       # beat before chaos: a killed op still leaves a trail
+    if _CHAOS_HOOK is not None:
+        _CHAOS_HOOK(name)
+
 
 STAGING = {"bytes": 0, "seconds": 0.0}
 COMM_SECONDS = {"all_to_all": 0.0, "ppermute": 0.0, "all_gather": 0.0,
@@ -174,6 +199,7 @@ def all_to_all(x: torch.Tensor, group, split_axis: int,
     chunk j goes to group rank j, and the chunks received are concatenated
     along ``concat_axis`` in the order of the group ranks that sent them.
     Differentiable (the backward swaps the two axes)."""
+    _chaos("all_to_all")
     p = dist.get_world_size(group)
     if x.shape[split_axis] % p:
         raise ValueError(f"all_to_all: axis {split_axis} of size "
@@ -187,6 +213,7 @@ def ppermute_next(x: torch.Tensor, group) -> torch.Tensor:
     """The ring rotation ``ppermute(x, perm=[(i, (i + 1) % p)])``: send ``x``
     to the next group rank and return what the previous one sent.
     Differentiable (the cotangent travels to the previous rank)."""
+    _chaos("ppermute")
     if dist.get_world_size(group) == 1:
         return x
     return _PermuteNext.apply(x, group)
@@ -196,6 +223,7 @@ def all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
     """Every group rank's ``x`` concatenated along ``axis`` in group-rank
     order (``jax.lax.all_gather(x, axis_name, axis=axis, tiled=True)``).
     Differentiable (the backward is a reduce-scatter-sum)."""
+    _chaos("all_gather")
     if dist.get_world_size(group) == 1:
         return x
     return _AllGather.apply(x, group, axis)
@@ -215,6 +243,7 @@ class _Psum(torch.autograd.Function):
 def psum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over ``group``, out of place, on every rank.
     Differentiable: the backward sums the cotangents over the group."""
+    _chaos("psum")
     if dist.get_world_size(group) == 1:
         return x
     return _Psum.apply(x, group)
@@ -223,6 +252,7 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """The sum of ``x`` over ``group`` (default: the world), written into
     ``x`` and returned; every rank gets the same value. No gradient."""
+    _chaos("all_reduce_sum")
     if dist.get_world_size(group) == 1:
         return x
     t0 = time.perf_counter()
@@ -272,6 +302,7 @@ def allreduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """``lax.psum``: the sum of ``x`` over ``group`` in group-rank order,
     out of place, bitwise the same on every rank (see above). A bf16
     tensor travels as bf16 and is summed in float32, rounded once."""
+    _chaos("allreduce_sum")
     if dist.get_world_size(group) == 1:
         return x.clone()
     return _fold(_stacked(x, group))
@@ -288,6 +319,7 @@ def reduce_scatter_sum(x: torch.Tensor, group) -> torch.Tensor:
     (which the group size must divide), folded in group-rank order. Each
     rank sends every other rank its chunk (an all-to-all: the bytes of a
     reduce-scatter) and sums what it receives."""
+    _chaos("reduce_scatter_sum")
     p = dist.get_world_size(group)
     if x.shape[0] % p:
         raise ValueError(f"leading axis {x.shape[0]} must divide the group "
@@ -301,6 +333,7 @@ def reduce_scatter_sum(x: torch.Tensor, group) -> torch.Tensor:
 def allgather(x: torch.Tensor, group, tiled: bool = False) -> torch.Tensor:
     """``lax.all_gather``: every rank's ``x`` stacked on a new leading axis
     in group-rank order, or concatenated along axis 0 with ``tiled``."""
+    _chaos("allgather")
     if tiled:
         return all_gather(x, group, 0)
     if dist.get_world_size(group) == 1:
@@ -310,6 +343,7 @@ def allgather(x: torch.Tensor, group, tiled: bool = False) -> torch.Tensor:
 
 def allreduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """``lax.pmax`` (exact in any order), out of place."""
+    _chaos("allreduce_max")
     if dist.get_world_size(group) == 1:
         return x.clone()
     t0 = time.perf_counter()
@@ -370,6 +404,7 @@ def reduce_scatter_sum_quantized(x: torch.Tensor, group, *, bits: int = 8,
     """Quantized reduce-scatter: group rank ``r`` gets the sum of chunk
     ``r`` of ``x``'s leading axis (which the group size must divide),
     dequantized once by its owner; error at most n · scale / 2."""
+    _chaos("reduce_scatter_sum_quantized")
     n = dist.get_world_size(group)
     if n == 1:
         return x.to(torch.float32)
@@ -396,6 +431,7 @@ def allreduce_sum_quantized(x: torch.Tensor, group, *, bits: int = 8,
     """Blockwise-quantized all-reduce: the grid sums are exact and the
     same on every rank, so the float32 result is bitwise identical across
     the group; error at most n · scale / 2."""
+    _chaos("allreduce_sum_quantized")
     n = dist.get_world_size(group)
     if n == 1:
         return x.to(torch.float32)

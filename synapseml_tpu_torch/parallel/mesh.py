@@ -26,6 +26,11 @@ Two contracts, as in the JAX package:
 ZeRO placement (``zero_sharding``, ``tree_shardings``) is a ``ShardSpec``
 per tensor: the dimension the JAX package's ``zero_sharding`` picks, cut
 into one block per rank of the ``data`` axis.
+
+Pipeline stage groups (``stage_submeshes``): a mesh with a ``stage`` axis
+splits into one sub-mesh per stage coordinate, each keeping the other axes
+(their line groups are the parent's), so ``data`` and ``seq`` compose
+inside every group; ``make_mesh`` makes each group's process group.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from ..core.device import DEFAULT_DEVICE, resolve_device
 
 DATA_AXIS = "data"
 SEQ_AXIS = "seq"
+STAGE_AXIS = "stage"
 
 
 # set by initialize_distributed: the world is one process per rank, each
@@ -206,11 +212,17 @@ class Mesh:
     (``shape``, in axis order), its rank within the mesh and coordinate on
     each axis, the process group of its line along each axis, the group of
     the whole mesh (``world_group``, None when the mesh is the whole
-    world) and the device it computes on."""
+    world) and the device it computes on. A stage group this rank is not
+    in (``stage_submeshes``) has ``rank`` None, no coordinates and no line
+    groups: only its shape, world ranks and ``world_group``."""
 
     def __init__(self, shape: dict, rank: int, coords: dict, groups: dict,
-                 device: torch.device, world_group=None, ranks=None):
+                 device: torch.device, world_group=None, ranks=None,
+                 planes=None):
         self.shape = dict(shape)
+        # per stage coordinate: (its world ranks, its process group, the
+        # one-rank groups of a stage-only mesh), made by make_mesh
+        self.planes = planes
         # the world ranks of the mesh, in mesh order
         self.ranks = (list(ranks) if ranks is not None
                       else list(range(int(np.prod(list(shape.values()))))))
@@ -263,11 +275,64 @@ def make_mesh(shape: Optional[dict] = None, device=DEFAULT_DEVICE,
             g = dist.new_group(members)
             if rank in members:
                 groups[name] = g
+    planes = None
+    if STAGE_AXIS in names:
+        # the pipeline's stage groups (stage_submeshes), made here where
+        # every rank of the world takes part
+        k = names.index(STAGE_AXIS)
+        planes = []
+        for g in range(sizes[k]):
+            members = [int(r) for r in np.take(grid, g, axis=k).ravel()]
+            plane = (None if len(members) == world
+                     else dist.new_group(members))
+            singles = ({r: dist.new_group([r]) for r in members}
+                       if len(names) == 1 else None)
+            planes.append((members, plane, singles))
     if rank not in ranks:
         return None
     coords = {n: int(c) for n, c in zip(names, np.argwhere(grid == rank)[0])}
     return Mesh(dict(zip(names, sizes)), ranks.index(rank), coords, groups,
-                resolve_device(device), whole, ranks)
+                resolve_device(device), whole, ranks, planes)
+
+
+def stage_submeshes(mesh: Mesh, num_stages: int):
+    """``(groups, assign)`` for MPMD pipeline parallelism (the JAX
+    package's ``stage_submeshes``): ``groups[g]`` is a ``Mesh`` over the
+    ranks at stage coordinate ``g``, keeping every other axis (a
+    stage-only mesh gives each group a ``data`` axis of one rank), and
+    ``assign[s] = s % G``, the circular placement of stages on groups.
+    The groups are disjoint; a group this rank is not in has ``rank``
+    None. Within a group the line groups of the other axes are the parent
+    mesh's (the same ranks), and the group's own process group was made
+    with the mesh (``make_mesh``), so only the mesh's ranks call this."""
+    if STAGE_AXIS not in mesh.shape:
+        raise ValueError(
+            f"mesh {dict(mesh.shape)} has no {STAGE_AXIS!r} axis; build one "
+            "with make_mesh({'stage': G, 'data': D})")
+    if num_stages < 1:
+        raise ValueError(f"num_stages must be >= 1, got {num_stages}")
+    if mesh.planes is None:
+        raise ValueError("the mesh's stage groups were not made; build the "
+                         "mesh with make_mesh")
+    others = [n for n in mesh.shape if n != STAGE_AXIS]
+    shape = ({n: int(mesh.shape[n]) for n in others} if others
+             else {DATA_AXIS: 1})
+    me = dist.get_rank()
+    groups = []
+    for members, plane, singles in mesh.planes:
+        if me not in members:
+            groups.append(Mesh(shape, None, {}, {}, mesh.device, plane,
+                               members))
+        elif others:
+            groups.append(Mesh(shape, members.index(me),
+                               {n: mesh.coords[n] for n in others},
+                               {n: mesh.group(n) for n in others},
+                               mesh.device, plane, members))
+        else:
+            groups.append(Mesh(shape, members.index(me), {DATA_AXIS: 0},
+                               {DATA_AXIS: singles[me]}, mesh.device, plane,
+                               members))
+    return groups, [s % len(groups) for s in range(num_stages)]
 
 
 def data_seq_mesh(seq_size: int = 0, device=DEFAULT_DEVICE) -> Mesh:

@@ -19,6 +19,7 @@ import inspect
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -60,10 +61,12 @@ UNPORTED_BOOSTER = set()
 UNPORTED_DATASET = set()
 UNPORTED_ESTIMATOR_PARAMS = set()
 # TrainConfig fields that take only their default (machinery not ported)
-DEFAULT_ONLY = {"prefetch_batches": 4, "donate_buffers": False,
-                "pipeline_microbatches": 4,
-                "pipeline_param_sharding": "zero",
-                "pipeline_schedule": "overlap"}
+DEFAULT_ONLY = {"prefetch_batches": 4, "donate_buffers": False}
+# the pipeline fields, once refused at their defaults: (value, what the
+# fit's stats show against the default's)
+PIPELINE_FIELDS = {"pipeline_microbatches": 4,
+                   "pipeline_param_sharding": "zero",
+                   "pipeline_schedule": "overlap"}
 
 
 def _fields(cls) -> dict:
@@ -102,6 +105,87 @@ def test_default_only_train_config_fields_are_refused_by_name(field):
     trainer = ttrainer.Trainer(model, cfg, device=CPU)
     with pytest.raises(NotImplementedError, match=field):
         trainer.fit(np.zeros((4, 8), np.int64), np.zeros(4, np.int64))
+
+
+def _pipeline_rank(rank, workdir, port):
+    """One of 2 processes of a multi-controller world
+    (``initialize_distributed``, the pipeline's cross-process checks on): a
+    2-stage ``tiny`` pipeline on ``{"stage": 1, "data": 2}`` (both stages
+    on the one group) with each pipeline field at its default and at
+    ``PIPELINE_FIELDS``'s value, and ``pipeline_schedule="auto"``."""
+    import json
+    import os
+
+    from synapseml_tpu_torch.dl import make_staged_backbone
+    from synapseml_tpu_torch.parallel import (initialize_distributed,
+                                              make_mesh, process_count)
+
+    torch.set_num_threads(1)
+    initialize_distributed(f"127.0.0.1:{port}", 2, rank, timeout_s=60)
+    assert process_count() == 2
+    mesh = make_mesh({"stage": 1, "data": 2}, device=CPU)
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(16, 8, 8, 3)).astype(np.float32)
+    y = np.arange(16) % 2
+    stats = {}
+    for field, value in [(None, None)] + list(PIPELINE_FIELDS.items()) \
+            + [("auto", "auto")]:
+        kw = ({} if field is None else {"pipeline_schedule": "auto"}
+              if field == "auto" else {field: value})
+        cfg = ttrainer.TrainConfig(batch_size=16, max_epochs=1,
+                                   param_sharding="pipeline", **kw)
+        tr = ttrainer.Trainer(make_staged_backbone("tiny", 2, 2), cfg,
+                              mesh=mesh, device=CPU).fit(X, y)
+        stats[str(field)] = {k: tr.stats.get(k) for k in (
+            "microbatches", "schedule", "state_bytes_per_rank",
+            "autoconfig")}
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(stats, f)
+    torch.distributed.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def pipeline_stats(tmp_path_factory):
+    import json
+
+    import torch.multiprocessing as mp
+
+    import socket
+
+    workdir = tmp_path_factory.mktemp("pipeline_fields")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp.start_processes(_pipeline_rank, args=(str(workdir), port), nprocs=2,
+                       join=True, start_method="spawn")
+    return [json.loads((workdir / f"rank{r}.json").read_text())
+            for r in range(2)]
+
+
+@pytest.mark.parametrize("field", list(PIPELINE_FIELDS))
+def test_pipeline_train_config_fields_take_effect(pipeline_stats, field):
+    """The three pipeline fields, once refused at their defaults: none is
+    unported now, and each changes the fit (``Trainer.stats``) against the
+    default (1 microbatch per stage group, replicated stages,
+    fill-drain)."""
+    assert ttrainer.Trainer.unported(ttrainer.TrainConfig(
+        param_sharding="pipeline", **{field: PIPELINE_FIELDS[field]})) == []
+    for stats in pipeline_stats:
+        base, got = stats["None"], stats[field]
+        assert (base["microbatches"], base["schedule"]) == (1, "fill_drain")
+        if field == "pipeline_microbatches":
+            assert got["microbatches"] == 4
+        elif field == "pipeline_param_sharding":
+            # ZeRO over the group's 2 data ranks: about half the state
+            assert got["state_bytes_per_rank"] < \
+                0.6 * base["state_bytes_per_rank"]
+        else:
+            assert got["schedule"] == "overlap"
+            # "auto" asks the analytic model, which keeps fill-drain
+            auto = stats["auto"]
+            assert auto["schedule"] == "fill_drain"
+            prov = auto["autoconfig"]["pipeline_schedule"]
+            assert prov["arm"] == "fill_drain" and prov["used_fallback"]
 
 
 @pytest.mark.parametrize("field,value,want", [
@@ -202,6 +286,39 @@ def test_distributed_surface_is_ported():
         assert hasattr(jparallel, name), name
     assert "mesh" in _args(jstream.train_booster_streamed) \
         & _args(tstream.train_booster_streamed)
+    # pipeline parallelism and elastic training: the JAX package's names
+    for name in ("STAGE_AXIS", "stage_submeshes", "CollectiveWatchdog",
+                 "ElasticUnsupportedError", "HeartbeatMonitor",
+                 "HeartbeatWriter", "PeerLostError", "TrainingSupervisor",
+                 "consensus_restart_step", "current_watchdog",
+                 "elastic_train", "elastic_watchdog", "run_with_budget",
+                 "verified_steps"):
+        assert hasattr(jparallel, name) and hasattr(tparallel, name), name
+    import synapseml_tpu.dl as jdl
+    import synapseml_tpu.dl.backbones as jbackbones
+    import synapseml_tpu.dl.pipeline as jpipeline
+    import synapseml_tpu.parallel.elastic as jelastic
+    import synapseml_tpu.parallel.transfer as jtransfer
+    import synapseml_tpu_torch.dl as tdl
+    import synapseml_tpu_torch.dl.backbones as tbackbones
+    import synapseml_tpu_torch.dl.pipeline as tpipeline
+    import synapseml_tpu_torch.parallel.elastic as telastic
+    import synapseml_tpu_torch.parallel.transfer as ttransfer
+    for name in ("StageGroup", "StageSequential", "ResNetStem",
+                 "ConvReluUnit", "PoolDenseHead", "stage_units",
+                 "partition_stages", "make_staged_backbone",
+                 "staged_text_encoder"):
+        assert hasattr(jbackbones, name) and hasattr(tbackbones, name), name
+    for name in ("make_staged_backbone", "staged_text_encoder"):
+        assert hasattr(jdl, name) and hasattr(tdl, name), name
+    assert tpipeline.SUPPORTED_MATRIX == jpipeline.SUPPORTED_MATRIX
+    assert tpipeline._SCHEDULES == jpipeline._SCHEDULES
+    for name in ("device_transfer", "host_fetch", "share_scalars"):
+        assert hasattr(jtransfer, name) and hasattr(ttransfer, name), name
+    public = {n for n in dir(jelastic) if not n.startswith("_")
+              and getattr(getattr(jelastic, n), "__module__", "")
+              == jelastic.__name__}
+    assert public <= set(dir(telastic))
 
 
 @pytest.mark.parametrize("jcls,tcls,unported", [

@@ -983,9 +983,10 @@ def test_ranks_layouts_phase_is_listed_and_runs_after_phase_19():
     assert [n for n, _ in cs.LAYOUT_RUNS] == [
         "partition", "gather", "masked", "sort32", "scan", "scatter",
         "unsegmented"]
-    # phase 13 was cut from 50 iterations a sampling mode to make room
-    assert cs.SAMPLING_ITERS == 20
-    assert "numIterations=20" in cs.__doc__
+    # phase 13 was cut from 50 iterations a sampling mode to make room for
+    # phase 20, and to 10 for phase 21
+    assert cs.SAMPLING_ITERS == 10
+    assert "numIterations=10" in cs.__doc__
 
 
 def _layout_fits():
@@ -1098,3 +1099,45 @@ def test_ranks_layouts_phase_rehearses_on_the_cpu(monkeypatch):
     for ok in ("differ across ranks", "AUC", "from one process",
                "gathered sample", "decisive fixture"):
         assert ok not in msg, msg
+
+
+def test_pipeline_phase_hang_and_step_log():
+    """Phase 21's pieces that need no ranks (its rehearsal is
+    ``tests/test_torch_chip_smoke_pipeline.py``): the planted hang blocks
+    the first matching op only, raises once released and leaves the hook
+    slot empty; the step log turns a pipeline step's seconds into its ms,
+    idle share and images per second."""
+    import threading
+    import time as _time
+
+    from synapseml_tpu_torch.parallel import collectives as C
+
+    hang = cs._Hang("transfer.hop", at_call=2, hang_s=30.0)
+    with hang:
+        assert C._CHAOS_HOOK is not None
+        C._chaos("all_gather")              # another op: not counted
+        C._chaos("transfer.hop")            # the first hop passes
+        box = {}
+
+        def second():
+            try:
+                C._chaos("transfer.hop")
+            except RuntimeError as e:
+                box["err"] = e
+        t = threading.Thread(target=second, daemon=True)
+        t.start()
+        _time.sleep(0.05)
+        assert t.is_alive() and hang.hung == ["transfer.hop"]
+    t.join(timeout=5)
+    assert not t.is_alive() and "released" in str(box["err"])
+    assert C._CHAOS_HOOK is None
+    step = dict(step=3, loss=0.5, forward_s=0.010, backward_s=0.020,
+                hop_s=0.004, hop_wait_s=0.006, update_s=0.002, wall_s=0.050,
+                idle_share=0.28, collective_s=0.003, hops=8,
+                hop_bytes=8 << 20)
+    row, = cs._step_log("(a) test", 0, [step], 32)
+    assert row["forward_ms"] == pytest.approx(10.0)
+    assert row["wall_ms"] == pytest.approx(50.0)
+    assert row["per_s"] == pytest.approx(640.0)
+    assert row["idle"] == 0.28 and row["hop_bytes"] == 8 << 20
+    assert row["collective_ms"] == pytest.approx(3.0)
