@@ -397,6 +397,38 @@ Phases, each of which fails the run if it fails:
    first 500,000 rows, 6 iterations) killed at iteration 3 resumes in one
    process within 1e-4 of the uninterrupted fit's raw scores. Every
    failure is collected and raised at the end.
+22. the serving fabric, VW and the online loop (``--phase 22`` alone,
+   which first fits its own 100-iteration classifier on 500,000 rows).
+   (a) Phase 12's classifier, its model string saved once, loaded by two
+   processes joined by ``initialize_distributed`` and served by each
+   through its own ``serving_fn`` graphs inside
+   ``DistributedServingServer`` (the gateway in process 0): 3000 one-row
+   requests from 32 clients (p50 / p99 ms and requests/s beside phase
+   15's single server, forwards by worker and to a worker advertising the
+   request's rung), then 3000 more round
+   robin while process 1's worker is killed and restarted (seconds to
+   eviction and to rejoin); every reply 200 and within 1e-6 of
+   ``predict``. (b) Two federated gateways over those workers, one killed
+   under load: seconds until its ring arcs and tenant leases move to the
+   peer, no accepted request without a 200. (c) Three tenants on two
+   workers behind one gateway (the classifier; phase 18's ResNet-50
+   ``ONNXModel`` through its runner, requests naming preloaded images; an
+   epsilon-greedy VW policy): each tenant's p99 before and while
+   ``chaos_tenant_flood`` floods and NaN-storms the VW tenant, which must
+   shed at its own 429 / 500 / 503 while the others answer 200. (d) VW on
+   a seeded Criteo-shaped table (13 integer and 26 categorical columns,
+   2,000,000 rows and 250,000 held out, each column's vocabulary hashed
+   once): one logistic pass at batch 256 at 18 and 24 bits, weights within
+   1e-4 of max |w| and progressive loss within 1e-5 of the same pass on
+   the CPU (run in a spawned process meanwhile), rows/s, launches per
+   batch, held-out AUC; ``VowpalWabbitClassifier`` fit / transform on the
+   18-bit table; ``train_vw(mesh=)`` on the two processes of (a) (each its
+   half of a 500,000-row prefix: both ranks' weights bitwise equal, the
+   held-out AUC within 0.02 of one process on those rows). (e) The online
+   loop at ``bench.py``'s shapes: updates/s while the fleet's policy serves
+   over HTTP, ``PromotionGate`` with a ``PromotionBroadcast`` flipping
+   both workers (ms), and a kill mid-update resumed bitwise under
+   ``torch.use_deterministic_algorithms``. No kernel of ours runs here.
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 21's
@@ -7004,11 +7036,1208 @@ def pipeline_path(dev: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the serving fabric, VW and the online loop
+# ---------------------------------------------------------------------------
+
+# (a) the fabric across processes: phase 15's classifier (phase 12's
+# booster) behind DistributedServingServer on two processes sharing the
+# card; --phase 22 alone fits its own on FABRIC_ALONE_ROWS rows. Heartbeats
+# every FABRIC_BEAT_S, eviction after FABRIC_EVICT_S of silence
+FABRIC_RANKS = 2
+FABRIC_ALONE_ROWS, FABRIC_ITERS = 500_000, 100
+FABRIC_REQUESTS, FABRIC_KILL_REQUESTS = 3000, 3000
+FABRIC_BEAT_S, FABRIC_EVICT_S = 0.2, 1.0
+FABRIC_WAIT_S = 120.0
+# (b) two federated gateways over the same workers: FED_REQUESTS one-row
+# requests of FED_TENANTS tenants from FED_CLIENTS clients
+FED_REQUESTS, FED_TENANTS, FED_CLIENTS = 1200, 8, 16
+# (c) three tenants on two workers; each tenant's latency from
+# FLEET_CLIENTS clients of FLEET_REQUESTS requests, before and during a
+# FLEET_FLOOD-request flood of the VW tenant; the DL tenant is phase 18's
+# ResNet-50 on FLEET_IMAGES preloaded seeded images, FLEET_DL_BATCH rows a
+# graph
+FLEET_REQUESTS, FLEET_CLIENTS, FLEET_FLOOD = 60, 4, 400
+FLEET_IMAGES, FLEET_DL_BATCH = 16, 8
+FLEET_RESNET = dict(depth=50, num_classes=1000, image_size=224)
+FLEET_DL_REL = 1e-3          # phase 18's float32 bound, of max |y|
+# (d) VW at full width on a Criteo-shaped table (the Criteo Display
+# Advertising Challenge's 13 integer and 26 categorical columns), made in
+# seeded chunks of CRITEO_CHUNK rows (a prefix is the same rows at any
+# length), logistic loss, one pass at batch 256. The card against the CPU
+# (atomics add repeated indices in no fixed order on the card): weights
+# within CRITEO_CARD_TOL of max |w|, progressive loss CRITEO_LOSS_TOL
+# relative. The mesh on CRITEO_MESH_ROWS rows over the two processes of
+# (a), held-out AUC within CRITEO_MESH_AUC_GAP of one process on them: the
+# average of two models that each saw half the rows against one that saw
+# them all in order (0.0105 apart on a 40,000-row CPU rehearsal)
+CRITEO_ROWS, CRITEO_CHUNK = 2_000_000, 250_000
+CRITEO_INTS, CRITEO_CATS = 13, 26
+CRITEO_BITS, CRITEO_BATCH = (18, 24), 256
+# the learning rate: at VWConfig's default 0.5 this table's 39 features a
+# row overshoot (progressive loss 1.34 on 500,000 rows, above log 2), and
+# two CPU passes that differ only in the order of their sums end 0.3% of
+# max |w| apart; at 0.02 the loss is 0.569 and that gap 4e-7 (CPU runs)
+CRITEO_LR = 0.02
+CRITEO_MAX_CARD = 50_000
+CRITEO_CARD_TOL, CRITEO_LOSS_TOL = 1e-4, 1e-5
+CRITEO_MESH_ROWS, CRITEO_MESH_AUC_GAP = 500_000, 0.02
+CRITEO_CPU_THREADS = 2
+# (e) the online loop at bench.py:1771-1830's shapes
+ONLINE_BITS, ONLINE_BATCH, ONLINE_EVENTS, ONLINE_ACTIONS = 16, 64, 8192, 4
+ONLINE_REQUESTS = 200
+_FABRIC_SETTINGS = ("FABRIC_BEAT_S", "FABRIC_EVICT_S", "FABRIC_WAIT_S",
+                    "SERVE_MAX_BATCH", "SERVE_BATCH_LATENCY",
+                    "CRITEO_MESH_ROWS", "CRITEO_CHUNK", "CRITEO_BATCH",
+                    "CRITEO_MAX_CARD", "CRITEO_LR", "CRITEO_BITS",
+                    "CRITEO_INTS", "CRITEO_CATS")
+
+
+def _await_file(workdir: str, name: str, deadline_s: float = None):
+    """The JSON written as ``name`` in ``workdir`` (None for a command
+    file), polling until it exists; raises after ``deadline_s``."""
+    path = os.path.join(workdir, name)
+    deadline = time.monotonic() + (deadline_s or FABRIC_WAIT_S)
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 22: {name} never came")
+        time.sleep(0.01)
+    if name.startswith("cmd_"):
+        return None
+    for _ in range(100):
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except ValueError:                  # caught mid-write
+            time.sleep(0.01)
+    raise AssertionError(f"phase 22: {name} is not JSON")
+
+
+def _put_json(workdir: str, name: str, obj) -> None:
+    tmp = os.path.join(workdir, f".{name}.tmp")
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, os.path.join(workdir, name))
+
+
+def _command(workdir: str, name: str) -> None:
+    open(os.path.join(workdir, f"cmd_{name}"), "w").close()
+
+
+class _Abort(Exception):
+    """The parent gave up on phase 22: a rank stops where it is."""
+
+
+def _rank_await(workdir: str, name: str) -> None:
+    """Wait for the parent's command ``name`` (a file ``cmd_<name>``);
+    raise ``_Abort`` when ``cmd_abort`` appears instead."""
+    while not os.path.exists(os.path.join(workdir, f"cmd_{name}")):
+        if os.path.exists(os.path.join(workdir, "cmd_abort")):
+            raise _Abort(name)
+        time.sleep(0.01)
+
+
+def _criteo_columns(seed: int = 0):
+    """(each categorical column's cardinality, each integer column's
+    mean count): the table's shape, the same for every chunk."""
+    meta = np.random.default_rng([seed, 1 << 30])
+    card = np.exp(meta.uniform(np.log(4), np.log(CRITEO_MAX_CARD),
+                               CRITEO_CATS)).astype(np.int64)
+    return card, meta.uniform(0.5, 60.0, CRITEO_INTS)
+
+
+def _criteo_vocab_hashes(seed: int = 0) -> list:
+    """Each categorical column's vocabulary (``C<j>=<8 hex digits>`` for
+    every category code) hashed once: uint32 per code."""
+    from synapseml_tpu_torch.vw.hashing import hash_strings
+
+    card, _ = _criteo_columns(seed)
+    return [hash_strings([f"C{j + 1}={v:08x}" for v in range(int(c))]
+                         ).astype(np.uint32) for j, c in enumerate(card)]
+
+
+def criteo_mask(h: np.ndarray, bits: int) -> np.ndarray:
+    """The table's feature hashes masked into ``bits`` bits (int32)."""
+    return (h & np.uint32((1 << bits) - 1)).astype(np.int32)
+
+
+def criteo_table(rows: int, seed: int = 0, vocab=None):
+    """``rows`` rows of a Criteo-shaped table as padded VW rows: (unmasked
+    feature hashes (rows, 39) uint32, val (rows, 39) float32, labels in
+    +-1). The 13 integer columns are ``I<j>`` features with value
+    log1p(count) (heavy-tailed counts, 10% missing: value 0); the 26
+    categorical columns are one ``C<j>=<hex>``
+    feature each, category codes drawn with a skew toward small codes.
+    Each chunk's codes are mapped to their hashed vocabulary through
+    ``np.unique``'s inverse. Labels are drawn from a logistic model with a
+    hidden weight per unhashed feature, so both bit widths see the same
+    labels."""
+    from synapseml_tpu_torch.vw.hashing import hash_strings
+
+    card, lam = _criteo_columns(seed)
+    card32, lam32 = card.astype(np.float32), lam.astype(np.float32)
+    vocab = vocab if vocab is not None else _criteo_vocab_hashes(seed)
+    ihash = hash_strings([f"I{j + 1}" for j in range(CRITEO_INTS)]
+                         ).astype(np.uint32)
+    hs, vals, ys = [], [], []
+    for c in range(-(-rows // CRITEO_CHUNK)):
+        n = min(CRITEO_CHUNK, rows - c * CRITEO_CHUNK)
+        rng = np.random.default_rng([seed, c])
+        # heavy-tailed counts: the floor of an exponential of mean lam
+        counts = np.floor(rng.standard_exponential(
+            size=(CRITEO_CHUNK, CRITEO_INTS), dtype=np.float32)[:n] * lam32)
+        missing = rng.random((CRITEO_CHUNK, CRITEO_INTS),
+                             dtype=np.float32)[:n] < 0.1
+        ival = np.where(missing, np.float32(0), np.log1p(counts))
+        u = rng.random((CRITEO_CHUNK, CRITEO_CATS), dtype=np.float32)[:n]
+        codes = (card32 * (u * u * u)).astype(np.int32)
+        h = np.empty((n, CRITEO_INTS + CRITEO_CATS), np.uint32)
+        h[:, :CRITEO_INTS] = ihash
+        for j in range(CRITEO_CATS):
+            uniq, inv = np.unique(codes[:, j], return_inverse=True)
+            h[:, CRITEO_INTS + j] = vocab[j][uniq][inv]
+        val = np.concatenate([ival, np.ones((n, CRITEO_CATS), np.float32)],
+                             axis=1)
+        # a hidden weight in [-0.5, 0.5) per unhashed feature (a 32-bit
+        # multiplicative hash), about 30% positives (the challenge's click
+        # rate is 25.6%)
+        w = (h * np.uint32(2654435761)).astype(np.float32) / 2 ** 32 - 0.5
+        margin = (1.2 * w[:, CRITEO_INTS:].sum(axis=1)
+                  + 0.3 * (w[:, :CRITEO_INTS] * (ival - 2.0)).sum(axis=1)
+                  - 1.2)
+        p = 1.0 / (1.0 + np.exp(-margin))
+        ys.append(np.where(rng.random(CRITEO_CHUNK, dtype=np.float32)[:n]
+                           < p, np.float32(1), np.float32(-1)))
+        hs.append(h)
+        vals.append(val)
+    return np.concatenate(hs), np.concatenate(vals), np.concatenate(ys)
+
+
+def _auc(y_pm, score) -> float:
+    from synapseml_tpu_torch.gbdt.objectives import auc
+
+    return float(auc(torch.from_numpy((np.asarray(y_pm) > 0).astype(
+        np.float32)), torch.from_numpy(np.asarray(score, np.float32))))
+
+
+_CRITEO_SETTINGS = ("CRITEO_ROWS", "CRITEO_CHUNK", "CRITEO_BITS",
+                    "CRITEO_BATCH", "CRITEO_MAX_CARD", "CRITEO_CPU_THREADS",
+                    "CRITEO_LR")
+
+
+def _criteo_cpu(out_dir: str, settings: dict) -> None:
+    """The CPU's pass at every bit width (a spawned process beside the
+    card's work): weights, bias and progressive loss to ``out_dir``."""
+    sys.path.insert(0, str(REPO))
+    globals().update(settings)
+    rows = CRITEO_ROWS
+    from synapseml_tpu_torch.vw.learner import VWConfig, train_vw
+
+    torch.set_num_threads(CRITEO_CPU_THREADS)
+    h, val, y = criteo_table(rows)
+    for bits in CRITEO_BITS:
+        idx = criteo_mask(h, bits)
+        t0 = time.perf_counter()
+        st, prog = train_vw(idx, val, y, VWConfig(
+            num_bits=bits, loss_function="logistic",
+            batch_size=CRITEO_BATCH, learning_rate=CRITEO_LR),
+            collect_progressive=True, device="cpu")
+        # written whole, then renamed: the parent polls for the name
+        tmp = os.path.join(out_dir, f".cpu_{bits}.npz")
+        with open(tmp, "wb") as f:
+            np.savez(f, weights=st.weights.numpy(), bias=st.bias.numpy(),
+                     loss=np.float64(st.progressive_loss),
+                     prog=prog[:100_000],
+                     seconds=np.float64(time.perf_counter() - t0))
+        os.replace(tmp, os.path.join(out_dir, f"cpu_{bits}.npz"))
+
+
+def start_criteo_cpu():
+    """The CPU passes of (d) in a spawned process: (process, out dir)."""
+    out = tempfile.mkdtemp(prefix="criteo_cpu_")
+    ctx = torch.multiprocessing.get_context("spawn")
+    p = ctx.Process(target=_criteo_cpu, args=(
+        out, {k: globals()[k] for k in _CRITEO_SETTINGS}))
+    p.start()
+    return p, out
+
+
+def vw_step_launches(cfg, width: int, dev: str) -> int:
+    """Kernel launches of one batch of the VW learner's pass
+    (``vw.learner._step``) on the card, read by ``torch.profiler`` over
+    one step of a throwaway state after a first one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from synapseml_tpu_torch.vw.learner import VWState, _step
+
+    b = cfg.batch_size
+    st = VWState.init(cfg.num_bits, dev)
+    g = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, 1 << cfg.num_bits, (b, width), generator=g).to(dev)
+    val = torch.rand(b, width, generator=g).to(dev)
+    y = torch.where(torch.rand(b, generator=g) > 0.5, 1.0, -1.0).to(dev)
+    sw = torch.ones(b, device=dev)
+    _step(st, idx, val, y, sw, cfg)          # first-use allocations
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _step(st, idx, val, y, sw, cfg)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _fabric_rank(rank: int, workdir: str, dev: str, port: int,
+                 settings: dict) -> None:
+    """One process of phase 22 (a): it joins the world through
+    ``initialize_distributed``, serves the saved classifier through its
+    own ``serving_fn`` graphs inside ``DistributedServingServer`` (the
+    gateway in process 0), then follows the parent's commands: process 0
+    switches its gateway to round robin, process 1's worker is killed and
+    restarted, both report their counters, run (d)'s mesh pass on their
+    own rows, and stop."""
+    sys.path.insert(0, str(REPO))
+    globals().update(settings)
+    from synapseml_tpu_torch.gbdt.boosting import Booster
+    from synapseml_tpu_torch.io.distributed_serving import (
+        DistributedServingServer, WorkerAgent)
+    from synapseml_tpu_torch.io.serving import ServingServer
+    from synapseml_tpu_torch.parallel import (initialize_distributed,
+                                              make_mesh)
+    from synapseml_tpu_torch.testing import kill_worker
+    from synapseml_tpu_torch.vw.learner import VWConfig, train_vw
+
+    if _on_card(dev):
+        torch.cuda.set_device(0)
+    initialize_distributed(f"127.0.0.1:{port}", FABRIC_RANKS, rank,
+                           timeout_s=600)
+    with open(os.path.join(workdir, "model.txt")) as f:
+        booster = Booster.from_model_string(f.read(), device=dev)
+    t0 = time.perf_counter()
+    serve = booster.serving_fn(max_batch_size=SERVE_MAX_BATCH)
+    handler = _serve_handler(serve)
+    dss = DistributedServingServer(
+        handler, host="127.0.0.1", advertise_host="127.0.0.1",
+        max_batch_size=SERVE_MAX_BATCH,
+        max_batch_latency=SERVE_BATCH_LATENCY,
+        heartbeat_interval=FABRIC_BEAT_S,
+        heartbeat_timeout=FABRIC_EVICT_S).start()
+    _put_json(workdir, f"up_{rank}.json", dict(
+        worker=dss.worker.url, gateway=dss.url if rank == 0 else None,
+        start_s=time.perf_counter() - t0, runner=serve.runner.stats(),
+        t_up=time.time()))
+    gw_url = _await_file(workdir, "up_0.json")["gateway"]
+    extra = []
+    try:
+        if rank == 0:
+            _rank_await(workdir, "rr")
+            dss.gateway.mode = "round_robin"
+        else:
+            _rank_await(workdir, "kill")
+            t_kill = time.time()
+            kill_worker(dss.worker)          # a crash: no drain, no farewell
+            dss.agent.stop(deregister=False)
+            _put_json(workdir, "killed.json", dict(t=t_kill))
+            _rank_await(workdir, "restart")
+            t_up = time.time()
+            w2 = ServingServer(handler, host="127.0.0.1", port=0,
+                               max_batch_size=SERVE_MAX_BATCH,
+                               max_batch_latency=SERVE_BATCH_LATENCY).start()
+            a2 = WorkerAgent(w2, gw_url, interval=FABRIC_BEAT_S).start()
+            extra = [a2, w2]
+            _put_json(workdir, "restarted.json", dict(t=t_up, url=w2.url))
+        _rank_await(workdir, "stats")
+        servers = [dss.worker] + [x for x in extra
+                                  if isinstance(x, ServingServer)]
+        _put_json(workdir, f"stats_{rank}.json", dict(
+            runner=serve.runner.stats(),
+            workers={s.url: s.metrics.snapshot() for s in servers}))
+        _rank_await(workdir, "vw")
+        # (d): each process passes its own block of the table's prefix
+        blk = CRITEO_MESH_ROWS // FABRIC_RANKS
+        rows = slice(rank * blk, (rank + 1) * blk)
+        idx, val, y = (np.load(os.path.join(workdir, f"mesh_{k}.npy"),
+                               mmap_mode="r")[rows]
+                       for k in ("idx", "val", "y"))
+        mesh = make_mesh({"data": FABRIC_RANKS}, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        st, _ = train_vw(np.asarray(idx), np.asarray(val), np.asarray(y),
+                         VWConfig(num_bits=18, loss_function="logistic",
+                                  batch_size=CRITEO_BATCH,
+                                  learning_rate=CRITEO_LR),
+                         mesh=mesh, device=dev)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        data = st.to_bytes()
+        if rank == 0:
+            with open(os.path.join(workdir, "mesh_state.npz"), "wb") as f:
+                f.write(data)
+        import hashlib
+
+        # launches of one batch's step, counted by torch.profiler in a
+        # process that has run no profiler before
+        launches = {bits: vw_step_launches(VWConfig(
+            num_bits=bits, loss_function="logistic",
+            batch_size=CRITEO_BATCH, learning_rate=CRITEO_LR),
+            CRITEO_INTS + CRITEO_CATS, dev)
+            for bits in CRITEO_BITS} if rank == 0 and _on_card(dev) else {}
+        _put_json(workdir, f"vw_{rank}.json", dict(
+            seconds=secs, loss=st.progressive_loss, launches=launches,
+            sha=hashlib.sha256(st.weights.cpu().numpy().tobytes()
+                               ).hexdigest()))
+        _rank_await(workdir, "stop")
+    except _Abort:
+        pass
+    finally:
+        for x in extra:
+            x.stop()
+        dss.stop()
+        torch.distributed.destroy_process_group()
+
+
+def _gateway_health(url: str) -> dict:
+    parts = urlsplit(url)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                      timeout=SERVE_CLIENT_TIMEOUT)
+    try:
+        conn.request("GET", "/")
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def _run_clients(url: str, items: list, threads: int, on_progress=None):
+    """``items`` through ``threads`` of phase 15's keep-alive clients, in
+    this process (the servers are in the ranks'); ``on_progress(done)`` is
+    polled while they run. Returns the results sorted by index."""
+    results: list = []
+    lock = threading.Lock()
+    work = iter(items)
+    done = mp.Value("i", 0)
+    pool = [threading.Thread(target=_client_loop,
+                             args=(url, work, results, lock, done))
+            for _ in range(threads)]
+    for t in pool:
+        t.start()
+    while any(t.is_alive() for t in pool):
+        if on_progress is not None:
+            on_progress(done.value)
+        time.sleep(0.005)
+    for t in pool:
+        t.join()
+    return sorted(results)
+
+
+def _latency(results) -> dict:
+    lat = np.asarray([r[4] for r in results]) * 1e3
+    wall = max(r[3] + r[4] for r in results) - min(r[3] for r in results)
+    return dict(p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)), rps=len(results) / wall,
+                n=len(results))
+
+
+def _check_fabric_replies(label: str, results, want, allow=(200, 503)
+                          ) -> dict:
+    """Every accepted request (anything but a 503 shed) got a 200 within
+    ``SERVE_TOL`` of ``want``; no transport failure (-1), no other 5xx."""
+    statuses = {}
+    for i, status, reply, _, _ in results:
+        statuses[status] = statuses.get(status, 0) + 1
+        if status not in allow:
+            raise AssertionError(f"{label}: request {i} got {status} "
+                                 f"({reply!r:.200})")
+        if status == 200:
+            _check_gap(f"{label} request {i}", reply, want[i])
+    return statuses
+
+
+def start_fabric_ranks(dev: str, booster, workdir: str) -> tuple:
+    """Save the classifier's model string once and start the processes of
+    (a), each loading it: (their handle, the start time)."""
+    import torch.multiprocessing as tmp
+
+    with open(os.path.join(workdir, "model.txt"), "w") as f:
+        f.write(booster.model_string())
+    settings = {k: globals()[k] for k in _FABRIC_SETTINGS}
+    t0 = time.time()
+    return tmp.start_processes(_fabric_rank, args=(
+        workdir, dev, _free_port(), settings), nprocs=FABRIC_RANKS,
+        join=False, start_method="spawn"), t0
+
+
+def fabric_path(dev: str, booster, Xv, workdir: str, t_start: float,
+                card: str, single: dict = None) -> dict:
+    """(a): the two processes (started at ``t_start``), the steady load
+    through process 0's gateway, then a kill and a restart of process 1's
+    worker under load. They stay up for (b) and (d)."""
+    ups = [_await_file(workdir, f"up_{r}.json") for r in range(
+        FABRIC_RANKS)]
+    gw = ups[0]["gateway"]
+    log(f"  {FABRIC_RANKS} processes up "
+        f"{max(u['t_up'] for u in ups) - t_start:.2f}s after their start "
+        f"(each: booster from the saved model string, serving_fn captured "
+        f"{ups[0]['runner']['total_compiles']} rungs in "
+        f"{max(u['start_s'] for u in ups):.2f}s, worker, agent); gateway "
+        f"{gw} in process 0; workers {[u['worker'] for u in ups]}")
+    rng = np.random.default_rng(22)
+    rows = rng.integers(0, Xv.shape[0], FABRIC_REQUESTS
+                        + FABRIC_KILL_REQUESTS)
+    want = booster.predict(Xv[rows])
+    items = [(i, "higgs", json.dumps({"features": Xv[rows[i]].tolist()}
+                                     ).encode())
+             for i in range(len(rows))]
+    wait = time.monotonic() + FABRIC_WAIT_S
+    while not all(l["warm_buckets"] for l in _gateway_health(gw)["workers"]):
+        if time.monotonic() > wait:
+            raise AssertionError("phase 22: no warm ladder advertised")
+        time.sleep(0.02)
+    steady = _run_clients(gw, items[:FABRIC_REQUESTS], SERVE_CLIENTS)
+    st = _check_fabric_replies("fabric steady", steady, want, allow=(200,))
+    health = _gateway_health(gw)
+    lat = _latency(steady)
+    covering = sum(l["ok"] for l in health["workers"]
+                   if 1 in l["warm_buckets"])
+    beside = (f"phase 15's single server p50 {single['p50_ms']:.3f} ms p99 "
+              f"{single['p99_ms']:.3f} ms, {single['rps']:.1f} requests/s"
+              if single else "phase 15 did not run in this call")
+    log(f"  (a) steady: {lat['n']} one-row requests from {SERVE_CLIENTS} "
+        f"clients through the gateway: p50 {lat['p50_ms']:.3f} ms p99 "
+        f"{lat['p99_ms']:.3f} ms, {lat['rps']:.1f} requests/s ({beside}), "
+        f"statuses {st}, every reply within "
+        f"{SERVE_TOL} of predict; bucket-aware: {covering} of "
+        f"{health['forwarded']} forwards to a worker advertising the "
+        f"request's rung 1 (ladders "
+        f"{[l['warm_buckets'] for l in health['workers']]}, forwards by "
+        f"worker {[l['ok'] for l in health['workers']]}, sticky least "
+        f"loaded); {card}")
+    # the kill: round robin spreads the load, so the killed worker is hit
+    _command(workdir, "rr")
+    marks = {"polled": 0.0}
+    killed_url = ups[1]["worker"].rstrip("/")
+    n_kill = FABRIC_KILL_REQUESTS
+
+    def progress(done):
+        now = time.monotonic()
+        if now - marks["polled"] < 0.02:        # the gateway's health GET
+            return
+        marks["polled"] = now
+        if "kill" not in marks and done >= n_kill // 4:
+            marks["kill"] = time.time()
+            _command(workdir, "kill")
+        if "kill" in marks and "evicted" not in marks:
+            if all(l["url"].rstrip("/") != killed_url
+                   for l in _gateway_health(gw)["workers"]):
+                marks["evicted"] = time.time()
+                _command(workdir, "restart")
+        if "evicted" in marks and "rejoined" not in marks:
+            new = os.path.join(workdir, "restarted.json")
+            if os.path.exists(new):
+                url = _await_file(workdir, "restarted.json")["url"]
+                if any(l["url"].rstrip("/") == url.rstrip("/")
+                       for l in _gateway_health(gw)["workers"]):
+                    marks["rejoined"] = time.time()
+
+    killed = _run_clients(gw, items[FABRIC_REQUESTS:], SERVE_CLIENTS,
+                          progress)
+    wait = time.monotonic() + FABRIC_WAIT_S
+    while "rejoined" not in marks:
+        if time.monotonic() > wait:
+            raise AssertionError(f"phase 22: the restarted worker never "
+                                 f"rejoined ({marks})")
+        progress(n_kill)
+        time.sleep(0.01)
+    kt = _await_file(workdir, "killed.json")["t"]
+    rt = _await_file(workdir, "restarted.json")["t"]
+    kst = _check_fabric_replies("fabric kill", killed, want)
+    klat = _latency(killed)
+    health = _gateway_health(gw)
+    log(f"  (a) kill: process 1's worker killed (no drain, no farewell) "
+        f"after {n_kill // 4} of {n_kill} requests; evicted "
+        f"{marks['evicted'] - kt:.3f}s after the kill (heartbeats every "
+        f"{FABRIC_BEAT_S}s, eviction after {FABRIC_EVICT_S}s); restarted "
+        f"worker rejoined {marks['rejoined'] - rt:.3f}s after its start; "
+        f"statuses {kst} (no 5xx for an accepted request, no transport "
+        f"failure), replies within {SERVE_TOL} of predict; p50 "
+        f"{klat['p50_ms']:.3f} ms p99 {klat['p99_ms']:.3f} ms "
+        f"{klat['rps']:.1f} requests/s round robin; gateway retried "
+        f"{health['retried']}, failed {health['failed']}, evicted "
+        f"{health['evicted']}, rejoined+joined "
+        f"{health['rejoined'] + health['joined']}; {card}")
+    return dict(gateway=gw, workers=[
+        ups[0]["worker"], _await_file(workdir, "restarted.json")["url"]],
+        steady=lat, kill=klat, evict_s=marks["evicted"] - kt,
+        rejoin_s=marks["rejoined"] - rt)
+
+
+def _stop_ranks(workdir: str, ranks, ok: bool) -> None:
+    """``cmd_stop`` after a whole phase, ``cmd_abort`` after a failure;
+    then join the ranks (a rank that raised fails the phase)."""
+    _command(workdir, "stop" if ok else "abort")
+    deadline = time.monotonic() + FABRIC_WAIT_S
+    while not ranks.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ranks.processes:
+                p.terminate()
+            raise AssertionError("phase 22: the ranks did not stop")
+
+
+def federation_path(worker_urls: list, booster, Xv, card: str) -> dict:
+    """(b): two federated gateways over the same workers; one killed
+    under load. Clients retry a connection error on the other gateway
+    (a fleet load balancer's move: no status came back)."""
+    from synapseml_tpu_torch.core.qos import QoSClass, QoSController
+    from synapseml_tpu_torch.io.distributed_serving import (ServingGateway,
+                                                            federate)
+    from synapseml_tpu_torch.testing import kill_gateway
+
+    def qos():
+        return QoSController(default_class=QoSClass(rate_per_sec=1e6,
+                                                     burst=1e6))
+
+    gws = [ServingGateway(worker_urls, host="127.0.0.1", port=0,
+                          gossip_interval=0.05, peer_timeout=0.5,
+                          lease_ttl=1.0, qos=qos()).start()
+           for _ in range(2)]
+    try:
+        federate(gws)
+        tenants = [f"t{k}" for k in range(FED_TENANTS)]
+        wait = time.monotonic() + FABRIC_WAIT_S
+        while not all(len(g.ring.nodes()) == 2 for g in gws):
+            if time.monotonic() > wait:
+                raise AssertionError("phase 22: gateways never converged")
+            time.sleep(0.01)
+        homes = {t: gws[0].tenant_home(t) for t in tenants}
+        moved = [t for t in tenants if homes[t] == gws[1].public_url]
+        rng = np.random.default_rng(23)
+        rows = rng.integers(0, Xv.shape[0], FED_REQUESTS)
+        want = booster.predict(Xv[rows])
+        results, drops, marks = [], [], {}
+        lock = threading.Lock()
+        work = iter(range(FED_REQUESTS))
+
+        def client():
+            while True:
+                with lock:
+                    i = next(work, None)
+                if i is None:
+                    return
+                tenant = tenants[i % FED_TENANTS]
+                body = json.dumps({"features": Xv[rows[i]].tolist()}).encode()
+                if i == FED_REQUESTS // 3:
+                    marks["kill"] = time.monotonic()
+                    kill_gateway(gws[1])
+                for k in range(3):
+                    # each tenant's requests alternate between the gateways
+                    url = gws[(i // FED_TENANTS + k) % 2].url
+                    try:
+                        t0 = time.monotonic()
+                        status, reply, secs = _post_once(
+                            url, body, {"X-Tenant": tenant})
+                        with lock:
+                            results.append((i, status, reply, t0, secs))
+                        break
+                    except (OSError, http.client.HTTPException) as e:
+                        err = repr(e)
+                else:
+                    with lock:
+                        drops.append((i, err))
+
+        def watch():
+            survivor = gws[0]
+            while "kill" not in marks or "leases" not in marks:
+                if "kill" in marks:
+                    if "arcs" not in marks and survivor.ring.nodes() == [
+                            survivor.public_url]:
+                        marks["arcs"] = time.monotonic()
+                    if "leases" not in marks and all(
+                            survivor.leases.holders(t)
+                            == [survivor.gateway_id] for t in tenants):
+                        marks["leases"] = time.monotonic()
+                time.sleep(0.002)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        pool = [threading.Thread(target=client) for _ in range(FED_CLIENTS)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join()
+        # keep-alive traffic on the survivor until its leases settle
+        wait = time.monotonic() + FABRIC_WAIT_S
+        while "leases" not in marks:
+            if time.monotonic() > wait:
+                raise AssertionError(f"phase 22: the dead gateway's leases "
+                                     f"never moved ({marks})")
+            keep = json.dumps({"features": Xv[0].tolist()}).encode()
+            for t in tenants:
+                _post_once(gws[0].url, keep, {"X-Tenant": t})
+        watcher.join(timeout=FABRIC_WAIT_S)
+        if drops:
+            raise AssertionError(f"phase 22 (b): {len(drops)} requests got "
+                                 f"no status from either gateway: "
+                                 f"{drops[:3]}")
+        st = _check_fabric_replies("federation", sorted(results), want)
+        homes_after = {t: gws[0].tenant_home(t) for t in tenants}
+        if set(homes_after.values()) != {gws[0].public_url}:
+            raise AssertionError(f"phase 22 (b): tenant homes {homes_after}")
+        lat = _latency(results)
+        log(f"  (b) federation: two gateways federated over the workers, "
+            f"{FED_REQUESTS} requests of {FED_TENANTS} tenants from "
+            f"{FED_CLIENTS} clients spread over both, gateway 2 killed after "
+            f"a third: its arcs ({len(moved)} of {FED_TENANTS} tenants homed "
+            f"there) moved to the peer {marks['arcs'] - marks['kill']:.3f}s "
+            f"and its leases {marks['leases'] - marks['kill']:.3f}s after "
+            f"the kill (gossip every 0.05s, peer timeout 0.5s, lease ttl "
+            f"1.0s); statuses {st}, no accepted request without a 200; p50 "
+            f"{lat['p50_ms']:.3f} ms p99 {lat['p99_ms']:.3f} ms; {card}")
+        return dict(arcs_s=marks["arcs"] - marks["kill"],
+                    leases_s=marks["leases"] - marks["kill"], statuses=st)
+    finally:
+        for g in gws:
+            g.stop()
+
+
+def _dl_tenant(dev: str):
+    """Phase 18's ResNet-50 (``onnx/modelgen.py``, seeded weights) as an
+    ``ONNXModel`` behind its ``BucketedRunner``: requests name one of
+    ``FLEET_IMAGES`` preloaded images; every batch is padded to
+    ``FLEET_DL_BATCH`` rows (one captured graph). Returns (handler, the
+    reference top class and logit of every image)."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.onnx import modelgen
+
+    kw = dict(FLEET_RESNET)
+    model = modelgen.make_resnet(kw.pop("depth"), **kw)
+    in_name, out_name = model.graph.inputs[0].name, \
+        model.graph.outputs[0].name
+    side = FLEET_RESNET["image_size"]
+    raw = model.encode()
+    del model
+    stage = onnx_stage(raw, in_name, out_name, FLEET_DL_BATCH, "float32", dev)
+    images = np.random.default_rng(24).normal(
+        size=(FLEET_IMAGES, 3, side, side)).astype(np.float32)
+    lock = threading.Lock()
+
+    def score(x):
+        n = x.shape[0]
+        pad = np.concatenate([x, np.repeat(x[-1:], FLEET_DL_BATCH - n, 0)])
+        with lock:       # ONNXModel's runner cache is filled on first use
+            y = stage.transform(Table({"x": pad}))["y"]
+        return np.asarray(y[:n])
+
+    ref = score(images[:FLEET_DL_BATCH])
+    ref = np.concatenate([ref, score(images[FLEET_DL_BATCH:])])
+
+    def handler(df):
+        ids = [int(v["image"]) for v in df["value"]]
+        out = []
+        for s in range(0, len(ids), FLEET_DL_BATCH):
+            out.append(score(images[ids[s:s + FLEET_DL_BATCH]]))
+        y = np.concatenate(out)
+        reply = np.empty(len(ids), object)
+        reply[:] = [[int(np.argmax(r)), float(np.max(r))] for r in y]
+        return Table({"id": df["id"], "reply": reply})
+
+    handler.runner = next(iter(stage._runner_cache.values()))
+    return handler, ref
+
+
+def _online_featurize(make_sparse_batch):
+    def featurize(_v=None):
+        return list(make_sparse_batch(
+            [[a * 11 + 1, a * 11 + 2, a * 11 + 3]
+             for a in range(ONLINE_ACTIONS)],
+            [[1.0, 1.0, 1.0]] * ONLINE_ACTIONS, pad_to=4))
+    return featurize
+
+
+def _fleet_post(url: str, tenant: str, value) -> tuple:
+    status, reply, secs = _post_once(url, json.dumps(value).encode(),
+                                     {"X-Tenant": tenant})
+    return status, reply, secs
+
+
+def fleet_path(dev: str, booster, Xv, card: str) -> dict:
+    """(c): gbdt, dl and vw tenants on two workers behind one gateway;
+    each tenant's p99 before and while the vw tenant floods and NaN-storms.
+    Returns the fleet (stopped by ``stop_fleet``)."""
+    from synapseml_tpu_torch.core.qos import QoSClass, QoSController
+    from synapseml_tpu_torch.io.distributed_serving import (ServingGateway,
+                                                            WorkerAgent)
+    from synapseml_tpu_torch.io.serving import ServingServer
+    from synapseml_tpu_torch.online import GreedyPolicy, make_policy_handler
+    from synapseml_tpu_torch.testing import chaos_tenant_flood
+    from synapseml_tpu_torch.vw.learner import (VWConfig, VWState,
+                                                make_sparse_batch)
+
+    t0 = time.perf_counter()
+    gbdt = _serve_handler(booster.serving_fn(max_batch_size=FLEET_DL_BATCH))
+    gbdt.warmup()
+    dl, dl_ref = _dl_tenant(dev)
+    cfg = VWConfig(num_bits=ONLINE_BITS, batch_size=ONLINE_BATCH,
+                   learning_rate=0.5)
+    featurize = _online_featurize(make_sparse_batch)
+    vw = make_policy_handler(GreedyPolicy(
+        VWState.init(cfg.num_bits, dev), cfg, epsilon=1.0, seed=0,
+        version="v0"), featurize)
+    build_s = time.perf_counter() - t0
+    workers, agents, regs = [], [], []
+    fleet = dict(workers=workers, agents=agents, gateway=None)
+    try:
+        for _ in range(2):
+            qos = QoSController(default_class=QoSClass(), classes={
+                "vw": QoSClass(rate_per_sec=2000.0, burst=200.0,
+                               quarantine_threshold=3,
+                               quarantine_cooldown=1.0)})
+            w = ServingServer(handler=None, host="127.0.0.1", port=0,
+                              qos=qos, max_batch_size=FLEET_DL_BATCH,
+                              max_batch_latency=0.002, warmup=False)
+            w.add_tenant("gbdt", gbdt, warmup=False)
+            w.add_tenant("dl", dl, warmup=False)
+            regs.append(w.add_tenant("vw", vw, warmup=False))
+            workers.append(w.start())
+        gw = ServingGateway([w.url for w in workers], host="127.0.0.1",
+                            port=0, heartbeat_timeout=30.0).start()
+        fleet["gateway"] = gw
+        for i, w in enumerate(workers):
+            agents.append(WorkerAgent(w, gw.url, worker_id=f"fleet-w{i}",
+                                      interval=0.2).start())
+        wait = time.monotonic() + FABRIC_WAIT_S
+        while not all(l.tenants for l in gw.links):
+            if time.monotonic() > wait:
+                raise AssertionError("phase 22: tenants never advertised")
+            time.sleep(0.02)
+        fleet.update(regs=regs, cfg=cfg, featurize=featurize)
+        rng = np.random.default_rng(25)
+        hrows = rng.integers(0, Xv.shape[0], FLEET_REQUESTS)
+        hwant = booster.predict(Xv[hrows])
+
+        def tenant_load(tenant, n, out):
+            def one(i):
+                try:
+                    out.append(checked(i))
+                except Exception as e:  # noqa: BLE001 — reported below
+                    out.append((repr(e), 0.0))
+
+            def checked(i):
+                if tenant == "gbdt":
+                    s, r, secs = _fleet_post(gw.url, tenant, {
+                        "features": Xv[hrows[i]].tolist()})
+                    if s == 200:
+                        _check_gap(f"fleet gbdt {i}", r, hwant[i])
+                elif tenant == "dl":
+                    k = i % FLEET_IMAGES
+                    s, r, secs = _fleet_post(gw.url, tenant, {"image": k})
+                    if s == 200 and (r[0] != int(np.argmax(dl_ref[k])) or
+                                     abs(r[1] - float(np.max(dl_ref[k])))
+                                     > FLEET_DL_REL * float(np.abs(
+                                         dl_ref[k]).max())):
+                        raise AssertionError(f"fleet dl {i}: {r} against "
+                                             "the direct transform")
+                else:
+                    s, r, secs = _fleet_post(gw.url, tenant, {})
+                return s, secs
+            with ThreadPoolExecutor(FLEET_CLIENTS) as pool:
+                list(pool.map(one, range(n)))
+
+        def p99(tenants, flood=None):
+            outs = {t: [] for t in tenants}
+            threads = [threading.Thread(target=tenant_load,
+                                        args=(t, FLEET_REQUESTS, outs[t]))
+                       for t in tenants]
+            for t in threads:
+                t.start()
+            if flood is not None:
+                flood.run()
+            for t in threads:
+                t.join()
+            for t, xs in outs.items():
+                bad = [s for s, _ in xs if s != 200]
+                if bad:
+                    raise AssertionError(f"phase 22 (c): tenant {t} got "
+                                         f"{bad[:5]}")
+            return {t: float(np.percentile([s for _, s in xs], 99)) * 1e3
+                    for t, xs in outs.items()}
+
+        before = p99(("gbdt", "dl", "vw"))
+        with chaos_tenant_flood(gw.url, "vw", server=workers[0], nan=True), \
+                chaos_tenant_flood(gw.url, "vw", n_requests=FLEET_FLOOD,
+                                   threads=6, seed=3, server=workers[1],
+                                   nan=True) as flood:
+            during = p99(("gbdt", "dl"), flood)
+            counts = flood.status_counts()
+        if not set(counts) <= {429, 500, 503} or not counts.get(503):
+            raise AssertionError(f"phase 22 (c): the flood's statuses "
+                                 f"{counts}")
+        wait = time.monotonic() + FABRIC_WAIT_S
+        while _fleet_post(gw.url, "vw", {})[0] != 200:
+            if time.monotonic() > wait:
+                raise AssertionError("phase 22 (c): vw never recovered")
+            time.sleep(0.1)
+        stats = {"gbdt": gbdt.runner.stats(), "dl": dl.runner.stats()}
+        log(f"  (c) fleet: gbdt (the classifier's graphs), dl (ResNet-"
+            f"{FLEET_RESNET['depth']} ONNXModel, {FLEET_DL_BATCH} rows a "
+            f"graph, "
+            f"{FLEET_RESNET['image_size']}x{FLEET_RESNET['image_size']}) and "
+            f"vw (epsilon-greedy policy) on 2 workers behind one gateway, "
+            f"built in {build_s:.2f}s; p99 ms before the flood "
+            f"{json.dumps({k: round(v, 3) for k, v in before.items()})}, "
+            f"during vw's flood and NaN storm "
+            f"{json.dumps({k: round(v, 3) for k, v in during.items()})}; "
+            f"the flood's statuses {counts} (shed at its own 429 / 500 / "
+            f"503), every gbdt and dl request 200 and within bounds; "
+            f"captures gbdt {stats['gbdt']['total_compiles']} dl "
+            f"{stats['dl']['total_compiles']}; {card}")
+        fleet.update(before=before, during=during, flood=counts)
+        return fleet
+    except BaseException:
+        stop_fleet(fleet)
+        raise
+
+
+def stop_fleet(fleet: dict) -> None:
+    for a in fleet["agents"]:
+        a.stop()
+    if fleet["gateway"] is not None:
+        fleet["gateway"].stop()
+    for w in fleet["workers"]:
+        w.stop()
+
+
+def _online_events(FeedbackEvent, acts, n: int, seed: int) -> list:
+    r = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        a = int(r.integers(1, ONLINE_ACTIONS + 1))
+        out.append(FeedbackEvent(
+            key=f"b{seed}.{i}", actions=acts, action=a,
+            probability=1.0 / ONLINE_ACTIONS,
+            reward=0.9 if a == 2 else float(r.random() * 0.2)))
+    return out
+
+
+def online_path(dev: str, fleet: dict, workdir: str, card: str) -> dict:
+    """(e): the learner loop's updates/s while the fleet's vw tenant
+    serves over HTTP; the gate with a broadcast flipping both workers; a
+    kill mid-update resumed bit for bit (deterministic algorithms on)."""
+    from synapseml_tpu_torch.core.checkpoint import (CheckpointStore,
+                                                     PreemptionError)
+    from synapseml_tpu_torch.io.distributed_serving import PromotionBroadcast
+    from synapseml_tpu_torch.online import (FeedbackEvent, FeedbackLog,
+                                            OnlineLearnerLoop, PromotionGate,
+                                            policy_builder)
+    from synapseml_tpu_torch.testing import ChaosPreemption
+
+    cfg, featurize, regs = fleet["cfg"], fleet["featurize"], fleet["regs"]
+    gw = fleet["gateway"]
+    acts = featurize()
+    store = CheckpointStore(os.path.join(workdir, "online"), keep_last=3)
+    log_ = FeedbackLog(capacity=ONLINE_EVENTS + 1)
+    loop = OnlineLearnerLoop(log_, cfg, store=store, snapshot_every=16,
+                             device=dev)
+    gate = PromotionGate(regs[0], min_samples=256,
+                         broadcast=PromotionBroadcast(regs))
+    for ev in _online_events(FeedbackEvent, acts, ONLINE_BATCH, 99):
+        log_.offer(ev)
+    loop.run_until_drained()                     # first-use allocations
+    for ev in _online_events(FeedbackEvent, acts, ONLINE_EVENTS, 1):
+        log_.offer(ev)
+        gate.record(ev)
+    served = []
+
+    def client():
+        for _ in range(ONLINE_REQUESTS):
+            served.append(_fleet_post(gw.url, "vw", {})[0])
+
+    t = threading.Thread(target=client)
+    t0 = time.perf_counter()
+    t.start()
+    updates = loop.run_until_drained()
+    _sync(dev)
+    train_s = time.perf_counter() - t0
+    t.join()
+    serve_s = time.perf_counter() - t0
+    if set(served) != {200}:
+        raise AssertionError(f"phase 22 (e): vw requests {set(served)}")
+    t0 = time.perf_counter()
+    dec = gate.try_promote(store, policy_builder(cfg, featurize, device=dev))
+    promote_ms = (time.perf_counter() - t0) * 1e3
+    if not dec.promoted or [r.active for r in regs] != \
+            [dec.candidate_version] * len(regs):
+        raise AssertionError(f"phase 22 (e): gate {dec}, workers on "
+                             f"{[r.active for r in regs]}")
+    versions = {_fleet_post(gw.url, "vw", {})[1]["version"]
+                for _ in range(8)}
+    if versions != {dec.candidate_version}:
+        raise AssertionError(f"phase 22 (e): served versions {versions}")
+    # kill mid-update, resume from the newest verified snapshot, replay:
+    # bit for bit the uninterrupted run (the card's scatter-adds in
+    # deterministic order)
+    events = _online_events(FeedbackEvent, acts, ONLINE_EVENTS // 4, 7)
+    n_up = len(events) // ONLINE_BATCH
+    every, kill_at = max(n_up // 4, 1), n_up * 3 // 5
+
+    def fresh(store=None):
+        lg = FeedbackLog(capacity=ONLINE_EVENTS + 1)
+        return OnlineLearnerLoop(lg, cfg, store=store, snapshot_every=every,
+                                 device=dev)
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    t_kill = time.perf_counter()
+    try:
+        ref = fresh()
+        for ev in events:
+            ref.log.offer(ev)
+        ref.run_until_drained()
+        kstore = CheckpointStore(os.path.join(workdir, "online_kill"),
+                                 keep_last=3)
+        killed = fresh(kstore)
+        for ev in events:
+            killed.log.offer(ev)
+        try:
+            with ChaosPreemption(at={"online.update": [kill_at]}):
+                killed.run_until_drained()
+            raise AssertionError("phase 22 (e): the kill never fired")
+        except PreemptionError:
+            pass
+        t0 = time.perf_counter()
+        resumed = fresh(kstore)
+        if not resumed.restore_latest():
+            raise AssertionError("phase 22 (e): no snapshot to resume")
+        at = resumed.updates
+        for ev in events[resumed.events_seen:]:
+            resumed.log.offer(ev)
+        resumed.run_until_drained()
+        resume_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(was)
+    kill_s = time.perf_counter() - t_kill
+    a, b = ref.state.arrays(), resumed.state.arrays()
+    diff = [k for k in a if a[k].tobytes() != b[k].tobytes()]
+    if diff:
+        raise AssertionError(f"phase 22 (e): resumed state differs from "
+                             f"the uninterrupted run in {diff}")
+    out = dict(updates_per_s=updates / train_s, promote_ms=promote_ms,
+               serve_rps=len(served) / serve_s)
+    log(f"  (e) online loop: {updates} updates of {ONLINE_BATCH} events "
+        f"(num_bits {ONLINE_BITS}) in {train_s:.3f}s, "
+        f"{out['updates_per_s']:.1f} updates/s "
+        f"({out['updates_per_s'] * ONLINE_BATCH:.0f} events/s) while the "
+        f"policy served {len(served)} requests through the gateway "
+        f"({out['serve_rps']:.1f} requests/s); gate + broadcast "
+        f"{promote_ms:.1f} ms over {dec.n_samples} samples, both workers on "
+        f"{dec.candidate_version}; killed at update {kill_at} of {n_up}, "
+        f"resumed from update {at} in {resume_s:.3f}s, bitwise the "
+        f"uninterrupted run (the three runs {kill_s:.3f}s); {card}")
+    return out
+
+
+def criteo_path(dev: str, table: tuple, workdir: str, cpu, card: str
+                ) -> dict:
+    """(d): the Criteo-shaped ``table`` (``criteo_table`` of
+    ``CRITEO_ROWS`` rows and a chunk held out, with its vocabulary) at
+    both bit widths on the card against the CPU's pass (spawned earlier),
+    launches per batch, the classifier's fit / transform, and the mesh
+    pass of the two processes of (a) on the table's prefix."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.vw import VowpalWabbitClassifier
+    from synapseml_tpu_torch.vw.learner import (SPARSE_DTYPE, VWConfig,
+                                                VWState, train_vw,
+                                                vw_predict)
+
+    _command(workdir, "stats")
+    h_all, val_all, y_all, vocab, made_s = table
+    val, y = val_all[:CRITEO_ROWS], y_all[:CRITEO_ROWS]
+    hval, hy = val_all[CRITEO_ROWS:], y_all[CRITEO_ROWS:]
+    log(f"  (d) Criteo-shaped table: {CRITEO_ROWS} rows (and "
+        f"{CRITEO_CHUNK} held out) x {CRITEO_INTS} integer + "
+        f"{CRITEO_CATS} categorical columns (vocabularies "
+        f"{sum(len(v) for v in vocab)} categories, each hashed once), "
+        f"positives {float((y > 0).mean()):.4f}, made in {made_s:.2f}s "
+        "while the processes of (a) started")
+    out = {}
+    for bits in CRITEO_BITS:
+        idx_all = criteo_mask(h_all, bits)
+        idx, hidx = idx_all[:CRITEO_ROWS], idx_all[CRITEO_ROWS:]
+        cfg = VWConfig(num_bits=bits, loss_function="logistic",
+                       batch_size=CRITEO_BATCH, learning_rate=CRITEO_LR)
+        _sync(dev)
+        t0 = time.perf_counter()
+        st, prog = train_vw(idx, val, y, cfg, collect_progressive=True,
+                            device=dev)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        cpu_file = os.path.join(cpu[1], f"cpu_{bits}.npz")
+        wait = time.monotonic() + FABRIC_WAIT_S * 3
+        while not os.path.exists(cpu_file):
+            if time.monotonic() > wait or not cpu[0].is_alive():
+                if not os.path.exists(cpu_file):
+                    raise AssertionError(f"phase 22 (d): the CPU pass at "
+                                         f"{bits} bits never came")
+            time.sleep(0.05)
+        c = np.load(cpu_file)
+        w = st.weights.cpu().numpy()
+        gap = float(np.abs(w - c["weights"]).max() / np.abs(c["weights"]
+                                                            ).max())
+        lgap = abs(st.progressive_loss - float(c["loss"])) / float(c["loss"])
+        pgap = float(np.abs(prog[:100_000] - c["prog"]).max())
+        if gap > CRITEO_CARD_TOL or lgap > CRITEO_LOSS_TOL:
+            raise AssertionError(f"phase 22 (d) {bits} bits: card against "
+                                 f"CPU weights {gap:.3g} of max |w|, "
+                                 f"progressive loss {lgap:.3g}")
+        if not np.isfinite(w).all():
+            raise AssertionError(f"phase 22 (d) {bits} bits: weights")
+        auc_ = _auc(hy, vw_predict(st, hidx, hval))
+        out[bits] = dict(seconds=secs, rows_per_s=CRITEO_ROWS / secs,
+                         cpu_s=float(c["seconds"]),
+                         gap=gap, loss=st.progressive_loss, auc=auc_)
+        log(f"  (d) {bits} bits: one pass of {CRITEO_ROWS} rows at batch "
+            f"{CRITEO_BATCH} on the card in {secs:.3f}s "
+            f"({CRITEO_ROWS / secs:.0f} rows/s, packing and the copy in "
+            f"included; {-(-CRITEO_ROWS // CRITEO_BATCH)} batches); the "
+            f"CPU's pass "
+            f"{float(c['seconds']):.3f}s ({CRITEO_CPU_THREADS} threads); "
+            f"card against CPU: weights {gap:.3g} of max |w| (bound "
+            f"{CRITEO_CARD_TOL}), progressive loss {st.progressive_loss:.6f} "
+            f"vs {float(c['loss']):.6f} ({lgap:.3g}, bound "
+            f"{CRITEO_LOSS_TOL}), progressive predictions max |gap| "
+            f"{pgap:.3g}; held-out AUC {auc_:.6f} on the next "
+            f"{CRITEO_CHUNK} rows; {card}")
+        if bits == CRITEO_BITS[0]:
+            sp = np.zeros(idx.shape, SPARSE_DTYPE)
+            sp["idx"], sp["val"] = idx, val
+            table = Table({"features": sp, "label": (y > 0).astype(
+                np.float32)})
+            t0 = time.perf_counter()
+            model = VowpalWabbitClassifier(
+                numBits=bits, learningRate=CRITEO_LR, device=dev).fit(table)
+            fit_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            scored = model.transform(table)
+            tr_s = time.perf_counter() - t0
+            mgap = float(np.abs(model.state.weights.cpu().numpy() - w).max()
+                         / np.abs(w).max())
+            prob = np.asarray(scored["probability"])[:, 1]
+            if not np.isfinite(prob).all() or mgap > CRITEO_CARD_TOL:
+                raise AssertionError(f"phase 22 (d): classifier weights "
+                                     f"{mgap:.3g} from train_vw's")
+            log(f"  (d) VowpalWabbitClassifier(numBits={bits}, learningRate="
+                f"{CRITEO_LR}) fit "
+                f"{fit_s:.3f}s, transform {tr_s:.3f}s "
+                f"({CRITEO_ROWS / tr_s:.0f} rows/s) on the table; its weights "
+                f"{mgap:.3g} of max |w| from train_vw's; {card}")
+            mrows = CRITEO_MESH_ROWS
+            for k, a in (("idx", idx), ("val", val), ("y", y)):
+                np.save(os.path.join(workdir, f"mesh_{k}.npy"), a[:mrows])
+            _command(workdir, "vw")
+            one, _ = train_vw(idx[:mrows], val[:mrows], y[:mrows], cfg,
+                              device=dev)
+            mesh_hidx = hidx
+        del idx, idx_all
+    stats = [_await_file(workdir, f"stats_{r}.json")
+             for r in range(FABRIC_RANKS)]
+    vws = [_await_file(workdir, f"vw_{r}.json", FABRIC_WAIT_S * 2)
+           for r in range(FABRIC_RANKS)]
+    if vws[0]["sha"] != vws[1]["sha"]:
+        raise AssertionError("phase 22 (d): the two ranks' weights differ")
+    launches = {int(b): n for b, n in vws[0]["launches"].items()}
+    if _on_card(dev) and not all(launches.get(b) for b in CRITEO_BITS):
+        raise AssertionError(f"phase 22 (d): launches per batch {launches}")
+    for bits in CRITEO_BITS:
+        out[bits]["launches"] = launches.get(bits, 0)
+    with open(os.path.join(workdir, "mesh_state.npz"), "rb") as f:
+        mstate = VWState.from_bytes(f.read(), dev)
+    mauc = _auc(hy, vw_predict(mstate, mesh_hidx, hval))
+    oauc = _auc(hy, vw_predict(one, mesh_hidx, hval))
+    if abs(mauc - oauc) > CRITEO_MESH_AUC_GAP:
+        raise AssertionError(f"phase 22 (d): mesh AUC {mauc:.6f} against "
+                             f"one process {oauc:.6f}")
+    log(f"  (d) train_vw(mesh=) on {FABRIC_RANKS} gloo processes sharing "
+        f"the card, {mrows // FABRIC_RANKS} rows each: "
+        f"{max(v['seconds'] for v in vws):.3f}s, both ranks' weights "
+        f"bitwise equal; held-out AUC {mauc:.6f} against one process on "
+        f"the same {mrows} rows {oauc:.6f} (bound {CRITEO_MESH_AUC_GAP}); "
+        f"launches per batch of one pass's step by bits "
+        f"{json.dumps(launches)} (torch.profiler in process 0); "
+        f"workers' runners after (a): "
+        f"{[s['runner']['total_compiles'] for s in stats]} captures, "
+        f"{[s['runner']['total_hits'] for s in stats]} hits; {card}")
+    out["mesh"] = dict(auc=mauc, one_auc=oauc)
+    return out
+
+
+def fabric_online_path(dev: str, booster=None, Xv=None, card: str = "",
+                       single: dict = None) -> dict:
+    """Phase 22: (a)-(e) above, (a) printed beside phase 15's single
+    server (``single``: its load's p50 / p99 ms and requests/s). Alone, it
+    first fits the served classifier (phase 12's configuration cut to
+    ``FABRIC_ALONE_ROWS``)."""
+    cpu = start_criteo_cpu()
+    workdir = tempfile.mkdtemp(prefix="phase22_")
+    held, ok = {}, False
+    if booster is None:
+        from synapseml_tpu_torch.gbdt import BoosterConfig, train_booster
+
+        X, y = higgs_like(FABRIC_ALONE_ROWS)
+        t0 = time.perf_counter()
+        booster = train_booster(X, y, BoosterConfig(
+            objective="binary", num_iterations=FABRIC_ITERS,
+            num_leaves=31), device=dev)
+        Xv = X[-surface_split(FABRIC_ALONE_ROWS):]
+        log(f"  the served classifier: {FABRIC_ITERS} iterations on "
+            f"{FABRIC_ALONE_ROWS} rows in {time.perf_counter() - t0:.2f}s")
+        del X, y
+    out = {}
+    t0 = [time.perf_counter()]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        log(f"  ({name}) took {now - t0[0]:.1f}s")
+        t0[0] = now
+
+    try:
+        held["ranks"], t_ranks = start_fabric_ranks(dev, booster, workdir)
+        # (d)'s table is made while the ranks start (host work only)
+        t = time.perf_counter()
+        vocab = _criteo_vocab_hashes()
+        table = (*criteo_table(CRITEO_ROWS + CRITEO_CHUNK, vocab=vocab),
+                 vocab, time.perf_counter() - t)
+        part("table")
+        fabric = fabric_path(dev, booster, Xv, workdir, t_ranks, card,
+                             single)
+        out["fabric"] = fabric
+        part("a")
+        out["federation"] = federation_path(fabric["workers"], booster, Xv,
+                                            card)
+        part("b")
+        out["vw"] = criteo_path(dev, table, workdir, cpu, card)
+        del table
+        part("d")
+        fleet = fleet_path(dev, booster, Xv, card)
+        part("c")
+        try:
+            out["online"] = online_path(dev, fleet, workdir, card)
+        finally:
+            t = time.perf_counter()
+            stop_fleet(fleet)
+            log(f"  the fleet stopped in {time.perf_counter() - t:.2f}s")
+        part("e")
+        ok = True
+    finally:
+        if "ranks" in held:
+            _stop_ranks(workdir, held["ranks"], ok)
+        cpu[0].join(timeout=FABRIC_WAIT_S)
+        if cpu[0].is_alive():
+            cpu[0].terminate()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="rows of the HIGGS-shaped table (HIGGS: 11,000,000)")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21),
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22),
                     default=None,
                     help="build the kernels and run only this phase (no "
                     "kernels or result line)")
@@ -7076,6 +8305,12 @@ def main() -> int:
         pipeline_path(dev)
         phase(0)
         return 0
+    if args.phase == 22:
+        phase(22, "the serving fabric, VW and the online loop alone")
+        fabric_online_path(dev, card=card)
+        phase(0)
+        log(f"  seconds by phase {json.dumps(seconds)}")
+        return 0
 
     phase(2, f"kernels against their plain versions, n={args.rows}")
     kernels = kernel_phase(args.rows, dev)
@@ -7127,6 +8362,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     surface = surface_path(args.rows, dev)
     served = dict(booster=surface["leafwise"]["booster"], Xv=surface["Xv"])
+    fabric_served = dict(served)           # phase 22 serves it again
     del surface
     phase(13, f"sampling: bagging, GOSS, DART, RF, per-node feature "
         f"fractions and monotone constraints, {SAMPLING_ITERS} iterations "
@@ -7141,8 +8377,9 @@ def main() -> int:
         f"behind the HTTP server with phase 14's model, {SERVE_CLIENTS} "
         f"clients, a hot swap to phase 3's model")
     torch.cuda.empty_cache()
-    serving_path(dev, served["booster"], served["Xv"], categorical["model"],
-                 categorical["Xc"], main["booster"])
+    single = serving_path(dev, served["booster"], served["Xv"],
+                          categorical["model"], categorical["Xc"],
+                          main["booster"])["load"]
     phase(16, f"DL training state: {VISION_BACKBONE} at {VISION_SIZE}x"
         f"{VISION_SIZE}, checkpoints, resume, non-finite policies, msgpack, "
         f"{STATE_RANKS} ranks replicated and ZeRO")
@@ -7176,6 +8413,15 @@ def main() -> int:
           "kills and resumes")
     torch.cuda.empty_cache()
     pipe_launches = pipeline_path(dev)
+    phase(22, f"the serving fabric, VW and the online loop: phase 12's "
+          f"classifier behind DistributedServingServer on {FABRIC_RANKS} "
+          f"processes, federated gateways, three tenants with a flood, VW on "
+          f"a {CRITEO_ROWS}-row Criteo-shaped table at {CRITEO_BITS} bits, "
+          "the online loop with a gated broadcast and a kill")
+    torch.cuda.empty_cache()
+    fabric_online_path(dev, fabric_served["booster"], fabric_served["Xv"],
+                       card, single)
+    del fabric_served
     phase(0)
     log(f"  seconds by phase {json.dumps(seconds)}")
     log(f"  launches on phase 20's paths: {json.dumps(across['launches'])}")

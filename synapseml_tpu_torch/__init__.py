@@ -18,8 +18,12 @@ and vision estimators: ``DeepTextClassifier`` through those kernels,
 on cuDNN, outside any TPU kernel in the JAX package too). And the serving
 layer: ``Booster.serving_fn`` through the bucketed runner, one captured
 CUDA graph per batch bucket, behind the micro-batching HTTP server with hot
-swap, tenants and deadlines. And ONNX inference: ``ONNXModel`` scores an
-ONNX graph's ops as PyTorch calls inside those captured graphs.
+swap, tenants and deadlines, and the fabric in front of it: gateways with
+membership, routing, failover and federation, workers in every process
+of a ``torch.distributed`` world, the promotion broadcast. And ONNX
+inference: ``ONNXModel`` scores an ONNX graph's ops as PyTorch calls
+inside those captured graphs. And VW's hashed linear learners on the
+card, and the online bandit loop around them.
 
 Every public entry point takes ``device`` (default ``"cuda"``). A CUDA
 tensor goes through the hand-written kernel or the call raises; the plain
@@ -34,13 +38,20 @@ PyTorch version of a kernel runs only for tensors on the CPU.
   models/   — LightGBMClassifier / LightGBMClassificationModel
   parallel/ — meshes over torch.distributed, seq-axis collectives, ring and
               Ulysses attention
-  io/       — the micro-batching HTTP server, its model registry and CLI
+  io/       — the micro-batching HTTP server, its model registry and CLI,
+              the serving fabric (gateways, agents, supervisor, broadcast)
   dl/       — flax's layers, ResNets, transformer units, the text encoder,
               the trainer and the text and vision estimators
   onnx/     — the ONNX protobuf reader, the 135-op executor, ONNXModel on
               the runner's CUDA graphs, ImageFeaturizer, the hub, the
               booster's TreeEnsemble export
-  convert   — carry a JAX-trained booster or flax variables across
+  vw/       — VW hashing, featurizers, the learner, estimators, policy
+              evaluation
+  online/   — the feedback log, learner loop, policy, promotion gate and
+              streaming anomaly loop
+  testing/  — the fault injectors the fabric and online scenarios drive
+  convert   — carry a JAX-trained booster, flax variables or a VW state
+              across
 """
 
 __version__ = "0.1.0"

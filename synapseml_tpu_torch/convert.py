@@ -46,6 +46,14 @@ across: the parameters and batch statistics as a ``state_dict`` and the
 optax optimizer state as its flax state dict of numpy arrays, which
 ``dl.trainer.Trainer.load_params(..., opt_state=...)`` loads (the port's
 ``Optimizer.state_dict`` keeps optax's layout).
+
+``vw_state_arrays`` reads a VW learner state off either package's
+``VWState`` as its seven fields (``weights``, ``acc``, ``bias``,
+``bias_acc``, ``t``, ``loss_sum``, ``weight_sum``: float32 numpy arrays, the
+scalars 0-d) and ``vw_state_from_reference`` builds this package's
+``VWState`` from them on a device. Both packages' ``VWState.to_bytes`` write
+the same npz layout, so a snapshot either one saved through
+``save_to_store`` loads in the other.
 """
 
 from __future__ import annotations
@@ -250,3 +258,26 @@ def trainer_state_from_reference(params, batch_stats=None, opt_state=None
     opt = None if opt_state is None else \
         _numpy_leaves(to_state_dict(opt_state))
     return sd, opt
+
+
+def vw_state_arrays(state) -> Dict[str, np.ndarray]:
+    """The seven fields of either package's ``VWState`` as float32 numpy
+    arrays (it only reads attributes)."""
+    from .vw.learner import VWState
+
+    out = {}
+    for k in VWState._FIELDS:
+        v = getattr(state, k)
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        out[k] = np.asarray(v, np.float32)
+    return out
+
+
+def vw_state_from_reference(arrays: Dict[str, np.ndarray],
+                            device=DEFAULT_DEVICE):
+    """This package's ``VWState`` on ``device`` from ``vw_state_arrays``'s
+    fields (e.g. of a JAX-trained state)."""
+    from .vw.learner import VWState
+
+    return VWState.from_arrays(arrays, device)

@@ -30,6 +30,25 @@ from .logging import (  # noqa: F401
     InstrumentationMeasures,
     StopWatch,
     SynapseMLLogging,
+    failure_counts,
+    record_failure,
+    reset_failure_counts,
+)
+from .checkpoint import (  # noqa: F401
+    Checkpoint,
+    CheckpointError,
+    CheckpointStore,
+    NonFiniteGuard,
+    NonFiniteLossError,
+    PreemptionError,
+    atomic_write_bytes,
+    atomic_write_text,
+    preemption_point,
+)
+from .gossip import (  # noqa: F401
+    ConsistentHashRing,
+    GossipEntry,
+    GossipState,
 )
 from .qos import (  # noqa: F401
     BudgetLeaseLedger,

@@ -4,12 +4,12 @@ tenants, deadlines and its CLI (``serving_main.py``); and the ingestion
 layer of the streamed GBDT (``ingest.py``): the chunk pump, the pinned
 host → card stager, the chunk geometry and the disk chunk source.
 
-The JAX package's distributed serving (``io/distributed_serving.py``: the
-forwarding gateway, worker agents, the fabric supervisor and the promotion
-broadcast) is not ported yet; its names are here and raise
-``NotImplementedError`` naming themselves. The HTTP client layer, the
-binary and image datasources and the Power BI writer are not ported
-either.
+The fabric (``distributed_serving.py``): the forwarding gateway with its
+membership, routing, failover and gossip-replicated control plane,
+``federate`` for peer gateways, the worker agents, the fabric supervisor,
+the two-phase promotion broadcast and ``DistributedServingServer`` over
+the processes of a ``torch.distributed`` world. The HTTP client layer, the
+binary and image datasources and the Power BI writer are not ported.
 """
 
 from .ingest import (ChunkPump, ChunkStreamError,  # noqa: F401
@@ -18,24 +18,7 @@ from .ingest import (ChunkPump, ChunkStreamError,  # noqa: F401
                      stream_chunk_rows, stream_depth)
 from .serving import (ModelRegistry, ServingServer, SwapError,  # noqa: F401
                       request_to_table, respond_with)
-
-
-def _unported(name: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} (io/distributed_serving.py) is not ported to the "
-            "PyTorch package yet")
-
-    refuse.__name__ = refuse.__qualname__ = name
-    return refuse
-
-
-ServingGateway = _unported("ServingGateway")
-WorkerAgent = _unported("WorkerAgent")
-FabricSupervisor = _unported("FabricSupervisor")
-PromotionBroadcast = _unported("PromotionBroadcast")
-DistributedServingServer = _unported("DistributedServingServer")
-federate = _unported("federate")
-
-UNPORTED = ("ServingGateway", "WorkerAgent", "FabricSupervisor",
-            "PromotionBroadcast", "DistributedServingServer", "federate")
+from .distributed_serving import (BroadcastError,  # noqa: F401
+                                  CoordinatorDied, DistributedServingServer,
+                                  FabricSupervisor, PromotionBroadcast,
+                                  ServingGateway, WorkerAgent, federate)

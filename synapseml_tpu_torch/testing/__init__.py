@@ -1,0 +1,18 @@
+"""Fault injection for the port's fabric and online loop (``chaos.py``).
+
+The JAX package's stage fuzzing, tolerance-CSV benchmarks, the HTTP-opener
+and collective injectors, and the lock and dtype witnesses are not ported.
+"""
+
+from .chaos import (ChaosPreemption, ChaosSchedule, ChaosSwap,  # noqa: F401
+                    FaultInjected, FlakyHTTPServer, bit_flip,
+                    chaos_control_plane_partition, chaos_heartbeat_partition,
+                    chaos_reward_stream, chaos_tenant_flood, kill_gateway,
+                    kill_worker, torn_write)
+
+__all__ = [
+    "ChaosPreemption", "ChaosSchedule", "ChaosSwap", "FaultInjected",
+    "FlakyHTTPServer", "bit_flip", "chaos_control_plane_partition",
+    "chaos_heartbeat_partition", "chaos_reward_stream", "chaos_tenant_flood",
+    "kill_gateway", "kill_worker", "torn_write",
+]

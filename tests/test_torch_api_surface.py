@@ -3,9 +3,10 @@ defaults of ``TrainConfig`` and ``BoosterConfig``, the arguments of
 ``train_booster``, ``Dataset`` and every public ``Booster`` method, the
 public names of ``Booster`` and ``Dataset``, and the params of the GBDT and
 DL estimators, the serving layer's classes (``BucketedRunner``,
-``ServingServer``, ``ModelRegistry``, ``QoSController``) and the ONNX
+``ServingServer``, ``ModelRegistry``, ``QoSController``), the ONNX
 package (``OnnxFunction``, ``ONNXModel``, ``ImageFeaturizer``, ``ONNXHub``
-and the op registry's 135 names). A name of the JAX
+and the op registry's 135 names), and the fabric, VW and online-loop
+modules with the VW estimators' params. A name of the JAX
 package is either ported or declared here as unported, and every unported
 name raises ``NotImplementedError`` naming itself (never ``TypeError`` or
 ``AttributeError``), so the gap cannot reopen unseen. Then the scoring arguments ported by name: ``binned``,
@@ -36,6 +37,7 @@ from synapseml_tpu.ops import quantize as jquantize
 from synapseml_tpu.io import serving as jserving
 from synapseml_tpu.io import serving_main as jserving_main
 from synapseml_tpu.models import gbdt as jmodels
+from synapseml_tpu import vw as jvw
 
 from synapseml_tpu_torch import io as tio
 from synapseml_tpu_torch.convert import booster_arrays, booster_from_reference
@@ -51,6 +53,7 @@ from synapseml_tpu_torch.io import ingest as tingest
 from synapseml_tpu_torch.io import serving as tserving
 from synapseml_tpu_torch.io import serving_main as tserving_main
 from synapseml_tpu_torch.models import gbdt as tmodels
+from synapseml_tpu_torch import vw as tvw
 from synapseml_tpu_torch.ops import quantize as tq
 from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)
 
@@ -363,7 +366,6 @@ def boosters():
 def test_unported_names_raise_naming_themselves(boosters):
     X, _, tb = boosters
     for name, call in (
-            ("ServingGateway", lambda: tio.ServingGateway()),
             ("hfModel", lambda: ttext.DeepTextModel(hfModel=object())),
             ("hfTokenizer", lambda: ttext.DeepTextModel(
                 hfTokenizer=object()))):
@@ -381,7 +383,15 @@ def test_unported_names_raise_naming_themselves(boosters):
     (jtext.DeepTextClassifier, ttext.DeepTextClassifier, set()),
     (jtext.DeepTextModel, ttext.DeepTextModel, set()),
     (jvision.DeepVisionClassifier, tvision.DeepVisionClassifier, set()),
-    (jvision.DeepVisionModel, tvision.DeepVisionModel, set())])
+    (jvision.DeepVisionModel, tvision.DeepVisionModel, set())] + [
+    (getattr(jvw, n), getattr(tvw, n), set()) for n in (
+        "VowpalWabbitClassifier", "VowpalWabbitClassificationModel",
+        "VowpalWabbitRegressor", "VowpalWabbitRegressionModel",
+        "VowpalWabbitGeneric", "VowpalWabbitGenericModel",
+        "VowpalWabbitGenericProgressive", "VowpalWabbitContextualBandit",
+        "VowpalWabbitContextualBanditModel", "VowpalWabbitFeaturizer",
+        "VowpalWabbitInteractions", "VowpalWabbitDSJsonTransformer",
+        "VowpalWabbitCSETransformer")])
 def test_estimator_params_are_ported_or_refused_by_name(jcls, tcls,
                                                         unported):
     assert set(jcls()._params) - set(tcls()._params) == unported
@@ -494,13 +504,110 @@ def test_serving_main_takes_every_reference_flag():
     assert flags(jserving_main) - flags(tserving_main) == set()
 
 
-def test_unported_distributed_serving_names_raise_naming_themselves():
-    from synapseml_tpu.io import distributed_serving as jdist
+# the JAX names of the fabric, VW and the online loop that the port refuses
+# by name (each raises NotImplementedError naming itself): the anomaly
+# adapters of the detectors that are not ported yet
+UNPORTED_ONLINE = {"iforest_stream_scorer", "access_anomaly_stream_scorer"}
 
-    for name in tio.UNPORTED:
-        assert hasattr(jdist, name)
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(tio, name)()
+
+def _module_names(mod) -> set:
+    return {n for n, v in vars(mod).items() if not n.startswith("_")
+            and callable(v) and getattr(v, "__module__", "") == mod.__name__}
+
+
+@pytest.mark.parametrize("name", [
+    "core.gossip", "io.distributed_serving", "vw.hashing", "vw.featurizer",
+    "vw.learner", "vw.estimators", "vw.textparse", "vw.policyeval",
+    "online.feedback", "online.loop", "online.policy", "online.promotion",
+    "online.anomaly"])
+def test_fabric_vw_and_online_names_take_every_reference_argument(name):
+    """Every public function and class of the JAX package's fabric
+    (once refused by name), VW and online-loop modules is in the port's
+    module, taking every reference argument (the port's entry points add
+    ``device``), its classes with every public method; the anomaly
+    adapters of unported detectors refuse by name."""
+    import importlib
+
+    jmod = importlib.import_module(f"synapseml_tpu.{name}")
+    tmod = importlib.import_module(f"synapseml_tpu_torch.{name}")
+    names = _module_names(jmod)
+    assert names - set(vars(tmod)) == set()
+    for n in sorted(names):
+        jobj, tobj = getattr(jmod, n), getattr(tmod, n)
+        if n in UNPORTED_ONLINE:
+            with pytest.raises(NotImplementedError, match=n):
+                tobj(object())
+        if inspect.isclass(jobj):
+            assert inspect.isclass(tobj), n
+            if issubclass(jobj, BaseException):
+                assert issubclass(tobj, BaseException), n
+                continue
+            if jobj.__init__ is not object.__init__:
+                assert _args(jobj.__init__) - _args(tobj.__init__) == set(), n
+            assert _public(jobj) - _public(tobj) == set(), n
+            for meth in sorted(_public(jobj)):
+                jattr = inspect.getattr_static(jobj, meth)
+                if isinstance(jattr, property) or not callable(
+                        getattr(jobj, meth)):
+                    continue
+                assert _args(getattr(jobj, meth)) \
+                    - _args(getattr(tobj, meth)) == set(), (n, meth)
+        else:
+            assert _args(jobj) - _args(tobj) == set(), n
+
+
+@pytest.mark.parametrize("pkg", ["io", "vw", "online", "core"])
+def test_package_exports_hold_the_references(pkg):
+    """The port's ``io`` exports the working fabric names (``UNPORTED`` is
+    gone), and ``vw`` / ``online`` / ``core`` export every name the JAX
+    packages' ``__init__`` exports from those modules."""
+    import importlib
+
+    jpkg = importlib.import_module(f"synapseml_tpu.{pkg}")
+    tpkg = importlib.import_module(f"synapseml_tpu_torch.{pkg}")
+    if pkg == "io":
+        want = {"ServingGateway", "WorkerAgent", "FabricSupervisor",
+                "PromotionBroadcast", "DistributedServingServer", "federate",
+                "BroadcastError", "CoordinatorDied"}
+        assert not hasattr(tpkg, "UNPORTED")
+        for n in want:
+            assert getattr(tpkg, n) is getattr(
+                importlib.import_module(
+                    "synapseml_tpu_torch.io.distributed_serving"), n)
+    elif pkg == "core":
+        want = {"ConsistentHashRing", "GossipEntry", "GossipState",
+                "CheckpointStore", "reset_failure_counts", "failure_counts"}
+    else:
+        want = set(jpkg.__all__)
+    assert want <= set(dir(tpkg))
+    if pkg in ("vw", "online"):
+        assert set(tpkg.__all__) == set(jpkg.__all__)
+
+
+def test_distributed_serving_server_takes_the_reference_arguments():
+    """``DistributedServingServer`` and ``federate``, once refused by name,
+    take the JAX package's arguments and run in one process (the fallback:
+    one worker, its gateway and agent)."""
+    import urllib.request
+
+    from synapseml_tpu.io import distributed_serving as jdist
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.io import distributed_serving as tdist
+
+    assert _args(jdist.DistributedServingServer.__init__) \
+        == _args(tdist.DistributedServingServer.__init__)
+    assert _args(jdist.federate) == _args(tdist.federate)
+
+    def handler(df):
+        return Table({"id": df["id"], "reply": df["value"]})
+
+    with tdist.DistributedServingServer(handler) as dss:
+        assert dss.gateway is not None and dss.agent is not None
+        req = urllib.request.Request(dss.url, data=b"5", method="POST",
+                                     headers={"Content-Type":
+                                              "application/json"})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            assert r.status == 200 and r.read() == b"5"
 
 
 # ---------------------------------------------------------------------------

@@ -455,7 +455,10 @@ def test_import_leaves_jax_out():
             "synapseml_tpu_torch.io.serving, "
             "synapseml_tpu_torch.io.serving_main, "
             "synapseml_tpu_torch.io.ingest, synapseml_tpu_torch.gbdt.stream, "
-            "synapseml_tpu_torch.onnx, synapseml_tpu_torch.onnx.treeensemble; "
+            "synapseml_tpu_torch.onnx, synapseml_tpu_torch.onnx.treeensemble, "
+            "synapseml_tpu_torch.io.distributed_serving, "
+            "synapseml_tpu_torch.core.gossip, synapseml_tpu_torch.testing, "
+            "synapseml_tpu_torch.vw, synapseml_tpu_torch.online; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'synapseml_tpu' or m.startswith("
             "'synapseml_tpu.')]; print(bad); sys.exit(1 if bad else 0)")

@@ -655,13 +655,42 @@ def test_build_handler_replies_as_transform(saved_models, name):
     assert classes == want["prediction"].tolist()
 
 
-def test_main_refuses_the_gateway_flags_by_name():
-    for argv, flag in ((["--gateway-workers", "http://x:1"],
-                        "--gateway-workers"),
-                       (["--model", "m", "--lb-mode", "round_robin"],
-                        "--lb-mode")):
-        with pytest.raises(NotImplementedError, match=flag):
-            serving_main.main(argv)
+def test_main_gateway_workers_serves_on_the_cpu():
+    """``--gateway-workers`` (once refused by name) starts a gateway over
+    the given worker URLs: the CLI in a subprocess forwards requests to two
+    CPU workers round robin, and exits 0 on SIGTERM."""
+    def echo(df):
+        return df.with_column("reply", df["value"])
+
+    with tserving.ServingServer(echo, port=0, max_batch_latency=0.0) as w1, \
+            tserving.ServingServer(echo, port=0,
+                                   max_batch_latency=0.0) as w2:
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "synapseml_tpu_torch.io.serving_main",
+             "--gateway-workers", f"{w1.url},{w2.url}", "--host",
+             "127.0.0.1", "--port", "0", "--lb-mode", "round_robin"],
+            cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                line = pool.submit(proc.stdout.readline).result(timeout=120)
+            assert line.startswith("gateway → 2 workers at "
+                                   "http://127.0.0.1:"), \
+                line + proc.stderr.read()
+            url = line.split(" at ")[1].strip()
+            got = [_post(url, i) for i in range(6)]
+            assert [(s, b) for s, b, _ in got] == [(200, i) for i in range(6)]
+            served = [w.metrics.snapshot()["completed"] for w in (w1, w2)]
+            assert served == [3, 3]
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=HTTP_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=HTTP_TIMEOUT)
+        assert proc.returncode == 0
 
 
 def test_main_serves_a_saved_model_on_the_cpu(saved_models):
