@@ -307,8 +307,9 @@ Phases, each of which fails the run if it fails:
    against ``predict`` on 100k rows (2e-4 / 2e-5). No kernel of ours runs
    here (the JAX package's ONNX ops are plain ``jnp``). ``--phase 18``
    builds the kernels and runs it alone (a small booster trained first).
-19. out-of-core GBDT at HIGGS's size: a seeded generator of HIGGS-shaped
-   chunks (``higgs_like`` per 1M-row chunk; 11,000,000 rows, the raw
+19. out-of-core GBDT: a seeded generator of HIGGS-shaped chunks
+   (``higgs_like`` per 1M-row chunk; 5,500,000 rows, half of HIGGS's
+   11,000,000 since phase 23 was added, the raw
    floats never whole) into ``StreamedDataset``: the sketch over a
    150k-row prefix byte for byte ``compute_bin_mapper``'s, then the
    sketch pass and the bin-and-cache pass (seconds, host cache bytes, the
@@ -323,7 +324,7 @@ Phases, each of which fails the run if it fails:
    fit, histogram kernel ms per iteration and peak memory logged. Checks on a 500k-row held-out stream from a second
    seed: resident mode's AUC within 1e-3 of the streamed fit's and its
    peak memory above the streamed peak; the resident ``train_booster`` on
-   the same 11M rows and the sketch's boundaries within 1e-3 of the
+   the same rows and the sketch's boundaries within 1e-3 of the
    streamed AUC (the classic ``LightGBMClassifier`` on its own 200k-row bin
    sample is fitted and logged beside it, fit s and AUC: two bin samples
    alone move the AUC by more than 1e-3); the streamed fit at 100k rows, 3
@@ -334,7 +335,7 @@ Phases, each of which fails the run if it fails:
    (binned once, held-out rows phase 17's 200k): each stable-partition
    primitive (``sort``, ``sort32``, ``scan``, ``scatter``) exactly
    ``torch.argsort(stable=True)``'s source indices on 2M random keys in
-   {-1, 0, 1, 2} (ms each logged); then ``train_booster`` leaf-wise (10
+   {-1, 0, 1, 2} (ms each logged); then ``train_booster`` leaf-wise (5
    iterations, 31 leaves, 255 bins) with ``row_layout`` partition, gather
    and masked, ``partition_impl`` sort32, scan and scatter, and partition
    with ``use_segmented=False``: fit s, histogram kernel ms per iteration
@@ -346,7 +347,7 @@ Phases, each of which fails the run if it fails:
    multi-process contract: two processes join through
    ``initialize_distributed`` (a ``TCPStore`` on localhost) and share the
    card, each passing only its own half of the table to
-   ``train_booster(mesh=...)``, leaf-wise and depthwise, 10 iterations,
+   ``train_booster(mesh=...)``, leaf-wise and depthwise, 5 iterations,
    the f32 wire: model strings equal across the ranks, each rank's mapper
    the gathered sample's, held-out probabilities within 5e-3 of the
    one-process fit on that mapper; each rank's ``referenceDataset`` span
@@ -354,7 +355,7 @@ Phases, each of which fails the run if it fails:
    logged. (c) Phase 19's stream over a mesh of two gloo ranks sharing the
    card (each rank sketches the whole stream, bins, caches and streams its
    half of every 1M-row chunk): ``train_booster_streamed(mesh=...)``
-   leaf-wise and depthwise at 11,000,000 rows, leaf-wise with
+   leaf-wise and depthwise over phase 19's rows, leaf-wise with
    ``resident=True``, and the f32, bf16 and int8 wires on the stream's
    first 2,000,000 rows: model strings equal across the ranks; on phase
    19's 500k held-out stream the leaf-wise AUC within 1e-3 of phase 19's
@@ -376,7 +377,7 @@ Phases, each of which fails the run if it fails:
    in one process from the same seeded weights (its BatchNorm statistics
    are the whole batch's, so the maths is the same); then batch 32 in 4
    microbatches under ``fill_drain``, ``overlap`` and ``overlap`` with
-   ZeRO stages, 3 steps each, logging per rank and step the forward,
+   ZeRO stages, 2 steps each, logging per rank and step the forward,
    backward, hop and update ms (CUDA events), hop bytes, the idle share
    between the rank's stage programs (against the analytic bubble
    (S-1)/(M+S-1)), images/s and peak memory. (b) the staged encoder at
@@ -394,7 +395,7 @@ Phases, each of which fails the run if it fails:
    ``transfer.hop`` surfaces as ``PeerLostError`` naming the op within
    twice its 1 s budget; the text pipeline killed at epoch 2 resumes
    bitwise on the same mesh; a two-rank GBDT fit (phase 17's table, its
-   first 500,000 rows, 6 iterations) killed at iteration 3 resumes in one
+   first 250,000 rows, 6 iterations) killed at iteration 3 resumes in one
    process within 1e-4 of the uninterrupted fit's raw scores. Every
    failure is collected and raised at the end.
 22. the serving fabric, VW and the online loop (``--phase 22`` alone,
@@ -429,6 +430,36 @@ Phases, each of which fails the run if it fails:
    over HTTP, ``PromotionGate`` with a ``PromotionBroadcast`` flipping
    both workers (ms), and a kill mid-update resumed bitwise under
    ``torch.use_deterministic_algorithms``. No kernel of ours runs here.
+23. anomaly detection, recommendation and nearest neighbours
+   (``--phase 23`` alone), on seeded tables shaped like public ones. (a)
+   ``IsolationForest`` (100 trees of 256 samples, contamination 0.00172)
+   on a table shaped like ULB's credit-card fraud set (284,807 rows x 30
+   features, 492 planted frauds): fit s with the host's tree growth and
+   the card's scoring apart, transform rows/s, the AUC against the planted
+   frauds; the port on the CPU (a spawned process) grows the same forest
+   arrays and scores within 1e-6 (labels equal but within 1e-6 of the
+   threshold); ``iforest_stream_scorer`` in a ``StreamingAnomalyLoop``
+   over 20,000 events at batch 64 (updates/s). (b) ``AccessAnomaly``
+   (rank 10, 25 iterations) on 4 tenants of 5,000 users and 2,000
+   resources in 10 departments, 250,000 accesses each with 1%
+   cross-department accesses planted: fit s per tenant, transform rows/s,
+   the planted share of each tenant's top 1%; explicit mode on tenant 0;
+   tenant 0 against the CPU port in both modes (normalized scores within
+   1e-3, the 1,000 highest scores' sets 99% equal);
+   ``access_anomaly_stream_scorer`` in the loop (updates/s). (c) ``SAR``
+   (jaccard, support 4, decay 30 days) on a MovieLens-10M-shaped log
+   (69,878 users x 10,677 items, 10,000,054 ratings): fit s with the
+   host's matrices and the card's similarity apart, the similarity on 64
+   columns bitwise the float64 counts, ``recommend_for_all_users(10)``
+   users/s, ``recommend_for_user_subset`` of 1,000 users against the CPU
+   port (the same top 10 but at near ties of the 10th and 11th scores),
+   ``transform`` of 1,000,000 pairs, host memory. (d) ``KNN`` (k 10) on a
+   SIFT1M-shaped corpus (1,000,000 x 128 integer-valued keys, 10,000
+   queries): index build s, queries/s brute force and pruned, recall
+   against a float64 host brute force on 256 queries (1.0 but at near
+   ties); ``ConditionalKNN`` with 1,000 labels and 5 a query on 256
+   queries. Every failure is collected and raised at the end. None of the
+   five kernels runs here (products, gathers and sorts of PyTorch).
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 21's
@@ -706,10 +737,11 @@ ONNX_FIXTURE_TOL = (2e-3, 2e-4)    # tests/test_onnx_thirdparty.py:65
 ONNX_TREE_TOL = (2e-4, 2e-5)       # tests/test_onnx_treeensemble.py:48
 ONNX_TREE_ROWS = 100_000
 ONNX_TREE_BATCH = 4096
-# phase 19: the streamed GBDT over HIGGS's 11,000,000 rows (its published
-# train split; the last 500,000 of its rows are its test set, drawn here
-# from a second seed)
-STREAM_ROWS = 11_000_000
+# phase 19: the streamed GBDT over HIGGS-shaped rows, half of HIGGS's
+# 11,000,000-row published train split since phase 23 was added (the
+# script's depth cut; the last 500,000 of its rows are its test set, drawn
+# here from a second seed)
+STREAM_ROWS = 5_500_000
 STREAM_VALID_ROWS = 500_000
 STREAM_SOURCE_ROWS = 1_000_000   # rows per generated source chunk
 STREAM_SEED, STREAM_VALID_SEED, STREAM_CROSS_SEED = 19, 20, 21
@@ -722,7 +754,7 @@ STREAM_PREDICT_TOL = 1e-5
 # phase 20: GBDT across ranks and layouts. (a) every leaf-wise hot-loop
 # design on phase 3's table; (b) the multi-process contract, two ranks each
 # passing its half of it; (c) phase 19's stream over a mesh of two ranks
-LAYOUT_ITERS = 10
+LAYOUT_ITERS = 5                 # 10 before phase 23 was added
 LAYOUT_RUNS = (
     ("partition", {}),
     ("gather", dict(row_layout="gather")),
@@ -733,16 +765,16 @@ LAYOUT_RUNS = (
     ("unsegmented", dict(use_segmented=False)))
 LAYOUT_AUC_TOL = 1e-3
 PARTITION_KEYS = 2_000_000
-MP_RANKS, MP_ITERS = 2, 10
+MP_RANKS, MP_ITERS = 2, 5          # 10 before phase 23 was added
 MESH_RANKS = 2
 MESH_LOSSY_ROWS = 2_000_000      # the lossy wires' prefix of the stream
 # the prefix's chunk rows, fixed (the probe picks the same on the card) so
 # that tools/stream_mesh_reference_auc.py sums in the same order
 MESH_CHUNK_ROWS = 1 << 20
 # phase 19's leaf-wise streamed AUC on its held-out stream as phase 19
-# reads it on an H100 80GB HBM3 (700 W); the reference when phase 20 runs
-# alone
-STREAM_REFERENCE_AUC = 0.941957
+# reads it at STREAM_ROWS on an H100 80GB HBM3 (700 W); the reference when
+# phase 20 runs alone
+STREAM_REFERENCE_AUC = 0.945490
 # the JAX package's held-out AUC of each wire, mesh-streamed on the
 # prefix (the CPU, two virtual devices: tools/stream_mesh_reference_auc.py),
 # by MESH_LOSSY_ROWS, logged beside the card's. The table's first split is
@@ -765,7 +797,8 @@ _MESH_SETTINGS = ("STREAM_ROWS", "STREAM_VALID_ROWS", "STREAM_SOURCE_ROWS",
 # each): the parity fit (M = 1, fill-drain, its BatchNorm statistics the
 # whole batch's) against the same model's replicated Trainer, then timed
 # fits at M = 4 under each schedule
-PIPE_RANKS, PIPE_BATCH, PIPE_MICRO, PIPE_STEPS = 2, 32, 4, 3
+# PIPE_STEPS 3 before phase 23 was added
+PIPE_RANKS, PIPE_BATCH, PIPE_MICRO, PIPE_STEPS = 2, 32, 4, 2
 PIPE_PARITY_STEPS, PIPE_PARITY_TOL = 2, 1e-4
 PIPE_RUNS = (("fill_drain", {}),
              ("overlap", dict(pipeline_schedule="overlap")),
@@ -781,7 +814,8 @@ PIPE_TEXT_STEPS, PIPE_TEXT_TOL = 2, 2e-4
 # (c) elastic: the hang's watchdog budget, and the GBDT killed on two ranks
 # at an iteration and resumed in one process (phase 17's table, cut)
 PIPE_HANG_BUDGET_S = 1.0
-PIPE_GBDT_ROWS, PIPE_GBDT_ITERS, PIPE_GBDT_KILL = 500_000, 6, 3
+# (500,000 rows before phase 23 was added)
+PIPE_GBDT_ROWS, PIPE_GBDT_ITERS, PIPE_GBDT_KILL = 250_000, 6, 3
 PIPE_GBDT_TOL = 1e-4
 _PIPE_SETTINGS = ("VISION_SIZE", "VISION_CLASSES", "VISION_SIDE",
                   "PIPE_BATCH", "PIPE_MICRO", "PIPE_STEPS",
@@ -5790,7 +5824,7 @@ def onnx_path(dev: str, booster=None, card: str = "") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 19: the streamed (out-of-core) GBDT at HIGGS's 11M rows
+# phase 19: the streamed (out-of-core) GBDT on HIGGS-shaped rows
 # ---------------------------------------------------------------------------
 
 def stream_source(rows: int, seed: int, chunk_rows: int = None):
@@ -8233,11 +8267,763 @@ def fabric_online_path(dev: str, booster=None, Xv=None, card: str = "",
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: anomaly detection, recommendation and nearest neighbours
+# ---------------------------------------------------------------------------
+
+# Shapes of public tables (no data is read; every table is made from a seed).
+# (a) ULB's "Credit Card Fraud Detection" (Kaggle mlg-ulb/creditcardfraud):
+# 284,807 transactions x 30 features (Time, the PCA components V1-V28,
+# Amount), 492 frauds (0.172%); the isolation forest at LinkedIn's defaults
+# (100 trees of 256 samples) with the frauds' share as contamination
+CREDIT_ROWS, CREDIT_FEATURES, CREDIT_FRAUDS = 284_807, 30, 492
+IFOREST = dict(numEstimators=100, maxSamples=256.0, contamination=0.00172,
+               randomSeed=1)
+# card against the port on the CPU: scores within IFOREST_TOL, labels equal
+# but for rows within IFOREST_TOL of the threshold
+IFOREST_TOL = 1e-6
+# the online loop over ANOMALY_EVENTS events in micro-batches of
+# ANOMALY_BATCH
+ANOMALY_EVENTS, ANOMALY_BATCH = 20_000, 64
+# (b) access logs in tests/test_cyber.py's group pattern (each department's
+# users reach their own resource group), cross-department accesses planted
+ACCESS_TENANTS, ACCESS_USERS, ACCESS_RES, ACCESS_DEPTS = 4, 5_000, 2_000, 10
+ACCESS_ROWS, ACCESS_CROSS = 250_000, 0.01
+ACCESS = dict(rankParam=10, maxIter=25)
+# card against CPU on tenant 0: normalized scores within ACCESS_SCORE_TOL,
+# the ACCESS_TOP highest scores' sets at least ACCESS_TOP_AGREE equal
+ACCESS_SCORE_TOL, ACCESS_TOP, ACCESS_TOP_AGREE = 1e-3, 1_000, 0.99
+# (c) GroupLens MovieLens-10M (ML-10M100K): 69,878 users x 10,677 items,
+# 10,000,054 ratings of 0.5-5 in halves from 1995-01-09 to 2009-01-05,
+# every user with at least 20; item popularity from a power law. SAR as
+# its documentation's example configures it
+ML_USERS, ML_ITEMS, ML_RATINGS, ML_MIN_PER_USER = 69_878, 10_677, \
+    10_000_054, 20
+ML_T0, ML_T1 = 789_609_600, 1_231_113_600        # epoch seconds
+SAR_PARAMS = dict(similarityFunction="jaccard", supportThreshold=4,
+                  timeDecayCoeff=30)
+# top-SAR_K of SAR_SUBSET users against the CPU port (equal but where the
+# 10th and 11th scores lie within SAR_TIE_RTOL); SAR_CHECK_COLS similarity
+# columns against float64 counts; transform of SAR_PAIRS pairs
+SAR_K, SAR_SUBSET, SAR_TIE_RTOL = 10, 1_000, 1e-5
+SAR_CHECK_COLS, SAR_PAIRS = 64, 1_000_000
+# (d) texmex ANN_SIFT1M: 1,000,000 base vectors x 128, integer-valued
+# 0-255, 10,000 queries; k = 10. Against a float64 host brute force on
+# KNN_CHECK queries: recall 1.0 but at near ties (the 10th and 11th inner
+# products within KNN_TIE_RTOL). ConditionalKNN: KNN_LABELS labels,
+# KNN_COND labels a query, KNN_CHECK queries
+SIFT_BASE, SIFT_DIM, SIFT_QUERIES = 1_000_000, 128, 10_000
+KNN_K, KNN_CHECK, KNN_TIE_RTOL = 10, 256, 1e-5
+KNN_LABELS, KNN_COND = 1_000, 5
+# the CPU port's runs of (a) and (b) in a spawned process beside the card's
+ANALYTICS_CPU_THREADS = 4
+ANALYTICS_WAIT_S = 600.0
+_ANALYTICS_SETTINGS = ("CREDIT_ROWS", "CREDIT_FRAUDS", "IFOREST",
+                       "ACCESS_TENANTS", "ACCESS_USERS", "ACCESS_RES",
+                       "ACCESS_DEPTS", "ACCESS_ROWS", "ACCESS_CROSS",
+                       "ACCESS", "ANALYTICS_CPU_THREADS")
+
+
+def credit_like(rows: int, frauds: int, seed: int = 0):
+    """A credit-card-shaped table: Time (seconds over two days, sorted),
+    V1-V28 (normal, standard deviations falling from 2 to 0.3 as PCA
+    components' do), Amount (log-normal, cents); ``frauds`` rows planted
+    off the bulk, shifted 3-6 standard deviations in V1-V14 and with larger
+    amounts. (X float32 [rows, 30], planted bool [rows])."""
+    rng = np.random.default_rng(seed)
+    X = np.empty((rows, CREDIT_FEATURES), np.float32)
+    X[:, 0] = np.sort(rng.uniform(0.0, 172_792.0, rows))
+    sd = np.linspace(2.0, 0.3, 28)
+    X[:, 1:29] = rng.normal(size=(rows, 28)) * sd
+    X[:, 29] = np.round(rng.lognormal(3.0, 1.4, rows), 2)
+    planted = np.zeros(rows, bool)
+    idx = rng.choice(rows, frauds, replace=False)
+    planted[idx] = True
+    sign = np.where(rng.random(14) < 0.5, -1.0, 1.0)
+    X[idx, 1:15] += (sign * sd[:14] * rng.uniform(3.0, 6.0, (frauds, 14))
+                     ).astype(np.float32)
+    X[idx, 29] = np.round(rng.lognormal(5.0, 1.0, frauds), 2)
+    return X, planted
+
+
+def access_log(tenants: int, users: int, res: int, depts: int, rows: int,
+               cross: float, seed: int = 0) -> dict:
+    """Access-log columns (``tenant``, ``user``, ``res``, ``likelihood``
+    accesses a day, and the ``planted`` mask): user u belongs to department
+    u % depts and reaches its department's resource group (res / depts
+    resources), but for a ``cross`` share of planted accesses to another
+    department's group. Each tenant ``rows`` accesses."""
+    rng = np.random.default_rng(seed)
+    per = res // depts
+    cols = {k: [] for k in ("tenant", "user", "res", "likelihood",
+                            "planted")}
+    for t in range(tenants):
+        u = rng.integers(0, users, rows)
+        planted = rng.random(rows) < cross
+        dept = (u % depts + planted * rng.integers(1, depts, rows)) % depts
+        cols["tenant"].append(np.full(rows, t, np.int64))
+        cols["user"].append(u.astype(np.int64))
+        cols["res"].append((dept * per + rng.integers(0, per, rows)
+                            ).astype(np.int64))
+        cols["likelihood"].append(rng.integers(1, 10, rows).astype(
+            np.float64))
+        cols["planted"].append(planted)
+    return {k: np.concatenate(v) for k, v in cols.items()}
+
+
+def movielens_like(users: int, items: int, ratings: int, seed: int = 0
+                   ) -> dict:
+    """Rating-log columns (``user``, ``item``, ``rating`` 0.5-5 in halves,
+    ``time`` epoch seconds in [ML_T0, ML_T1]): every user at least
+    ML_MIN_PER_USER ratings and the rest drawn by a heavy-tailed activity,
+    items by a power law of popularity (exponent 0.9) over a seeded item
+    order, every item rated at least once."""
+    rng = np.random.default_rng(seed)
+    base = np.repeat(np.arange(users, dtype=np.int64),
+                     min(ML_MIN_PER_USER, ratings // max(users, 1)))
+    activity = rng.pareto(1.2, users) + 1.0
+    user = np.concatenate([base, rng.choice(
+        users, ratings - base.size, p=activity / activity.sum())])
+    pop = 1.0 / np.arange(1, items + 1) ** 0.9
+    item = rng.permutation(items)[rng.choice(items, ratings,
+                                             p=pop / pop.sum())]
+    item[:items] = np.arange(items)
+    return {"user": user, "item": item.astype(np.int64),
+            "rating": (rng.integers(1, 11, ratings) / 2.0).astype(np.float32),
+            "time": rng.integers(ML_T0, ML_T1 + 1, ratings).astype(
+                np.int64)}
+
+
+def sift_like(base: int, dim: int, queries: int, seed: int = 0):
+    """SIFT-shaped descriptors: non-negative, heavy-tailed, integer-valued
+    0-255 (so inner products, below 128 x 255^2 < 2^24, are exact in
+    float32), drawn around 256 seeded centres. (keys [base, dim], queries
+    [queries, dim]) float32."""
+    rng = np.random.default_rng(seed)
+    centres = rng.gamma(0.5, 40.0, size=(256, dim)).astype(np.float32)
+    out = np.empty((base + queries, dim), np.float32)
+    step = 1 << 17
+    for s in range(0, base + queries, step):
+        n = min(step, base + queries - s)
+        x = centres[rng.integers(0, 256, n)] * rng.standard_exponential(
+            (n, dim), np.float32)
+        out[s:s + n] = np.clip(np.round(x), 0, 255)
+    return out[:base], out[base:]
+
+
+def _auc64(planted, score) -> float:
+    """AUC of ``score`` against the planted mask, ties counted half
+    (float64 ranks)."""
+    from scipy.stats import rankdata
+
+    planted = np.asarray(planted, bool)
+    r = rankdata(np.asarray(score, np.float64))
+    pos = int(planted.sum())
+    neg = planted.size - pos
+    return float((r[planted].sum() - pos * (pos + 1) / 2) / (pos * neg))
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, dev: str, seconds: list):
+    """Time every call of ``module.name`` (the card synchronized at its
+    end) into ``seconds`` while the block runs."""
+    fn = getattr(module, name)
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        _sync(dev)
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, fn)
+
+
+def _host_rss_gib() -> tuple:
+    """(current, peak) resident memory of this process, GiB."""
+    import resource
+
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    cur = 0.0
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                cur = int(line.split()[1]) / 2 ** 20
+    return cur, peak
+
+
+def _analytics_cpu(out_dir: str, settings: dict) -> None:
+    """The CPU port's (a) and (b) (a spawned process beside the card's
+    work): the forest, its scores and threshold, and tenant 0's implicit
+    and explicit scores, each written whole and then renamed."""
+    sys.path.insert(0, str(REPO))
+    globals().update(settings)
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.cyber import AccessAnomaly
+    from synapseml_tpu_torch.isolationforest import IsolationForest
+
+    torch.set_num_threads(ANALYTICS_CPU_THREADS)
+
+    def put(name: str, **arrays) -> None:
+        tmp = os.path.join(out_dir, f".{name}")
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, os.path.join(out_dir, name))
+
+    X, _ = credit_like(CREDIT_ROWS, CREDIT_FRAUDS)
+    t0 = time.perf_counter()
+    model = IsolationForest(device="cpu", **IFOREST).fit(
+        Table({"features": X}))
+    f = model.get("forest")
+    put("iforest.npz",
+        scores=model.transform(Table({"features": X}))[model.getScoreCol()],
+        threshold=np.float64(f["threshold"]),
+        seconds=np.float64(time.perf_counter() - t0),
+        **{k: f[k] for k in ("feat", "thresh", "left", "plen")})
+    del X
+    t0_table = _access_tenant0()
+    out = {}
+    for mode, implicit in (("implicit", True), ("explicit", False)):
+        t0 = time.perf_counter()
+        m = AccessAnomaly(applyImplicitCf=implicit, device="cpu",
+                          **ACCESS).fit(Table(t0_table))
+        out[mode] = m.transform(Table(t0_table))[m.getOutputCol()]
+        out[f"{mode}_seconds"] = np.float64(time.perf_counter() - t0)
+    put("access.npz", **out)
+
+
+def _access_tenant0() -> dict:
+    """Tenant 0's columns of (b)'s log (no ``planted`` column)."""
+    cols = access_log(ACCESS_TENANTS, ACCESS_USERS, ACCESS_RES,
+                      ACCESS_DEPTS, ACCESS_ROWS, ACCESS_CROSS)
+    sel = cols["tenant"] == 0
+    return {k: v[sel] for k, v in cols.items() if k != "planted"}
+
+
+def start_analytics_cpu():
+    """(a) and (b) on the CPU port in a spawned process: (process, dir)."""
+    out = tempfile.mkdtemp(prefix="analytics_cpu_")
+    ctx = torch.multiprocessing.get_context("spawn")
+    p = ctx.Process(target=_analytics_cpu, args=(
+        out, {k: globals()[k] for k in _ANALYTICS_SETTINGS}))
+    p.start()
+    return p, out
+
+
+def _cpu_result(cpu, name: str) -> dict:
+    """The CPU process's ``name`` (waiting for it up to ANALYTICS_WAIT_S)."""
+    proc, out = cpu
+    path = os.path.join(out, name)
+    deadline = time.monotonic() + ANALYTICS_WAIT_S
+    while not os.path.exists(path):
+        if not proc.is_alive() and not os.path.exists(path):
+            raise AssertionError(f"phase 23: the CPU process ended "
+                                 f"(exit code {proc.exitcode}) without "
+                                 f"{name}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 23: {name} never came")
+        time.sleep(0.05)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _stream_rate(scorer, events: list, dev: str) -> dict:
+    """``events`` through a ``StreamingAnomalyLoop`` scored by ``scorer``
+    at ANOMALY_BATCH: updates/s, events/s, flags."""
+    from synapseml_tpu_torch.online import (StreamingAnomalyLoop,
+                                            anomaly_feedback_log)
+
+    log_ = anomaly_feedback_log(capacity=len(events) + 1,
+                                dedup_window=len(events) + 1)
+    for ev in events:
+        log_.offer(ev)
+    loop = StreamingAnomalyLoop(log_, scorer, batch_size=ANOMALY_BATCH,
+                                window=4096, min_window=256,
+                                contamination=0.01)
+    t = time.perf_counter()
+    loop.run_until_drained()
+    _sync(dev)
+    s = time.perf_counter() - t
+    return {"updates": loop.updates, "scored": loop.scored,
+            "flagged": loop.flagged, "s": s,
+            "updates_per_s": loop.updates / s, "events_per_s": loop.scored / s}
+
+
+def iforest_part(dev: str, cpu, fails: list) -> tuple:
+    """(a): fit (host growth and card scoring timed apart), transform,
+    AUC against the planted frauds, the streaming adapter. Returns the
+    results and the check against the CPU port's forest and scores (run
+    once the CPU process is done)."""
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.isolationforest import IsolationForest
+    from synapseml_tpu_torch.isolationforest import iforest as iforest_mod
+    from synapseml_tpu_torch.online import AnomalyEvent, iforest_stream_scorer
+
+    t = time.perf_counter()
+    X, planted = credit_like(CREDIT_ROWS, CREDIT_FRAUDS)
+    log(f"  (a) credit-card-shaped table {X.shape}, {int(planted.sum())} "
+        f"planted frauds, made in {time.perf_counter() - t:.2f}s")
+    table = Table({"features": X})
+    with timed_calls(iforest_mod, "_score", dev, []) as score_s:
+        t = time.perf_counter()
+        model = IsolationForest(device=dev, **IFOREST).fit(table)
+        fit_s = time.perf_counter() - t
+    t = time.perf_counter()
+    out = model.transform(table)
+    tr_s = time.perf_counter() - t
+    scores = out[model.getScoreCol()]
+    labels = out[model.getPredictionCol()]
+    auc = _auc64(planted, scores)
+    f = model.get("forest")
+    res = {"fit_s": fit_s, "grow_s": fit_s - sum(score_s),
+           "score_s": sum(score_s), "transform_rows_per_s": len(X) / tr_s,
+           "auc": auc, "flagged": int(labels.sum()),
+           "flagged_planted": int(labels[planted].sum())}
+    log(f"    fit {fit_s:.3f}s (host growth {res['grow_s']:.3f}s, card "
+        f"scoring {res['score_s']:.3f}s); transform {tr_s:.3f}s = "
+        f"{res['transform_rows_per_s']:.0f} rows/s; AUC {auc:.6f}; "
+        f"{res['flagged']} flagged, {res['flagged_planted']} of them planted")
+    if not np.isfinite(scores).all() or scores.shape != (len(X),):
+        fails.append("(a) scores not finite or of the wrong shape")
+    if auc < 0.9:
+        fails.append(f"(a) AUC {auc:.4f} below 0.9 on the planted frauds")
+
+    def against_cpu() -> None:
+        ref = _cpu_result(cpu, "iforest.npz")
+        for k in ("feat", "thresh", "left", "plen"):
+            if not np.array_equal(ref[k], f[k]):
+                fails.append(f"(a) the CPU port's forest {k} differs")
+        gap = float(np.abs(ref["scores"] - scores).max())
+        thr = float(ref["threshold"])
+        near = np.abs(ref["scores"] - thr) <= IFOREST_TOL
+        flips = int(((ref["scores"] >= thr) != (labels > 0))[~near].sum())
+        res.update(cpu_gap=gap, cpu_threshold_gap=abs(thr - f["threshold"]),
+                   cpu_label_flips=flips, cpu_fit_s=float(ref["seconds"]))
+        log(f"    (a) card against the CPU port: forest arrays equal, max "
+            f"|score gap| {gap:.3e}, threshold gap "
+            f"{res['cpu_threshold_gap']:.3e}, {flips} labels differ away "
+            f"from the threshold ({int(near.sum())} rows within "
+            f"{IFOREST_TOL} of it); CPU fit + score {ref['seconds']:.2f}s")
+        if gap > IFOREST_TOL or res["cpu_threshold_gap"] > IFOREST_TOL \
+                or flips:
+            fails.append(f"(a) card against CPU: score gap {gap:.3e}, "
+                         f"{flips} label flips")
+
+    events = [AnomalyEvent(key=f"tx{i}", features=X[i % len(X)])
+              for i in range(ANOMALY_EVENTS)]
+    st = _stream_rate(iforest_stream_scorer(model), events, dev)
+    res["stream"] = st
+    log(f"    iforest_stream_scorer: {st['scored']} events in "
+        f"{st['updates']} updates of {ANOMALY_BATCH} in {st['s']:.3f}s = "
+        f"{st['updates_per_s']:.1f} updates/s, {st['events_per_s']:.0f} "
+        f"events/s, {st['flagged']} flagged")
+    if st["scored"] != ANOMALY_EVENTS:
+        fails.append(f"(a) the loop scored {st['scored']} events")
+    return res, against_cpu
+
+
+def access_part(dev: str, cpu, fails: list) -> tuple:
+    """(b): implicit fits of every tenant (seconds each), transform, the
+    planted accesses' share of each tenant's top 1%, explicit mode on
+    tenant 0, the streaming adapter. Returns the results and the check of
+    tenant 0 against the CPU port (run once the CPU process is done)."""
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.cyber import AccessAnomaly
+    from synapseml_tpu_torch.online import (AnomalyEvent,
+                                            access_anomaly_stream_scorer)
+
+    class Timed(AccessAnomaly):
+        """Times each tenant's fit into ``tenant_s``."""
+
+        def _fit_tenant(self, df):
+            t = time.perf_counter()
+            out = super()._fit_tenant(df)
+            self.tenant_s.append(time.perf_counter() - t)
+            return out
+
+    t = time.perf_counter()
+    cols = access_log(ACCESS_TENANTS, ACCESS_USERS, ACCESS_RES, ACCESS_DEPTS,
+                      ACCESS_ROWS, ACCESS_CROSS)
+    planted = cols.pop("planted")
+    table = Table(cols)
+    log(f"  (b) access log: {ACCESS_TENANTS} tenants x {ACCESS_ROWS} "
+        f"accesses ({ACCESS_USERS} users, {ACCESS_RES} resources, "
+        f"{ACCESS_DEPTS} departments), {int(planted.sum())} planted, made "
+        f"in {time.perf_counter() - t:.2f}s")
+    res = {}
+    est = Timed(device=dev, **ACCESS)
+    est.tenant_s = []
+    t = time.perf_counter()
+    model = est.fit(table)
+    res["fit_s"] = time.perf_counter() - t
+    res["tenant_fit_s"] = list(est.tenant_s)
+    t = time.perf_counter()
+    scores = model.transform(table)[model.getOutputCol()]
+    tr_s = time.perf_counter() - t
+    res["transform_rows_per_s"] = len(scores) / tr_s
+    shares = []
+    for ten in range(ACCESS_TENANTS):
+        sel = np.flatnonzero(cols["tenant"] == ten)
+        top = sel[np.argsort(-scores[sel], kind="stable")[:len(sel) // 100]]
+        shares.append(float(planted[top].mean()))
+    res["planted_share_top1pct"] = shares
+    log(f"    implicit fit {res['fit_s']:.3f}s, per tenant "
+        f"{[round(s, 3) for s in est.tenant_s]}s; transform {tr_s:.3f}s = "
+        f"{res['transform_rows_per_s']:.0f} rows/s; planted share of each "
+        f"tenant's top 1%: {[round(s, 4) for s in shares]} (base rate "
+        f"{planted.mean():.4f})")
+    if not np.isfinite(scores).all():
+        fails.append("(b) scores not finite")
+    if min(shares) < 10 * ACCESS_CROSS:
+        fails.append(f"(b) planted share of a top 1% {min(shares):.3f} "
+                     f"below {10 * ACCESS_CROSS}")
+    sel0 = np.flatnonzero(cols["tenant"] == 0)
+    t0_table = Table({k: v[sel0] for k, v in cols.items()})
+    card = {"implicit": scores[sel0]}
+    t = time.perf_counter()
+    ex = AccessAnomaly(applyImplicitCf=False, device=dev, **ACCESS).fit(
+        t0_table)
+    res["explicit_fit_s"] = time.perf_counter() - t
+    card["explicit"] = ex.transform(t0_table)[ex.getOutputCol()]
+    top = np.argsort(-card["explicit"], kind="stable")[:len(sel0) // 100]
+    res["explicit_planted_share_top1pct"] = float(planted[sel0][top].mean())
+    log(f"    explicit fit on tenant 0 {res['explicit_fit_s']:.3f}s; "
+        f"planted share of its top 1% "
+        f"{res['explicit_planted_share_top1pct']:.4f}")
+    def against_cpu() -> None:
+        ref = _cpu_result(cpu, "access.npz")
+        for mode in ("implicit", "explicit"):
+            gap = float(np.abs(ref[mode] - card[mode]).max())
+            a = set(np.argsort(-card[mode], kind="stable")[:ACCESS_TOP])
+            b = set(np.argsort(-ref[mode], kind="stable")[:ACCESS_TOP])
+            agree = len(a & b) / ACCESS_TOP
+            res[f"{mode}_cpu_gap"], res[f"{mode}_top_agree"] = gap, agree
+            log(f"    (b) {mode} card against the CPU port on tenant 0: max "
+                f"|normalized score gap| {gap:.3e}, top {ACCESS_TOP} sets "
+                f"{agree:.4f} equal; CPU fit + transform "
+                f"{float(ref[mode + '_seconds']):.2f}s")
+            if gap > ACCESS_SCORE_TOL or agree < ACCESS_TOP_AGREE:
+                fails.append(f"(b) {mode} card against CPU: gap {gap:.3e},"
+                             f" top-{ACCESS_TOP} agreement {agree:.4f}")
+
+    rows = np.arange(ANOMALY_EVENTS) % len(scores)
+    events = [AnomalyEvent(key=f"acc{i}", features={
+        "tenant": int(cols["tenant"][r]), "user": int(cols["user"][r]),
+        "res": int(cols["res"][r])}) for i, r in enumerate(rows)]
+    st = _stream_rate(access_anomaly_stream_scorer(model), events, dev)
+    res["stream"] = st
+    log(f"    access_anomaly_stream_scorer: {st['scored']} events in "
+        f"{st['updates']} updates in {st['s']:.3f}s = "
+        f"{st['updates_per_s']:.1f} updates/s, {st['events_per_s']:.0f} "
+        f"events/s")
+    if st["scored"] != ANOMALY_EVENTS:
+        fails.append(f"(b) the loop scored {st['scored']} events")
+    return res, against_cpu
+
+
+def _cooccurrence_columns(cols: dict, support: int, check: np.ndarray):
+    """float64 co-occurrence counts C[:, check] and the item supports of
+    the support-filtered 0/1 occurrence matrix, from the rating log on the
+    host (scipy's sparse product: integer sums, exact)."""
+    import scipy.sparse as sp
+
+    users, items = cols["user"], cols["item"]
+    n_u, n_i = int(users.max()) + 1, int(items.max()) + 1
+    occ = sp.csr_matrix((np.ones(len(users)), (users, items)),
+                        shape=(n_u, n_i))
+    occ.data[:] = 1.0                              # duplicates count once
+    diag = np.asarray(occ.sum(axis=0)).ravel()
+    active = diag >= support
+    occ = occ @ sp.diags(active.astype(np.float64))
+    diag = diag * active
+    c = np.asarray((occ.T @ occ[:, check]).todense())
+    return c, diag
+
+
+def sar_part(dev: str, fails: list) -> dict:
+    """(c): fit (host matrices and card similarity timed apart), the
+    similarity against float64 counts, recommend_for_all_users,
+    recommend_for_user_subset against the CPU port, transform."""
+    from synapseml_tpu_torch.convert import sar_model_from_reference
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.recommendation import SAR
+    from synapseml_tpu_torch.recommendation import sar as sar_mod
+
+    t = time.perf_counter()
+    cols = movielens_like(ML_USERS, ML_ITEMS, ML_RATINGS)
+    log(f"  (c) MovieLens-10M-shaped log: {ML_RATINGS} ratings of "
+        f"{ML_USERS} users x {ML_ITEMS} items, made in "
+        f"{time.perf_counter() - t:.2f}s")
+    res = {}
+    with timed_calls(sar_mod, "_similarity", dev, []) as sim_s:
+        t = time.perf_counter()
+        model = SAR(device=dev, **SAR_PARAMS).fit(Table(dict(cols)))
+        res["fit_s"] = time.perf_counter() - t
+    res["similarity_s"] = sum(sim_s)
+    res["host_s"] = res["fit_s"] - res["similarity_s"]
+    cur, peak = _host_rss_gib()
+    res["host_rss_gib"], res["host_peak_gib"] = cur, peak
+    sim = model.get("itemSimilarity")
+    aff = model.get("userAffinity")
+    log(f"    fit {res['fit_s']:.3f}s: host matrices {res['host_s']:.3f}s, "
+        f"card similarity (occurrence upload, O^T O, jaccard, download) "
+        f"{res['similarity_s']:.3f}s; similarity {sim.shape}, affinity "
+        f"{aff.shape}; host RSS {cur:.2f} GiB, peak {peak:.2f} GiB")
+    check = np.sort(np.random.default_rng(5).choice(
+        sim.shape[0], SAR_CHECK_COLS, replace=False))
+    c, diag = _cooccurrence_columns(cols, SAR_PARAMS["supportThreshold"],
+                                    check)
+    denom = diag[:, None] + diag[check][None, :] - c
+    with np.errstate(divide="ignore", invalid="ignore"):
+        want = np.where(denom > 0, c / denom, 0.0).astype(np.float32)
+    bad = int((sim[:, check] != want).sum())
+    res["similarity_mismatches"] = bad
+    log(f"    similarity on {SAR_CHECK_COLS} columns against float64 host "
+        f"counts: {bad} of {want.size} entries differ (bitwise)")
+    if bad:
+        fails.append(f"(c) {bad} similarity entries differ from the "
+                     "float64 counts")
+    t = time.perf_counter()
+    recs = model.recommend_for_all_users(SAR_K)
+    all_s = time.perf_counter() - t
+    res["all_users_per_s"] = aff.shape[0] / all_s
+    log(f"    recommend_for_all_users({SAR_K}): {aff.shape[0]} users in "
+        f"{all_s:.3f}s = {res['all_users_per_s']:.0f} users/s")
+    if recs["recommendations"].shape != (aff.shape[0], SAR_K) or \
+            not np.isfinite(recs["ratings"]).all():
+        fails.append("(c) recommend_for_all_users: wrong shape or "
+                     "non-finite ratings")
+    users = np.sort(np.random.default_rng(6).choice(
+        aff.shape[0], SAR_SUBSET, replace=False))
+    t = time.perf_counter()
+    sub = model.recommend_for_user_subset(Table({"user": users}), SAR_K)
+    res["subset_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu = sar_model_from_reference(sim, aff[users], device="cpu")
+    ref = cpu.recommend_for_all_users(SAR_K + 1)
+    res["cpu_subset_s"] = time.perf_counter() - t
+    ri, rv = ref["recommendations"], ref["ratings"]
+    near = np.abs(rv[:, SAR_K - 1] - rv[:, SAR_K]) <= SAR_TIE_RTOL * \
+        np.abs(rv[:, SAR_K - 1])
+    same = np.array([set(a) == set(b) for a, b in
+                     zip(sub["recommendations"], ri[:, :SAR_K])])
+    rgap = float((np.abs(sub["ratings"] - rv[:, :SAR_K]) / np.maximum(
+        np.abs(rv[:, :SAR_K]), 1e-30)).max())
+    res.update(subset_differ=int((~same).sum()),
+               subset_near_ties=int(near.sum()),
+               subset_differ_not_near=int((~same & ~near).sum()),
+               subset_rating_rel_gap=rgap,
+               subset_equal_to_all_users=bool(np.array_equal(
+                   sub["recommendations"],
+                   recs["recommendations"][users])))
+    log(f"    recommend_for_user_subset of {SAR_SUBSET} users "
+        f"{res['subset_s']:.3f}s (the CPU port's top {SAR_K + 1}: "
+        f"{res['cpu_subset_s']:.2f}s): {res['subset_differ']} top-{SAR_K} "
+        f"sets differ, {res['subset_near_ties']} rows with a near tie at "
+        f"the cut, {res['subset_differ_not_near']} differ away from one; "
+        f"ratings within {rgap:.2e} relative; equal to those users' rows "
+        f"of recommend_for_all_users: {res['subset_equal_to_all_users']}")
+    if res["subset_differ_not_near"] or rgap > SAR_TIE_RTOL:
+        fails.append(f"(c) top-{SAR_K} against the CPU port: "
+                     f"{res['subset_differ_not_near']} rows differ, "
+                     f"ratings {rgap:.2e} relative")
+    rng = np.random.default_rng(7)
+    pairs = Table({"user": rng.integers(0, aff.shape[0], SAR_PAIRS),
+                   "item": rng.integers(0, sim.shape[0], SAR_PAIRS)})
+    t = time.perf_counter()
+    pred = model.transform(pairs)["prediction"]
+    tr_s = time.perf_counter() - t
+    res["transform_pairs_per_s"] = SAR_PAIRS / tr_s
+    cur, peak = _host_rss_gib()
+    log(f"    transform of {SAR_PAIRS} (user, item) pairs {tr_s:.3f}s = "
+        f"{res['transform_pairs_per_s']:.0f} pairs/s; host RSS {cur:.2f} "
+        f"GiB, peak {peak:.2f} GiB")
+    if pred.shape != (SAR_PAIRS,) or not np.isfinite(pred).all():
+        fails.append("(c) transform: wrong shape or non-finite")
+    return res
+
+
+def _host_top_k(s: np.ndarray, k: int) -> np.ndarray:
+    """Top-k indices by (-score, index) of each row (host): the entries at
+    or above the row's k-th largest, ordered by (-score, index)."""
+    out = np.empty((len(s), k), np.int64)
+    kth = -np.partition(-s, k - 1, axis=1)[:, k - 1]
+    for r in range(len(s)):
+        cand = np.flatnonzero(s[r] >= kth[r])
+        out[r] = cand[np.lexsort((cand, -s[r, cand]))[:k]]
+    return out
+
+
+def _recall_check(label: str, idx: np.ndarray, s64: np.ndarray,
+                  fails: list) -> dict:
+    """``idx`` (the port's top-KNN_K) against the float64 scores ``s64``:
+    recall 1.0 on every query whose KNN_K-th and next inner products are
+    not within KNN_TIE_RTOL."""
+    ref = _host_top_k(s64, KNN_K + 1)
+    kth = np.take_along_axis(s64, ref[:, KNN_K - 1:KNN_K + 1], 1)
+    near = np.abs(kth[:, 0] - kth[:, 1]) <= KNN_TIE_RTOL * np.abs(kth[:, 0])
+    recall = np.array([len(set(a) & set(b)) / KNN_K
+                       for a, b in zip(idx, ref[:, :KNN_K])])
+    exact = float((idx == ref[:, :KNN_K]).all(axis=1).mean())
+    out = {"recall": float(recall.mean()), "near_ties": int(near.sum()),
+           "short_away_from_a_tie": int(((recall < 1.0) & ~near).sum()),
+           "same_order": exact}
+    log(f"    {label}: recall@{KNN_K} {out['recall']:.6f} on "
+        f"{len(idx)} queries ({out['near_ties']} with a near tie at the "
+        f"cut, {out['short_away_from_a_tie']} short away from one); "
+        f"the float64 order exactly on {exact:.4f}")
+    if out["short_away_from_a_tie"]:
+        fails.append(f"(d) {label}: {out['short_away_from_a_tie']} "
+                     "queries miss a neighbour away from a tie")
+    return out
+
+
+def knn_part(dev: str, fails: list) -> dict:
+    """(d): KNN index build, queries/s pruned and brute force, against a
+    float64 host brute force; ConditionalKNN with label sets."""
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.nn import ConditionalKNN, KNN
+
+    t = time.perf_counter()
+    keys, queries = sift_like(SIFT_BASE, SIFT_DIM, SIFT_QUERIES)
+    log(f"  (d) SIFT1M-shaped corpus {keys.shape}, {len(queries)} queries, "
+        f"made in {time.perf_counter() - t:.2f}s")
+    res = {}
+    rng = np.random.default_rng(8)
+    labels = rng.integers(0, KNN_LABELS, len(keys))
+    conds = [rng.choice(KNN_LABELS, KNN_COND, replace=False).tolist()
+             for _ in range(KNN_CHECK)]
+    # ConditionalKNN's index is built in a thread beside KNN.fit's (numpy
+    # releases the GIL in the splits' array work)
+    cfit = {}
+
+    def conditional_fit() -> None:
+        t = time.perf_counter()
+        try:
+            cfit["model"] = ConditionalKNN(k=KNN_K, device=dev).fit(
+                Table({"features": keys, "labels": labels}))
+        except Exception as e:              # re-raised in the phase
+            cfit["error"] = e
+        cfit["s"] = time.perf_counter() - t
+
+    builder = threading.Thread(target=conditional_fit, daemon=True)
+    builder.start()
+    t = time.perf_counter()
+    model = KNN(k=KNN_K, device=dev).fit(Table({"features": keys}))
+    res["build_s"] = time.perf_counter() - t
+    tree = model.getBallTree()
+    log(f"    KNN.fit (host ball index: {tree.num_blocks} blocks) "
+        f"{res['build_s']:.3f}s, ConditionalKNN.fit's beside it")
+    tree.query_batch(queries[:8], KNN_K, prune=False)   # keys to the card
+    _sync(dev)
+    runs = {}
+    for label, prune in (("brute force", False), ("pruned", True)):
+        t = time.perf_counter()
+        runs[label] = tree.query_batch(queries, KNN_K, prune=prune)
+        _sync(dev)
+        s = time.perf_counter() - t
+        res[f"{label.replace(' ', '_')}_queries_per_s"] = len(queries) / s
+        log(f"    {label}: {len(queries)} queries in {s:.3f}s = "
+            f"{len(queries) / s:.0f} queries/s")
+    t = time.perf_counter()
+    out = model.transform(Table({"features": queries}))[model.getOutputCol()]
+    res["transform_s"] = time.perf_counter() - t
+    log(f"    KNNModel.transform of {len(queries)} query rows "
+        f"{res['transform_s']:.3f}s")
+    if len(out) != len(queries) or len(out[0]) != KNN_K:
+        fails.append("(d) transform: wrong shape")
+    q64 = queries[:KNN_CHECK].astype(np.float64)
+    t = time.perf_counter()
+    s64 = q64 @ keys.astype(np.float64).T
+    log(f"    float64 host brute force of {KNN_CHECK} queries "
+        f"{time.perf_counter() - t:.2f}s")
+    for label, (idx, _) in runs.items():
+        res[label] = _recall_check(label, idx[:KNN_CHECK], s64, fails)
+    t = time.perf_counter()
+    builder.join()
+    if "error" in cfit:
+        raise cfit["error"]
+    cmodel = cfit["model"]
+    res["conditional_build_s"] = cfit["s"]
+    res["conditional_build_wait_s"] = time.perf_counter() - t
+    cq = np.empty(KNN_CHECK, dtype=object)
+    cq[:] = conds
+    t = time.perf_counter()
+    cout = cmodel.transform(Table({"features": queries[:KNN_CHECK],
+                                   "conditioner": cq}))[
+        cmodel.getOutputCol()]
+    res["conditional_transform_s"] = time.perf_counter() - t
+    log(f"    ConditionalKNN: fit {res['conditional_build_s']:.3f}s "
+        f"(beside KNN.fit; waited {res['conditional_build_wait_s']:.3f}s "
+        f"for it after the KNN queries), transform of {KNN_CHECK} queries with {KNN_COND} of "
+        f"{KNN_LABELS} labels each {res['conditional_transform_s']:.3f}s")
+    admissible = np.stack([np.isin(labels, c) for c in conds])
+    cidx = np.array([[m["value"] for m in row] for row in cout])
+    if any(not admissible[r, cidx[r]].all() for r in range(len(cidx))):
+        fails.append("(d) ConditionalKNN returned an inadmissible key")
+    res["conditional"] = _recall_check(
+        "ConditionalKNN", cidx, np.where(admissible, s64, -np.inf), fails)
+    return res
+
+
+def analytics_path(dev: str) -> dict:
+    """Phase 23: (a)-(d) above; every failure is collected and raised at
+    the end."""
+    cpu = start_analytics_cpu()
+    fails, out = [], {}
+    t0 = [time.perf_counter()]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        log(f"  ({name}) took {now - t0[0]:.1f}s")
+        t0[0] = now
+
+    checks = []
+
+    def with_check(result: tuple) -> dict:
+        checks.append(result[1])
+        return result[0]
+
+    try:
+        for name, run in (
+                ("a", lambda: with_check(iforest_part(dev, cpu, fails))),
+                ("b", lambda: with_check(access_part(dev, cpu, fails))),
+                ("c", lambda: sar_part(dev, fails)),
+                ("d", lambda: knn_part(dev, fails)),
+                ("card against the CPU process", lambda: [
+                    check() for check in checks])):
+            try:
+                out[name] = run()
+            except Exception as e:          # collected, raised at the end
+                import traceback
+
+                traceback.print_exc()
+                fails.append(f"({name}) raised {type(e).__name__}: {e}")
+            part(name)
+            if _on_card(dev):
+                torch.cuda.empty_cache()
+    finally:
+        cpu[0].join(timeout=ANALYTICS_WAIT_S)
+        if cpu[0].is_alive():
+            cpu[0].terminate()
+            fails.append("phase 23: the CPU process did not end")
+    out.pop("card against the CPU process", None)
+    log(f"  phase 23 results {json.dumps(out, default=float)}")
+    if fails:
+        raise AssertionError("phase 23: " + "; ".join(fails))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="rows of the HIGGS-shaped table (HIGGS: 11,000,000)")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22),
+    ap.add_argument("--phase", type=int,
+                    choices=(17, 18, 19, 20, 21, 22, 23),
                     default=None,
                     help="build the kernels and run only this phase (no "
                     "kernels or result line)")
@@ -8308,6 +9094,13 @@ def main() -> int:
     if args.phase == 22:
         phase(22, "the serving fabric, VW and the online loop alone")
         fabric_online_path(dev, card=card)
+        phase(0)
+        log(f"  seconds by phase {json.dumps(seconds)}")
+        return 0
+    if args.phase == 23:
+        phase(23, "anomaly detection, recommendation and nearest neighbours "
+              "alone")
+        analytics_path(dev)
         phase(0)
         log(f"  seconds by phase {json.dumps(seconds)}")
         return 0
@@ -8422,6 +9215,13 @@ def main() -> int:
     fabric_online_path(dev, fabric_served["booster"], fabric_served["Xv"],
                        card, single)
     del fabric_served
+    phase(23, f"anomaly detection, recommendation and nearest neighbours: "
+          f"IsolationForest on a {CREDIT_ROWS}-row credit-card-shaped table, "
+          f"AccessAnomaly on {ACCESS_TENANTS} tenants, SAR on a "
+          f"MovieLens-10M-shaped log, KNN and ConditionalKNN on a "
+          f"SIFT1M-shaped corpus")
+    torch.cuda.empty_cache()
+    analytics_path(dev)
     phase(0)
     log(f"  seconds by phase {json.dumps(seconds)}")
     log(f"  launches on phase 20's paths: {json.dumps(across['launches'])}")

@@ -54,6 +54,19 @@ scalars 0-d) and ``vw_state_from_reference`` builds this package's
 ``VWState`` from them on a device. Both packages' ``VWState.to_bytes`` write
 the same npz layout, so a snapshot either one saved through
 ``save_to_store`` loads in the other.
+
+The anomaly, recommendation and nearest-neighbour models carry across as
+their state in numpy arrays and plain Python values, each into this
+package's model on a given device: ``iforest_model_from_reference`` takes an
+``IsolationForestModel``'s forest dict (``feat``, ``thresh``, ``left``,
+``plen``, ``subSize``, ``threshold``), ``access_anomaly_model_from_reference``
+an ``AccessAnomalyModel``'s ``tenantModels`` (tenant -> ``users``,
+``resources``, ``U``, ``V``, ``mean``, ``std``), ``sar_model_from_reference``
+a ``SARModel``'s ``itemSimilarity`` and ``userAffinity``, and
+``balltree_from_reference`` a ``BallTree``'s keys, values and leaf size (and
+a ``ConditionalBallTree``'s labels), its blocks rebuilt by the same
+deterministic split. ``params`` are the model's simple params (column
+names, ``k``, ...).
 """
 
 from __future__ import annotations
@@ -281,3 +294,62 @@ def vw_state_from_reference(arrays: Dict[str, np.ndarray],
     from .vw.learner import VWState
 
     return VWState.from_arrays(arrays, device)
+
+
+def _copy_arrays(tree):
+    if isinstance(tree, Mapping):
+        return {k: _copy_arrays(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray):
+        return np.array(tree)
+    return tree
+
+
+def iforest_model_from_reference(forest: Mapping, params: Optional[dict] = None,
+                                 device=DEFAULT_DEVICE):
+    """This package's ``IsolationForestModel`` on ``device`` scoring the
+    given forest dict (arrays copied)."""
+    from .isolationforest import IsolationForestModel
+
+    f = _copy_arrays(forest)
+    for k in ("feat", "left"):
+        f[k] = np.asarray(f[k], np.int32)
+    for k in ("thresh", "plen"):
+        f[k] = np.asarray(f[k], np.float32)
+    return IsolationForestModel(forest=f, device=str(device),
+                                **dict(params or {}))
+
+
+def access_anomaly_model_from_reference(tenant_models: Mapping,
+                                        params: Optional[dict] = None,
+                                        device=DEFAULT_DEVICE):
+    """This package's ``AccessAnomalyModel`` on ``device`` over the given
+    per-tenant factorizations (arrays copied)."""
+    from .cyber import AccessAnomalyModel
+
+    models = {t: _copy_arrays(m) for t, m in tenant_models.items()}
+    return AccessAnomalyModel(tenantModels=models, device=str(device),
+                              **dict(params or {}))
+
+
+def sar_model_from_reference(item_similarity, user_affinity,
+                             params: Optional[dict] = None,
+                             device=DEFAULT_DEVICE):
+    """This package's ``SARModel`` on ``device`` over the given [I, I]
+    similarity and [U, I] affinity (float32 copies)."""
+    from .recommendation import SARModel
+
+    return SARModel(itemSimilarity=np.array(item_similarity, np.float32),
+                    userAffinity=np.array(user_affinity, np.float32),
+                    device=str(device), **dict(params or {}))
+
+
+def balltree_from_reference(keys, values=None, leaf_size: int = 50,
+                            labels=None, device=DEFAULT_DEVICE):
+    """This package's ``BallTree`` (``ConditionalBallTree`` when ``labels``
+    are given) on ``device`` over the given keys; ``_split_blocks`` is
+    deterministic, so its blocks are the reference tree's."""
+    from .nn import BallTree, ConditionalBallTree
+
+    if labels is None:
+        return BallTree(keys, values, leaf_size, device=device)
+    return ConditionalBallTree(keys, labels, values, leaf_size, device=device)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import pickle
 from typing import List, Optional
 
 import numpy as np
@@ -120,10 +121,6 @@ class PipelineStage(Params, SynapseMLLogging):
         idx_file = os.path.join(path, "complexParams", "index.json")
         if not os.path.exists(idx_file):
             return
-        try:
-            import cloudpickle as pickler
-        except ImportError:  # pragma: no cover
-            import pickle as pickler
         with open(idx_file) as f:
             saved = json.load(f)
         for name, kind in saved:
@@ -133,7 +130,7 @@ class PipelineStage(Params, SynapseMLLogging):
                     self._load_device)
             else:
                 with open(os.path.join(path, "complexParams", name + ".pkl"), "rb") as f:
-                    value = pickler.loads(f.read())
+                    value = _PortUnpickler(f).load()
             self.set(name, value)
 
 
@@ -267,6 +264,24 @@ def _framework_version():
 # the "_torch" suffix
 _PORT_PACKAGE = __name__.split(".")[0]
 _JAX_PACKAGE = _PORT_PACKAGE[: -len("_torch")]
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Unpickles a saved complex param. A pickle the JAX package wrote
+    names its classes (a ``BallTree``, say) by that package's module paths;
+    they resolve to this package's counterparts, as ``_stage_class`` does
+    for ``metadata.json``, so loading never imports the JAX package."""
+
+    def find_class(self, module: str, name: str):
+        if module.partition(".")[0] != _JAX_PACKAGE:
+            return super().find_class(module, name)
+        port = _PORT_PACKAGE + module[len(_JAX_PACKAGE):]
+        try:
+            return getattr(importlib.import_module(port), name)
+        except (ImportError, AttributeError) as e:
+            raise NotImplementedError(
+                f"the saved object {module}.{name} has no counterpart in the "
+                f"PyTorch package (looked for {port}.{name})") from e
 
 
 def _stage_class(name: str):

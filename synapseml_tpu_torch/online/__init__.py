@@ -8,9 +8,7 @@ feedback into the policy continuously (:mod:`~synapseml_tpu_torch.online.loop`),
 and a counterfactual gate decides when a learned candidate has earned the
 zero-downtime hot-swap (:mod:`~synapseml_tpu_torch.online.promotion`). The same
 loop skeleton also carries the anomaly detectors into streaming operation
-with adaptive thresholds (:mod:`~synapseml_tpu_torch.online.anomaly`;
-its isolation-forest and access-anomaly adapters refuse by name until those
-detectors are ported).
+with adaptive thresholds (:mod:`~synapseml_tpu_torch.online.anomaly`).
 
 Failure model: every stage assumes its input
 stream is late, duplicated, or poisoned, every state transition is a

@@ -12,11 +12,15 @@ channel. Window + threshold + counters snapshot through the same
 digest-verified :class:`~synapseml_tpu_torch.core.checkpoint.CheckpointStore`,
 so kill→resume replays bit-for-bit exactly like the learner loop.
 
-The scorer is any function of a micro-batch of events returning one
-score per event. The JAX package's two adapters for its detectors
-(:func:`iforest_stream_scorer` for the isolation forest,
-:func:`access_anomaly_stream_scorer` for access anomaly) wait for those
-detectors' port and refuse by name.
+Two adapters close the loop for the existing detectors:
+
+* :func:`iforest_stream_scorer` — scores dense feature vectors with a
+  trained :class:`~synapseml_tpu_torch.isolationforest.iforest.IsolationForestModel`
+  forest (the array-encoded trees on the model's device, no Table
+  round-trip per batch).
+* :func:`access_anomaly_stream_scorer` — scores ``(tenant, user, res)``
+  access records with a trained
+  :class:`~synapseml_tpu_torch.cyber.access_anomaly.AccessAnomalyModel`.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from ..core.table import Table
 from .feedback import FeedbackLog
 from .loop import StreamLoop
 
@@ -162,20 +167,35 @@ class StreamingAnomalyLoop(StreamLoop):
 
 
 def iforest_stream_scorer(model) -> Callable[[List[AnomalyEvent]], np.ndarray]:
-    """Adapt a trained ``IsolationForestModel`` to the streaming loop. Not
-    ported: the isolation forest is not in the PyTorch package yet, so this
-    raises ``NotImplementedError`` naming itself."""
-    raise NotImplementedError(
-        "iforest_stream_scorer is not ported to the PyTorch package yet (it "
-        "needs isolationforest/); pass StreamingAnomalyLoop a scorer "
-        "function of the events instead")
+    """Adapt a trained ``IsolationForestModel`` to the streaming loop:
+    events carry dense feature vectors; scoring runs straight on the
+    array-encoded forest, held on the model's device (no per-batch Table
+    round-trip)."""
+    from ..isolationforest.iforest import _score
+    forest = model._device_forest()
+    sub = model.get("forest")["subSize"]
+
+    def score(events: List[AnomalyEvent]) -> np.ndarray:
+        X = np.stack([np.asarray(ev.features, np.float64) for ev in events])
+        return _score(X, forest, sub)
+
+    return score
 
 
 def access_anomaly_stream_scorer(model) -> Callable[[List[AnomalyEvent]], np.ndarray]:
-    """Adapt a trained ``AccessAnomalyModel`` to the streaming loop. Not
-    ported: the access-anomaly model is not in the PyTorch package yet, so
-    this raises ``NotImplementedError`` naming itself."""
-    raise NotImplementedError(
-        "access_anomaly_stream_scorer is not ported to the PyTorch package "
-        "yet (it needs cyber/); pass StreamingAnomalyLoop a scorer function "
-        "of the events instead")
+    """Adapt a trained ``AccessAnomalyModel``: events carry
+    ``{"tenant", "user", "res"}`` mappings, batched into one Table per
+    micro-batch and scored by the model's transform."""
+    t_col, u_col, r_col = (model.getTenantCol(), model.getUserCol(),
+                           model.getResCol())
+    out_col = model.getOutputCol()
+
+    def score(events: List[AnomalyEvent]) -> np.ndarray:
+        df = Table({
+            t_col: [ev.features["tenant"] for ev in events],
+            u_col: [ev.features["user"] for ev in events],
+            r_col: [ev.features["res"] for ev in events],
+        })
+        return np.asarray(model.transform(df)[out_col], np.float64)
+
+    return score

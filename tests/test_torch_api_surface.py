@@ -5,8 +5,10 @@ public names of ``Booster`` and ``Dataset``, and the params of the GBDT and
 DL estimators, the serving layer's classes (``BucketedRunner``,
 ``ServingServer``, ``ModelRegistry``, ``QoSController``), the ONNX
 package (``OnnxFunction``, ``ONNXModel``, ``ImageFeaturizer``, ``ONNXHub``
-and the op registry's 135 names), and the fabric, VW and online-loop
-modules with the VW estimators' params. A name of the JAX
+and the op registry's 135 names), the fabric, VW and online-loop
+modules with the VW estimators' params, and the anomaly, recommendation and
+nearest-neighbour packages (``isolationforest``, ``cyber``,
+``recommendation``, ``nn``) with every estimator's params. A name of the JAX
 package is either ported or declared here as unported, and every unported
 name raises ``NotImplementedError`` naming itself (never ``TypeError`` or
 ``AttributeError``), so the gap cannot reopen unseen. Then the scoring arguments ported by name: ``binned``,
@@ -505,9 +507,9 @@ def test_serving_main_takes_every_reference_flag():
 
 
 # the JAX names of the fabric, VW and the online loop that the port refuses
-# by name (each raises NotImplementedError naming itself): the anomaly
-# adapters of the detectors that are not ported yet
-UNPORTED_ONLINE = {"iforest_stream_scorer", "access_anomaly_stream_scorer"}
+# by name (each raises NotImplementedError naming itself): none since the
+# anomaly detectors were ported
+UNPORTED_ONLINE = set()
 
 
 def _module_names(mod) -> set:
@@ -524,8 +526,8 @@ def test_fabric_vw_and_online_names_take_every_reference_argument(name):
     """Every public function and class of the JAX package's fabric
     (once refused by name), VW and online-loop modules is in the port's
     module, taking every reference argument (the port's entry points add
-    ``device``), its classes with every public method; the anomaly
-    adapters of unported detectors refuse by name."""
+    ``device``), its classes with every public method; names in
+    ``UNPORTED_ONLINE`` would refuse by name."""
     import importlib
 
     jmod = importlib.import_module(f"synapseml_tpu.{name}")
@@ -556,7 +558,66 @@ def test_fabric_vw_and_online_names_take_every_reference_argument(name):
             assert _args(jobj) - _args(tobj) == set(), n
 
 
-@pytest.mark.parametrize("pkg", ["io", "vw", "online", "core"])
+ANALYTICS_MODULES = [
+    "isolationforest.iforest", "cyber.access_anomaly", "cyber.indexers",
+    "cyber.scalers", "recommendation.indexer", "recommendation.sar",
+    "recommendation.ranking", "nn.balltree", "nn.knn"]
+
+
+def _stage_classes(mod) -> list:
+    from synapseml_tpu.core.params import Params
+
+    return sorted(n for n, v in vars(mod).items() if inspect.isclass(v)
+                  and issubclass(v, Params) and v.__module__ == mod.__name__
+                  and not n.startswith("_"))
+
+
+@pytest.mark.parametrize("name", ANALYTICS_MODULES)
+def test_analytics_modules_hold_every_reference_name_and_param(name):
+    """Every public function and class of the JAX package's anomaly,
+    recommendation and nearest-neighbour modules is in the port's module,
+    taking every reference argument, its classes with every public method;
+    every estimator, model and transformer has every reference param with
+    the reference's default, and the estimators and models that compute on
+    a device add ``device`` (default ``"cuda"``)."""
+    import importlib
+
+    jmod = importlib.import_module(f"synapseml_tpu.{name}")
+    tmod = importlib.import_module(f"synapseml_tpu_torch.{name}")
+    names = _module_names(jmod)
+    assert names and names - set(vars(tmod)) == set()
+    for n in sorted(names):
+        jobj, tobj = getattr(jmod, n), getattr(tmod, n)
+        if not inspect.isclass(jobj):
+            assert _args(jobj) - _args(tobj) == set(), n
+            continue
+        assert _args(jobj.__init__) - _args(tobj.__init__) == set(), n
+        assert _public(jobj) - _public(tobj) == set(), n
+        for meth in sorted(_public(jobj)):
+            jattr = inspect.getattr_static(jobj, meth)
+            if isinstance(jattr, property) or not callable(
+                    getattr(jobj, meth)):
+                continue
+            assert _args(getattr(jobj, meth)) \
+                - _args(getattr(tobj, meth)) == set(), (n, meth)
+    on_device = ("IsolationForest", "AccessAnomaly", "SAR", "KNN",
+                 "ConditionalKNN")
+    for n in _stage_classes(jmod):
+        jp = getattr(jmod, n)._params
+        tp = getattr(tmod, n)._params
+        assert set(jp) - set(tp) == set(), n
+        for p in jp:
+            assert tp[p].default == jp[p].default, (n, p)
+        if n.replace("Model", "") in on_device:
+            assert tp["device"].default == "cuda", n
+            assert set(tp) - set(jp) == {"device"}, n
+        else:
+            assert set(tp) == set(jp), n
+
+
+@pytest.mark.parametrize("pkg", ["io", "vw", "online", "core",
+                                 "isolationforest", "cyber",
+                                 "recommendation", "nn"])
 def test_package_exports_hold_the_references(pkg):
     """The port's ``io`` exports the working fabric names (``UNPORTED`` is
     gone), and ``vw`` / ``online`` / ``core`` export every name the JAX
@@ -580,7 +641,7 @@ def test_package_exports_hold_the_references(pkg):
     else:
         want = set(jpkg.__all__)
     assert want <= set(dir(tpkg))
-    if pkg in ("vw", "online"):
+    if pkg not in ("io", "core"):
         assert set(tpkg.__all__) == set(jpkg.__all__)
 
 

@@ -9,9 +9,10 @@ package's online suite, run on the port alone against its chaos copies:
   cadence, and kill-mid-update → restore → replay is bit-for-bit equal to
   the uninterrupted run (corrupt newest snapshot falls back);
 * StreamingAnomalyLoop flags outliers with a causally-adaptive threshold
-  and has the same kill→resume equivalence (scored by a numpy function of
-  the events; the isolation-forest and access-anomaly adapters refuse by
-  name until those detectors are ported);
+  and has the same kill→resume equivalence, scored through the
+  isolation-forest adapter, and the access-anomaly adapter scores a stream
+  of access records (``tests/test_torch_online_parity.py`` holds both
+  adapters' loops to the JAX package's);
 * PromotionGate promotes only interval-clears-incumbent candidates,
   survives a kill mid-promotion with the incumbent serving, and rolls back
   a live-reward regression;
@@ -307,24 +308,20 @@ class TestOnlineLearnerLoop:
 # Streaming anomaly
 # ---------------------------------------------------------------------------
 
-def distance_scorer(X):
-    """A numpy scorer of dense-feature events (the streaming loop takes any
-    function of a micro-batch): each event's distance from the mean of
-    ``X``, in float64. The isolation forest is not ported; the JAX
-    package's loop is given the same function."""
-    center = np.asarray(X, np.float64).mean(axis=0)
+def _iforest_model(seed=0):
+    """The JAX suite's detector: an isolation forest on 256 normal rows."""
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.isolationforest import IsolationForest
 
-    def score(events):
-        F = np.stack([np.asarray(ev.features, np.float64) for ev in events])
-        return np.sqrt(((F - center) ** 2).sum(axis=1))
-
-    return score
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(256, 4))
+    return IsolationForest(numEstimators=20, contamination=0.05, randomSeed=3,
+                           device=CPU).fit(Table({"features": list(X)})), X
 
 
 def _scored_model(seed=0):
-    rng = np.random.default_rng(seed)
-    X = rng.normal(size=(256, 4))
-    return distance_scorer(X), X
+    model, X = _iforest_model(seed)
+    return iforest_stream_scorer(model), X
 
 
 class TestStreamingAnomaly:
@@ -401,13 +398,38 @@ class TestStreamingAnomaly:
         np.testing.assert_array_equal(np.asarray(resumed._scores),
                                       np.asarray(ref._scores))
 
-    @pytest.mark.parametrize("adapter,needs", [
-        (iforest_stream_scorer, "isolationforest"),
-        (access_anomaly_stream_scorer, "cyber")])
-    def test_unported_scorer_adapters_refuse_by_name(self, adapter, needs):
-        with pytest.raises(NotImplementedError, match=adapter.__name__) as e:
-            adapter(object())
-        assert needs in str(e.value)
+    def test_access_anomaly_scorer_adapter(self):
+        from synapseml_tpu_torch.core.table import Table
+        from synapseml_tpu_torch.cyber.access_anomaly import AccessAnomaly
+
+        n = 200
+        df = Table({
+            "tenant_id": np.zeros(n, np.int64),
+            "user": np.array([f"u{i % 8}" for i in range(n)], object),
+            "res": np.array([f"r{(i % 8) // 2}" for i in range(n)], object),
+        })
+        model = AccessAnomaly(tenantCol="tenant_id", userCol="user",
+                              resCol="res", maxIter=5, rankParam=4,
+                              device=CPU).fit(df)
+        log = anomaly_feedback_log()
+        for i in range(32):
+            log.offer(AnomalyEvent(key=f"a{i}", features={
+                "tenant": 0, "user": f"u{i % 8}", "res": f"r{(i % 8) // 2}"}))
+        loop = StreamingAnomalyLoop(log, access_anomaly_stream_scorer(model),
+                                    batch_size=8, min_window=8,
+                                    contamination=0.1)
+        loop.run_until_drained()
+        assert loop.scored == 32 and math.isfinite(loop.threshold)
+
+    def test_iforest_adapter_scores_as_the_model_transforms(self):
+        from synapseml_tpu_torch.core.table import Table
+
+        model, X = _iforest_model(seed=2)
+        events = [AnomalyEvent(key=f"e{i}", features=X[i]) for i in range(40)]
+        want = model.transform(Table({"features": X[:40]}))[
+            model.getScoreCol()]
+        np.testing.assert_array_equal(
+            iforest_stream_scorer(model)(events), want)
 
 
 # ---------------------------------------------------------------------------

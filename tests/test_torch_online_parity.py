@@ -12,7 +12,10 @@ stream (CPU):
 * ``PromotionGate`` verdicts on the same evidence: equal decisions and
   reasons, estimates to float64 roundoff of the scores;
 * ``StreamingAnomalyLoop`` with the same numpy scorer: equal scores,
-  thresholds and flags.
+  thresholds and flags; through each package's isolation-forest adapter
+  (the same forest, grown by the same host draws) and access-anomaly
+  adapter: scores within ``ADAPTER_TOL``, and the thresholds and flags of
+  the same loop equal.
 """
 
 from __future__ import annotations
@@ -223,6 +226,84 @@ def _anomaly_run(online, testing, ck, workdir):
     resumed.run_until_drained()
     return (resumed.threshold, resumed.flagged, resumed.scored,
             list(resumed._scores), resumed.snapshot_stats())
+
+
+# scores within ADAPTER_TOL of the loop's largest |score|: the isolation
+# forest's agree to float32 roundoff of the mean path (1e-6 absolute,
+# tests/test_torch_isolationforest.py); implicit ALS puts the tenant's
+# training affinities near 1 with a spread of a few 1e-3, so normalizing
+# magnifies the factorizations' float32 gaps as much as the planted
+# cross-group accesses (scores near 227): 8e-4 there, 3.6e-6 of the largest
+ADAPTER_TOL = 1e-5
+
+
+def _adapter_loop(online, scorer, feed):
+    loop = online.StreamingAnomalyLoop(
+        online.anomaly_feedback_log(capacity=10_000), scorer, batch_size=16,
+        window=64, min_window=16, contamination=0.1)
+    for ev in feed:
+        loop.log.offer(ev)
+    loop.run_until_drained()
+    return np.asarray(loop._scores), loop.threshold, loop.flagged
+
+
+def _check_adapter_loops(got):
+    (js, jthr, jflag), (ts, tthr, tflag) = got["jax"], got["torch"]
+    tol = ADAPTER_TOL * np.abs(js).max()
+    np.testing.assert_allclose(ts, js, rtol=0, atol=tol)
+    assert abs(tthr - jthr) <= tol and tflag == jflag > 0
+
+
+def test_iforest_adapter_loop_matches_the_reference():
+    from synapseml_tpu.core.table import Table as JTable
+    from synapseml_tpu.isolationforest import IsolationForest as JForest
+    from synapseml_tpu_torch.core.table import Table as TTable
+    from synapseml_tpu_torch.isolationforest import IsolationForest as TForest
+
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(256, 4))
+    got = {}
+    for name, (online, *_rest, kw) in PACKAGES.items():
+        forest, table = (JForest, JTable) if name == "jax" else \
+            (TForest, TTable)
+        model = forest(numEstimators=20, contamination=0.05, randomSeed=3,
+                       **kw).fit(table({"features": list(X)}))
+        feed = [online.AnomalyEvent(key=f"s{i}", features=X[i % 256] * (
+            1 + (i % 40 == 0) * 5)) for i in range(160)]
+        got[name] = _adapter_loop(online, online.iforest_stream_scorer(model),
+                                  feed)
+    _check_adapter_loops(got)
+
+
+def test_access_anomaly_adapter_loop_matches_the_reference():
+    from synapseml_tpu.core.table import Table as JTable
+    from synapseml_tpu.cyber import AccessAnomaly as JAccess
+    from synapseml_tpu_torch.core.table import Table as TTable
+    from synapseml_tpu_torch.cyber import AccessAnomaly as TAccess
+
+    rng = np.random.default_rng(9)
+    n = 240
+    users = rng.integers(0, 10, n)
+    cols = {"tenant_id": np.zeros(n, np.int64),
+            "user": np.array([f"u{u}" for u in users], object),
+            "res": np.array([f"r{(u // 5) * 4 + rng.integers(0, 4)}"
+                             for u in users], object),
+            "likelihood": rng.integers(1, 6, n).astype(np.float64)}
+    got = {}
+    for name, (online, *_rest, kw) in PACKAGES.items():
+        est, table = (JAccess, JTable) if name == "jax" else \
+            (TAccess, TTable)
+        model = est(tenantCol="tenant_id", maxIter=6, rankParam=3,
+                    **kw).fit(table(dict(cols)))
+        # the training accesses, every 12th replaced by a cross-group one
+        feed = [online.AnomalyEvent(key=f"a{i}", features={
+            "tenant": 0, "user": cols["user"][i],
+            "res": (cols["res"][i] if i % 12 else
+                    f"r{(1 - users[i] // 5) * 4 + i % 4}")})
+            for i in range(96)]
+        got[name] = _adapter_loop(
+            online, online.access_anomaly_stream_scorer(model), feed)
+    _check_adapter_loops(got)
 
 
 def test_streaming_anomaly_matches_the_reference(tmp_path):
