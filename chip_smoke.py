@@ -308,8 +308,8 @@ Phases, each of which fails the run if it fails:
    here (the JAX package's ONNX ops are plain ``jnp``). ``--phase 18``
    builds the kernels and runs it alone (a small booster trained first).
 19. out-of-core GBDT: a seeded generator of HIGGS-shaped chunks
-   (``higgs_like`` per 1M-row chunk; 5,500,000 rows, half of HIGGS's
-   11,000,000 since phase 23 was added, the raw
+   (``higgs_like`` per 1M-row chunk; 2,000,000 rows of HIGGS's
+   11,000,000 since phase 24 was added (5,500,000 with phase 23), the raw
    floats never whole) into ``StreamedDataset``: the sketch over a
    150k-row prefix byte for byte ``compute_bin_mapper``'s, then the
    sketch pass and the bin-and-cache pass (seconds, host cache bytes, the
@@ -453,13 +453,39 @@ Phases, each of which fails the run if it fails:
    columns bitwise the float64 counts, ``recommend_for_all_users(10)``
    users/s, ``recommend_for_user_subset`` of 1,000 users against the CPU
    port (the same top 10 but at near ties of the 10th and 11th scores),
-   ``transform`` of 1,000,000 pairs, host memory. (d) ``KNN`` (k 10) on a
+   ``transform`` of 250,000 pairs, host memory. (d) ``KNN`` (k 10) on a
    SIFT1M-shaped corpus (1,000,000 x 128 integer-valued keys, 10,000
    queries): index build s, queries/s brute force and pruned, recall
    against a float64 host brute force on 256 queries (1.0 but at near
    ties); ``ConditionalKNN`` with 1,000 labels and 5 a query on 256
    queries. Every failure is collected and raised at the end. None of the
    five kernels runs here (products, gathers and sorts of PyTorch).
+24. explainers, causal inference, the image ops and leaf histograms
+   (``--phase 24`` alone, which first fits phase 3's classifier). (a)
+   ``TabularSHAP`` (2 * 28 + 2048 samples a row) and ``TabularLIME``
+   (1,000) on phase 3's classifier over its first 1,024 rows: each solver
+   runner's buckets captured ahead, then rows explained/s with scoring,
+   solves and host sampling apart, no capture in the steady state, replay
+   ms by bucket, ``solver_stats()``; phi and the LIME coefficients within
+   1e-4 of the CPU port's on the same rows, SHAP's local accuracy within
+   1e-4. (b) ``ImageLIME`` on the seeded ResNet-50 at 224x224: 4 images x
+   256 masks, SLIC at cell size 16; images/s with SLIC, masking, scoring
+   and solves apart; image 0's scores within 1e-4 and coefficients within
+   1e-3 of the CPU port's. (c) ``DoubleMLEstimator`` with
+   ``LightGBMRegressor`` nuisance models (20 iterations) on 500,000
+   HIGGS-shaped rows with a planted effect of 2.0: the ATE within 0.05 of
+   it, and on the first 50,000 rows within 5e-3 of the CPU port's. (d)
+   ``SyntheticDiffInDiffEstimator`` on a Proposition-99-shaped panel (39 x
+   31, 1 treated, 19 pre-periods) and a 2,000 x 200 panel: unit and time
+   weights within 1e-4 of the CPU port's, each solve's ms on both. (e) every
+   image op of ``ops/image.py`` on 256 x 224 x 224 x 3 within 1e-5 of the
+   CPU port (card ms, images/s), ``leaf_histograms`` at 2,000,000 x 28 x
+   255 bins x 31 leaves (counts exact, sums within 1e-5 of each bin's sum
+   of magnitudes) and ``sharded_histogram_fn`` on two gloo ranks sharing
+   the card, equal on both. A spawned CPU process runs (a)-(c) on the CPU
+   port meanwhile. Every failure is collected and raised at the end. None
+   of the five kernels runs here except in the nuisance models' and the
+   classifier's fits (``child_histogram``, ``range_histogram``).
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 21's
@@ -476,6 +502,7 @@ import http.client
 import json
 import multiprocessing as mp
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -737,11 +764,13 @@ ONNX_FIXTURE_TOL = (2e-3, 2e-4)    # tests/test_onnx_thirdparty.py:65
 ONNX_TREE_TOL = (2e-4, 2e-5)       # tests/test_onnx_treeensemble.py:48
 ONNX_TREE_ROWS = 100_000
 ONNX_TREE_BATCH = 4096
-# phase 19: the streamed GBDT over HIGGS-shaped rows, half of HIGGS's
-# 11,000,000-row published train split since phase 23 was added (the
-# script's depth cut; the last 500,000 of its rows are its test set, drawn
-# here from a second seed)
-STREAM_ROWS = 5_500_000
+# phase 19: the streamed GBDT over HIGGS-shaped rows, 2,000,000 of HIGGS's
+# 11,000,000-row published train split since phase 24 was added (the
+# script's depth cuts: 5,500,000 when phase 23 was added; the last 500,000
+# of its rows are its test set, drawn here from a second seed). Past the
+# sketch's 200k-row reservoir the stream takes the exact second sketch
+# pass, as the JAX package does
+STREAM_ROWS = 2_000_000
 STREAM_VALID_ROWS = 500_000
 STREAM_SOURCE_ROWS = 1_000_000   # rows per generated source chunk
 STREAM_SEED, STREAM_VALID_SEED, STREAM_CROSS_SEED = 19, 20, 21
@@ -772,9 +801,9 @@ MESH_LOSSY_ROWS = 2_000_000      # the lossy wires' prefix of the stream
 # that tools/stream_mesh_reference_auc.py sums in the same order
 MESH_CHUNK_ROWS = 1 << 20
 # phase 19's leaf-wise streamed AUC on its held-out stream as phase 19
-# reads it at STREAM_ROWS on an H100 80GB HBM3 (700 W); the reference when
-# phase 20 runs alone
-STREAM_REFERENCE_AUC = 0.945490
+# reads it at STREAM_ROWS on an H100 80GB HBM3 (700 W), with the exact
+# second sketch pass; the reference when phase 20 runs alone
+STREAM_REFERENCE_AUC = 0.945501
 # the JAX package's held-out AUC of each wire, mesh-streamed on the
 # prefix (the CPU, two virtual devices: tools/stream_mesh_reference_auc.py),
 # by MESH_LOSSY_ROWS, logged beside the card's. The table's first split is
@@ -814,8 +843,8 @@ PIPE_TEXT_STEPS, PIPE_TEXT_TOL = 2, 2e-4
 # (c) elastic: the hang's watchdog budget, and the GBDT killed on two ranks
 # at an iteration and resumed in one process (phase 17's table, cut)
 PIPE_HANG_BUDGET_S = 1.0
-# (500,000 rows before phase 23 was added)
-PIPE_GBDT_ROWS, PIPE_GBDT_ITERS, PIPE_GBDT_KILL = 250_000, 6, 3
+# (500,000 rows before phase 23 was added, 250,000 before phase 24)
+PIPE_GBDT_ROWS, PIPE_GBDT_ITERS, PIPE_GBDT_KILL = 125_000, 6, 3
 PIPE_GBDT_TOL = 1e-4
 _PIPE_SETTINGS = ("VISION_SIZE", "VISION_CLASSES", "VISION_SIDE",
                   "PIPE_BATCH", "PIPE_MICRO", "PIPE_STEPS",
@@ -1330,7 +1359,8 @@ def main_path(X, y, dev: str) -> dict:
     if a < 0.75:
         raise AssertionError(f"train AUC {a} is too low for this table")
     _check_launches(launches, MAIN_KERNELS)
-    return dict(launches=launches, fit_s=fit_s, auc=a, booster=booster)
+    return dict(launches=launches, fit_s=fit_s, auc=a, booster=booster,
+                model=model)
 
 
 def depthwise_path(X, y, dev: str) -> dict:
@@ -6374,12 +6404,14 @@ def _mesh_stream_rank(rank: int, workdir: str, dev: str,
     cfg = BoosterConfig(objective="binary", num_iterations=STREAM_ITERS,
                         num_leaves=31, max_bin=255)
     Xv, yv = _whole(stream_source(STREAM_VALID_ROWS, STREAM_VALID_SEED))
-    data = {"all": StreamedDataset(stream_source(STREAM_ROWS, STREAM_SEED),
-                                   num_features=FEATURES),
-            "prefix": StreamedDataset(stream_source(MESH_LOSSY_ROWS,
+    data = {"prefix": StreamedDataset(stream_source(MESH_LOSSY_ROWS,
                                                     STREAM_SEED),
                                       num_features=FEATURES,
                                       chunk_rows=MESH_CHUNK_ROWS)}
+    if STREAM_ROWS != MESH_LOSSY_ROWS:
+        data["all"] = StreamedDataset(stream_source(STREAM_ROWS,
+                                                    STREAM_SEED),
+                                      num_features=FEATURES)
     report = {"ingest": {}, "runs": {}}
     for key, ds in data.items():
         t0 = time.perf_counter()
@@ -6391,6 +6423,12 @@ def _mesh_stream_rank(rank: int, workdir: str, dev: str,
             rows=ds.n_rows, chunks=len(ds.chunks),
             chunk_rows=ds.chunk_rows, block_rows=ds.block_rows)
     for name, key, c, resident in _mesh_runs(cfg):
+        if key not in data:
+            key = "prefix"       # the whole stream is the prefix
+        if name == "f32_prefix" and "all" not in data:
+            # the prefix's f32 fit is the leaf-wise fit on the same rows
+            report["runs"][name] = dict(report["runs"]["leafwise"])
+            continue
         if _on_card(dev):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -7105,7 +7143,8 @@ FLEET_DL_REL = 1e-3          # phase 18's float32 bound, of max |y|
 # (a), held-out AUC within CRITEO_MESH_AUC_GAP of one process on them: the
 # average of two models that each saw half the rows against one that saw
 # them all in order (0.0105 apart on a 40,000-row CPU rehearsal)
-CRITEO_ROWS, CRITEO_CHUNK = 2_000_000, 250_000
+# CRITEO_ROWS 2,000,000 before phase 24 was added
+CRITEO_ROWS, CRITEO_CHUNK = 1_000_000, 250_000
 CRITEO_INTS, CRITEO_CATS = 13, 26
 CRITEO_BITS, CRITEO_BATCH = (18, 24), 256
 # the learning rate: at VWConfig's default 0.5 this table's 39 features a
@@ -8306,7 +8345,8 @@ SAR_PARAMS = dict(similarityFunction="jaccard", supportThreshold=4,
 # 10th and 11th scores lie within SAR_TIE_RTOL); SAR_CHECK_COLS similarity
 # columns against float64 counts; transform of SAR_PAIRS pairs
 SAR_K, SAR_SUBSET, SAR_TIE_RTOL = 10, 1_000, 1e-5
-SAR_CHECK_COLS, SAR_PAIRS = 64, 1_000_000
+# SAR_PAIRS 1,000,000 before phase 24 was added
+SAR_CHECK_COLS, SAR_PAIRS = 64, 250_000
 # (d) texmex ANN_SIFT1M: 1,000,000 base vectors x 128, integer-valued
 # 0-255, 10,000 queries; k = 10. Against a float64 host brute force on
 # KNN_CHECK queries: recall 1.0 but at near ties (the 10th and 11th inner
@@ -8424,23 +8464,26 @@ def _auc64(planted, score) -> float:
 
 
 @contextlib.contextmanager
-def timed_calls(module, name: str, dev: str, seconds: list):
-    """Time every call of ``module.name`` (the card synchronized at its
-    end) into ``seconds`` while the block runs."""
-    fn = getattr(module, name)
+def timed_calls(owner, name: str, dev: str, seconds: list):
+    """Time every call of ``owner.name`` (a function of a module, or a
+    method or static method of a class; the card synchronized at its end)
+    into ``seconds`` while the block runs."""
+    fn = owner.__dict__[name]
+    real = fn.__func__ if isinstance(fn, staticmethod) else fn
 
     def timed(*a, **kw):
         t = time.perf_counter()
-        out = fn(*a, **kw)
+        out = real(*a, **kw)
         _sync(dev)
         seconds.append(time.perf_counter() - t)
         return out
 
-    setattr(module, name, timed)
+    setattr(owner, name, staticmethod(timed) if isinstance(fn, staticmethod)
+            else timed)
     try:
         yield seconds
     finally:
-        setattr(module, name, fn)
+        setattr(owner, name, fn)
 
 
 def _host_rss_gib() -> tuple:
@@ -9018,12 +9061,745 @@ def analytics_path(dev: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: explainers, causal inference, the image ops and leaf histograms
+# ---------------------------------------------------------------------------
+
+# (a) KernelSHAP and LIME on phase 3's classifier, its 28 features as the
+# named columns f0..f27: the table's first EXPLAIN_ROWS rows, SHAP at its
+# default 2 * 28 + 2048 samples a row (2,154,496 rows scored), LIME at its
+# default 1,000. Card against the CPU port on the same rows (the same host
+# draws, the same trees): phi and the LIME coefficients within EXPLAIN_TOL
+# (float32 solves over 2,104 samples in other orders), SHAP's local
+# accuracy sum(phi) = f(x) - base within ADDITIVITY_TOL
+EXPLAIN_ROWS = 1024
+EXPLAIN_TOL, ADDITIVITY_TOL = 1e-4, 1e-4
+# (b) ImageLIME on phase 11's seeded ResNet-50 (the estimator's seed-0
+# initial state) at 224x224: IMAGE_LIME_IMAGES CIFAR-shaped images resized,
+# IMAGE_LIME_SAMPLES masks each, SLIC at cellSize IMAGE_LIME_CELL (196
+# superpixels), class 0's probability explained. The CPU port explains the
+# first image (its masks are the first of the one generator's draws): its
+# 256 scores within IMAGE_SCORE_TOL of the card's (the float32 logits'
+# cuDNN-against-oneDNN gap, VISION_LOGIT_TOL, after a softmax), and its
+# coefficients within IMAGE_LIME_TOL (a 197-unknown solve over 256 samples
+# magnifies that gap)
+IMAGE_LIME_IMAGES, IMAGE_LIME_SAMPLES, IMAGE_LIME_CELL = 4, 256, 16
+IMAGE_SCORE_TOL, IMAGE_LIME_TOL = 1e-4, 1e-3
+# (c) DoubleML on DML_ROWS HIGGS-shaped rows: the treatment drawn with
+# propensity sigmoid(X0 + 0.5 X2), the outcome DML_ATE * T + the HIGGS
+# margin + X0 (X0 confounds both); LightGBMRegressor nuisance models of
+# DML_ITERS iterations at learning rate DML_LR, maxIter 1. The ATE within
+# DML_ATE_TOL of the planted effect; on the first DML_PREFIX rows the
+# card's ATE within DML_CARD_TOL of the CPU port's (the same trees but
+# where float32 sums on the card split a near tie another way)
+DML_ROWS, DML_PREFIX, DML_ITERS, DML_LR, DML_ATE = \
+    500_000, 50_000, 20, 0.3, 2.0
+DML_ATE_TOL, DML_CARD_TOL = 0.05, 5e-3
+# (d) SyntheticDiffInDiff on panels (name, units, periods, treated units,
+# pre-periods): Proposition 99's shape (Abadie, Diamond & Hainmueller 2010:
+# 39 states x 31 years, 1970-2000, California treated from 1989) and a
+# 2,000 x 200 panel; unit and time weights within SDID_TOL of the CPU port's
+PANELS = (("proposition 99", 39, 31, 1, 19),
+          ("2000 x 200", 2_000, 200, 20, 160))
+PANEL_EFFECT, SDID_TOL = -15.0, 1e-4
+# (e) every image op on IMAGE_OPS_N x 224 x 224 x 3 float32 images in
+# [0, 1] against the CPU port within IMAGE_OPS_TOL; leaf_histograms at
+# HIST_ROWS x 28 features x HIST_BINS bins x HIST_LEAVES leaves against the
+# CPU port (counts exact, sums within HIST_REL of each bin's sum of
+# magnitudes), and sharded_histogram_fn on MESH_RANKS gloo ranks sharing
+# the card (equal on every rank)
+IMAGE_OPS_N, IMAGE_OPS_SIDE, IMAGE_OPS_TOL = 256, 224, 1e-5
+HIST_ROWS, HIST_BINS, HIST_LEAVES, HIST_REL = 2_000_000, 255, 31, 1e-5
+# the CPU port's (a)-(c) in a spawned process beside the card's work
+EXPLAIN_CPU_THREADS = 6
+EXPLAIN_WAIT_S = 600.0
+_EXPLAIN_SETTINGS = ("EXPLAIN_ROWS", "IMAGE_LIME_IMAGES",
+                     "IMAGE_LIME_SAMPLES", "IMAGE_LIME_CELL", "DML_ROWS",
+                     "DML_PREFIX",
+                     "DML_ITERS", "DML_LR", "DML_ATE", "EXPLAIN_CPU_THREADS",
+                     "VISION_BACKBONE", "VISION_CLASSES", "VISION_SIDE",
+                     "VISION_SIZE")
+FEATURE_NAMES = [f"f{i}" for i in range(FEATURES)]
+
+
+class ColumnsModel:
+    """The explainers' ``model`` for a classifier of one ``features``
+    column: scores a table of the named columns ``FEATURE_NAMES``."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def transform(self, df):
+        from synapseml_tpu_torch.core.table import Table
+
+        feats = np.stack([np.asarray(df[c], np.float32)
+                          for c in FEATURE_NAMES], 1)
+        return self.model.transform(Table({"features": feats}))
+
+
+def explain_rows(n: int) -> dict:
+    """Phase 3's first ``n`` rows (``higgs_like`` draws its features row
+    by row from one generator, before the labels) as named columns."""
+    X, _ = higgs_like(n)
+    return {c: X[:, i] for i, c in enumerate(FEATURE_NAMES)}
+
+
+def dml_table(rows: int, seed: int = 24) -> dict:
+    """(c)'s columns: ``features``, ``treatment``, ``outcome``."""
+    X, margin = higgs_margin(rows, seed)
+    rng = np.random.default_rng((seed, 1))
+    p = 1.0 / (1.0 + np.exp(-(X[:, 0] + 0.5 * X[:, 2])))
+    T = (rng.uniform(size=rows) < p).astype(np.float64)
+    Y = DML_ATE * T + margin.astype(np.float64) + X[:, 0]
+    return {"features": X, "treatment": T, "outcome": Y}
+
+
+def panel_table(units: int, periods: int, treated: int, pre: int,
+                seed: int = 24) -> dict:
+    """A long panel: unit and period effects, a unit-specific trend and
+    noise; ``PANEL_EFFECT`` added to the treated units' post periods."""
+    rng = np.random.default_rng((seed, units, periods))
+    u, t = np.meshgrid(np.arange(units), np.arange(periods), indexing="ij")
+    y = (rng.normal(100.0, 20.0, size=(units, 1))
+         + np.linspace(0.0, -30.0, periods)[None, :]
+         + rng.normal(0.0, 0.5, size=(units, 1)) * np.arange(periods)
+         + rng.normal(0.0, 2.0, size=(units, periods)))
+    is_treated = u < treated
+    is_post = t >= pre
+    y = y + PANEL_EFFECT * (is_treated & is_post)
+    return {"unit": u.ravel(), "time": t.ravel(), "outcome": y.ravel(),
+            "treatment": is_treated.ravel().astype(np.float64),
+            "postTreatment": is_post.ravel().astype(np.float64)}
+
+
+def explain_images() -> np.ndarray:
+    """(b)'s images: CIFAR-shaped, resized to ``VISION_SIZE`` in [0, 1]."""
+    from synapseml_tpu_torch.dl import vision as tv
+
+    imgs, _ = cifar_like(IMAGE_LIME_IMAGES, seed=24)
+    return tv._resolve_images(imgs.astype(np.float32) / 255.0, VISION_SIZE)
+
+
+def vision_model(state: dict, dev: str):
+    """A ``DeepVisionModel`` of the ResNet-50 in ``state`` on ``dev``."""
+    from synapseml_tpu_torch.dl import DeepVisionModel, make_backbone
+    from synapseml_tpu_torch.dl.trainer import TrainConfig, Trainer
+
+    tr = Trainer(make_backbone(VISION_BACKBONE, VISION_CLASSES),
+                 TrainConfig(batch_size=64), device=dev).load_params(state)
+    return DeepVisionModel(tr, np.arange(VISION_CLASSES), imageCol="image",
+                           backbone=VISION_BACKBONE, device=dev)
+
+
+def image_lime(model, images: np.ndarray, dev: str, scores: list):
+    """ImageLIME of ``images`` with ``model``; every image's scores are
+    appended to ``scores``."""
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.explainers import ImageLIME
+
+    class Recording(ImageLIME):
+        def _score(self, samples):
+            y = super()._score(samples)
+            scores.append(y)
+            return y
+
+    col = np.empty(len(images), object)
+    for i in range(len(images)):
+        col[i] = images[i]
+    return Recording(model=model, targetCol="probability", targetClasses=[0],
+                     numSamples=IMAGE_LIME_SAMPLES,
+                     cellSize=float(IMAGE_LIME_CELL), device=dev).transform(
+        Table({"image": col}))
+
+
+def _stacked(col) -> np.ndarray:
+    return np.stack([np.asarray(c, np.float64) for c in col])
+
+
+def _explain_cpu(out_dir: str, model_dir: str, settings: dict,
+                 backbones: dict) -> None:
+    """The CPU port's (a)-(c) (a spawned process beside the card's work),
+    each result written whole and then renamed: the ResNet-50's initial
+    state (which the card loads too), SHAP and LIME on phase 3's rows,
+    image 0's ImageLIME, and DoubleML on the prefix."""
+    sys.path.insert(0, str(REPO))
+    globals().update(settings)
+    from synapseml_tpu_torch.core.pipeline import PipelineStage
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.dl import backbones as tb
+    from synapseml_tpu_torch.explainers import TabularLIME, TabularSHAP
+
+    tb.BACKBONES.update(backbones)
+    torch.set_num_threads(EXPLAIN_CPU_THREADS)
+
+    def put(name: str, **arrays) -> None:
+        tmp = os.path.join(out_dir, f".{name}")
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, os.path.join(out_dir, name))
+
+    state = vision_init_state()
+    torch.save(state, os.path.join(out_dir, ".resnet.pt"))
+    os.replace(os.path.join(out_dir, ".resnet.pt"),
+               os.path.join(out_dir, "resnet.pt"))
+    model = ColumnsModel(PipelineStage.load(model_dir, device="cpu"))
+    rows = Table(explain_rows(EXPLAIN_ROWS))
+    out = {}
+    for name, cls in (("shap", TabularSHAP), ("lime", TabularLIME)):
+        t0 = time.perf_counter()
+        got = cls(model=model, inputCols=FEATURE_NAMES, targetClasses=[1],
+                  device="cpu").transform(rows)
+        out[name] = _stacked(got["explanation"])
+        out[f"{name}_s"] = np.float64(time.perf_counter() - t0)
+    put("tabular.npz", **out)
+    scores = []
+    t0 = time.perf_counter()
+    got = image_lime(vision_model(state, "cpu"), explain_images()[:1],
+                     "cpu", scores)
+    put("image.npz", coefs=_stacked(got["explanation"])[0],
+        scores=scores[0], seconds=np.float64(time.perf_counter() - t0))
+    del state, got
+    t0 = time.perf_counter()
+    ate = dml_ate(Table(dml_prefix(dml_table(DML_ROWS))), "cpu")
+    put("dml.npz", ate=np.float64(ate),
+        seconds=np.float64(time.perf_counter() - t0))
+
+
+def dml_prefix(cols: dict) -> dict:
+    """The first ``DML_PREFIX`` rows of (c)'s columns."""
+    return {k: v[:DML_PREFIX] for k, v in cols.items()}
+
+
+def dml_ate(table, dev: str) -> float:
+    """DoubleML's ATE on ``table`` with (c)'s nuisance models on
+    ``dev``."""
+    from synapseml_tpu_torch.causal import DoubleMLEstimator
+    from synapseml_tpu_torch.models import LightGBMRegressor
+
+    def nuisance():
+        return LightGBMRegressor(numIterations=DML_ITERS,
+                                 learningRate=DML_LR, device=dev)
+
+    return DoubleMLEstimator(treatmentModel=nuisance(),
+                             outcomeModel=nuisance(), maxIter=1,
+                             seed=0).fit(table).get_avg_treatment_effect()
+
+
+def start_explain_cpu(model):
+    """(a)-(c) on the CPU port in a spawned process, given (a)'s
+    classifier ``model``: (process, output dir)."""
+    out = tempfile.mkdtemp(prefix="explain_cpu_")
+    model_dir = os.path.join(out, "classifier")
+    model.save(model_dir)
+    ctx = torch.multiprocessing.get_context("spawn")
+    p = ctx.Process(target=_explain_cpu, args=(
+        out, model_dir, {k: globals()[k] for k in _EXPLAIN_SETTINGS},
+        _state_settings()["backbones"]))
+    p.start()
+    return p, out
+
+
+def _explain_result(cpu, name: str) -> str:
+    """The path of the CPU process's ``name``, once written (waiting up to
+    EXPLAIN_WAIT_S)."""
+    proc, out = cpu
+    path = os.path.join(out, name)
+    deadline = time.monotonic() + EXPLAIN_WAIT_S
+    while not os.path.exists(path):
+        if not proc.is_alive() and not os.path.exists(path):
+            raise AssertionError(f"phase 24: the CPU process ended (exit "
+                                 f"code {proc.exitcode}) without {name}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 24: {name} never came")
+        time.sleep(0.05)
+    return path
+
+
+def _npz(cpu, name: str) -> dict:
+    with np.load(_explain_result(cpu, name)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def replay_ms(runner, dev: str, reps: int = 10) -> dict:
+    """Card ms of one replay of each captured bucket of ``runner`` (CUDA
+    events on its stream; {} off the card)."""
+    if not _on_card(dev):
+        return {}
+    out = {}
+    for (bucket, _), entry in sorted(runner._compiled.items(),
+                                     key=lambda kv: kv[0][0]):
+        with torch.cuda.stream(runner.stream):
+            entry.graph.replay()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record(runner.stream)
+            for _ in range(reps):
+                entry.graph.replay()
+            t1.record(runner.stream)
+        t1.synchronize()
+        out[bucket] = round(t0.elapsed_time(t1) / reps, 4)
+    return out
+
+
+def tabular_part(model, dev: str) -> dict:
+    """(a) on the card: each explainer's runner captured ahead for its
+    sample shape, then SHAP and LIME timed, the steady state checked
+    (no capture), each replay timed. Returns the outputs and readings."""
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.explainers import TabularLIME, TabularSHAP
+    from synapseml_tpu_torch.explainers import base as eb
+    from synapseml_tpu_torch.explainers import lime as el
+    from synapseml_tpu_torch.explainers import shap as es
+    from synapseml_tpu_torch.explainers import solvers
+
+    rows = Table(explain_rows(EXPLAIN_ROWS))
+    scorer = ColumnsModel(model)
+    runner = solvers._runner("lstsq", 1e-6, dev)
+    out = {}
+    for name, cls, module, S, D in (
+            ("shap", TabularSHAP, es, eb.default_num_samples(FEATURES),
+             FEATURES - 1),
+            ("lime", TabularLIME, el, 1000, FEATURES)):
+        t0 = time.perf_counter()
+        runner.warmup(np.zeros((1, S, D), np.float32),
+                      np.zeros((1, S, 1), np.float32),
+                      np.zeros((1, S), np.float32))
+        capture_s = time.perf_counter() - t0
+        before = runner.stats()
+        solve_s, score_s = [], []
+        with timed_calls(module, "solve_batched", dev, solve_s), \
+                timed_calls(ColumnsModel, "transform", dev, score_s):
+            _sync(dev)
+            t0 = time.perf_counter()
+            got = cls(model=scorer, inputCols=FEATURE_NAMES,
+                      targetClasses=[1], device=dev).transform(rows)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+        after = runner.stats()
+        captures = after["total_compiles"] - before["total_compiles"]
+        hits = after["total_hits"] - before["total_hits"]
+        out[name] = dict(
+            explanation=_stacked(got["explanation"]),
+            r2=np.asarray(got["r2"], np.float64), wall_s=wall,
+            rows_per_s=EXPLAIN_ROWS / wall, samples=S,
+            scored_rows=EXPLAIN_ROWS * S, capture_s=capture_s,
+            solve_s=sum(solve_s), score_s=sum(score_s),
+            host_s=wall - sum(solve_s) - sum(score_s),
+            steady_captures=captures, steady_hits=hits,
+            replay_ms=replay_ms(runner, dev))
+        log(f"  (a) {name}: {EXPLAIN_ROWS} rows x {S} samples in "
+            f"{wall:.3f}s = {EXPLAIN_ROWS / wall:.1f} rows explained/s "
+            f"(scoring {sum(score_s):.3f}s, solves {sum(solve_s):.3f}s, "
+            f"host sampling and assembly {out[name]['host_s']:.3f}s); "
+            f"buckets captured ahead in {capture_s:.3f}s, then {captures} "
+            f"captures and {hits} replays; replay ms by bucket "
+            f"{json.dumps(out[name]['replay_ms'])}")
+    fx = model.transform(Table({"features": np.stack(
+        [rows[c] for c in FEATURE_NAMES], 1)}))["probability"][:, 1]
+    vals = out["shap"]["explanation"][:, 0, :]
+    out["additivity_gap"] = float(np.abs(vals.sum(1) - fx).max())
+    out["solver_stats"] = solvers.solver_stats()
+    log(f"  (a) SHAP local accuracy: max |base + sum(phi) - f(x)| "
+        f"{out['additivity_gap']:.3g} (bound {ADDITIVITY_TOL}); "
+        f"solver_stats {json.dumps(out['solver_stats'])}")
+    return out
+
+
+def tabular_check(card: dict, cpu, fails: list) -> dict:
+    got = _npz(cpu, "tabular.npz")
+    gaps = {}
+    for name in ("shap", "lime"):
+        gaps[name] = float(np.abs(card[name]["explanation"]
+                                  - got[name]).max())
+        if gaps[name] > EXPLAIN_TOL:
+            fails.append(f"(a) {name}: card against CPU {gaps[name]:.3g} > "
+                         f"{EXPLAIN_TOL}")
+        if card[name]["steady_captures"]:
+            fails.append(f"(a) {name}: {card[name]['steady_captures']} "
+                         "captures after the warm-up")
+    if card["additivity_gap"] > ADDITIVITY_TOL:
+        fails.append(f"(a) SHAP local accuracy {card['additivity_gap']:.3g}"
+                     f" > {ADDITIVITY_TOL}")
+    log(f"  (a) card against CPU: phi {gaps['shap']:.3g}, LIME "
+        f"{gaps['lime']:.3g} (bound {EXPLAIN_TOL}); the CPU port took "
+        f"{float(got['shap_s']):.2f}s and {float(got['lime_s']):.2f}s")
+    return gaps
+
+
+def image_part(dev: str, cpu) -> dict:
+    """(b) on the card, SLIC, masking, scoring and solves timed apart."""
+    from synapseml_tpu_torch.explainers import lime as el
+    from synapseml_tpu_torch.image import Superpixel
+
+    state = torch.load(_explain_result(cpu, "resnet.pt"))
+    model = vision_model(state, dev)
+    images = explain_images()
+    scores, slic_s, mask_s, solve_s, score_s = [], [], [], [], []
+    with timed_calls(el, "slic_segments", dev, slic_s), \
+            timed_calls(Superpixel, "masked_image", dev, mask_s), \
+            timed_calls(el, "solve_batched", dev, solve_s), \
+            timed_calls(type(model), "_transform", dev, score_s):
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = image_lime(model, images, dev, scores)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    segs = [int(np.asarray(s).max()) + 1 for s in got["superpixels"]]
+    out = dict(coefs=_stacked(got["explanation"]), scores=scores[0],
+               wall_s=wall, images_per_s=len(images) / wall,
+               slic_s=sum(slic_s), mask_s=sum(mask_s),
+               score_s=sum(score_s), solve_s=sum(solve_s), segments=segs)
+    log(f"  (b) ImageLIME: {len(images)} images x {IMAGE_LIME_SAMPLES} masks "
+        f"({segs} superpixels) in {wall:.3f}s = {len(images) / wall:.2f} "
+        f"images/s: SLIC {out['slic_s']:.3f}s, masking {out['mask_s']:.3f}s"
+        f" ({len(mask_s)} masked images), ResNet-50 scoring "
+        f"{out['score_s']:.3f}s ({len(images) * IMAGE_LIME_SAMPLES / max(out['score_s'], 1e-9):.0f} images/s), "
+        f"solves {out['solve_s']:.3f}s")
+    return out
+
+
+def image_check(card: dict, cpu, fails: list) -> dict:
+    got = _npz(cpu, "image.npz")
+    gaps = dict(scores=float(np.abs(card["scores"] - got["scores"]).max()),
+                coefs=float(np.abs(card["coefs"][0] - got["coefs"]).max()))
+    for name, tol in (("scores", IMAGE_SCORE_TOL), ("coefs", IMAGE_LIME_TOL)):
+        if gaps[name] > tol:
+            fails.append(f"(b) image 0's {name}: card against CPU "
+                         f"{gaps[name]:.3g} > {tol}")
+    log(f"  (b) image 0 card against CPU: scores {gaps['scores']:.3g} "
+        f"(bound {IMAGE_SCORE_TOL}), coefficients {gaps['coefs']:.3g} "
+        f"(bound {IMAGE_LIME_TOL}, largest |coef| "
+        f"{float(np.abs(got['coefs']).max()):.3g}); the CPU port took "
+        f"{float(got['seconds']):.2f}s")
+    return gaps
+
+
+def dml_part(dev: str, fails: list) -> dict:
+    """(c) on the card: the whole table, then the prefix."""
+    from synapseml_tpu_torch.core.table import Table
+
+    cols = dml_table(DML_ROWS)
+    _sync(dev)
+    t0 = time.perf_counter()
+    ate = dml_ate(Table(cols), dev)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prefix = dml_ate(Table(dml_prefix(cols)), dev)
+    prefix_s = time.perf_counter() - t0
+    if abs(ate - DML_ATE) > DML_ATE_TOL:
+        fails.append(f"(c) ATE {ate:.6f} against the planted {DML_ATE} "
+                     f"(bound {DML_ATE_TOL})")
+    log(f"  (c) DoubleML on {DML_ROWS} rows: ATE {ate:.6f} (planted "
+        f"{DML_ATE}), fit {fit_s:.3f}s = {DML_ROWS / fit_s:.0f} rows/s "
+        f"(four nuisance fits and their predictions); on {DML_PREFIX} "
+        f"rows {prefix:.6f} in {prefix_s:.3f}s")
+    return dict(ate=ate, fit_s=fit_s, prefix_ate=prefix, prefix_s=prefix_s)
+
+
+def dml_check(card: dict, cpu, fails: list) -> float:
+    got = _npz(cpu, "dml.npz")
+    gap = abs(card["prefix_ate"] - float(got["ate"]))
+    if gap > DML_CARD_TOL:
+        fails.append(f"(c) prefix ATE card {card['prefix_ate']:.6f} against"
+                     f" CPU {float(got['ate']):.6f} (bound {DML_CARD_TOL})")
+    log(f"  (c) prefix ATE card against CPU: {gap:.3g} (bound "
+        f"{DML_CARD_TOL}); the CPU port took {float(got['seconds']):.2f}s")
+    return gap
+
+
+def panel_part(dev: str, fails: list) -> dict:
+    """(d): each panel on the card and on the CPU port."""
+    from synapseml_tpu_torch.causal import SyntheticDiffInDiffEstimator
+    from synapseml_tpu_torch.causal import did
+    from synapseml_tpu_torch.core.table import Table
+
+    out = {}
+    for name, units, periods, treated, pre in PANELS:
+        table = Table(panel_table(units, periods, treated, pre))
+        res = {}
+        for d in (dev, "cpu"):
+            solve_s = []
+            with timed_calls(did, "constrained_least_squares", d, solve_s):
+                t0 = time.perf_counter()
+                s = SyntheticDiffInDiffEstimator(device=d).fit(
+                    table).getSummary()
+                res[d] = (s, time.perf_counter() - t0, solve_s)
+        (s, fit_s, solve_s), (w, wfit_s, wsolve_s) = res[dev], res["cpu"]
+        gap = max(float(np.abs(s.unitWeights - w.unitWeights).max()),
+                  float(np.abs(s.timeWeights - w.timeWeights).max()))
+        if gap > SDID_TOL:
+            fails.append(f"(d) {name}: weights card against CPU {gap:.3g} "
+                         f"> {SDID_TOL}")
+        out[name] = dict(effect=s.treatmentEffect,
+                         cpu_effect=w.treatmentEffect, weight_gap=gap,
+                         solve_ms=[round(x * 1e3, 3) for x in solve_s],
+                         cpu_solve_ms=[round(x * 1e3, 3) for x in wsolve_s],
+                         fit_s=fit_s, cpu_fit_s=wfit_s)
+        log(f"  (d) {name} ({units} units x {periods} periods, {treated} "
+            f"treated, {pre} pre-periods): effect {s.treatmentEffect:.4f} "
+            f"(planted {PANEL_EFFECT}; CPU {w.treatmentEffect:.4f}), "
+            f"weights card against CPU {gap:.3g} (bound {SDID_TOL}); "
+            f"unit and time solves {out[name]['solve_ms']} ms on the card, "
+            f"{out[name]['cpu_solve_ms']} ms on the CPU; fit {fit_s:.3f}s "
+            f"/ {wfit_s:.3f}s")
+    return out
+
+
+def _event_ms(fn, dev: str, reps: int = 3) -> float:
+    """Mean card ms of ``fn()`` (CUDA events, after one warm-up call)."""
+    fn()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def image_ops_part(dev: str, fails: list) -> dict:
+    """(e)'s image ops: each on the card (timed) and on the CPU port."""
+    from synapseml_tpu_torch.ops import image as I
+
+    x = np.random.default_rng(24).uniform(size=(
+        IMAGE_OPS_N, IMAGE_OPS_SIDE, IMAGE_OPS_SIDE, 3)).astype(np.float32)
+    xc, xd = torch.from_numpy(x), torch.from_numpy(x).to(dev)
+    ops = [("resize bilinear 112", lambda t: I.resize(t, 112, 112)),
+           ("resize lanczos3 160", lambda t: I.resize(t, 160, 160,
+                                                      "lanczos3")),
+           ("resize bicubic 256", lambda t: I.resize(t, 256, 256, "bicubic")),
+           ("resize nearest 256", lambda t: I.resize(t, 256, 256, "nearest")),
+           ("crop 192", lambda t: I.crop(t, 16, 16, 192, 192)),
+           ("center_crop 200", lambda t: I.center_crop(t, 200, 200)),
+           ("flip both", lambda t: I.flip(t, -1)),
+           ("blur 5 1.0", lambda t: I.blur(t, 5, 1.0)),
+           ("threshold 0.5", lambda t: I.threshold(t, 0.5)),
+           ("color_to_gray", I.color_to_gray)]
+    out = {}
+    for name, op in ops:
+        t0 = time.perf_counter()
+        want = op(xc).numpy()
+        cpu_s = time.perf_counter() - t0
+        got = op(xd).cpu().numpy()
+        gap = float(np.abs(got - want).max()) if got.shape == want.shape \
+            else float("inf")
+        ms = _event_ms(lambda: op(xd), dev) if _on_card(dev) else \
+            cpu_s * 1e3
+        out[name] = dict(ms=round(ms, 4), images_per_s=IMAGE_OPS_N / ms * 1e3,
+                         cpu_ms=round(cpu_s * 1e3, 3), gap=gap)
+        if gap > IMAGE_OPS_TOL:
+            fails.append(f"(e) {name}: card against CPU {gap:.3g} > "
+                         f"{IMAGE_OPS_TOL}")
+    log("  (e) image ops on " f"{IMAGE_OPS_N}x{IMAGE_OPS_SIDE}x"
+        f"{IMAGE_OPS_SIDE}x3 (card ms, images/s, CPU ms, gap): " + "; ".join(
+            f"{k} {v['ms']:.3f} ms {v['images_per_s']:.0f}/s cpu "
+            f"{v['cpu_ms']:.1f} gap {v['gap']:.2g}" for k, v in out.items()))
+    return out
+
+
+def hist_inputs(rows: int, seed: int = 24) -> tuple:
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, HIST_BINS, size=(rows, FEATURES), dtype=np.uint8),
+            rng.integers(-1, HIST_LEAVES, size=rows).astype(np.int32),
+            rng.normal(size=rows).astype(np.float32),
+            rng.uniform(size=rows).astype(np.float32))
+
+
+def hist_gap(got: np.ndarray, want: np.ndarray, args: tuple) -> tuple:
+    """(counts equal, worst sum gap in units of its bin's sum of
+    magnitudes)."""
+    binned, node, g, h = args
+    keep = node >= 0
+    flat = ((node[keep, None].astype(np.int64) * FEATURES
+             + np.arange(FEATURES)) * HIST_BINS + binned[keep])
+    mag = np.zeros((HIST_LEAVES * FEATURES * HIST_BINS, 2))
+    for k, v in enumerate((g, h)):
+        mag[:, k] = np.bincount(flat.ravel(), weights=np.repeat(
+            np.abs(v[keep].astype(np.float64)), FEATURES),
+            minlength=mag.shape[0])
+    gap = np.abs(got[..., :2].reshape(-1, 2).astype(np.float64)
+                 - want[..., :2].reshape(-1, 2))
+    rel = float((gap / np.maximum(mag, 1e-30)).max())
+    return bool(np.array_equal(got[..., 2], want[..., 2])), rel
+
+
+def _hist_rank(rank: int, workdir: str, dev: str, rows: int) -> None:
+    """One rank of (e)'s sharded histogram."""
+    sys.path.insert(0, str(REPO))
+    from synapseml_tpu_torch.ops.histogram import sharded_histogram_fn
+    from synapseml_tpu_torch.parallel import init_distributed, make_mesh
+
+    init_distributed("gloo", os.path.join(workdir, "store"), rank,
+                     MESH_RANKS, timeout_s=300)
+    mesh = make_mesh({"data": MESH_RANKS}, device=dev)
+    fn = sharded_histogram_fn(mesh, HIST_LEAVES, HIST_BINS)
+    args = hist_inputs(rows)
+    fn(*args)
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _sync(dev)
+    np.save(os.path.join(workdir, f"hist_{rank}.npy"), out.cpu().numpy())
+    with open(os.path.join(workdir, f"hist_{rank}.json"), "w") as f:
+        json.dump({"s": time.perf_counter() - t0}, f)
+    torch.distributed.destroy_process_group()
+
+
+def cpu_hist() -> tuple:
+    """(e)'s histogram on the CPU port: (histogram, seconds)."""
+    from synapseml_tpu_torch.ops.histogram import leaf_histograms
+
+    args = hist_inputs(HIST_ROWS)
+    t0 = time.perf_counter()
+    want = leaf_histograms(*(torch.from_numpy(a) for a in args),
+                           HIST_LEAVES, HIST_BINS).numpy()
+    return want, time.perf_counter() - t0
+
+
+def start_hist_ranks(dev: str) -> tuple:
+    """(e)'s sharded histogram, its MESH_RANKS ranks spawned at the phase's
+    start beside the rest of its work: (context, directory, start s)."""
+    import torch.multiprocessing as tmp
+
+    workdir = tempfile.mkdtemp(prefix="hist_ranks_")
+    ctx = tmp.start_processes(_hist_rank, args=(workdir, dev, HIST_ROWS),
+                              nprocs=MESH_RANKS, join=False,
+                              start_method="spawn")
+    return ctx, workdir, time.perf_counter()
+
+
+def stop_hist_ranks(ranks: tuple) -> None:
+    ctx, workdir, _ = ranks
+    for p in ctx.processes:
+        if p.is_alive():
+            p.terminate()
+    shutil.rmtree(workdir, ignore_errors=True)
+
+
+def hist_part(dev: str, fails: list, ranks: tuple, cpu_ref) -> dict:
+    """(e)'s histograms: leaf_histograms on the card (timed) against the CPU
+    port's (``cpu_ref``, a future of ``cpu_hist``), then the ranks of
+    ``start_hist_ranks`` joined and their sharded histogram checked."""
+    from synapseml_tpu_torch.ops.histogram import leaf_histograms
+
+    args = hist_inputs(HIST_ROWS)
+    want, cpu_s = cpu_ref.result()
+    dargs = [torch.from_numpy(a).to(dev) for a in args]
+
+    def call():
+        return leaf_histograms(*dargs, HIST_LEAVES, HIST_BINS)
+
+    got = call().cpu().numpy()
+    ms = _event_ms(call, dev) if _on_card(dev) else cpu_s * 1e3
+    counts_ok, rel = hist_gap(got, want, args)
+    kept = int((args[1] >= 0).sum())
+    # bytes: the inputs read once and the histogram written once
+    nbytes = sum(a.nbytes for a in args) + want.nbytes
+    if not counts_ok or rel > HIST_REL:
+        fails.append(f"(e) leaf_histograms card against CPU: counts equal "
+                     f"{counts_ok}, sums {rel:.3g} > {HIST_REL}")
+    ctx, workdir, t0 = ranks
+    deadline = time.monotonic() + EXPLAIN_WAIT_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            raise AssertionError("(e) the sharded histogram's ranks did not "
+                                 "end")
+    spawn_s = time.perf_counter() - t0
+    parts = [np.load(os.path.join(workdir, f"hist_{r}.npy"))
+             for r in range(MESH_RANKS)]
+    rank_s = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(workdir, f"hist_{r}.json")) as f:
+            rank_s.append(json.load(f)["s"])
+    same = all(np.array_equal(parts[0], p) for p in parts[1:])
+    s_ok, s_rel = hist_gap(parts[0], want, args)
+    if not same or not s_ok or s_rel > HIST_REL:
+        fails.append(f"(e) sharded_histogram_fn: equal on the ranks {same}, "
+                     f"counts {s_ok}, sums {s_rel:.3g} (bound {HIST_REL})")
+    out = dict(ms=ms, cpu_ms=cpu_s * 1e3, rows_per_s=HIST_ROWS / ms * 1e3,
+               bytes_bound_ms=nbytes / 3.35e12 * 1e3, rel=rel,
+               sharded_rel=s_rel, sharded_rank_s=rank_s, spawn_s=spawn_s)
+    log(f"  (e) leaf_histograms {HIST_ROWS} x {FEATURES} x {HIST_BINS} bins "
+        f"x {HIST_LEAVES} leaves ({kept} rows in a leaf): card {ms:.3f} ms "
+        f"({HIST_ROWS / ms * 1e3:.0f} rows/s; its bytes over 3.35 TB/s "
+        f"{out['bytes_bound_ms']:.4f} ms), CPU {cpu_s * 1e3:.1f} ms; counts "
+        f"equal {counts_ok}, sums {rel:.3g} of each bin's sum of magnitudes;"
+        f" sharded over {MESH_RANKS} ranks: equal on the ranks {same}, sums "
+        f"{s_rel:.3g}, a call {[round(s * 1e3, 3) for s in rank_s]} ms per "
+        f"rank, spawned at the phase's start and joined after "
+        f"{spawn_s:.1f}s")
+    return out
+
+
+def explain_path(dev: str, model=None, rows: int = 2_000_000) -> dict:
+    """Phase 24: (a)-(e) above; every failure is collected and raised at
+    the end. ``model`` is phase 3's classifier (fitted here when absent,
+    as phase 3 fits it on ``rows`` rows)."""
+    if model is None:
+        from synapseml_tpu_torch.models import LightGBMClassifier
+
+        t0 = time.perf_counter()
+        X, y = higgs_like(rows)
+        model = LightGBMClassifier(numIterations=10, numLeaves=31,
+                                   maxBin=255, device=dev).fit(table_of(X, y))
+        del X, y
+        log(f"  phase 3's classifier fitted on {rows} rows in "
+            f"{time.perf_counter() - t0:.2f}s")
+    cpu = start_explain_cpu(model)
+    ranks = start_hist_ranks(dev)
+    pool = ThreadPoolExecutor(1)
+    cpu_ref = pool.submit(cpu_hist)
+    fails, out = [], {}
+    t0 = [time.perf_counter()]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        log(f"  ({name}) took {now - t0[0]:.1f}s")
+        t0[0] = now
+
+    try:
+        for name, run in (
+                ("a", lambda: tabular_part(model, dev)),
+                ("b", lambda: image_part(dev, cpu)),
+                ("c", lambda: dml_part(dev, fails)),
+                ("d", lambda: panel_part(dev, fails)),
+                ("e", lambda: {"images": image_ops_part(dev, fails),
+                               "hist": hist_part(dev, fails, ranks,
+                                                 cpu_ref)}),
+                ("card against the CPU process", lambda: {
+                    "a": tabular_check(out["a"], cpu, fails),
+                    "b": image_check(out["b"], cpu, fails),
+                    "c": dml_check(out["c"], cpu, fails)})):
+            try:
+                out[name] = run()
+            except Exception as e:          # collected, raised at the end
+                import traceback
+
+                traceback.print_exc()
+                fails.append(f"({name}) raised {type(e).__name__}: {e}")
+            part(name)
+            if _on_card(dev):
+                torch.cuda.empty_cache()
+    finally:
+        cpu[0].join(timeout=EXPLAIN_WAIT_S)
+        if cpu[0].is_alive():
+            cpu[0].terminate()
+            fails.append("phase 24: the CPU process did not end")
+        stop_hist_ranks(ranks)
+        pool.shutdown(wait=True)
+    out.pop("card against the CPU process", None)
+    if fails:
+        raise AssertionError("phase 24: " + "; ".join(fails))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="rows of the HIGGS-shaped table (HIGGS: 11,000,000)")
     ap.add_argument("--phase", type=int,
-                    choices=(17, 18, 19, 20, 21, 22, 23),
+                    choices=(17, 18, 19, 20, 21, 22, 23, 24),
                     default=None,
                     help="build the kernels and run only this phase (no "
                     "kernels or result line)")
@@ -9101,6 +9877,14 @@ def main() -> int:
         phase(23, "anomaly detection, recommendation and nearest neighbours "
               "alone")
         analytics_path(dev)
+        phase(0)
+        log(f"  seconds by phase {json.dumps(seconds)}")
+        return 0
+    if args.phase == 24:
+        phase(24, "explainers, causal inference, the image ops and leaf "
+              f"histograms alone (phase 3's classifier fitted first, "
+              f"{args.rows} rows)")
+        explain_path(dev, rows=args.rows)
         phase(0)
         log(f"  seconds by phase {json.dumps(seconds)}")
         return 0
@@ -9222,6 +10006,14 @@ def main() -> int:
           f"SIFT1M-shaped corpus")
     torch.cuda.empty_cache()
     analytics_path(dev)
+    phase(24, f"explainers, causal inference, the image ops and leaf "
+          f"histograms: TabularSHAP and TabularLIME on phase 3's classifier "
+          f"({EXPLAIN_ROWS} rows), ImageLIME on the seeded {VISION_BACKBONE} "
+          f"at {VISION_SIZE}x{VISION_SIZE}, DoubleML on {DML_ROWS} rows, "
+          f"SyntheticDiffInDiff on two panels, every image op and "
+          f"leaf_histograms on the card against the CPU port")
+    torch.cuda.empty_cache()
+    explain_path(dev, main["model"])
     phase(0)
     log(f"  seconds by phase {json.dumps(seconds)}")
     log(f"  launches on phase 20's paths: {json.dumps(across['launches'])}")

@@ -218,26 +218,29 @@ def suggest_sketch_second_pass(n_rows: float, nfeat: float,
                                train_s_estimate: Optional[float]
                                ) -> Tuple[bool, Decision]:
     """Whether a streamed dataset whose sketch overflowed its reservoir
-    takes an exact second sketch pass. The pass's analytic cost
-    (``rows / rows_per_s``, this stream's measured sketch rate) and the
-    budget (``SECOND_PASS_BUDGET`` of ``train_s_estimate``) go into the
-    provenance; the decision is the fallback, skip: the JAX package takes
-    the pass on this prior alone, but the port trusts a prior only to
-    displace a default when a measurement backs it, and it records none
-    (``StreamedDataset(exact_second_pass=True)`` asks for the pass)."""
+    takes an exact second sketch pass: the JAX package's rule with no
+    recorded row. The pass's analytic cost (``rows / rows_per_s``, this
+    stream's measured sketch rate) is trusted at ``ANALYTIC_CONFIDENCE``
+    and the pass is taken when that cost is at most ``SECOND_PASS_BUDGET``
+    of ``train_s_estimate``; without a rate or an estimate it is skipped.
+    This decision sets the bin boundaries, so the port must take it as the
+    JAX package does for the two to grow the same trees on one stream
+    (``StreamedDataset(exact_second_pass=...)`` decides instead)."""
     analytic = n_rows / float(rows_per_s) if rows_per_s else None
     feats = featurize(rows=n_rows, nfeat=nfeat)
     budget = (SECOND_PASS_BUDGET * float(train_s_estimate)
               if train_s_estimate else None)
+    take = bool(analytic is not None and budget is not None
+                and analytic <= budget)
+    source = "analytic" if analytic is not None else "none"
     dec = Decision(
-        "gbdt_sketch_pass", "skip", False, analytic,
-        ANALYTIC_CONFIDENCE if analytic is not None else 0.0, True, "skip",
-        "fallback",
+        "gbdt_sketch_pass", "exact" if take else "skip", take, analytic,
+        ANALYTIC_CONFIDENCE if analytic is not None else 0.0, not take,
+        "skip", source,
         [{"arm": "exact", "predicted_s": analytic,
           "confidence": ANALYTIC_CONFIDENCE if analytic is not None else 0.0,
-          "source": "analytic" if analytic is not None else "none",
-          "budget_s": budget}], feats)
-    return False, dec
+          "source": source, "budget_s": budget}], feats)
+    return take, dec
 
 
 def suggest_pipeline_schedule(stages: float, microbatches: float,

@@ -241,11 +241,21 @@ class StreamedDataset:
             rate = rows / pass_s if pass_s > 0 else None
             take, dec = perfmodel.suggest_sketch_second_pass(
                 float(rows), float(nfeat), rate, train_est)
+            # an exact sketch buffers the whole stream on the host: never
+            # trade boundaries for running out of memory
+            if take and rows * nfeat * 4 > (2 << 30):
+                take = False
+                dec.arm, dec.used_fallback = "skip", True
+                dec.source = "host_budget"
             self.second_pass_decision = dec.provenance()
         if not take:
             return
+        t0 = _time.perf_counter()
         self._sketch_pass(dataclasses.replace(
             cfg, bin_sample_count=max(rows, cfg.bin_sample_count)))
+        if self.second_pass_decision.get("source") != "explicit":
+            self.second_pass_decision["observed_s"] = round(
+                _time.perf_counter() - t0, 6)
 
     def _bin_chunk(self, X, binner: Optional[CsrBinner], dev) -> np.ndarray:
         """(c, F) quantized host rows of one raw chunk, binned on ``dev``."""

@@ -58,6 +58,7 @@ from synapseml_tpu_torch.models import gbdt as tmodels
 from synapseml_tpu_torch import vw as tvw
 from synapseml_tpu_torch.ops import quantize as tq
 from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)
+from torch_waits import join_spawn
 
 CPU = "cpu"
 
@@ -161,8 +162,10 @@ def pipeline_stats(tmp_path_factory):
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    mp.start_processes(_pipeline_rank, args=(str(workdir), port), nprocs=2,
-                       join=True, start_method="spawn")
+    join_spawn(mp.start_processes(_pipeline_rank, args=(str(workdir), port),
+                                  nprocs=2, join=False,
+                                  start_method="spawn"),
+               what="the 2-rank pipeline spawn")
     return [json.loads((workdir / f"rank{r}.json").read_text())
             for r in range(2)]
 
@@ -561,7 +564,18 @@ def test_fabric_vw_and_online_names_take_every_reference_argument(name):
 ANALYTICS_MODULES = [
     "isolationforest.iforest", "cyber.access_anomaly", "cyber.indexers",
     "cyber.scalers", "recommendation.indexer", "recommendation.sar",
-    "recommendation.ranking", "nn.balltree", "nn.knn"]
+    "recommendation.ranking", "nn.balltree", "nn.knn",
+    "explainers.base", "explainers.solvers", "explainers.lime",
+    "explainers.shap", "explainers.ice", "image.superpixel", "image.unroll",
+    "causal.solvers", "causal.residual", "causal.doubleml",
+    "causal.orthoforest", "causal.did", "ops.histogram", "ops.image"]
+# the stages that compute on a device, by name without "Model"
+ON_DEVICE = ("IsolationForest", "AccessAnomaly", "SAR", "KNN",
+             "ConditionalKNN", "LocalExplainerBase", "VectorLIME",
+             "TabularLIME", "TextLIME", "ImageLIME", "VectorSHAP",
+             "TabularSHAP", "TextSHAP", "ImageSHAP", "ICETransformer",
+             "SyntheticControlEstimator", "SyntheticDiffInDiffEstimator",
+             "OrthoForestDMLEstimator", "OrthoForestDML")
 
 
 def _stage_classes(mod) -> list:
@@ -575,7 +589,8 @@ def _stage_classes(mod) -> list:
 @pytest.mark.parametrize("name", ANALYTICS_MODULES)
 def test_analytics_modules_hold_every_reference_name_and_param(name):
     """Every public function and class of the JAX package's anomaly,
-    recommendation and nearest-neighbour modules is in the port's module,
+    recommendation, nearest-neighbour, explainer, image, causal, histogram
+    and image-op modules is in the port's module,
     taking every reference argument, its classes with every public method;
     every estimator, model and transformer has every reference param with
     the reference's default, and the estimators and models that compute on
@@ -600,15 +615,13 @@ def test_analytics_modules_hold_every_reference_name_and_param(name):
                 continue
             assert _args(getattr(jobj, meth)) \
                 - _args(getattr(tobj, meth)) == set(), (n, meth)
-    on_device = ("IsolationForest", "AccessAnomaly", "SAR", "KNN",
-                 "ConditionalKNN")
     for n in _stage_classes(jmod):
         jp = getattr(jmod, n)._params
         tp = getattr(tmod, n)._params
         assert set(jp) - set(tp) == set(), n
         for p in jp:
             assert tp[p].default == jp[p].default, (n, p)
-        if n.replace("Model", "") in on_device:
+        if n.replace("Model", "") in ON_DEVICE:
             assert tp["device"].default == "cuda", n
             assert set(tp) - set(jp) == {"device"}, n
         else:
@@ -617,7 +630,8 @@ def test_analytics_modules_hold_every_reference_name_and_param(name):
 
 @pytest.mark.parametrize("pkg", ["io", "vw", "online", "core",
                                  "isolationforest", "cyber",
-                                 "recommendation", "nn"])
+                                 "recommendation", "nn", "explainers",
+                                 "causal", "image"])
 def test_package_exports_hold_the_references(pkg):
     """The port's ``io`` exports the working fabric names (``UNPORTED`` is
     gone), and ``vw`` / ``online`` / ``core`` export every name the JAX

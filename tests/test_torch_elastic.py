@@ -55,6 +55,7 @@ from synapseml_tpu_torch.parallel.elastic import (CollectiveWatchdog,
                                                   run_with_budget,
                                                   verified_steps)
 from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)
+from torch_waits import PROCESS_S, join_spawn
 
 WORLD = 4
 GBDT_TOL = 1e-4            # tests/test_elastic.py: a resharded resume
@@ -498,7 +499,7 @@ class TestSupervisor:
                 time.sleep(0.05)
             victim = sup.procs[1]
             os.kill(victim.pid, signal.SIGKILL)
-            victim.wait()
+            victim.wait(timeout=PROCESS_S)
             assert sup.procs[1].poll() is not None
             assert sup.step() == "respawn"
             assert sup.procs[1].poll() is None
@@ -889,8 +890,10 @@ def spawned(tmp_path_factory):
                           checkpoint_every=3)
     except PreemptionError:
         pass
-    mp.start_processes(_rank_main, args=(str(workdir),), nprocs=WORLD,
-                       join=True, start_method="spawn")
+    join_spawn(mp.start_processes(_rank_main, args=(str(workdir),),
+                                  nprocs=WORLD, join=False,
+                                  start_method="spawn"),
+               what=f"the {WORLD}-rank spawn")
     ranks = []
     for r in range(WORLD):
         with open(workdir / f"rank{r}.pkl", "rb") as f:

@@ -43,6 +43,7 @@ from synapseml_tpu_torch.testing.chaos import (ChaosSwap, FaultInjected,
                                          kill_worker)
 
 from torch_fabric import echo as _echo, post as _post, wait_for
+from torch_waits import join_thread, join_threads
 
 
 @pytest.fixture(autouse=True)
@@ -71,8 +72,7 @@ def _load(url, n, value="x", workers=4, timeout=10.0):
     threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join()
+    join_threads(threads, what="load clients")
     return results, dropped
 
 
@@ -451,13 +451,12 @@ class TestHotSwap:
             while not v2.warmed.is_set():
                 mid = _post(server.url, 21)
                 assert mid[0] == 200
-            swap_t.join()
+            join_thread(swap_t, what="the swap")
             n = len(statuses)
             wait_for(lambda: len(statuses) >= n + 3,
                      what="replies after the flip")
             stop.set()
-            for t in threads:
-                t.join()
+            join_threads(threads, what="pollers")
             assert during[0] == 200 and during[1] == pre[1] == 21
             # fabric acceptance: zero 5xx for accepted requests, and every
             # response is a committed version's output — never a mix
@@ -491,7 +490,7 @@ class TestHotSwap:
             # the in-flight request was admitted under v1; flip to v2 now
             reg.swap_to("v2", _mk_handler(1000), warmup=False)
             release.set()
-            t.join()
+            join_thread(t, what="the pinned request")
             # pinned: it completed on v1's program (7), not v2's (7000)
             assert got["r"][0] == 200 and got["r"][1] == 7
             assert _post(server.url, 7)[1] == 7000
@@ -581,7 +580,7 @@ class TestHotSwap:
                     t = threading.Thread(target=doomed_swap)
                     t.start()
                     results, dropped = _load(gw.url, 20, value=11)
-                    t.join()
+                    join_thread(t, what="the doomed swap")
                     _assert_fabric_invariant(results, dropped)
                     assert all(s == 200 for s, _, _ in results)
                     assert all(b == 11 for _, b, _ in results)

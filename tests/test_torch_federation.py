@@ -49,6 +49,7 @@ from synapseml_tpu_torch.testing.chaos import (chaos_control_plane_partition,
                                          kill_gateway)
 
 from torch_fabric import echo as _echo, post as _post
+from torch_waits import join_thread, join_threads
 
 
 @pytest.fixture(autouse=True)
@@ -124,8 +125,7 @@ def _load_federated(urls, n, value="x", timeout=10.0):
     threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join()
+    join_threads(threads, what="federated load clients")
     return results, dropped
 
 
@@ -547,7 +547,7 @@ class TestGatewayKillInvariant:
                 killer = threading.Timer(0.05, kill_gateway, (gws[0],))
                 killer.start()
                 results, dropped = _load_federated(urls, 48)
-                killer.join()
+                join_thread(killer, what="the gateway killer")
                 _assert_zero_5xx(results, dropped)
                 assert len(results) == 48
                 # the survivors carried the load

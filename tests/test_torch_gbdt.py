@@ -460,7 +460,10 @@ def test_import_leaves_jax_out():
             "synapseml_tpu_torch.core.gossip, synapseml_tpu_torch.testing, "
             "synapseml_tpu_torch.vw, synapseml_tpu_torch.online, "
             "synapseml_tpu_torch.isolationforest, synapseml_tpu_torch.cyber, "
-            "synapseml_tpu_torch.recommendation, synapseml_tpu_torch.nn; "
+            "synapseml_tpu_torch.recommendation, synapseml_tpu_torch.nn, "
+            "synapseml_tpu_torch.explainers, synapseml_tpu_torch.causal, "
+            "synapseml_tpu_torch.image, synapseml_tpu_torch.ops.histogram, "
+            "synapseml_tpu_torch.ops.image; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'synapseml_tpu' or m.startswith("
             "'synapseml_tpu.')]; print(bad); sys.exit(1 if bad else 0)")

@@ -34,6 +34,7 @@ import torch
 import torch.multiprocessing as mp
 
 from synapseml_tpu_torch.gbdt import voting as tvoting
+from torch_waits import join_spawn
 
 ROWS, FEATURES = 2001, 16
 LEAF_ATOL = 1e-5
@@ -300,9 +301,8 @@ def spawned(tmp_path_factory):
         for k in (2, 4):
             want[k] = (_jax_fits(k), _jax_collectives(k))
     finally:
-        for ctx in ctxs.values():
-            while not ctx.join():
-                pass
+        for k, ctx in ctxs.items():
+            join_spawn(ctx, what=f"the {k}-rank spawn")
     out = {}
     for k in (2, 4):
         ranks = []

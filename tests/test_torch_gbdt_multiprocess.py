@@ -30,6 +30,8 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from torch_waits import join_spawn
+
 ROWS, FEATURES = 512, 6
 ATOL = 1e-5
 KILL_AT = 4
@@ -235,8 +237,7 @@ def spawned(tmp_path_factory):
     try:
         want = _jax_side()
     finally:
-        while not ctx.join():
-            pass
+        join_spawn(ctx, what="the 2-rank spawn")
     ranks = []
     for r in range(2):
         with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:

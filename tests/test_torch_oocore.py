@@ -831,16 +831,31 @@ class TestDiskChunkSource:
 # ---------------------------------------------------------------------------
 
 def test_second_pass_decision_is_the_fallback_unless_forced():
+    """The JAX package's rule: the exact pass is taken when its analytic
+    cost (the sketch pass's own seconds) is within SECOND_PASS_BUDGET of
+    the training estimate (a pass per tree level per iteration), skipped
+    (the fallback) when it is not, and forced either way by
+    ``exact_second_pass``."""
     rng = np.random.default_rng(1)
     X = rng.normal(size=(600, 3)).astype(np.float32)
     y = (X[:, 0] > 0).astype(np.float32)
-    cfg = _mk_cfg(bin_sample_count=200)
+    cfg = _mk_cfg(bin_sample_count=200)          # 5 iterations x 3 levels
     ds = StreamedDataset.from_arrays(X, y, chunk_rows=256).prepare(
         cfg, device=CPU)
+    dec = ds.second_pass_decision
+    assert dec["arm"] == "exact" and dec["source"] == "analytic"
+    assert dec["used_fallback"] is False and dec["observed_s"] >= 0
+    assert dec["candidates"][0]["arm"] == "exact"
+    assert ds.sketch_exact is True
+    exact = compute_bin_mapper(X, cfg.max_bin, 600, seed=cfg.seed)
+    assert ds.mapper.boundaries.tobytes() == exact.boundaries.tobytes()
+    # one iteration of a stump: the pass would cost 10x the budget
+    ds = StreamedDataset.from_arrays(X, y, chunk_rows=256).prepare(
+        _mk_cfg(bin_sample_count=200, num_iterations=1, num_leaves=2),
+        device=CPU)
     assert ds.sketch_exact is False
     dec = ds.second_pass_decision
-    assert dec["arm"] == "skip" and dec["source"] == "fallback"
-    assert dec["candidates"][0]["arm"] == "exact"
+    assert dec["arm"] == "skip" and dec["used_fallback"] is True
     forced = StreamedDataset.from_arrays(X, y, chunk_rows=256,
                                          exact_second_pass=True).prepare(
         cfg, device=CPU)

@@ -26,6 +26,8 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from torch_waits import join_spawn
+
 K = 4
 LEAF_ATOL = 1e-5
 
@@ -195,8 +197,7 @@ def spawned(tmp_path_factory):
     try:
         want = _jax_fits()
     finally:
-        while not ctx.join():
-            pass
+        join_spawn(ctx, what=f"the {K}-rank spawn")
     ranks = []
     for r in range(K):
         with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:

@@ -127,6 +127,27 @@ def test_csr_stream_is_the_jax_packages():
     _same_booster(tb, jb)
 
 
+@pytest.mark.parametrize("over", [{}, dict(num_iterations=1, num_leaves=2)])
+def test_default_second_pass_is_the_jax_packages(table, over):
+    """Past the reservoir with no ``exact_second_pass`` given, the port
+    decides the exact second sketch pass as the JAX package does (taken
+    for BASE, skipped for a one-iteration stump), so the boundaries and
+    the trees are the JAX package's. Before the port took the JAX rule it
+    always skipped the pass, and a stream past 200,000 rows (the default
+    reservoir) grew other trees than the JAX package's."""
+    X, y = table
+    over = dict(BASE, bin_sample_count=200, **over)
+    tds = StreamedDataset.from_arrays(X, y, source_chunk=130, chunk_rows=128)
+    jds = JStreamed.from_arrays(X, y, source_chunk=130, chunk_rows=128)
+    tb = train_booster_streamed(tds, BoosterConfig(**over), device=CPU)
+    jb = jstreamed(jds, JConfig(**over))
+    assert tds.second_pass_decision["arm"] \
+        == jds.second_pass_decision["arm"]
+    assert tds.sketch_exact == jds.sketch_exact
+    _same_mapper(tds.mapper, jds.mapper)
+    _same_booster(tb, jb)
+
+
 @pytest.mark.parametrize("cap", [10_000, 200])
 def test_streamed_boundaries_are_the_jax_packages(table, cap):
     """The sketch pass in the exact regime and past the reservoir (no

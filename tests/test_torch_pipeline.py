@@ -42,6 +42,7 @@ from synapseml_tpu_torch.convert import (staged_from_reference,
                                          staged_to_reference)
 from synapseml_tpu_torch.parallel import mesh as tmesh
 from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)
+from torch_waits import join_spawn
 
 WORLD = 4
 LOSS_TOL = 1e-5
@@ -290,8 +291,10 @@ def spawned(tmp_path_factory):
     """(the JAX side's npz, [each rank's npz])."""
     workdir = tmp_path_factory.mktemp("pipeline_ranks")
     _jax_reference(workdir / "inputs.npz")
-    mp.start_processes(_rank_main, args=(str(workdir),), nprocs=WORLD,
-                       join=True, start_method="spawn")
+    join_spawn(mp.start_processes(_rank_main, args=(str(workdir),),
+                                  nprocs=WORLD, join=False,
+                                  start_method="spawn"),
+               what=f"the {WORLD}-rank spawn")
     want = np.load(workdir / "inputs.npz")
     return want, [np.load(workdir / f"rank{r}.npz") for r in range(WORLD)]
 

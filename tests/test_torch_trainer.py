@@ -46,6 +46,7 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from torch_waits import join_spawn
 from synapseml_tpu_torch.convert import (text_encoder_from_reference,
                                          text_encoder_to_reference)
 from synapseml_tpu_torch.dl import TransformerEncoder, hash_tokenize
@@ -321,7 +322,10 @@ def workdir(tmp_path_factory):
 def spawned(workdir):
     """(JAX results and inputs, [each rank's results])."""
     _jax_reference(workdir / "inputs.npz")
-    mp.spawn(_rank_main, args=(str(workdir),), nprocs=WORLD, join=True)
+    join_spawn(mp.start_processes(_rank_main, args=(str(workdir),),
+                                  nprocs=WORLD, join=False,
+                                  start_method="spawn"),
+               what=f"the {WORLD}-rank spawn")
     want = np.load(workdir / "inputs.npz")
     ranks = [np.load(workdir / f"rank{r}.npz") for r in range(WORLD)]
     return want, ranks

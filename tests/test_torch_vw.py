@@ -37,6 +37,7 @@ import torch
 
 from synapseml_tpu_torch.core.table import Table as TTable
 from torch_threads import one_torch_thread  # lint-ok: unused-imports (autouse fixture)
+from torch_waits import join_spawn
 
 CPU = "cpu"
 W_TOL = 1e-5          # of max |w|: weights and predictions across packages
@@ -384,8 +385,7 @@ def mesh_states(tmp_path_factory):
                            sample_weight=sw, mesh=mesh)
         want.append({k: np.asarray(getattr(st, k))
                      for k in J.VWState._FIELDS})
-    while not ctx.join(timeout=120):
-        pass
+    join_spawn(ctx, what=f"the {MESH_RANKS}-rank mesh spawn")
     with open(os.path.join(workdir, "states.pkl"), "rb") as f:
         return pickle.load(f), want
 
