@@ -93,11 +93,11 @@ Phases, each of which fails the run if it fails:
    more ring step in the warmed ranks profiled on rank 0 (device busy time
    by kernel);
 10. the objective family on synthetic tables made from a seed:
-   ``LightGBMRegressor(objective="regression")`` (10 iterations, 31 leaves,
+   ``LightGBMRegressor(objective="regression")`` (5 iterations, 31 leaves,
    max_bin 255) on the HIGGS-shaped ``--rows`` table with its continuous
    margin as the label, then ``transform``, ``saveNativeModel`` and a
    reload; ``LightGBMClassifier`` with 7 classes on a Covertype-shaped
-   table (581,012 rows, 10 numeric and 44 one-hot columns; 70 trees), and
+   table (581,012 rows, 10 numeric and 44 one-hot columns; 35 trees), and
    the same fit depthwise through ``train_booster``; ``LightGBMRanker(
    maxPosition=20)`` on an MSLR-WEB10K-shaped table (10,000 queries, about
    1.2M rows, 136 features, labels 0-4, groups of mean about 120 and at
@@ -137,7 +137,7 @@ Phases, each of which fails the run if it fails:
 12. the rest of the GBDT estimator surface, on the HIGGS-shaped ``--rows``
    table with its last min(500,000, rows / 4) rows flagged in an ``isVal``
    column (HIGGS's published split keeps its last 500,000 of 11,000,000
-   rows as the test set): ``LightGBMClassifier(numIterations=100,
+   rows as the test set): ``LightGBMClassifier(numIterations=50,
    learningRate=0.1, numLeaves=31, maxBin=255, earlyStoppingRound=20,
    metric="auc", validationIndicatorCol="isVal")``, then the same fit
    depthwise through ``train_booster(valid=...)``; counts zeroed just
@@ -186,7 +186,7 @@ Phases, each of which fails the run if it fails:
    weights equal a host replay of its drops; the RF model string carries
    ``average_output`` and reloads within 1e-5. CUDA events time the
    sampling work of one iteration alone. Then every mode (and
-   the depthwise GOSS and DART fits) at 50,000 rows for 10 iterations on
+   the depthwise GOSS and DART fits) at 25,000 rows for 10 iterations on
    the card and on the CPU (the CPU fits in spawned worker processes):
    per-iteration validation AUC within 1e-3.
 14. categorical and sparse data on phase 10's Covertype-shaped table:
@@ -381,7 +381,8 @@ Phases, each of which fails the run if it fails:
    backward, hop and update ms (CUDA events), hop bytes, the idle share
    between the rank's stage programs (against the analytic bubble
    (S-1)/(M+S-1)), images/s and peak memory. (b) the staged encoder at
-   ``DeepTextClassifier``'s default widths and 8192 tokens, batch 4 in 2
+   ``DeepTextClassifier``'s default widths (2 layers) and 8192 tokens,
+   batch 2 in 2
    microbatches, on ``{"stage": 2, "seq": 2}`` (four ranks): ring and
    Ulysses, each under both schedules, every loss within 2e-4 of the same
    model fit with the same variant on ``{"seq": 2}`` without a pipeline
@@ -395,7 +396,7 @@ Phases, each of which fails the run if it fails:
    ``transfer.hop`` surfaces as ``PeerLostError`` naming the op within
    twice its 1 s budget; the text pipeline killed at epoch 2 resumes
    bitwise on the same mesh; a two-rank GBDT fit (phase 17's table, its
-   first 250,000 rows, 6 iterations) killed at iteration 3 resumes in one
+   first 125,000 rows, 6 iterations) killed at iteration 3 resumes in one
    process within 1e-4 of the uninterrupted fit's raw scores. Every
    failure is collected and raised at the end.
 22. the serving fabric, VW and the online loop (``--phase 22`` alone,
@@ -418,13 +419,13 @@ Phases, each of which fails the run if it fails:
    ``chaos_tenant_flood`` floods and NaN-storms the VW tenant, which must
    shed at its own 429 / 500 / 503 while the others answer 200. (d) VW on
    a seeded Criteo-shaped table (13 integer and 26 categorical columns,
-   2,000,000 rows and 250,000 held out, each column's vocabulary hashed
+   500,000 rows and 250,000 held out, each column's vocabulary hashed
    once): one logistic pass at batch 256 at 18 and 24 bits, weights within
    1e-4 of max |w| and progressive loss within 1e-5 of the same pass on
    the CPU (run in a spawned process meanwhile), rows/s, launches per
    batch, held-out AUC; ``VowpalWabbitClassifier`` fit / transform on the
    18-bit table; ``train_vw(mesh=)`` on the two processes of (a) (each its
-   half of a 500,000-row prefix: both ranks' weights bitwise equal, the
+   half of the 500,000 rows: both ranks' weights bitwise equal, the
    held-out AUC within 0.02 of one process on those rows). (e) The online
    loop at ``bench.py``'s shapes: updates/s while the fleet's policy serves
    over HTTP, ``PromotionGate`` with a ``PromotionBroadcast`` flipping
@@ -454,7 +455,7 @@ Phases, each of which fails the run if it fails:
    users/s, ``recommend_for_user_subset`` of 1,000 users against the CPU
    port (the same top 10 but at near ties of the 10th and 11th scores),
    ``transform`` of 250,000 pairs, host memory. (d) ``KNN`` (k 10) on a
-   SIFT1M-shaped corpus (1,000,000 x 128 integer-valued keys, 10,000
+   SIFT1M-shaped corpus (500,000 x 128 integer-valued keys, 10,000
    queries): index build s, queries/s brute force and pruned, recall
    against a float64 host brute force on 256 queries (1.0 but at near
    ties); ``ConditionalKNN`` with 1,000 labels and 5 a query on 256
@@ -463,18 +464,18 @@ Phases, each of which fails the run if it fails:
 24. explainers, causal inference, the image ops and leaf histograms
    (``--phase 24`` alone, which first fits phase 3's classifier). (a)
    ``TabularSHAP`` (2 * 28 + 2048 samples a row) and ``TabularLIME``
-   (1,000) on phase 3's classifier over its first 1,024 rows: each solver
+   (1,000) on phase 3's classifier over its first 512 rows: each solver
    runner's buckets captured ahead, then rows explained/s with scoring,
    solves and host sampling apart, no capture in the steady state, replay
    ms by bucket, ``solver_stats()``; phi and the LIME coefficients within
    1e-4 of the CPU port's on the same rows, SHAP's local accuracy within
-   1e-4. (b) ``ImageLIME`` on the seeded ResNet-50 at 224x224: 4 images x
+   1e-4. (b) ``ImageLIME`` on the seeded ResNet-50 at 224x224: 2 images x
    256 masks, SLIC at cell size 16; images/s with SLIC, masking, scoring
    and solves apart; image 0's scores within 1e-4 and coefficients within
    1e-3 of the CPU port's. (c) ``DoubleMLEstimator`` with
-   ``LightGBMRegressor`` nuisance models (20 iterations) on 500,000
+   ``LightGBMRegressor`` nuisance models (20 iterations) on 250,000
    HIGGS-shaped rows with a planted effect of 2.0: the ATE within 0.05 of
-   it, and on the first 50,000 rows within 5e-3 of the CPU port's. (d)
+   it, and on the first 25,000 rows within 5e-3 of the CPU port's. (d)
    ``SyntheticDiffInDiffEstimator`` on a Proposition-99-shaped panel (39 x
    31, 1 treated, 19 pre-periods) and a 2,000 x 200 panel: unit and time
    weights within 1e-4 of the CPU port's, each solve's ms on both. (e) every
@@ -486,6 +487,33 @@ Phases, each of which fails the run if it fails:
    port meanwhile. Every failure is collected and raised at the end. None
    of the five kernels runs here except in the nuisance models' and the
    classifier's fits (``child_histogram``, ``range_histogram``).
+25. featurization, TrainClassifier and AutoML (``--phase 25`` alone, which
+   first fits phase 3's classifier). (a) ``TrainClassifier(LightGBMClassifier(
+   numIterations=100))`` on a UCI-Adult-shaped table (48,842 rows, six
+   integer and eight string columns at Adult's cardinalities, ``"?"`` in
+   three, a ``"<=50K"`` / ``">50K"`` label 24% positive): fit on the
+   32,561-row train split, the 16,281-row test split scored, then
+   ``ComputeModelStatistics``, ``ComputePerInstanceStatistics`` and a save
+   and load (scores within 1e-5); the featurized matrix bitwise the CPU
+   port's, probabilities and AUC within 1e-3 of it, ``scored_labels`` the
+   original strings, the native library built and its murmur3 batch equal
+   to the numpy path on every string. (b) ``TrainClassifier`` on phase 3's
+   table as 28 float32 columns: ``Featurize``'s matrix bitwise phase 3's X,
+   the held-out AUC (500,000 rows of another seed) within 1e-3 of phase 3's
+   classifier. (c) ``TuneHyperparameters``: 8 random candidates
+   (``numLeaves`` 15 / 31 / 63, ``learningRate`` log-uniform in 0.05-0.3,
+   10 iterations), 3 folds, ``halvingEta`` 2, one thread on the card, a
+   ``checkpointDir``: seconds by rung, fold fits/s, peak memory; no NaN;
+   fold fits the ladder's 14 of exhaustive's 24; ``FindBestModel`` over
+   the finalists; the same search killed at rung 1 by
+   ``chaos_candidate``'s hook and resumed: every checkpointed score read
+   back bitwise and the same best params; two candidates' rung-0 fold AUC
+   within 1e-3 of the CPU port's. (d) ``GangCandidatePool``: two of the
+   port's spool workers fit on the card, one rank killed mid-task: it
+   respawns, its task is re-spooled and its AUC within 1e-3 of the same
+   fit alone. A spawned CPU process runs (a) and (c)'s folds on the CPU
+   port meanwhile. Every failure is collected and raised at the end.
+   ``child_histogram`` and ``range_histogram`` launch in every fit.
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 21's
@@ -583,7 +611,8 @@ PADDED_SHAPE = (2, 4095, 8, 32)
 COVTYPE_ROWS, COVTYPE_NUMERIC, COVTYPE_CLASSES = 581_012, 10, 7
 COVTYPE_WILD, COVTYPE_SOIL = 4, 40
 MSLR_QUERIES, MSLR_FEATURES, MSLR_MAX_GROUP = 10_000, 136, 908
-FAMILY_ITERS = 10
+# 5 iterations a fit (10 before phase 25 was added)
+FAMILY_ITERS = 5
 # the cross-check at 50,000 rows (100,000 before phase 20 was added)
 FAMILY_CROSS_ROWS, FAMILY_CROSS_ITERS = 50_000, 3
 # card against CPU: atomics can flip near-tie splits, so the mean absolute
@@ -622,10 +651,10 @@ VISION_LOGIT_TOL, VISION_LOSS_RTOL, VISION_STAT_TOL = 1e-4, 1e-4, 1e-4
 # min(SURFACE_VALID_ROWS, rows // 4) rows flagged, as HIGGS keeps its last
 # 500,000 rows for testing), then leaf indices, SHAP, the JSON dump, a
 # warm start, fobj, resume and a card-against-CPU curve on smaller tables.
-# 100 iterations (300 before phase 13 was added: both fits stopped after
+# 50 iterations (300 before phase 13 was added: both fits stopped after
 # 189-239 of them, so a fit now may run to the end unstopped; 150 before
-# phase 21 was added)
-SURFACE_VALID_ROWS, SURFACE_ITERS, SURFACE_ESR = 500_000, 100, 20
+# phase 21 was added, 100 before phase 25)
+SURFACE_VALID_ROWS, SURFACE_ITERS, SURFACE_ESR = 500_000, 50, 20
 SURFACE_SHAP_ROWS = 64
 SURFACE_WARM_ITERS, SURFACE_WARM_BATCHES = 10, 2
 SURFACE_SMALL_ROWS, SURFACE_SMALL_ITERS, SURFACE_RESUME_AT = 100_000, 10, 6
@@ -671,8 +700,9 @@ MONOTONE_FEATURE, MONOTONE_ROWS, MONOTONE_GRID = 2, 1000, 64
 # the split search's prefix sums, so the order is held within 1e-5 of the
 # tree's largest |value|
 MONOTONE_TOL = 1e-5
-# the cross-check at 50,000 rows (100,000 before phase 20 was added)
-SAMPLING_CROSS_ROWS, SAMPLING_CROSS_ITERS = 50_000, 10
+# the cross-check at 25,000 rows (100,000 before phase 20 was added,
+# 50,000 before phase 25)
+SAMPLING_CROSS_ROWS, SAMPLING_CROSS_ITERS = 25_000, 10
 SAMPLING_RELOAD_TOL = 1e-5
 # phase 14: categorical and sparse data on phase 10's Covertype-shaped
 # table. UCI's raw covtype.data stores wilderness and soil as one id each
@@ -835,10 +865,12 @@ PIPE_RUNS = (("fill_drain", {}),
                                    pipeline_param_sharding="zero")))
 # (b) the staged text encoder at DeepTextClassifier's default widths and
 # phase 8/9's 8192 tokens on {"stage": 2, "seq": 2} (four ranks), ring and
-# Ulysses under both schedules, held to the same model fit on {"seq": 2}
-PIPE_TEXT = dict(vocab_size=32768, num_classes=2, num_stages=2, num_layers=4,
+# Ulysses under both schedules, held to the same model fit on {"seq": 2};
+# a batch of 2 sequences in 2 microbatches and 2 layers, one a stage (4
+# sequences and 4 layers before phase 25 was added)
+PIPE_TEXT = dict(vocab_size=32768, num_classes=2, num_stages=2, num_layers=2,
                  hidden=256, heads=8, max_len=8192)
-PIPE_TEXT_RANKS, PIPE_TEXT_BATCH, PIPE_TEXT_MICRO = 4, 4, 2
+PIPE_TEXT_RANKS, PIPE_TEXT_BATCH, PIPE_TEXT_MICRO = 4, 2, 2
 PIPE_TEXT_STEPS, PIPE_TEXT_TOL = 2, 2e-4
 # (c) elastic: the hang's watchdog budget, and the GBDT killed on two ranks
 # at an iteration and resumed in one process (phase 17's table, cut)
@@ -7143,8 +7175,9 @@ FLEET_DL_REL = 1e-3          # phase 18's float32 bound, of max |y|
 # (a), held-out AUC within CRITEO_MESH_AUC_GAP of one process on them: the
 # average of two models that each saw half the rows against one that saw
 # them all in order (0.0105 apart on a 40,000-row CPU rehearsal)
-# CRITEO_ROWS 2,000,000 before phase 24 was added
-CRITEO_ROWS, CRITEO_CHUNK = 1_000_000, 250_000
+# CRITEO_ROWS 2,000,000 before phase 24 was added, 1,000,000 before phase
+# 25 (the mesh's CRITEO_MESH_ROWS are all of them now)
+CRITEO_ROWS, CRITEO_CHUNK = 500_000, 250_000
 CRITEO_INTS, CRITEO_CATS = 13, 26
 CRITEO_BITS, CRITEO_BATCH = (18, 24), 256
 # the learning rate: at VWConfig's default 0.5 this table's 39 features a
@@ -8347,12 +8380,13 @@ SAR_PARAMS = dict(similarityFunction="jaccard", supportThreshold=4,
 SAR_K, SAR_SUBSET, SAR_TIE_RTOL = 10, 1_000, 1e-5
 # SAR_PAIRS 1,000,000 before phase 24 was added
 SAR_CHECK_COLS, SAR_PAIRS = 64, 250_000
-# (d) texmex ANN_SIFT1M: 1,000,000 base vectors x 128, integer-valued
-# 0-255, 10,000 queries; k = 10. Against a float64 host brute force on
+# (d) texmex ANN_SIFT1M's shape, its 1,000,000 base vectors cut to 500,000
+# (before phase 25 was added, all of them) x 128, integer-valued 0-255,
+# 10,000 queries; k = 10. Against a float64 host brute force on
 # KNN_CHECK queries: recall 1.0 but at near ties (the 10th and 11th inner
 # products within KNN_TIE_RTOL). ConditionalKNN: KNN_LABELS labels,
 # KNN_COND labels a query, KNN_CHECK queries
-SIFT_BASE, SIFT_DIM, SIFT_QUERIES = 1_000_000, 128, 10_000
+SIFT_BASE, SIFT_DIM, SIFT_QUERIES = 500_000, 128, 10_000
 KNN_K, KNN_CHECK, KNN_TIE_RTOL = 10, 256, 1e-5
 KNN_LABELS, KNN_COND = 1_000, 5
 # the CPU port's runs of (a) and (b) in a spawned process beside the card's
@@ -9071,8 +9105,9 @@ def analytics_path(dev: str) -> dict:
 # default 1,000. Card against the CPU port on the same rows (the same host
 # draws, the same trees): phi and the LIME coefficients within EXPLAIN_TOL
 # (float32 solves over 2,104 samples in other orders), SHAP's local
-# accuracy sum(phi) = f(x) - base within ADDITIVITY_TOL
-EXPLAIN_ROWS = 1024
+# accuracy sum(phi) = f(x) - base within ADDITIVITY_TOL; 512 rows (1,024
+# before phase 25 was added)
+EXPLAIN_ROWS = 512
 EXPLAIN_TOL, ADDITIVITY_TOL = 1e-4, 1e-4
 # (b) ImageLIME on phase 11's seeded ResNet-50 (the estimator's seed-0
 # initial state) at 224x224: IMAGE_LIME_IMAGES CIFAR-shaped images resized,
@@ -9082,8 +9117,8 @@ EXPLAIN_TOL, ADDITIVITY_TOL = 1e-4, 1e-4
 # 256 scores within IMAGE_SCORE_TOL of the card's (the float32 logits'
 # cuDNN-against-oneDNN gap, VISION_LOGIT_TOL, after a softmax), and its
 # coefficients within IMAGE_LIME_TOL (a 197-unknown solve over 256 samples
-# magnifies that gap)
-IMAGE_LIME_IMAGES, IMAGE_LIME_SAMPLES, IMAGE_LIME_CELL = 4, 256, 16
+# magnifies that gap); 2 images (4 before phase 25 was added)
+IMAGE_LIME_IMAGES, IMAGE_LIME_SAMPLES, IMAGE_LIME_CELL = 2, 256, 16
 IMAGE_SCORE_TOL, IMAGE_LIME_TOL = 1e-4, 1e-3
 # (c) DoubleML on DML_ROWS HIGGS-shaped rows: the treatment drawn with
 # propensity sigmoid(X0 + 0.5 X2), the outcome DML_ATE * T + the HIGGS
@@ -9091,9 +9126,11 @@ IMAGE_SCORE_TOL, IMAGE_LIME_TOL = 1e-4, 1e-3
 # DML_ITERS iterations at learning rate DML_LR, maxIter 1. The ATE within
 # DML_ATE_TOL of the planted effect; on the first DML_PREFIX rows the
 # card's ATE within DML_CARD_TOL of the CPU port's (the same trees but
-# where float32 sums on the card split a near tie another way)
+# where float32 sums on the card split a near tie another way); 250,000
+# rows and a 25,000-row prefix (500,000 and 50,000 before phase 25 was
+# added)
 DML_ROWS, DML_PREFIX, DML_ITERS, DML_LR, DML_ATE = \
-    500_000, 50_000, 20, 0.3, 2.0
+    250_000, 25_000, 20, 0.3, 2.0
 DML_ATE_TOL, DML_CARD_TOL = 0.05, 5e-3
 # (d) SyntheticDiffInDiff on panels (name, units, periods, treated units,
 # pre-periods): Proposition 99's shape (Abadie, Diamond & Hainmueller 2010:
@@ -9794,12 +9831,769 @@ def explain_path(dev: str, model=None, rows: int = 2_000_000) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: featurization, TrainClassifier / TrainRegressor, the pipeline
+# stages and AutoML's elastic halving search
+# ---------------------------------------------------------------------------
+# (a) TrainClassifier on UCI Adult at its real shape (Kohavi 1996; the
+# upstream classification notebook's data set), made from a seed: 48,842
+# rows, the 32,561-row train split fitted and the 16,281-row test split
+# scored; six integer columns and eight string columns at Adult's
+# cardinalities, "?" a level of workclass, occupation and native-country;
+# the label "<=50K" / ">50K", ADULT_POSITIVE of the rows positive with a
+# planted signal. The CPU port fits the same in a spawned process: the
+# featurized matrix bitwise its, the probabilities within ADULT_PROB_TOL and
+# the AUC within ADULT_AUC_TOL (atomics may flip a near-tie split); the
+# reloaded model's scores within ADULT_RELOAD_TOL
+ADULT_ROWS, ADULT_TRAIN, ADULT_POSITIVE, ADULT_ITERS = \
+    48_842, 32_561, 0.24, 100
+ADULT_NUMERIC = ("age", "fnlwgt", "education-num", "capital-gain",
+                 "capital-loss", "hours-per-week")
+ADULT_STRINGS = {"workclass": 9, "education": 16, "marital-status": 7,
+                 "occupation": 15, "relationship": 6, "race": 5, "sex": 2,
+                 "native-country": 42}
+ADULT_MISSING = ("workclass", "occupation", "native-country")
+ADULT_PROB_TOL, ADULT_AUC_TOL, ADULT_RELOAD_TOL = 1e-3, 1e-3, 1e-5
+# (b) TrainClassifier on phase 3's table (its X and y, as 28 float32
+# columns): Featurize's matrix bitwise X, and the inner fit's AUC on
+# HELDOUT_ROWS HIGGS-shaped rows of another seed within TRAIN_AUC_TOL of
+# phase 3's classifier's
+HELDOUT_ROWS, TRAIN_AUC_TOL = 500_000, 1e-3
+# (c) TuneHyperparameters on (a)'s featurized train split: random search
+# over TUNE_CANDIDATES draws (numLeaves in TUNE_LEAVES, learningRate
+# log-uniform in TUNE_LR), TUNE_ITERS iterations, TUNE_FOLDS folds, eta
+# TUNE_ETA, TUNE_THREADS threads, a checkpointDir; FindBestModel over the
+# finalists; the same search killed at rung TUNE_KILL_RUNG (chaos_candidate's
+# hook) and resumed. TUNE_CROSS candidates' rung-0 fold scores within
+# TUNE_CROSS_TOL of the CPU port's. Every task runs under an explicit budget
+# of TUNE_BUDGET_S (the journal's matched rows would arm a reaper at 4x a
+# fold's seconds). One thread and 10 iterations, not 4 and 50: the port's
+# leaf-wise fit is host-bound at this size, and fits in threads on one card
+# are slower than one after another (every small torch op the grower issues
+# releases and retakes the GIL, and the threads queue on it);
+# tools/automl_fit_costs.py measures both
+TUNE_CANDIDATES, TUNE_FOLDS, TUNE_ETA, TUNE_THREADS = 8, 3, 2, 1
+TUNE_ITERS, TUNE_LEAVES, TUNE_LR, TUNE_SEED = 10, (15, 31, 63), (0.05, 0.3), 0
+TUNE_KILL_RUNG, TUNE_CROSS, TUNE_CROSS_TOL, TUNE_BUDGET_S = 1, 2, 1e-3, 600.0
+# (d) the gang: GANG_WORKERS spool workers of the port on the card, each
+# fitting (c)'s base model on the train split; one rank killed mid-task;
+# the re-spooled task's AUC within GANG_AUC_TOL of the same fit alone
+GANG_WORKERS, GANG_AUC_TOL, GANG_WAIT_S = 2, 1e-3, 300.0
+# the CPU port's (a) and (c) in a spawned process beside the card's work
+AUTOML_CPU_THREADS = 4
+AUTOML_WAIT_S = 600.0
+_AUTOML_SETTINGS = ("ADULT_ROWS", "ADULT_TRAIN", "ADULT_POSITIVE",
+                    "ADULT_ITERS", "TUNE_CANDIDATES", "TUNE_FOLDS",
+                    "TUNE_ITERS", "TUNE_LEAVES", "TUNE_LR", "TUNE_SEED",
+                    "TUNE_CROSS", "AUTOML_CPU_THREADS")
+
+
+def adult_like(rows: int, seed: int = 0) -> dict:
+    """UCI-Adult-shaped columns: the six integer columns in Adult's ranges,
+    the eight string columns at Adult's cardinalities (skewed levels; "?"
+    one of them where Adult has missing values) and the string label with
+    a planted signal, about ADULT_POSITIVE positive."""
+    rng = np.random.default_rng(seed)
+    cols = {
+        "age": rng.integers(17, 91, rows),
+        "fnlwgt": rng.integers(12_285, 1_484_706, rows),
+        "education-num": rng.integers(1, 17, rows),
+        "capital-gain": np.where(rng.random(rows) < 0.08,
+                                 rng.integers(1, 99_999, rows), 0),
+        "capital-loss": np.where(rng.random(rows) < 0.05,
+                                 rng.integers(1, 4_356, rows), 0),
+        "hours-per-week": rng.integers(1, 100, rows)}
+    for name, k in ADULT_STRINGS.items():
+        levels = [f"{name}-{i}" for i in range(k)]
+        if name in ADULT_MISSING:
+            levels[-1] = "?"
+        p = 1.0 / np.arange(1, k + 1)
+        cols[name] = np.asarray(levels, object)[
+            rng.choice(k, size=rows, p=p / p.sum())]
+    margin = (0.04 * (cols["age"] - 38) + 0.3 * (cols["education-num"] - 10)
+              + 1.5 * (cols["capital-gain"] > 0)
+              + 1.2 * (cols["marital-status"] == "marital-status-0")
+              + 0.5 * (cols["sex"] == "sex-0")
+              + 0.02 * (cols["hours-per-week"] - 40)
+              + rng.normal(size=rows))
+    cut = np.quantile(margin, 1.0 - ADULT_POSITIVE)
+    cols["income"] = np.where(margin > cut, ">50K", "<=50K").astype(object)
+    return cols
+
+
+def adult_split(cols: dict) -> tuple:
+    """(train, test) ``Table`` s: the first ADULT_TRAIN rows and the rest."""
+    from synapseml_tpu_torch.core.table import Table
+
+    return (Table({k: v[:ADULT_TRAIN] for k, v in cols.items()}),
+            Table({k: v[ADULT_TRAIN:] for k, v in cols.items()}))
+
+
+def _array_digest(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def tune_space():
+    from synapseml_tpu_torch.automl import (DiscreteHyperParam,
+                                            HyperparamBuilder,
+                                            RangeHyperParam)
+
+    return (HyperparamBuilder()
+            .addHyperparam("numLeaves", DiscreteHyperParam(list(TUNE_LEAVES)))
+            .addHyperparam("learningRate",
+                           RangeHyperParam(*TUNE_LR, log=True))
+            .build())
+
+
+def tune_candidates() -> list:
+    from synapseml_tpu_torch.automl import RandomSpace
+
+    return list(RandomSpace(tune_space(), TUNE_CANDIDATES, TUNE_SEED))
+
+
+def tune_folds(n: int) -> list:
+    """``TuneHyperparameters``' folds of ``n`` rows at TUNE_SEED."""
+    perm = np.random.default_rng(TUNE_SEED).permutation(n)
+    return np.array_split(perm, max(TUNE_FOLDS, 2))
+
+
+def featurized(model, table):
+    """(a)'s featurized ``table`` for the search: the fitted featurizer's
+    matrix and the indexed label, as a ``features`` / ``label`` Table."""
+    from synapseml_tpu_torch.core.table import Table
+
+    work = model.indexer.transform(model.featurizer.transform(table))
+    return Table({"features": work["features"],
+                  "label": work["__label_indexed"].astype(np.float64)})
+
+
+def fold_score(table, params: dict, fold: int, dev: str) -> float:
+    """One fold of the search (fit on the other folds, AUC on ``fold``), as
+    ``TuneHyperparameters`` scores it."""
+    from synapseml_tpu_torch.automl.tune import _evaluate
+    from synapseml_tpu_torch.models import LightGBMClassifier
+
+    folds = tune_folds(table.num_rows)
+    train_idx = np.concatenate([f for i, f in enumerate(folds) if i != fold])
+    est = LightGBMClassifier(numIterations=TUNE_ITERS, device=dev).copy(
+        extra=params)
+    return _evaluate(est.fit(table.take(train_idx)),
+                     table.take(folds[fold]), "AUC", "label")
+
+
+def _automl_cpu(out_dir: str, settings: dict) -> None:
+    """The CPU port's (a) and (c)'s rung-0 folds (a spawned process beside
+    the card's work), each result written whole and then renamed."""
+    sys.path.insert(0, str(REPO))
+    globals().update(settings)
+    from synapseml_tpu_torch.models import LightGBMClassifier
+    from synapseml_tpu_torch.train import TrainClassifier
+    from synapseml_tpu_torch.train.metrics import auc_score
+
+    torch.set_num_threads(AUTOML_CPU_THREADS)
+
+    def put(name: str, **arrays) -> None:
+        tmp = os.path.join(out_dir, f".{name}")
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, os.path.join(out_dir, name))
+
+    train, test = adult_split(adult_like(ADULT_ROWS))
+    t0 = time.perf_counter()
+    model = TrainClassifier(
+        model=LightGBMClassifier(numIterations=ADULT_ITERS, device="cpu"),
+        labelCol="income").fit(train)
+    scored = model.transform(test)
+    y = np.asarray(scored["income"] == ">50K", np.float64)
+    put("adult.npz", probability=scored["probability"],
+        features=np.str_(_array_digest(scored["features"])),
+        auc=np.float64(auc_score(y, scored["probability"][:, 1])),
+        seconds=np.float64(time.perf_counter() - t0))
+    table = featurized(model, train)
+    t0 = time.perf_counter()
+    scores = [fold_score(table, p, 0, "cpu")
+              for p in tune_candidates()[:TUNE_CROSS]]
+    put("tune.npz", scores=np.asarray(scores, np.float64),
+        seconds=np.float64(time.perf_counter() - t0))
+
+
+def start_automl_cpu():
+    """(a) and (c)'s folds on the CPU port in a spawned process: (process,
+    output dir)."""
+    out = tempfile.mkdtemp(prefix="automl_cpu_")
+    ctx = torch.multiprocessing.get_context("spawn")
+    p = ctx.Process(target=_automl_cpu, args=(
+        out, {k: globals()[k] for k in _AUTOML_SETTINGS}))
+    p.start()
+    return p, out
+
+
+def _automl_npz(cpu, name: str) -> dict:
+    """The CPU process's ``name``, once written (waiting up to
+    AUTOML_WAIT_S)."""
+    proc, out = cpu
+    path = os.path.join(out, name)
+    deadline = time.monotonic() + AUTOML_WAIT_S
+    while not os.path.exists(path):
+        if not proc.is_alive() and not os.path.exists(path):
+            raise AssertionError(f"phase 25: the CPU process ended (exit "
+                                 f"code {proc.exitcode}) without {name}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 25: {name} never came")
+        time.sleep(0.05)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def gang_fit_task(path: str, device: str, iters: int) -> dict:
+    """A gang worker's task (importable as ``chip_smoke:gang_fit_task``):
+    (c)'s base model (``iters`` iterations) fitted on the arrays at
+    ``path`` on ``device``, its AUC on their held-out rows, and the
+    launches it made."""
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.models import LightGBMClassifier
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+    from synapseml_tpu_torch.train.metrics import auc_score
+
+    if not _on_card(device):
+        torch.set_num_threads(1)    # two workers share the host's cores
+    with np.load(path) as z:
+        d = {k: z[k] for k in z.files}
+    hk.reset_launch_counts()
+    model = LightGBMClassifier(numIterations=iters, device=device).fit(
+        Table({"features": d["X"], "label": d["y"]}))
+    prob = model.transform(Table({"features": d["Xv"]}))["probability"]
+    return {"auc": float(auc_score(d["yv"], prob[:, 1])),
+            "launches": dict(hk.LAUNCHES), "pid": os.getpid()}
+
+
+def adult_part(dev: str, cpu, fails: list) -> dict:
+    """(a): TrainClassifier on the Adult-shaped table, its statistics, a
+    save and load, the native hashes; held to the CPU port's."""
+    from synapseml_tpu_torch import native
+    from synapseml_tpu_torch.core.pipeline import PipelineStage
+    from synapseml_tpu_torch.models import LightGBMClassifier
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+    from synapseml_tpu_torch.train import (ComputeModelStatistics,
+                                           ComputePerInstanceStatistics,
+                                           TrainClassifier)
+    from synapseml_tpu_torch.vw.hashing import murmur3_32_batch
+
+    t0 = time.perf_counter()
+    cols = adult_like(ADULT_ROWS)
+    train, test = adult_split(cols)
+    log(f"  (a) Adult-shaped table: {ADULT_ROWS} rows ({ADULT_TRAIN} train), "
+        f"{len(ADULT_NUMERIC)} integer + {len(ADULT_STRINGS)} string columns, "
+        f"{np.mean(cols['income'] == '>50K'):.4f} positive, made in "
+        f"{time.perf_counter() - t0:.2f}s")
+    est = TrainClassifier(
+        model=LightGBMClassifier(numIterations=ADULT_ITERS, device=dev),
+        labelCol="income")
+    hk.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    model = est.fit(train)
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    t0 = time.perf_counter()
+    scored = model.transform(test)
+    score_s = time.perf_counter() - t0
+    work = model.indexer.transform(scored)
+    stats = ComputeModelStatistics(
+        labelCol="__label_indexed", evaluationMetric="classification",
+        scoresCol="probability").transform(work)
+    per_row = ComputePerInstanceStatistics(
+        labelCol="__label_indexed").transform(work)
+    auc = float(stats["AUC"][0])
+    prob = scored["probability"]
+    levels = model.indexer.levels
+    log(f"  (a) TrainClassifier(LightGBMClassifier(numIterations="
+        f"{ADULT_ITERS})): {model.featurizer.feature_dim} features, fit "
+        f"{fit_s:.3f}s ({ADULT_TRAIN * ADULT_ITERS / fit_s:.0f} row "
+        f"iterations/s, featurize and index included), scored "
+        f"{ADULT_ROWS - ADULT_TRAIN} rows in {score_s:.3f}s; test AUC "
+        f"{auc:.6f}, accuracy {stats['accuracy'][0]:.4f}, mean log loss "
+        f"{per_row['log_loss'].mean():.4f}; launches {json.dumps(launches)}")
+    if _on_card(dev):
+        _check_launches(launches, MAIN_KERNELS)
+    if prob.shape != (ADULT_ROWS - ADULT_TRAIN, 2) \
+            or not np.isfinite(prob).all() or auc < 0.75:
+        fails.append(f"(a) scores bad: shape {prob.shape}, AUC {auc}")
+    want = np.asarray(levels, object)[np.argmax(prob, 1)]
+    if levels != ["<=50K", ">50K"] \
+            or list(scored["scored_labels"]) != list(want):
+        fails.append(f"(a) scored_labels are not the original strings "
+                     f"(levels {levels})")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model.save(os.path.join(tmp, "trained"))
+        loaded = PipelineStage.load(os.path.join(tmp, "trained"), device=dev)
+        reload_gap = float(np.abs(
+            loaded.transform(test)["probability"] - prob).max())
+        log(f"  (a) save and load of the TrainedClassifierModel in "
+            f"{time.perf_counter() - t0:.2f}s: scores max |diff| "
+            f"{reload_gap:.3g} (tolerance {ADULT_RELOAD_TOL})")
+    if not reload_gap <= ADULT_RELOAD_TOL:
+        fails.append(f"(a) reloaded scores {reload_gap} from the fitted")
+    strings = [str(v) for c in ADULT_STRINGS for v in cols[c]] \
+        + [str(v) for v in cols["income"]]
+    t0 = time.perf_counter()
+    available = native.available()          # builds it at first use
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = native.murmur3_32_batch(strings, 0, vw_numeric_names=False)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_h = murmur3_32_batch([s.encode("utf-8") for s in strings], 0)
+    numpy_s = time.perf_counter() - t0
+    same = got is not None and np.array_equal(got, want_h)
+    log(f"  (a) native library available {available} (built or loaded in "
+        f"{build_s:.2f}s, {native.library_path()}): murmur3 of the table's "
+        f"{len(strings)} "
+        f"strings {native_s * 1e3:.1f} ms native, {numpy_s * 1e3:.1f} ms "
+        f"numpy, equal {same}")
+    if not (available and same):
+        fails.append("(a) the native library is unavailable or its hashes "
+                     "differ from the numpy path's")
+    return dict(model=model, train=train, test=test, prob=prob, auc=auc,
+                features=_array_digest(scored["features"]),
+                plans=model.featurizer.plans, launches=launches,
+                fit_s=fit_s)
+
+
+def adult_check(card: dict, cpu, fails: list) -> None:
+    ref = _automl_npz(cpu, "adult.npz")
+    gap = float(np.abs(card["prob"] - ref["probability"]).max())
+    auc_gap = abs(card["auc"] - float(ref["auc"]))
+    same = card["features"] == str(ref["features"])
+    log(f"  (a) card against CPU: featurized test matrix bitwise {same}, "
+        f"probabilities max |diff| {gap:.3g} (tolerance {ADULT_PROB_TOL}), "
+        f"AUC {card['auc']:.6f} against {float(ref['auc']):.6f} (tolerance "
+        f"{ADULT_AUC_TOL}); the CPU port took {float(ref['seconds']):.2f}s")
+    if not same:
+        fails.append("(a) the featurized matrix differs from the CPU port's")
+    if not (gap <= ADULT_PROB_TOL and auc_gap <= ADULT_AUC_TOL):
+        fails.append(f"(a) card against CPU: probabilities {gap}, AUC "
+                     f"{auc_gap}")
+
+
+def higgs_train_part(X, y, reference, dev: str, fails: list) -> dict:
+    """(b): TrainClassifier on phase 3's table as 28 float32 columns."""
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.models import LightGBMClassifier
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+    from synapseml_tpu_torch.train import TrainClassifier
+    from synapseml_tpu_torch.train.metrics import auc_score
+
+    names = [f"f{i}" for i in range(X.shape[1])]
+    table = Table({**{n: X[:, i] for i, n in enumerate(names)}, "label": y})
+    hk.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    model = TrainClassifier(model=LightGBMClassifier(
+        numIterations=10, numLeaves=31, maxBin=255, device=dev)).fit(table)
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    t0 = time.perf_counter()
+    Xf = model.featurizer.transform(table)["features"]
+    feat_s = time.perf_counter() - t0
+    bitwise = Xf.dtype == X.dtype and Xf.shape == X.shape and \
+        np.ascontiguousarray(Xf).tobytes() == np.ascontiguousarray(X).tobytes()
+    del Xf, table
+    Xh, yh = higgs_like(HELDOUT_ROWS, seed=1)
+    got = model.transform(Table({n: Xh[:, i] for i, n in enumerate(names)}))
+    auc = auc_score(yh, got["probability"][:, 1])
+    want = auc_score(yh, reference.transform(table_of(Xh, yh))[
+        "probability"][:, 1])
+    log(f"  (b) TrainClassifier on {X.shape[0]} rows x {X.shape[1]} float32 "
+        f"columns: fit {fit_s:.3f}s (featurize, index and fit), Featurize's "
+        f"transform {feat_s:.3f}s, its matrix bitwise phase 3's X {bitwise}; "
+        f"held-out AUC ({HELDOUT_ROWS} rows) {auc:.6f} against phase 3's "
+        f"classifier {want:.6f} (tolerance {TRAIN_AUC_TOL}); launches "
+        f"{json.dumps(launches)}")
+    if _on_card(dev):
+        _check_launches(launches, MAIN_KERNELS)
+    if not bitwise:
+        fails.append("(b) Featurize's matrix is not phase 3's X")
+    if not abs(auc - want) <= TRAIN_AUC_TOL:
+        fails.append(f"(b) held-out AUC {auc} against phase 3's {want}")
+    return dict(fit_s=fit_s, featurize_s=feat_s, auc=auc)
+
+
+@contextlib.contextmanager
+def rung_clock(seconds: dict):
+    """Wall seconds of each rung of the halving scheduler's brackets run
+    inside, summed by rung index into ``seconds``."""
+    from synapseml_tpu_torch.automl import scheduler as sch
+
+    run_rung = sch.ElasticHalvingScheduler._run_rung
+
+    def timed(self, rung, alive):
+        t0 = time.perf_counter()
+        try:
+            return run_rung(self, rung, alive)
+        finally:
+            seconds[rung.index] = seconds.get(rung.index, 0.0) \
+                + time.perf_counter() - t0
+
+    sch.ElasticHalvingScheduler._run_rung = timed
+    try:
+        yield seconds
+    finally:
+        sch.ElasticHalvingScheduler._run_rung = run_rung
+
+
+def _bracket(ckpt: str) -> dict:
+    from synapseml_tpu_torch.core.checkpoint import CheckpointStore
+
+    ck = CheckpointStore(os.path.join(ckpt, "bracket")).load_latest()
+    return json.loads(ck.artifacts["bracket.json"])
+
+
+def tune_part(adult: dict, dev: str, cpu, fails: list) -> dict:
+    """(c): the halving search, FindBestModel over its finalists, and the
+    same search killed at a rung and resumed."""
+    from synapseml_tpu_torch.automl import FindBestModel, TuneHyperparameters
+    from synapseml_tpu_torch.automl.scheduler import plan_rungs
+    from synapseml_tpu_torch.core import perfmodel
+    from synapseml_tpu_torch.core.checkpoint import PreemptionError
+    from synapseml_tpu_torch.models import LightGBMClassifier
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+    from synapseml_tpu_torch.testing import chaos_candidate
+
+    table = featurized(adult["model"], adult["train"])
+    test = featurized(adult["model"], adult["test"])
+    candidates = tune_candidates()
+    keys = [TuneHyperparameters._candidate_key(p) for p in candidates]
+    work = tempfile.mkdtemp(prefix="automl_tune_")
+    journal = perfmodel.JOURNAL_PATH
+    perfmodel.JOURNAL_PATH = os.path.join(work, "perf_rows.jsonl")
+
+    def tuner(ckpt: str):
+        return TuneHyperparameters(
+            model=LightGBMClassifier(numIterations=TUNE_ITERS, device=dev),
+            paramSpace=tune_space(), searchMode="random",
+            numRuns=TUNE_CANDIDATES, numFolds=TUNE_FOLDS, seed=TUNE_SEED,
+            evaluationMetric="AUC", parallelism=TUNE_THREADS,
+            halvingEta=TUNE_ETA, minResourceFolds=1, checkpointDir=ckpt,
+            candidateBudgetSeconds=TUNE_BUDGET_S, perfJournal=True)
+
+    class KillAtRung(chaos_candidate):
+        """chaos_candidate whose every task of rung TUNE_KILL_RUNG kills
+        the search (a ``PreemptionError`` out of the hook)."""
+
+        def _hook(self, key, rung, attempt):
+            if rung == TUNE_KILL_RUNG:
+                self.injected.append(("kill", key, rung, attempt))
+                raise PreemptionError(f"phase 25: search killed at rung "
+                                      f"{rung}")
+            return super()._hook(key, rung, attempt)
+
+    try:
+        rungs = plan_rungs(TUNE_CANDIDATES, TUNE_FOLDS, eta=TUNE_ETA)
+        planned, prev = 0, 0
+        for r in rungs:
+            planned += r.survivors * (r.resource - prev)
+            prev = r.resource
+        rung_s: dict = {}
+        hk.reset_launch_counts()
+        peak0 = _peak_gib(dev, reset=True)
+        d1 = os.path.join(work, "search")
+        t0 = time.perf_counter()
+        with rung_clock(rung_s):
+            tuned = tuner(d1).fit(table)
+        search_s = time.perf_counter() - t0
+        peak = _peak_gib(dev)
+        launches = dict(hk.LAUNCHES)
+        state = _bracket(d1)
+        fold_fits = sum(len(v) for v in state["fold_scores"].values())
+        metrics = [r["metric"] for r in tuned.allResults]
+        rows = perfmodel.training_rows("automl_rung")
+        log(f"  (c) TuneHyperparameters: {TUNE_CANDIDATES} candidates x "
+            f"{TUNE_FOLDS} folds, eta {TUNE_ETA}, {TUNE_THREADS} threads on "
+            f"one card: rungs {[(r.resource, r.survivors) for r in rungs]}, "
+            f"{search_s:.2f}s (the best's refit included); seconds by rung "
+            f"{json.dumps({k: round(v, 3) for k, v in rung_s.items()})}; "
+            f"{fold_fits} fold fits ({fold_fits / sum(rung_s.values()):.2f}"
+            f"/s over the rungs), {fold_fits / (TUNE_CANDIDATES * TUNE_FOLDS):.3f}"
+            f" of exhaustive's {TUNE_CANDIDATES * TUNE_FOLDS}; peak "
+            f"memory_allocated {peak:.3f} GiB (before {peak0:.3f}); "
+            f"{len(rows)} automl_rung rows journaled "
+            f"({rows[0]['platform'] if rows else '-'}); launches "
+            f"{json.dumps(launches)}")
+        log(f"  (c) best {json.dumps(tuned.bestParams)} CV AUC "
+            f"{tuned.bestMetric:.6f}; metrics "
+            f"{[round(m, 6) for m in metrics]}")
+        if _on_card(dev):
+            _check_launches(launches, MAIN_KERNELS)
+        if any(np.isnan(m) for m in metrics):
+            fails.append(f"(c) a candidate scored NaN without chaos: "
+                         f"{metrics}")
+        if fold_fits != planned or fold_fits >= TUNE_CANDIDATES * TUNE_FOLDS:
+            fails.append(f"(c) {fold_fits} fold fits against the ladder's "
+                         f"{planned}")
+
+        # FindBestModel over the finalists fitted on the split: the
+        # search's refitted best and the others fitted here
+        finalists = [candidates[keys.index(k)]
+                     for k in state["promoted"][str(len(rungs) - 1)]]
+        t0 = time.perf_counter()
+        models = [tuned.bestModel if p == tuned.bestParams else
+                  LightGBMClassifier(numIterations=TUNE_ITERS, device=dev)
+                  .copy(extra=p).fit(table) for p in finalists]
+        best = FindBestModel(models=models, evaluationMetric="AUC",
+                             parallelism=TUNE_THREADS).fit(test)
+        held = [m["metric"] for m in best.allModelMetrics]
+        log(f"  (c) FindBestModel over the {len(models)} finalists "
+            f"{json.dumps(finalists)} on the test split: AUC {held}, best "
+            f"#{models.index(best.bestModel)} ({time.perf_counter() - t0:.2f}"
+            f"s with the fits)")
+        if not finalists or not all(np.isfinite(held)):
+            fails.append(f"(c) FindBestModel: finalists {finalists}, AUC "
+                         f"{held}")
+
+        # the same search, killed at rung TUNE_KILL_RUNG, then resumed
+        d2 = os.path.join(work, "killed")
+        t0 = time.perf_counter()
+        try:
+            with KillAtRung(seed=TUNE_SEED) as chaos:
+                tuner(d2).fit(table)
+            fails.append("(c) the kill at rung 1 never fired")
+        except PreemptionError:
+            pass
+        kill_s = time.perf_counter() - t0
+        before = _bracket(d2)
+        t0 = time.perf_counter()
+        resumed = tuner(d2).fit(table)
+        resume_s = time.perf_counter() - t0
+        after = _bracket(d2)
+        kept = all(after["fold_scores"][k][:len(v)] == v
+                   for k, v in before["fold_scores"].items())
+        done = sum(len(v) for v in before["fold_scores"].values())
+        refit = sum(len(v) for v in after["fold_scores"].values()) - done
+        log(f"  (c) killed at rung {TUNE_KILL_RUNG} after {kill_s:.2f}s "
+            f"({len([i for i in chaos.injected if i[0] == 'kill'])} tasks "
+            f"killed, {done} fold scores checkpointed), resumed in "
+            f"{resume_s:.2f}s with {refit} more fold fits: every completed "
+            f"score read back bitwise {kept}; best "
+            f"{json.dumps(resumed.bestParams)} against the uninterrupted "
+            f"{json.dumps(tuned.bestParams)}")
+        if not kept or resumed.bestParams != tuned.bestParams \
+                or done != TUNE_CANDIDATES:
+            fails.append(f"(c) resume: scores kept {kept}, best "
+                         f"{resumed.bestParams} against {tuned.bestParams}, "
+                         f"{done} checkpointed")
+        card_folds = [state["fold_scores"][k][0]
+                      for k in keys[:TUNE_CROSS]]
+    finally:
+        perfmodel.JOURNAL_PATH = journal
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(card_folds=card_folds, search_s=search_s, rung_s=rung_s,
+                fold_fits=fold_fits, peak_gib=peak, launches=launches,
+                best=tuned.bestParams)
+
+
+def tune_check(card: dict, cpu, fails: list) -> None:
+    ref = _automl_npz(cpu, "tune.npz")
+    gaps = np.abs(np.asarray(card["card_folds"]) - ref["scores"])
+    log(f"  (c) card against CPU: rung-0 fold AUC of candidates "
+        f"0-{TUNE_CROSS - 1} {card['card_folds']} against "
+        f"{ref['scores'].tolist()}: max |diff| {gaps.max():.3g} (tolerance "
+        f"{TUNE_CROSS_TOL}); the CPU port took {float(ref['seconds']):.2f}s")
+    if not gaps.max() <= TUNE_CROSS_TOL:
+        fails.append(f"(c) rung-0 fold scores {gaps.tolist()} from the CPU "
+                     f"port's")
+
+
+def start_gang(dev: str):
+    """(d)'s pool of GANG_WORKERS spool workers (the port's worker module),
+    started at the phase's beginning so they import beside (a)-(c)."""
+    from synapseml_tpu_torch.automl import GangCandidatePool
+
+    spool = tempfile.mkdtemp(prefix="automl_gang_")
+    t0 = time.perf_counter()
+    pool = GangCandidatePool(world_size=GANG_WORKERS, spool_dir=spool,
+                             hb_timeout=60.0)
+    return pool, t0
+
+
+def gang_part(adult: dict, gang, dev: str, fails: list) -> dict:
+    """(d): a fit task on each worker, one rank killed mid-task, the
+    re-spooled task's result against the same fit alone."""
+    from synapseml_tpu_torch.testing import kill_rank
+
+    pool, started = gang
+    spool = pool.spool
+    workers = [pool.supervisor.procs[r].args for r in sorted(
+        pool.supervisor.procs)]
+    if not all("synapseml_tpu_torch.automl.worker" in a for a in workers):
+        fails.append(f"(d) the gang's workers are not the port's: {workers}")
+    table = featurized(adult["model"], adult["train"])
+    test = featurized(adult["model"], adult["test"])
+    path = os.path.join(spool, "data.npz")
+    np.savez(path, X=table["features"], y=table["label"], Xv=test["features"],
+             yv=test["label"])
+    task = {"entry": "chip_smoke:gang_fit_task",
+            "payload": {"path": path, "device": dev, "iters": TUNE_ITERS}}
+    claims, seen, done = {}, [], threading.Event()
+
+    def watch():
+        while not done.is_set():
+            for fn in os.listdir(spool):
+                if ".claimed.r" in fn and fn not in claims:
+                    claims[fn] = time.perf_counter()
+            time.sleep(0.01)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    box = {}
+
+    def submit(i):
+        try:
+            box[i] = pool.run_task(task, budget_s=GANG_WAIT_S,
+                                   op=f"phase25.gang{i}")
+        except Exception as e:          # noqa: BLE001 — reported below
+            box[i] = e
+
+    try:
+        threads = [threading.Thread(target=submit, args=(i,))
+                   for i in range(GANG_WORKERS)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + GANG_WAIT_S
+        while not claims and time.monotonic() < deadline:
+            time.sleep(0.01)
+        victim = sorted(claims)[0]
+        rank = int(victim.rsplit(".r", 1)[1].split(".p")[0])
+        old_pid = pool.supervisor.procs[rank].pid
+        t_kill = time.perf_counter()
+        kill_rank(pool.supervisor, rank)
+        # the kill to the respawned rank's own first heartbeat (the
+        # supervisor pumped here as well as by the waiting tasks)
+        respawn_s = None
+        hb = os.path.join(spool, f"hb_p{rank}.json")
+        deadline = time.monotonic() + GANG_WAIT_S
+        while time.monotonic() < deadline:
+            with pool._lock:
+                pool.supervisor.step()
+            proc = pool.supervisor.procs.get(rank)
+            try:
+                with open(hb) as f:
+                    beat = json.load(f)
+            except (OSError, ValueError):
+                beat = {}
+            if proc is not None and proc.pid != old_pid \
+                    and proc.poll() is None and beat.get("pid") == proc.pid:
+                respawn_s = time.perf_counter() - t_kill
+                break
+            time.sleep(0.02)
+        for t in threads:
+            t.join(GANG_WAIT_S)
+        tasks_s = time.perf_counter() - t_kill
+    finally:
+        done.set()
+        watcher.join(5)
+    results = [box.get(i) for i in range(GANG_WORKERS)]
+    tid = victim.split(".claimed")[0]
+    pids = {int(fn.rsplit(".p", 1)[1]) for fn in claims
+            if fn.startswith(tid)}
+    alone = gang_fit_task(path, dev, TUNE_ITERS)
+    ok = [r for r in results if isinstance(r, dict)]
+    gaps = [abs(r["auc"] - alone["auc"]) for r in ok]
+    log(f"  (d) GangCandidatePool: {GANG_WORKERS} workers "
+        f"(python -m synapseml_tpu_torch.automl.worker) started "
+        f"{claims and min(claims.values()) - started:.1f}s before the first "
+        f"claim; rank {rank} (pid {old_pid}) killed mid-task "
+        f"({victim}); its task claimed by pids {sorted(pids)} (re-spooled "
+        f"{len(pids) > 1}); the rank respawned and beating after "
+        f"{respawn_s if respawn_s is None else round(respawn_s, 2)}s "
+        f"(respawns {pool.supervisor.respawns}); both tasks done "
+        f"{tasks_s:.2f}s after the kill (claims at "
+        f"{sorted(round(t - t_kill, 2) for t in claims.values())}s); "
+        f"results AUC "
+        f"{[r['auc'] if isinstance(r, dict) else repr(r) for r in results]}"
+        f" against the fit alone {alone['auc']:.6f} (tolerance "
+        f"{GANG_AUC_TOL}); worker launches "
+        f"{[r['launches'] for r in ok]}")
+    if len(ok) != GANG_WORKERS or respawn_s is None or len(pids) < 2 \
+            or not max(gaps, default=1.0) <= GANG_AUC_TOL:
+        fails.append(f"(d) gang: results {results}, respawn {respawn_s}, "
+                     f"claimants {pids}, AUC gaps {gaps}")
+    if _on_card(dev) and not all(r["launches"].get(k, 0) > 0
+                                 for r in ok for k in MAIN_KERNELS):
+        fails.append("(d) a worker's fit launched no histogram kernel")
+    return dict(respawn_s=respawn_s, auc=alone["auc"])
+
+
+def automl_path(dev: str, X=None, y=None, reference=None,
+                rows: int = 2_000_000) -> dict:
+    """Phase 25: (a)-(d) above; every failure is collected and raised at
+    the end. ``X``, ``y`` and ``reference`` are phase 3's table and
+    classifier (made and fitted here when absent, as phase 3 does on
+    ``rows`` rows)."""
+    if X is None:
+        from synapseml_tpu_torch.models import LightGBMClassifier
+
+        t0 = time.perf_counter()
+        X, y = higgs_like(rows)
+        reference = LightGBMClassifier(numIterations=10, numLeaves=31,
+                                       maxBin=255, device=dev).fit(
+            table_of(X, y))
+        log(f"  phase 3's classifier fitted on {rows} rows in "
+            f"{time.perf_counter() - t0:.2f}s")
+    cpu = start_automl_cpu()
+    gang = start_gang(dev)
+    fails, out = [], {}
+    t0 = [time.perf_counter()]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        log(f"  ({name}) took {now - t0[0]:.1f}s")
+        t0[0] = now
+
+    try:
+        for name, run in (
+                ("a", lambda: adult_part(dev, cpu, fails)),
+                ("b", lambda: higgs_train_part(X, y, reference, dev, fails)),
+                ("c", lambda: tune_part(out["a"], dev, cpu, fails)),
+                ("d", lambda: gang_part(out["a"], gang, dev, fails)),
+                ("card against the CPU process", lambda: {
+                    "a": adult_check(out["a"], cpu, fails),
+                    "c": tune_check(out["c"], cpu, fails)})):
+            try:
+                out[name] = run()
+            except Exception as e:          # collected, raised at the end
+                import traceback
+
+                traceback.print_exc()
+                fails.append(f"({name}) raised {type(e).__name__}: {e}")
+            part(name)
+            if _on_card(dev):
+                torch.cuda.empty_cache()
+    finally:
+        gang[0].close()
+        cpu[0].join(timeout=AUTOML_WAIT_S)
+        if cpu[0].is_alive():
+            cpu[0].terminate()
+            fails.append("phase 25: the CPU process did not end")
+        shutil.rmtree(gang[0].spool, ignore_errors=True)
+        shutil.rmtree(cpu[1], ignore_errors=True)
+    out.pop("card against the CPU process", None)
+    if fails:
+        raise AssertionError("phase 25: " + "; ".join(fails))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="rows of the HIGGS-shaped table (HIGGS: 11,000,000)")
     ap.add_argument("--phase", type=int,
-                    choices=(17, 18, 19, 20, 21, 22, 23, 24),
+                    choices=(17, 18, 19, 20, 21, 22, 23, 24, 25),
                     default=None,
                     help="build the kernels and run only this phase (no "
                     "kernels or result line)")
@@ -9888,6 +10682,13 @@ def main() -> int:
         phase(0)
         log(f"  seconds by phase {json.dumps(seconds)}")
         return 0
+    if args.phase == 25:
+        phase(25, "featurization, TrainClassifier and AutoML alone (phase "
+              f"3's classifier fitted first, {args.rows} rows)")
+        automl_path(dev, rows=args.rows)
+        phase(0)
+        log(f"  seconds by phase {json.dumps(seconds)}")
+        return 0
 
     phase(2, f"kernels against their plain versions, n={args.rows}")
     kernels = kernel_phase(args.rows, dev)
@@ -9908,6 +10709,7 @@ def main() -> int:
     from synapseml_tpu_torch.gbdt import Dataset
 
     ds = Dataset(X, y, device=dev)
+    table3 = (X, y)                      # phase 25 featurizes it again
     del X, y
     for policy in ("leafwise", "depthwise"):
         profile_phase(ds, dev, policy)
@@ -10014,6 +10816,15 @@ def main() -> int:
           f"leaf_histograms on the card against the CPU port")
     torch.cuda.empty_cache()
     explain_path(dev, main["model"])
+    phase(25, f"featurization and AutoML: TrainClassifier on a "
+          f"{ADULT_ROWS}-row Adult-shaped table and on phase 3's table, "
+          f"TuneHyperparameters over {TUNE_CANDIDATES} candidates x "
+          f"{TUNE_FOLDS} folds (eta {TUNE_ETA}, {TUNE_THREADS} threads) with a "
+          f"kill and a resume, FindBestModel, and {GANG_WORKERS} gang workers "
+          f"with a killed rank")
+    torch.cuda.empty_cache()
+    automl_path(dev, *table3, main["model"])
+    del table3
     phase(0)
     log(f"  seconds by phase {json.dumps(seconds)}")
     log(f"  launches on phase 20's paths: {json.dumps(across['launches'])}")

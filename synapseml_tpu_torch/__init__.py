@@ -49,7 +49,16 @@ PyTorch version of a kernel runs only for tensors on the CPU.
               evaluation
   online/   — the feedback log, learner loop, policy, promotion gate and
               streaming anomaly loop
-  testing/  — the fault injectors the fabric and online scenarios drive
+  featurize/, train/, stages/, exploratory/ — Featurize and the indexers,
+              TrainClassifier / TrainRegressor and their statistics, the
+              pipeline stages and the data-balance measures (host code
+              over the port's LightGBM)
+  automl/   — TuneHyperparameters, FindBestModel, the elastic halving
+              scheduler and its gang of spool workers
+  native/   — the C++ host helpers (murmur3 batches, hashing TF, CSV),
+              built with g++ at first use
+  testing/  — the fault injectors the fabric, online and AutoML scenarios
+              drive
   convert   — carry a JAX-trained booster, flax variables or a VW state
               across
 """

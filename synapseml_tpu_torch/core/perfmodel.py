@@ -18,13 +18,28 @@ router keeps its cost model's choice, each with fallback provenance. The
 port reads nothing from the environment either (the JAX package's
 ``SYNAPSEML_TPU_SEQ_ATTENTION`` override and ``SYNAPSEML_TPU_PERFMODEL``
 switch are not carried over): an explicit value is how a caller overrides.
+
+The learned part is the JAX package's too, over the port's own journal:
+``append_training_row`` and ``training_rows`` keep rows keyed by the
+port's platform (``"gpu"`` or ``"cpu"``) in ``JOURNAL_PATH`` (under the
+checkout's ``build/``), and ``predict`` / ``predict_runtime`` price a
+candidate from a matched row, then a fitted one, then its analytic prior,
+else ``(inf, 0.0, "none")``. AutoML's halving scheduler reads and writes
+them (its "automl_rung" rows). ``choose``, the drift audits and the rest of
+the JAX package's ``suggest_*`` functions are not ported yet.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
+import threading
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from . import tuned
 
@@ -311,3 +326,228 @@ def suggest_stage_cuts(unit_costs: Sequence[float], num_stages: int
                      "max_stage_cost": float(dp[S][n])}],
                    {"units": float(n), "stages": float(S)})
     return sizes, dec
+
+
+# ---------------------------------------------------------------------------
+# The learned part: a journal of training rows and the three-step predictor
+# (the JAX package's ``Prediction``, ``predict``, ``predict_runtime``,
+# ``append_training_row`` and ``training_rows``)
+# ---------------------------------------------------------------------------
+
+SCHEMA_VERSION = 1
+MATCH_DISTANCE = 0.15      # max per-feature log-space distance for a "match"
+_FIT_MIN_R2 = 0.5          # reject fits that do not explain the data
+
+#: the port's own journal of training rows, one JSON object a line. The JAX
+#: package's ``docs/measurements.jsonl`` holds rows taken on TPUs and CPUs,
+#: which say nothing of this card, so the port never reads it. No
+#: environment variable moves the journal: pass ``path=`` or set this
+#: attribute (tests point it at a temporary file).
+JOURNAL_PATH = str(Path(__file__).resolve().parent.parent.parent / "build"
+                   / "synapseml_tpu_torch" / "perf_rows.jsonl")
+
+
+@dataclass
+class Prediction:
+    seconds: float
+    confidence: float
+    source: str               # "matched" | "fitted" | "analytic" | "none"
+    detail: Dict[str, Any] = field(default_factory=dict)
+
+
+def current_platform() -> str:
+    """The platform rows are keyed by: ``"gpu"`` where a CUDA card is
+    visible, else ``"cpu"``; a row of one never prices the other."""
+    import torch
+
+    return "gpu" if torch.cuda.is_available() else "cpu"
+
+
+def mesh_tag(mesh: Any) -> Optional[str]:
+    """A short tag of a port mesh's axes (``"data2xseq2"``), or None."""
+    if mesh is None:
+        return None
+    try:
+        return "x".join(f"{k}{v}" for k, v in dict(mesh.shape).items())
+    except Exception:  # the tag is best-effort
+        return None
+
+
+_rows_lock = threading.Lock()
+_rows_cache: Dict[str, Any] = {"stat": None, "rows": None}
+
+
+def append_training_row(kind: str, arm: str, features: Dict[str, float],
+                        observed_s: float,
+                        platform: Optional[str] = None,
+                        mesh: Any = None,
+                        captured_at: Optional[str] = None,
+                        path: Optional[str] = None,
+                        **extra: Any) -> Dict[str, Any]:
+    """Append one training row to the journal (``path``, default
+    ``JOURNAL_PATH``) as a single ``O_APPEND`` line, safe under concurrent
+    writers. Rows are keyed by platform, so a CPU row never prices the
+    card."""
+    if captured_at is None:
+        import datetime
+        captured_at = datetime.datetime.now(
+            datetime.timezone.utc).isoformat(timespec="seconds")
+    row = {
+        "perf_row": SCHEMA_VERSION,
+        "kind": str(kind),
+        "arm": str(arm),
+        "features": {k: float(v) for k, v in features.items()},
+        "observed_s": float(observed_s),
+        "platform": platform or current_platform(),
+        "captured_at": captured_at,
+    }
+    tag = mesh_tag(mesh)
+    if tag:
+        row["mesh"] = tag
+    row.update(extra)
+    path = path or JOURNAL_PATH
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    line = json.dumps(row, sort_keys=True) + "\n"
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    try:
+        os.write(fd, line.encode("utf-8"))
+    finally:
+        os.close(fd)
+    return row
+
+
+def _parse_journal(path: str) -> List[Dict[str, Any]]:
+    rows: List[Dict[str, Any]] = []
+    with open(path, "r", encoding="utf-8") as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if not isinstance(rec, dict) or not rec.get("perf_row"):
+                continue
+            if not isinstance(rec.get("features"), dict):
+                continue
+            try:
+                rec["observed_s"] = float(rec["observed_s"])
+            except (KeyError, TypeError, ValueError):
+                continue
+            if rec["observed_s"] <= 0:
+                continue
+            rows.append(rec)
+    return rows
+
+
+def training_rows(kind: Optional[str] = None,
+                  platform: Optional[str] = None,
+                  path: Optional[str] = None) -> List[Dict[str, Any]]:
+    """The journal's rows (cached by the file's mtime and size), of one
+    ``kind`` and ``platform`` when given."""
+    path = path or JOURNAL_PATH
+    try:
+        st = os.stat(path)
+        stat_key = (path, st.st_mtime_ns, st.st_size)
+    except OSError:
+        return []
+    with _rows_lock:
+        cached = _rows_cache["stat"] == stat_key
+        rows = list(_rows_cache["rows"]) if cached else None
+    if rows is None:
+        # parse outside the lock: two racing fills parse the same snapshot
+        parsed = _parse_journal(path)
+        with _rows_lock:
+            _rows_cache["stat"] = stat_key
+            _rows_cache["rows"] = parsed
+        rows = list(parsed)
+    if kind is not None:
+        rows = [r for r in rows if r.get("kind") == kind]
+    if platform is not None:
+        rows = [r for r in rows if r.get("platform") == platform]
+    return rows
+
+
+def _feature_distance(a: Dict[str, float], b: Dict[str, float]) -> float:
+    """Max per-key distance in log1p space; missing keys count as far."""
+    keys = set(a) | set(b)
+    if not keys:
+        return 0.0
+    worst = 0.0
+    for k in keys:
+        if k not in a or k not in b:
+            return math.inf
+        worst = max(worst, abs(math.log1p(a[k]) - math.log1p(b[k])))
+    return worst
+
+
+def predict_runtime(candidate: Candidate,
+                    rows: Optional[List[Dict[str, Any]]] = None,
+                    platform: Optional[str] = None) -> Tuple[float, float]:
+    """``(seconds, confidence)`` of :func:`predict`."""
+    p = predict(candidate, rows=rows, platform=platform)
+    return p.seconds, p.confidence
+
+
+def predict(candidate: Candidate,
+            rows: Optional[List[Dict[str, Any]]] = None,
+            platform: Optional[str] = None) -> Prediction:
+    """Predicted runtime of one candidate, from (1) near-matched rows of its
+    (kind, arm, platform), (2) a least-squares fit of ``ln(observed_s)`` on
+    ``[1, log1p(features)...]`` over its arm's rows, (3) its analytic prior,
+    else ``(inf, 0.0, "none")`` — the JAX package's order and arithmetic."""
+    platform = platform or current_platform()
+    if rows is None:
+        rows = training_rows(kind=candidate.kind, platform=platform)
+    arm_rows = [r for r in rows if r.get("arm") == candidate.arm]
+
+    # 1. near-matched replay of this (kind, arm, platform)
+    scored = []
+    for r in arm_rows:
+        d = _feature_distance(candidate.features, r["features"])
+        if d <= MATCH_DISTANCE:
+            scored.append((d, r["observed_s"]))
+    if scored:
+        weights = [math.exp(-(d / MATCH_DISTANCE) ** 2) for d, _ in scored]
+        sec = sum(w * s for w, (_, s) in zip(weights, scored)) / sum(weights)
+        d_best = min(d for d, _ in scored)
+        conf = max(0.6, min(0.95, 0.92 - d_best))
+        return Prediction(sec, conf, "matched",
+                          {"rows_matched": len(scored),
+                           "distance": round(d_best, 4)})
+
+    # 2. the fitted model across this arm's rows
+    keys = sorted({k for r in arm_rows for k in r["features"]})
+    usable = [r for r in arm_rows
+              if all(k in r["features"] for k in keys)]
+    if keys and len(usable) >= len(keys) + 2 and \
+            all(k in candidate.features for k in keys):
+        X = np.array([[1.0] + [math.log1p(r["features"][k]) for k in keys]
+                      for r in usable])
+        y = np.array([math.log(r["observed_s"]) for r in usable])
+        if np.linalg.matrix_rank(X) == X.shape[1]:
+            beta, *_ = np.linalg.lstsq(X, y, rcond=None)
+            resid = y - X @ beta
+            ss_tot = float(((y - y.mean()) ** 2).sum())
+            r2 = 1.0 - float((resid ** 2).sum()) / ss_tot if ss_tot > 0 else 0.0
+            if r2 >= _FIT_MIN_R2:
+                xc = np.array([1.0] + [math.log1p(candidate.features[k])
+                                       for k in keys])
+                sec = float(math.exp(float(xc @ beta)))
+                conf = min(0.75, 0.5 + 0.25 * r2)
+                # extrapolating past the training envelope is a guess
+                for j, k in enumerate(keys, start=1):
+                    lo, hi = X[:, j].min(), X[:, j].max()
+                    if not (lo - 1.0 <= xc[j] <= hi + 1.0):
+                        conf = min(conf, ANALYTIC_CONFIDENCE)
+                return Prediction(sec, conf, "fitted",
+                                  {"rows_fit": len(usable),
+                                   "r2": round(r2, 4), "keys": keys})
+
+    # 3. the caller's analytic prior
+    if candidate.analytic_s is not None:
+        return Prediction(float(candidate.analytic_s), ANALYTIC_CONFIDENCE,
+                          "analytic", {})
+
+    return Prediction(math.inf, 0.0, "none", {})

@@ -1,5 +1,5 @@
-"""Deterministic, seedable fault injection for the fabric and the online
-loop (the port's copy of the JAX package's ``testing/chaos.py`` pieces that
+"""Deterministic, seedable fault injection for the fabric, the online
+loop and AutoML (the port's copy of the JAX package's ``testing/chaos.py`` pieces that
 the serving fabric's and the online loop's scenarios drive).
 
 Each injector installs its hook on the PORT's modules
@@ -16,7 +16,9 @@ gateway, workers and learner loop:
 * model swaps and tenants — :class:`ChaosSwap`,
   :class:`chaos_tenant_flood`;
 * the online loop — :class:`ChaosPreemption`, :func:`torn_write`,
-  :func:`bit_flip`, :class:`chaos_reward_stream`.
+  :func:`bit_flip`, :class:`chaos_reward_stream`;
+* AutoML's search and gang — :class:`chaos_candidate` (on
+  ``automl.scheduler._CHAOS_HOOK``), :func:`kill_rank`.
 
 Everything is driven by either an explicit ``script`` (a list of outcomes
 consumed one per call — fully deterministic) or seeded rates via
@@ -782,3 +784,114 @@ class chaos_reward_stream:
         # stream over: flush every still-held event, original order
         for _, e in sorted(pending, key=lambda p: p[0]):
             yield e
+
+
+# ---------------------------------------------------------------------------
+# AutoML chaos: seeded per-candidate faults, and hard-killed gang ranks
+# ---------------------------------------------------------------------------
+
+class chaos_candidate:
+    """Seeded per-candidate fault injector for the elastic AutoML scheduler.
+
+    Installs the port's ``automl.scheduler._CHAOS_HOOK`` (single global
+    slot, same pattern as :class:`ChaosPreemption`); the scheduler invokes
+    the hook as ``hook(key, rung, attempt)`` inside the budgeted task thread,
+    *before* the candidate's fold fits. The action is a pure function of
+    ``(seed, key, rung, attempt)`` — sha256-hashed to a uniform draw against
+    the cumulative ``p_crash/p_hang/p_nan/p_slow`` thresholds — so a chaotic
+    search interrupted and resumed replays the exact same faults as an
+    uninterrupted one.
+
+    * ``crash`` raises :class:`FaultInjected` (the scheduler retries up to
+      its attempt budget; the *attempt* coordinate re-rolls the dice, so a
+      retry may survive);
+    * ``hang`` blocks on an internal event for up to ``hang_s`` seconds —
+      the scheduler's budget reaper is expected to score the candidate NaN
+      long before that backstop;
+    * ``nan`` poisons the metric (the scheduler skips the fit and scores
+      the chunk NaN);
+    * ``slow`` sleeps ``slow_s`` then proceeds normally.
+    """
+
+    def __init__(self, seed: int = 0, p_crash: float = 0.0,
+                 p_hang: float = 0.0, p_nan: float = 0.0,
+                 p_slow: float = 0.0, hang_s: float = 30.0,
+                 slow_s: float = 0.05):
+        self.seed = int(seed)
+        self.p_crash, self.p_hang = float(p_crash), float(p_hang)
+        self.p_nan, self.p_slow = float(p_nan), float(p_slow)
+        self.hang_s, self.slow_s = float(hang_s), float(slow_s)
+        self.injected: List[Tuple[str, str, int, int]] = []
+        self._lock = threading.Lock()
+        self._release = threading.Event()
+
+    def action(self, key: str, rung: int, attempt: int) -> Optional[str]:
+        """The (pure, replayable) fault decision for one task attempt."""
+        import hashlib as _hashlib
+
+        blob = f"{self.seed}:{key}:{rung}:{attempt}".encode("utf-8")
+        u = int.from_bytes(_hashlib.sha256(blob).digest()[:8], "big") / 2**64
+        for name, p in (("crash", self.p_crash), ("hang", self.p_hang),
+                        ("nan", self.p_nan), ("slow", self.p_slow)):
+            if u < p:
+                return name
+            u -= p
+        return None
+
+    def release(self) -> None:
+        """Unstick every hung candidate thread."""
+        self._release.set()
+
+    def _hook(self, key: str, rung: int, attempt: int) -> Optional[str]:
+        act = self.action(key, rung, attempt)
+        if act is None:
+            return None
+        with self._lock:
+            self.injected.append((act, key, int(rung), int(attempt)))
+        if act == "crash":
+            raise FaultInjected(
+                f"chaos_candidate crash: {key[:8]} rung {rung} "
+                f"attempt {attempt}")
+        if act == "hang":
+            self._release.wait(self.hang_s)
+            return None
+        if act == "slow":
+            time.sleep(self.slow_s)
+            return None
+        return "nan"
+
+    def __enter__(self) -> "chaos_candidate":
+        from ..automl import scheduler as _s
+
+        if _s._CHAOS_HOOK is not None:
+            raise RuntimeError("chaos_candidate does not nest")
+        _s._CHAOS_HOOK = self._hook
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from ..automl import scheduler as _s
+
+        _s._CHAOS_HOOK = None
+        self._release.set()   # never leave an abandoned thread blocked
+
+    def __del__(self):
+        self._release.set()
+
+
+def kill_rank(target, rank: Optional[int] = None) -> int:
+    """Hard-kill one training process (SIGKILL: no atexit, no farewell —
+    its heartbeat file simply stops updating), the process-level analog of
+    :func:`kill_worker`. ``target`` is a ``subprocess.Popen``-like handle
+    (``rank`` ignored) or a ``parallel.elastic.TrainingSupervisor`` whose
+    ``procs[rank]`` is the victim. The corpse is reaped (``wait``) so a
+    supervisor's next ``observe()`` sees a clean exit code, not a zombie.
+    Returns the pid killed."""
+    proc = target
+    if hasattr(target, "procs"):
+        ranks = sorted(target.procs)
+        proc = target.procs[rank if rank is not None else ranks[0]]
+    if proc is None:
+        raise ValueError(f"rank {rank} has no live process to kill")
+    proc.kill()
+    proc.wait()
+    return proc.pid

@@ -659,6 +659,107 @@ def test_package_exports_hold_the_references(pkg):
         assert set(tpkg.__all__) == set(jpkg.__all__)
 
 
+# ---------------------------------------------------------------------------
+# featurization, train helpers, stages, balance measures, AutoML and the
+# native helpers
+# ---------------------------------------------------------------------------
+
+ESTIMATOR_LAYER_MODULES = [
+    "featurize.clean", "featurize.convert", "featurize.featurize",
+    "featurize.indexer", "featurize.select", "featurize.text",
+    "stages.basic", "stages.adapter", "stages.balance", "stages.batchers",
+    "stages.ensemble", "stages.summarize", "stages.text",
+    "train.metrics", "train.stats", "train.train", "exploratory.balance",
+    "automl.hyperparams", "automl.scheduler", "automl.tune",
+    "automl.worker", "native"]
+
+
+@pytest.mark.parametrize("name", ESTIMATOR_LAYER_MODULES)
+def test_estimator_layer_modules_hold_every_reference_name_and_param(name):
+    """Every public function and class of the JAX package's featurize,
+    train, stages, exploratory, automl and native modules is in the port's
+    module, taking every reference argument, its classes with every public
+    method; every stage has exactly the reference's params with the
+    reference's defaults (none of them computes on a device itself: the
+    LightGBM estimators they wrap take ``device``)."""
+    import importlib
+
+    jmod = importlib.import_module(f"synapseml_tpu.{name}")
+    tmod = importlib.import_module(f"synapseml_tpu_torch.{name}")
+    names = _module_names(jmod)
+    assert names and names - set(vars(tmod)) == set()
+    for n in sorted(names):
+        jobj, tobj = getattr(jmod, n), getattr(tmod, n)
+        if not inspect.isclass(jobj):
+            assert _args(jobj) - _args(tobj) == set(), n
+            continue
+        if jobj.__init__ is not object.__init__:
+            assert _args(jobj.__init__) - _args(tobj.__init__) == set(), n
+        assert _public(jobj) - _public(tobj) == set(), n
+        for meth in sorted(_public(jobj)):
+            jattr = inspect.getattr_static(jobj, meth)
+            if isinstance(jattr, property) or not callable(
+                    getattr(jobj, meth)):
+                continue
+            assert _args(getattr(jobj, meth)) \
+                - _args(getattr(tobj, meth)) == set(), (n, meth)
+    for n in _stage_classes(jmod):
+        jp = getattr(jmod, n)._params
+        tp = getattr(tmod, n)._params
+        assert set(tp) == set(jp), n
+        for p in jp:
+            assert tp[p].default == jp[p].default, (n, p)
+
+
+@pytest.mark.parametrize("pkg", ["featurize", "stages", "train",
+                                 "exploratory", "automl"])
+def test_estimator_layer_packages_export_the_references(pkg):
+    import importlib
+
+    jpkg = importlib.import_module(f"synapseml_tpu.{pkg}")
+    tpkg = importlib.import_module(f"synapseml_tpu_torch.{pkg}")
+    want = set(getattr(jpkg, "__all__", None) or
+               {n for n in vars(jpkg) if not n.startswith("_")
+                and inspect.isclass(getattr(jpkg, n))})
+    assert want <= set(dir(tpkg))
+    if hasattr(jpkg, "__all__"):
+        assert set(tpkg.__all__) == set(jpkg.__all__)
+
+
+@pytest.mark.parametrize("name", ["Prediction", "predict", "predict_runtime",
+                                  "append_training_row", "training_rows",
+                                  "current_platform", "mesh_tag"])
+def test_perfmodel_learned_names_take_every_reference_argument(name):
+    from synapseml_tpu.core import perfmodel as jperf
+    from synapseml_tpu_torch.core import perfmodel as tperf
+
+    jobj, tobj = getattr(jperf, name), getattr(tperf, name)
+    if inspect.isclass(jobj):
+        assert _fields(jobj) == _fields(tobj)
+    else:
+        assert _args(jobj) == _args(tobj)
+    for const in ("SCHEMA_VERSION", "MATCH_DISTANCE", "MIN_CONFIDENCE",
+                  "ANALYTIC_CONFIDENCE", "_FIT_MIN_R2"):
+        assert getattr(tperf, const) == getattr(jperf, const), const
+
+
+@pytest.mark.parametrize("name", ["chaos_candidate", "kill_rank"])
+def test_automl_chaos_takes_every_reference_argument(name):
+    from synapseml_tpu import testing as jtesting
+    from synapseml_tpu_torch import testing as ttesting
+
+    jobj, tobj = getattr(jtesting, name), getattr(ttesting, name)
+    if inspect.isclass(jobj):
+        assert _args(jobj.__init__) == _args(tobj.__init__)
+        assert _public(jobj) == _public(tobj)
+        defaults = {k: v.default for k, v in
+                    inspect.signature(jobj.__init__).parameters.items()}
+        assert defaults == {k: v.default for k, v in inspect.signature(
+            tobj.__init__).parameters.items()}
+    else:
+        assert _args(jobj) == _args(tobj)
+
+
 def test_distributed_serving_server_takes_the_reference_arguments():
     """``DistributedServingServer`` and ``federate``, once refused by name,
     take the JAX package's arguments and run in one process (the fallback:

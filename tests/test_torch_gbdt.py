@@ -463,7 +463,10 @@ def test_import_leaves_jax_out():
             "synapseml_tpu_torch.recommendation, synapseml_tpu_torch.nn, "
             "synapseml_tpu_torch.explainers, synapseml_tpu_torch.causal, "
             "synapseml_tpu_torch.image, synapseml_tpu_torch.ops.histogram, "
-            "synapseml_tpu_torch.ops.image; "
+            "synapseml_tpu_torch.ops.image, synapseml_tpu_torch.featurize, "
+            "synapseml_tpu_torch.stages, synapseml_tpu_torch.train, "
+            "synapseml_tpu_torch.exploratory, synapseml_tpu_torch.automl, "
+            "synapseml_tpu_torch.automl.worker, synapseml_tpu_torch.native; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'synapseml_tpu' or m.startswith("
             "'synapseml_tpu.')]; print(bad); sys.exit(1 if bad else 0)")
