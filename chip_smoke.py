@@ -137,7 +137,7 @@ Phases, each of which fails the run if it fails:
 12. the rest of the GBDT estimator surface, on the HIGGS-shaped ``--rows``
    table with its last min(500,000, rows / 4) rows flagged in an ``isVal``
    column (HIGGS's published split keeps its last 500,000 of 11,000,000
-   rows as the test set): ``LightGBMClassifier(numIterations=50,
+   rows as the test set): ``LightGBMClassifier(numIterations=25,
    learningRate=0.1, numLeaves=31, maxBin=255, earlyStoppingRound=20,
    metric="auc", validationIndicatorCol="isVal")``, then the same fit
    depthwise through ``train_booster(valid=...)``; counts zeroed just
@@ -152,7 +152,7 @@ Phases, each of which fails the run if it fails:
    ``raw_score``), ``getFeatureShaps`` on 64 of them (additivity within
    1e-4 of max |raw|, rows/s logged), ``dumpModel`` (parses, T trees, leaf
    values within 1e-6 relative), a warm start from the model string with
-   ``numBatches=2`` x 10 iterations (T + 20 trees, the first T equal in
+   ``numBatches=2`` x 5 iterations (T + 10 trees, the first T equal in
    structure and thresholds, leaf values within 1e-6 relative), a custom
    logistic ``fobj`` on 100,000 rows (AUC within 1e-3 of
    ``objective="binary"``), a ``checkpoint_store`` fit stopped by a
@@ -186,7 +186,7 @@ Phases, each of which fails the run if it fails:
    weights equal a host replay of its drops; the RF model string carries
    ``average_output`` and reloads within 1e-5. CUDA events time the
    sampling work of one iteration alone. Then every mode (and
-   the depthwise GOSS and DART fits) at 25,000 rows for 10 iterations on
+   the depthwise GOSS and DART fits) at 25,000 rows for 5 iterations on
    the card and on the CPU (the CPU fits in spawned worker processes):
    per-iteration validation AUC within 1e-3.
 14. categorical and sparse data on phase 10's Covertype-shaped table:
@@ -204,7 +204,7 @@ Phases, each of which fails the run if it fails:
    for the root, depthwise at most one per level); reloads within 1e-5;
    the three kernels on the fits' first root, split and level against
    their plain versions at phase 2's tolerance or within ``PAD_SUM_ULPS``
-   units of the float64 sums, counts exact; both fits at 50,000 rows on
+   units of the float64 sums, counts exact; both fits at 25,000 rows on
    the card and on the CPU, mean |probability difference| within 1e-3,
    classes agreeing on 99.9% of rows. Then the 54-column one-hot table as
    scipy CSR (12 entries per row, LIBSVM's layout) through
@@ -228,8 +228,8 @@ Phases, each of which fails the run if it fails:
    tenants: ``"higgs"`` over the graphs, ``"covtype"`` over
    ``serving_main.build_handler`` of phase 14's categorical model, saved
    and reloaded (``probability``). 32 client threads with keep-alive
-   connections and 10 s timeouts send 4000 one-row requests to ``"higgs"``
-   and 1000 to ``"covtype"``, interleaved; halfway, ``ModelRegistry.
+   connections and 10 s timeouts send 2000 one-row requests to ``"higgs"``
+   and 500 to ``"covtype"``, interleaved; halfway, ``ModelRegistry.
    swap_to`` flips ``"higgs"`` to phase 3's 10-iteration model, captured
    off the hot path. Checks: every reply 200; each within 1e-6 of
    ``predict`` of its row by the version that was serving when it was
@@ -327,7 +327,7 @@ Phases, each of which fails the run if it fails:
    the same rows and the sketch's boundaries within 1e-3 of the
    streamed AUC (the classic ``LightGBMClassifier`` on its own 200k-row bin
    sample is fitted and logged beside it, fit s and AUC: two bin samples
-   alone move the AUC by more than 1e-3); the streamed fit at 100k rows, 3
+   alone move the AUC by more than 1e-3); the streamed fit at 50k rows, 3
    iterations on the card and on the CPU within 1e-3; ``predict_streamed``
    within 1e-5 of ``predict``.
    ``--phase 19`` builds the kernels and runs it alone.
@@ -404,10 +404,10 @@ Phases, each of which fails the run if it fails:
    (a) Phase 12's classifier, its model string saved once, loaded by two
    processes joined by ``initialize_distributed`` and served by each
    through its own ``serving_fn`` graphs inside
-   ``DistributedServingServer`` (the gateway in process 0): 3000 one-row
+   ``DistributedServingServer`` (the gateway in process 0): 1500 one-row
    requests from 32 clients (p50 / p99 ms and requests/s beside phase
    15's single server, forwards by worker and to a worker advertising the
-   request's rung), then 3000 more round
+   request's rung), then 1500 more round
    robin while process 1's worker is killed and restarted (seconds to
    eviction and to rejoin); every reply 200 and within 1e-6 of
    ``predict``. (b) Two federated gateways over those workers, one killed
@@ -455,7 +455,7 @@ Phases, each of which fails the run if it fails:
    users/s, ``recommend_for_user_subset`` of 1,000 users against the CPU
    port (the same top 10 but at near ties of the 10th and 11th scores),
    ``transform`` of 250,000 pairs, host memory. (d) ``KNN`` (k 10) on a
-   SIFT1M-shaped corpus (500,000 x 128 integer-valued keys, 10,000
+   SIFT1M-shaped corpus (250,000 x 128 integer-valued keys, 10,000
    queries): index build s, queries/s brute force and pruned, recall
    against a float64 host brute force on 256 queries (1.0 but at near
    ties); ``ConditionalKNN`` with 1,000 labels and 5 a query on 256
@@ -469,11 +469,11 @@ Phases, each of which fails the run if it fails:
    solves and host sampling apart, no capture in the steady state, replay
    ms by bucket, ``solver_stats()``; phi and the LIME coefficients within
    1e-4 of the CPU port's on the same rows, SHAP's local accuracy within
-   1e-4. (b) ``ImageLIME`` on the seeded ResNet-50 at 224x224: 2 images x
+   1e-4. (b) ``ImageLIME`` on the seeded ResNet-50 at 224x224: 1 image x
    256 masks, SLIC at cell size 16; images/s with SLIC, masking, scoring
    and solves apart; image 0's scores within 1e-4 and coefficients within
    1e-3 of the CPU port's. (c) ``DoubleMLEstimator`` with
-   ``LightGBMRegressor`` nuisance models (20 iterations) on 250,000
+   ``LightGBMRegressor`` nuisance models (20 iterations) on 125,000
    HIGGS-shaped rows with a planted effect of 2.0: the ATE within 0.05 of
    it, and on the first 25,000 rows within 5e-3 of the CPU port's. (d)
    ``SyntheticDiffInDiffEstimator`` on a Proposition-99-shaped panel (39 x
@@ -489,7 +489,7 @@ Phases, each of which fails the run if it fails:
    classifier's fits (``child_histogram``, ``range_histogram``).
 25. featurization, TrainClassifier and AutoML (``--phase 25`` alone, which
    first fits phase 3's classifier). (a) ``TrainClassifier(LightGBMClassifier(
-   numIterations=100))`` on a UCI-Adult-shaped table (48,842 rows, six
+   numIterations=25))`` on a UCI-Adult-shaped table (48,842 rows, six
    integer and eight string columns at Adult's cardinalities, ``"?"`` in
    three, a ``"<=50K"`` / ``">50K"`` label 24% positive): fit on the
    32,561-row train split, the 16,281-row test split scored, then
@@ -500,20 +500,51 @@ Phases, each of which fails the run if it fails:
    to the numpy path on every string. (b) ``TrainClassifier`` on phase 3's
    table as 28 float32 columns: ``Featurize``'s matrix bitwise phase 3's X,
    the held-out AUC (500,000 rows of another seed) within 1e-3 of phase 3's
-   classifier. (c) ``TuneHyperparameters``: 8 random candidates
+   classifier. (c) ``TuneHyperparameters``: 4 random candidates
    (``numLeaves`` 15 / 31 / 63, ``learningRate`` log-uniform in 0.05-0.3,
    10 iterations), 3 folds, ``halvingEta`` 2, one thread on the card, a
    ``checkpointDir``: seconds by rung, fold fits/s, peak memory; no NaN;
-   fold fits the ladder's 14 of exhaustive's 24; ``FindBestModel`` over
+   fold fits the ladder's 7 of exhaustive's 12; ``FindBestModel`` over
    the finalists; the same search killed at rung 1 by
    ``chaos_candidate``'s hook and resumed: every checkpointed score read
-   back bitwise and the same best params; two candidates' rung-0 fold AUC
+   back bitwise and the same best params; one candidate's rung-0 fold AUC
    within 1e-3 of the CPU port's. (d) ``GangCandidatePool``: two of the
    port's spool workers fit on the card, one rank killed mid-task: it
    respawns, its task is re-spooled and its AUC within 1e-3 of the same
    fit alone. A spawned CPU process runs (a) and (c)'s folds on the CPU
    port meanwhile. Every failure is collected and raised at the end.
    ``child_histogram`` and ``range_histogram`` launch in every fit.
+26. HTTP on the card (``--phase 26`` alone). (a) A
+   ``LightGBMClassifier(numIterations=10, numLeaves=31, maxBin=255)`` fitted
+   on 500,000 HIGGS-shaped rows (counts zeroed just before the fit and read
+   just after: ``child_histogram`` and ``range_histogram`` above 0), served
+   by ``ServingServer`` on localhost with ``serving_main.build_handler``;
+   2,048 one-row requests (``{"features": [...]}`` through a
+   ``CustomInputParser``) from ``SimpleHTTPTransformer(concurrency=16)``:
+   every reply within 1e-6 of the classifier's own card ``transform`` (0
+   expected) and the errorCol all None, the card's transform within 1e-5 of
+   the CPU port's; the same requests through ``ChaosHTTP`` over the real
+   transport (seeded: 10% 503s, 5% resets), 3 retries 0.01 s apart and one
+   shared ``RetryBudget``: a row out of retries is sent once more, every
+   row answered and equal, the failure counters equal to the faults drawn;
+   256 rows under a budget of 8 tokens: the rows that ran out carry errors
+   and ``http.retry_budget_exhausted`` is counted. Requests/s, p50 and p99
+   per request for each pass. (b) ``OpenAIEmbedding(concurrency=32)`` of
+   2,000 seeded texts against a local stub answering 1536-wide float32
+   vectors seeded by each text's SHA-256 (the column bitwise the stub's),
+   ``KNN(k=10)`` fitted on the card over them and queried with 1,000: the
+   indices the CPU port's, each query its own first neighbour;
+   embeddings/s, fit s, queries/s. (c) 64 seeded 224x224x3 uint8 images as
+   ``.npy`` files through ``read_binary_files`` (the files' bytes) and
+   ``read_image_dir`` (the arrays bitwise), normalised to NCHW float32 by
+   the port's image ops; ``CNTKModel`` over the modelgen ResNet-50 on the
+   card, bitwise ``ONNXModel``'s on the same payload and within 1e-3 of max
+   |y| of the CPU port's on 8 images, a file that is not ONNX refused with
+   ``NotImplementedError``; ``PowerBIWriter(batch_size=16)`` posting (path,
+   argmax, max logit) to a local stub: 4 batches and one retried 500, every
+   row in order, and a 400 raises naming row 16. Images/s. A spawned CPU
+   process runs (b)'s KNN and (c)'s scores on the CPU port meanwhile.
+   Every failure is collected and raised at the end.
 
 The last lines are the card line, ``{"kernels": [...]}`` (each kernel's
 launches counted on its own path; the flash kernels' in phase 21's
@@ -653,10 +684,10 @@ VISION_LOGIT_TOL, VISION_LOSS_RTOL, VISION_STAT_TOL = 1e-4, 1e-4, 1e-4
 # warm start, fobj, resume and a card-against-CPU curve on smaller tables.
 # 50 iterations (300 before phase 13 was added: both fits stopped after
 # 189-239 of them, so a fit now may run to the end unstopped; 150 before
-# phase 21 was added, 100 before phase 25)
-SURFACE_VALID_ROWS, SURFACE_ITERS, SURFACE_ESR = 500_000, 50, 20
+# phase 21 was added, 100 before phase 25, 50 before phase 26)
+SURFACE_VALID_ROWS, SURFACE_ITERS, SURFACE_ESR = 500_000, 25, 20
 SURFACE_SHAP_ROWS = 64
-SURFACE_WARM_ITERS, SURFACE_WARM_BATCHES = 10, 2
+SURFACE_WARM_ITERS, SURFACE_WARM_BATCHES = 5, 2    # 10 before phase 26
 SURFACE_SMALL_ROWS, SURFACE_SMALL_ITERS, SURFACE_RESUME_AT = 100_000, 10, 6
 # best_score against the AUC recomputed from raw_score: the same float32
 # AUC of scores summed in another order; the leaves' values summed against
@@ -701,15 +732,17 @@ MONOTONE_FEATURE, MONOTONE_ROWS, MONOTONE_GRID = 2, 1000, 64
 # tree's largest |value|
 MONOTONE_TOL = 1e-5
 # the cross-check at 25,000 rows (100,000 before phase 20 was added,
-# 50,000 before phase 25)
-SAMPLING_CROSS_ROWS, SAMPLING_CROSS_ITERS = 25_000, 10
+# 50,000 before phase 25) and 5 iterations (10 before phase 26)
+SAMPLING_CROSS_ROWS, SAMPLING_CROSS_ITERS = 25_000, 5
 SAMPLING_RELOAD_TOL = 1e-5
 # phase 14: categorical and sparse data on phase 10's Covertype-shaped
 # table. UCI's raw covtype.data stores wilderness and soil as one id each
 # (12 columns: the last two categorical, 4 and 40 categories); LIBSVM's
 # covtype is the 54-column one-hot table, 12 non-zeros per row, as CSR.
 CAT_FEATURES = [COVTYPE_NUMERIC, COVTYPE_NUMERIC + 1]
-CAT_CROSS_ROWS = 50_000     # halved for the time limit, as phase 10's
+# halved for the time limit, as phase 10's, then to 25,000 when phase 26
+# was added
+CAT_CROSS_ROWS = 25_000
 CAT_RELOAD_TOL = 1e-5
 
 # phase 15: serving on the card. The bucketed runner at the JAX package's
@@ -719,10 +752,11 @@ CAT_RELOAD_TOL = 1e-5
 # client threads with a hot swap halfway, a burst against a queue of
 # SERVE_BURST_QUEUE, and a 1 ms deadline. Replies are held to predict on the
 # same rows: traversal treats each row on its own, so padding and batching
-# change no value (the tolerance covers another sum order)
+# change no value (the tolerance covers another sum order). 2,000 and 500
+# requests (4,000 and 1,000 before phase 26 was added)
 SERVE_MAX_BATCH, SERVE_SIZES, SERVE_CALLS = 64, (1, 64, 4096), 50
 SERVE_PREDICT_BATCH = 4096
-SERVE_CLIENTS, SERVE_HIGGS_REQUESTS, SERVE_COVTYPE_REQUESTS = 32, 4000, 1000
+SERVE_CLIENTS, SERVE_HIGGS_REQUESTS, SERVE_COVTYPE_REQUESTS = 32, 2000, 500
 SERVE_BATCH_LATENCY, SERVE_TOL = 0.005, 1e-6
 SERVE_BURST, SERVE_BURST_QUEUE, SERVE_BURST_BATCH = 200, 8, 8
 SERVE_STALL_S = 2.0
@@ -806,7 +840,7 @@ STREAM_SOURCE_ROWS = 1_000_000   # rows per generated source chunk
 STREAM_SEED, STREAM_VALID_SEED, STREAM_CROSS_SEED = 19, 20, 21
 STREAM_ITERS = 10
 STREAM_PREFIX_ROWS = 150_000     # the sketch's exact regime, byte for byte
-STREAM_CROSS_ROWS = 100_000
+STREAM_CROSS_ROWS = 50_000       # 100,000 before phase 26 was added
 STREAM_CROSS_ITERS = 3
 STREAM_AUC_TOL = 1e-3            # tests/test_oocore.py:233's bound
 STREAM_PREDICT_TOL = 1e-5
@@ -5999,8 +6033,9 @@ def _heldout_auc(booster, Xv, yv, dev: str) -> float:
 
 
 def stream_cross_check(dev: str) -> None:
-    """The streamed leaf-wise fit at 100k rows, 3 iterations, on the card and
-    on the CPU (plain versions): held-out AUCs within 1e-3."""
+    """The streamed leaf-wise fit at STREAM_CROSS_ROWS rows,
+    STREAM_CROSS_ITERS iterations, on the card and on the CPU (plain
+    versions): held-out AUCs within STREAM_AUC_TOL."""
     import dataclasses
 
     from synapseml_tpu_torch.gbdt import BoosterConfig, StreamedDataset
@@ -7147,15 +7182,16 @@ def pipeline_path(dev: str) -> dict:
 # (a) the fabric across processes: phase 15's classifier (phase 12's
 # booster) behind DistributedServingServer on two processes sharing the
 # card; --phase 22 alone fits its own on FABRIC_ALONE_ROWS rows. Heartbeats
-# every FABRIC_BEAT_S, eviction after FABRIC_EVICT_S of silence
+# every FABRIC_BEAT_S, eviction after FABRIC_EVICT_S of silence. 1,500
+# requests steady and 1,500 around the kill (3,000 each before phase 26)
 FABRIC_RANKS = 2
 FABRIC_ALONE_ROWS, FABRIC_ITERS = 500_000, 100
-FABRIC_REQUESTS, FABRIC_KILL_REQUESTS = 3000, 3000
+FABRIC_REQUESTS, FABRIC_KILL_REQUESTS = 1500, 1500
 FABRIC_BEAT_S, FABRIC_EVICT_S = 0.2, 1.0
 FABRIC_WAIT_S = 120.0
 # (b) two federated gateways over the same workers: FED_REQUESTS one-row
 # requests of FED_TENANTS tenants from FED_CLIENTS clients
-FED_REQUESTS, FED_TENANTS, FED_CLIENTS = 1200, 8, 16
+FED_REQUESTS, FED_TENANTS, FED_CLIENTS = 600, 8, 16   # 1,200 before phase 26
 # (c) three tenants on two workers; each tenant's latency from
 # FLEET_CLIENTS clients of FLEET_REQUESTS requests, before and during a
 # FLEET_FLOOD-request flood of the VW tenant; the DL tenant is phase 18's
@@ -8380,13 +8416,14 @@ SAR_PARAMS = dict(similarityFunction="jaccard", supportThreshold=4,
 SAR_K, SAR_SUBSET, SAR_TIE_RTOL = 10, 1_000, 1e-5
 # SAR_PAIRS 1,000,000 before phase 24 was added
 SAR_CHECK_COLS, SAR_PAIRS = 64, 250_000
-# (d) texmex ANN_SIFT1M's shape, its 1,000,000 base vectors cut to 500,000
-# (before phase 25 was added, all of them) x 128, integer-valued 0-255,
+# (d) texmex ANN_SIFT1M's shape, its 1,000,000 base vectors cut to 250,000
+# (before phase 25 was added, all of them; 500,000 before phase 26) x 128,
+# integer-valued 0-255,
 # 10,000 queries; k = 10. Against a float64 host brute force on
 # KNN_CHECK queries: recall 1.0 but at near ties (the 10th and 11th inner
 # products within KNN_TIE_RTOL). ConditionalKNN: KNN_LABELS labels,
 # KNN_COND labels a query, KNN_CHECK queries
-SIFT_BASE, SIFT_DIM, SIFT_QUERIES = 500_000, 128, 10_000
+SIFT_BASE, SIFT_DIM, SIFT_QUERIES = 250_000, 128, 10_000
 KNN_K, KNN_CHECK, KNN_TIE_RTOL = 10, 256, 1e-5
 KNN_LABELS, KNN_COND = 1_000, 5
 # the CPU port's runs of (a) and (b) in a spawned process beside the card's
@@ -9117,8 +9154,9 @@ EXPLAIN_TOL, ADDITIVITY_TOL = 1e-4, 1e-4
 # 256 scores within IMAGE_SCORE_TOL of the card's (the float32 logits'
 # cuDNN-against-oneDNN gap, VISION_LOGIT_TOL, after a softmax), and its
 # coefficients within IMAGE_LIME_TOL (a 197-unknown solve over 256 samples
-# magnifies that gap); 2 images (4 before phase 25 was added)
-IMAGE_LIME_IMAGES, IMAGE_LIME_SAMPLES, IMAGE_LIME_CELL = 2, 256, 16
+# magnifies that gap); 1 image (4 before phase 25 was added, 2 before
+# phase 26)
+IMAGE_LIME_IMAGES, IMAGE_LIME_SAMPLES, IMAGE_LIME_CELL = 1, 256, 16
 IMAGE_SCORE_TOL, IMAGE_LIME_TOL = 1e-4, 1e-3
 # (c) DoubleML on DML_ROWS HIGGS-shaped rows: the treatment drawn with
 # propensity sigmoid(X0 + 0.5 X2), the outcome DML_ATE * T + the HIGGS
@@ -9126,11 +9164,11 @@ IMAGE_SCORE_TOL, IMAGE_LIME_TOL = 1e-4, 1e-3
 # DML_ITERS iterations at learning rate DML_LR, maxIter 1. The ATE within
 # DML_ATE_TOL of the planted effect; on the first DML_PREFIX rows the
 # card's ATE within DML_CARD_TOL of the CPU port's (the same trees but
-# where float32 sums on the card split a near tie another way); 250,000
+# where float32 sums on the card split a near tie another way); 125,000
 # rows and a 25,000-row prefix (500,000 and 50,000 before phase 25 was
-# added)
+# added, 250,000 rows before phase 26)
 DML_ROWS, DML_PREFIX, DML_ITERS, DML_LR, DML_ATE = \
-    250_000, 25_000, 20, 0.3, 2.0
+    125_000, 25_000, 20, 0.3, 2.0
 DML_ATE_TOL, DML_CARD_TOL = 0.05, 5e-3
 # (d) SyntheticDiffInDiff on panels (name, units, periods, treated units,
 # pre-periods): Proposition 99's shape (Abadie, Diamond & Hainmueller 2010:
@@ -9844,9 +9882,11 @@ def explain_path(dev: str, model=None, rows: int = 2_000_000) -> dict:
 # planted signal. The CPU port fits the same in a spawned process: the
 # featurized matrix bitwise its, the probabilities within ADULT_PROB_TOL and
 # the AUC within ADULT_AUC_TOL (atomics may flip a near-tie split); the
-# reloaded model's scores within ADULT_RELOAD_TOL
+# reloaded model's scores within ADULT_RELOAD_TOL. 25 iterations (100
+# before phase 26 was added: the CPU port's fit in the spawned process is
+# the phase's critical path, 60.74 s at 50 iterations on a slow host)
 ADULT_ROWS, ADULT_TRAIN, ADULT_POSITIVE, ADULT_ITERS = \
-    48_842, 32_561, 0.24, 100
+    48_842, 32_561, 0.24, 25
 ADULT_NUMERIC = ("age", "fnlwgt", "education-num", "capital-gain",
                  "capital-loss", "hours-per-week")
 ADULT_STRINGS = {"workclass": 9, "education": 16, "marital-status": 7,
@@ -9871,10 +9911,12 @@ HELDOUT_ROWS, TRAIN_AUC_TOL = 500_000, 1e-3
 # leaf-wise fit is host-bound at this size, and fits in threads on one card
 # are slower than one after another (every small torch op the grower issues
 # releases and retakes the GIL, and the threads queue on it);
-# tools/automl_fit_costs.py measures both
-TUNE_CANDIDATES, TUNE_FOLDS, TUNE_ETA, TUNE_THREADS = 8, 3, 2, 1
+# tools/automl_fit_costs.py measures both. 4 candidates (8 before phase 26
+# was added): rungs of 4, 2 and 1, 7 fold fits of exhaustive's 12
+TUNE_CANDIDATES, TUNE_FOLDS, TUNE_ETA, TUNE_THREADS = 4, 3, 2, 1
 TUNE_ITERS, TUNE_LEAVES, TUNE_LR, TUNE_SEED = 10, (15, 31, 63), (0.05, 0.3), 0
-TUNE_KILL_RUNG, TUNE_CROSS, TUNE_CROSS_TOL, TUNE_BUDGET_S = 1, 2, 1e-3, 600.0
+# one candidate's rung-0 fold held to the CPU port's (2 before phase 26)
+TUNE_KILL_RUNG, TUNE_CROSS, TUNE_CROSS_TOL, TUNE_BUDGET_S = 1, 1, 1e-3, 600.0
 # (d) the gang: GANG_WORKERS spool workers of the port on the card, each
 # fitting (c)'s base model on the train split; one rank killed mid-task;
 # the re-spooled task's AUC within GANG_AUC_TOL of the same fit alone
@@ -10588,12 +10630,695 @@ def automl_path(dev: str, X=None, y=None, reference=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: HTTP on the card
+# ---------------------------------------------------------------------------
+
+# (a) the HTTP client against the port's server: a LightGBMClassifier
+# (HTTP_ITERS iterations, 31 leaves, 255 bins) fitted in the phase on
+# HTTP_FIT_ROWS HIGGS-shaped rows, saved, and served on the card by the
+# port's serving CLI (``python -m synapseml_tpu_torch.io.serving_main``:
+# ServingServer with serving_main's handler, a JSON object of column values
+# a request) in a process of its own, as a client and its server run in a
+# deployment; HTTP_REQUESTS one-row requests ({"features": [...]}) from a
+# SimpleHTTPTransformer at HTTP_CONCURRENCY. Every reply within HTTP_TOL of
+# the classifier's own card transform (the same trees on the same card; the
+# CLI scores the saved model as it loads it, one float32 ulp away, 5.96e-08,
+# on an H100 80GB HBM3 at 700 W) and the card's transform within
+# HTTP_CPU_TOL of the CPU port's (the model saved and loaded on the CPU;
+# float32 sums of the trees in another order). Then the
+# same requests through ChaosHTTP over the real transport (HTTP_CHAOS: 10%
+# 503s, 5% resets, seeded), HTTP_RETRIES retries HTTP_BACKOFF s apart, one
+# RetryBudget shared by every request: a row whose four attempts all draw a
+# fault (2048 x 0.15^4 = 1.0 expected) carries its error in the errorCol and
+# is sent once more, so every row is answered; the failure counters equal
+# the faults the schedule drew. Then HTTP_EXHAUST_ROWS rows under a budget
+# of HTTP_EXHAUST_BURST tokens: the rows that ran out carry their errors.
+# 2,048 requests a pass and (b)'s 2,000 texts, not 4,096 and 10,000: the
+# card's host gave 143-252 requests/s and 125-385 embeddings/s (host-bound
+# Python HTTP on both sides), and at those sizes phase 26 took 151.3 s of a
+# 1,140.3 s script (PR 23's runs)
+HTTP_FIT_ROWS, HTTP_ITERS = 500_000, 10
+HTTP_REQUESTS, HTTP_CONCURRENCY, HTTP_TIMEOUT = 2048, 16, 30.0
+HTTP_CHAOS = dict(seed=26, error_rate=0.10, error_codes=(503,),
+                  reset_rate=0.05)
+HTTP_RETRIES, HTTP_BACKOFF = 3, 0.01
+HTTP_EXHAUST_ROWS, HTTP_EXHAUST_BURST = 256, 8
+HTTP_TOL, HTTP_CPU_TOL = 1e-6, 1e-5
+# (b) OpenAIEmbedding (EMBED_CONCURRENCY) of EMBED_TEXTS seeded texts
+# against a local stub of the embeddings endpoint (tools/embedding_stub.py,
+# a process of its own started with the phase, which builds its replies
+# while (a) runs), answering each text with an EMBED_WIDTH-wide float32
+# vector (text-embedding-ada-002's width) drawn from a generator seeded by
+# the text's SHA-256: the column bitwise the stub's vectors. KNN(k=EMBED_K)
+# fitted on the card over them and queried with the first EMBED_QUERIES:
+# the indices the CPU port's, each query's first neighbour itself
+EMBED_TEXTS, EMBED_WIDTH, EMBED_CONCURRENCY = 2_000, 1536, 32
+EMBED_K, EMBED_QUERIES = 10, 1_000
+# (c) IMAGE_COUNT seeded IMAGE_SIDE x IMAGE_SIDE x 3 uint8 images as .npy
+# files (the card's machine lists no Pillow; JPEG and PNG decoding is held
+# by the CPU tests): read_binary_files' bytes the files', read_image_dir's
+# arrays bitwise the written ones; the port's image ops normalise them to
+# NCHW float32 (ImageNet's mean and std); CNTKModel over the modelgen
+# ResNet-50 (ImageNet head, seed IMAGE_SEED) on the card, bitwise the
+# ONNXModel's on the same payload and card, within ONNX_F32_REL of max |y|
+# of the CPU port's on the first CNTK_CROSS images (phase 18's bound); a
+# file that is not ONNX refused; PowerBIWriter(batch_size=POWERBI_BATCH)
+# posting (path, argmax, max logit) to a local stub: a scripted 500 on one
+# batch retried, every row in order; a 400 raises naming its row
+IMAGE_COUNT, IMAGE_SIDE, IMAGE_SEED = 64, 224, 26
+IMAGE_MEAN, IMAGE_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+CNTK_CROSS, POWERBI_BATCH = 8, 16
+# the CPU port's (b) and (c) in a spawned process beside the card's work
+HTTP_CPU_THREADS = 4
+HTTP_WAIT_S = 600.0
+_HTTP_SETTINGS = ("EMBED_TEXTS", "EMBED_WIDTH", "EMBED_K", "EMBED_QUERIES",
+                  "IMAGE_COUNT", "IMAGE_SIDE", "IMAGE_SEED", "IMAGE_MEAN",
+                  "IMAGE_STD", "CNTK_CROSS", "HTTP_CPU_THREADS")
+
+
+class _Stub:
+    """A local HTTP endpoint (127.0.0.1, a free port, its own thread):
+    ``reply(method, path, body) -> (status, body bytes)`` answers each
+    request; ``seen`` keeps (method, path, body) in arrival order."""
+
+    def __init__(self, reply):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        stub, self.reply, self.seen = self, reply, []
+        self.lock = threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            disable_nagle_algorithm = True
+
+            def _handle(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(n) if n else b""
+                with stub.lock:
+                    stub.seen.append((self.command, self.path, body))
+                status, out = stub.reply(self.command, self.path, body)
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(out)))
+                self.end_headers()
+                self.wfile.write(out)
+
+            do_GET = do_POST = _handle
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(
+            target=self.httpd.serve_forever, kwargs={"poll_interval": 0.05},
+            daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(HTTP_TIMEOUT)
+
+
+def _first_line(proc, what: str) -> str:
+    """``proc``'s first line of output, read within HTTP_WAIT_S, or the
+    phase fails."""
+    box = {}
+    reader = threading.Thread(
+        target=lambda: box.setdefault("line", proc.stdout.readline()),
+        daemon=True)
+    reader.start()
+    reader.join(HTTP_WAIT_S)
+    if not box.get("line"):
+        raise AssertionError(f"{what} did not start (exit code "
+                             f"{proc.poll()})")
+    return box["line"].strip()
+
+
+def _stopped(proc) -> None:
+    """Terminate ``proc`` and reap it, killing it if it lingers."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(HTTP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(HTTP_TIMEOUT)
+    proc.stdout.close()
+
+
+def start_embedding_stub():
+    """tools/embedding_stub.py with EMBED_TEXTS replies built ahead."""
+    return subprocess.Popen(
+        [sys.executable, str(REPO / "tools" / "embedding_stub.py"),
+         "--width", str(EMBED_WIDTH), "--texts", str(EMBED_TEXTS)],
+        stdout=subprocess.PIPE, text=True, cwd=str(REPO))
+
+
+def seeded_images() -> np.ndarray:
+    return np.random.default_rng(IMAGE_SEED).integers(
+        0, 256, (IMAGE_COUNT, IMAGE_SIDE, IMAGE_SIDE, 3), dtype=np.uint8)
+
+
+def normalised_nchw(images: np.ndarray) -> np.ndarray:
+    """The port's image ops: scale to [0, 1], ImageNet's per-channel
+    normalisation, NHWC -> NCHW float32."""
+    from synapseml_tpu_torch.ops.image import normalize, to_chw
+
+    return to_chw(normalize(images.astype(np.float32), IMAGE_MEAN, IMAGE_STD,
+                            scale=1.0 / 255.0))
+
+
+def resnet_payload() -> bytes:
+    from synapseml_tpu_torch.onnx import modelgen
+
+    return modelgen.make_resnet(50, num_classes=1000, seed=IMAGE_SEED,
+                                image_size=IMAGE_SIDE).encode()
+
+
+def _http_cpu(out_dir: str, settings: dict) -> None:
+    """The CPU port's KNN indices of (b) and ResNet-50 scores of (c), from
+    the same seeds (a spawned process beside the card's work), each result
+    written whole and then renamed."""
+    sys.path.insert(0, str(REPO))
+    globals().update(settings)
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.nn import KNN
+    from synapseml_tpu_torch.onnx import ONNXModel
+    from tools.embedding_stub import embed_texts, embedding_of
+
+    torch.set_num_threads(HTTP_CPU_THREADS)
+
+    def put(name: str, **arrays) -> None:
+        tmp = os.path.join(out_dir, f".{name}")
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, os.path.join(out_dir, name))
+
+    t0 = time.perf_counter()
+    vecs = np.stack([embedding_of(t, EMBED_WIDTH)
+                     for t in embed_texts(EMBED_TEXTS)])
+    model = KNN(k=EMBED_K, device="cpu").fit(Table({"features": vecs}))
+    out = model.transform(Table({"features": vecs[:EMBED_QUERIES]}))[
+        model.getOutputCol()]
+    put("knn.npz", indices=np.array([[m["value"] for m in row]
+                                     for row in out]),
+        seconds=np.float64(time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    x = normalised_nchw(seeded_images()[:CNTK_CROSS])
+    stage = (ONNXModel(device="cpu").setModelPayload(resnet_payload())
+             .setFeedDict({"data": "image"}).setFetchDict({"scores": "logits"})
+             .setMiniBatchSize(CNTK_CROSS))
+    scores = stage.transform(Table({"image": x}))["scores"]
+    put("cntk.npz", scores=np.asarray(scores, np.float32),
+        seconds=np.float64(time.perf_counter() - t0))
+
+
+def start_http_cpu():
+    """(b) and (c) on the CPU port in a spawned process: (process, output
+    dir)."""
+    out = tempfile.mkdtemp(prefix="http_cpu_")
+    ctx = torch.multiprocessing.get_context("spawn")
+    p = ctx.Process(target=_http_cpu, args=(
+        out, {k: globals()[k] for k in _HTTP_SETTINGS}))
+    p.start()
+    return p, out
+
+
+def _http_npz(cpu, name: str) -> dict:
+    """The CPU process's ``name``, once written (waiting up to
+    HTTP_WAIT_S)."""
+    proc, out = cpu
+    path = os.path.join(out, name)
+    deadline = time.monotonic() + HTTP_WAIT_S
+    while not os.path.exists(path):
+        if not proc.is_alive() and not os.path.exists(path):
+            raise AssertionError(f"phase 26: the CPU process ended (exit "
+                                 f"code {proc.exitcode}) without {name}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 26: {name} never came")
+        time.sleep(0.05)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _latency_ms(seconds: list) -> tuple:
+    ms = np.asarray(seconds) * 1e3
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def _http_pass(url: str, X: np.ndarray, opener, budget, label: str) -> tuple:
+    """One SimpleHTTPTransformer pass of ``X``'s rows to ``url``: (replies
+    and errors, seconds, each request's seconds). Each request goes through
+    ``send_with_retries`` with HTTP_RETRIES retries HTTP_BACKOFF s apart,
+    over ``opener`` (None: the real transport) and ``budget``."""
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.io.http import (CustomInputParser,
+                                             HTTPRequestData,
+                                             JSONOutputParser,
+                                             SimpleHTTPTransformer,
+                                             send_with_retries)
+
+    seconds = []
+
+    def handler(req, send):
+        t0 = time.perf_counter()
+        try:
+            return send_with_retries(req, timeout=HTTP_TIMEOUT,
+                                     retries=HTTP_RETRIES,
+                                     backoff=HTTP_BACKOFF, opener=opener,
+                                     retry_budget=budget)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    parser = CustomInputParser().setUDF(
+        lambda v: HTTPRequestData.from_json_body(url, {"features":
+                                                       v.tolist()}))
+    stage = SimpleHTTPTransformer(
+        inputCol="features", outputCol="reply", url=url,
+        inputParser=parser, outputParser=JSONOutputParser(),
+        concurrency=HTTP_CONCURRENCY, timeout=HTTP_TIMEOUT, errorCol="error",
+        handler=handler)
+    t0 = time.perf_counter()
+    out = stage.transform(Table({"features": X}))
+    s = time.perf_counter() - t0
+    p50, p99 = _latency_ms(seconds)
+    log(f"  (a) {label}: {len(X)} requests at concurrency "
+        f"{HTTP_CONCURRENCY} in {s:.3f}s = {len(X) / s:.1f} requests/s, "
+        f"per request p50 {p50:.3f} ms p99 {p99:.3f} ms")
+    return out, s, seconds
+
+
+def _reply_gap(out, want: np.ndarray) -> tuple:
+    """(rows answered, max |reply - want| over them, rows with an error)."""
+    ok = [i for i, e in enumerate(out["error"]) if e is None]
+    got = np.asarray([out["reply"][i] for i in ok], np.float64)
+    gap = float(np.abs(got - want[ok]).max()) if ok else float("inf")
+    return ok, gap, [i for i, e in enumerate(out["error"]) if e is not None]
+
+
+def serve_start(dev: str, fails: list) -> dict:
+    """(a)'s first half: the fit with its launches, the model saved and its
+    serving CLI started, and the replies' references (the card's transform,
+    the CPU port's) made while the CLI starts."""
+    from synapseml_tpu_torch.core.pipeline import PipelineStage
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.models import LightGBMClassifier
+    from synapseml_tpu_torch.ops import hist_kernel as hk
+
+    X, y = higgs_like(HTTP_FIT_ROWS)
+    hk.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    model = LightGBMClassifier(numIterations=HTTP_ITERS, numLeaves=31,
+                               maxBin=255, device=dev).fit(table_of(X, y))
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    log(f"  (a) LightGBMClassifier fit on {HTTP_FIT_ROWS} rows in "
+        f"{fit_s:.3f}s; launches {json.dumps(launches)}")
+    if _on_card(dev):
+        _check_launches(launches, MAIN_KERNELS)
+    Xr = np.ascontiguousarray(X[:HTTP_REQUESTS])
+    served = {"work": tempfile.mkdtemp(prefix="http_model_"), "server": None,
+              "Xr": Xr, "res": {"fit_s": fit_s, "launches": launches}}
+    try:
+        saved = os.path.join(served["work"], "model")
+        model.save(saved)
+        served["t0"] = time.perf_counter()
+        served["server"] = subprocess.Popen(
+            [sys.executable, "-m", "synapseml_tpu_torch.io.serving_main",
+             "--model", saved, "--host", "127.0.0.1", "--port",
+             str(_free_port()), "--device", dev, "--output-col",
+             "probability"], stdout=subprocess.PIPE, text=True,
+            cwd=str(REPO))
+        want = np.asarray(model.transform(Table({"features": Xr}))[
+            "probability"], np.float64)
+        cpu = np.asarray(PipelineStage.load(saved, device="cpu").transform(
+            Table({"features": Xr}))["probability"], np.float64)
+        cpu_gap = float(np.abs(want - cpu).max())
+        log(f"  (a) the card's transform against the CPU port's (the model "
+            f"saved and loaded on the CPU): max |dp| {cpu_gap:.3g} "
+            f"(tolerance {HTTP_CPU_TOL})")
+        if not cpu_gap <= HTTP_CPU_TOL:
+            fails.append(f"(a) card against CPU: {cpu_gap}")
+        served["want"] = want
+    except BaseException:
+        serve_stop(served)
+        raise
+    return served
+
+
+def serve_stop(served: dict) -> None:
+    """The serving CLI stopped and the saved model removed."""
+    if served["server"] is not None:
+        _stopped(served["server"])
+        served["server"] = None
+    shutil.rmtree(served["work"], ignore_errors=True)
+
+
+def serve_part(served: dict, fails: list) -> dict:
+    """(a)'s second half: the plain pass, the chaos pass and the budget
+    that runs out, against the serving CLI; then the CLI stopped."""
+    import urllib.request
+
+    from synapseml_tpu_torch.core.logging import failure_counts
+    from synapseml_tpu_torch.core.resilience import RetryBudget
+    from synapseml_tpu_torch.io.http import _default_opener
+    from synapseml_tpu_torch.testing import ChaosHTTP
+
+    server, Xr, want = served["server"], served["Xr"], served["want"]
+    res = served["res"]
+    try:
+        line = _first_line(server, "the serving CLI")
+        url = line.split()[-1]
+        log(f"  (a) {line} ({time.perf_counter() - served['t0']:.2f}s after "
+            f"its start)")
+        before = failure_counts()
+        out, s, lat = _http_pass(url, Xr, None, None, "plain")
+        ok, gap, bad = _reply_gap(out, want)
+        p50, p99 = _latency_ms(lat)
+        res["plain"] = dict(requests_per_s=len(Xr) / s, p50_ms=p50,
+                            p99_ms=p99)
+        log(f"  (a) plain: {len(ok)} of {len(Xr)} rows answered, max |reply "
+            f"- the card's transform| {gap:.3g} (tolerance {HTTP_TOL}), "
+            f"errors {len(bad)}")
+        if bad or not gap <= HTTP_TOL:
+            fails.append(f"(a) plain pass: {len(bad)} errors, gap {gap}")
+
+        chaos = ChaosHTTP(inner=_default_opener().open, **HTTP_CHAOS)
+        budget = RetryBudget(rate_per_sec=0.0, burst=float(HTTP_REQUESTS))
+        base = failure_counts()
+        out, s, lat = _http_pass(url, Xr, chaos, budget, "through ChaosHTTP")
+        _, _, bad = _reply_gap(out, want)
+        first_errors = [out["error"][i] for i in bad]
+        if bad:
+            redo, _, _ = _http_pass(url, Xr[bad], chaos, budget,
+                                    f"the {len(bad)} rows with an error, "
+                                    "once more")
+            out["reply"][bad] = redo["reply"]
+            out["error"][bad] = redo["error"]
+        _, gap, unanswered = _reply_gap(out, want)
+        after = failure_counts()
+        drawn = chaos.schedule.outcomes
+        counted = {k: after.get(k, 0) - base.get(k, 0) for k in (
+            "http.retryable_status", "http.transport_error",
+            "http.retry_budget_exhausted")}
+        faults = {"http.retryable_status": sum(o == 503 for o in drawn),
+                  "http.transport_error": sum(o == "reset" for o in drawn),
+                  "http.retry_budget_exhausted": 0}
+        p50, p99 = _latency_ms(lat)
+        res["chaos"] = dict(requests_per_s=len(Xr) / s, p50_ms=p50,
+                            p99_ms=p99, attempts=len(drawn), resent=len(bad),
+                            retries=budget.spent)
+        log(f"  (a) chaos: {len(drawn)} attempts for {len(Xr)} rows, faults "
+            f"drawn {json.dumps(faults)}, failure counts "
+            f"{json.dumps(counted)}, budget spent {budget.spent} of "
+            f"{HTTP_REQUESTS}; {len(bad)} rows out of retries on the first "
+            f"pass ({first_errors}), sent once more; unanswered "
+            f"{len(unanswered)}; max |reply - the card's transform| "
+            f"{gap:.3g}")
+        if unanswered or not gap <= HTTP_TOL or counted != faults \
+                or not counted["http.retryable_status"]:
+            fails.append(f"(a) chaos: unanswered {unanswered}, gap {gap}, "
+                         f"counts {counted} against drawn {faults}")
+
+        tight = RetryBudget(rate_per_sec=0.0, burst=float(HTTP_EXHAUST_BURST))
+        base = failure_counts()
+        chaos = ChaosHTTP(inner=_default_opener().open, **HTTP_CHAOS)
+        out, _, _ = _http_pass(url, Xr[:HTTP_EXHAUST_ROWS], chaos, tight,
+                               f"a budget of {HTTP_EXHAUST_BURST} tokens")
+        ok, gap, bad = _reply_gap(out, want[:HTTP_EXHAUST_ROWS])
+        exhausted = failure_counts().get("http.retry_budget_exhausted", 0) \
+            - base.get("http.retry_budget_exhausted", 0)
+        log(f"  (a) budget: {len(bad)} of {HTTP_EXHAUST_ROWS} rows carry an "
+            f"error ({sorted({str(out['error'][i]) for i in bad})}), "
+            f"http.retry_budget_exhausted {exhausted}, budget spent "
+            f"{tight.spent}, denied {tight.denied}; the answered rows within "
+            f"{gap:.3g}")
+        if not bad or not exhausted or tight.spent != HTTP_EXHAUST_BURST \
+                or not gap <= HTTP_TOL:
+            fails.append(f"(a) budget: {len(bad)} errors, exhausted "
+                         f"{exhausted}, spent {tight.spent}, gap {gap}")
+        res["exhausted_rows"] = len(bad)
+        with urllib.request.urlopen(url, timeout=HTTP_TIMEOUT) as r:
+            metrics = json.load(r)
+        res["rows_per_batch"] = metrics["completed"] / max(
+            metrics["batches"], 1)
+        log(f"  (a) the server's counters: {metrics['completed']} requests "
+            f"in {metrics['batches']} batches ({res['rows_per_batch']:.2f} "
+            f"rows a batch)")
+    finally:
+        serve_stop(served)
+    counts = {k: v - before.get(k, 0) for k, v in failure_counts().items()
+              if k.startswith("http.")}
+    log(f"  (a) http failure counts over the part {json.dumps(counts)}")
+    return res
+
+
+def embed_part(dev: str, cpu, stub, fails: list) -> dict:
+    """(b): OpenAIEmbedding against the stub process, KNN on the card over
+    the embeddings, held to the stub's vectors and the CPU port's
+    indices."""
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.nn import KNN
+    from synapseml_tpu_torch.services import OpenAIEmbedding
+    from tools.embedding_stub import embed_texts, embedding_of
+
+    texts = embed_texts(EMBED_TEXTS)
+    vecs = np.stack([embedding_of(t, EMBED_WIDTH) for t in texts])
+    url = f"http://127.0.0.1:{int(_first_line(stub, 'the embeddings stub'))}"
+    stage = OpenAIEmbedding(
+        url=url, deploymentName="text-embedding-ada-002",
+        subscriptionKey="phase-26-key", concurrency=EMBED_CONCURRENCY,
+        textCol="text", outputCol="embedding", errorCol="error")
+    col = np.empty(len(texts), dtype=object)
+    col[:] = texts
+    t0 = time.perf_counter()
+    out = stage.transform(Table({"text": col}))
+    embed_s = time.perf_counter() - t0
+    errors = [e for e in out["error"] if e is not None]
+    same = not errors and all(
+        isinstance(v, np.ndarray) and v.dtype == np.float32
+        and np.array_equal(v, w) for v, w in zip(out["embedding"], vecs))
+    log(f"  (b) OpenAIEmbedding: {len(texts)} texts at concurrency "
+        f"{EMBED_CONCURRENCY} in {embed_s:.3f}s = {len(texts) / embed_s:.1f} "
+        f"embeddings/s ({EMBED_WIDTH} wide, the stub in a process of its "
+        f"own); column bitwise the stub's vectors {same}, errors "
+        f"{len(errors)}")
+    if not same:
+        fails.append(f"(b) embeddings differ from the stub's ({len(errors)} "
+                     "errors)")
+    keys = np.stack(list(out["embedding"])) if same else vecs
+    _sync(dev)
+    t0 = time.perf_counter()
+    model = KNN(k=EMBED_K, device=dev).fit(Table({"features": keys}))
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    q = keys[:EMBED_QUERIES]
+    model.transform(Table({"features": q[:8]}))
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = model.transform(Table({"features": q}))[model.getOutputCol()]
+    _sync(dev)
+    query_s = time.perf_counter() - t0
+    idx = np.array([[m["value"] for m in row] for row in res])
+    ref = _http_npz(cpu, "knn.npz")
+    selfs = bool((idx[:, 0] == np.arange(EMBED_QUERIES)).all())
+    differ = int((idx != ref["indices"]).any(axis=1).sum())
+    log(f"  (b) KNN(k={EMBED_K}) on the card: fit {fit_s:.3f}s over "
+        f"{keys.shape}, {EMBED_QUERIES} queries in {query_s:.3f}s = "
+        f"{EMBED_QUERIES / query_s:.1f} queries/s; every first neighbour the "
+        f"query itself {selfs}; rows whose indices differ from the CPU "
+        f"port's {differ} (the CPU port took {float(ref['seconds']):.2f}s)")
+    if not selfs or differ:
+        fails.append(f"(b) KNN: self first {selfs}, {differ} rows differ "
+                     "from the CPU port's")
+    return dict(embeddings_per_s=len(texts) / embed_s, fit_s=fit_s,
+                queries_per_s=EMBED_QUERIES / query_s)
+
+
+def cntk_part(dev: str, cpu, fails: list) -> dict:
+    """(c): the .npy images through both datasources, the image ops,
+    CNTKModel against ONNXModel and the CPU port, and PowerBIWriter."""
+    from synapseml_tpu_torch.core.table import Table
+    from synapseml_tpu_torch.dl import CNTKModel
+    from synapseml_tpu_torch.io import (PowerBIWriter, read_binary_files,
+                                        read_image_dir)
+    from synapseml_tpu_torch.onnx import ONNXModel
+
+    images = seeded_images()
+    work = tempfile.mkdtemp(prefix="http_images_")
+    try:
+        for i, im in enumerate(images):
+            np.save(os.path.join(work, f"img_{i:03d}.npy"), im)
+        t0 = time.perf_counter()
+        blobs = read_binary_files(work, pattern="*.npy")
+        bytes_ok = blobs.num_rows == IMAGE_COUNT and all(
+            b == open(p, "rb").read() for p, b in zip(blobs["path"],
+                                                      blobs["bytes"]))
+        table = read_image_dir(work)
+        read_s = time.perf_counter() - t0
+        arrays_ok = table.num_rows == IMAGE_COUNT and all(
+            a.dtype == np.uint8 and np.array_equal(a, w)
+            for a, w in zip(table["image"], images))
+        x = normalised_nchw(np.stack(list(table["image"])))
+        log(f"  (c) {IMAGE_COUNT} images {IMAGE_SIDE}x{IMAGE_SIDE}x3 as .npy: "
+            f"read_binary_files bytes the files' {bytes_ok}, read_image_dir "
+            f"arrays bitwise the written {arrays_ok} ({read_s:.3f}s both); "
+            f"normalised {x.shape} {x.dtype}")
+        if not (bytes_ok and arrays_ok and x.dtype == np.float32
+                and x.shape == (IMAGE_COUNT, 3, IMAGE_SIDE, IMAGE_SIDE)):
+            fails.append("(c) the datasources or the image ops")
+        raw = resnet_payload()
+        path = os.path.join(work, "resnet50.onnx")
+        with open(path, "wb") as f:
+            f.write(raw)
+        bad = os.path.join(work, "resnet50.model")
+        with open(bad, "wb") as f:
+            f.write(b"\x00CNTK-v2 model " * 64)
+        try:
+            CNTKModel(modelLocation=bad, device=dev).transform(
+                Table({"input": x[:1]}))
+            fails.append("(c) CNTKModel took a file that is not ONNX")
+        except NotImplementedError:
+            pass
+        stage = CNTKModel(inputCol="image", outputCol="scores",
+                          miniBatchSize=IMAGE_COUNT, device=dev)
+        stage.setModelLocation(path)
+        batch = Table({"image": x})
+        t0 = time.perf_counter()
+        stage.transform(batch)
+        _sync(dev)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scores = np.asarray(stage.transform(batch)["scores"])
+        _sync(dev)
+        steady_s = time.perf_counter() - t0
+        onnx = (ONNXModel(device=dev).setModelPayload(raw)
+                .setFeedDict({"data": "image"})
+                .setFetchDict({"scores": "logits"})
+                .setMiniBatchSize(IMAGE_COUNT))
+        direct = np.asarray(onnx.transform(batch)["scores"])
+        bitwise = scores.dtype == direct.dtype and np.array_equal(scores,
+                                                                 direct)
+        ref = _http_npz(cpu, "cntk.npz")
+        gap = onnx_rel_gap("(c) CNTKModel card against CPU",
+                           scores[:CNTK_CROSS], ref["scores"], ONNX_F32_REL)
+        log(f"  (c) CNTKModel(ResNet-50) on the card: first transform "
+            f"{first_s:.3f}s (import and captures), steady {steady_s:.3f}s "
+            f"= {IMAGE_COUNT / steady_s:.1f} images/s; scores {scores.shape} "
+            f"bitwise ONNXModel's {bitwise}; the first {CNTK_CROSS} against "
+            f"the CPU port's: {gap:.3g} of max |y| (bound {ONNX_F32_REL}; "
+            f"the CPU port took {float(ref['seconds']):.2f}s)")
+        if not bitwise:
+            fails.append("(c) CNTKModel's scores differ from ONNXModel's")
+        paths = np.asarray([os.path.basename(p) for p in table["path"]],
+                           dtype=object)
+        rows = Table({"path": paths,
+                      "argmax": scores.argmax(axis=1).astype(np.int64),
+                      "max_logit": scores.max(axis=1).astype(np.float32)})
+        script = {"n": 0, "codes": [200, 500]}
+
+        def reply(method, path, body):
+            codes = script["codes"]
+            code = codes[script["n"]] if script["n"] < len(codes) else 200
+            script["n"] += 1
+            return code, b"{}"
+
+        with _Stub(reply) as stub:
+            t0 = time.perf_counter()
+            n = PowerBIWriter(stub.url + "/push", batch_size=POWERBI_BATCH,
+                              timeout=HTTP_TIMEOUT).write(rows)
+            write_s = time.perf_counter() - t0
+            posts = list(stub.seen)
+            script.update(n=0, codes=[200, 400])
+            try:
+                PowerBIWriter(stub.url + "/push", batch_size=POWERBI_BATCH,
+                              timeout=HTTP_TIMEOUT).write(rows)
+                refused = None
+            except RuntimeError as e:
+                refused = str(e)
+        bodies = [json.loads(b)["rows"] for _, _, b in posts]
+        landed = [r for i, b in enumerate(bodies) if i != 1 for r in b]
+        in_order = landed == [
+            {"path": p, "argmax": int(a), "max_logit": float(m)}
+            for p, a, m in zip(paths, rows["argmax"], rows["max_logit"])]
+        log(f"  (c) PowerBIWriter(batch_size={POWERBI_BATCH}): {n} rows in "
+            f"{len(posts)} POSTs ({write_s:.3f}s; the second answered 500 and "
+            f"retried), every row in order {in_order}; a 400 on the second "
+            f"batch: {refused!r}")
+        if n != IMAGE_COUNT or len(posts) != IMAGE_COUNT // POWERBI_BATCH + 1 \
+                or bodies[1] != bodies[2] or not in_order \
+                or not (refused and f"row {POWERBI_BATCH}: 400" in refused):
+            fails.append(f"(c) PowerBIWriter: {n} rows in {len(posts)} "
+                         f"POSTs, in order {in_order}, refused {refused!r}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(images_per_s=IMAGE_COUNT / steady_s, first_s=first_s,
+                cpu_gap=gap)
+
+
+def http_path(dev: str) -> dict:
+    """Phase 26: (a)-(c) above; every failure is collected and raised at
+    the end."""
+    cpu = start_http_cpu()
+    stub = start_embedding_stub()
+    fails, out = [], {}
+    t0 = [time.perf_counter()]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        log(f"  ({name}) took {now - t0[0]:.1f}s")
+        t0[0] = now
+
+    served = None
+    try:
+        # the CLI starts while (b) and (c) run
+        for name, run in (("a: fit and serve", lambda: serve_start(dev,
+                                                                   fails)),
+                          ("b", lambda: embed_part(dev, cpu, stub, fails)),
+                          ("c", lambda: cntk_part(dev, cpu, fails)),
+                          ("a", lambda: serve_part(served, fails))):
+            if name == "a" and served is None:
+                continue
+            try:
+                out[name] = run()
+            except Exception as e:          # collected, raised at the end
+                import traceback
+
+                traceback.print_exc()
+                fails.append(f"({name}) raised {type(e).__name__}: {e}")
+            part(name)
+            if name.startswith("a:"):
+                served = out.pop(name, None)
+            if _on_card(dev):
+                torch.cuda.empty_cache()
+    finally:
+        if served is not None:
+            serve_stop(served)
+        _stopped(stub)
+        cpu[0].join(timeout=HTTP_WAIT_S)
+        if cpu[0].is_alive():
+            cpu[0].terminate()
+            fails.append("phase 26: the CPU process did not end")
+        shutil.rmtree(cpu[1], ignore_errors=True)
+    if fails:
+        raise AssertionError("phase 26: " + "; ".join(fails))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="rows of the HIGGS-shaped table (HIGGS: 11,000,000)")
     ap.add_argument("--phase", type=int,
-                    choices=(17, 18, 19, 20, 21, 22, 23, 24, 25),
+                    choices=(17, 18, 19, 20, 21, 22, 23, 24, 25, 26),
                     default=None,
                     help="build the kernels and run only this phase (no "
                     "kernels or result line)")
@@ -10686,6 +11411,12 @@ def main() -> int:
         phase(25, "featurization, TrainClassifier and AutoML alone (phase "
               f"3's classifier fitted first, {args.rows} rows)")
         automl_path(dev, rows=args.rows)
+        phase(0)
+        log(f"  seconds by phase {json.dumps(seconds)}")
+        return 0
+    if args.phase == 26:
+        phase(26, "HTTP on the card alone")
+        http_path(dev)
         phase(0)
         log(f"  seconds by phase {json.dumps(seconds)}")
         return 0
@@ -10825,6 +11556,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     automl_path(dev, *table3, main["model"])
     del table3
+    phase(26, f"HTTP on the card: a LightGBMClassifier fitted on "
+          f"{HTTP_FIT_ROWS} rows behind ServingServer, {HTTP_REQUESTS} "
+          f"one-row requests from SimpleHTTPTransformer, again through "
+          f"ChaosHTTP and with a budget that runs out; OpenAIEmbedding of "
+          f"{EMBED_TEXTS} texts into KNN(k={EMBED_K}); {IMAGE_COUNT} images "
+          f"through the datasources and CNTKModel(ResNet-50) to "
+          f"PowerBIWriter")
+    torch.cuda.empty_cache()
+    http_path(dev)
     phase(0)
     log(f"  seconds by phase {json.dumps(seconds)}")
     log(f"  launches on phase 20's paths: {json.dumps(across['launches'])}")

@@ -39,9 +39,13 @@ PyTorch version of a kernel runs only for tensors on the CPU.
   parallel/ — meshes over torch.distributed, seq-axis collectives, ring and
               Ulysses attention
   io/       — the micro-batching HTTP server, its model registry and CLI,
-              the serving fabric (gateways, agents, supervisor, broadcast)
+              the serving fabric (gateways, agents, supervisor, broadcast),
+              the HTTP client transformers, the websocket client, the
+              binary and image datasources and the Power BI writer
+  services/ — the AI-service transformers (OpenAI, language, translate,
+              vision, anomaly, speech, forms, search, maps) over io/http
   dl/       — flax's layers, ResNets, transformer units, the text encoder,
-              the trainer and the text and vision estimators
+              the trainer, the text and vision estimators and CNTKModel
   onnx/     — the ONNX protobuf reader, the 135-op executor, ONNXModel on
               the runner's CUDA graphs, ImageFeaturizer, the hub, the
               booster's TreeEnsemble export
@@ -57,8 +61,8 @@ PyTorch version of a kernel runs only for tensors on the CPU.
               scheduler and its gang of spool workers
   native/   — the C++ host helpers (murmur3 batches, hashing TF, CSV),
               built with g++ at first use
-  testing/  — the fault injectors the fabric, online and AutoML scenarios
-              drive
+  testing/  — the fault injectors the HTTP clients, fabric, online and
+              AutoML scenarios drive
   convert   — carry a JAX-trained booster, flax variables or a VW state
               across
 """

@@ -33,6 +33,7 @@ from .logging import (  # noqa: F401
     failure_counts,
     record_failure,
     reset_failure_counts,
+    retry_with_timeout,
 )
 from .checkpoint import (  # noqa: F401
     Checkpoint,

@@ -11,3 +11,4 @@ from .pipeline import SUPPORTED_MATRIX, fit_pipeline  # noqa: F401
 from .vision import DeepVisionClassifier, DeepVisionModel  # noqa: F401
 from .text import (DeepTextClassifier, DeepTextModel,  # noqa: F401
                    TransformerEncoder, hash_tokenize)
+from .cntk import CNTKModel  # noqa: F401

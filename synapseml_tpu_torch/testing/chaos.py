@@ -11,6 +11,10 @@ gateway, workers and learner loop:
 * transport and worker faults — :class:`ChaosSchedule`,
   :class:`FlakyHTTPServer`, :func:`kill_worker`,
   :class:`chaos_heartbeat_partition`;
+* HTTP clients and serving handlers — :class:`ChaosHTTP` (the ``opener``
+  that ``io.http.send_with_retries``, ``HTTPTransformer`` and every
+  service transformer take), :func:`canned_json_responder` and
+  :func:`chaotic_handler`;
 * the federated control plane — :func:`kill_gateway`,
   :class:`chaos_control_plane_partition`;
 * model swaps and tenants — :class:`ChaosSwap`,
@@ -28,6 +32,7 @@ wall clock.
 
 from __future__ import annotations
 
+import io as _io
 import random
 import socket
 import threading
@@ -95,6 +100,124 @@ class ChaosSchedule:
             self.outcomes.append(out)
             return out
 
+
+class _CannedResponse:
+    """Minimal urlopen-response stand-in (context manager + status/reason/
+    headers/read) for canned 2xx replies."""
+
+    def __init__(self, status: int = 200, body: bytes = b"{}",
+                 headers: Optional[dict] = None):
+        self.status = status
+        self.reason = "OK"
+        self.headers = dict(headers or {"Content-Type": "application/json"})
+        self._body = body
+
+    def read(self) -> bytes:
+        return self._body
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class ChaosHTTP:
+    """Fault-injecting HTTP opener.
+
+    Use as ``send_with_retries(req, opener=chaos)`` or set as the ``opener``
+    param on ``HTTPTransformer`` / any ``CognitiveServiceBase`` subclass. On
+    "ok" it forwards to ``inner`` (default: real ``urllib.request.urlopen``)
+    unless a ``responder`` is given, in which case the canned
+    ``responder(request) -> (status, body_bytes)`` result is returned without
+    touching the network — fully hermetic chaos tests.
+    """
+
+    def __init__(self, schedule: Optional[ChaosSchedule] = None,
+                 responder: Optional[Callable] = None, inner=None, **sched_kw):
+        self.schedule = schedule or ChaosSchedule(**sched_kw)
+        self.responder = responder
+        self.inner = inner
+
+    def open(self, request, timeout: Optional[float] = None):
+        out = self.schedule.next_outcome()
+        if self.schedule.latency_s:
+            time.sleep(self.schedule.latency_s)
+        if isinstance(out, tuple) and out[0] == "slow":
+            time.sleep(out[1])
+            out = "ok"
+        if out == "reset":
+            raise FaultInjected("chaos: connection reset by peer")
+        if out == "timeout":
+            raise TimeoutError("chaos: injected timeout")
+        if isinstance(out, int) and out >= 400:
+            raise urllib.error.HTTPError(
+                getattr(request, "full_url", "chaos://"), out,
+                f"chaos injected {out}", {},
+                _io.BytesIO(b'{"error": "chaos"}'))
+        if self.responder is not None:
+            status, body = self.responder(request)
+            return _CannedResponse(status, body)
+        if self.inner is not None:
+            return self.inner(request, timeout=timeout)
+        from ..io.http import _default_opener
+
+        return _default_opener().open(request, timeout=timeout)
+
+    # services-layer escape hatch: a ``handler`` (HTTPRequestData, send) that
+    # routes the default send through this opener — for call sites that take
+    # a handler but not an opener
+    def as_handler(self):
+        from ..io.http import send_with_retries
+
+        def handler(req, send):
+            return send_with_retries(req, opener=self)
+
+        return handler
+
+
+def chaotic_handler(handler: Callable, schedule: Optional[ChaosSchedule] = None,
+                    poison: Optional[Callable] = None,
+                    slow_s: float = 0.0, **sched_kw) -> Callable:
+    """Wrap a serving handler (``Table -> Table``) with injected faults.
+
+    Per call: consume one schedule outcome — "reset"/"timeout"/int all raise
+    (a handler exception is a handler exception; the server's isolation and
+    500-mapping take it from there); ``("slow", s)`` and ``slow_s`` sleep
+    before delegating. ``poison(value) -> bool`` marks individual request
+    payloads: any poisoned row in the batch raises, so a server WITHOUT
+    per-row isolation 500s the whole batch and one WITH isolation fails only
+    the poisoned row — the distinction test_chaos_serving asserts.
+
+    The wrapped handler forwards the server's optional ``budget=`` kwarg when
+    the inner handler accepts it.
+    """
+    sched = schedule or ChaosSchedule(**sched_kw)
+    import inspect
+
+    try:
+        inner_takes_budget = "budget" in inspect.signature(handler).parameters
+    except (TypeError, ValueError):
+        inner_takes_budget = False
+
+    def wrapped(df, budget: Optional[float] = None):
+        out = sched.next_outcome()
+        if slow_s:
+            time.sleep(slow_s)
+        if isinstance(out, tuple) and out[0] == "slow":
+            time.sleep(out[1])
+            out = "ok"
+        if out != "ok":
+            raise FaultInjected(f"chaos handler fault: {out}")
+        if poison is not None and "value" in df:
+            for v in df["value"]:
+                if poison(v):
+                    raise FaultInjected("chaos: poisoned row in batch")
+        if inner_takes_budget:
+            return handler(df, budget=budget)
+        return handler(df)
+
+    return wrapped
 
 
 class FlakyHTTPServer:
@@ -219,6 +342,17 @@ class FlakyHTTPServer:
 # ---------------------------------------------------------------------------
 # Training-path chaos: preemption kills and checkpoint corruptors
 # ---------------------------------------------------------------------------
+
+def canned_json_responder(obj) -> Callable:
+    """``responder`` helper for :class:`ChaosHTTP`: always 200 with ``obj``
+    as the JSON body."""
+    body = _json.dumps(obj).encode()
+
+    def responder(_request):
+        return 200, body
+
+    return responder
+
 
 class ChaosPreemption:
     """Context manager killing a training loop at its

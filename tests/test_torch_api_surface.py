@@ -851,3 +851,123 @@ def test_booster_to_onnx_matches_the_reference(boosters):
     np.testing.assert_allclose(
         fn({"input": X})["probabilities"].numpy()[:, 1], tb.predict(X),
         rtol=2e-4, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the HTTP client layer, the AI services, the websocket, the datasources,
+# CNTKModel, Fabric, and the named parts of core/logging and testing/chaos
+# ---------------------------------------------------------------------------
+
+HTTP_LAYER_MODULES = [
+    "io.http", "io.powerbi", "io.binary", "io.websocket", "core.fabric",
+    "dl.cntk", "services", "services.base", "services.openai",
+    "services.language", "services.translate", "services.vision",
+    "services.anomaly", "services.search", "services.speech",
+    "services.form", "services.geospatial"]
+HTTP_LAYER_PARTS = {
+    "core.logging": ["_is_secret_key", "scrub_text", "scrub_payload",
+                     "retry_with_timeout", "REDACTED"],
+    "testing.chaos": ["_CannedResponse", "ChaosHTTP", "chaotic_handler",
+                      "canned_json_responder"]}
+
+
+def _signature(fn) -> list:
+    """(name, kind, default) of every parameter."""
+    return [(p.name, p.kind, p.default)
+            for p in inspect.signature(fn).parameters.values()]
+
+
+def _public_names(mod) -> set:
+    """Functions, classes and plain constants of ``mod`` itself."""
+    return {n for n, v in vars(mod).items() if not n.startswith("_") and (
+        getattr(v, "__module__", None) == mod.__name__
+        or isinstance(v, (int, float, str, tuple)))}
+
+
+def _same_callable(jobj, tobj, label) -> None:
+    """A function's parameters equal the reference's; a class's
+    ``__init__`` too, and each public method takes every reference
+    parameter with its default (the port's ``PipelineStage.load``, which
+    stages inherit, takes a ``device`` more)."""
+    if not inspect.isclass(jobj):
+        assert _signature(tobj) == _signature(jobj), label
+        return
+    assert _signature(tobj.__init__) == _signature(jobj.__init__), label
+    assert _public(jobj) - _public(tobj) == set(), label
+    for meth in sorted(_public(jobj)):
+        jattr = inspect.getattr_static(jobj, meth)
+        if isinstance(jattr, property) or not callable(getattr(jobj, meth)):
+            continue
+        try:
+            want = _signature(getattr(jobj, meth))
+        except ValueError:              # a builtin's (BaseException's)
+            continue
+        got = _signature(getattr(tobj, meth))
+        assert set(want) <= set(got), (label, meth, want, got)
+
+
+@pytest.mark.parametrize("name", HTTP_LAYER_MODULES)
+def test_http_layer_modules_hold_every_reference_name_and_signature(name):
+    """Every public function, class and constant of the JAX package's HTTP
+    layer modules is in the port's module: each function and method with
+    the reference's parameters (names, kinds and defaults), each constant
+    with its value, each stage with the reference's params and defaults
+    (``CNTKModel`` one more: ``device``, default the card)."""
+    import importlib
+
+    jmod = importlib.import_module(f"synapseml_tpu.{name}")
+    tmod = importlib.import_module(f"synapseml_tpu_torch.{name}")
+    names = _public_names(jmod)
+    if name == "services":
+        names = set(jmod.__all__)
+    assert names and names - set(vars(tmod)) == set(), name
+    for n in sorted(names):
+        jobj, tobj = getattr(jmod, n), getattr(tmod, n)
+        if not callable(jobj):
+            assert tobj == jobj, (name, n)
+            continue
+        _same_callable(jobj, tobj, (name, n))
+        jp = getattr(jobj, "_params", None)
+        if jp is None:
+            continue
+        tp = tobj._params
+        extra = {"device"} if n == "CNTKModel" else set()
+        assert set(tp) == set(jp) | extra, (name, n)
+        for p in jp:
+            assert tp[p].default == jp[p].default, (name, n, p)
+        if extra:
+            assert tp["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name,part", [
+    (m, n) for m, names in HTTP_LAYER_PARTS.items() for n in names])
+def test_http_layer_parts_of_partial_modules_are_the_references(name, part):
+    import importlib
+
+    jobj = getattr(importlib.import_module(f"synapseml_tpu.{name}"), part)
+    tobj = getattr(importlib.import_module(f"synapseml_tpu_torch.{name}"),
+                   part)
+    if callable(jobj):
+        _same_callable(jobj, tobj, (name, part))
+    else:
+        assert tobj == jobj
+
+
+@pytest.mark.parametrize("pkg,names", [
+    ("io", None), ("services", None),
+    ("testing", ["ChaosHTTP", "canned_json_responder", "chaotic_handler"]),
+    ("dl", ["CNTKModel"]), ("core", ["retry_with_timeout"])])
+def test_http_layer_packages_export_the_references(pkg, names):
+    """The port's ``io`` and ``services`` export the JAX packages' whole
+    ``__all__``; ``testing``, ``dl`` and ``core`` the HTTP layer's names,
+    each the module's own object."""
+    import importlib
+
+    jpkg = importlib.import_module(f"synapseml_tpu.{pkg}")
+    tpkg = importlib.import_module(f"synapseml_tpu_torch.{pkg}")
+    if names is None:
+        assert set(tpkg.__all__) == set(jpkg.__all__)
+        names = jpkg.__all__
+    for n in names:
+        assert getattr(tpkg, n).__name__ == getattr(jpkg, n).__name__, n
+        assert getattr(tpkg, n).__module__.startswith("synapseml_tpu_torch.")

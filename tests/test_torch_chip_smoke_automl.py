@@ -69,7 +69,7 @@ def test_phase_25_rehearses_on_the_cpu(monkeypatch):
     assert set(out) == {"a", "b", "c", "d"}
     assert out["a"]["auc"] > 0.75
     assert out["b"]["auc"] > 0.75
-    # 8 candidates, 3 folds, eta 2: rungs (1, 8), (2, 4), (3, 2)
-    assert out["c"]["fold_fits"] == 8 + 4 + 2
+    # 4 candidates, 3 folds, eta 2: rungs (1, 4), (2, 2), (3, 1)
+    assert out["c"]["fold_fits"] == 4 + 2 + 1
     assert set(out["c"]["rung_s"]) == {0, 1, 2}
     assert out["d"]["respawn_s"] is not None

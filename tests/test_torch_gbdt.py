@@ -466,7 +466,12 @@ def test_import_leaves_jax_out():
             "synapseml_tpu_torch.ops.image, synapseml_tpu_torch.featurize, "
             "synapseml_tpu_torch.stages, synapseml_tpu_torch.train, "
             "synapseml_tpu_torch.exploratory, synapseml_tpu_torch.automl, "
-            "synapseml_tpu_torch.automl.worker, synapseml_tpu_torch.native; "
+            "synapseml_tpu_torch.automl.worker, synapseml_tpu_torch.native, "
+            "synapseml_tpu_torch.io.http, synapseml_tpu_torch.io.websocket, "
+            "synapseml_tpu_torch.io.binary, synapseml_tpu_torch.io.powerbi, "
+            "synapseml_tpu_torch.core.fabric, synapseml_tpu_torch.dl.cntk, "
+            "synapseml_tpu_torch.services, synapseml_tpu_torch.services.speech, "
+            "synapseml_tpu_torch.services.form; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'synapseml_tpu' or m.startswith("
             "'synapseml_tpu.')]; print(bad); sys.exit(1 if bad else 0)")
